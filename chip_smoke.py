@@ -30,9 +30,28 @@ result):
 5. full width against the CPU: 2 layers at full width in float32 (TF32 off
    for matmuls and cuDNN), the same weights on the card (kernels) and on
    the CPU (plain versions): last-position logits within a stated
-   tolerance and identical greedy tokens.
+   tolerance and identical greedy tokens;
+6. K2, the hand-written matmul, against its plain version at qwen3-4b's
+   projection shapes and one ragged shape, in bf16 and fp32 (times as in
+   phase 3, the library call being ``torch.matmul``);
+7. K4, the DPIA pipeline on the card: for each of the paper's BLAS
+   strategies at the Fig. 7 sizes and the transformer strategies at
+   qwen3-4b's shapes, ``Program(expr, args).check().lower()
+   .compile("cuda")`` against ``compile("torch")`` (the plain version) on
+   the same CUDA tensors, with the launches per call and each stage's CUDA
+   grid asserted against the strategy's top-level grid parfor extents; the
+   generated kernels' time, the plain version's (one call: it is a python
+   loop), the one PyTorch call's, the build seconds and ptxas's registers,
+   shared memory and spills per stage;
+8. Fig. 7 on the card: generated / library time for scal, asum, dot and
+   gemv at both sizes (a reproduction, no claim);
+9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
+   projection shapes and every DPIA op through ``impl="dpia-cuda"`` at the
+   shapes of phase 7, with K2's and K4's launch counts checked.
 
-It then prints one ``{"kernels": [...]}`` line, the card's name and power
+All generated programs and the ``csrc/`` kernels build in one parallel
+batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
+K3 and one entry per generated K4 program), the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -58,6 +77,25 @@ ELEMENTWISE_FLOPS = 67e12        # fp32 on the CUDA cores
 # round the same fp32 value to bf16, so a rounding flip costs one bf16 ulp
 # (2**-8 relative).
 TOLS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+
+# K2 against its plain version (phase 6): fp32 sums over K = 2560 in
+# another order than cuBLAS (inputs scaled by K**-0.25, so |C| ~ 1); bf16
+# output: one rounding of nearly the same fp32 value
+MM_TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+MM_SHAPES = [(800, 2560, 4096), (800, 2560, 9728), (4, 2560, 4096),
+             (37, 100, 75)]
+
+# K4 programs (phase 7): kernel, shape.  Fig. 7 sizes
+# (benchmarks/fig7_overhead.py:25-26) and qwen3-4b's shapes.
+FIG7_N = (1 << 20, 1 << 22)
+FIG7_GEMV = ((1024, 1024), (2048, 2048))
+DPIA_CASES = ([("scal", dict(n=n)) for n in FIG7_N]
+              + [("asum", dict(n=n)) for n in FIG7_N]
+              + [("dot", dict(n=n)) for n in FIG7_N]
+              + [("gemv", dict(m=m, n=n)) for m, n in FIG7_GEMV]
+              + [("rmsnorm", dict(rows=800, d=2560, eps=1e-6)),
+                 ("softmax", dict(rows=25600, d=200)),
+                 ("matmul", dict(m=1024, k=2560, n=2560))])
 
 # main path (phase 4)
 ARCH = "qwen3_4b"
@@ -163,10 +201,19 @@ def phase_card():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.dpia import stage3_cuda
     from repro_torch.kernels import _build, ops
-    secs = _build.build()
-    log(f"[2] nvcc built {_build.sources()} in {secs:.2f} s "
-        f"(0 means already built)")
+    progs = {ops.program_name(k, **sh): ops.compiled(k, "cuda", **sh)._fn
+             for k, sh in DPIA_CASES}
+    with ThreadPoolExecutor(2) as pool:      # every nvcc starts at once
+        csrc = pool.submit(_build.build)
+        gen = pool.submit(stage3_cuda.build_all, list(progs.values()))
+        secs, gen_secs = csrc.result(), gen.result()
+    log(f"[2] nvcc built {_build.sources()} in {secs:.2f} s and "
+        f"{len(progs)} generated DPIA programs in {gen_secs:.2f} s, in "
+        f"parallel (0 means already built)")
     for src in _build.sources():
         for line in _build.target(src).with_suffix(".log").read_text(
                 ).splitlines():
@@ -181,6 +228,7 @@ def phase_build():
     torch.cuda.synchronize()
     log(f"[2] Triton compiled rmsnorm variants in "
         f"{time.perf_counter() - t0:.2f} s")
+    return gen_secs
 
 
 def _rmsnorm_case(rows, d, dtype, gen):
@@ -290,7 +338,8 @@ def phase_main_path(smi: str):
     steps = after["decode_steps"] - before["decode_steps"]
     per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
     want = {"flash_attention": cfg.n_layers * prefills,
-            "rmsnorm": per_pass * (prefills + steps)}
+            "rmsnorm": per_pass * (prefills + steps),
+            "matmul": 0, "dpia_cuda": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want} for "
                              f"{prefills} prefill(s), {steps} decode steps")
@@ -380,6 +429,271 @@ def phase_against_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the pipeline slice: K2 and K4
+# ---------------------------------------------------------------------------
+
+def time_auto(fn) -> float:
+    """:func:`time_ms` with fewer replays for a call of many milliseconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    if once > 20:
+        return time_ms(fn, reps=1, trials=3)
+    if once > 2:
+        return time_ms(fn, reps=3, trials=5)
+    return time_ms(fn)
+
+
+def eager_auto(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > 20:
+        return eager_ms(fn, reps=1, trials=3)
+    return eager_ms(fn)
+
+
+def _matmul_case(m, k, n, dtype, gen):
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    s = k ** -0.25
+    a = (s * torch.randn((m, k), generator=gen, device="cuda")).to(dtype)
+    b = (s * torch.randn((k, n), generator=gen, device="cuda")).to(dtype)
+    got, want = mm.matmul(a, b), ref.matmul(a, b)
+    atol, rtol = MM_TOLS[dtype]
+    err = (got.float() - want.float()).abs()
+    if (err > atol + rtol * want.float().abs()).any():
+        raise AssertionError(f"matmul {(m, k, n)} {dtype}: max abs err "
+                             f"{err.max().item()} beyond atol {atol} + rtol "
+                             f"{rtol}")
+    elt = a.element_size()
+    b_ms, b_by = bound((m * k + k * n + m * n) * elt, 2 * m * k * n,
+                       PEAK_FLOPS[dtype])
+    return {"shape": [m, k, n], "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err.max().item(), "tol": [atol, rtol],
+            "ms": time_ms(lambda: mm.matmul(a, b)),
+            "eager_ms": eager_ms(lambda: mm.matmul(a, b)),
+            "plain_ms": time_ms(lambda: ref.matmul(a, b)),
+            "library_ms": time_ms(lambda: torch.matmul(a, b)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_matmul():
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [_matmul_case(m, k, n, dt, gen)
+             for dt in (torch.bfloat16, torch.float32)
+             for m, k, n in MM_SHAPES]
+    for c in cases:
+        log("[6] matmul " + json.dumps(c))
+    return cases
+
+
+def grid_extents(cmd):
+    """The extents of every top-level grid-level parfor nest of a hoisted
+    command, in order: what the strategy says the card must launch."""
+    from repro_torch.core.dpia import phrases as P
+    from repro_torch.core.dpia.types import AccT, ExpT, Idx, VarT
+    out = []
+
+    def walk(p):
+        if isinstance(p, P.SeqC):
+            walk(p.c1)
+            walk(p.c2)
+        elif isinstance(p, P.New):
+            walk(p.f(P.Var(P.fresh("h"), VarT(p.d))))
+        elif isinstance(p, P.ParFor) and p.level.kind in ("grid", "par"):
+            dims = []
+            while isinstance(p, P.ParFor) and p.level.kind in ("grid", "par"):
+                dims.append(p.n)
+                p = p.f(P.Var(P.fresh("g"), ExpT(Idx(p.n))),
+                        P.Var(P.fresh("o"), AccT(p.d)))
+            out.append(tuple(dims))
+    walk(cmd)
+    return out
+
+
+def _dpia_inputs(kernel, shape, gen):
+    def r(*s, scale=1.0):
+        return scale * torch.randn(s, generator=gen, device="cuda")
+    if kernel == "scal":
+        return (torch.tensor(2.5, device="cuda"), r(shape["n"]))
+    if kernel == "asum":
+        return (r(shape["n"]),)
+    if kernel == "dot":
+        return (r(shape["n"]), r(shape["n"]))
+    if kernel == "gemv":
+        return (r(shape["m"], shape["n"]), r(shape["n"]))
+    if kernel == "rmsnorm":
+        return (r(shape["rows"], shape["d"]), 1 + r(shape["d"], scale=0.1))
+    if kernel == "softmax":
+        return (r(shape["rows"], shape["d"]),)
+    return (r(shape["m"], shape["k"], scale=0.1),
+            r(shape["k"], shape["n"], scale=0.1))
+
+
+def _dpia_library(kernel, args, shape):
+    import torch.nn.functional as F
+    if kernel == "scal":
+        return lambda: args[1] * args[0]
+    if kernel == "asum":
+        return lambda: args[0].abs().sum()
+    if kernel == "dot":
+        return lambda: torch.dot(*args)
+    if kernel == "gemv":
+        return lambda: torch.mv(*args)
+    if kernel == "rmsnorm":
+        return lambda: F.rms_norm(args[0], (shape["d"],), args[1],
+                                  shape["eps"])
+    if kernel == "softmax":
+        return lambda: torch.softmax(args[0], dim=-1)
+    return lambda: torch.matmul(*args)
+
+
+def _dpia_work(kernel, shape):
+    """(bytes, fp32 operations) the function needs: each input read once,
+    the output written once."""
+    if kernel in ("scal", "asum", "dot"):
+        n = shape["n"]
+        ins = {"scal": n + 1, "asum": n, "dot": 2 * n}[kernel]
+        outs = n if kernel == "scal" else 1
+        return 4 * (ins + outs), {"scal": n, "asum": 2 * n, "dot": 2 * n}[kernel]
+    if kernel == "gemv":
+        m, n = shape["m"], shape["n"]
+        return 4 * (m * n + n + m), 2 * m * n
+    if kernel in ("rmsnorm", "softmax"):
+        rows, d = shape["rows"], shape["d"]
+        w = d if kernel == "rmsnorm" else 0
+        return 4 * (2 * rows * d + w), (4 if kernel == "rmsnorm" else 5) * rows * d
+    m, k, n = shape["m"], shape["k"], shape["n"]
+    return 4 * (m * k + k * n + m * n), 2 * m * k * n
+
+
+def _dpia_tol(kernel, args, want):
+    """(atol, rtol) of the generated program against the plain version.
+    scal: the same one multiply.  asum / dot: the same fp32 terms summed in
+    another order (a block tree against torch's sum per block), so the
+    error is held to 1e-5 of the sum of the terms' magnitudes.  The rest
+    sum rows of 200 to 2560 fp32 terms in another order."""
+    if kernel == "scal":
+        return 0.0, 0.0
+    if kernel == "asum":
+        return 1e-5 * args[0].abs().sum().item(), 0.0
+    if kernel == "dot":
+        return 1e-5 * (args[0] * args[1]).abs().sum().item(), 0.0
+    return {"gemv": (1e-4, 1e-4), "rmsnorm": (1e-5, 1e-5),
+            "softmax": (1e-6, 1e-5), "matmul": (1e-4, 1e-4)}[kernel]
+
+
+def _dpia_case(kernel, shape, gen, build_s):
+    from repro_torch.core.dpia import hoist
+    from repro_torch.core.dpia import phrases as P
+    from repro_torch.kernels import ops
+    prog = ops.program(kernel, **shape)          # Program(expr, argv)
+    fn = prog.check().lower().compile("cuda")
+    plain = prog.check().lower().compile("torch")
+    args = _dpia_inputs(kernel, shape, gen)
+    # strategy preservation: one CUDA grid per top-level grid parfor nest
+    want_grids = grid_extents(hoist.hoist(prog.imperative, spaces=(P.HBM,)))
+    got_grids = [s.grid for s in fn.stages if s.kind == "grid"]
+    if got_grids != want_grids or any(s.grid != (1,) for s in fn.stages
+                                      if s.kind != "grid"):
+        raise AssertionError(f"{kernel} {shape}: stage grids "
+                             f"{fn.plan.grids} against the strategy's "
+                             f"{want_grids}")
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if fn.launches - before != len(fn.stages):
+        raise AssertionError(f"{kernel}: {fn.launches - before} launches "
+                             f"per call, want {len(fn.stages)}")
+    t0 = time.perf_counter()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    atol, rtol = _dpia_tol(kernel, args, want)
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or \
+            (err > atol + rtol * want.abs()).any():
+        raise AssertionError(f"{kernel} {shape}: generated against plain "
+                             f"max abs err {err.max().item()} beyond atol "
+                             f"{atol} + rtol {rtol}")
+    nbytes, flops = _dpia_work(kernel, shape)
+    b_ms, b_by = bound(nbytes, flops, ELEMENTWISE_FLOPS)
+    ptx = fn.ptxas()
+    return {"program": ops.program_name(kernel, **shape), "kernel": kernel,
+            "shape": shape, "stages": len(fn.stages),
+            "grids": [list(g) for g in fn.plan.grids],
+            "smem_bytes": [s.smem_bytes for s in fn.stages],
+            "scratch_bytes": [s.scratch_bytes for s in fn.stages],
+            "ptxas": [ptx.get(s.index, {}) for s in fn.stages],
+            "build_s": build_s, "max_abs_err": err.max().item(),
+            "tol": [atol, rtol],
+            "ms": time_auto(lambda: fn(*args)),
+            "eager_ms": eager_auto(lambda: fn(*args)),
+            "plain_ms": plain_ms, "plain_calls": 1,
+            "library_ms": time_ms(_dpia_library(kernel, args, shape)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_dpia(build_s):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [_dpia_case(k, sh, gen, build_s) for k, sh in DPIA_CASES]
+    for c in cases:
+        log("[7] dpia " + json.dumps(c))
+    fig7 = {f"{c['kernel']}_{'x'.join(str(v) for v in c['shape'].values())}":
+            c["ms"] / c["library_ms"] for c in cases
+            if c["kernel"] in ("scal", "asum", "dot", "gemv")}
+    log("[8] fig7 generated/library time " + json.dumps(fig7))
+    return cases
+
+
+def phase_pipeline_main_path():
+    """The slice's main path through the entry points a user calls:
+    ops.matmul(impl="cuda") at the projection shapes, every DPIA op with
+    impl="dpia-cuda"; counts zeroed just before and read just after."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mm_in = [(torch.randn((m, k), generator=gen, device="cuda")
+              .to(torch.bfloat16),
+              torch.randn((k, n), generator=gen, device="cuda")
+              .to(torch.bfloat16)) for m, k, n in MM_SHAPES]
+    dpia_in = [(k, sh, _dpia_inputs(k, sh, gen)) for k, sh in DPIA_CASES]
+    calls = {"scal": lambda a, sh: ops.scal(*a, impl="dpia-cuda"),
+             "asum": lambda a, sh: ops.asum(*a, impl="dpia-cuda"),
+             "dot": lambda a, sh: ops.dot(*a, impl="dpia-cuda"),
+             "gemv": lambda a, sh: ops.gemv(*a, impl="dpia-cuda"),
+             "rmsnorm": lambda a, sh: ops.rmsnorm(*a, eps=sh["eps"],
+                                                  impl="dpia-cuda"),
+             "softmax": lambda a, sh: ops.softmax(*a, impl="dpia-cuda"),
+             "matmul": lambda a, sh: ops.matmul(*a, impl="dpia-cuda")}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.matmul(a, b, impl="cuda") for a, b in mm_in]
+    outs += [calls[k](a, sh) for k, sh, a in dpia_in]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_prog = {ops.program_name(k, **sh):
+                ops.compiled(k, "cuda", **sh).launches for k, sh in DPIA_CASES}
+    stages = sum(len(ops.compiled(k, "cuda", **sh).stages)
+                 for k, sh in DPIA_CASES)
+    want = {"rmsnorm": 0, "matmul": len(MM_SHAPES), "flash_attention": 0,
+            "dpia_cuda": stages}
+    if counts != want or 0 in per_prog.values():
+        raise AssertionError(f"pipeline main path: launch counts {counts} != "
+                             f"{want} (per program {per_prog})")
+    for o in outs:
+        if not torch.isfinite(o.float()).all():
+            raise AssertionError("pipeline main path: a non-finite output")
+    log(f"[9] pipeline main path: {len(MM_SHAPES)} K2 calls + "
+        f"{len(DPIA_CASES)} dpia-cuda ops, launches {counts}, per generated "
+        f"program {per_prog}")
+    return counts, per_prog
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     {"name": "rmsnorm", "route": "triton",
@@ -388,7 +702,14 @@ KERNELS = [
     {"name": "flash_attention", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
      "replaces": "src/repro/kernels/flash_attention.py:90"},
+    {"name": "matmul", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/matmul.cu",
+     "replaces": "src/repro/kernels/matmul.py:56"},
 ]
+K4 = {"route": "cuda", "source": "src/repro_torch/core/dpia/stage3_cuda.py",
+      "replaces": "src/repro/core/dpia/stage3_pallas.py:430"}
+_HEAD_KEYS = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
 
 
 def main() -> int:
@@ -399,22 +720,32 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     smi = phase_card()
-    phase_build()
+    build_s = phase_build()
     cases = phase_kernels()
     counts = phase_main_path(smi)
     phase_against_cpu()
-    # the headline case of each kernel is its first: the prefill shape of
-    # the main path in bf16; every case is listed under "cases"
+    cases["matmul"] = phase_matmul()
+    dpia = phase_dpia(build_s)
+    p_counts, per_prog = phase_pipeline_main_path()
+    counts = {**counts, "matmul": p_counts["matmul"]}
+    # the headline case of each kernel is its first: the main path's
+    # prefill shape in bf16 (K2: the (800, 2560) x (2560, 4096) projection);
+    # every case is listed under "cases".  K4 has one entry per generated
+    # program.
     line = []
     for k in KERNELS:
         cs = cases[k["name"]]
         head = cs[0]
         line.append({**k, "launches": counts[k["name"]],
                      "max_abs_err": max(c["max_abs_err"] for c in cs),
-                     **{key: head[key] for key in (
-                         "ms", "eager_ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")},
+                     **{key: head[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": cs})
+    for c in dpia:
+        line.append({"name": f"dpia_cuda:{c['program']}", **K4,
+                     "launches": per_prog[c["program"]],
+                     "max_abs_err": c["max_abs_err"],
+                     **{key: c[key] for key in _HEAD_KEYS},
+                     "card": smi, "cases": [c]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -158,7 +158,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     k = torch.tensor(rng.randn(2, 8, 16), dtype=torch.float32)
     torch.testing.assert_close(ops.flash_attention(q, k, k),
                                ref.flash_attention(q, k, k), rtol=0, atol=0)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
+                                   "flash_attention": 0, "dpia_cuda": 0}
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -189,8 +190,138 @@ def test_kernel_modules_import_without_triton_or_nvcc():
 
 def test_build_target_is_keyed_by_source():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention"]
+    assert _build.sources() == ["flash_attention", "matmul"]
     t = _build.target("flash_attention")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t == _build.target("flash_attention")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# ---------------------------------------------------------------------------
+# K2 matmul: plain version against the Pallas kernel and the oracle
+# ---------------------------------------------------------------------------
+
+# f32: fp32 products summed in another order; bf16 output: one bf16 rounding
+# of nearly the same fp32 value (as RMS_TOL)
+MM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("m,k,n,tile", [(64, 128, 64, 32), (128, 64, 32, 32),
+                                        (32, 32, 128, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_pallas(rng, m, k, n, tile, dtype):
+    from repro.kernels.matmul import matmul as jax_matmul
+    (ja, ta), (jb, tb) = (_pair(rng.randn(*s) * 0.3, dtype)
+                          for s in ((m, k), (k, n)))
+    want = jax_matmul(ja, jb, bm=tile, bn=tile, bk=tile, interpret=True)
+    got = ops.matmul(ta, tb, impl="cuda")
+    assert got.dtype == ta.dtype and got.shape == (m, n)
+    tol = MM_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 100, 75), (1, 7, 3), (130, 20, 129)])
+@pytest.mark.parametrize("out_dtype", [None, "float32", "bfloat16"])
+def test_matmul_ragged_matches_reference(rng, m, k, n, out_dtype):
+    """Shapes no tile divides: the Pallas kernel asserts, the port masks."""
+    (ja, ta), (jb, tb) = (_pair(rng.randn(*s), "bfloat16")
+                          for s in ((m, k), (k, n)))
+    want = jref.matmul(ja, jb, out_dtype=out_dtype and getattr(jnp, out_dtype))
+    got = ops.matmul(ta, tb, impl="cuda",
+                     out_dtype=out_dtype and getattr(torch, out_dtype))
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# the impl table: every row on a CPU tensor equals the reference's row
+# ---------------------------------------------------------------------------
+
+ROWS = {"plain": "xla", "cuda": "pallas", "dpia-torch": "dpia-jnp",
+        "dpia-cuda": "dpia-pallas"}
+
+# op -> (argument shapes, keyword arguments); small shapes, so the
+# reference's interpret-mode Pallas rows stay quick
+OP_CASES = {
+    "scal": ([(), (4096,)], {}),
+    "asum": ([(4096,)], {}),
+    "dot": ([(4096,), (4096,)], {}),
+    "gemv": ([(128, 32), (32,)], {}),
+    "matmul": ([(32, 64), (64, 16)], {}),
+    "rmsnorm": ([(16, 64), (64,)], {"eps": 1e-6}),
+    "softmax": ([(16, 64)], {}),
+    "flash_attention": ([(4, 16, 16), (2, 16, 16), (2, 16, 16)],
+                        {"causal": True}),
+}
+
+
+def _op_rows():
+    for op in OP_CASES:
+        for impl in ops.impls(op):
+            yield op, impl
+
+
+@pytest.mark.parametrize("op,impl", list(_op_rows()))
+def test_op_rows_match_reference_rows(rng, op, impl):
+    from repro import compiler as jcompiler
+    from repro.kernels import ops as jops
+    shapes, kw = OP_CASES[op]
+    vals = [np.float32(rng.randn()) if not s
+            else (rng.randn(*s) * 0.5).astype(np.float32) for s in shapes]
+    with jcompiler.options(autotune=False, interpret=True, jit=False):
+        want = getattr(jops, op)(*[jnp.asarray(v) for v in vals],
+                                 impl=ROWS[impl], **kw)
+    ops.reset_launch_counts()
+    got = getattr(ops, op)(*[torch.tensor(v) for v in vals], impl=impl, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_op_table_rows():
+    """Kernel rows exist where a hand-written kernel does; DPIA rows for
+    every op (flash_attention's take its 'cuda' row)."""
+    for op in OP_CASES:
+        want = {"plain", "dpia-torch", "dpia-cuda"}
+        if op in ("matmul", "rmsnorm", "flash_attention"):
+            want.add("cuda")
+        assert set(ops.impls(op)) == want, op
+
+
+@pytest.mark.parametrize("op", sorted(OP_CASES))
+def test_unknown_impl_raises_naming_the_valid_ones(op):
+    shapes, kw = OP_CASES[op]
+    args = [torch.zeros(s) for s in shapes]
+    with pytest.raises(ValueError, match="valid impls.*plain"):
+        getattr(ops, op)(*args, impl="pallas", **kw)
+
+
+def _kernel_rows():
+    for op in OP_CASES:
+        for impl in ("cuda", "dpia-cuda"):
+            if impl in ops.impls(op):
+                yield op, impl
+
+
+@pytest.mark.parametrize("op,impl", list(_kernel_rows()))
+def test_kernel_rows_on_a_non_cpu_tensor_raise(op, impl):
+    """A kernel row given a tensor that is not on the CPU launches its
+    kernel or raises; it never computes a plain version."""
+    shapes, kw = OP_CASES[op]
+    args = [torch.empty(s, device="meta") for s in shapes]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(ops, op)(*args, impl=impl, **kw)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_dpia_programs_are_memoised_per_shape():
+    ops.clear_caches()
+    x = torch.ones(4096)
+    ops.asum(x, impl="dpia-cuda")
+    ops.asum(x, impl="dpia-cuda")
+    ops.asum(torch.ones(2048), impl="dpia-cuda")
+    ops.asum(x, impl="dpia-torch")
+    assert len(ops._compiled) == 3
+    fn = ops.compiled("asum", "cuda", n=4096)
+    assert fn.plan.grids == [(2,), (1,)]
+    assert fn.program.name == ops.program_name("asum", n=4096) == "asum_4096"

@@ -95,7 +95,8 @@ def test_engine_on_cpu_launches_no_kernel(models):
     ops.reset_launch_counts()
     BatchedEngine(model, params, max_seq=32).run(
         [Request(prompt=[5, 6, 7], max_new_tokens=3)])
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
+                                   "flash_attention": 0, "dpia_cuda": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +226,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "import repro_torch.models.convert, chip_smoke\n"
+            "import repro_torch.core.dpia, repro_torch.compiler\n"
+            "import repro_torch.kernels.ops, repro_torch.kernels.dpia_blas\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
