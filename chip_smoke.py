@@ -12,8 +12,10 @@ result):
 1. the card (``nvidia-smi`` name and power limit) and the versions of
    torch, CUDA and Triton;
 2. build every kernel from the sources in this checkout (``nvcc`` for
-   ``csrc/*.cu``, Triton's JIT for the Triton kernels) and print the
-   seconds it took and ptxas's register / spill report;
+   ``csrc/*.cu``, the CuTe source ``matmul_wgmma.cu`` with CUTLASS's
+   include path, Triton's JIT for the Triton kernels) and print the
+   seconds each build took and ptxas's register / shared-memory / spill
+   report;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max abs error against a stated tolerance; the
    device time of one call (CUDA graph replays timed by CUDA events, L2
@@ -21,19 +23,23 @@ result):
    that computes the same function (timed only; the port never calls it);
    the kernel's time per call made from Python, launch included
    (``eager_ms``); and the least time the card could take (bytes /
-   3.35 TB/s or operations / peak rate, the larger);
+   3.35 TB/s or operations / peak rate, the larger); every case names the
+   variant its dtype and shape take (K3: ``mma`` for bf16, ``simt`` for
+   fp32; K2: ``wgmma``, with split K below one wave, or ``simt``);
 4. the main path: ``repro_torch.launch.serve``'s code serving qwen3-4b at
    full width (36 layers, d_model 2560, bf16, random weights from a seed)
    to 4 requests (prompts up to 200 tokens, 32 new tokens each, one
    sampled at T=0.8 with top-k 50), with every kernel's launch count
-   checked against the path's structure;
+   checked against the path's structure and every K3 launch on ``mma``;
 5. full width against the CPU: 2 layers at full width in float32 (TF32 off
    for matmuls and cuDNN), the same weights on the card (kernels) and on
    the CPU (plain versions): last-position logits within a stated
-   tolerance and identical greedy tokens;
+   tolerance and identical greedy tokens, every K3 launch on ``simt``;
 6. K2, the hand-written matmul, against its plain version at qwen3-4b's
    projection shapes and one ragged shape, in bf16 and fp32 (times as in
-   phase 3, the library call being ``torch.matmul``);
+   phase 3, the library call being ``torch.matmul``), the variant of each
+   asserted; and the tile-width check of ``matmul.plan``: both wgmma tile
+   widths timed at the prefill projections;
 7. K4, the DPIA pipeline on the card: for each of the paper's BLAS
    strategies at the Fig. 7 sizes and the transformer strategies at
    qwen3-4b's shapes, ``Program(expr, args).check().lower()
@@ -47,7 +53,8 @@ result):
    gemv at both sizes (a reproduction, no claim);
 9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
    projection shapes and every DPIA op through ``impl="dpia-cuda"`` at the
-   shapes of phase 7, with K2's and K4's launch counts checked.
+   shapes of phase 7, with K2's and K4's launch counts checked, per K2
+   variant too.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -207,18 +214,37 @@ def phase_build():
     from repro_torch.kernels import _build, ops
     progs = {ops.program_name(k, **sh): ops.compiled(k, "cuda", **sh)._fn
              for k, sh in DPIA_CASES}
-    with ThreadPoolExecutor(2) as pool:      # every nvcc starts at once
-        csrc = pool.submit(_build.build)
+    plain = [n for n in _build.sources() if n not in _build.SOURCE_FLAGS]
+    cute = sorted(_build.SOURCE_FLAGS)
+    with ThreadPoolExecutor(3) as pool:      # every nvcc starts at once
+        csrc = pool.submit(_build.build, plain)
+        cute_f = pool.submit(_build.build, cute)
         gen = pool.submit(stage3_cuda.build_all, list(progs.values()))
-        secs, gen_secs = csrc.result(), gen.result()
-    log(f"[2] nvcc built {_build.sources()} in {secs:.2f} s and "
-        f"{len(progs)} generated DPIA programs in {gen_secs:.2f} s, in "
-        f"parallel (0 means already built)")
+        secs, cute_secs, gen_secs = (csrc.result(), cute_f.result(),
+                                     gen.result())
+    log(f"[2] nvcc built {plain} in {secs:.2f} s, the CuTe source(s) "
+        f"{cute} in {cute_secs:.2f} s (flags beyond the common ones: "
+        f"{ {n: ' '.join(_build.SOURCE_FLAGS[n]) for n in cute} }; CUTLASS "
+        f"include path {_build.CUTLASS_INCLUDE}) and {len(progs)} generated "
+        f"DPIA programs in {gen_secs:.2f} s, in parallel (0 means already "
+        f"built)")
     for src in _build.sources():
+        kernel = None
         for line in _build.target(src).with_suffix(".log").read_text(
                 ).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"    ptxas {src} {kernel}: {line.strip()}")
+    # dynamic shared memory, which ptxas does not see: the sources report it
+    import ctypes
+    fa_smem = _build.library("flash_attention").repro_flash_attention_mma_smem
+    mm_smem = _build.library("matmul_wgmma").repro_matmul_wgmma_smem
+    fa_smem.argtypes = mm_smem.argtypes = [ctypes.c_int]
+    log(f"[2] dynamic shared memory: flash_fwd_mma "
+        f"{ {d: fa_smem(d) for d in (16, 32, 64, 128)} } B by head dim; "
+        f"gemm_wgmma { {bn: mm_smem(bn) for bn in (128, 256)} } B by tile "
+        f"width")
     # Triton compiles one variant per (dtype, block): the main path's
     t0 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
@@ -254,6 +280,7 @@ def _rmsnorm_case(rows, d, dtype, gen):
 def _flash_case(sq, sk, causal, q_offset, gen, b=4, nh=32, nkv=8, hd=128,
                 dtype=torch.bfloat16):
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     q = (0.5 * torch.randn((b * nh, sq, hd), generator=gen,
                            device="cuda")).to(dtype)
@@ -279,6 +306,7 @@ def _flash_case(sq, sk, causal, q_offset, gen, b=4, nh=32, nkv=8, hd=128,
     b_ms, b_by = bound(nbytes, 4 * b * nh * hd * pairs, PEAK_FLOPS[dtype])
     return {"q": [b * nh, sq, hd], "kv": [b * nkv, sk, hd],
             "causal": causal, "q_offset": q_offset,
+            "variant": fa.variant(dtype),
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
             "tol": list(TOLS[dtype]),
             "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
@@ -301,6 +329,8 @@ def phase_kernels():
     fa = [_flash_case(s, s, causal, 0, gen)
           for s in (s_main, 128, 100) for causal in (True, False)]
     fa.append(_flash_case(1, s_main, True, s_main - 1, gen))
+    # the fp32 (simt) variant at the prefill shape: not redesigned, timed
+    fa.append(_flash_case(s_main, s_main, True, 0, gen, dtype=torch.float32))
     for name, cases in (("rmsnorm", rms), ("flash_attention", fa)):
         for c in cases:
             log(f"[3] {name} " + json.dumps(c))
@@ -333,6 +363,7 @@ def phase_main_path(smi: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
+    variants = ops.launch_counts_by_variant()
     after = engine.stats()
     prefills = after["prefills"] - before["prefills"]
     steps = after["decode_steps"] - before["decode_steps"]
@@ -343,6 +374,10 @@ def phase_main_path(smi: str):
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want} for "
                              f"{prefills} prefill(s), {steps} decode steps")
+    if variants["flash_attention"] != {"mma": cfg.n_layers * prefills,
+                                       "simt": 0}:
+        raise AssertionError(f"K3 variants {variants['flash_attention']}: "
+                             f"every bf16 prefill launch must take mma")
     if outs != warm:
         raise AssertionError("two runs of the same requests and seed gave "
                              "different tokens")
@@ -356,12 +391,13 @@ def phase_main_path(smi: str):
         f"steps in {after['chunks'] - before['chunks']} chunks; max memory "
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {counts} (rmsnorm = {per_pass} x (prefills + steps), "
-        f"flash = {cfg.n_layers} x prefills); card {smi}")
+        f"flash = {cfg.n_layers} x prefills, variants "
+        f"{variants['flash_attention']}); card {smi}")
     for i, o in enumerate(outs):
         log(f"    request[{i}] ({PROMPT_LENS[i]} prompt tokens): {o[:10]}")
     del engine, params, model
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants["flash_attention"]
 
 
 def _tensors(node):
@@ -387,6 +423,7 @@ def _to(node, device):
 
 def phase_against_cpu():
     from repro_torch.configs import config
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Model
     from repro_torch.serve.engine import BatchedEngine
@@ -404,6 +441,7 @@ def phase_against_cpu():
     for i, r in enumerate(reqs):
         tokens[i, :len(r.prompt)] = r.prompt
     lengths = torch.tensor(CPU_PROMPT_LENS)
+    ops.reset_launch_counts()
     logits = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
         with torch.inference_mode():
@@ -421,11 +459,16 @@ def phase_against_cpu():
     if toks["cuda"] != toks["cpu"]:
         raise AssertionError(f"greedy tokens differ: card {toks['cuda']} "
                              f"cpu {toks['cpu']}")
+    fa_variants = ops.launch_counts_by_variant()["flash_attention"]
+    if fa_variants["mma"] != 0 or fa_variants["simt"] == 0:
+        raise AssertionError(f"K3 variants {fa_variants}: every fp32 launch "
+                             f"must take simt")
     log(f"[5] {CPU_LAYERS} layers at full width, float32, TF32 off: "
         f"last-position logits card vs CPU max abs err {err:.3e} "
         f"(tol {LOGIT_TOL}, |logit| max "
         f"{logits['cpu'].abs().max().item():.2f}); greedy tokens equal "
-        f"{toks['cuda']}; {time.perf_counter() - t0:.1f} s")
+        f"{toks['cuda']}; K3 variants {fa_variants}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -456,13 +499,28 @@ def eager_auto(fn) -> float:
     return eager_ms(fn)
 
 
+def _mm_variant(m, k, n, dtype) -> str:
+    """The variant phase 6 and 9 hold each K2 case to: the bf16 projection
+    shapes on the tensor cores, the ragged shape and fp32 on the SIMT
+    kernel."""
+    return "wgmma" if dtype == torch.bfloat16 and n % 8 == 0 else "simt"
+
+
 def _matmul_case(m, k, n, dtype, gen):
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ref
     s = k ** -0.25
     a = (s * torch.randn((m, k), generator=gen, device="cuda")).to(dtype)
     b = (s * torch.randn((k, n), generator=gen, device="cuda")).to(dtype)
+    p = mm.plan(m, n, k, dtype)
+    if p.variant != _mm_variant(m, k, n, dtype):
+        raise AssertionError(f"matmul {(m, k, n)} {dtype}: planned "
+                             f"{p.variant}, want {_mm_variant(m, k, n, dtype)}")
+    before = dict(mm.launches_by_variant)
     got, want = mm.matmul(a, b), ref.matmul(a, b)
+    if mm.launches_by_variant[p.variant] != before[p.variant] + 1:
+        raise AssertionError(f"matmul {(m, k, n)} {dtype}: {p.variant} was "
+                             f"not launched")
     atol, rtol = MM_TOLS[dtype]
     err = (got.float() - want.float()).abs()
     if (err > atol + rtol * want.float().abs()).any():
@@ -473,8 +531,9 @@ def _matmul_case(m, k, n, dtype, gen):
     b_ms, b_by = bound((m * k + k * n + m * n) * elt, 2 * m * k * n,
                        PEAK_FLOPS[dtype])
     return {"shape": [m, k, n], "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err.max().item(), "tol": [atol, rtol],
-            "ms": time_ms(lambda: mm.matmul(a, b)),
+            "variant": p.variant, "block_n": p.block_n, "split": p.split,
+            "grid": list(p.grid), "max_abs_err": err.max().item(),
+            "tol": [atol, rtol], "ms": time_ms(lambda: mm.matmul(a, b)),
             "eager_ms": eager_ms(lambda: mm.matmul(a, b)),
             "plain_ms": time_ms(lambda: ref.matmul(a, b)),
             "library_ms": time_ms(lambda: torch.matmul(a, b)),
@@ -488,7 +547,35 @@ def phase_matmul():
              for m, k, n in MM_SHAPES]
     for c in cases:
         log("[6] matmul " + json.dumps(c))
+    for m, k, n in MM_SHAPES[:2]:
+        log("[6] matmul tile width " + json.dumps(_tile_widths(m, k, n, gen)))
     return cases
+
+
+def _tile_widths(m, k, n, gen):
+    """Both wgmma tile widths at one shape, split 1, timed in turns (128,
+    256, 256, 128), against the width ``matmul.plan`` picks: the check of
+    its rule on this card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import matmul as mm
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    c = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    fn = mm._wgmma_entry()
+
+    def call(bn):
+        def run():                     # the stream a graph capture runs on
+            _build.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), None,
+                            m, n, k, 1, bn, 1,
+                            torch.cuda.current_stream().cuda_stream),
+                         f"matmul wgmma block_n {bn}")
+        return run
+    ms = {128: [], 256: []}
+    for bn in (128, 256, 256, 128):
+        ms[bn].append(time_ms(call(bn)))
+    return {"shape": [m, k, n], "ms_block_n_128": ms[128],
+            "ms_block_n_256": ms[256],
+            "plan_block_n": mm.plan(m, n, k, torch.bfloat16).block_n}
 
 
 def grid_extents(cmd):
@@ -654,6 +741,7 @@ def phase_pipeline_main_path():
     """The slice's main path through the entry points a user calls:
     ops.matmul(impl="cuda") at the projection shapes, every DPIA op with
     impl="dpia-cuda"; counts zeroed just before and read just after."""
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(3)
     mm_in = [(torch.randn((m, k), generator=gen, device="cuda")
@@ -675,22 +763,32 @@ def phase_pipeline_main_path():
     outs += [calls[k](a, sh) for k, sh, a in dpia_in]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    mm_variants = ops.launch_counts_by_variant()["matmul"]
     per_prog = {ops.program_name(k, **sh):
                 ops.compiled(k, "cuda", **sh).launches for k, sh in DPIA_CASES}
     stages = sum(len(ops.compiled(k, "cuda", **sh).stages)
                  for k, sh in DPIA_CASES)
-    want = {"rmsnorm": 0, "matmul": len(MM_SHAPES), "flash_attention": 0,
-            "dpia_cuda": stages}
-    if counts != want or 0 in per_prog.values():
+    plans = [mm.plan(m, n, k, torch.bfloat16) for m, k, n in MM_SHAPES]
+    want = {"rmsnorm": 0, "matmul": sum(p.launches for p in plans),
+            "flash_attention": 0, "dpia_cuda": stages}
+    want_variants = {"wgmma": sum(p.variant == "wgmma" for p in plans),
+                     "splitk_reduce": sum(p.split > 1 for p in plans),
+                     "simt": sum(p.variant == "simt" for p in plans)}
+    if [p.variant for p in plans] != [_mm_variant(m, k, n, torch.bfloat16)
+                                      for m, k, n in MM_SHAPES]:
+        raise AssertionError(f"pipeline main path: K2 plans {plans}")
+    if counts != want or 0 in per_prog.values() \
+            or mm_variants != want_variants or 0 in mm_variants.values():
         raise AssertionError(f"pipeline main path: launch counts {counts} != "
-                             f"{want} (per program {per_prog})")
+                             f"{want}, K2 variants {mm_variants} != "
+                             f"{want_variants} (per program {per_prog})")
     for o in outs:
         if not torch.isfinite(o.float()).all():
             raise AssertionError("pipeline main path: a non-finite output")
     log(f"[9] pipeline main path: {len(MM_SHAPES)} K2 calls + "
-        f"{len(DPIA_CASES)} dpia-cuda ops, launches {counts}, per generated "
-        f"program {per_prog}")
-    return counts, per_prog
+        f"{len(DPIA_CASES)} dpia-cuda ops, launches {counts}, K2 variants "
+        f"{mm_variants}, per generated program {per_prog}")
+    return counts, mm_variants, per_prog
 
 
 # ---------------------------------------------------------------------------
@@ -703,9 +801,18 @@ KERNELS = [
      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
      "replaces": "src/repro/kernels/flash_attention.py:90"},
     {"name": "matmul", "route": "cuda",
-     "source": "src/repro_torch/kernels/csrc/matmul.cu",
+     "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
      "replaces": "src/repro/kernels/matmul.py:56"},
 ]
+# the source of each variant of a kernel that has several
+VARIANT_SOURCES = {
+    "flash_attention": {
+        "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+    "matmul": {"wgmma": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+               "splitk_reduce": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+               "simt": "src/repro_torch/kernels/csrc/matmul.cu"},
+}
 K4 = {"route": "cuda", "source": "src/repro_torch/core/dpia/stage3_cuda.py",
       "replaces": "src/repro/core/dpia/stage3_pallas.py:430"}
 _HEAD_KEYS = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
@@ -722,12 +829,13 @@ def main() -> int:
     smi = phase_card()
     build_s = phase_build()
     cases = phase_kernels()
-    counts = phase_main_path(smi)
+    counts, fa_variants = phase_main_path(smi)
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)
-    p_counts, per_prog = phase_pipeline_main_path()
+    p_counts, mm_variants, per_prog = phase_pipeline_main_path()
     counts = {**counts, "matmul": p_counts["matmul"]}
+    variants = {"flash_attention": fa_variants, "matmul": mm_variants}
     # the headline case of each kernel is its first: the main path's
     # prefill shape in bf16 (K2: the (800, 2560) x (2560, 4096) projection);
     # every case is listed under "cases".  K4 has one entry per generated
@@ -736,10 +844,16 @@ def main() -> int:
     for k in KERNELS:
         cs = cases[k["name"]]
         head = cs[0]
-        line.append({**k, "launches": counts[k["name"]],
-                     "max_abs_err": max(c["max_abs_err"] for c in cs),
-                     **{key: head[key] for key in _HEAD_KEYS},
-                     "card": smi, "cases": cs})
+        entry = {**k, "launches": counts[k["name"]],
+                 "max_abs_err": max(c["max_abs_err"] for c in cs),
+                 **{key: head[key] for key in _HEAD_KEYS},
+                 "card": smi, "cases": cs}
+        if k["name"] in variants:
+            entry["variant"] = head["variant"]
+            entry["variants"] = {
+                v: {"source": src, "launches": variants[k["name"]][v]}
+                for v, src in VARIANT_SOURCES[k["name"]].items()}
+        line.append(entry)
     for c in dpia:
         line.append({"name": f"dpia_cuda:{c['program']}", **K4,
                      "launches": per_prog[c["program"]],

@@ -6,8 +6,11 @@ machine with the card, into a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-The output lives in ``build/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the sources and flags, so an edited
+A source may add flags of its own (``SOURCE_FLAGS``): ``matmul_wgmma``
+takes ``-I /usr/local/cutlass/include`` for CuTe's wgmma atoms, so it
+builds only where CUTLASS's headers are installed.  The output lives in
+``build/`` at the repository root (listed in ``.gitignore``), keyed by a
+hash of the source, the headers beside it and its flags, so an edited
 source rebuilds and an unchanged one loads at once.  ``ptxas``'s report
 (registers, shared memory, spills per kernel) is kept beside it as
 ``<name>-<hash>.log``.  The library is loaded with :mod:`ctypes`: every
@@ -45,6 +48,10 @@ DPIA_DIR = BUILD_DIR / "dpia"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+CUTLASS_INCLUDE = Path("/usr/local/cutlass/include")
+# flags beyond NVCC_FLAGS, per source
+SOURCE_FLAGS = {"matmul_wgmma": ("-I", str(CUTLASS_INCLUDE))}
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -63,9 +70,15 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def target(name: str) -> Path:
-    """The library path for ``csrc/<name>.cu`` at its current contents."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu`` at its current contents and
+    flags."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -73,17 +86,17 @@ def target(name: str) -> Path:
 
 
 def _compile(jobs) -> None:
-    """Run one ``nvcc`` per (label, source, library) job, all started
-    together; keep each ptxas report beside its library; raise with the
-    compiler's output when a build fails."""
+    """Run one ``nvcc`` per (label, source, library, flags) job, all
+    started together; keep each ptxas report beside its library; raise with
+    the compiler's output when a build fails."""
     if not jobs:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for label, src, out in jobs:
+    for label, src, out, opts in jobs:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *opts, "-o", str(tmp), str(src)]
         procs.append((label, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -106,7 +119,7 @@ def build(names: Sequence[str] = ()) -> float:
     raises with the compiler's output when a build fails."""
     names = list(names) or sources()
     t0 = time.perf_counter()
-    _compile([(n, CSRC / f"{n}.cu", target(n)) for n in names
+    _compile([(n, CSRC / f"{n}.cu", target(n), flags(n)) for n in names
               if not target(n).exists()])
     return time.perf_counter() - t0
 
@@ -134,7 +147,7 @@ def build_generated(items: Sequence[Tuple[str, str]]) -> float:
         out.parent.mkdir(parents=True, exist_ok=True)
         src = out.with_suffix(".cu")
         src.write_text(text)
-        jobs[out] = (name, src, out)
+        jobs[out] = (name, src, out, NVCC_FLAGS)
     _compile(list(jobs.values()))
     return time.perf_counter() - t0
 

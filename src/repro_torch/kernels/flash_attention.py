@@ -1,15 +1,22 @@
-"""K3: flash attention (online softmax, causal + GQA) as a hand-written CUDA
-C++ kernel for Hopper (``csrc/flash_attention.cu``).
+"""K3: flash attention (online softmax, causal + GQA) as hand-written CUDA
+C++ kernels for Hopper (``csrc/flash_attention.cu``), in two variants chosen
+by dtype alone (:func:`variant`):
+
+- ``mma`` for bf16: FA2-style on the tensor cores (mma.sync, ldmatrix,
+  cp.async double buffering; ``csrc/tc_sm80.cuh``);
+- ``simt`` for fp32: fp32 FMAs on the CUDA cores (TF32 would change the
+  numbers the fp32 checks hold).
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention._fa_kernel``.
 Layout as there: q (BH, Sq, D), k/v (BKV, Sk, D), BH % BKV == 0.  Unlike the
 TPU kernel, ragged Sq / Sk are masked in the kernel rather than asserted to
 divide the tiles.  The source's header note says what bounds it on the card
-and how it is laid out.
+and how each variant is laid out.
 
 ``flash_attention`` computes the plain version (:func:`ref.flash_attention`)
 for CPU tensors and launches the kernel for CUDA tensors; a CUDA call the
-kernel does not take raises.  ``launches`` counts kernel launches.
+kernel does not take raises.  ``launches`` counts kernel launches,
+``launches_by_variant`` per variant.
 """
 from __future__ import annotations
 
@@ -27,6 +34,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 launches = 0
+launches_by_variant = {"mma": 0, "simt": 0}
+
+
+def variant(dtype) -> str:
+    """The kernel a CUDA call of ``dtype`` launches: ``mma`` (bf16, tensor
+    cores) or ``simt`` (fp32, CUDA cores)."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention: no kernel for {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 @functools.cache
@@ -79,6 +95,7 @@ def _launch(q, k, v, *, causal, scale, q_offset):
         rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _DTYPE_CODES[q.dtype], bh, bkv, sq, sk, d, scale,
                 int(causal), int(q_offset), stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({variant(q.dtype)})")
     launches += 1
+    launches_by_variant[variant(q.dtype)] += 1
     return out

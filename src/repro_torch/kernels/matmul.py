@@ -1,22 +1,33 @@
-"""K2: tiled matrix product ``C = A @ B`` as a hand-written CUDA C++ kernel for
-Hopper (``csrc/matmul.cu``).
+"""K2: matrix product ``C = A @ B`` as hand-written CUDA C++ kernels for
+Hopper, in two variants chosen by :func:`plan` from dtype and shape alone:
+
+- ``wgmma`` (``csrc/matmul_wgmma.cu``): bf16 inputs whose rows TMA can
+  describe (K % 8 == 0 and N % 8 == 0), on the tensor cores -- a
+  warp-specialised wgmma + TMA ring, split K below one wave of tiles (then a
+  second kernel, ``splitk_reduce``, sums the partials in a fixed order);
+- ``simt`` (``csrc/matmul.cu``): everything else, fp32 included (TF32
+  would change the numbers) and ragged rows such as (37, 100, 75); fp32
+  FMAs on the CUDA cores.
 
 Replaces the Pallas TPU kernel ``repro.kernels.matmul.matmul``
 (``_matmul_kernel``): A (M, K) and B (K, N), both float32 or both bfloat16;
 products accumulated in fp32; the result cast to ``out_dtype`` (default
 ``a.dtype``, float32 or bfloat16).  Unlike the TPU kernel, ragged M / N / K
-are masked in the kernel rather than asserted to divide the tiles.  Bound by
-operations at the port's projection shapes; the source's header note says
-how it is laid out.
+are handled in the kernels rather than asserted to divide the tiles.  The
+sources' header notes say what bounds each on the card and how it is laid
+out.
 
 ``matmul`` computes the plain version (:func:`ref.matmul`) for CPU tensors
-and launches the kernel for CUDA tensors; a CUDA call the kernel does not
-take raises.  ``launches`` counts kernel launches.
+and launches the planned kernel for CUDA tensors; a CUDA call a kernel does
+not take, or a failed build or launch, raises -- no variant stands in for
+another.  ``launches`` counts kernel launches in total (a split-K call
+launches two), ``launches_by_variant`` per kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -24,14 +35,89 @@ from . import _build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+BLOCK_M, BLOCK_K = 128, 64
+SIMT_TILE = 128            # csrc/matmul.cu's square tile
+MIN_K_TILES_PER_SPLIT = 4  # a split part keeps the ring at least this deep
+# time of a 128 x 256 tile over a 128 x 128 one: twice the work at better
+# operand reuse.  chip_smoke's tile-width check (phase 6) measured the
+# ratio of per-wave times at 1.41-1.60 on an H100 at (800, 2560) x (2560,
+# 4096 | 9728); PERF.md has the run.
+WIDE_TILE_COST = 1.5
 
 launches = 0
+launches_by_variant = {"wgmma": 0, "splitk_reduce": 0, "simt": 0}
+
+
+class Plan(NamedTuple):
+    variant: str                    # "wgmma" or "simt"
+    grid: Tuple[int, int, int]      # (n tiles, m tiles, split)
+    split: int                      # parts of the k tiles (wgmma)
+    workspace_bytes: int            # fp32 (split, M, N) partials, or 0
+    block_n: int                    # tile width
+
+    @property
+    def launches(self) -> int:
+        return 2 if self.split > 1 else 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, n: int, k: int, dtype) -> Plan:
+    """The kernel, grid, split and workspace for ``(m, k) @ (k, n)`` with
+    inputs of ``dtype``, as pure arithmetic on the shape.
+
+    The rule:
+
+    - ``wgmma`` iff the inputs are bf16, K >= 1, and K % 8 == N % 8 == 0
+      (TMA needs 16-byte row strides); else ``simt`` on 128 x 128 tiles;
+    - wgmma tiles are 128 rows by ``block_n`` columns.  When the 128-wide
+      grid is below one wave (fewer tiles than the 132 SMs), K is split
+      into ``split = max(1, min(132 // tiles, k_tiles // 4))`` parts (at
+      least 4 k-tiles of 64 each), with fp32 partials in a
+      ``split * M * N * 4``-byte workspace; ``block_n`` stays 128;
+    - otherwise ``split = 1`` and ``block_n`` is 256 when the wide grid's
+      waves, weighted by ``WIDE_TILE_COST``, undercut the narrow grid's
+      (``ceil(t256 / 132) * WIDE_TILE_COST < ceil(t128 / 132)``), else 128.
+
+    The grid is ``(ceil(N / block_n), ceil(M / 128), split)``: tiles times
+    split blocks.
+    """
+    if not (dtype == torch.bfloat16 and k >= 1 and k % 8 == 0
+            and n % 8 == 0):
+        return Plan("simt", (_cdiv(n, SIMT_TILE), _cdiv(m, SIMT_TILE), 1),
+                    1, 0, SIMT_TILE)
+    m_tiles, k_tiles = _cdiv(m, BLOCK_M), _cdiv(k, BLOCK_K)
+    narrow = m_tiles * _cdiv(n, 128)
+    if narrow < SMS:
+        bn = 128
+        split = max(1, min(SMS // max(narrow, 1),
+                           k_tiles // MIN_K_TILES_PER_SPLIT))
+    else:
+        wide = m_tiles * _cdiv(n, 256)
+        bn = 256 if _cdiv(wide, SMS) * WIDE_TILE_COST < _cdiv(narrow, SMS) \
+            else 128
+        split = 1
+    ws = split * m * n * 4 if split > 1 else 0
+    return Plan("wgmma", (_cdiv(n, bn), m_tiles, split), split, ws, bn)
 
 
 @functools.cache
 def _entry():
-    """The C entry point, built and loaded on first use."""
+    """The SIMT kernel's C entry point, built and loaded on first use."""
     return _build.function("matmul", "repro_matmul", _ARGTYPES)
+
+
+@functools.cache
+def _wgmma_entry():
+    """The wgmma kernel's C entry point, built and loaded on first use."""
+    return _build.function("matmul_wgmma", "repro_matmul_wgmma",
+                           _WGMMA_ARGTYPES)
 
 
 def matmul(a, b, *, out_dtype=None):
@@ -51,7 +137,7 @@ def _launch(a, b, out_dtype):
     if a.dtype not in _DTYPE_CODES or b.dtype != a.dtype \
             or out_dtype not in _DTYPE_CODES:
         raise ValueError(f"matmul: dtypes {a.dtype}/{b.dtype} -> "
-                         f"{out_dtype}; the kernel takes float32 or "
+                         f"{out_dtype}; the kernels take float32 or "
                          f"bfloat16 inputs, alike, and either as output")
     if b.device != a.device:
         raise ValueError("matmul: a and b on different devices")
@@ -62,10 +148,26 @@ def _launch(a, b, out_dtype):
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    p = plan(m, n, k, a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                      _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], stream)
-    _build.check(rc, "matmul")
-    launches += 1
+        if p.variant == "simt":
+            rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+                          k, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype],
+                          stream)
+        else:
+            if a.data_ptr() % 16 or b.data_ptr() % 16:
+                raise ValueError("matmul: the wgmma kernel reads a and b by "
+                                 "TMA, which needs 16-byte aligned data")
+            work = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
+                                device=a.device) if p.split > 1 else None)
+            rc = _wgmma_entry()(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if work is None else work.data_ptr(), m, n, k,
+                _DTYPE_CODES[out_dtype], p.block_n, p.split, stream)
+    _build.check(rc, f"matmul ({p.variant})")
+    launches += p.launches
+    launches_by_variant[p.variant] += 1
+    if p.split > 1:
+        launches_by_variant["splitk_reduce"] += 1
     return out

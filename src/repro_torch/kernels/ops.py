@@ -159,10 +159,21 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 
+def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
+    """Launches since the last reset per variant of the kernels that have
+    several: K2 ``matmul`` (wgmma, splitk_reduce, simt) and K3
+    ``flash_attention`` (mma, simt)."""
+    return {name: dict(mod.launches_by_variant)
+            for name, mod in _KERNEL_MODULES.items()
+            if hasattr(mod, "launches_by_variant")}
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel's count, and each memoised generated program's."""
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+        for key in getattr(mod, "launches_by_variant", ()):
+            mod.launches_by_variant[key] = 0
     for fn in _compiled.values():
         if fn.backend == "cuda":
             fn._fn.launches = 0

@@ -5,7 +5,15 @@
 // __shared__ arrays become statics (one block runs at a time).  The test
 // that includes it rewrites each <<<grid, threads, smem, stream>>> launch
 // into emu_launch(grid, threads, body).
+//
+// The warp-level primitives of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
+// cp.async) are emulated here with the PTX ISA's fragment layouts (see the
+// table in that header): each lane posts its operands to a per-warp
+// exchange, the warp meets at a barrier, and each lane computes what the
+// hardware would hand it.  cp.async copies at once, so its commit and wait
+// are no-ops; the kernels' __syncthreads still orders the copies.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -29,12 +37,17 @@ inline dim3 gridDim, blockDim;
 inline std::barrier<>* g_bar = nullptr;
 inline std::vector<std::barrier<>*> g_warp;
 inline float g_xch[1024];
-inline float g_smem[65536];
+alignas(16) inline float g_smem[65536];
+inline uint32_t g_xu[1024][6];
+inline const void* g_xp[1024];
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__ __restrict
 #define __launch_bounds__(x)
+#define __align__(n) alignas(n)
+using std::max;
+using std::min;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 #define cudaSuccess 0
@@ -47,6 +60,10 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   int t = threadIdx.x; auto* b = g_warp[t / 32];
   g_xch[t] = v; b->arrive_and_wait(); float r = g_xch[(t & ~31) | ((t & 31) ^ o)]; b->arrive_and_wait(); return r;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  int t = threadIdx.x; auto* b = g_warp[t / 32];
+  g_xch[t] = v; b->arrive_and_wait(); float r = g_xch[(t & ~31) | (src & 31)]; b->arrive_and_wait(); return r;
+}
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline void emu_launch(dim3 grid, int nt, std::function<void()> f) {
   gridDim = grid; blockDim = dim3(nt);
@@ -58,4 +75,53 @@ inline void emu_launch(dim3 grid, int nt, std::function<void()> f) {
     for (auto& th : ts) th.join();
     for (auto* p : w) delete p;
   }
+}
+
+// ---- csrc/tc_sm80.cuh ------------------------------------------------------
+inline uint32_t emu_b16(const void* row, int col) {   // a b16 element's bits
+  uint16_t x; std::memcpy(&x, static_cast<const char*>(row) + 2 * col, 2); return x;
+}
+inline void emu_ldmatrix(uint32_t r[4], const void* p, bool trans) {
+  int t = threadIdx.x, w = t & ~31, lane = t & 31, g = lane / 4, c = 2 * (lane % 4);
+  auto* b = g_warp[t / 32];
+  g_xp[t] = p; b->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    const void* const* rows = g_xp + w + 8 * i;        // matrix i's 8 rows
+    r[i] = trans ? emu_b16(rows[c], g) | emu_b16(rows[c + 1], g) << 16
+                 : emu_b16(rows[g], c) | emu_b16(rows[g], c + 1) << 16;
+  }
+  b->arrive_and_wait();
+}
+inline void ldmatrix_x4(uint32_t r[4], const void* p) { emu_ldmatrix(r, p, false); }
+inline void ldmatrix_x4_trans(uint32_t r[4], const void* p) { emu_ldmatrix(r, p, true); }
+inline float emu_half(uint32_t reg, int hi) {
+  __nv_bfloat16 x{(uint16_t)(hi ? reg >> 16 : reg & 0xffff)}; return __bfloat162float(x);
+}
+inline void mma_16816_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  int t = threadIdx.x, w = t & ~31, lane = t & 31, g = lane / 4, c = 2 * (lane % 4);
+  auto* bar = g_warp[t / 32];
+  for (int i = 0; i < 4; ++i) g_xu[t][i] = a[i];
+  g_xu[t][4] = b[0]; g_xu[t][5] = b[1];
+  bar->arrive_and_wait();
+  auto A = [&](int row, int k) {           // A (16 x 16), row major
+    return emu_half(g_xu[w + (row % 8) * 4 + (k % 8) / 2][row / 8 + 2 * (k / 8)], k & 1);
+  };
+  auto B = [&](int k, int n) {             // B (16 x 8), k down
+    return emu_half(g_xu[w + n * 4 + (k % 8) / 2][4 + k / 8], k & 1);
+  };
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e / 2), col = c + (e & 1);
+    float s = d[e];
+    for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
+    d[e] = s;
+  }
+  bar->arrive_and_wait();
+}
+inline void cp_async_16(void* dst, const void* src, int src_bytes) {
+  if (src_bytes) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return __float2bfloat16(lo).v | (uint32_t)__float2bfloat16(hi).v << 16;
 }

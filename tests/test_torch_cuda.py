@@ -71,9 +71,14 @@ def test_flash_kernel_matches_plain(cuda_device, bh, bkv, sq, sk, d, causal,
                            device=cuda_device)).to(dtype)
     v = torch.randn((bkv, sk, d), generator=g, device=cuda_device).to(dtype)
     before = fa_mod.launches
+    by_variant = dict(fa_mod.launches_by_variant)
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa_mod.launches == before + 1
+    want_variant = "mma" if dtype == torch.bfloat16 else "simt"
+    assert fa_mod.variant(dtype) == want_variant
+    by_variant[want_variant] += 1
+    assert fa_mod.launches_by_variant == by_variant
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
@@ -160,22 +165,123 @@ def _to(node, device):
 MM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.parametrize("m,k,n", [(800, 2560, 4096), (4, 2560, 9728),
-                                   (37, 100, 75), (129, 8, 130), (1, 1, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_matmul_kernel_matches_plain(cuda_device, m, k, n, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+def _mm_inputs(m, k, n, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
     s = k ** -0.25
-    a = (s * torch.randn((m, k), generator=g, device=cuda_device)).to(dtype)
-    b = (s * torch.randn((k, n), generator=g, device=cuda_device)).to(dtype)
+    a = (s * torch.randn((m, k), generator=g, device=device)).to(dtype)
+    b = (s * torch.randn((k, n), generator=g, device=device)).to(dtype)
+    return a, b
+
+
+# (m, k, n, bf16 variant): the bf16 projection shapes take wgmma, ragged
+# rows the SIMT kernel; fp32 always takes the SIMT kernel
+MM_CASES = [(800, 2560, 4096, "wgmma"), (4, 2560, 9728, "wgmma"),
+            (37, 100, 75, "simt"), (129, 8, 130, "simt"), (1, 1, 1, "simt"),
+            (129, 64, 136, "wgmma"), (300, 72, 520, "wgmma")]
+
+
+@pytest.mark.parametrize("m,k,n,bf16_variant", MM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_matches_plain(cuda_device, m, k, n, bf16_variant,
+                                     dtype):
+    a, b = _mm_inputs(m, k, n, dtype, cuda_device)
+    p = mm_mod.plan(m, n, k, dtype)
+    assert p.variant == (bf16_variant if dtype == torch.bfloat16 else "simt")
     before = mm_mod.launches
+    by_variant = dict(mm_mod.launches_by_variant)
     got = ops.matmul(a, b, impl="cuda")
     torch.cuda.synchronize()
-    assert mm_mod.launches == before + 1 and got.dtype == dtype
+    assert mm_mod.launches == before + p.launches and got.dtype == dtype
+    by_variant[p.variant] += 1
+    by_variant["splitk_reduce"] += p.split > 1
+    assert mm_mod.launches_by_variant == by_variant
     torch.testing.assert_close(got.float(), ref.matmul(a, b).float(),
                                rtol=MM_TOL[dtype], atol=MM_TOL[dtype])
     out32 = ops.matmul(a, b, impl="cuda", out_dtype=torch.float32)
     assert out32.dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,k,n", [(800, 2560, 4096), (4, 2560, 4096),
+                                   (129, 64, 136)])
+def test_matmul_bf16_in_fp32_out_through_wgmma(cuda_device, m, k, n):
+    """bf16 inputs, fp32 output: the wgmma kernel's fp32 epilogue (no bf16
+    rounding of the result), against the fp32 plain version: fp32 sums in
+    another order."""
+    a, b = _mm_inputs(m, k, n, torch.bfloat16, cuda_device)
+    assert mm_mod.plan(m, n, k, torch.bfloat16).variant == "wgmma"
+    before = mm_mod.launches_by_variant["wgmma"]
+    got = ops.matmul(a, b, impl="cuda", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mm_mod.launches_by_variant["wgmma"] == before + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.matmul(a, b, out_dtype=torch.float32),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 4096), (1, 64, 8)])
+def test_matmul_split_k_path(cuda_device, m, k, n):
+    """Below one wave of tiles K is split as the plan says: (4, 2560, 4096)
+    into 4 parts plus the reduction (2 launches); (1, 64, 8) has one k tile
+    and stays one launch.  The partials are summed in a fixed order, so two
+    runs agree bit for bit."""
+    a, b = _mm_inputs(m, k, n, torch.bfloat16, cuda_device)
+    p = mm_mod.plan(m, n, k, torch.bfloat16)
+    assert p.variant == "wgmma"
+    assert p.split == (4 if (m, k, n) == (4, 2560, 4096) else 1)
+    before = (mm_mod.launches, mm_mod.launches_by_variant["splitk_reduce"])
+    first = ops.matmul(a, b, impl="cuda")
+    torch.cuda.synchronize()
+    assert mm_mod.launches == before[0] + p.launches
+    assert mm_mod.launches_by_variant["splitk_reduce"] == \
+        before[1] + (p.split > 1)
+    torch.testing.assert_close(first.float(), ref.matmul(a, b).float(),
+                               rtol=MM_TOL[torch.bfloat16],
+                               atol=MM_TOL[torch.bfloat16])
+    for _ in range(3):
+        assert torch.equal(ops.matmul(a, b, impl="cuda"), first)
+
+
+def test_matmul_kernel_launch_failure_raises(cuda_device, monkeypatch):
+    """A wgmma launch the kernel refuses (here a tile width it has no
+    instance for) raises; nothing is computed in its place."""
+    a, b = _mm_inputs(256, 64, 256, torch.bfloat16, cuda_device)
+    p = mm_mod.plan(256, 256, 64, torch.bfloat16)
+    monkeypatch.setattr(mm_mod, "plan",
+                        lambda *args: p._replace(block_n=64))
+    before = dict(mm_mod.launches_by_variant)
+    with pytest.raises(RuntimeError, match="matmul \\(wgmma\\).*launch failed"):
+        ops.matmul(a, b, impl="cuda")
+    assert mm_mod.launches_by_variant == before
+
+
+def test_matmul_wgmma_build_failure_raises(cuda_device, monkeypatch):
+    """The wgmma source built without CUTLASS's headers fails to compile,
+    and the call raises; the SIMT kernel does not stand in."""
+    from repro_torch.kernels import _build
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "matmul_wgmma",
+                        ("-I", "/nonexistent"))
+    monkeypatch.delitem(_build._LIBS, "matmul_wgmma", raising=False)
+    mm_mod._wgmma_entry.cache_clear()
+    a, b = _mm_inputs(128, 64, 128, torch.bfloat16, cuda_device)
+    before = dict(mm_mod.launches_by_variant)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ops.matmul(a, b, impl="cuda")
+    finally:
+        mm_mod._wgmma_entry.cache_clear()
+    assert mm_mod.launches_by_variant == before
+
+
+def test_flash_kernel_launch_failure_raises(cuda_device, monkeypatch):
+    """A head dim the C entry point has no instance for is refused at
+    launch, and the call raises."""
+    monkeypatch.setattr(fa_mod, "SUPPORTED_HEAD_DIMS", (16, 32, 48, 64, 128))
+    q = torch.zeros((2, 8, 48), device=cuda_device, dtype=torch.bfloat16)
+    before = dict(fa_mod.launches_by_variant)
+    with pytest.raises(RuntimeError, match="flash_attention \\(mma\\).*launch "
+                       "failed"):
+        ops.flash_attention(q, q, q)
+    assert fa_mod.launches_by_variant == before
 
 
 def test_matmul_kernel_rejects_mixed_dtypes(cuda_device):

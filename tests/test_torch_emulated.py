@@ -1,13 +1,18 @@
 """The port's CUDA sources run on the CPU under an emulation of the CUDA
 subset they use (tests/cuda_emu.h, compiled with the host's g++): K4's
-generated programs against the torch Stage III, K2 against its plain
-version.
+generated programs against the torch Stage III, K2's SIMT kernel
+(csrc/matmul.cu) and both K3 kernels (csrc/flash_attention.cu: the bf16
+tensor-core path and the fp32 SIMT path) against their plain versions, and
+each emulated tensor-core primitive of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
+cp.async) against numpy.
 
 This checks what the generated and hand-written C++ computes (index
-arithmetic, barriers, block reductions, masking) without a card; it says
-nothing of speed or of what nvcc accepts, which tests/test_torch_cuda.py
-checks on the card.  Each block runs as 256 host threads, so the shapes are
-small.
+arithmetic, fragment layouts, barriers, block reductions, masking) without
+a card; it says nothing of speed or of what nvcc accepts, which
+tests/test_torch_cuda.py checks on the card.  K2's wgmma + TMA kernel
+(csrc/matmul_wgmma.cu) has no CPU emulation: it is tested on the card
+only.  Each block runs as one host thread per CUDA thread, so the shapes
+are small.
 """
 import ctypes
 import re
@@ -48,13 +53,23 @@ def gxx(tmp_path_factory):
 
 
 def _emulated(source: str) -> str:
-    """A CUDA source rewritten for tests/cuda_emu.h."""
-    source = re.sub(r"#include <cuda_(runtime|bf16)\.h>\n", "", source)
+    """A CUDA source rewritten for tests/cuda_emu.h: the CUDA headers and
+    tc_sm80.cuh (whose primitives the emulation defines) dropped, dynamic
+    shared memory pointed at the emulator's, static ``__shared__`` arrays of
+    any element type made function statics (one block runs at a time), and
+    every ``<<<...>>>`` launch made an ``emu_launch``."""
+    source = re.sub(r'#include (<cuda_(runtime|bf16)\.h>|"tc_sm80\.cuh")\n',
+                    "", source)
     source = '#include "cuda_emu.h"\n' + source
     source = source.replace("extern __shared__ float smem[];",
                             "float* smem = g_smem;")
-    source = re.sub(r"__shared__ float (\w+)\[", r"static float \1[", source)
-    return re.sub(r"([\w<>, ]+?)<<<(dim3\([^)]*\)|\w+), (\w+), [^>]*?>>>"
+    source = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
+                    r"unsigned char (\w+)\[\];",
+                    r"unsigned char* \1 = "
+                    r"reinterpret_cast<unsigned char*>(g_smem);", source)
+    source = re.sub(r"__shared__ (?:__align__\(\d+\) )?([\w:]+) (\w+)\[",
+                    r"static \1 \2[", source)
+    return re.sub(r"([\w<>, ]+?)<<<(dim3\([^)]*\)|\w+), ([^,]+), [^>]*?>>>"
                   r"\((.*?)\);",
                   r"emu_launch(\2, \3, [&]{ \1(\4); });", source, flags=re.S)
 
@@ -166,3 +181,161 @@ def test_matmul_source_matches_plain(k2, m, k, n, dtype, out_dtype):
     tol = 1e-4 if out_dtype == torch.float32 else 1e-2
     torch.testing.assert_close(c.float(), ref.matmul(a, b, out_dtype=out_dtype)
                                .float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core primitives (csrc/tc_sm80.cuh) and K3
+# ---------------------------------------------------------------------------
+
+PRIMITIVES = r"""
+#include "cuda_emu.h"
+// one warp; matrix i of the x4 loads is the 8 x 8 quadrant of a 16 x 16
+// b16 tile at rows 8 (i % 2), columns 8 (i / 2)
+extern "C" void ldm(const uint16_t* tile, uint32_t* plain, uint32_t* trans) {
+  emu_launch(dim3(1), 32, [&] {
+    const int lane = threadIdx.x, i = lane / 8, r = lane % 8;
+    const uint16_t* p = tile + (8 * (i % 2) + r) * 16 + 8 * (i / 2);
+    ldmatrix_x4(plain + 4 * lane, p);
+    ldmatrix_x4_trans(trans + 4 * lane, p);
+  });
+}
+extern "C" void mma(const uint32_t* a, const uint32_t* b, float* d) {
+  emu_launch(dim3(1), 32, [&] {
+    const int l = threadIdx.x;
+    mma_16816_bf16(d + 4 * l, a + 4 * l, b + 2 * l);
+  });
+}
+extern "C" void cpa(const char* src, char* dst, int n, const int* bytes) {
+  emu_launch(dim3(1), 32, [&] {
+    for (int c = threadIdx.x; c < n; c += 32)
+      cp_async_16(dst + 16 * c, src + 16 * c, bytes[c]);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  });
+}
+extern "C" uint32_t pack(float lo, float hi) { return pack_bf16x2(lo, hi); }
+"""
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 values (already bf16-representable) as their bf16 bits."""
+    return (np.ascontiguousarray(x, np.float32).view(np.uint32) >> 16
+            ).astype(np.uint32)
+
+
+def _pair(lo, hi):
+    """Two bf16 bit patterns in one register, ``lo`` in the low half."""
+    return lo | hi << 16
+
+
+@pytest.fixture(scope="module")
+def prims(gxx):
+    return gxx("tc_primitives", PRIMITIVES)
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def test_emulated_ldmatrix_layouts(prims):
+    """ldmatrix.x4 (and .trans): lane l's register i holds row l // 4,
+    columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i (of its transpose)."""
+    tile = np.arange(256, dtype=np.uint16).reshape(16, 16)
+    plain = np.zeros((32, 4), np.uint32)
+    trans = np.zeros((32, 4), np.uint32)
+    prims.ldm(_ptr(tile), _ptr(plain), _ptr(trans))
+    for lane in range(32):
+        g, c = lane // 4, 2 * (lane % 4)
+        for i in range(4):
+            q = tile[8 * (i % 2):8 * (i % 2) + 8, 8 * (i // 2):8 * (i // 2) + 8]
+            q = q.astype(np.uint32)
+            assert plain[lane, i] == _pair(q[g, c], q[g, c + 1])
+            assert trans[lane, i] == _pair(q[c, g], q[c + 1, g])
+
+
+def test_emulated_mma_16816_matches_numpy(prims, rng):
+    """mma.m16n8k16 on fragments laid out as the PTX ISA documents them
+    (A row major, B k-down, C / D by rows g and g + 8): D = A.B + C."""
+    def bf16(*s):
+        return torch.tensor(rng.randn(*s), dtype=torch.float32).to(
+            torch.bfloat16).float().numpy()
+    A, B, C = bf16(16, 16), bf16(16, 8), bf16(16, 8)
+    a = np.zeros((32, 4), np.uint32)
+    b = np.zeros((32, 2), np.uint32)
+    d = np.zeros((32, 4), np.float32)
+    Ab, Bb = _bf16_bits(A), _bf16_bits(B)
+    for lane in range(32):
+        g, c = lane // 4, 2 * (lane % 4)
+        for i, (r, k) in enumerate([(g, c), (g + 8, c), (g, c + 8),
+                                    (g + 8, c + 8)]):
+            a[lane, i] = _pair(Ab[r, k], Ab[r, k + 1])
+        b[lane] = [_pair(Bb[c, g], Bb[c + 1, g]),
+                   _pair(Bb[c + 8, g], Bb[c + 9, g])]
+        d[lane] = [C[g, c], C[g, c + 1], C[g + 8, c], C[g + 8, c + 1]]
+    prims.mma(_ptr(a), _ptr(b), _ptr(d))
+    want = A.astype(np.float64) @ B + C
+    for lane in range(32):
+        g, c = lane // 4, 2 * (lane % 4)
+        np.testing.assert_allclose(
+            d[lane], [want[g, c], want[g, c + 1], want[g + 8, c],
+                      want[g + 8, c + 1]], rtol=1e-6, atol=1e-6)
+
+
+def test_emulated_cp_async_copies_or_zero_fills(prims, rng):
+    src = rng.randint(1, 255, size=(40, 16)).astype(np.uint8)
+    dst = np.full((40, 16), 7, np.uint8)
+    nbytes = np.where(np.arange(40) % 3 == 0, 0, 16).astype(np.int32)
+    prims.cpa(_ptr(src), _ptr(dst), 40, _ptr(nbytes))
+    want = np.where((nbytes == 16)[:, None], src, 0)
+    np.testing.assert_array_equal(dst, want)
+
+
+@pytest.mark.parametrize("lo,hi", [(1.0, -2.5), (1.00390625, 3.0e-3),
+                                   (1.01171875, -65504.0), (0.0, 1e30)])
+def test_emulated_pack_bf16x2_rounds_like_torch(prims, lo, hi):
+    prims.pack.restype = ctypes.c_uint32
+    prims.pack.argtypes = [ctypes.c_float, ctypes.c_float]
+    bits = torch.tensor([lo, hi]).to(torch.bfloat16).view(torch.int16)
+    want = [int(x) & 0xffff for x in bits]
+    assert prims.pack(lo, hi) == _pair(want[0], want[1])
+
+
+@pytest.fixture(scope="module")
+def k3(gxx):
+    lib = gxx("k3_flash", _emulated((_build.CSRC / "flash_attention.cu")
+                                    .read_text()))
+    fn = lib.repro_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# K3 under emulation against its plain version.  fp32 (the SIMT kernel):
+# the same fp32 arithmetic in another order.  bf16 (the mma kernel): P
+# rounded to bf16 before P.V adds at most 2**-9 relative per term, under
+# the output's own bf16 rounding (2**-8).
+K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+K3_CASES = ([(2, 1, s, s, d, causal, 0) for s in (1, 37, 70)
+             for d in (16, 64) for causal in (True, False)]
+            + [(4, 2, 5, 70, 64, True, 65), (2, 2, 66, 3, 32, False, 0)])
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,d,causal,q_offset", K3_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_source_matches_plain(k3, bh, bkv, sq, sk, d, causal,
+                                              q_offset, dtype):
+    g = torch.Generator().manual_seed(sq * 100 + d)
+    q = (0.5 * torch.randn((bh, sq, d), generator=g)).to(dtype)
+    k = (0.5 * torch.randn((bkv, sk, d), generator=g)).to(dtype)
+    v = torch.randn((bkv, sk, d), generator=g).to(dtype)
+    o = torch.full((bh, sq, d), float("nan"), dtype=dtype)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert k3(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
+              bh, bkv, sq, sk, d, 1.0 / d ** 0.5, int(causal), q_offset,
+              None) == 0
+    want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    tol = K3_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)

@@ -160,6 +160,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                ref.flash_attention(q, k, k), rtol=0, atol=0)
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
                                    "flash_attention": 0, "dpia_cuda": 0}
+    assert ops.launch_counts_by_variant() == {
+        "matmul": {"wgmma": 0, "splitk_reduce": 0, "simt": 0},
+        "flash_attention": {"mma": 0, "simt": 0}}
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -190,11 +193,105 @@ def test_kernel_modules_import_without_triton_or_nvcc():
 
 def test_build_target_is_keyed_by_source():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention", "matmul"]
+    assert _build.sources() == ["flash_attention", "matmul", "matmul_wgmma"]
     t = _build.target("flash_attention")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t == _build.target("flash_attention")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_build_flags_are_per_source_and_keyed(monkeypatch):
+    """Only the wgmma source takes CUTLASS's include path, and a source's
+    flags are part of its library's key."""
+    from repro_torch.kernels import _build
+    assert _build.flags("matmul") == _build.NVCC_FLAGS
+    assert _build.flags("flash_attention") == _build.NVCC_FLAGS
+    extra = _build.flags("matmul_wgmma")[len(_build.NVCC_FLAGS):]
+    assert extra == ("-I", "/usr/local/cutlass/include")
+    before = _build.target("matmul_wgmma")
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "matmul_wgmma",
+                        ("-I", "/elsewhere"))
+    assert _build.target("matmul_wgmma") != before
+    assert _build.target("matmul") == _build.target("matmul")
+
+
+# ---------------------------------------------------------------------------
+# the dispatch rules: K2's plan, K3's variant (pure functions of dtype and
+# shape; the card tests check that the launches follow them)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,dtype,want", [
+    (800, 2560, 4096, torch.bfloat16, "wgmma"),
+    (4, 2560, 4096, torch.bfloat16, "wgmma"),
+    (1, 64, 8, torch.bfloat16, "wgmma"),
+    (800, 2560, 4096, torch.float32, "simt"),      # no TF32
+    (37, 100, 75, torch.bfloat16, "simt"),         # N % 8: no TMA rows
+    (16, 12, 64, torch.bfloat16, "simt"),          # K % 8
+    (5, 0, 8, torch.bfloat16, "simt"),             # no k tile
+])
+def test_matmul_plan_variant_by_dtype_and_alignment(m, k, n, dtype, want):
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(m, n, k, dtype)
+    assert p.variant == want
+    if want == "simt":
+        assert (p.grid, p.split, p.workspace_bytes) == (
+            (-(-n // 128), -(-m // 128), 1), 1, 0)
+
+
+def test_matmul_plan_splits_k_at_the_decode_shape():
+    """(4, 2560) x (2560, 4096): 32 tiles of 128 x 128 fill a quarter of the
+    132 SMs, so K (40 tiles of 64) is split 4 ways into an fp32 (4, 4,
+    4096) workspace, and the call launches the reduction too."""
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(4, 4096, 2560, torch.bfloat16)
+    assert (p.variant, p.block_n, p.split) == ("wgmma", 128, 4)
+    assert p.grid == (32, 1, 4)
+    assert p.workspace_bytes == 4 * 4 * 4096 * 4
+    assert p.launches == 2
+    # one k tile cannot be split: the grid stays one block
+    p = mm.plan(1, 8, 64, torch.bfloat16)
+    assert (p.grid, p.split, p.workspace_bytes, p.launches) == (
+        (1, 1, 1), 1, 0, 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(800, 2560, 4096), (800, 2560, 9728),
+                                   (4, 2560, 9728), (4, 2560, 4096),
+                                   (1024, 2560, 2560), (130, 64, 8),
+                                   (4096, 4096, 4096), (1, 64, 8),
+                                   (3, 520, 264), (256, 128, 33000)])
+def test_matmul_plan_grid_is_tiles_times_split(m, k, n):
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(m, n, k, torch.bfloat16)
+    tiles = -(-m // 128) * -(-n // p.block_n)
+    assert p.grid[0] * p.grid[1] * p.grid[2] == tiles * p.split
+    assert p.grid[2] == p.split and p.block_n in (128, 256)
+    k_tiles = -(-k // 64)
+    assert 1 <= p.split <= max(1, k_tiles // 4)
+    if p.split > 1:
+        assert p.block_n == 128 and tiles * p.split <= mm.SMS
+        assert p.workspace_bytes == p.split * m * n * 4
+    else:
+        assert p.workspace_bytes == 0 and p.launches == 1
+
+
+def test_matmul_plan_tile_width_follows_the_wave_rule():
+    """Wide tiles when their waves, weighted by a wide tile's cost, undercut
+    the narrow grid's waves."""
+    from repro_torch.kernels import matmul as mm
+    for m, n in [(800, 4096), (800, 9728), (1024, 2560), (4096, 4096)]:
+        narrow = -(-m // 128) * -(-n // 128)
+        wide = -(-m // 128) * -(-n // 256)
+        want = 256 if (-(-wide // 132) * mm.WIDE_TILE_COST
+                       < -(-narrow // 132)) else 128
+        assert mm.plan(m, n, 2560, torch.bfloat16).block_n == want
+
+
+def test_flash_attention_variant_by_dtype():
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.variant(torch.bfloat16) == "mma"
+    assert fa.variant(torch.float32) == "simt"
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.variant(torch.float16)
 
 
 # ---------------------------------------------------------------------------
