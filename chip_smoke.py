@@ -46,9 +46,12 @@ result):
    .compile("cuda")`` against ``compile("torch")`` (the plain version) on
    the same CUDA tensors, with the launches per call and each stage's CUDA
    grid asserted against the strategy's top-level grid parfor extents; the
-   generated kernels' time, the plain version's (one call: it is a python
-   loop), the one PyTorch call's, the build seconds and ptxas's registers,
-   shared memory and spills per stage;
+   generated kernels' time and each stage's alone (``stage_ms``), the
+   plain version's (one call: it is a python loop), the one PyTorch
+   call's, the bound and the bound under the strategy's grid (the
+   operations' rate scaled by min(1, blocks / SMs) for the stage with the
+   most blocks), the build seconds and ptxas's registers, shared memory and
+   spills per stage;
 8. Fig. 7 on the card: generated / library time for scal, asum, dot and
    gemv at both sizes (a reproduction, no claim);
 9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
@@ -709,6 +712,17 @@ def _dpia_case(kernel, shape, gen, build_s):
                              f"{atol} + rtol {rtol}")
     nbytes, flops = _dpia_work(kernel, shape)
     b_ms, b_by = bound(nbytes, flops, ELEMENTWISE_FLOPS)
+    # under the strategy's grid: its largest stage reaches at most that
+    # many of the card's SMs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = max(s.blocks for s in fn.stages)
+    g_ms, g_by = bound(nbytes, flops,
+                       ELEMENTWISE_FLOPS * min(1.0, blocks / sms))
+    # each stage alone, on the buffers of one call that ran them all
+    launchers, _ = fn.bind(*args)
+    for launch in launchers:
+        launch()
+    stage_ms = [time_auto(launch) for launch in launchers]
     ptx = fn.ptxas()
     return {"program": ops.program_name(kernel, **shape), "kernel": kernel,
             "shape": shape, "stages": len(fn.stages),
@@ -718,18 +732,22 @@ def _dpia_case(kernel, shape, gen, build_s):
             "ptxas": [ptx.get(s.index, {}) for s in fn.stages],
             "build_s": build_s, "max_abs_err": err.max().item(),
             "tol": [atol, rtol],
-            "ms": time_auto(lambda: fn(*args)),
+            "ms": time_auto(lambda: fn(*args)), "stage_ms": stage_ms,
             "eager_ms": eager_auto(lambda: fn(*args)),
             "plain_ms": plain_ms, "plain_calls": 1,
             "library_ms": time_ms(_dpia_library(kernel, args, shape)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by}, {
+                # derived, not measured: logged, kept out of the kernels line
+                "bound_grid_ms": g_ms, "bound_grid_by": g_by, "sms": sms}
 
 
 def phase_dpia(build_s):
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [_dpia_case(k, sh, gen, build_s) for k, sh in DPIA_CASES]
-    for c in cases:
-        log("[7] dpia " + json.dumps(c))
+    cases = []
+    for k, sh in DPIA_CASES:
+        c, under_grid = _dpia_case(k, sh, gen, build_s)
+        log("[7] dpia " + json.dumps({**c, **under_grid}))
+        cases.append(c)
     fig7 = {f"{c['kernel']}_{'x'.join(str(v) for v in c['shape'].values())}":
             c["ms"] / c["library_ms"] for c in cases
             if c["kernel"] in ("scal", "asum", "dot", "gemv")}

@@ -22,19 +22,38 @@ section 6.4).  The host part of that command is walked in order:
     device): the hoisted HBM temporaries.  With the launches, it is the only
     host work.
 
-Inside a kernel (simple and right, not fast):
+Inside a kernel (PERF.md has what each stage costs on the card):
 
-  * every statement is executed by the whole block; an assignment of an
-    array value is a thread-strided loop over its elements followed by
-    ``__syncthreads()`` (the whole-block "lanes" reading of the VPU ops);
+  * a statement whose destination has one element runs on thread 0 alone
+    (:func:`_thread0`); a run of such statements, loops included, is one
+    ``if (threadIdx.x == 0) { ... }`` region with no barrier inside.  A
+    one-element ``new`` that only thread 0 touches is a register (``float
+    v = 0.0f;``).  A global operand that such a loop reads and does not
+    write is first copied into shared memory by the whole block, so
+    ``strategy_asum``'s SEQ combine is one thread's fold over partials in
+    shared memory, in the strategy's order;
+  * every other statement is executed by the whole block: an assignment of
+    an array value is a thread-strided loop over its elements, each thread
+    loading a round of its elements before it stores any
+    (:meth:`_KernelGen.batched`);
+  * ``__syncthreads()`` goes only where an access conflicts with one that
+    other threads made since the last barrier: a read of what they wrote,
+    or a write of what they read or wrote (:meth:`_KernelGen.access`;
+    storage is told apart by kernel parameter, shared memory and scratch);
+    a loop whose body ends in such a conflict with its own beginning ends
+    each iteration in a barrier;
   * acceptor paths and views (split/join/zip/transpose/asVector/asScalar,
     idx) become index arithmetic on the element's multi-index (Fig. 6b);
     pairs are struct-of-arrays, one pointer per leaf;
   * ``fullReduce`` is a block tree reduction (warp shuffles, then shared
-    memory) into a shared scalar; ``dotBlock`` is computed into a block-local
-    buffer first: a block reduction for a dot, one warp per row for a
-    matrix-vector product, one thread per output for a matrix product, all
-    accumulating in fp32 over k;
+    memory) whose result stays in thread 0's register when a thread-0
+    statement consumes it, else goes through shared memory and a barrier;
+    ``dotBlock`` is computed into a block-local buffer first: a block
+    reduction for a dot, one warp per row for a matrix-vector product, and
+    for a matrix product a register-tiled product through shared memory
+    (:meth:`_KernelGen._matmul`: the operand tiles copied with coalesced
+    loads, 8 x 8 outputs per thread, each output's k loop one ``fmaf`` a
+    step from 0.0f, in order), all accumulating in fp32 over k;
   * ``new`` (any space) inside a kernel and those temporaries get block-local
     buffers: shared memory while the block's total fits the 227 KB budget
     (dynamic shared memory, opted in above 48 KB), else a per-block slice of
@@ -57,8 +76,9 @@ Registered as backend ``"cuda"`` (alias ``"dpia-cuda"``).
 
 What bounds the generated kernels on the card: the strategies are the
 reference's, shaped for the TPU, so most stages are bound by too few blocks
-or by a large accumulator kept in global scratch rather than by bytes or
-FLOPs (PERF.md has the numbers).
+(the matmul strategy's 8, gemv's 8-16) or by a large accumulator kept in
+global scratch rather than by bytes or FLOPs; the generator keeps every
+grid and every order of arithmetic the strategy states.
 """
 from __future__ import annotations
 
@@ -76,6 +96,12 @@ from .types import (AccT, Arr, DataType, ExpT, Idx, Num, Pair, VarT, Vec,
 THREADS = 256                       # threads per block, every stage
 SMEM_BUDGET = 232448                # bytes of shared memory a block may use
 SMEM_STATIC_LIMIT = 48 * 1024       # above this, opt in to dynamic smem
+AHEAD = 16                          # loads a thread of a block-wide loop
+                                    # issues ahead of its stores
+STAGE_FLOATS = 16384                # largest global operand of a thread-0
+                                    # loop that the block stages in smem
+TILE = 64                           # dotBlock rows (columns) per register-
+                                    # tile group: 16 threads x one float4
 FST, SND = "f", "s"
 
 launches = 0                        # kernel launches, all generated programs
@@ -118,6 +144,7 @@ class _Buf:
     name: str
     d: DataType
     leaves: Dict[Tuple[str, ...], Tuple[str, Tuple[int, ...]]]
+    reg: bool = False                 # one register per leaf (thread 0's)
 
 
 @dataclass
@@ -278,22 +305,94 @@ def _offset(idx: Sequence[str], shape: Tuple[int, ...]) -> str:
     return off or "0"
 
 
+def _align(n: int) -> int:
+    """``n`` floats rounded up to 16 bytes (a float4)."""
+    return -(-n // 4) * 4
+
+
 class _Arena:
-    """Stack allocator (in floats) that remembers its high-water mark."""
+    """Stack allocator (in floats, each block 16-byte aligned) that
+    remembers its high-water mark."""
 
     def __init__(self):
         self.top = 0
         self.high = 0
 
     def alloc(self, n: int) -> int:
-        off = self.top
-        self.top += n
+        off = _align(self.top)
+        self.top = off + n
         self.high = max(self.high, self.top)
         return off
 
 
+def _commands(p: P.Phrase):
+    """Every assignment and ``new`` of command ``p``, binders instantiated
+    as :class:`_KernelGen` instantiates them (a parfor's body writes through
+    its own acceptor)."""
+    if isinstance(p, (P.Assign, P.New)):
+        yield p
+    if isinstance(p, P.SeqC):
+        yield from _commands(p.c1)
+        yield from _commands(p.c2)
+    elif isinstance(p, P.New):
+        yield from _commands(p.f(P.Var(P.fresh("v"), VarT(p.d))))
+    elif isinstance(p, P.For):
+        yield from _commands(p.f(P.Var(P.fresh("i"), ExpT(Idx(p.n)))))
+    elif isinstance(p, P.ParFor):
+        i = P.Var(P.fresh("i"), ExpT(Idx(p.n)))
+        yield from _commands(p.f(i, P.IdxAcc(p.a, i)))
+    elif isinstance(p, (P.MapI, P.ReduceI)):
+        yield from _commands(stage2.expand(p))
+
+
+def _one_element(d: DataType) -> bool:
+    return all(math.prod(s) == 1 for _, s in leaves(d))
+
+
+def _thread0(a: P.Assign) -> bool:
+    """Does thread 0 run the assignment alone: it writes one element and
+    its value needs no block-wide work (fullReduce, dotBlock)?"""
+    return _one_element(P.acc_data(a.a)) and not any(
+        isinstance(q, (P.FullReduce, P.DotBlock)) for q in _walk(a.e))
+
+
+def _has_loop(p: P.Phrase) -> bool:
+    return any(isinstance(q, (P.For, P.ParFor, P.MapI, P.ReduceI))
+               for q in _walk(p))
+
+
+def _mentions(p: P.Phrase, name: str) -> bool:
+    return any(isinstance(q, P.Var) and q.name == name for q in _walk(p))
+
+
+def _storage(ptr: str) -> str:
+    """What a barrier must order accesses to: a kernel parameter by name,
+    block-local buffers as all of shared memory or all of scratch (the
+    arena reuses their space)."""
+    if ptr.startswith("(smem"):
+        return "smem"
+    if ptr.startswith("(scratch_b"):
+        return "scratch"
+    return ptr
+
+
+def _conflict(x, y) -> bool:
+    """Do two accesses ``(storage, "r" | "w", "t0" | "all")`` need a
+    barrier between them: one writes what the other touches, and they are
+    not both thread 0's?"""
+    return x[0] == y[0] and "w" in (x[1], y[1]) and not x[2] == y[2] == "t0"
+
+
 class _KernelGen:
-    """Emits the body of one ``__global__`` kernel."""
+    """Emits the body of one ``__global__`` kernel.
+
+    Block-wide statements are thread-strided loops; thread-0 statements run
+    inside ``if (threadIdx.x == 0)`` regions (``in_region``; ``single``
+    while a whole thread-0 command is emitted).  ``pending`` holds the
+    accesses made since the last barrier and :meth:`access` emits one only
+    where a new access conflicts with them; ``frames`` holds, for each open
+    block-wide loop, the accesses its body makes before its first barrier,
+    which the end of the body must not conflict with."""
 
     def __init__(self, buffers: Dict[str, _Buf]):
         self.buffers = dict(buffers)
@@ -303,8 +402,13 @@ class _KernelGen:
         self.smem = _Arena()
         self.scratch = _Arena()
         self.n = 0
-        self.temps: Dict[P.Phrase, Tuple[str, Tuple[int, ...]]] = {}
+        self.temps: Dict[P.Phrase, Tuple[str, Tuple[int, ...], bool]] = {}
         self.loads: List[Tuple[str, Tuple[str, ...], str]] = []
+        self.single = False
+        self.in_region = False
+        self.pending: set = set()
+        self.frames: List[list] = []
+        self.capture = None         # (loads, round index) in batched()
 
     # -- helpers ------------------------------------------------------------
 
@@ -319,7 +423,7 @@ class _KernelGen:
         """A block-local buffer of ``nfloats``: shared memory while the
         block's total fits the budget, else the block's global scratch."""
         # the budget less the static reduction buffer ``red``
-        if not force_global and (self.smem.top + nfloats) * 4 \
+        if not force_global and (_align(self.smem.top) + nfloats) * 4 \
                 <= SMEM_BUDGET - 4 * (THREADS // 32):
             return f"(smem + {self.smem.alloc(nfloats)})"
         return f"(scratch_b + {self.scratch.alloc(nfloats)})"
@@ -342,16 +446,112 @@ class _KernelGen:
             idx.append(j)
         return idx
 
-    def strided(self, n: int) -> str:
-        t = self.name("t")
-        self.emit(f"for (int {t} = threadIdx.x; {t} < {n}; "
-                  f"{t} += {THREADS}) {{")
-        self.depth += 1
-        return t
-
     def close(self) -> None:
         self.depth -= 1
         self.emit("}")
+
+    def batched(self, n: int, index, stmt, guard=None) -> None:
+        """Emit a thread-strided loop over ``n`` elements whose loads run
+        ahead of its arithmetic and stores.
+
+        ``index(t)`` emits the index declarations of element ``t`` and
+        returns what ``stmt(idx)`` takes; ``stmt`` emits the statement.
+        Each round of elements first loads, into registers, every memory
+        read ``stmt`` makes (zero where the C condition ``guard(idx)``
+        fails), then runs ``stmt`` on each element in order.  The caller
+        vouches that ``stmt`` writes none of those elements before a later
+        element of the round reads it.  A round holds at most AHEAD loaded
+        values a thread: a store through a pointer that may alias the next
+        element's loads (scratch, the output) keeps the compiler from
+        moving them above it."""
+        t0, u, t = self.name("t"), self.name("u"), self.name("t")
+        outer, depth = self.lines, self.depth
+        self.lines, self.depth = [], depth + 3
+        idx = index(t)
+        idx_lines, self.lines = self.lines, []
+        self.capture = ({}, u)
+        stmt(idx)
+        loads, self.capture = self.capture[0], None
+        stmt_lines, self.lines, self.depth = self.lines, outer, depth
+        rnd = max(1, min(-(-n // THREADS), AHEAD // max(1, len(loads))))
+        self.emit(f"for (int {t0} = threadIdx.x; {t0} < {n}; "
+                  f"{t0} += {THREADS * rnd}) {{")
+        self.depth += 1
+        if loads:
+            arrays = ", ".join(f"{a}[{rnd}]" for a in loads.values())
+            self.emit(f"float {arrays};")
+        cond = f"if ({t} < {n}) {{" if n % (THREADS * rnd) else "{"
+        for part in ("loads", "stmt") if loads else ("stmt",):
+            self.emit("#pragma unroll")
+            self.emit(f"for (int {u} = 0; {u} < {rnd}; ++{u}) {{")
+            self.depth += 1
+            self.emit(f"const int {t} = {t0} + {u} * {THREADS};")
+            self.emit(cond)
+            self.depth += 1
+            self.lines += idx_lines
+            if part == "stmt":
+                self.lines += stmt_lines
+            else:
+                g = guard and guard(idx)
+                for expr, a in loads.items():
+                    self.emit(f"{a}[{u}] = " + (f"({g}) ? {expr} : 0.0f;"
+                                                 if g else f"{expr};"))
+            self.close()
+            self.close()
+        self.close()
+
+    # -- barriers and thread-0 regions ----------------------------------------
+
+    def region(self) -> None:
+        """Open a thread-0 region unless one is open."""
+        if not self.in_region:
+            self.emit("if (threadIdx.x == 0) {")
+            self.depth += 1
+            self.in_region = True
+
+    def end_region(self) -> None:
+        if self.in_region:
+            self.in_region = False
+            self.close()
+
+    def barrier(self) -> None:
+        self.end_region()
+        self.emit("__syncthreads();")
+        self.synced()
+
+    def synced(self) -> None:
+        """Every thread passed a barrier (also those inside the block
+        reductions): what was accessed before is ordered."""
+        self.pending = set()
+        for frame in self.frames:
+            frame[1] = True
+
+    def access(self, reads, writes, who: str) -> None:
+        """Record reads and writes of storage by ``who`` ("t0" or "all"),
+        after a barrier if one conflicts with what is pending."""
+        new = {(k, "r", who) for k in reads} | {(k, "w", who) for k in writes}
+        if any(_conflict(x, y) for x in new for y in self.pending):
+            self.barrier()
+        self.pending |= new
+        for frame in self.frames:
+            if not frame[1]:
+                frame[0] |= new
+
+    def keys(self, *phrases: P.Phrase) -> set:
+        """Storage of the buffers that ``phrases`` name (registers are
+        thread 0's own and never conflict)."""
+        out = set()
+        for p in phrases:
+            for q in _walk(p):
+                buf = self.buffers.get(q.name) if isinstance(q, P.Var) \
+                    else None
+                if buf is not None and not buf.reg:
+                    out |= {_storage(ptr) for ptr, _ in buf.leaves.values()}
+        return out
+
+    def temp_keys(self) -> set:
+        return {_storage(ptr) for ptr, _, reg in self.temps.values()
+                if not reg}
 
     # -- indices --------------------------------------------------------------
 
@@ -370,23 +570,37 @@ class _KernelGen:
 
     # -- r-values: one element of an expression (Fig. 6c) ----------------------
 
+    def at(self, name: str, comps: Tuple[str, ...], off: str) -> str:
+        """The C l-value of a buffer leaf at flat offset ``off``."""
+        buf = self.buffers[name]
+        ptr = buf.leaves[comps][0]
+        return ptr if buf.reg else f"{ptr}[{off}]"
+
     def load(self, name: str, idx: List[str], comps: Tuple[str, ...]) -> str:
         buf = self.buffers[name]
         if comps not in buf.leaves:
             raise TypeError(f"read of {name!r} at pair path {comps} is not a "
                             f"leaf")
-        ptr, shape = buf.leaves[comps]
-        off = _offset(idx, shape)
+        off = _offset(idx, buf.leaves[comps][1])
         self.loads.append((name, comps, off))
-        return f"{ptr}[{off}]"
+        expr = self.at(name, comps, off)
+        return expr if buf.reg else self.fetch(expr)
+
+    def fetch(self, expr: str) -> str:
+        """A memory read ``expr``, or its register where :meth:`batched`
+        loads it ahead."""
+        if self.capture is None:
+            return expr
+        loads, u = self.capture
+        return f"{loads.setdefault(expr, self.name('p'))}[{u}]"
 
     def elem(self, e: P.Phrase, idx: List[str],  # noqa: C901
              comps: Tuple[str, ...] = ()) -> str:
         """C expression of the element of ``e`` at ``idx`` (pair path
         ``comps``)."""
         if e in self.temps:
-            ptr, shape = self.temps[e]
-            return f"{ptr}[{_offset(idx, shape)}]"
+            ptr, shape, reg = self.temps[e]
+            return ptr if reg else self.fetch(f"{ptr}[{_offset(idx, shape)}]")
         if isinstance(e, P.Var):
             if isinstance(e.t.d, Idx):
                 return f"((float){self.index(e)})"
@@ -486,101 +700,225 @@ class _KernelGen:
 
     # -- values that need the whole block first: fullReduce, dotBlock ---------
 
-    def materialise(self, e: P.Phrase) -> None:
+    def materialise(self, e: P.Phrase, to_reg: bool = False) -> None:
         """Compute every fullReduce / dotBlock under ``e`` (innermost first)
-        into block-local temporaries that :meth:`elem` then reads."""
+        into block-local temporaries that :meth:`elem` then reads.  With
+        ``to_reg`` (only thread 0 reads ``e``) a scalar result stays in
+        thread 0's register."""
         if e in self.temps or isinstance(e, (P.Var, P.Lit)):
             return
+        inner = to_reg and not isinstance(e, (P.FullReduce, P.DotBlock))
         for attr in ("e", "a", "b"):
             c = getattr(e, attr, None)
             if isinstance(c, P.Phrase):
-                self.materialise(c)
+                self.materialise(c, inner)
         if isinstance(e, P.FullReduce):
-            self._full_reduce(e)
+            shape = shape_of(P.exp_data(e.e))
+            self.temps[e] = self._block_reduce(
+                e.op, math.prod(shape), lambda t: self.decompose(t, shape),
+                lambda idx: self.elem(e.e, idx), (e.e,), to_reg)
         elif isinstance(e, P.DotBlock):
-            self._dot_block(e)
+            self._dot_block(e, to_reg)
 
-    def _block_reduce(self, op: str, n: int, term) -> str:
-        """Emit a block reduction of ``term(t)`` over ``n`` elements into a
-        shared scalar; returns the scalar's pointer."""
+    def _block_reduce(self, op: str, n: int, index, term, operands,
+                      to_reg: bool):
+        """Emit a block reduction of ``term(index(t))`` over ``n`` elements
+        (``index`` and ``term`` as :meth:`batched` takes them); returns the
+        temporary: thread 0's register with ``to_reg``, else a shared scalar
+        that every thread may read."""
+        self.end_region()
+        self.access(self.keys(*operands) | self.temp_keys(), (), "all")
         r = self.name("r")
         init = "0.0f" if op == "add" else "(-INFINITY)"
         self.emit(f"float {r} = {init};")
-        t = self.strided(n)
-        v = term(t)
-        self.emit(f"{r} = {r} + {v};" if op == "add"
-                  else f"{r} = fmaxf({r}, {v});")
-        self.close()
+        self.batched(n, index, lambda idx: self.emit(
+            f"{r} = {r} + {term(idx)};" if op == "add"
+            else f"{r} = fmaxf({r}, {term(idx)});"))
         fn = "dpia_block_sum" if op == "add" else "dpia_block_max"
         self.emit(f"{r} = {fn}({r}, red);")
+        self.synced()               # the reduction's barriers order the reads
+        if to_reg:
+            return r, (), True
         ptr = self.local(1)
         self.emit(f"if (threadIdx.x == 0) {ptr}[0] = {r};")
-        self.emit("__syncthreads();")
-        return ptr
+        self.barrier()
+        return ptr, (), False
 
-    def _full_reduce(self, e: P.FullReduce) -> None:
-        shape = shape_of(P.exp_data(e.e))
-        self.emit("{")
-        self.depth += 1
-        ptr = self._block_reduce(
-            e.op, math.prod(shape),
-            lambda t: self.elem(e.e, self.decompose(t, shape)))
-        self.close()
-        self.temps[e] = (ptr, ())
-
-    def _dot_block(self, e: P.DotBlock) -> None:
+    def _dot_block(self, e: P.DotBlock, to_reg: bool) -> None:
         sa, sb = shape_of(P.exp_data(e.a)), shape_of(P.exp_data(e.b))
-        self.emit("{")
-        self.depth += 1
-        kk = self.name("k")
         if len(sa) == 1:                                  # (k,).(k,) -> num
-            ptr = self._block_reduce(
-                "add", sa[0],
-                lambda t: f"{self.elem(e.a, [t])} * {self.elem(e.b, [t])}")
-            self.close()
-            self.temps[e] = (ptr, ())
+            self.temps[e] = self._block_reduce(
+                "add", sa[0], lambda t: [t],
+                lambda i: f"{self.elem(e.a, i)} * {self.elem(e.b, i)}",
+                (e.a, e.b), to_reg)
             return
         n, k = sa
-        if len(sb) == 1:                 # (n,k).(k,) -> (n,): a warp per row
-            out = self.local(n)
-            row, s = self.name("row"), self.name("s")
-            self.emit(f"for (int {row} = threadIdx.x / 32; {row} < {n}; "
-                      f"{row} += {THREADS // 32}) {{")
-            self.depth += 1
-            self.emit(f"float {s} = 0.0f;")
-            self.emit(f"for (int {kk} = threadIdx.x % 32; {kk} < {k}; "
-                      f"{kk} += 32)")
-            self.emit(f"  {s} += {self.elem(e.a, [row, kk])} * "
-                      f"{self.elem(e.b, [kk])};")
-            self.emit(f"{s} = dpia_warp_sum({s});")
-            self.emit(f"if (threadIdx.x % 32 == 0) {out}[{row}] = {s};")
-            self.close()
-            shape = (n,)
-        else:                        # (n,k).(k,m) -> (n,m): a thread per output
-            m = sb[1]
-            out = self.local(n * m)
-            t = self.strided(n * m)
-            i, j = self.decompose(t, (n, m))
-            s = self.name("s")
-            self.emit(f"float {s} = 0.0f;")
-            self.emit(f"for (int {kk} = 0; {kk} < {k}; ++{kk})")
-            self.emit(f"  {s} += {self.elem(e.a, [i, kk])} * "
-                      f"{self.elem(e.b, [kk, j])};")
-            self.emit(f"{out}[{t}] = {s};")
-            self.close()
-            shape = (n, m)
-        self.emit("__syncthreads();")
+        if len(sb) == 2:
+            self._matmul(e, n, k, sb[1])
+            return
+        # (n,k).(k,) -> (n,): a warp per row
+        out = self.local(n)
+        self.end_region()
+        self.access(self.keys(e.a, e.b) | self.temp_keys(),
+                    {_storage(out)}, "all")
+        kk, row, s = self.name("k"), self.name("row"), self.name("s")
+        self.emit(f"for (int {row} = threadIdx.x / 32; {row} < {n}; "
+                  f"{row} += {THREADS // 32}) {{")
+        self.depth += 1
+        self.emit(f"float {s} = 0.0f;")
+        self.emit(f"for (int {kk} = threadIdx.x % 32; {kk} < {k}; "
+                  f"{kk} += 32)")
+        self.emit(f"  {s} += {self.elem(e.a, [row, kk])} * "
+                  f"{self.elem(e.b, [kk])};")
+        self.emit(f"{s} = dpia_warp_sum({s});")
+        self.emit(f"if (threadIdx.x % 32 == 0) {out}[{row}] = {s};")
         self.close()
-        self.temps[e] = (out, shape)
+        self.barrier()
+        self.temps[e] = (out, (n,), False)
+
+    def _tiles(self, n: int, k: int, m: int) -> Tuple[int, int, int]:
+        """(row groups, column groups, k chunk) of a matrix-product
+        dotBlock's shared-memory tiles: the largest that fit beside what is
+        allocated, A's whole k first, then narrower B panels, then shorter
+        k chunks (at least one k step, which may spill to scratch)."""
+        free = (SMEM_BUDGET - 4 * (THREADS // 32)) // 4 - _align(self.smem.top)
+        hm, hn = (2 if n > TILE else 1), (2 if m > TILE else 1)
+        per_k = 0
+        for gm, gn in dict.fromkeys([(hm, hn), (hm, 1), (1, 1)]):
+            per_k = gm * TILE + 4 + gn * TILE     # A row padded by 4 floats
+            if k * per_k <= free:
+                return gm, gn, k
+        return 1, 1, max(1, min(k, free // per_k))
+
+    def _matmul(self, e: P.DotBlock, n: int, k: int, m: int) -> None:
+        """(n,k).(k,m) -> (n,m), register-tiled through shared memory.
+
+        A is copied (transposed, rows padded by 4 floats) as PM x KC tiles
+        and B as KC x PN panels, each element through :meth:`elem` in
+        coalesced order, zero beyond the edges.  Thread (ty, tx) of a
+        16 x 16 grid keeps the outputs at rows h * 64 + 4 ty + (0..3) and
+        columns h * 64 + 4 tx + (0..3) in registers (8 x 8 at the full
+        tile) and reads its operands as float4s; each output's k loop runs
+        from 0.0f in order, one ``fmaf`` a step, as ``s += a * b`` does
+        under nvcc's default ``--fmad=true``.  The outputs are stored,
+        masked, into the block-local temporary."""
+        out = self.local(n * m)
+        mark = self.mark()
+        hm, hn, kc = self._tiles(n, k, m)
+        pm, pn, lda = hm * TILE, hn * TILE, hm * TILE + 4
+        a_s, b_s = self.local(kc * lda), self.local(kc * pn)
+        self.end_region()
+        self.access(self.keys(e.a, e.b) | self.temp_keys(),
+                    {_storage(p) for p in (out, a_s, b_s)}, "all")
+        ty, tx, rp, cp = (self.name(x) for x in ("ty", "tx", "rp", "cp"))
+        k0 = self.name("kc") if kc < k else "0"
+        self.emit(f"const int {ty} = threadIdx.x / 16, "
+                  f"{tx} = threadIdx.x % 16;")
+        if n > pm:
+            self.emit(f"for (int {rp} = 0; {rp} < {n}; {rp} += {pm}) {{")
+            self.depth += 1
+        else:
+            self.emit(f"const int {rp} = 0;")
+
+        def copy(x, rows, cols, i, j, limits, at):
+            """Copy element [i(r), j(c)] of operand ``x`` for a rows x cols
+            tile into ``at(r, c)``, c fastest (coalesced for a row-major
+            operand), zero where i or j reaches its limit (None: never)."""
+            def index(t):
+                r, c = self.name("r"), self.name("c")
+                self.emit(f"const int {r} = {t} / {cols}, {c} = {t} % {cols};")
+                return r, c
+
+            def guard(rc):
+                return " && ".join(f"{v} < {lim}" for v, lim in zip(
+                    (i(rc[0]), j(rc[1])), limits) if lim) or None
+            self.batched(rows * cols, index, lambda rc: self.emit(
+                f"{at(*rc)} = {self.elem(x, [i(rc[0]), j(rc[1])])};"), guard)
+
+        def copy_a():                       # a_s[k][row], rows padded
+            copy(e.a, pm, kc, lambda r: f"{rp} + {r}", lambda c: f"{k0} + {c}",
+                 (n % pm and n, k % kc and k),
+                 lambda r, c: f"{a_s}[{c} * {lda} + {r}]")
+
+        def copy_b():                       # b_s[k][column]
+            copy(e.b, kc, pn, lambda r: f"{k0} + {r}", lambda c: f"{cp} + {c}",
+                 (k % kc and k, m % pn and m),
+                 lambda r, c: f"{b_s}[{r} * {pn} + {c}]")
+
+        if kc == k:
+            if n > pm:
+                self.barrier()              # the last row panel's reads
+            copy_a()
+        self.emit(f"for (int {cp} = 0; {cp} < {m}; {cp} += {pn}) {{")
+        self.depth += 1
+        acc, av, bv = self.name("acc"), self.name("a"), self.name("b")
+        rows, cols = 4 * hm, 4 * hn
+        self.emit(f"float {acc}[{rows}][{cols}];")
+        self.emit("#pragma unroll")
+        self.emit(f"for (int i = 0; i < {rows}; ++i)")
+        self.emit("#pragma unroll")
+        self.emit(f"  for (int j = 0; j < {cols}; ++j) {acc}[i][j] = 0.0f;")
+        if kc < k:
+            self.emit(f"for (int {k0} = 0; {k0} < {k}; {k0} += {kc}) {{")
+            self.depth += 1
+        self.barrier()                      # the last panel's reads
+        if kc < k:
+            copy_a()
+        copy_b()
+        self.barrier()
+        kn = str(kc) if k % kc == 0 else f"min({kc}, {k} - {k0})"
+        kk = self.name("kk")
+        self.emit("#pragma unroll 4")
+        self.emit(f"for (int {kk} = 0; {kk} < {kn}; ++{kk}) {{")
+        self.depth += 1
+        self.emit(f"float {av}[{rows}], {bv}[{cols}];")
+        for v, ptr, ld, t, groups in ((av, a_s, lda, ty, hm),
+                                      (bv, b_s, pn, tx, hn)):
+            for h in range(groups):
+                f4 = self.name("f")
+                self.emit(f"const float4 {f4} = *reinterpret_cast<const "
+                          f"float4*>({ptr} + {kk} * {ld} + {h * TILE} + "
+                          f"4 * {t});")
+                self.emit(f"{v}[{4 * h}] = {f4}.x; {v}[{4 * h + 1}] = "
+                          f"{f4}.y; {v}[{4 * h + 2}] = {f4}.z; "
+                          f"{v}[{4 * h + 3}] = {f4}.w;")
+        self.emit("#pragma unroll")
+        self.emit(f"for (int i = 0; i < {rows}; ++i)")
+        self.emit("#pragma unroll")
+        self.emit(f"  for (int j = 0; j < {cols}; ++j)")
+        self.emit(f"    {acc}[i][j] = fmaf({av}[i], {bv}[j], {acc}[i][j]);")
+        self.close()                        # kk
+        if kc < k:
+            self.close()                    # k chunks
+        self.emit("#pragma unroll")
+        self.emit(f"for (int i = 0; i < {rows}; ++i)")
+        self.emit("#pragma unroll")
+        self.emit(f"  for (int j = 0; j < {cols}; ++j) {{")
+        self.emit(f"    const int r = {rp} + (i / 4) * {TILE} + 4 * {ty} "
+                  f"+ i % 4, c = {cp} + (j / 4) * {TILE} + 4 * {tx} + j % 4;")
+        self.emit(f"    if (r < {n} && c < {m}) {out}[r * {m} + c] = "
+                  f"{acc}[i][j];")
+        self.emit("  }")
+        self.close()                        # column panels
+        if n > pm:
+            self.close()                    # row panels
+        self.barrier()
+        self.release(mark)
+        self.temps[e] = (out, (n, m), False)
 
     # -- commands -------------------------------------------------------------
 
-    def comm(self, p: P.Phrase) -> None:  # noqa: C901
+    def comm(self, p: P.Phrase) -> None:
         if isinstance(p, P.Skip):
             return
         if isinstance(p, P.SeqC):
             self.comm(p.c1)
             self.comm(p.c2)
+        elif isinstance(p, (P.MapI, P.ReduceI)):
+            self.comm(stage2.expand(p))
+        elif not self.single and all(
+                _thread0(c) for c in _commands(p) if isinstance(c, P.Assign)):
+            self.thread0(p)
         elif isinstance(p, P.Assign):
             self.assign(p.a, p.e)
         elif isinstance(p, P.New):
@@ -593,35 +931,132 @@ class _KernelGen:
             # strategy put it below the grid level on purpose)
             i = P.Var(P.fresh("i"), ExpT(Idx(p.n)))
             self.loop(p.n, i, p.f(i, P.IdxAcc(p.a, i)))
-        elif isinstance(p, (P.MapI, P.ReduceI)):
-            self.comm(stage2.expand(p))
         else:
             raise TypeError(f"not a command: {type(p).__name__}")
+
+    def thread0(self, p: P.Phrase) -> None:
+        """Emit a command that only thread 0 runs into a thread-0 region,
+        after a barrier if what it touches conflicts with what is pending.
+
+        If it loops, each global operand it reads and does not write (up to
+        STAGE_FLOATS) is first copied into shared memory by the whole block,
+        coalesced and a round of loads ahead: thread 0's loads then wait on
+        shared memory, not on L2 (ptxas keeps only a few of a lone thread's
+        global loads in flight, however far the source unrolls them)."""
+        assigns = [c for c in _commands(p) if isinstance(c, P.Assign)]
+        written = {q.name for c in assigns for q in _walk(c.a)
+                   if isinstance(q, P.Var)}
+        read = {q.name for c in assigns for q in _walk(c.e)
+                if isinstance(q, P.Var) and q.name in self.buffers}
+        mark, saved = self.mark(), {}
+        for name in sorted(read - written) if _has_loop(p) else ():
+            buf = self.buffers[name]
+            size = sum(math.prod(s) for _, s in buf.leaves.values())
+            if buf.reg or size > STAGE_FLOATS or any(
+                    _storage(ptr) != ptr for ptr, _ in buf.leaves.values()):
+                continue
+            lv = {}
+            for comps, (ptr, shape) in buf.leaves.items():
+                copy = self.local(math.prod(shape))
+                if _storage(copy) != "smem":
+                    break
+                self.end_region()
+                self.access({ptr}, {"smem"}, "all")
+                self.batched(math.prod(shape), lambda t: t,
+                             lambda t, c=copy, g=ptr: self.emit(
+                                 f"{c}[{t}] = {self.fetch(f'{g}[{t}]')};"))
+                lv[comps] = (copy, shape)
+            else:
+                saved[name] = buf
+                self.buffers[name] = _Buf(name, buf.d, lv)
+        reads, writes = set(), set()
+        for c in _commands(p):
+            if isinstance(c, P.Assign):
+                reads |= self.keys(c.e)
+                writes |= self.keys(c.a)
+            elif not self._register(c):
+                writes |= {"smem", "scratch"}
+        self.access(reads, writes, "t0")
+        self.region()
+        self.single = True
+        self.comm(p)
+        self.single = False
+        self.buffers.update(saved)
+        self.release(mark)
+
+    def _register(self, p: P.New, body: Optional[P.Phrase] = None,
+                  name: str = "") -> bool:
+        """Is ``new`` one register per leaf: one element, not in HBM, and
+        touched by thread-0 assignments only (all of them are when it is
+        emitted on thread 0, or its ``body`` is not given)?"""
+        if p.space == P.HBM or not _one_element(p.d):
+            return False
+        return self.single or body is None or all(
+            _thread0(c) for c in _commands(body)
+            if isinstance(c, P.Assign) and _mentions(c, name))
 
     def loop(self, n: int, i: P.Var, body: P.Phrase, unroll=False) -> None:
         c = self.name("i")
         self.ivars[i.name] = c
+        if self.single:
+            if unroll:
+                self.emit("#pragma unroll")
+            self.emit(f"for (int {c} = 0; {c} < {n}; ++{c}) {{")
+            self.depth += 1
+            self.comm(body)
+            self.close()
+            return
+        self.end_region()
         if unroll:
             self.emit("#pragma unroll")
         self.emit(f"for (int {c} = 0; {c} < {n}; ++{c}) {{")
         self.depth += 1
+        frame = [set(), False]
+        self.frames.append(frame)
         self.comm(body)
+        self.end_region()
+        self.frames.pop()
+        # the next iteration's first accesses against this one's last
+        if any(_conflict(x, y) for x in frame[0] for y in self.pending):
+            self.barrier()
         self.close()
 
     def new(self, p: P.New) -> None:
         v = P.Var(P.fresh("kbuf"), VarT(p.d))
+        body = p.f(v)
         mark = self.mark()
         lv = {}
-        for comps, shape in leaves(p.d):
-            size = math.prod(shape)
-            ptr = self.local(size, force_global=p.space == P.HBM)
-            lv[comps] = (ptr, shape)
-            t = self.strided(size)
-            self.emit(f"{ptr}[{t}] = 0.0f;")
-            self.close()
-        self.emit("__syncthreads();")
-        self.buffers[v.name] = _Buf(v.name, p.d, lv)
-        self.comm(p.f(v))
+        reg = self._register(p, body, v.name)
+        if reg:
+            if not self.single:
+                self.end_region()
+            for comps, shape in leaves(p.d):
+                r = self.name("v")
+                self.emit(f"float {r} = 0.0f;")
+                lv[comps] = (r, shape)
+        else:
+            for comps, shape in leaves(p.d):
+                lv[comps] = (self.local(math.prod(shape),
+                                        force_global=p.space == P.HBM), shape)
+            where = {_storage(ptr) for ptr, _ in lv.values()}
+            if self.single:
+                for ptr, shape in lv.values():
+                    self.emit(f"for (int t = 0; t < {math.prod(shape)}; ++t) "
+                              f"{ptr}[t] = 0.0f;")
+            elif _one_element(p.d):
+                self.access((), where, "t0")
+                self.region()
+                for ptr, _ in lv.values():
+                    self.emit(f"{ptr}[0] = 0.0f;")
+            else:
+                self.end_region()
+                self.access((), where, "all")
+                for ptr, shape in lv.values():
+                    self.batched(math.prod(shape), lambda t: t,
+                                 lambda t, ptr=ptr: self.emit(
+                                     f"{ptr}[{t}] = 0.0f;"))
+        self.buffers[v.name] = _Buf(v.name, p.d, lv, reg)
+        self.comm(body)
         del self.buffers[v.name]
         self.release(mark)
 
@@ -639,24 +1074,43 @@ class _KernelGen:
     def assign(self, a: P.Phrase, e: P.Phrase) -> None:
         mark = self.mark()
         self.temps = {}
-        self.materialise(e)
-        for comps, shape in leaves(P.acc_data(a)):
-            n = math.prod(shape)
-            staged = self._reads_other_elements(a, e, shape, comps)
-            if staged:
-                tmp = self.local(n)
-                t = self.strided(n)
-                self.emit(f"{tmp}[{t}] = "
-                          f"{self.elem(e, self.decompose(t, shape), comps)};")
-                self.close()
-                self.emit("__syncthreads();")
-            t = self.strided(n)
-            idx = self.decompose(t, shape)
-            root, rc, off = self.dest(a, idx, comps)
-            value = f"{tmp}[{t}]" if staged else self.elem(e, idx, comps)
-            self.emit(f"{self.buffers[root].leaves[rc][0]}[{off}] = {value};")
-            self.close()
-            self.emit("__syncthreads();")
+        one = _one_element(P.acc_data(a))
+        self.materialise(e, to_reg=one)
+        reads, writes = self.keys(e) | self.temp_keys(), self.keys(a)
+        if one:                             # thread 0 alone
+            if not self.single:
+                self.access(reads, writes, "t0")
+                self.region()
+            for comps, shape in leaves(P.acc_data(a)):
+                idx = ["0"] * len(shape)
+                root, rc, off = self.dest(a, idx, comps)
+                self.emit(f"{self.at(root, rc, off)} = "
+                          f"{self.elem(e, idx, comps)};")
+        else:
+            self.end_region()
+            for comps, shape in leaves(P.acc_data(a)):
+                n = math.prod(shape)
+                tmp = None
+                if self._reads_other_elements(a, e, shape, comps):
+                    tmp = self.local(n)
+                    self.access(reads, {_storage(tmp)}, "all")
+                    self.batched(
+                        n, lambda t, s=shape: self.decompose(t, s),
+                        lambda idx, s=shape, c=comps, tmp=tmp: self.emit(
+                            f"{tmp}[{_offset(idx, s)}] = "
+                            f"{self.elem(e, idx, c)};"))
+                # with tmp, the write conflicts with the reads of the
+                # destination above: access puts a barrier between them
+                self.access({_storage(tmp)} if tmp else reads, writes, "all")
+
+                def store(idx, comps=comps, tmp=tmp):
+                    root, rc, off = self.dest(a, idx, comps)
+                    value = (f"{tmp}[{_offset(idx, shape)}]" if tmp
+                             else self.elem(e, idx, comps))
+                    self.emit(f"{self.at(root, rc, off)} = {value};")
+                # each element reads the destination at most where it
+                # writes it, so a round's loads may all come first
+                self.batched(n, lambda t, s=shape: self.decompose(t, s), store)
         self.temps = {}
         self.release(mark)
 
@@ -776,10 +1230,11 @@ class _ProgramGen:
         gen.emit("(void)scratch_b;")
         for c in cmds:
             gen.comm(c)
-        st = Stage(k, kind, grid, THREADS, gen.smem.high * 4,
-                   gen.scratch.high * 4)
+        gen.end_region()
+        scratch = _align(gen.scratch.high)    # each block's slice 16-aligned
+        st = Stage(k, kind, grid, THREADS, gen.smem.high * 4, scratch * 4)
         self.stages.append(st)
-        self.bodies.append(("\n".join(gen.lines), gen.scratch.high))
+        self.bodies.append(("\n".join(gen.lines), scratch))
 
     def render(self, st: Stage, body: str, scratch_floats: int) -> str:
         """The kernel and its C launcher, with the program's final
@@ -896,19 +1351,30 @@ class GeneratedProgram:
             return run_command(self.cmd, self.out.t.d,
                                [v.name for v in self.arg_vars],
                                self.out.name, args)
-        if devices != {"cuda"}:
-            raise ValueError(f"{self.name}: no kernel for devices "
-                             f"{sorted(devices)}")
-        return self._launch(args, tensors[0].device)
+        launchers, out = self.bind(*args)
+        for launch in launchers:
+            launch()
+        return out
 
-    def _launch(self, args, device):
-        global launches
+    def bind(self, *args):
+        """The launches of one call on CUDA tensors ``args``: returns
+        ``(launchers, out)``, one zero-argument callable per stage, bound to
+        outputs, hoisted temporaries and scratch allocated here, and the
+        output they fill when called in order.  Each launches its stage on
+        the current stream, counts it and raises if the launch fails; a
+        stage may be called alone (chip_smoke times each stage so)."""
         import torch
 
         from ...kernels import _build
         if len(args) != len(self.arg_vars):
             raise TypeError(f"{self.name}: {len(self.arg_vars)} arguments, "
                             f"got {len(args)}")
+        tensors = [a for a in _flat(args) if isinstance(a, torch.Tensor)]
+        devices = {t.device.type for t in tensors}
+        if devices != {"cuda"}:
+            raise ValueError(f"{self.name}: no kernel for devices "
+                             f"{sorted(devices)}")
+        device = tensors[0].device
         ptrs: List[int] = []
         keep = []                    # converted arguments live to the launch
         for v, a in zip(self.arg_vars, args):
@@ -939,17 +1405,24 @@ class GeneratedProgram:
                 for _, d in self.plan.host for _, shape in leaves(d)]
         scratch = torch.empty(max(1, self.plan.scratch_bytes // 4),
                               dtype=torch.float32, device=device)
+        keep += out_leaves + host + [scratch]
         ptrs += [t.data_ptr() for t in out_leaves + host]
         ptrs.append(scratch.data_ptr())
         self.build()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            for st, fn in zip(self.stages, self._fns):
-                _build.check(fn(*ptrs, stream),
-                             f"{self.name} stage {st.index}")
+
+        def launcher(st, fn):
+            def launch():
+                global launches
+                with torch.cuda.device(device):
+                    stream = torch.cuda.current_stream(device).cuda_stream
+                    _build.check(fn(*ptrs, stream),
+                                 f"{self.name} stage {st.index}")
                 self.launches += 1
                 launches += 1
-        return _unflatten(self.out.t.d, iter(out_leaves))
+            launch.buffers = keep     # what ``ptrs`` point into lives on
+            return launch
+        return ([launcher(st, fn) for st, fn in zip(self.stages, self._fns)],
+                _unflatten(self.out.t.d, iter(out_leaves)))
 
     def __repr__(self):
         return (f"<GeneratedProgram {self.name!r}: "

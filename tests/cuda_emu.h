@@ -4,7 +4,8 @@
 // __shfl_xor_sync an exchange through memory with a barrier per warp;
 // __shared__ arrays become statics (one block runs at a time).  The test
 // that includes it rewrites each <<<grid, threads, smem, stream>>> launch
-// into emu_launch(grid, threads, body).
+// into emu_launch(grid, threads, body).  Vector types are plain structs
+// (float4 aligned to 16 bytes, as the kernels' vector loads expect).
 //
 // The warp-level primitives of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
 // cp.async) are emulated here with the PTX ISA's fragment layouts (see the
@@ -31,6 +32,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {   // round to nearest even
   uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1);
   return {(uint16_t)(u >> 16)};
 }
+struct alignas(16) float4 { float x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;

@@ -303,6 +303,12 @@ GENERATED = {
                [(256, 256), (256, 384)]),
     "matmul_big_acc": (lambda: dpia_blas.strategy_matmul(128, 128, 2560),
                        [(128, 128), (128, 2560)]),
+    # dotBlock's register-tiled product with ragged panels and k, and with
+    # its tiles shrunk beside a 192 KB accumulator in shared memory
+    "matmul_ragged": (lambda: dpia_blas.strategy_matmul(130, 74, 150, 130, 37),
+                      [(130, 74), (74, 150)]),
+    "matmul_shrunk": (lambda: dpia_blas.strategy_matmul(8, 100, 6000, 8, 100),
+                      [(8, 100), (100, 6000)]),
     "naive_dot": (lambda: dpia_blas.naive_dot(4096), [(4096,), (4096,)]),
     "naive_matmul": (lambda: dpia_blas.naive_matmul(16, 24, 8),
                      [(16, 24), (24, 8)]),
@@ -328,6 +334,23 @@ def test_generated_program_matches_torch_stage3(cuda_device, name):
     want = prog.compile("torch")(*args)
     scale = max(1.0, want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("name", ["asum", "dot", "matmul", "matmul_big_acc"])
+def test_generated_program_is_bitwise_deterministic(cuda_device, name):
+    """asum and dot sum in the strategy's fixed order (a block tree per
+    grid block, then one thread's fold over the partials) and matmul in one
+    FMA chain per output: two calls on the same inputs agree bit for
+    bit."""
+    build, shapes = GENERATED[name]
+    fn = Program.from_builder(build, name=name).check().lower().compile(
+        "cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    args = [torch.randn(s, generator=g, device=cuda_device) for s in shapes]
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("op,args", [

@@ -408,6 +408,12 @@ STAGE3_CASES = {
                                                         bk=32),
     "grid_rmsnorm": lambda pkg: pkg.blas.strategy_rmsnorm(16, 64,
                                                           row_block=4),
+    # the generated CUDA's ragged and shrunk dotBlock tilings
+    # (test_torch_emulated.py) are held to this Stage III
+    "matmul_ragged": lambda pkg: pkg.blas.strategy_matmul(130, 74, 150,
+                                                          bm=130, bk=37),
+    "matmul_shrunk": lambda pkg: pkg.blas.strategy_matmul(8, 100, 6000,
+                                                          bm=8, bk=100),
     "vectorised_scal": _vectorised_scal,
     "quickstart_dot": _quickstart_dot,
     "pair_output": _pair_output,

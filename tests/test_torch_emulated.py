@@ -27,7 +27,7 @@ import torch
 from repro_torch.compiler import Program
 from repro_torch.core.dpia import phrases as P
 from repro_torch.core.dpia import stage3_cuda
-from repro_torch.core.dpia.types import Arr, Num
+from repro_torch.core.dpia.types import Arr, Idx, Num
 from repro_torch.kernels import _build
 from repro_torch.kernels import dpia_blas as B
 from repro_torch.kernels import ref
@@ -87,6 +87,16 @@ STRATEGIES = {
     # a bm x n accumulator above the shared-memory budget: global scratch
     "matmul_scratch": (lambda: B.strategy_matmul(8, 8, 8192, bm=8, bk=8),
                        [(8, 8), (8, 8192)]),
+    # dotBlock (n,k).(k,m) ragged everywhere: n = 130 and m = 150 against
+    # the 8 x 8 register tile and the 128-row / 128-column panels (a second
+    # panel of 2 rows, of 22 columns), k = 37 against the copies' 256
+    # threads
+    "matmul_ragged": (lambda: B.strategy_matmul(130, 74, 150, bm=130, bk=37),
+                      [(130, 74), (74, 150)]),
+    # a 192 KB accumulator in shared memory leaves the dotBlock's tiles
+    # room for k chunks of 76 of 100: narrower panels, a ragged last chunk
+    "matmul_shrunk": (lambda: B.strategy_matmul(8, 100, 6000, bm=8, bk=100),
+                      [(8, 100), (100, 6000)]),
     "naive_matmul": (lambda: B.naive_matmul(4, 3, 5), [(4, 3), (3, 5)]),
     "naive_asum": (lambda: B.naive_asum(16), [(16,)]),
 }
@@ -151,6 +161,41 @@ def test_hoisted_temporary_and_self_reading_assignment(gxx, rng):
     a = torch.tensor(rng.randn(16), dtype=torch.float32)
     got = _run(gxx("clash", _emulated(fn.source)), fn._fn, [a])
     np.testing.assert_array_equal(got.numpy(), a.reshape(4, 4).T.numpy())
+
+
+def test_thread0_and_block_wide_statements_alternate(gxx, rng):
+    """Thread 0 reads elements other threads wrote and the block reads what
+    thread 0 wrote, in turn and across a loop's iterations: each needs the
+    barrier the generator places.  ``s`` has one element but a block-wide
+    statement reads it, so it lives in shared memory, not a register."""
+    xs = P.var_exp("xs", Arr(64, Num()))
+    out = P.var_acc("out", Arr(64, Num()))
+    last = P.Lit(63, Idx(64))
+
+    def steps(s, v):        # v := xs; s := v[63]; 3 x (v -= s; s += v[63])
+        return P.SeqC(P.SeqC(
+            P.Assign(P.AccPart(v), xs),
+            P.Assign(P.AccPart(s), P.IdxE(P.ExpPart(v), last))),
+            P.For(3, lambda r: P.SeqC(
+                P.Assign(P.AccPart(v), P.sub(P.ExpPart(v), P.ExpPart(s))),
+                P.Assign(P.AccPart(s), P.add(P.ExpPart(s), P.IdxE(
+                    P.ExpPart(v), last))))))
+    cmd = P.New(Num(), lambda s: P.New(Arr(64, Num()), lambda v: P.SeqC(
+        steps(s, v), P.Assign(out, P.ExpPart(v))), space=P.VMEM), space=P.REG)
+    prog = Program.from_imperative(cmd, [xs], out).check()
+    fn = prog.compile("cuda")
+    body = fn.source[fn.source.index("dpia_stage0("):]
+    # s: written by thread 0 in shared memory, no register
+    assert re.search(r"if \(threadIdx\.x == 0\) \{\s+\(smem \+ \d+\)\[0\] = ",
+                     body)
+    assert not re.search(r"float v\d+ = 0\.0f;", body)
+    a = torch.tensor(rng.randn(64), dtype=torch.float32)
+    want = prog.compile("torch")(a)
+    lib = gxx("alternate", _emulated(fn.source))
+    for _ in range(20):             # a missing barrier loses a race at times
+        got = _run(lib, fn._fn, [a])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.fixture(scope="module")

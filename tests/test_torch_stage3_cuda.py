@@ -9,6 +9,8 @@ the generator does not emit raises; and on CPU tensors the "cuda" backend
 computes the torch Stage III's result and launches nothing.
 tests/test_torch_cuda.py runs the generated kernels on the card.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -138,6 +140,59 @@ def test_large_accumulator_goes_to_global_scratch():
     assert fn.plan.scratch_bytes == 8 * 2 * 128 * 2560 * 4
 
 
+def _kernel(source: str, k: int) -> str:
+    """The text of stage ``k``'s ``__global__`` function."""
+    return source[source.index(f"dpia_stage{k}("):
+                  source.index(f'extern "C" int launch_stage{k}')]
+
+
+@pytest.mark.parametrize("name", ["asum", "dot"])
+def test_seq_combine_is_one_threads_fold_in_a_register(name):
+    """Stage 1 of asum / dot, the SEQ combine over the grid's partials:
+    the block copies the partials into shared memory, then thread 0 alone
+    folds them in order into a register, with no barrier in its loop;
+    stage 0 hands its block sum from thread 0's register to the partial."""
+    fn = Program.from_builder(lambda: STRATEGIES[name](tblas), name=name
+                              ).check().lower().compile("cuda")
+    combine = _kernel(fn.source, 1)
+    staged = re.search(r"(\(smem \+ \d+\))\[(t\d+)\] = (p\d+)\[u\d+\];",
+                       combine).group(1)
+    copy, fold = combine.split("__syncthreads();")        # one barrier
+    assert "h0_0[" in copy and "h0_0" not in fold
+    acc = re.search(r"if \(threadIdx\.x == 0\) \{\s+float (v\d+) = 0\.0f;",
+                    fold).group(1)
+    loop = re.search(r"for \(int (i\d+) = 0; \1 < 8; \+\+\1\) \{\s+(.*?)\s+\}",
+                     fold, re.S)
+    assert loop.group(2) == f"{acc} = ({acc} + {staged}[({loop.group(1)})]);"
+    assert re.search(rf"o_0\[0\] = {acc};", fold)
+    grid = _kernel(fn.source, 0)
+    assert "__syncthreads" not in grid and "(smem" not in grid
+    assert re.search(r"(r\d+) = dpia_block_sum\(\1, red\);\s+"
+                     r"if \(threadIdx\.x == 0\) \{\s+h0_0\[\(g0\)\] = \1;",
+                     grid)
+
+
+def test_matmul_tiles_shrink_beside_a_large_new():
+    """A 192 KB accumulator in shared memory leaves the dotBlock's tiles
+    less room than A's whole k needs: the register tile stays, the panel
+    narrows to 64 columns and k is copied in chunks (76 of 100, the last
+    one ragged), all within the budget; nothing goes back to one thread
+    per output."""
+    fn = Program.from_builder(
+        lambda: tblas.strategy_matmul(8, 100, 6000, bm=8, bk=100), name="mm"
+    ).check().lower().compile("cuda")
+    (st,) = fn.stages
+    assert st.smem_bytes + 4 * (stage3_cuda.THREADS // 32) <= \
+        stage3_cuda.SMEM_BUDGET
+    assert st.scratch_bytes_per_block == 8 * 6000 * 4   # the dotBlock result
+    src = _kernel(fn.source, 0)
+    assert re.search(r"for \(int (cp\d+) = 0; \1 < 6000; \1 \+= 64\)", src)
+    chunk = re.search(r"for \(int (kc\d+) = 0; \1 < 100; \1 \+= (\d+)\)", src)
+    assert 0 < int(chunk.group(2)) < 100
+    assert f"min({chunk.group(2)}, 100 - {chunk.group(1)})" in src
+    assert "fmaf(" in src and "float4" in src
+
+
 def test_mesh_levels_raise():
     xs = P.var_exp("xs", Arr(64, Num()))
     e = P.Join(P.Map(lambda blk: P.mul(blk, blk), P.Split(8, xs),
@@ -172,6 +227,16 @@ def test_non_cpu_tensors_without_a_card_raise():
     x = torch.empty(64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fn(x, x)
+    assert fn.launches == 0
+
+
+@pytest.mark.parametrize("devices", [("cpu", "cpu"), ("cpu", "meta")])
+def test_bind_refuses_tensors_off_the_card(devices):
+    fn = Program.from_builder(lambda: tblas.strategy_dot(64, 16)
+                              ).check().lower().compile("cuda")
+    args = [torch.zeros(64, device=d) for d in devices]
+    with pytest.raises(ValueError, match="no kernel"):
+        fn.bind(*args)
     assert fn.launches == 0
 
 
