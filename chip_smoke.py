@@ -10,12 +10,12 @@ Phases (any failure raises and the script exits non-zero, printing no
 result):
 
 1. the card (``nvidia-smi`` name and power limit) and the versions of
-   torch, CUDA and Triton;
+   torch and CUDA;
 2. build every kernel from the sources in this checkout (``nvcc`` for
    ``csrc/*.cu``, the CuTe source ``matmul_wgmma.cu`` with CUTLASS's
-   include path, Triton's JIT for the Triton kernels) and print the
-   seconds each build took and ptxas's register / shared-memory / spill
-   report;
+   include path) and print the seconds each build took and ptxas's
+   register / shared-memory / spill report (for K1 one line: registers
+   and spills of each instance of ``csrc/rmsnorm.cu``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max abs error against a stated tolerance; the
    device time of one call (CUDA graph replays timed by CUDA events, L2
@@ -24,17 +24,22 @@ result):
    the kernel's time per call made from Python, launch included
    (``eager_ms``); and the least time the card could take (bytes /
    3.35 TB/s or operations / peak rate, the larger); every case names the
-   variant its dtype and shape take (K3: ``mma`` for bf16, ``simt`` for
-   fp32; K2: ``wgmma``, with split K below one wave, or ``simt``);
+   variant its dtype and shape take (K1: ``packed``, ``warp`` or
+   ``block`` from ``rmsnorm.plan``, at the six main-path shapes in bf16
+   and phase 5's in fp32; K3: ``mma`` for bf16, ``simt`` for fp32; K2:
+   ``wgmma``, with split K below one wave, or ``simt``);
 4. the main path: ``repro_torch.launch.serve``'s code serving qwen3-4b at
    full width (36 layers, d_model 2560, bf16, random weights from a seed)
    to 4 requests (prompts up to 200 tokens, 32 new tokens each, one
    sampled at T=0.8 with top-k 50), with every kernel's launch count
-   checked against the path's structure and every K3 launch on ``mma``;
+   checked against the path's structure, K1's per variant (``packed`` for
+   the 128-wide qk_norm rows, ``warp`` for the prefill's d_model rows,
+   ``block`` for a decode step's four) and every K3 launch on ``mma``;
 5. full width against the CPU: 2 layers at full width in float32 (TF32 off
    for matmuls and cuDNN), the same weights on the card (kernels) and on
    the CPU (plain versions): last-position logits within a stated
-   tolerance and identical greedy tokens, every K3 launch on ``simt``;
+   tolerance and identical greedy tokens, every K3 launch on ``simt``
+   and no K1 launch on ``packed`` (fp32 rows of 128 are 32 vectors);
 6. K2, the hand-written matmul, against its plain version at qwen3-4b's
    projection shapes and one ragged shape, in bf16 and fp32 (times as in
    phase 3, the library call being ``torch.matmul``), the variant of each
@@ -202,11 +207,8 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    from repro_torch.kernels import _build
-    triton = _build.import_triton()
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, Triton {triton.__version__}, "
-        f"{torch.cuda.device_count()} device(s)")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     return smi
 
 
@@ -232,6 +234,8 @@ def phase_build():
         f"DPIA programs in {gen_secs:.2f} s, in parallel (0 means already "
         f"built)")
     for src in _build.sources():
+        if src == "rmsnorm":
+            continue
         kernel = None
         for line in _build.target(src).with_suffix(".log").read_text(
                 ).splitlines():
@@ -248,30 +252,62 @@ def phase_build():
         f"{ {d: fa_smem(d) for d in (16, 32, 64, 128)} } B by head dim; "
         f"gemm_wgmma { {bn: mm_smem(bn) for bn in (128, 256)} } B by tile "
         f"width")
-    # Triton compiles one variant per (dtype, block): the main path's
-    t0 = time.perf_counter()
-    for dt in (torch.bfloat16, torch.float32):
-        for d in (2560, 128):
-            ops.rmsnorm(torch.ones((2, d), dtype=dt, device="cuda"),
-                        torch.ones((d,), dtype=dt, device="cuda"))
-    torch.cuda.synchronize()
-    log(f"[2] Triton compiled rmsnorm variants in "
-        f"{time.perf_counter() - t0:.2f} s")
-    return gen_secs
+    k1 = k1_ptxas(_build.target("rmsnorm").with_suffix(".log").read_text())
+    log("[2] ptxas rmsnorm [registers, spill stores, spill loads] by "
+        "instance (dtype, elements an access, threads a row, accesses a "
+        "thread): " + json.dumps(k1))
+    return gen_secs, k1
 
 
-def _rmsnorm_case(rows, d, dtype, gen):
+def k1_instance(p, dtype) -> str:
+    """The name :func:`k1_ptxas` gives the kernel instance plan ``p``
+    launches."""
+    per = (16 // (4 if dtype == torch.float32 else 2)) if p.vector else 1
+    tpr = 0 if p.variant == "block" else p.threads_per_row
+    return (f"{'fp32' if dtype == torch.float32 else 'bf16'} n{per} "
+            f"tpr{tpr} vpt{p.vectors_per_thread}")
+
+
+def k1_ptxas(log_text: str) -> dict:
+    """[registers, spill store bytes, spill load bytes] of every instance
+    of ``rmsnorm_kernel<T, N, TPR, VPT>`` in a ``-Xptxas -v`` log."""
+    from repro_torch.kernels import _build
+    rep = _build.ptxas_report(log_text, r"rmsnorm_kernelI(f|13__nv_bfloat16)"
+                                        r"Li(\d+)ELi(\d+)ELi(\d+)E")
+    return {f"{'fp32' if t == 'f' else 'bf16'} n{n} tpr{tpr} vpt{vpt}":
+            [r.get("registers"), r.get("spill_stores", 0),
+             r.get("spill_loads", 0)]
+            for (t, n, tpr, vpt), r in rep.items()}
+
+
+def _rmsnorm_case(rows, d, dtype, gen, k1):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rms
     x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
     w = (1 + 0.1 * torch.randn((d,), generator=gen,
                                device="cuda")).to(dtype)
+    p = rms.plan(rows, d, dtype)
+    ptx = k1.get(k1_instance(p, dtype))
+    if ptx is None or ptx[1] or ptx[2]:
+        raise AssertionError(f"rmsnorm {(rows, d)} {dtype}: ptxas "
+                             f"[registers, spill stores, spill loads] of "
+                             f"{k1_instance(p, dtype)}: {ptx}")
+    before = rms.launches_by_variant[p.variant]
     err = check_close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), dtype,
                       f"rmsnorm {(rows, d)} {dtype}")
+    if rms.launches_by_variant[p.variant] != before + 1:
+        raise AssertionError(f"rmsnorm {(rows, d)} {dtype}: {p.variant} was "
+                             f"not launched")
     elt = x.element_size()
     b_ms, b_by = bound(2 * rows * d * elt + d * elt, 4 * rows * d,
                        ELEMENTWISE_FLOPS)
     return {"shape": [rows, d], "dtype": str(dtype).split(".")[-1],
+            "variant": p.variant, "vector": p.vector,
+            "threads_per_row": p.threads_per_row,
+            "vectors_per_thread": p.vectors_per_thread,
+            "rows_per_block": p.rows_per_block, "grid": p.grid,
+            "ptxas": ptx,
             "max_abs_err": err, "tol": list(TOLS[dtype]),
             "ms": time_ms(lambda: ops.rmsnorm(x, w)),
             "eager_ms": eager_ms(lambda: ops.rmsnorm(x, w)),
@@ -320,14 +356,21 @@ def _flash_case(sq, sk, causal, q_offset, gen, b=4, nh=32, nkv=8, hd=128,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def phase_kernels():
+def rms_shapes(b: int, s: int):
+    """K1's shapes in one prefill of ``b`` x ``s`` tokens and one decode
+    step of qwen3-4b: d_model rows, then the qk_norm's q and k rows."""
+    return [(b * s, 2560), (b * s * 32, 128), (b * s * 8, 128),
+            (b, 2560), (b * 32, 128), (b * 8, 128)]
+
+
+def phase_kernels(k1):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b = len(PROMPT_LENS)
-    rows = b * max(PROMPT_LENS)                       # prefill b*s tokens
-    rms_shapes = [(rows, 2560), (rows * 32, 128), (rows * 8, 128),
-                  (b, 2560), (b * 32, 128), (b * 8, 128)]   # + decode
-    rms = [_rmsnorm_case(r, d, dt, gen)
-           for dt in (torch.bfloat16, torch.float32) for r, d in rms_shapes]
+    # the main path's shapes in bf16, phase 5's in fp32
+    rms = ([_rmsnorm_case(r, d, torch.bfloat16, gen, k1)
+            for r, d in rms_shapes(len(PROMPT_LENS), max(PROMPT_LENS))]
+           + [_rmsnorm_case(r, d, torch.float32, gen, k1)
+              for r, d in rms_shapes(len(CPU_PROMPT_LENS),
+                                     max(CPU_PROMPT_LENS))])
     s_main = max(PROMPT_LENS)
     fa = [_flash_case(s, s, causal, 0, gen)
           for s in (s_main, 128, 100) for causal in (True, False)]
@@ -377,6 +420,16 @@ def phase_main_path(smi: str):
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want} for "
                              f"{prefills} prefill(s), {steps} decode steps")
+    # K1: the qk_norm's 128-wide q and k rows (2 a layer) packed; the
+    # d_model rows (2 a layer + the final norm) a warp each in the prefill
+    # (4 x 200 rows), a block each in a decode step (4 rows: too few to
+    # give every SM a warp)
+    want_k1 = {"packed": 2 * cfg.n_layers * (prefills + steps),
+               "warp": (2 * cfg.n_layers + 1) * prefills,
+               "block": (2 * cfg.n_layers + 1) * steps}
+    if variants["rmsnorm"] != want_k1:
+        raise AssertionError(f"K1 variants {variants['rmsnorm']} != "
+                             f"{want_k1}")
     if variants["flash_attention"] != {"mma": cfg.n_layers * prefills,
                                        "simt": 0}:
         raise AssertionError(f"K3 variants {variants['flash_attention']}: "
@@ -395,12 +448,13 @@ def phase_main_path(smi: str):
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {counts} (rmsnorm = {per_pass} x (prefills + steps), "
         f"flash = {cfg.n_layers} x prefills, variants "
-        f"{variants['flash_attention']}); card {smi}")
+        f"{variants['flash_attention']}, K1 variants "
+        f"{variants['rmsnorm']}); card {smi}")
     for i, o in enumerate(outs):
         log(f"    request[{i}] ({PROMPT_LENS[i]} prompt tokens): {o[:10]}")
     del engine, params, model
     torch.cuda.empty_cache()
-    return counts, variants["flash_attention"]
+    return counts, {k: variants[k] for k in ("rmsnorm", "flash_attention")}
 
 
 def _tensors(node):
@@ -466,11 +520,18 @@ def phase_against_cpu():
     if fa_variants["mma"] != 0 or fa_variants["simt"] == 0:
         raise AssertionError(f"K3 variants {fa_variants}: every fp32 launch "
                              f"must take simt")
+    k1_variants = ops.launch_counts_by_variant()["rmsnorm"]
+    if k1_variants["packed"] or not (k1_variants["warp"]
+                                     and k1_variants["block"]):
+        raise AssertionError(f"K1 variants {k1_variants}: fp32 rows of 128 "
+                             f"and the prefill's d_model rows take warp, "
+                             f"the decode steps' d_model rows block")
     log(f"[5] {CPU_LAYERS} layers at full width, float32, TF32 off: "
         f"last-position logits card vs CPU max abs err {err:.3e} "
         f"(tol {LOGIT_TOL}, |logit| max "
         f"{logits['cpu'].abs().max().item():.2f}); greedy tokens equal "
-        f"{toks['cuda']}; K3 variants {fa_variants}; "
+        f"{toks['cuda']}; K3 variants {fa_variants}; K1 variants "
+        f"{k1_variants}; "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -812,8 +873,8 @@ def phase_pipeline_main_path():
 # ---------------------------------------------------------------------------
 
 KERNELS = [
-    {"name": "rmsnorm", "route": "triton",
-     "source": "src/repro_torch/kernels/rmsnorm.py",
+    {"name": "rmsnorm", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "replaces": "src/repro/kernels/rmsnorm.py:36"},
     {"name": "flash_attention", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -824,6 +885,8 @@ KERNELS = [
 ]
 # the source of each variant of a kernel that has several
 VARIANT_SOURCES = {
+    "rmsnorm": {v: "src/repro_torch/kernels/csrc/rmsnorm.cu"
+                for v in ("packed", "warp", "block")},
     "flash_attention": {
         "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
@@ -845,15 +908,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     smi = phase_card()
-    build_s = phase_build()
-    cases = phase_kernels()
-    counts, fa_variants = phase_main_path(smi)
+    build_s, k1 = phase_build()
+    cases = phase_kernels(k1)
+    counts, variants = phase_main_path(smi)
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)
     p_counts, mm_variants, per_prog = phase_pipeline_main_path()
     counts = {**counts, "matmul": p_counts["matmul"]}
-    variants = {"flash_attention": fa_variants, "matmul": mm_variants}
+    variants["matmul"] = mm_variants
     # the headline case of each kernel is its first: the main path's
     # prefill shape in bf16 (K2: the (800, 2560) x (2560, 4096) projection);
     # every case is listed under "cases".  K4 has one entry per generated

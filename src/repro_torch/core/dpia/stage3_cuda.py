@@ -1338,9 +1338,9 @@ class GeneratedProgram:
         """Registers, spills and static shared memory per stage, from the
         build's ptxas log (built first if needed)."""
         from ...kernels import _build
-        return _build.ptxas_report(
+        return {int(i): r for (i,), r in _build.ptxas_report(
             _build.generated_target(self.name, self.source).with_suffix(
-                ".log").read_text(), r"dpia_stage(\d+)")
+                ".log").read_text(), r"dpia_stage(\d+)").items()}
 
     def __call__(self, *args):
         import torch

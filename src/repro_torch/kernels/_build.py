@@ -23,10 +23,8 @@ flags into ``build/dpia/<name>-<hash of text and flags>.so``, the text
 written beside it as ``.cu``; :func:`build_generated` compiles a batch of
 them in parallel.
 
-Triton kernels compile through Triton's own JIT; :func:`import_triton`
-points Triton's cache into the same ``build/`` directory.  Nothing here
-runs at import time: this module imports on hosts without ``nvcc`` or
-``triton``.
+Nothing here runs at import time: this module imports on hosts without
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -163,18 +161,18 @@ def load_generated(name: str, text: str) -> ctypes.CDLL:
         return lib
 
 
-def ptxas_report(log: str, kernel_pattern: str) -> Dict[int, dict]:
+def ptxas_report(log: str, kernel_pattern: str) -> Dict[tuple, dict]:
     """Registers, static shared memory and spill bytes per kernel from a
-    ``-Xptxas -v`` log, keyed by the integer ``kernel_pattern`` captures
+    ``-Xptxas -v`` log, keyed by the groups ``kernel_pattern`` captures
     in the (mangled) kernel name."""
-    out: Dict[int, dict] = {}
+    out: Dict[tuple, dict] = {}
     cur = None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\S+?)'?(?: for|$)", line)
         if m:
             k = re.search(kernel_pattern, m.group(1))
-            cur = out.setdefault(int(k.group(1)), {}) if k else None
+            cur = out.setdefault(k.groups(), {}) if k else None
             continue
         if cur is None:
             continue
@@ -213,10 +211,3 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{rc}")
-
-
-def import_triton():
-    """Import Triton with its compile cache inside ``build/``."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    return triton

@@ -4,8 +4,8 @@ Every op takes the arguments of ``repro.kernels.ops``'s function of the same
 name and an ``impl=`` naming one row of its table:
 
   'plain'      — the plain PyTorch version (``ref``); the reference's 'xla'
-  'cuda'       — the hand-written kernel: K1 RMSNorm (Triton), K2 matmul
-                 (CUDA), K3 flash attention (CUDA); the reference's 'pallas'.
+  'cuda'       — the hand-written CUDA kernel: K1 RMSNorm, K2 matmul,
+                 K3 flash attention; the reference's 'pallas'.
                  Only ops that have one list it.
   'dpia-torch' — the op's DPIA strategy (``dpia_blas.strategy_*`` at the
                  reference's default parameters) through
@@ -161,8 +161,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
     """Launches since the last reset per variant of the kernels that have
-    several: K2 ``matmul`` (wgmma, splitk_reduce, simt) and K3
-    ``flash_attention`` (mma, simt)."""
+    several: K1 ``rmsnorm`` (packed, warp, block), K2 ``matmul`` (wgmma,
+    splitk_reduce, simt) and K3 ``flash_attention`` (mma, simt)."""
     return {name: dict(mod.launches_by_variant)
             for name, mod in _KERNEL_MODULES.items()
             if hasattr(mod, "launches_by_variant")}

@@ -72,9 +72,10 @@ def _attend(p, cfg: ModelConfig, q, k, v, x_dtype):
     reference's einsum and chunked paths compute the same function."""
     b, s, nh, hd = q.shape
     nkv = cfg.n_kv_heads
-    qf = q.transpose(1, 2).reshape(b * nh, s, hd)
-    kf = k.transpose(1, 2).reshape(b * nkv, s, hd)
-    vf = v.transpose(1, 2).reshape(b * nkv, s, hd)
+    # at b == 1 the reshape is a strided view; K3 takes contiguous tensors
+    qf = q.transpose(1, 2).reshape(b * nh, s, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * nkv, s, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * nkv, s, hd).contiguous()
     out = ops.flash_attention(qf, kf, vf, causal=True)
     out = out.reshape(b, nh, s, hd).transpose(1, 2)
     out = out.to(x_dtype).reshape(b, s, nh * hd)

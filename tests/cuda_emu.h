@@ -33,6 +33,19 @@ inline __nv_bfloat16 __float2bfloat16(float f) {   // round to nearest even
   return {(uint16_t)(u >> 16)};
 }
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
+struct alignas(4) __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float2 __bfloat1622float2(__nv_bfloat162 h) {
+  return {__bfloat162float(h.x), __bfloat162float(h.y)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline __nv_bfloat162 __hmul2(__nv_bfloat162 a, __nv_bfloat162 b) {   // exact product, rounded once
+  return __floats2bfloat162_rn(__bfloat162float(a.x) * __bfloat162float(b.x),
+                               __bfloat162float(a.y) * __bfloat162float(b.y));
+}
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;

@@ -4,7 +4,7 @@ the serving path's launches and tokens.
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 decision is made in a fixture, never at import).  The module imports
 neither JAX nor the reference package, so it runs on a machine with only
-PyTorch, Triton and the CUDA toolkit:
+PyTorch and the CUDA toolkit:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -36,20 +36,94 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(800, 2560), (25600, 128), (4, 2560),
-                                   (3, 5, 64)])
+@pytest.mark.parametrize("shape", [
+    (800, 2560), (25600, 128), (4, 2560), (3, 5, 64),
+    # the rest of the main path's shapes (prefill of 4 x 200 tokens, one
+    # decode step), then ragged ones: rows past the last full block, lanes
+    # masked off, one element an access (200-byte rows), block per row,
+    # a row read in two passes
+    (6400, 128), (128, 128), (32, 128), (1, 1), (37, 128), (9, 24),
+    (5, 2560), (2, 100), (2, 9000), (1, 20000), (4, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
     w = (1 + 0.1 * torch.randn(shape[-1], generator=g,
                                device=cuda_device)).to(dtype)
+    variant = rms_mod.plan(x.numel() // shape[-1], shape[-1], dtype).variant
     before = rms_mod.launches
+    by_variant = dict(rms_mod.launches_by_variant)
     got = ops.rmsnorm(x, w)
     torch.cuda.synchronize()
     assert rms_mod.launches == before + 1
+    by_variant[variant] += 1
+    assert rms_mod.launches_by_variant == by_variant
     torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(ops.rmsnorm(x, w), got)       # a fixed order of sums
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_misaligned_view_takes_scalar_accesses(cuda_device,
+                                                              dtype):
+    """Rows taken from a flat buffer one element in: not 16-byte aligned,
+    so the plan takes one element an access; the same values."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    flat = torch.randn(1 + 6400 * 128, generator=g,
+                       device=cuda_device).to(dtype)
+    x = flat[1:].view(6400, 128)
+    w = (1 + 0.1 * torch.randn(128, generator=g,
+                               device=cuda_device)).to(dtype)
+    assert x.data_ptr() % 16
+    p = rms_mod.plan(6400, 128, dtype, aligned=False)
+    assert not p.vector and p.variant == "warp"
+    before = rms_mod.launches_by_variant["warp"]
+    got = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rms_mod.launches_by_variant["warp"] == before + 1
+    torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,d_model_variant", [(1, 140, "warp"),
+                                                  (2, 8, "block")])
+def test_rmsnorm_launches_by_variant_in_a_qwen3_4b_pass(cuda_device, b, s,
+                                                        d_model_variant):
+    """One prefill of qwen3-4b at full width (bf16, 36 layers): the 72
+    qk_norms of 128-wide rows a pass take ``packed``; the 73 d_model norms
+    take ``warp`` over 140 rows, ``block`` over 16 (too few rows to give
+    every SM a warp)."""
+    from repro_torch.configs import config
+    cfg = config("qwen3_4b")
+    model = Model(cfg)
+    params = model.init_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=cuda_device)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        cache = model.init_cache(b, s, device=cuda_device)
+        model.prefill(params, tokens, cache,
+                      lengths=torch.full((b,), s, device=cuda_device))
+    torch.cuda.synchronize()
+    want = {"packed": 72, "warp": 0, "block": 0}
+    want[d_model_variant] = 73
+    assert (2 * cfg.n_layers, 2 * cfg.n_layers + 1) == (72, 73)
+    assert ops.launch_counts_by_variant()["rmsnorm"] == want
+
+
+def test_rmsnorm_kernel_launch_failure_raises(cuda_device, monkeypatch):
+    """A launch the C entry point has no kernel for (here 3 vectors a lane,
+    not an instance) is refused, and the call raises."""
+    x = torch.zeros((4, 64), device=cuda_device, dtype=torch.bfloat16)
+    p = rms_mod.plan(4, 64, torch.bfloat16)
+    monkeypatch.setattr(rms_mod, "plan", lambda *a, **k: p._replace(
+        variant="warp", threads_per_row=32, vectors_per_thread=3))
+    before = dict(rms_mod.launches_by_variant)
+    with pytest.raises(RuntimeError, match="rmsnorm \\(warp\\).*launch "
+                       "failed"):
+        ops.rmsnorm(x, torch.ones(64, device=cuda_device,
+                                  dtype=torch.bfloat16))
+    assert rms_mod.launches_by_variant == before
 
 
 @pytest.mark.parametrize("bh,bkv,sq,sk,d,causal,q_offset", [

@@ -1,6 +1,7 @@
 """The port's CUDA sources run on the CPU under an emulation of the CUDA
 subset they use (tests/cuda_emu.h, compiled with the host's g++): K4's
-generated programs against the torch Stage III, K2's SIMT kernel
+generated programs against the torch Stage III, K1 (csrc/rmsnorm.cu: every
+variant, in both dtypes and both access widths), K2's SIMT kernel
 (csrc/matmul.cu) and both K3 kernels (csrc/flash_attention.cu: the bf16
 tensor-core path and the fp32 SIMT path) against their plain versions, and
 each emulated tensor-core primitive of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
@@ -384,3 +385,121 @@ def test_flash_attention_source_matches_plain(k3, bh, bkv, sq, sk, d, causal,
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     tol = K3_TOL[dtype]
     torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K1 (csrc/rmsnorm.cu): every variant, both dtypes, both access widths
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def k1(gxx):
+    from repro_torch.kernels import rmsnorm as rms
+    lib = gxx("k1_rmsnorm", _emulated((_build.CSRC / "rmsnorm.cu")
+                                      .read_text()))
+    fn = lib.repro_rmsnorm
+    fn.argtypes = rms._ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _k1_run(k1, x, w, eps=1e-6):
+    """One launch of the emulated K1 as ``rmsnorm._launch`` makes it, into
+    an output that starts as NaN; returns the output and the plan."""
+    from repro_torch.kernels import rmsnorm as rms
+    d = x.shape[-1]
+    rows = x.numel() // d
+    y = torch.full(x.shape, float("nan"), dtype=x.dtype)
+    p = rms.plan(rows, d, x.dtype,
+                 aligned=not (x.data_ptr() | w.data_ptr()) & 15)
+    assert k1(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, eps,
+              int(x.dtype == torch.bfloat16), p.vector, p.threads_per_row,
+              p.vectors_per_thread, p.threads, p.grid, None) == 0
+    return y, p
+
+
+def _assert_k1_close(got, want):
+    """bf16: within one bf16 ulp of the plain version (the row sums run in
+    another order, which may flip one rounding); fp32: 1e-6 relative."""
+    assert torch.isfinite(got.float()).all(), "an element was never written"
+    if want.dtype == torch.bfloat16:
+        want = want.float()
+        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)
+        err = (got.float() - want).abs()
+        assert (err <= ulp).all(), f"max err {err.max()} beyond one ulp"
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+# (rows, d): packed (1, 1), (37, 64), (9, 24) -- lanes of a group masked
+# off --, (3, 128) and (37, 128) (rows past the last full block); warp
+# (140, 2560) and (140, 100) (bf16: one element an access); fewer rows
+# than SMs, a block a row: (5, 2560) and (2, 100) (bf16: one element an
+# access; fp32: 25 accesses, a warp); long rows (2, 9000) and a row read
+# twice (1, 20000)
+K1_SHAPES = [(1, 1), (3, 128), (37, 128), (37, 64), (9, 24), (140, 2560),
+             (140, 100), (5, 2560), (2, 100), (2, 9000), (1, 20000)]
+K1_VARIANTS = {torch.bfloat16: ["packed", "packed", "packed", "packed",
+                                "packed", "warp", "warp", "block", "block",
+                                "block", "block"],
+               torch.float32: ["packed", "warp", "warp", "packed", "packed",
+                               "warp", "warp", "block", "warp", "block",
+                               "block"]}
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES,
+                         ids=[f"{r}x{d}" for r, d in K1_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_source_matches_plain(k1, shape, dtype):
+    """Each variant's lane groups, masks and reductions against the plain
+    version; the planned variant as K1_VARIANTS says."""
+    variant = K1_VARIANTS[dtype][K1_SHAPES.index(shape)]
+    g = torch.Generator().manual_seed(shape[0] * 10007 + shape[1])
+    x = torch.randn(shape, generator=g).to(dtype)
+    w = (1 + 0.5 * torch.randn(shape[-1], generator=g)).to(dtype)
+    got, p = _k1_run(k1, x, w)
+    assert p.variant == variant
+    assert p.vector == ((shape[-1] * x.element_size()) % 16 == 0)
+    _assert_k1_close(got, ref.rmsnorm(x, w))
+
+
+@pytest.mark.parametrize("rows,variant", [(37, "block"), (140, "warp")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_source_misaligned_view_takes_scalar_accesses(k1, dtype, rows,
+                                                              variant):
+    """Rows cut from a flat buffer one element in: no 16-byte accesses,
+    the same values."""
+    g = torch.Generator().manual_seed(5)
+    flat = torch.randn(1 + rows * 128, generator=g).to(dtype)
+    x = flat[1:].view(rows, 128)
+    w = (1 + 0.5 * torch.randn(128, generator=g)).to(dtype)
+    got, p = _k1_run(k1, x, w)
+    assert not p.vector and p.variant == variant
+    _assert_k1_close(got, ref.rmsnorm(x, w))
+
+
+def test_rmsnorm_source_is_bitwise_repeatable(k1):
+    """A fixed order of additions: two runs give the same bits."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(3, 9000, generator=g)
+    w = torch.randn(9000, generator=g)
+    a, _ = _k1_run(k1, x, w)
+    b, _ = _k1_run(k1, x, w)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(37, 128), (140, 2560), (5, 2560),
+                                   (2, 9000)])
+def test_rmsnorm_source_rounds_in_the_reference_order(k1, shape):
+    """Integer rows sum exactly in any order, so the kernel's bf16 output
+    equals the plain version bit for bit: the row is rounded to bf16
+    before ``* w``; rounding only the product would differ."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(-4, 5, shape, generator=g).to(torch.bfloat16)
+    w = (3 * torch.randn(shape[-1], generator=g)).to(torch.bfloat16)
+    got, _ = _k1_run(k1, x, w)
+    want = ref.rmsnorm(x, w)
+    assert torch.equal(got, want)
+    x32 = x.float()
+    fused = (x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6)
+             * w.float()).to(torch.bfloat16)
+    assert not torch.equal(got, fused)

@@ -161,6 +161,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
                                    "flash_attention": 0, "dpia_cuda": 0}
     assert ops.launch_counts_by_variant() == {
+        "rmsnorm": {"packed": 0, "warp": 0, "block": 0},
         "matmul": {"wgmma": 0, "splitk_reduce": 0, "simt": 0},
         "flash_attention": {"mma": 0, "simt": 0}}
 
@@ -193,7 +194,8 @@ def test_kernel_modules_import_without_triton_or_nvcc():
 
 def test_build_target_is_keyed_by_source():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention", "matmul", "matmul_wgmma"]
+    assert _build.sources() == ["flash_attention", "matmul", "matmul_wgmma",
+                                "rmsnorm"]
     t = _build.target("flash_attention")
     assert t.parent == _build.BUILD_DIR and t.suffix == ".so"
     assert t == _build.target("flash_attention")
@@ -206,6 +208,7 @@ def test_build_flags_are_per_source_and_keyed(monkeypatch):
     from repro_torch.kernels import _build
     assert _build.flags("matmul") == _build.NVCC_FLAGS
     assert _build.flags("flash_attention") == _build.NVCC_FLAGS
+    assert _build.flags("rmsnorm") == _build.NVCC_FLAGS
     extra = _build.flags("matmul_wgmma")[len(_build.NVCC_FLAGS):]
     assert extra == ("-I", "/usr/local/cutlass/include")
     before = _build.target("matmul_wgmma")
@@ -284,6 +287,94 @@ def test_matmul_plan_tile_width_follows_the_wave_rule():
         want = 256 if (-(-wide // 132) * mm.WIDE_TILE_COST
                        < -(-narrow // 132)) else 128
         assert mm.plan(m, n, 2560, torch.bfloat16).block_n == want
+
+
+# K1's main-path shapes: qwen3-4b at batch 4, prefill of 200 tokens (d_model
+# rows, then q and k rows of the qk_norm) and one decode step
+K1_MAIN = [((800, 2560), "warp"), ((25600, 128), "packed"),
+           ((6400, 128), "packed"), ((4, 2560), "block"),
+           ((128, 128), "packed"), ((32, 128), "packed")]
+
+
+@pytest.mark.parametrize("shape,variant", K1_MAIN)
+def test_rmsnorm_plan_at_the_main_path_shapes(shape, variant):
+    """bf16 d_model rows a warp each, 10 vectors a lane, or a block each
+    (one vector a thread) when the rows are too few to give every SM a
+    warp; 128-wide rows packed two a warp, 16 lanes a row; the grid covers
+    every row and, where there are rows enough, the 132 SMs."""
+    from repro_torch.kernels import rmsnorm as rms
+    rows, d = shape
+    p = rms.plan(rows, d, torch.bfloat16)
+    assert p.variant == variant and p.vector
+    want = {"warp": (32, 10), "packed": (16, 1), "block": (320, 1)}[variant]
+    assert (p.threads_per_row, p.vectors_per_thread) == want
+    assert p.threads == p.rows_per_block * p.threads_per_row
+    assert p.threads % 32 == 0
+    assert p.threads <= (1024 if variant == "block" else 256)
+    assert p.grid * p.rows_per_block >= rows > (p.grid - 1) * p.rows_per_block
+    one_warp = max(1, 32 // p.threads_per_row)
+    if -(-rows // one_warp) >= rms.SMS:       # the rows can fill the SMs
+        assert p.grid >= rms.SMS
+    elif variant == "packed":                 # else fewer, fuller blocks
+        assert p.threads == 32 * rms.FEW_ROWS_WARPS
+
+
+def test_rmsnorm_plan_spreads_800_rows_over_the_sms():
+    """(800, 2560) must not run on 100 blocks of 8 rows."""
+    from repro_torch.kernels import rmsnorm as rms
+    p = rms.plan(800, 2560, torch.bfloat16)
+    assert (p.rows_per_block, p.grid) == (4, 200)
+    assert rms.plan(25600, 128, torch.bfloat16)[4:] == (16, 256, 1600)
+    # rows that cannot give 132 blocks of one warp: blocks of four warps
+    assert rms.plan(128, 128, torch.bfloat16)[4:] == (8, 128, 16)
+    assert rms.plan(64, 128, torch.float32)[4:] == (4, 128, 16)
+
+
+@pytest.mark.parametrize("rows,d,dtype,aligned,vector,variant,tpr,vpt", [
+    (200, 2560, torch.float32, True, True, "warp", 32, 20),
+    (6400, 128, torch.float32, True, True, "warp", 32, 1),
+    (37, 64, torch.float32, True, True, "packed", 16, 1),
+    (9, 24, torch.bfloat16, True, True, "packed", 4, 1),
+    (1, 1, torch.bfloat16, True, False, "packed", 1, 1),
+    (200, 100, torch.bfloat16, True, False, "warp", 32, 4),  # 200 bytes
+    (150, 128, torch.bfloat16, False, False, "warp", 32, 4),  # misaligned
+    # fewer rows than SMs: a block a row, one access a thread
+    (2, 100, torch.bfloat16, True, False, "block", 128, 1),
+    (37, 128, torch.bfloat16, False, False, "block", 128, 1),
+    (4, 2560, torch.bfloat16, True, True, "block", 320, 1),
+    (2, 2560, torch.float32, True, True, "block", 640, 1),
+    (131, 264, torch.bfloat16, True, True, "block", 64, 1),
+    (132, 264, torch.bfloat16, True, True, "warp", 32, 2),
+    (4, 128, torch.float32, True, True, "warp", 32, 1),      # 32 accesses
+    (800, 2560, torch.bfloat16, False, False, "block", 640, 4),
+    (2, 9000, torch.bfloat16, True, True, "block", 288, 4),
+    (2, 9000, torch.float32, True, True, "block", 576, 4),
+    (4, 8192, torch.bfloat16, True, True, "block", 1024, 1),
+    (200, 8192, torch.bfloat16, True, True, "block", 256, 4),
+    (1, 20000, torch.float32, True, True, "block", 1024, 4),
+])
+def test_rmsnorm_plan_variant_and_accesses(rows, d, dtype, aligned, vector,
+                                           variant, tpr, vpt):
+    """Odd row bytes or a misaligned pointer take one element an access
+    and never raise; long rows take a block each."""
+    from repro_torch.kernels import rmsnorm as rms
+    p = rms.plan(rows, d, dtype, aligned=aligned)
+    assert (p.vector, p.variant, p.threads_per_row,
+            p.vectors_per_thread) == (vector, variant, tpr, vpt)
+    per = (16 // (4 if dtype == torch.float32 else 2)) if vector else 1
+    if variant == "block":
+        assert (p.rows_per_block, p.threads, p.grid) == (1, tpr, rows)
+        # the fewest warps that hold the row, or a whole block and passes
+        assert tpr * vpt * per >= d or tpr == rms.BLOCK_MAX
+        assert (tpr - 32) * vpt * per < d or tpr == 256
+    else:
+        assert tpr * vpt * per >= d
+
+
+def test_rmsnorm_plan_refuses_other_dtypes():
+    from repro_torch.kernels import rmsnorm as rms
+    with pytest.raises(ValueError, match="no kernel"):
+        rms.plan(4, 128, torch.float16)
 
 
 def test_flash_attention_variant_by_dtype():
