@@ -25,21 +25,46 @@ result):
    (``eager_ms``); and the least time the card could take (bytes /
    3.35 TB/s or operations / peak rate, the larger); every case names the
    variant its dtype and shape take (K1: ``packed``, ``warp`` or
-   ``block`` from ``rmsnorm.plan``, at the six main-path shapes in bf16
-   and phase 5's in fp32; K3: ``mma`` for bf16, ``simt`` for fp32; K2:
-   ``wgmma``, with split K below one wave, or ``simt``);
+   ``block`` from ``rmsnorm.plan``, at the six main-path shapes in bf16,
+   phase 4b's prefill rows (one request at each bucket) and phase 5's
+   shapes in fp32; K3: ``mma`` for bf16, at phase 4's shapes and at phase
+   4b's first prefill chunks, ``simt`` for fp32; K2: ``wgmma``, with split
+   K below one wave, or ``simt``); and decode attention (plain PyTorch) at
+   a decode step's shape, the card's bf16-read form against the upcast
+   form, both timed;
 4. the main path: ``repro_torch.launch.serve``'s code serving qwen3-4b at
    full width (36 layers, d_model 2560, bf16, random weights from a seed)
    to 4 requests (prompts up to 200 tokens, 32 new tokens each, one
-   sampled at T=0.8 with top-k 50), with every kernel's launch count
-   checked against the path's structure, K1's per variant (``packed`` for
-   the 128-wide qk_norm rows, ``warp`` for the prefill's d_model rows,
-   ``block`` for a decode step's four) and every K3 launch on ``mma``;
+   sampled at T=0.8 with top-k 50) through ``BatchedEngine``, its decode
+   chunk replayed as a CUDA graph, with every kernel's launch count
+   checked against the path's structure, replays included, K1's per
+   variant (``packed`` for the 128-wide qk_norm rows, ``warp`` for the
+   prefill's d_model rows, ``block`` for a decode step's four) and every
+   K3 launch on ``mma``; a third run under ``torch.profiler`` holds the
+   K1 and K3 kernels the card ran to the counted launches (short by at
+   most the profiler's lost records, ``PROFILER_LOSS``);
+4b. continuous serving on the same weights: ``ContinuousEngine`` with 4
+   slots, chunk 8, prefill chunk 128, 8 requests (prompts 200 / 151 / 64
+   / 23 / 180 / 40 / 97 / 12, so admissions happen mid-run and the 200-,
+   180- and 151-token prompts prefill in two chunks; 32 new tokens each,
+   one at T=0.8 with top-k 50), KV dense and paged, each with the chunk as
+   a CUDA graph (after a warm run that captures, runs only replay) and
+   eagerly, the four engines timed three times each in alternating order:
+   tokens equal between graph and eager and between the layouts, zero
+   re-captures after warm-up, exact K1 / K3 counts with replays counted
+   in every run; tok/s with the graph and eager, time to first token at
+   the 200-token prompt (median and range), peak memory and the captures
+   printed; and the static engine on the same requests (its agreement in bf16 is
+   printed: the two round different computations in bf16; phase 5 holds
+   them equal in fp32);
 5. full width against the CPU: 2 layers at full width in float32 (TF32 off
    for matmuls and cuDNN), the same weights on the card (kernels) and on
    the CPU (plain versions): last-position logits within a stated
    tolerance and identical greedy tokens, every K3 launch on ``simt``
-   and no K1 launch on ``packed`` (fp32 rows of 128 are 32 vectors);
+   and no K1 launch on ``packed`` (fp32 rows of 128 are 32 vectors); and
+   at all 36 layers in float32 on the card, the continuous engine (dense
+   and paged, graphs) against the static engine on phase 4b's traffic:
+   equal tokens, the sampled request included;
 6. K2, the hand-written matmul, against its plain version at qwen3-4b's
    projection shapes and one ragged shape, in bf16 and fp32 (times as in
    phase 3, the library call being ``torch.matmul``), the variant of each
@@ -117,6 +142,12 @@ ARCH = "qwen3_4b"
 PROMPT_LENS = (200, 151, 64, 23)
 MAX_NEW = 32
 CHUNK = 8
+# continuous serving (phase 4b): request 1 samples at T=0.8, top-k 50
+CONT_PROMPT_LENS = (200, 151, 64, 23, 180, 40, 97, 12)
+SLOTS = 4
+PREFILL_CHUNK = 128
+BLOCK = 16
+CONT_ROUNDS = 3    # timed runs of each continuous engine, in turns
 # full width against the CPU (phase 5): fp32 on both sides, TF32 off; the
 # sums run in other orders over K = 2560 / 9728, so logits of order 1
 # differ by ~1e-5
@@ -363,11 +394,26 @@ def rms_shapes(b: int, s: int):
             (b, 2560), (b * 32, 128), (b * 8, 128)]
 
 
+def continuous_buckets():
+    """Phase 4b's prefill calls, each a batch of 1 padded to its bucket:
+    the buckets of every call (K1) and of the first chunks (K3; a
+    continuation chunk attends through the plain masked attention)."""
+    from repro_torch.serve.scheduler import pick_bucket, seq_buckets
+    buckets = seq_buckets(PREFILL_CHUNK)      # the engine's min_bucket 16
+    first = {pick_bucket(min(n, PREFILL_CHUNK), buckets)
+             for n in CONT_PROMPT_LENS}
+    return sorted(set(_prefill_rows(buckets))), sorted(first)
+
+
 def phase_kernels(k1):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the main path's shapes in bf16, phase 5's in fp32
+    every, first = continuous_buckets()
+    # the main path's shapes in bf16 (phase 4, then phase 4b's prefill
+    # rows: its decode steps have phase 4's), phase 5's in fp32
     rms = ([_rmsnorm_case(r, d, torch.bfloat16, gen, k1)
             for r, d in rms_shapes(len(PROMPT_LENS), max(PROMPT_LENS))]
+           + [_rmsnorm_case(r, d, torch.bfloat16, gen, k1)
+              for s in every for r, d in rms_shapes(1, s)[:3]]
            + [_rmsnorm_case(r, d, torch.float32, gen, k1)
               for r, d in rms_shapes(len(CPU_PROMPT_LENS),
                                      max(CPU_PROMPT_LENS))])
@@ -375,12 +421,93 @@ def phase_kernels(k1):
     fa = [_flash_case(s, s, causal, 0, gen)
           for s in (s_main, 128, 100) for causal in (True, False)]
     fa.append(_flash_case(1, s_main, True, s_main - 1, gen))
+    # phase 4b's first prefill chunks: one request at each bucket
+    fa += [_flash_case(s, s, True, 0, gen, b=1) for s in first]
     # the fp32 (simt) variant at the prefill shape: not redesigned, timed
     fa.append(_flash_case(s_main, s_main, True, 0, gen, dtype=torch.float32))
     for name, cases in (("rmsnorm", rms), ("flash_attention", fa)):
         for c in cases:
             log(f"[3] {name} " + json.dumps(c))
+    log("[3] decode attention " + json.dumps(_decode_attention_case(gen)))
     return {"rmsnorm": rms, "flash_attention": fa}
+
+
+def _decode_attention_case(gen):
+    """Decode attention (plain PyTorch, no kernel of the port) at a decode
+    step of phases 4 and 4b, one layer, bf16: the card's form (the cache
+    read in bf16 by two fp32-out GEMMs) against the upcast form (the CPU's
+    plain version) on the same card tensors, timed in turns in one call."""
+    from repro_torch.configs import config
+    from repro_torch.models import attention as attn
+    cfg = config(ARCH)
+    b, t = SLOTS, continuous_max_seq()
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf = torch.bfloat16
+    q = (0.3 * torch.randn((b, 1, nh, hd), generator=gen,
+                           device="cuda")).to(bf)
+    k = (0.3 * torch.randn((b, t, nkv, hd), generator=gen,
+                           device="cuda")).to(bf)
+    v = torch.randn((b, t, nkv, hd), generator=gen, device="cuda").to(bf)
+    pos = torch.tensor([t - 1, 150, 60, 20][:b], device="cuda")
+    forms = {"card": lambda: attn._token_attention(cfg, q, k, v, pos, True),
+             "upcast": lambda: attn._token_attention(cfg, q, k, v, pos, True,
+                                                     upcast=True)}
+    # the same products in another order; probabilities rounded to bf16
+    err = check_close(forms["card"](), forms["upcast"](), bf,
+                      "decode attention, card form against upcast form")
+    ms = {"card": [], "upcast": []}
+    for form in ("card", "upcast", "upcast", "card"):
+        ms[form].append(time_ms(forms[form]))
+    return {"q": [b, 1, nh, hd], "kv": [b, t, nkv, hd], "dtype": "bfloat16",
+            "max_abs_err": err, "tol": list(TOLS[bf]),
+            "ms_card": ms["card"], "ms_upcast": ms["upcast"],
+            "layers": cfg.n_layers}
+
+
+# torch.profiler's kernel records of a long run fall short of what ran,
+# though every run launches the same kernels (tools/profiler_loss.py
+# measures the loss on the card): a K1 or K3 count may be short by this
+# share of the counted launches, plus one
+PROFILER_LOSS = 1e-3
+
+
+def device_checked(run, what: str):
+    """``run()`` under torch.profiler, and the K1 and K3 kernels the card
+    ran in it (by kernel name; a CUDA graph's replayed kernels are traced
+    one by one) held to ``ops.launch_counts()`` read after the run: the
+    host's counts, replays included, against the device's.  The profiler
+    loses a few records of a long run (PROFILER_LOSS), so the device's
+    count may fall short by that much and never exceed the host's.
+    Returns ``run()``'s result and the device's counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+        time.sleep(0.2)     # the last kernels' records land in the window
+    dev = {"rmsnorm": 0, "flash_attention": {"mma": 0, "simt": 0}}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "rmsnorm_kernel" in e.key:
+            dev["rmsnorm"] += e.count
+        elif "flash_fwd_mma" in e.key:
+            dev["flash_attention"]["mma"] += e.count
+        elif "flash_fwd" in e.key:
+            dev["flash_attention"]["simt"] += e.count
+    host = {"rmsnorm": ops.launch_counts()["rmsnorm"],
+            "flash_attention": ops.launch_counts_by_variant()[
+                "flash_attention"]}
+    pairs = [(dev["rmsnorm"], host["rmsnorm"])] + [
+        (dev["flash_attention"][v], host["flash_attention"][v])
+        for v in ("mma", "simt")]
+    if dev["rmsnorm"] == 0 or any(
+            not 0 <= h - d <= PROFILER_LOSS * h + 1 for d, h in pairs):
+        raise AssertionError(f"{what}: kernels on the card (torch.profiler) "
+                             f"{dev} != the counted launches {host}")
+    return out, dev
 
 
 def phase_main_path(smi: str):
@@ -399,7 +526,7 @@ def phase_main_path(smi: str):
     engine = BatchedEngine(model, params,
                            max_seq=max(PROMPT_LENS) + MAX_NEW + CHUNK,
                            chunk=CHUNK)
-    warm = engine.run(reqs)                  # warm-up: cuBLAS, allocator
+    warm = engine.run(reqs)          # warm-up: cuBLAS, allocator, capture
     torch.cuda.synchronize()
     before = engine.stats()
     torch.cuda.reset_peak_memory_stats()
@@ -413,6 +540,11 @@ def phase_main_path(smi: str):
     after = engine.stats()
     prefills = after["prefills"] - before["prefills"]
     steps = after["decode_steps"] - before["decode_steps"]
+    if after["captures"] != before["captures"] or after["captures"] != 1:
+        raise AssertionError(f"captures {before['captures']} -> "
+                             f"{after['captures']}: the measured run must "
+                             f"only replay the one (batch, chunk, sampled) "
+                             f"graph")
     per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
     want = {"flash_attention": cfg.n_layers * prefills,
             "rmsnorm": per_pass * (prefills + steps),
@@ -444,7 +576,8 @@ def phase_main_path(smi: str):
     log(f"[4] served {len(reqs)} requests (prompts {list(PROMPT_LENS)}, "
         f"{MAX_NEW} new each, request 1 at T=0.8 top-k 50): {n_tok} tokens "
         f"in {dt:.3f} s = {n_tok / dt:.1f} tok/s, 1 prefill + {steps} decode "
-        f"steps in {after['chunks'] - before['chunks']} chunks; max memory "
+        f"steps in {after['chunks'] - before['chunks']} chunks, each a "
+        f"replay of the graph {after['graph_keys']}; max memory "
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {counts} (rmsnorm = {per_pass} x (prefills + steps), "
         f"flash = {cfg.n_layers} x prefills, variants "
@@ -452,9 +585,169 @@ def phase_main_path(smi: str):
         f"{variants['rmsnorm']}); card {smi}")
     for i, o in enumerate(outs):
         log(f"    request[{i}] ({PROMPT_LENS[i]} prompt tokens): {o[:10]}")
-    del engine, params, model
+    ops.reset_launch_counts()
+    prof_outs, dev = device_checked(lambda: engine.run(reqs), "phase 4")
+    if prof_outs != outs or ops.launch_counts() != counts:
+        raise AssertionError(f"phase 4 under the profiler: launches "
+                             f"{ops.launch_counts()} != {counts}, or other "
+                             f"tokens")
+    counted = {"rmsnorm": counts["rmsnorm"],
+               "flash_attention": variants["flash_attention"]}
+    log(f"[4] a third run under torch.profiler: the card ran {dev} K1 / K3 "
+        f"kernels against the counted launches with replays {counted}")
+    del engine
+    return (counts, {k: variants[k] for k in ("rmsnorm", "flash_attention")},
+            (cfg, model, params))
+
+
+def continuous_requests(vocab: int):
+    """Phase 4b's traffic (and phase 5's, at 2 layers)."""
+    from repro_torch.launch import serve
+    reqs = serve.make_requests(vocab, CONT_PROMPT_LENS, MAX_NEW, seed=3)
+    reqs[1].temperature, reqs[1].top_k = 0.8, 50
+    return reqs
+
+
+def continuous_max_seq() -> int:
+    return -(-(max(CONT_PROMPT_LENS) + MAX_NEW + CHUNK) // BLOCK) * BLOCK
+
+
+def continuous_engine(model, params, layout: str, graph: bool):
+    from repro_torch.serve.engine import ContinuousEngine
+    return ContinuousEngine(model, params, max_seq=continuous_max_seq(),
+                            slots=SLOTS, chunk=CHUNK, kv_layout=layout,
+                            block_size=BLOCK, prefill_chunk=PREFILL_CHUNK,
+                            graph=graph)
+
+
+def _prefill_rows(buckets):
+    """The row count of each prefill call phase 4b's traffic makes: chunks
+    of the largest bucket, the tail padded to the smallest that fits."""
+    from repro_torch.serve.scheduler import pick_bucket
+    rows = []
+    for n in CONT_PROMPT_LENS:
+        for start in range(0, n, buckets[-1]):
+            rows.append(pick_bucket(min(n - start, buckets[-1]), buckets))
+    return rows
+
+
+def _continuous_run(engine, reqs, cfg):
+    """One timed run of ``reqs``; the launch counts checked against the
+    run's prefill calls, admissions and decode steps, replays included."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    torch.cuda.synchronize()
+    before = engine.stats()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_results(reqs, seed=5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, variants = ops.launch_counts(), ops.launch_counts_by_variant()
+    after = engine.stats()
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    admits = after["scheduler"]["admits"] - before["scheduler"]["admits"]
+    rows = _prefill_rows(engine.buckets)
+    if prefills != len(rows) or admits != len(reqs):
+        raise AssertionError(f"{prefills} prefill calls for {admits} "
+                             f"admissions; want {len(rows)} for {len(reqs)}")
+    per_pass = 4 * cfg.n_layers + 1
+    want = {"flash_attention": cfg.n_layers * admits,
+            "rmsnorm": per_pass * (prefills + steps),
+            "matmul": 0, "dpia_cuda": 0}
+    want_k1 = {"packed": 2 * cfg.n_layers * (prefills + steps),
+               "warp": 0, "block": 0}
+    for r in rows + [SLOTS] * steps:     # the d_model rows of each pass
+        want_k1[rms.plan(r, cfg.d_model, torch.bfloat16).variant] += \
+            2 * cfg.n_layers + 1
+    if counts != want or variants["rmsnorm"] != want_k1 or \
+            variants["flash_attention"] != {"mma": cfg.n_layers * admits,
+                                            "simt": 0}:
+        raise AssertionError(f"{engine.kv_layout}: launches {counts} != "
+                             f"{want}, K1 {variants['rmsnorm']} != {want_k1}, "
+                             f"K3 {variants['flash_attention']}")
+    toks = [list(r.tokens) for r in results]
+    for o in toks:
+        if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o):
+            raise AssertionError(f"bad output {o}")
+    return toks, {"tok_s": sum(map(len, toks)) / dt, "s": dt,
+                  "ttft_200_s": results[0].ttft_s,
+                  "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "prefills": prefills, "steps": steps,
+                  "chunks": after["chunks"] - before["chunks"],
+                  "launches": counts, "k1_variants": variants["rmsnorm"]}
+
+
+def phase_continuous(smi: str, cfg, model, params):
+    """Four engines (dense / paged, graph / eager) on one traffic, in
+    CONT_ROUNDS rounds of alternating order: every run's tokens equal, and
+    the median and range of each engine's tok/s and TTFT."""
+    from repro_torch.serve.engine import BatchedEngine
+    reqs = continuous_requests(cfg.vocab)
+    engines = {}
+    for layout in ("dense", "paged"):
+        graph = continuous_engine(model, params, layout, graph=True)
+        graph.run(reqs, seed=5)           # warm-up: captures every key
+        engines[(layout, "graph")] = graph
+        engines[(layout, "eager")] = continuous_engine(model, params, layout,
+                                                       graph=False)
+    want, runs = None, {key: [] for key in engines}
+    for r in range(CONT_ROUNDS):
+        for key in (list(engines) if r % 2 == 0 else reversed(engines)):
+            toks, rep = _continuous_run(engines[key], reqs, cfg)
+            if want is None:
+                want = toks
+            elif toks != want:
+                raise AssertionError(f"{key} round {r}: tokens {toks} != "
+                                     f"{want} (graph, eager and the layouts "
+                                     f"must agree)")
+            runs[key].append(rep)
+    report = {}
+    for (layout, mode), reps in runs.items():
+        st = engines[(layout, mode)].stats()
+        if mode == "graph" and (st["recaptures_after_warm"]
+                                or st["captures"] > 2):
+            raise AssertionError(f"{layout}: {st['captures']} captures, "
+                                 f"{st['recaptures_after_warm']} after "
+                                 f"warm-up: {st['graph_keys']}")
+        tok_s = [x["tok_s"] for x in reps]
+        ttft = [x["ttft_200_s"] for x in reps]
+        report[f"{layout} {mode}"] = {
+            "tok_s_median": statistics.median(tok_s), "tok_s": tok_s,
+            "ttft_200_s_median": statistics.median(ttft), "ttft_200_s": ttft,
+            "max_memory_gib": max(x["max_memory_gib"] for x in reps),
+            **{k: reps[0][k] for k in ("prefills", "steps", "chunks",
+                                       "launches", "k1_variants")},
+            **({"captures": st["captures"], "graph_keys": st["graph_keys"],
+                "recaptures_after_warm": st["recaptures_after_warm"]}
+               if mode == "graph" else {})}
+        log(f"[4b] {layout} {mode}: " + json.dumps(report[f"{layout} {mode}"]))
+    del engines
+    static = BatchedEngine(model, params,
+                           max_seq=max(CONT_PROMPT_LENS) + MAX_NEW + CHUNK,
+                           chunk=CHUNK)
+    static_toks = static.run(reqs, seed=5)
+    agree = [next((j for j, (a, b) in enumerate(zip(c, s)) if a != b), None)
+             for c, s in zip(want, static_toks)]
+    del static
     torch.cuda.empty_cache()
-    return counts, {k: variants[k] for k in ("rmsnorm", "flash_attention")}
+    log(f"[4b] continuous vs static engine in bf16, first differing token "
+        f"per request (None: all {MAX_NEW} equal): {agree}")
+    for layout in ("dense", "paged"):
+        g, e = report[f"{layout} graph"], report[f"{layout} eager"]
+        log(f"[4b] {layout}, {CONT_ROUNDS} runs each, median [min, max]: "
+            f"tok/s graph {g['tok_s_median']:.1f} [{min(g['tok_s']):.1f}, "
+            f"{max(g['tok_s']):.1f}], eager {e['tok_s_median']:.1f} "
+            f"[{min(e['tok_s']):.1f}, {max(e['tok_s']):.1f}]; ttft at the "
+            f"200-token prompt graph {g['ttft_200_s_median']:.4f} s "
+            f"[{min(g['ttft_200_s']):.4f}, {max(g['ttft_200_s']):.4f}], eager "
+            f"{e['ttft_200_s_median']:.4f} s [{min(e['ttft_200_s']):.4f}, "
+            f"{max(e['ttft_200_s']):.4f}]; max memory "
+            f"{g['max_memory_gib']:.2f} GiB; captures {g['captures']} "
+            f"{g['graph_keys']}; card {smi}")
+    return report
 
 
 def _tensors(node):
@@ -516,6 +809,10 @@ def phase_against_cpu():
     if toks["cuda"] != toks["cpu"]:
         raise AssertionError(f"greedy tokens differ: card {toks['cuda']} "
                              f"cpu {toks['cpu']}")
+    del p_gpu
+    t_full = time.perf_counter()
+    full_cfg = continuous_against_static()
+    t_full = time.perf_counter() - t_full
     fa_variants = ops.launch_counts_by_variant()["flash_attention"]
     if fa_variants["mma"] != 0 or fa_variants["simt"] == 0:
         raise AssertionError(f"K3 variants {fa_variants}: every fp32 launch "
@@ -530,9 +827,37 @@ def phase_against_cpu():
         f"last-position logits card vs CPU max abs err {err:.3e} "
         f"(tol {LOGIT_TOL}, |logit| max "
         f"{logits['cpu'].abs().max().item():.2f}); greedy tokens equal "
-        f"{toks['cuda']}; K3 variants {fa_variants}; K1 variants "
-        f"{k1_variants}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{toks['cuda']}; at all {full_cfg.n_layers} layers in float32, "
+        f"continuous (dense, paged; graphs) = static on phase 4b's traffic "
+        f"({t_full:.1f} s); K3 variants {fa_variants}; K1 variants "
+        f"{k1_variants}; {time.perf_counter() - t0:.1f} s")
+
+
+def continuous_against_static():
+    """qwen3-4b at full depth in float32 (17.6 GB of weights), phase 4b's
+    traffic through the continuous engine (dense and paged, graphs) and the
+    static engine: equal tokens, the sampled request included.  In fp32 the
+    engines' other batch shapes and summation orders do not flip a token;
+    in bf16 they do (phase 4b prints where)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import BatchedEngine
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32")
+    reqs = continuous_requests(cfg.vocab)
+    static = BatchedEngine(model, params,
+                           max_seq=max(CONT_PROMPT_LENS) + MAX_NEW + CHUNK,
+                           chunk=CHUNK).run(reqs, seed=5)
+    for layout in ("dense", "paged"):
+        cont = continuous_engine(model, params, layout, graph=True).run(
+            reqs, seed=5)
+        if cont != static:
+            first = [next((j for j, (a, b) in enumerate(zip(c, s)) if a != b),
+                          None) for c, s in zip(cont, static)]
+            raise AssertionError(f"fp32, {cfg.n_layers} layers, {layout}: "
+                                 f"continuous tokens != static tokens; first "
+                                 f"differing token per request {first}")
+    del params
+    torch.cuda.empty_cache()
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -910,7 +1235,10 @@ def main() -> int:
     smi = phase_card()
     build_s, k1 = phase_build()
     cases = phase_kernels(k1)
-    counts, variants = phase_main_path(smi)
+    counts, variants, (cfg, model, params) = phase_main_path(smi)
+    phase_continuous(smi, cfg, model, params)
+    del model, params
+    torch.cuda.empty_cache()
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)

@@ -168,6 +168,33 @@ def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
             if hasattr(mod, "launches_by_variant")}
 
 
+def launch_snapshot() -> Dict[Tuple[str, Optional[str]], int]:
+    """Every kernel's count (key ``(kernel, None)``) and each variant's
+    (``(kernel, variant)``), flat, for :func:`add_launches`."""
+    snap = {(name, None): mod.launches
+            for name, mod in _KERNEL_MODULES.items()}
+    for name, by_variant in launch_counts_by_variant().items():
+        snap.update({(name, v): n for v, n in by_variant.items()})
+    return snap
+
+
+def add_launches(delta: Dict[Tuple[str, Optional[str]], int],
+                 times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a difference of two
+    :func:`launch_snapshot` s) to the counts.
+
+    For CUDA graphs: a wrapper counts when it is called, and under capture
+    that call records its kernel without launching it.  The owner of a
+    graph takes the capture's counts back (``times=-1``) and adds them
+    once per replay, which is when the captured kernels launch."""
+    for (name, variant), n in delta.items():
+        mod = _KERNEL_MODULES[name]
+        if variant is None:
+            mod.launches += times * n
+        else:
+            mod.launches_by_variant[variant] += times * n
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel's count, and each memoised generated program's."""
     for mod in _KERNEL_MODULES.values():

@@ -1,12 +1,21 @@
-"""GQA multi-head attention, dense path: prefill (through the
-flash-attention kernel K3) and one-token cached decode, qk_norm, bias.
+"""GQA multi-head attention: prefill (through the flash-attention kernel
+K3), one-token cached decode, chunked prefill against the cache, and the
+paged-KV variants.
 
-The port of ``repro.models.attention``'s dense functions.  Layouts are the
-reference's: activations (b, s, d); q (b, s, nh, hd); k/v and the KV cache
-(b, s, nkv, hd), layer-stacked as (L, b, max_seq, nkv, hd).  Where JAX
+The port of ``repro.models.attention``'s dense and paged functions.
+Layouts are the reference's: activations (b, s, d); q (b, s, nh, hd); k/v
+and the KV cache (b, s, nkv, hd), layer-stacked as (L, b, max_seq, nkv,
+hd); a page pool (L, n_blocks + 1, block_size, nkv, hd).  Where JAX
 returns an updated cache, the port writes the cache in place and says so.
-Decode attention stays plain PyTorch, as the reference leaves it to XLA.
-Paged KV arrives with its slice of the port (ROADMAP.md)."""
+Decode attention and the masked attention of chunked prefill stay plain
+PyTorch, as the reference leaves them to XLA.
+
+Writes that must drop.  JAX scatters with ``mode='drop'``; torch has no
+such mode.  A dense slot's own row takes a dropped write as a rewrite of
+the value already there.  A page pool holds one page more than the engine
+hands out: page ``n_blocks``, the sentinel of every block table, is a trash
+page that every dropped write lands in and no table maps to a live lane,
+so a parked lane can never write into a live lane's page."""
 from __future__ import annotations
 
 import math
@@ -106,25 +115,80 @@ def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
     return _attend(p, cfg, q, k, v, x.dtype), cache
 
 
-def _attend_token(cfg: ModelConfig, q, k_l, v_l, pos, per_slot: bool,
-                  x_dtype, wo):
-    """The one-token masked-attention tail of decode: q (b, 1, nh, hd)
-    against k_l/v_l (b, t, nkv, hd), valid where ``kpos <= pos``.  Scores
-    and P.V accumulate in fp32; probabilities are rounded to the cache's
-    dtype before P.V, as in the reference."""
+def _bmm_f32(a, b):
+    """a @ b batched, accumulated and returned in fp32, for inputs in the
+    cache's dtype (bf16 products are exact in fp32)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _token_attention(cfg: ModelConfig, q, k_l, v_l, pos, per_slot: bool,
+                     upcast: Optional[bool] = None):
+    """The one-token masked attention shared by every decode variant
+    (dense, paged, paged view): q (b, 1, nh, hd) against k_l/v_l
+    (b, t, nkv, hd), valid where ``kpos <= pos``; returns the fp32
+    (b, nkv, group, hd) heads.  Scores and P.V accumulate in fp32;
+    probabilities are rounded to the cache's dtype before P.V, as in the
+    reference.
+
+    ``upcast`` (default: on a CPU tensor only) is the plain version: q, k
+    and v upcast to fp32.  Otherwise the cache is read as it lies, in its
+    own dtype, with no copy: one batched GEMM of every query head against
+    the keys of every kv head (rows (t, kv head) of the contiguous
+    (b, t * nkv, hd) view), whose GQA pairs are a diagonal view of the fp32
+    result; P.V likewise against the (b, t, nkv * hd) view.  That
+    multiplies the FLOPs of a memory-bound product by nkv in place of an
+    fp32 copy of the whole cache per layer (chip_smoke phase 3 times both
+    forms on the card)."""
+    if upcast is None:
+        upcast = not q.is_cuda
     b = q.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    qg = q.reshape(b, nkv, nh // nkv, hd)
-    scores = torch.einsum("bngh,btnh->bngt", qg.float(),
-                          k_l.float()) / math.sqrt(hd)
-    kpos = torch.arange(k_l.shape[1], device=q.device)[None, None, None, :]
+    group = nh // nkv
+    t = k_l.shape[1]
+    if upcast:
+        qg = q.reshape(b, nkv, group, hd)
+        scores = torch.einsum("bngh,btnh->bngt", qg.float(),
+                              k_l.float()) / math.sqrt(hd)
+    else:
+        s_all = _bmm_f32(q.reshape(b, nh, hd),
+                         k_l.reshape(b, t * nkv, hd).transpose(1, 2))
+        scores = s_all.view(b, nkv, group, t, nkv).diagonal(
+            dim1=1, dim2=4).permute(0, 3, 1, 2) / math.sqrt(hd)
+    kpos = torch.arange(t, device=q.device)[None, None, None, :]
     limit = pos[:, None, None, None] if per_slot else pos
     scores = scores.masked_fill(kpos > limit, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bngt,btnh->bngh", probs.to(v_l.dtype).float(),
-                       v_l.float())
-    out = out.to(x_dtype).reshape(b, 1, nh * hd)
-    return out @ wo
+    probs = torch.softmax(scores, dim=-1).to(v_l.dtype)
+    if upcast:
+        return torch.einsum("bngt,btnh->bngh", probs.float(), v_l.float())
+    o_all = _bmm_f32(probs.reshape(b, nh, t), v_l.reshape(b, t, nkv * hd))
+    return o_all.view(b, nkv, group, nkv, hd).diagonal(
+        dim1=1, dim2=3).permute(0, 3, 1, 2)
+
+
+def _attend_token(cfg: ModelConfig, q, k_l, v_l, pos, per_slot: bool,
+                  x_dtype, wo):
+    """:func:`_token_attention` through the output projection.  One code
+    path for every decode variant is what makes paged decode bitwise the
+    dense computation."""
+    out = _token_attention(cfg, q, k_l, v_l, pos, per_slot)
+    return out.to(x_dtype).reshape(q.shape[0], 1, -1) @ wo
+
+
+def _write_token(k_l, v_l, k_new, v_new, pos):
+    """Write one token's k/v (b, nkv, hd) into each slot's row of k_l/v_l
+    (b, t, nkv, hd) at its own position ``pos`` (b,), in place; a slot at
+    ``pos >= t`` writes nothing (a rewrite of the value at t - 1).  No host
+    sync."""
+    b, t = k_l.shape[:2]
+    slots = torch.arange(b, device=k_l.device)
+    idx = pos.clamp(max=t - 1)
+    keep = (pos >= t)[:, None, None]
+    k_new = torch.where(keep, k_l[slots, idx], k_new.to(k_l.dtype))
+    v_new = torch.where(keep, v_l[slots, idx], v_new.to(v_l.dtype))
+    k_l.index_put_((slots, idx), k_new)
+    v_l.index_put_((slots, idx), v_new)
 
 
 def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
@@ -148,15 +212,193 @@ def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
     positions = pos[:, None] if per_slot else pos.expand(b, 1)
     q, k, v = _project_qkv(p, cfg, x, positions)
     k_l, v_l = ck[li], cv[li]            # views: writes land in ck / cv
-    slots = torch.arange(b, device=x.device)
-    idx = (pos.clamp(max=t - 1) if per_slot
-           else pos.clamp(0, t - 1).expand(b))
-    k_new, v_new = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
     if per_slot:
-        keep = (pos >= t)[:, None, None]
-        k_new = torch.where(keep, k_l[slots, idx], k_new)
-        v_new = torch.where(keep, v_l[slots, idx], v_new)
-    k_l.index_put_((slots, idx), k_new)
-    v_l.index_put_((slots, idx), v_new)
+        _write_token(k_l, v_l, k[:, 0], v[:, 0], pos)
+    else:
+        slots = torch.arange(b, device=x.device)
+        idx = pos.clamp(0, t - 1).expand(b)
+        k_l.index_put_((slots, idx), k[:, 0].to(ck.dtype))
+        v_l.index_put_((slots, idx), v[:, 0].to(cv.dtype))
     return _attend_token(cfg, q, k_l, v_l, pos, per_slot, x.dtype,
                          p["wo"]), ck, cv
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill against the cache
+# ---------------------------------------------------------------------------
+
+def _masked_attend(cfg: ModelConfig, q, k_all, v_all, qpos, kpos):
+    """fp32 masked attention of q (b, sq, nh, hd) against a KV view
+    (b, t, nkv, hd); valid where kpos (b|1, t) <= qpos (b, sq).  Plain
+    PyTorch in the reference's einsum/softmax discipline (no K3: the
+    reference's continuation chunks do not reach its Pallas kernel)."""
+    b, sq, nh, hd = q.shape
+    nkv = k_all.shape[2]
+    qg = q.reshape(b, sq, nkv, nh // nkv, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(),
+                          k_all.float()) / math.sqrt(hd)
+    valid = kpos[:, None, None, None, :] <= qpos[:, None, None, :, None]
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngst,btnh->bsngh", probs, v_all.float())
+    return out.reshape(b, sq, nh, hd)
+
+
+def attention_prefill_cached(p, cfg: ModelConfig, x, cache: KVCache, start):
+    """Continuation prefill for a CHUNKED prompt against one layer's dense
+    cache (b, max_seq, nkv, hd): write this chunk's k/v at
+    [start, start+s), in place, and attend q against the whole cache masked
+    by ``kpos <= qpos``, so a prompt split across chunk boundaries sees
+    what a single-call prefill would.  Rows of a padded tail chunk past
+    ``max_seq`` are dropped (never clamped onto earlier positions)."""
+    b, s, _ = x.shape
+    t = cache.k.shape[1]
+    positions = start + torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    n = max(0, min(s, t - start))
+    cache.k[:, start:start + n] = k[:, :n]
+    cache.v[:, start:start + n] = v[:, :n]
+    kpos = torch.arange(t, device=x.device)[None, :]
+    out = _masked_attend(cfg, q, cache.k, cache.v, positions, kpos)
+    return out.to(x.dtype).reshape(b, s, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV: page-mapped variants of prefill/decode (serve.paged owns the
+# host-side block pool; table entries n_blocks are the sentinel, writes
+# through them land in the trash page, reads through them are masked)
+# ---------------------------------------------------------------------------
+
+def init_paged_kv(cfg: ModelConfig, n_blocks: int, block_size: int,
+                  device=None, layers: Optional[int] = None) -> KVCache:
+    """A zero page pool: (n_blocks + 1, block_size, nkv, hd) pages, the
+    last the trash page that dropped writes land in; with ``layers``, one
+    such pool a layer, stacked on a leading axis."""
+    shape = (n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    if layers is not None:
+        shape = (layers,) + shape
+    kw = dict(dtype=cfg.torch_dtype, device=device)
+    return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+
+
+def _page_slots(pos, bt, block_size: int, n_blocks: int):
+    """(page, offset) for per-slot positions (b,) against per-slot table
+    rows bt (b, max_blocks); positions past the table and sentinel entries
+    map to page ``n_blocks``, the trash page."""
+    b, mb = bt.shape
+    idx = pos // block_size
+    page = bt[torch.arange(b, device=bt.device), idx.clamp(0, mb - 1)]
+    page = torch.where(idx < mb, page, n_blocks).clamp(max=n_blocks)
+    return page, pos % block_size
+
+
+def _pages_for_positions(pos, bt_row, block_size: int, n_blocks: int):
+    """(page, offset) for a vector of positions against ONE table row;
+    out-of-table positions and sentinel entries map to the trash page."""
+    mb = bt_row.shape[0]
+    idx = pos // block_size
+    page = bt_row[idx.clamp(0, mb - 1)]
+    page = torch.where(idx < mb, page, n_blocks).clamp(max=n_blocks)
+    return page, pos % block_size
+
+
+def _gather_pages(pool, bt):
+    """A per-slot logical view of a page pool: pool (n_blocks + 1,
+    block_size, nkv, hd), bt (b, max_blocks) -> (b, max_blocks *
+    block_size, nkv, hd).  Sentinel entries read the trash page; their
+    positions lie past every valid ``kpos <= pos``, so they are masked."""
+    return pool[bt].reshape(bt.shape[0], -1, *pool.shape[2:])
+
+
+def paged_attention_prefill(p, cfg: ModelConfig, x, ck, cv, li: int, bt_row,
+                            start: int, *, first: bool):
+    """Prefill one prompt chunk into LAYER-STACKED page pools, in place.
+
+    x: (1, s, d); ck/cv: (L, n_blocks + 1, block_size, nkv, hd); bt_row:
+    the slot's (max_blocks,) block-table row; start: the chunk's offset.
+    k/v are scattered page by page (writes through sentinel or overflow
+    entries land in the trash page).
+
+    ``first`` selects the attention: the first chunk attends within x
+    exactly like the dense :func:`attention_prefill` (through K3), so a
+    paged engine is token-identical to the dense one for prompts that fit
+    one chunk; continuation chunks gather the slot's pages and attend
+    masked by ``kpos <= qpos``."""
+    b, s, _ = x.shape
+    n_blocks, bs = ck.shape[1] - 1, ck.shape[2]
+    positions = start + torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    page, off = _pages_for_positions(positions[0], bt_row, bs, n_blocks)
+    ck[li].index_put_((page, off), k[0].to(ck.dtype))
+    cv[li].index_put_((page, off), v[0].to(cv.dtype))
+    if first:
+        return _attend(p, cfg, q, k, v, x.dtype), ck, cv
+    k_all = _gather_pages(ck[li], bt_row[None])
+    v_all = _gather_pages(cv[li], bt_row[None])
+    kpos = torch.arange(k_all.shape[1], device=x.device)[None, :]
+    out = _masked_attend(cfg, q, k_all, v_all, positions, kpos)
+    return out.to(x.dtype).reshape(b, s, -1) @ p["wo"], ck, cv
+
+
+def paged_attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int,
+                                   pos, bt):
+    """One-token decode against layer-stacked page pools: the paged twin of
+    :func:`attention_decode_inplace`'s per-slot path.
+
+    ck/cv: (L, n_blocks + 1, block_size, nkv, hd); pos: (b,) per-slot
+    positions; bt: (b, max_blocks) block tables.  The new token is written
+    through the table (a parked lane, at ``pos == max_seq``, writes into
+    the trash page); the read gathers each slot's pages into a
+    (b, max_blocks * block_size, nkv, hd) view and runs :func:`_attend_token`
+    on it, so paged decode is bitwise the dense computation when
+    ``max_blocks * block_size == max_seq``."""
+    b = x.shape[0]
+    n_blocks, bs = ck.shape[1] - 1, ck.shape[2]
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    page, off = _page_slots(pos, bt, bs, n_blocks)
+    ck[li].index_put_((page, off), k[:, 0].to(ck.dtype))
+    cv[li].index_put_((page, off), v[:, 0].to(cv.dtype))
+    k_all = _gather_pages(ck[li], bt)
+    v_all = _gather_pages(cv[li], bt)
+    return _attend_token(cfg, q, k_all, v_all, pos, True, x.dtype,
+                         p["wo"]), ck, cv
+
+
+def gather_paged_view(ck, cv, bt):
+    """The per-slot logical view of layer-stacked page pools: ck/cv
+    (L, n_blocks + 1, block_size, nkv, hd), bt (b, max_blocks) ->
+    (L, b, max_blocks * block_size, nkv, hd) pairs, shaped like the dense
+    layer-stacked cache.  The decode chunk gathers it ONCE per chunk and
+    updates it per token (:func:`paged_attention_decode_view`), so the page
+    indirection is paid per chunk, not per token and layer."""
+    n_layers = ck.shape[0]
+    vk = ck[:, bt].reshape(n_layers, bt.shape[0], -1, *ck.shape[3:])
+    vv = cv[:, bt].reshape(n_layers, bt.shape[0], -1, *cv.shape[3:])
+    return vk, vv
+
+
+def paged_attention_decode_view(p, cfg: ModelConfig, x, ck, cv, vk, vv,
+                                li: int, pos, bt):
+    """One-token decode against a pre-gathered per-slot view, in place.
+
+    Attention and the view's update are the dense per-slot path of
+    :func:`attention_decode_inplace` on (vk, vv), bitwise the dense
+    computation; the new token is ALSO written into the page pool (ck, cv)
+    through the block table, so the pool stays the source of truth across
+    chunk boundaries.  A parked lane's writes drop both ways (past the view
+    / into the trash page)."""
+    b = x.shape[0]
+    n_blocks, bs = ck.shape[1] - 1, ck.shape[2]
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    _write_token(vk[li], vv[li], k[:, 0], v[:, 0], pos)
+    page, off = _page_slots(pos, bt, bs, n_blocks)
+    ck[li].index_put_((page, off), k[:, 0].to(ck.dtype))
+    cv[li].index_put_((page, off), v[:, 0].to(cv.dtype))
+    return _attend_token(cfg, q, vk[li], vv[li], pos, True, x.dtype,
+                         p["wo"]), ck, cv, vk, vv

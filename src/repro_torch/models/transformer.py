@@ -1,5 +1,6 @@
 """Model assembly for the dense family: pre-norm GQA transformer blocks and
-the Model API (forward / init_cache / prefill / decode_step).
+the Model API (forward / init_cache / prefill / decode_step, and the paged
+serving cache: init_paged_cache / prefill_paged / gather_paged_view).
 
 The port of ``repro.models.transformer.Model`` for ``family="dense"``.
 Params are a plain dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
@@ -8,7 +9,8 @@ Params are a plain dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
 layer axis; the layer loop is a Python loop in place of ``lax.scan``.  The
 KV cache is layer-stacked as in the reference and is updated in place.
 The other families (moe, hybrid, ssm, vlm, audio) wait for their slices of
-the port (ROADMAP.md, queue 1)."""
+the port (ROADMAP.md, queue 1), so the recurrent staging state of the
+paged methods is always None here."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -78,46 +80,137 @@ class Model:
         kw = dict(dtype=cfg.torch_dtype, device=resolve_device(device))
         return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
 
+    # -- paged serving cache -------------------------------------------------
+    def init_paged_cache(self, batch: int, max_seq: int, *, n_blocks: int,
+                         block_size: int, device: DeviceLike = None
+                         ) -> KVCache:
+        """The ``kv_layout="paged"`` engine cache: layer-stacked page pools
+        (L, n_blocks + 1, block_size, nkv, hd), the last page of each the
+        trash page (``repro_torch.models.attention``).  No slot axis: slots
+        map into the pool through their block tables, so ``batch`` and
+        ``max_seq`` (kept for the reference's signature) size nothing."""
+        return attn_mod.init_paged_kv(self.cfg, n_blocks, block_size,
+                                      resolve_device(device),
+                                      layers=self.cfg.n_layers)
+
+    def split_paged_cache(self, cache):
+        """(kv pools, slot-indexed recurrent state): the state is None for
+        the dense family."""
+        return cache, None
+
+    def merge_paged_cache(self, kv, state):
+        """Inverse of :meth:`split_paged_cache`."""
+        return kv
+
+    def init_prefill_state(self, batch: int = 1):
+        """Recurrent staging state for a chunked admission: None for the
+        dense family, whose prefill state lives entirely in the KV cache."""
+        return None
+
     def prefill(self, params, tokens, cache: KVCache, start: int = 0,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None,
+                attend_cache: bool = False):
         """Fill the cache with ``tokens`` (b, s) at [start, start+s); returns
         (last_logits (b, vocab), cache), the cache written in place.
 
         ``lengths`` ((b,) int) marks each row's real prompt length in a
         RIGHT-padded batch: logits are taken at ``lengths - 1``.  Causal
         masking keeps real tokens from attending to the padding, so a
-        padded prefill is the unpadded computation."""
+        padded prefill is the unpadded computation.
+
+        ``attend_cache=True`` is the CHUNKED-prefill continuation form:
+        attention runs against the whole (updated) cache masked by
+        ``kpos <= qpos`` instead of within ``tokens`` alone, so a chunk at
+        offset ``start > 0`` sees every earlier chunk's positions."""
         cfg = self.cfg
         x = params["embed"][tokens]
-        b, s = tokens.shape
+        attend = (attn_mod.attention_prefill_cached if attend_cache
+                  else attn_mod.attention_prefill)
         for li, layer in enumerate(params["blocks"]):
             h_in = rmsnorm(x, layer["ln1"], cfg.norm_eps)
-            y, _ = attn_mod.attention_prefill(
-                layer["attn"], cfg, h_in, KVCache(cache.k[li], cache.v[li]),
-                start)
+            y, _ = attend(layer["attn"], cfg, h_in,
+                          KVCache(cache.k[li], cache.v[li]), start)
             h = x + y
             x = h + ffn_mod.mlp(layer["mlp"],
                                 rmsnorm(h, layer["ln2"], cfg.norm_eps))
-        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        return self._last_logits(params, x, lengths), cache
+
+    def _last_logits(self, params, x, lengths):
+        """Final norm and head at each row's last real position."""
+        b, s = x.shape[:2]
+        x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         if lengths is None:
             x_last = x[:, -1]
         else:
             idx = (torch.as_tensor(lengths, device=x.device).long() - 1
                    ).clamp(0, s - 1)
             x_last = x[torch.arange(b, device=x.device), idx]
-        return x_last @ params["head"], cache
+        return x_last @ params["head"]
 
-    def decode_step(self, params, token, cache: KVCache, pos):
+    def prefill_paged(self, params, tokens, kv: KVCache, bt_row, state,
+                      start: int, lengths, *, first: bool):
+        """Prefill one prompt chunk of ONE slot into the paged pools, in
+        place.
+
+        tokens: (1, s); kv: the engine's pools (:meth:`split_paged_cache`);
+        bt_row: the slot's (max_blocks,) block-table row; state: the
+        recurrent staging state (None for dense); start: the chunk's
+        offset; lengths: (1,) real token count WITHIN this chunk.  Returns
+        (last_logits, kv, state).
+
+        ``first`` is the chunk-0 form: attention runs within ``tokens``
+        exactly like the dense admission prefill; continuation chunks
+        gather the slot's pages and attend ``kpos <= qpos``."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        for li, layer in enumerate(params["blocks"]):
+            h_in = rmsnorm(x, layer["ln1"], cfg.norm_eps)
+            y, _, _ = attn_mod.paged_attention_prefill(
+                layer["attn"], cfg, h_in, kv.k, kv.v, li, bt_row, start,
+                first=first)
+            h = x + y
+            x = h + ffn_mod.mlp(layer["mlp"],
+                                rmsnorm(h, layer["ln2"], cfg.norm_eps))
+        return self._last_logits(params, x, lengths), kv, state
+
+    def gather_paged_view(self, cache: KVCache, block_tables):
+        """The per-slot logical (vk, vv) view of a paged cache's pools,
+        gathered once per decode chunk (see
+        :func:`repro_torch.models.attention.gather_paged_view`)."""
+        kv, _ = self.split_paged_cache(cache)
+        return attn_mod.gather_paged_view(kv.k, kv.v, block_tables)
+
+    def decode_step(self, params, token, cache: KVCache, pos,
+                    block_tables=None, kv_view=None):
         """token: (b, 1) -> (logits (b, vocab), cache), the cache written in
-        place at ``pos`` (a scalar, or a (b,) per-slot position tensor)."""
+        place at ``pos`` (a scalar, or a (b,) per-slot position tensor).
+
+        ``block_tables`` ((b, max_blocks)) selects the PAGED path: the
+        cache's leaves are page pools and attention goes through
+        :func:`repro_torch.models.attention.paged_attention_decode_inplace`.
+        With ``kv_view`` (the (vk, vv) pair from :meth:`gather_paged_view`)
+        attention runs against the view, updated in place, and the return
+        value is ``(logits, cache, view)``: the decode chunk's form."""
         cfg = self.cfg
         x = params["embed"][token]
         for li, layer in enumerate(params["blocks"]):
             h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
-            y, _, _ = attn_mod.attention_decode_inplace(
-                layer["attn"], cfg, h, cache.k, cache.v, li, pos)
+            if kv_view is not None:
+                y, _, _, _, _ = attn_mod.paged_attention_decode_view(
+                    layer["attn"], cfg, h, cache.k, cache.v, kv_view[0],
+                    kv_view[1], li, pos, block_tables)
+            elif block_tables is not None:
+                y, _, _ = attn_mod.paged_attention_decode_inplace(
+                    layer["attn"], cfg, h, cache.k, cache.v, li, pos,
+                    block_tables)
+            else:
+                y, _, _ = attn_mod.attention_decode_inplace(
+                    layer["attn"], cfg, h, cache.k, cache.v, li, pos)
             x = x + y
             x = x + ffn_mod.mlp(layer["mlp"],
                                 rmsnorm(x, layer["ln2"], cfg.norm_eps))
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        return x[:, -1] @ params["head"], cache
+        logits = x[:, -1] @ params["head"]
+        if kv_view is not None:
+            return logits, cache, kv_view
+        return logits, cache

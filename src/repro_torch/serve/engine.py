@@ -1,33 +1,72 @@
-"""Serving engine: static batch, batched prefill, chunked decode.
+"""Serving engines: the decode fast path.
 
-The port of ``repro.serve.engine``'s :class:`BatchedEngine` and its
-samplers.  Prefill runs the whole batch at once, right-padded to the
-longest prompt, with ``Model.prefill(lengths=...)`` taking each row's
-next-token logits at its own last position.  Decode then runs lock-step in
-chunks of ``chunk`` steps; every step stays on the device (sampling
-included), and the host syncs once per chunk, when it reads the chunk's
-``(batch, chunk)`` token block.
+The port of ``repro.serve.engine``.  The decode hot loop runs entirely on
+the device: one chunk function advances ``chunk`` tokens with sampling
+(per-request temperature and top-k) fused into each step, over static
+buffers written in place, and the host syncs once per chunk, when it reads
+the chunk's ``(batch, chunk)`` token block.  On a CUDA device that chunk
+is a CUDA graph, captured once per ``(batch, chunk, sampled)`` key and
+replayed (:mod:`repro_torch.serve.graph`): the port's counterpart of the
+reference's jitted ``lax.scan``, with "zero re-captures after warm-up" in
+place of "zero recompiles".  ``graph=False`` runs the same chunk eagerly on
+the card, for comparison; a CPU engine runs it eagerly.
+
+Nothing inside the chunk may sync the host: no ``.item()``, ``.tolist()``,
+``bool(tensor)``, tensor built from a host list, or host-to-device copy.
+The chunk's knobs (temperatures, top-k, positions, block tables, each
+slot's generator) are device state written at admission and parking.
+
+Two engines share that chunk:
+
+  * :class:`BatchedEngine`: static batch; prefill all requests together,
+    decode lock-step until every request has its tokens (the oracle the
+    continuous engine is held to).
+  * :class:`ContinuousEngine`: continuous batching over a fixed number of
+    device slots (:mod:`repro_torch.serve.scheduler`): requests are
+    admitted into free slots and retired at chunk boundaries, prompts are
+    right-padded to power-of-two buckets and the decode batch is always
+    ``slots`` wide.  KV memory is a strategy dimension
+    (``kv_layout="dense"|"paged"``, :mod:`repro_torch.serve.paged`), and
+    prompts longer than ``prefill_chunk`` prefill in chunks across
+    boundaries.
 
 Sampling determinism: request ``i`` of a run with seed ``seed`` draws from
-its own ``torch.Generator`` seeded from ``(seed, i)``, advanced only by that
-request's own sampled tokens, so the tokens a request receives depend on
-the request alone, not on its neighbours in the batch.  These streams give
-other bits than the reference's JAX ``fold_in`` keys: the two packages
-agree token for token only in greedy mode.
+its own stream, seeded from ``(seed, i)`` into the ``torch.Generator`` of
+its row or slot at admission and advanced once per sampled token (every
+row of a sampled chunk draws, so a request's stream advances once per
+step whatever its neighbours are).  The tokens a request receives thus
+depend on the request alone: continuous batching gives the static
+engine's tokens where the arithmetic is exact enough (fp32; in bf16 the
+engines' other batch shapes round differently).  These streams give other bits than the reference's JAX
+``fold_in`` keys: the two packages agree token for token only in greedy
+mode.
 
-The continuous engine, scheduler, paged KV, tuning cache, AOT, resilience
-and obs layers of the reference arrive with later slices (ROADMAP.md)."""
+Not ported yet, each raising ``NotImplementedError`` where the reference
+takes it: ``kv_layout="auto"`` and ``tuning_cache=`` (the autotuner,
+ROADMAP.md queue 1 item 3); ``resilience=`` and ``journal=`` (queue 1 item
+4); :class:`ShardedEngine` (queue 1 item 6).  The reference's AOT
+executables, obs spans and fault sites come with those items too."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import logging
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import Model
+from repro_torch.serve.graph import ChunkGraphs
+from repro_torch.serve.paged import BlockPool, table_row
+from repro_torch.serve.resilience import RequestResult
+from repro_torch.serve.scheduler import Scheduler, pick_bucket, seq_buckets
 
-__all__ = ["Request", "BatchedEngine", "sample", "sample_tokens"]
+log = logging.getLogger("repro_torch.serve.engine")
+
+__all__ = ["Request", "BatchedEngine", "ContinuousEngine", "ShardedEngine",
+           "sample", "sample_tokens"]
 
 
 # ---------------------------------------------------------------------------
@@ -54,25 +93,66 @@ def sample(logits, generator: Optional[torch.Generator] = None, *,
     return (scaled + gumbel).argmax(dim=-1)
 
 
-def sample_tokens(logits, generators: Sequence[torch.Generator],
-                  temps: Sequence[float], top_ks: Sequence[int]):
-    """Per-request sampling over a batch: row ``i`` of ``logits`` (b, vocab)
-    is sampled with ``temps[i]`` (``<= 0`` means greedy for that row),
-    ``top_ks[i]`` (``0`` means no top-k filter) and ``generators[i]``.
+def _to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` without waiting for the card: a copy
+    from pageable memory syncs the stream, one from pinned memory does not
+    (admission's inputs go in while earlier work still runs)."""
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
-    The knobs are host values known per request, so choosing the path costs
-    no device sync: an all-greedy batch is one argmax, and only the sampled
-    rows draw random numbers, each from its own generator."""
-    toks = logits.argmax(dim=-1)
-    for i, t in enumerate(temps):
-        if t > 0.0:
-            toks[i] = sample(logits[i], generators[i], temperature=t,
-                             top_k=top_ks[i])
-    return toks
+
+def sample_tokens(logits, generators: Sequence[torch.Generator], temps,
+                  top_ks, *, sampled: Optional[bool] = None):
+    """Per-request sampling over a batch, the form fused into the decode
+    chunk: row ``i`` of ``logits`` (b, vocab) is sampled with ``temps[i]``
+    (``<= 0`` means greedy for that row), ``top_ks[i]`` (``0`` means no
+    top-k filter) and ``generators[i]``; same per-row semantics as
+    :func:`sample`.
+
+    ``temps`` and ``top_ks`` are host sequences or (b,) device tensors.
+    ``sampled`` says whether any row samples; it is read from host
+    ``temps`` when not given, and must be given with tensors (reading a
+    device tensor would sync the host).  A greedy batch is one argmax.  In
+    a sampled batch every row draws ``vocab`` uniforms from its own
+    generator, greedy rows included (their draw is discarded), and the
+    top-k threshold is the k-th value of a full sort: no host branch."""
+    greedy = logits.argmax(dim=-1)
+    if sampled is None:
+        if isinstance(temps, torch.Tensor):
+            raise ValueError("sample_tokens: pass sampled= with device "
+                             "temperatures")
+        sampled = any(float(t) > 0.0 for t in temps)
+    if not sampled:
+        return greedy
+    dev = logits.device
+    if not isinstance(temps, torch.Tensor):
+        temps = _to_device(torch.tensor([float(t) for t in temps]), dev)
+    if not isinstance(top_ks, torch.Tensor):
+        top_ks = _to_device(torch.tensor([int(k or 0) for k in top_ks]), dev)
+    vocab = logits.shape[-1]
+    scaled = logits.float() / temps.clamp_min(1e-6)[:, None]
+    k = torch.where(top_ks > 0, top_ks, vocab).clamp(1, vocab)
+    kth = scaled.sort(dim=-1, descending=True).values.gather(
+        -1, (k - 1)[:, None])
+    scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    u = torch.stack([torch.rand((vocab,), generator=g, device=dev)
+                     for g in generators])
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return torch.where(temps > 0.0, (scaled + gumbel).argmax(dim=-1),
+                       greedy)
+
+
+def _stream_seed(seed: int, index: int) -> int:
+    """The seed of stream ``index`` in a run seeded ``seed``: a hash of
+    both, so that every bit depends on each (the CPU generator reads only
+    the low 32 bits of its seed)."""
+    digest = hashlib.blake2b(f"{seed}:{index}".encode(), digest_size=8)
+    return int.from_bytes(digest.digest(), "little")
 
 
 # ---------------------------------------------------------------------------
-# requests
+# requests and the chunk's static buffers
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -81,32 +161,77 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0
     top_k: int = 0
+    # per-request deadlines, both measured from submission: ``deadline_s``
+    # is end-to-end, ``ttft_deadline_s`` applies until the first token.
+    # Enforced at chunk boundaries; an expired request ends in terminal
+    # state "timeout" with its partial tokens intact.
+    deadline_s: Optional[float] = None
+    ttft_deadline_s: Optional[float] = None
 
 
-def _stream_seed(seed: int, index: int) -> int:
-    """The seed of request ``index``'s generator in a run seeded ``seed``:
-    a hash of both, so that every bit depends on each (the CPU generator
-    reads only the low 32 bits of its seed)."""
-    digest = hashlib.blake2b(f"{seed}:{index}".encode(), digest_size=8)
-    return int.from_bytes(digest.digest(), "little")
+@dataclasses.dataclass
+class _DecodeState:
+    """The decode chunk's buffers.  Prefill, admission and parking write
+    them in place; they are never rebound, so a captured graph's addresses
+    stay valid."""
+    cache: KVCache                       # dense cache or page pools
+    block_tables: Optional[torch.Tensor]  # (b, max_blocks); None: dense
+    tokens: torch.Tensor                 # (b,) each lane's last token
+    pos: torch.Tensor                    # (b,) each lane's next position
+    temps: torch.Tensor                  # (b,) float32
+    top_ks: torch.Tensor                 # (b,)
+    generators: List[torch.Generator]    # one stream a lane
+    out: torch.Tensor                    # (b, chunk) the chunk's tokens
+
+    @classmethod
+    def new(cls, cache, block_tables, b: int, chunk: int, device):
+        z = functools.partial(torch.zeros, dtype=torch.long, device=device)
+        return cls(cache=cache, block_tables=block_tables, tokens=z((b,)),
+                   pos=z((b,)),
+                   temps=torch.zeros((b,), dtype=torch.float32,
+                                     device=device),
+                   top_ks=z((b,)),
+                   generators=[torch.Generator(device=device)
+                               for _ in range(b)],
+                   out=z((b, chunk)))
+
+
+def _slot_axis(big, small) -> Optional[int]:
+    """The slot/batch axis of a cache leaf: the unique axis where the
+    1-slot shape differs from the engine shape (None when slots == 1, i.e.
+    the slot IS the cache)."""
+    return next((i for i, (a, c) in enumerate(zip(big.shape, small.shape))
+                 if a != c), None)
+
+
+def _insert_slot(big: KVCache, small: KVCache, slot: int) -> None:
+    """Copy a batch-1 cache into the engine cache at ``slot``, in place
+    (the reference returns an updated copy)."""
+    for bl, sl in zip(big, small):
+        axis = _slot_axis(bl, sl)
+        if axis is None:
+            bl.copy_(sl)
+        else:
+            bl.select(axis, slot).copy_(sl.select(axis, 0))
+
+
+def _prompt_tensor(prompt, length: int, device) -> torch.Tensor:
+    """A (1, length) token tensor: ``prompt`` right-padded with token 0."""
+    out = torch.zeros((1, length), dtype=torch.long)
+    out[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
+    return _to_device(out, device)
 
 
 # ---------------------------------------------------------------------------
-# static batch
+# shared engine core
 # ---------------------------------------------------------------------------
 
-class BatchedEngine:
-    """Static-batch serving engine: prefill a batch of requests together,
-    then decode lock-step in chunks until every request has its
-    ``max_new_tokens``.
+class _EngineBase:
+    """Model/params, the one decode chunk function and its graphs, the
+    work counters and the re-capture detector."""
 
-    The engine runs on the device its params live on.  Each request is
-    sampled with its own temperature/top-k; prompts are right-padded to the
-    batch max and ``prefill(lengths=...)`` takes each row's real next-token
-    logits, so padding never distorts positions or outputs."""
-
-    def __init__(self, model: Model, params, max_seq: int = 512,
-                 chunk: int = 8):
+    def __init__(self, model: Model, params, *, max_seq: int, chunk: int,
+                 graph: bool = True):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.model = model
@@ -114,16 +239,94 @@ class BatchedEngine:
         self.max_seq = max_seq
         self.chunk = chunk
         self.device = params["embed"].device
+        self._graphs = (ChunkGraphs(self.device)
+                        if graph and self.device.type == "cuda" else None)
+        # re-capture detector: captures at the last ``mark_warm()``; None
+        # until the engine declares itself warm
+        self._warm_captures: Optional[int] = None
+        self._recaptures_after_warm = 0
         self.n_prefills = 0
         self.n_decode_steps = 0
         self.n_chunks = 0
 
-    def stats(self) -> Dict[str, int]:
+    # -- the decode chunk ----------------------------------------------------
+
+    def _chunk_fn(self, st: _DecodeState, sampled: bool) -> None:
+        """``chunk`` decode steps over ``st``, sampling included, leaving
+        the tokens in ``st.out`` and the lanes' state in ``st``: the body a
+        CUDA graph captures.  Paged: each slot's pages are gathered into a
+        dense-shaped view once per chunk; steps attend and update the view
+        and mirror each token's write into the pool."""
+        model, params, bt = self.model, self.params, st.block_tables
+        view = None if bt is None else model.gather_paged_view(st.cache, bt)
+        tok, pos = st.tokens, st.pos
+        for i in range(self.chunk):
+            if view is None:
+                logits, _ = model.decode_step(params, tok[:, None], st.cache,
+                                              pos)
+            else:
+                logits, _, view = model.decode_step(
+                    params, tok[:, None], st.cache, pos, block_tables=bt,
+                    kv_view=view)
+            tok = sample_tokens(logits, st.generators, st.temps, st.top_ks,
+                                sampled=sampled)
+            # a retired lane keeps decoding to the chunk's end; past max_seq
+            # its writes drop
+            pos = (pos + 1).clamp(max=self.max_seq)
+            st.out[:, i] = tok
+        st.tokens.copy_(tok)
+        st.pos.copy_(pos)
+
+    def _decode_chunk(self, st: _DecodeState, sampled: bool) -> List[List[int]]:
+        """Run one chunk (a graph replay on the card unless ``graph=False``)
+        and return its (b, chunk) tokens: the chunk's one host sync."""
+        if self._graphs is None:
+            self._chunk_fn(st, sampled)
+        else:
+            key = (st.tokens.shape[0], self.chunk, sampled)
+            self._graphs.run(key, functools.partial(self._chunk_fn, st,
+                                                    sampled), st.generators)
+            self._check_recaptures()
+        self.n_decode_steps += self.chunk
+        self.n_chunks += 1
+        return st.out.tolist()
+
+    # -- stats and the re-capture detector -----------------------------------
+
+    def stats(self) -> dict:
         """Work done so far: prefill calls, decode steps, decode chunks
-        (each chunk is one host sync)."""
-        return {"prefills": self.n_prefills,
-                "decode_steps": self.n_decode_steps,
-                "chunks": self.n_chunks}
+        (each chunk is one host sync); with graphs, captures and
+        re-captures after warm-up."""
+        out = {"prefills": self.n_prefills,
+               "decode_steps": self.n_decode_steps,
+               "chunks": self.n_chunks}
+        if self._graphs is not None:
+            out["captures"] = self._graphs.captures
+            out["recaptures_after_warm"] = self._recaptures_after_warm
+            out["graph_keys"] = list(self._graphs.keys)
+        return out
+
+    def mark_warm(self) -> None:
+        """Declare the graphs warm: a capture past this point is a
+        *re-capture*, counted in ``stats()`` and logged."""
+        self._warm_captures = (self._graphs.captures
+                               if self._graphs is not None else 0)
+
+    def _check_recaptures(self) -> None:
+        """Compare the captures against the warm baseline; log each new key
+        once (a re-capture costs time, it is never an error)."""
+        if self._warm_captures is None:
+            return
+        grew = self._graphs.captures - self._warm_captures
+        if grew <= 0:
+            return
+        self._recaptures_after_warm += grew
+        self._warm_captures = self._graphs.captures
+        log.warning("decode chunk captured after warm-up for key(s) %s "
+                    "(batch, chunk, sampled): warm traffic should only "
+                    "replay", self._graphs.keys[-grew:])
+
+    # -- shared pieces -------------------------------------------------------
 
     def _check_request(self, r: Request) -> None:
         need = len(r.prompt) + max(int(r.max_new_tokens), 0)
@@ -133,6 +336,37 @@ class BatchedEngine:
                 f"{len(r.prompt)} + {r.max_new_tokens} new) but max_seq is "
                 f"{self.max_seq}")
 
+
+# ---------------------------------------------------------------------------
+# static batch (the oracle)
+# ---------------------------------------------------------------------------
+
+class BatchedEngine(_EngineBase):
+    """Static-batch serving engine: prefill a batch of requests together,
+    then decode lock-step in chunks until every request has its
+    ``max_new_tokens``.
+
+    The engine runs on the device its params live on.  Each request is
+    sampled with its own temperature/top-k; prompts are right-padded to the
+    batch max and ``prefill(lengths=...)`` takes each row's real next-token
+    logits, so padding never distorts positions or outputs.  The chunk's
+    buffers are kept per batch size and zeroed at each run, so a later run
+    of as many requests replays the graphs of the first."""
+
+    def __init__(self, model: Model, params, max_seq: int = 512,
+                 chunk: int = 8, *, graph: bool = True):
+        super().__init__(model, params, max_seq=max_seq, chunk=chunk,
+                         graph=graph)
+        self._states: Dict[int, _DecodeState] = {}
+
+    def _state(self, b: int) -> _DecodeState:
+        st = self._states.get(b)
+        if st is None:
+            cache = self.model.init_cache(b, self.max_seq, device=self.device)
+            st = self._states[b] = _DecodeState.new(cache, None, b,
+                                                    self.chunk, self.device)
+        return st
+
     def run(self, requests: List[Request], seed: int = 0) -> List[List[int]]:
         model, dev = self.model, self.device
         for r in requests:
@@ -140,46 +374,348 @@ class BatchedEngine:
         b = len(requests)
         lengths = [len(r.prompt) for r in requests]
         s = max(lengths)
-        tokens = torch.zeros((b, s), dtype=torch.long, device=dev)
-        for i, r in enumerate(requests):
-            tokens[i, :lengths[i]] = torch.as_tensor(r.prompt,
-                                                     dtype=torch.long)
-        cache = model.init_cache(b, self.max_seq, device=dev)
-        pos = torch.tensor(lengths, dtype=torch.long, device=dev)
         with torch.inference_mode():
-            logits, cache = model.prefill(self.params, tokens, cache,
-                                          lengths=pos)
+            st = self._state(b)
+            st.cache.k.zero_()
+            st.cache.v.zero_()
+            tokens = torch.cat([_prompt_tensor(r.prompt, s, dev)
+                                for r in requests])
+            pos = _to_device(torch.tensor(lengths, dtype=torch.long), dev)
+            logits, _ = model.prefill(self.params, tokens, st.cache,
+                                      lengths=pos)
             self.n_prefills += 1
             temps = [float(r.temperature) for r in requests]
-            top_ks = [int(r.top_k or 0) for r in requests]
-            gens = [torch.Generator(device=dev).manual_seed(
-                _stream_seed(seed, i)) for i in range(b)]
-            tok = sample_tokens(logits, gens, temps, top_ks)
+            for i, r in enumerate(requests):
+                st.temps[i].fill_(temps[i])
+                st.top_ks[i].fill_(int(r.top_k or 0))
+                st.generators[i].manual_seed(_stream_seed(seed, i))
+            sampled = any(t > 0.0 for t in temps)
+            first = sample_tokens(logits, st.generators, st.temps, st.top_ks,
+                                  sampled=sampled)
+            st.tokens.copy_(first)
+            st.pos.copy_(pos)
 
             outs: List[List[int]] = [[] for _ in requests]
             remaining = [max(int(r.max_new_tokens), 0) for r in requests]
-            first = tok.tolist()                 # the prefill's host sync
-            for i in range(b):
+            for i, t in enumerate(first.tolist()):   # the prefill's host sync
                 if remaining[i] > 0:
-                    outs[i].append(first[i])
+                    outs[i].append(t)
                     remaining[i] -= 1
-
             while any(n > 0 for n in remaining):
-                block = []
-                for _ in range(self.chunk):
-                    logits, cache = model.decode_step(self.params,
-                                                      tok[:, None], cache,
-                                                      pos)
-                    tok = sample_tokens(logits, gens, temps, top_ks)
-                    # a finished row keeps decoding to the chunk's end; past
-                    # max_seq its cache writes are dropped
-                    pos = (pos + 1).clamp(max=self.max_seq)
-                    block.append(tok)
-                self.n_decode_steps += self.chunk
-                self.n_chunks += 1
-                rows = torch.stack(block, dim=1).tolist()   # one host sync
+                rows = self._decode_chunk(st, sampled)
                 for i in range(b):
                     take = min(remaining[i], self.chunk)
                     outs[i].extend(rows[i][:take])
                     remaining[i] -= take
         return outs
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+
+class ContinuousEngine(_EngineBase):
+    """Continuous-batching engine over ``slots`` fixed device decode lanes.
+
+    Requests are admitted into free slots and retired at chunk boundaries;
+    prompts prefill right-padded to a power-of-two bucket
+    (:func:`repro_torch.serve.scheduler.seq_buckets`).  The decode batch is
+    always ``slots`` wide (free lanes decode padding that is discarded), so
+    the graph keys are ``(slots, chunk, sampled)``: at most two captures,
+    and warm traffic only replays.
+
+    Per-request streams and padding-invariant prefill make a request's
+    tokens a function of the request alone, so in fp32 they equal
+    :class:`BatchedEngine`'s on the same requests and seed (chip_smoke
+    phase 5 holds them equal at full depth on the card).  In bf16 the two
+    engines round other prefill batches, attention paths and decode widths
+    differently, and tokens part at near-tied argmaxes.
+
+    ``kv_layout``:
+
+      * ``"dense"``: one ``(slots, max_seq)`` cache; an admission prefills
+        into a fresh zero batch-1 cache and copies it into its slot;
+      * ``"paged"``: KV lives in a pool of ``kv_blocks`` pages of
+        ``block_size`` positions (:mod:`repro_torch.serve.paged`); each slot
+        maps into the pool through a ``(max_blocks,)`` block-table row,
+        pages are reserved at admission and freed at retirement.
+
+    ``prefill_chunk`` caps the admission bucket set: prompts longer than it
+    are CHUNKED, one prefill chunk per boundary, so a long prompt does not
+    stall the other lanes for a whole prompt-length prefill.  The first
+    chunk attends within itself (K3); continuation chunks attend to the
+    whole cache (dense ``prefill(attend_cache=True)``, paged
+    ``first=False``).
+    """
+
+    def __init__(self, model: Model, params, max_seq: int = 512,
+                 slots: int = 4, chunk: int = 8, min_bucket: int = 16,
+                 kv_layout: str = "dense", block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None, *, graph: bool = True,
+                 tuning_cache=None, resilience=None, journal=None):
+        if kv_layout == "auto" or tuning_cache is not None:
+            raise NotImplementedError(
+                "kv_layout='auto' and tuning_cache= need the autotuner, "
+                "which is not ported yet (ROADMAP.md queue 1 item 3)")
+        if resilience is not None or journal is not None:
+            raise NotImplementedError(
+                "resilience= and journal= come with the rest of the serving "
+                "spine (ROADMAP.md queue 1 item 4)")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
+                             f"{kv_layout!r}")
+        if kv_layout == "paged":
+            if max_seq % block_size != 0:
+                raise ValueError(
+                    f"paged layout needs block_size ({block_size}) to "
+                    f"divide max_seq ({max_seq}) so the gathered view is "
+                    f"shape-identical to the dense cache")
+            self.block_size = block_size
+            self.max_blocks = max_seq // block_size
+            self.kv_blocks = int(kv_blocks or slots * self.max_blocks)
+        super().__init__(model, params, max_seq=max_seq, chunk=chunk,
+                         graph=graph)
+        self.kv_layout = kv_layout
+        self.slots = slots
+        self.prefill_chunk = prefill_chunk
+        limit = (max_seq if prefill_chunk is None
+                 else max(min(prefill_chunk, max_seq), min_bucket))
+        self.buckets = seq_buckets(limit, min_bucket)
+        self._reset_state()
+
+    # -- device state --------------------------------------------------------
+
+    def _reset_state(self) -> None:
+        b, dev = self.slots, self.device
+        if self.kv_layout == "paged":
+            cache = self.model.init_paged_cache(
+                b, self.max_seq, n_blocks=self.kv_blocks,
+                block_size=self.block_size, device=dev)
+            # all-sentinel tables: every lane's writes drop until admission
+            tables = torch.full((b, self.max_blocks), self.kv_blocks,
+                                dtype=torch.long, device=dev)
+            self.pool: Optional[BlockPool] = BlockPool(self.kv_blocks,
+                                                       self.block_size)
+        else:
+            cache = self.model.init_cache(b, self.max_seq, device=dev)
+            tables, self.pool = None, None
+        self.st = _DecodeState.new(cache, tables, b, self.chunk, dev)
+        self.st.pos.fill_(self.max_seq)       # every lane parked
+        self.sched = Scheduler(b, pool=self.pool)
+        self._requests: Dict[int, Request] = {}
+        self._stream_seeds: Dict[int, int] = {}
+        self._staging: Dict[int, KVCache] = {}
+        self._admit_logits: Dict[int, torch.Tensor] = {}
+        self._next_id = 0
+        self._run_seed = 0
+
+    # -- API -----------------------------------------------------------------
+
+    def submit(self, request: Request, stream: Optional[int] = None) -> int:
+        """Queue a request; returns its id.
+
+        ``stream`` is the request's stream index: its tokens are sampled
+        from the stream seeded from (the run's seed, ``stream``).  ``run``
+        passes each request's position in its batch, the stream the static
+        engine uses; streaming callers that omit it get the request id."""
+        self._check_request(request)
+        rid = self._next_id
+        self._next_id += 1
+        self._requests[rid] = request
+        self._stream_seeds[rid] = _stream_seed(
+            self._run_seed, rid if stream is None else stream)
+        self.sched.submit(rid, len(request.prompt),
+                          max(int(request.max_new_tokens), 0),
+                          deadline_s=request.deadline_s,
+                          ttft_deadline_s=request.ttft_deadline_s)
+        return rid
+
+    def take_output(self, rid: int) -> List[int]:
+        """Collect (and release) a finished request's tokens."""
+        return self.sched.pop_output(rid)
+
+    def take_result(self, rid: int) -> RequestResult:
+        """Collect (and release) a terminal request's full outcome: tokens,
+        terminal state, reason and time to first token."""
+        return self.sched.pop_result(rid)
+
+    def cancel(self, rid: int, reason: str = "cancelled by caller") -> None:
+        """Cancel a pending or in-flight request at the current boundary.
+
+        Partial tokens survive into the terminal result (state
+        ``cancelled``); the device lane is parked and, paged, its pages
+        return to the pool at once.  Idempotent once terminal; KeyError for
+        ids never submitted."""
+        slot = self.sched.cancel(rid, reason)
+        if slot is not None:
+            self._evict_slot(slot)
+        self._requests.pop(rid, None)
+        self._stream_seeds.pop(rid, None)
+
+    def run(self, requests: List[Request], seed: int = 0) -> List[List[int]]:
+        """Serve a closed set of requests to completion; returns outputs in
+        submission order."""
+        return [list(r.tokens) for r in self.run_results(requests, seed)]
+
+    def run_results(self, requests: List[Request],
+                    seed: int = 0) -> List[RequestResult]:
+        """:meth:`run`, returning each request's full outcome (time to
+        first token included).  The first completed run marks the engine
+        warm."""
+        self._run_seed = seed
+        rids = [self.submit(r, stream=i) for i, r in enumerate(requests)]
+        while not self.sched.idle:
+            self.step_chunk()
+        if self._warm_captures is None:
+            self.mark_warm()
+        return [self.take_result(rid) for rid in rids]
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["scheduler"] = self.sched.stats()
+        if self.pool is not None:
+            out["kv_pool"] = self.pool.stats()
+        return out
+
+    def _check_request(self, r: Request) -> None:
+        super()._check_request(r)
+        if self.kv_layout == "paged":
+            need = self.pool.blocks_for(len(r.prompt)
+                                        + max(int(r.max_new_tokens), 0))
+            if need > self.pool.n_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only has "
+                    f"{self.pool.n_blocks} (block_size "
+                    f"{self.pool.block_size}); raise kv_blocks")
+
+    # -- the chunk-boundary loop ---------------------------------------------
+
+    def step_chunk(self) -> List[int]:
+        """Sweep deadlines, admit pending requests, advance in-flight prompt
+        prefills by one chunk each, then decode one chunk.
+
+        Returns the request ids that reached a terminal state at this
+        boundary."""
+        with torch.inference_mode():
+            return self._step_chunk()
+
+    def _step_chunk(self) -> List[int]:
+        finished: List[int] = []
+        for slot, rid in self.sched.check_deadlines():
+            if slot is not None:
+                self._evict_slot(slot)
+            finished.append(rid)
+        self.sched.admissions()               # reserve slots (and KV blocks)
+        for slot, rid in self.sched.prefilling():
+            if self._prefill_advance(slot, rid):      # one chunk per boundary
+                if self._finish_admit(slot, rid):
+                    finished.append(rid)
+        busy = self.sched.busy_slots()
+        if busy:
+            rids = [self.sched.slots[i].req_id for i in busy]
+            # the graph key's ``sampled``, from host values: no device sync
+            sampled = any(self._requests[rid].temperature > 0.0
+                          for rid in rids)
+            slot_of = dict(zip(rids, busy))
+            retired = self.sched.record_chunk(
+                self._decode_chunk(self.st, sampled))
+            for rid in retired:
+                self._park_lane(slot_of[rid])
+            finished.extend(retired)
+        for rid in finished:                  # release prompts at retire
+            self._requests.pop(rid, None)
+            self._stream_seeds.pop(rid, None)
+        return finished
+
+    def _park_lane(self, slot: int) -> None:
+        """Neutralise a freed lane: position past max_seq, so its decode
+        writes drop.  Load-bearing for the paged layout: the slot's pages go
+        back to the pool at retirement and may be re-issued."""
+        self.st.pos[slot].fill_(self.max_seq)
+
+    def _evict_slot(self, slot: int) -> None:
+        """Neutralise a lane whose request terminated outside the normal
+        retire path (cancel, timeout): park it and drop its admission
+        scratch."""
+        self._park_lane(slot)
+        self._staging.pop(slot, None)
+        self._admit_logits.pop(slot, None)
+
+    def _prefill_advance(self, slot: int, rid: int) -> bool:
+        """Prefill the next prompt chunk of ``rid`` into ``slot``; True
+        when the whole prompt is in the cache.
+
+        Chunks are ``buckets[-1]`` tokens (the prefill-chunk cap); the tail
+        is padded to the smallest bucket that fits."""
+        r = self._requests[rid]
+        plen = len(r.prompt)
+        start = self.sched.slots[slot].prefill_pos
+        if start == 0:
+            self._begin_admit(slot)
+        take = min(plen - start, self.buckets[-1])
+        bucket = pick_bucket(take, self.buckets)
+        tokens = _prompt_tensor(r.prompt[start:start + take], bucket,
+                                self.device)
+        lengths = _to_device(torch.tensor([take]), self.device)
+        if self.kv_layout == "paged":
+            logits, _, _ = self.model.prefill_paged(
+                self.params, tokens, self.st.cache,
+                self.st.block_tables[slot], None, start, lengths,
+                first=start == 0)
+        else:
+            if start == 0:                    # a fresh zero staging cache
+                staging = self.model.init_cache(1, self.max_seq,
+                                                device=self.device)
+            else:
+                staging = self._staging[slot]
+            logits, self._staging[slot] = self.model.prefill(
+                self.params, tokens, staging, start=start, lengths=lengths,
+                attend_cache=start > 0)
+        self.n_prefills += 1
+        self._admit_logits[slot] = logits
+        self.sched.prefill_advance(slot, take)
+        return start + take >= plen
+
+    def _begin_admit(self, slot: int) -> None:
+        """Set up the slot for its (possibly multi-chunk) prompt prefill."""
+        if self.kv_layout == "paged":
+            row = table_row(self.pool.owned(slot), self.max_blocks,
+                            self.kv_blocks)
+            self.st.block_tables[slot].copy_(
+                _to_device(torch.tensor(row, dtype=torch.long), self.device))
+        self._park_lane(slot)  # mid-prefill decode writes must drop
+
+    def _finish_admit(self, slot: int, rid: int) -> bool:
+        """The prompt is fully cached: install the slot's decode state and
+        sample the first token; True if it retired immediately."""
+        r = self._requests[rid]
+        st = self.st
+        logits = self._admit_logits.pop(slot)
+        staging = self._staging.pop(slot, None)
+        if staging is not None:
+            _insert_slot(st.cache, staging, slot)
+        gen = st.generators[slot]
+        gen.manual_seed(self._stream_seeds[rid])   # the request's stream
+        st.temps[slot].fill_(float(r.temperature))
+        st.top_ks[slot].fill_(int(r.top_k or 0))
+        first = sample_tokens(logits, [gen], st.temps[slot:slot + 1],
+                              st.top_ks[slot:slot + 1],
+                              sampled=r.temperature > 0.0)
+        st.tokens[slot:slot + 1].copy_(first)
+        st.pos[slot].fill_(len(r.prompt))
+        # one host sync per ADMISSION (not per token): the first token
+        done = self.sched.record_first(slot, int(first[0]))
+        if done:
+            self._park_lane(slot)
+        return done
+
+
+class ShardedEngine(ContinuousEngine):
+    """The continuous engine with its slots sharded over a mesh: not
+    ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ShardedEngine comes with mesh and sharded serving (ROADMAP.md "
+            "queue 1 item 6)")

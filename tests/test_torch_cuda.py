@@ -8,6 +8,8 @@ PyTorch and the CUDA toolkit:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import pytest
 import torch
 
@@ -19,8 +21,11 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import Model
-from repro_torch.serve.engine import BatchedEngine, Request, sample_tokens
+from repro_torch.serve.engine import (BatchedEngine, ContinuousEngine,
+                                      Request, sample_tokens)
 
 # kernel against plain version: fp32 differs by summation order only; bf16
 # by at most one bf16 rounding (2**-8 relative)
@@ -452,3 +457,225 @@ def test_generated_build_failure_raises(cuda_device):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fn(x, x)
     assert fn.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode chunk as a CUDA graph, paged KV on the card
+# ---------------------------------------------------------------------------
+
+def _smoke(device, dtype):
+    cfg = smoke_config("qwen3_4b", use_flash=True, dtype=dtype)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0),
+                               device)
+    return cfg, model, params
+
+
+def _traffic(n=5):
+    """Mixed lengths (one over the prefill chunk of 16), budgets, and one
+    sampled top-k request."""
+    lens, new = (9, 37, 4, 20, 13)[:n], (6, 5, 9, 4, 7)[:n]
+    return [Request(prompt=[(7 * i + 3 * j) % 256 for j in range(lens[i])],
+                    max_new_tokens=new[i],
+                    temperature=0.8 if i == 1 else 0.0,
+                    top_k=20 if i == 1 else 0) for i in range(n)]
+
+
+def _engines(model, params, kind, graph):
+    if kind == "static":
+        return BatchedEngine(model, params, max_seq=64, chunk=4, graph=graph)
+    return ContinuousEngine(model, params, max_seq=64, slots=2, chunk=4,
+                            min_bucket=8, prefill_chunk=16, graph=graph,
+                            kv_layout=kind, block_size=16)
+
+
+@pytest.mark.parametrize("kind", ["static", "dense", "paged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_tokens_equal_eager_tokens(cuda_device, kind, dtype):
+    """The chunk replayed as a CUDA graph gives the eager chunk's tokens bit
+    for bit, the sampled top-k request included; in fp32 the continuous
+    engine gives the static engine's tokens (in bf16 the two round
+    different computations: another prefill batch, attention path and
+    decode width)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _smoke(cuda_device, dtype)
+    reqs = _traffic()
+    graph = _engines(model, params, kind, True)
+    eager = _engines(model, params, kind, False)
+    want = eager.run(reqs, seed=3)
+    assert graph.run(reqs, seed=3) == want
+    assert graph.run(reqs, seed=3) == want            # replays only
+    st = graph.stats()
+    assert st["captures"] >= 1 and "captures" not in eager.stats()
+    assert [len(o) for o in want] == [r.max_new_tokens for r in reqs]
+    if dtype == "float32" and kind != "static":
+        static = _engines(model, params, "static", False).run(reqs, seed=3)
+        assert want == static
+
+
+def test_paged_tokens_equal_dense_tokens_on_the_card(cuda_device):
+    """Paged decode is the dense computation on a gathered view of the
+    same shape, and paged prefill the dense one: bf16 tokens agree bit for
+    bit, sampled request included."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    reqs = _traffic()
+    assert _engines(model, params, "dense", True).run(reqs, seed=1) == \
+        _engines(model, params, "paged", True).run(reqs, seed=1)
+
+
+def test_no_recapture_after_warm(cuda_device, caplog):
+    """A continuous engine captures at most (slots, chunk, greedy) and
+    (slots, chunk, sampled); new traffic of the same shapes replays.  A key
+    first met after warm-up is captured, counted and named in a warning."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, "paged", True)
+    engine.run(_traffic(), seed=0)
+    first = engine.stats()
+    assert first["recaptures_after_warm"] == 0
+    assert sorted(first["graph_keys"]) == [(2, 4, False), (2, 4, True)]
+    engine.run(list(reversed(_traffic(4))), seed=5)
+    second = engine.stats()
+    assert second["captures"] == first["captures"]
+    assert second["recaptures_after_warm"] == 0
+    greedy_only = _engines(model, params, "dense", True)
+    greedy_only.run([_traffic()[0]], seed=0)          # warm on greedy alone
+    with caplog.at_level("WARNING", logger="repro_torch.serve.engine"):
+        greedy_only.run(_traffic(2), seed=0)          # a sampled request
+    assert greedy_only.stats()["recaptures_after_warm"] == 1
+    assert "(2, 4, True)" in caplog.text
+
+
+def test_graph_launch_counts_are_exact_with_replays(cuda_device):
+    """K1 counts every launch once per replay: (2 x 4 + 1) x (prefills +
+    decode steps) for the smoke model; K3 once a layer per admission."""
+    cfg, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, "dense", True)
+    engine.run(_traffic(), seed=0)                    # captures
+    before = engine.stats()
+    ops.reset_launch_counts()
+    engine.run(_traffic(), seed=0)                    # replays only
+    torch.cuda.synchronize()
+    after = engine.stats()
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    admits = (after["scheduler"]["admits"]
+              - before["scheduler"]["admits"])
+    assert after["captures"] == before["captures"]
+    assert ops.launch_counts() == {
+        "rmsnorm": (4 * cfg.n_layers + 1) * (prefills + steps),
+        "flash_attention": cfg.n_layers * admits,
+        "matmul": 0, "dpia_cuda": 0}
+
+
+@pytest.mark.parametrize("kind", ["static", "dense", "paged"])
+def test_counted_launches_are_the_kernels_the_card_ran(cuda_device, kind):
+    """The counts a replay adds on the host against torch.profiler's trace
+    of the card: every K1 and K3 kernel the graphs ran, counted once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, kind, True)
+    engine.run(_traffic(), seed=0)                    # captures
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run(_traffic(), seed=0)                # replays only
+        torch.cuda.synchronize()
+        time.sleep(0.2)       # the last kernels' records land in the window
+    ran = {"rmsnorm": 0, "flash_attention": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, kernel in (("rmsnorm", "rmsnorm_kernel"),
+                                 ("flash_attention", "flash_fwd")):
+                ran[name] += e.count if kernel in e.key else 0
+    counts = ops.launch_counts()
+    assert ran == {k: counts[k] for k in ran} and ran["rmsnorm"] > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_decode_chunk_never_syncs_the_host(cuda_device, kind, sampled):
+    """The chunk a graph captures, run eagerly under the sync detector:
+    decode steps, the paged view and sampling queue work without waiting
+    for the card."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, kind, False)
+    engine.run(_traffic(2), seed=0)                   # builds K1 / K3
+    rid = engine.submit(_traffic(1)[0])
+    engine.step_chunk()                               # admitted, decoding
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            engine._chunk_fn(engine.st, sampled)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    engine.cancel(rid)
+
+
+def test_parked_lane_never_writes_a_live_lanes_page_on_the_card(cuda_device):
+    """As the CPU test: a parked lane whose clamped write would alias a
+    live lane's (page, offset) in the same index_put_ writes the trash page
+    instead, whatever token it decodes."""
+    cfg, model, params = _smoke(cuda_device, "float32")
+    nb, bs, max_seq = 10, 8, 32
+    live_pos = 2 * bs + max_seq % bs
+    bt = torch.tensor([[0, 1, nb - 1, nb], [nb] * 4], device=cuda_device)
+    pos = torch.tensor([live_pos, max_seq], device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    shape = (cfg.n_layers, nb + 1, bs, cfg.n_kv_heads, cfg.hd)
+    k0 = torch.randn(shape, generator=g, device=cuda_device)
+    v0 = torch.randn(shape, generator=g, device=cuda_device)
+    runs = []
+    for parked_tok in (7, 11):
+        cache = KVCache(k0.clone(), v0.clone())
+        tok = torch.tensor([[5], [parked_tok]], device=cuda_device)
+        logits, _ = model.decode_step(params, tok, cache, pos,
+                                      block_tables=bt)
+        runs.append((logits, cache))
+    (l0, c0), (l1, c1) = runs
+    assert torch.equal(l0[0], l1[0])
+    assert torch.equal(c0.k[:, :nb], c1.k[:, :nb])
+    assert not torch.equal(c0.k[:, nb], c1.k[:, nb])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_on_the_card_matches_the_upcast_form(cuda_device,
+                                                              dtype):
+    """The card's decode attention (the cache read in its own dtype, fp32
+    accumulation, probabilities rounded to the cache dtype) against the
+    plain version's fp32 upcast on the same inputs: the same products summed
+    in another order, so within fp32 rounding, plus one rounding of the
+    output to ``dtype`` (bf16: 2**-8 relative)."""
+    cfg = smoke_config("qwen3_4b", n_heads=32, n_kv_heads=8, head_dim=128,
+                       d_model=256, dtype=str(dtype).split(".")[-1])
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, t = 4, 256
+    q = torch.randn((b, 1, 32, 128), generator=g, device=cuda_device)
+    k = torch.randn((b, t, 8, 128), generator=g, device=cuda_device)
+    v = torch.randn((b, t, 8, 128), generator=g, device=cuda_device)
+    q, k, v = (0.3 * q).to(dtype), (0.3 * k).to(dtype), v.to(dtype)
+    wo = torch.eye(32 * 128, device=cuda_device)      # fp32, as x_dtype
+    pos = torch.tensor([0, 17, 200, 255], device=cuda_device)
+    got = attn_mod._attend_token(cfg, q, k, v, pos, True, torch.float32, wo)
+    want = attn_mod._attend_token(cfg, q.cpu(), k.cpu(), v.cpu(), pos.cpu(),
+                                  True, torch.float32, wo.cpu())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+def test_capture_failure_raises(cuda_device, monkeypatch):
+    """A chunk that cannot be captured (here: a host sync inside it) raises
+    from the engine; it never quietly runs eagerly."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, "dense", True)
+    real = model.decode_step
+
+    def syncing(*a, **kw):
+        out = real(*a, **kw)
+        out[0].sum().item()                   # a host sync
+        return out
+    monkeypatch.setattr(model, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        engine.run(_traffic(2), seed=0)
+    assert engine.stats()["captures"] == 0
