@@ -87,7 +87,27 @@ result):
 9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
    projection shapes and every DPIA op through ``impl="dpia-cuda"`` at the
    shapes of phase 7, with K2's and K4's launch counts checked, per K2
-   variant too.
+   variant too;
+10. compiler services and obs (``repro_torch.compiler``, ``repro_torch.obs``):
+   (a) the DPIA ops of phase 9 under ``compiler.options(backend=
+   "dpia-cuda")`` with no ``impl=``: K4's launches the sum of their stages,
+   outputs bitwise phase 9's; (b) ``ops.matmul`` under ``options(backend=
+   "cuda")``: K2 with phase 9's variants, bitwise phase 9's outputs; (c) the
+   executor cache: one build per program, hits after; (d) ``save_aot`` to a
+   temporary directory, then a fresh Python process (this script with
+   ``--aot-child DIR``) runs ``load_aot`` and the eleven programs: bitwise
+   phase 9's outputs, zero ``compiler.lower`` / ``compiler.check`` spans,
+   zero ``nvcc`` runs; its load time beside phase 2's cold staging and
+   build; (e) right after phase 4b, on its weights: one continuous run
+   (dense, graph) repeated with tracing on: phase 4b's tokens and launch
+   counts, a Chrome trace that loads with ``json`` and holds
+   ``serve.prefill_chunk`` / ``serve.decode_chunk`` spans, submit / admit /
+   first_token / retire events in that order for each of the 8 requests,
+   8 ``serve.ttft_s`` observations and ``serve.recompiles_after_warm`` 0;
+   (f) phase 4's static engine, tok/s with obs disabled and with tracing
+   on, three runs each in turns, medians beside the card's name and power
+   limit; (g) the quickstart (``repro_torch.examples.quickstart``) on the
+   card.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -97,9 +117,11 @@ limit, and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -248,8 +270,10 @@ def phase_build():
 
     from repro_torch.core.dpia import stage3_cuda
     from repro_torch.kernels import _build, ops
+    t0 = time.perf_counter()      # Stage I/II, the SCIR check and codegen
     progs = {ops.program_name(k, **sh): ops.compiled(k, "cuda", **sh)._fn
              for k, sh in DPIA_CASES}
+    stage_s = time.perf_counter() - t0
     plain = [n for n in _build.sources() if n not in _build.SOURCE_FLAGS]
     cute = sorted(_build.SOURCE_FLAGS)
     with ThreadPoolExecutor(3) as pool:      # every nvcc starts at once
@@ -258,6 +282,8 @@ def phase_build():
         gen = pool.submit(stage3_cuda.build_all, list(progs.values()))
         secs, cute_secs, gen_secs = (csrc.result(), cute_f.result(),
                                      gen.result())
+    log(f"[2] staged {len(progs)} DPIA programs (Stage I/II, SCIR check, "
+        f"CUDA codegen) in {stage_s:.3f} s")
     log(f"[2] nvcc built {plain} in {secs:.2f} s, the CuTe source(s) "
         f"{cute} in {cute_secs:.2f} s (flags beyond the common ones: "
         f"{ {n: ' '.join(_build.SOURCE_FLAGS[n]) for n in cute} }; CUTLASS "
@@ -287,7 +313,7 @@ def phase_build():
     log("[2] ptxas rmsnorm [registers, spill stores, spill loads] by "
         "instance (dtype, elements an access, threads a row, accesses a "
         "thread): " + json.dumps(k1))
-    return gen_secs, k1
+    return gen_secs, k1, stage_s
 
 
 def k1_instance(p, dtype) -> str:
@@ -595,9 +621,8 @@ def phase_main_path(smi: str):
                "flash_attention": variants["flash_attention"]}
     log(f"[4] a third run under torch.profiler: the card ran {dev} K1 / K3 "
         f"kernels against the counted launches with replays {counted}")
-    del engine
     return (counts, {k: variants[k] for k in ("rmsnorm", "flash_attention")},
-            (cfg, model, params))
+            (cfg, model, params), (engine, reqs, outs))
 
 
 def continuous_requests(vocab: int):
@@ -724,6 +749,7 @@ def phase_continuous(smi: str, cfg, model, params):
                 "recaptures_after_warm": st["recaptures_after_warm"]}
                if mode == "graph" else {})}
         log(f"[4b] {layout} {mode}: " + json.dumps(report[f"{layout} {mode}"]))
+    dense_graph = engines[("dense", "graph")]
     del engines
     static = BatchedEngine(model, params,
                            max_seq=max(CONT_PROMPT_LENS) + MAX_NEW + CHUNK,
@@ -747,7 +773,7 @@ def phase_continuous(smi: str, cfg, model, params):
             f"{max(e['ttft_200_s']):.4f}]; max memory "
             f"{g['max_memory_gib']:.2f} GiB; captures {g['captures']} "
             f"{g['graph_keys']}; card {smi}")
-    return report
+    return report, (dense_graph, reqs, want)
 
 
 def _tensors(node):
@@ -1192,7 +1218,229 @@ def phase_pipeline_main_path():
     log(f"[9] pipeline main path: {len(MM_SHAPES)} K2 calls + "
         f"{len(DPIA_CASES)} dpia-cuda ops, launches {counts}, K2 variants "
         f"{mm_variants}, per generated program {per_prog}")
-    return counts, mm_variants, per_prog
+    return counts, mm_variants, per_prog, {
+        "mm_in": mm_in, "dpia_in": dpia_in, "mm_out": outs[:len(mm_in)],
+        "dpia_out": outs[len(mm_in):], "stages": stages}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: compiler services and obs
+# ---------------------------------------------------------------------------
+
+def dpia_call(kernel, args, shape):
+    """The DPIA op for ``kernel`` with no ``impl=``: the options in scope
+    pick the row."""
+    from repro_torch.kernels import ops
+    if kernel == "rmsnorm":
+        return ops.rmsnorm(*args, eps=shape["eps"])
+    return getattr(ops, kernel)(*args)
+
+
+def phase_traced_continuous(smi, cfg, engine, reqs, want, untraced):
+    """[10e] one phase 4b run (dense, graph, warm) repeated with tracing
+    on: the same tokens and launch counts, a loadable Chrome trace with the
+    serving spans, each request's lifecycle in order, 8 TTFT observations
+    and no re-capture."""
+    from repro_torch import obs
+    obs.metrics_reset()
+    obs.clear_trace()
+    obs.enable()
+    try:
+        toks, rep = _continuous_run(engine, reqs, cfg)
+    finally:
+        obs.disable()
+    if toks != want:
+        raise AssertionError("[10e] traced continuous run: tokens differ "
+                             "from the untraced runs'")
+    with tempfile.TemporaryDirectory() as d:
+        path = obs.export_trace(os.path.join(d, "serve-trace.json"))
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    obs.clear_trace()
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    if not spans.get("serve.prefill_chunk") or \
+            not spans.get("serve.decode_chunk"):
+        raise AssertionError(f"[10e] trace spans {spans}: want "
+                             f"serve.prefill_chunk and serve.decode_chunk")
+    life = ("serve.submit", "serve.admit", "serve.first_token",
+            "serve.retire")
+    per_req = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        if e["ph"] == "i" and e["name"] in life:
+            per_req.setdefault(e["args"]["req_id"], []).append(e["name"])
+    if len(per_req) != len(reqs) or any(names != list(life)
+                                        for names in per_req.values()):
+        raise AssertionError(f"[10e] lifecycle events per request "
+                             f"{per_req}: want {list(life)} for each of "
+                             f"{len(reqs)}")
+    snap = obs.metrics_snapshot()
+    recompiles = obs.counter("serve.recompiles_after_warm").value
+    if snap["serve.ttft_s"]["count"] != len(reqs) or recompiles != 0 or \
+            engine.stats()["recaptures_after_warm"] != 0:
+        raise AssertionError(f"[10e] serve.ttft_s observations "
+                             f"{snap['serve.ttft_s']['count']} (want "
+                             f"{len(reqs)}), serve.recompiles_after_warm "
+                             f"{recompiles} (want 0)")
+    out = {"tok_s_traced": rep["tok_s"], "tok_s_untraced_median": untraced,
+           "trace_events": len(events), "trace_bytes": size, "spans": spans,
+           "ttft_s": {k: snap["serve.ttft_s"][k]
+                      for k in ("count", "p50", "p95", "max")},
+           "chunk_s": {k: snap["serve.chunk_s"][k]
+                       for k in ("count", "p50", "p95", "max")},
+           "recompiles_after_warm": recompiles}
+    log("[10e] traced continuous run (dense, graph): " + json.dumps(out)
+        + f"; card {smi}")
+    return out
+
+
+def phase_obs_cost(smi, engine, reqs, want):
+    """[10f] phase 4's static engine: tok/s with obs disabled and with
+    tracing on, three runs each in turns (off, on, on, off, off, on)."""
+    from repro_torch import obs
+    tok_s = {"disabled": [], "tracing": []}
+    n_events = 0
+    for traced in (False, True, True, False, False, True):
+        obs.clear_trace()
+        if traced:
+            obs.enable()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = engine.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            obs.disable()
+        if outs != want:
+            raise AssertionError("[10f] a run gave other tokens")
+        n_events = max(n_events, len(obs.trace_events()))
+        tok_s["tracing" if traced else "disabled"].append(
+            sum(map(len, outs)) / dt)
+    obs.clear_trace()
+    out = {k: {"median": statistics.median(v), "runs": v}
+           for k, v in tok_s.items()}
+    out["trace_events_per_run"] = n_events
+    log("[10f] static tok/s, obs disabled against tracing on, 3 runs each "
+        f"in turns: {json.dumps(out)}; card {smi}")
+    return out
+
+
+def aot_child(directory: str) -> int:
+    """``--aot-child DIR``: a fresh process loads the AOT store in DIR and
+    runs the eleven programs on the inputs saved there; prints one JSON
+    line (spans by name, nvcc runs, K4 launches, times)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import compiler, obs
+    from repro_torch.kernels import _build, ops
+    obs.enable()
+    cache = compiler.executor_cache()
+    t0 = time.perf_counter()
+    loaded = cache.load_aot(directory)
+    load_s = time.perf_counter() - t0
+    inputs = torch.load(os.path.join(directory, "inputs.pt"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with compiler.options(backend="dpia-cuda"):
+        outs = [dpia_call(k, a, sh) for (k, sh), a in zip(DPIA_CASES,
+                                                          inputs)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.save(outs, os.path.join(directory, "outputs.pt"))
+    names = [e["name"] for e in obs.trace_events()]
+    print(json.dumps({
+        "loaded": loaded, "load_s": load_s, "first_calls_s": first_s,
+        "stats": cache.stats(), "nvcc_runs": _build.nvcc_runs,
+        "launches": ops.launch_counts(),
+        "trace_events": {n: names.count(n) for n in sorted(set(names))}}))
+    return 0
+
+
+def phase_services(smi, p9, stage_s, build_s):
+    """[10a-d, g] the compiler's services on the card."""
+    from repro_torch import compiler
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    n = len(DPIA_CASES)
+    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0}
+    # (a) the DPIA ops under an options scope, no impl=
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with compiler.options(backend="dpia-cuda"):
+        outs = [dpia_call(k, a, sh) for k, sh, a in p9["dpia_in"]]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts != {**zero, "dpia_cuda": p9["stages"]} or \
+            any(not torch.equal(g, w) for g, w in zip(outs, p9["dpia_out"])):
+        raise AssertionError(f"[10a] options(backend='dpia-cuda'): launches "
+                             f"{counts}, want {p9['stages']} K4 stages, and "
+                             f"phase 9's outputs bit for bit")
+    # (b) matmul under options(backend="cuda"): K2 with phase 9's variants
+    ops.reset_launch_counts()
+    with compiler.options(backend="cuda"):
+        mm_outs = [ops.matmul(a, b) for a, b in p9["mm_in"]]
+    torch.cuda.synchronize()
+    counts, variants = ops.launch_counts(), ops.launch_counts_by_variant()
+    want_mm = sum(mm.plan(m, nn, k, torch.bfloat16).launches
+                  for m, k, nn in MM_SHAPES)
+    if counts != {**zero, "matmul": want_mm} or \
+            variants["matmul"] != p9["mm_variants"] or \
+            any(not torch.equal(g, w) for g, w in zip(mm_outs, p9["mm_out"])):
+        raise AssertionError(f"[10b] options(backend='cuda'): launches "
+                             f"{counts}, K2 variants {variants['matmul']} "
+                             f"against phase 9's {p9['mm_variants']}")
+    # (c) one build per program, hits after
+    stats = compiler.executor_cache().stats()
+    if stats["builds"] != n or stats["entries"] != n or \
+            stats["aot_loads"] or stats["hits"] < 2 * n:
+        raise AssertionError(f"[10c] executor cache {stats}: want {n} "
+                             f"builds and entries, hits from phases 9 and "
+                             f"10a")
+    log(f"[10a-c] {n} DPIA ops under options(backend='dpia-cuda') = phase 9 "
+        f"bit for bit, K4 launches {p9['stages']} (the stages); "
+        f"{len(MM_SHAPES)} matmuls under options(backend='cuda'): K2 "
+        f"variants {variants['matmul']} = phase 9's; executor cache {stats}")
+    # (d) the AOT store, reloaded in a fresh process
+    with tempfile.TemporaryDirectory() as d:
+        written = compiler.executor_cache().save_aot(d)
+        torch.save([list(a) for _, _, a in p9["dpia_in"]],
+                   os.path.join(d, "inputs.pt"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--aot-child", d], capture_output=True,
+                              text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[10d] the AOT child failed:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        outs = torch.load(os.path.join(d, "outputs.pt"))
+    spans = rep["trace_events"]
+    if written != n or rep["loaded"] != n or rep["nvcc_runs"] != 0 or \
+            spans.get("compiler.lower", 0) or spans.get("compiler.check", 0) \
+            or rep["launches"]["dpia_cuda"] != p9["stages"] or \
+            any(not torch.equal(g, w) for g, w in zip(outs, p9["dpia_out"])):
+        raise AssertionError(f"[10d] AOT reload: wrote {written}, child "
+                             f"{rep}; want {n} loaded, zero lower / check "
+                             f"spans and nvcc runs, phase 9's outputs bit "
+                             f"for bit")
+    aot = {"programs": n, "load_aot_s": rep["load_s"],
+           "first_calls_s": rep["first_calls_s"], "child_process_s": child_s,
+           "cold_stage_s": stage_s, "cold_nvcc_s": build_s,
+           "trace_events": spans, "nvcc_runs": rep["nvcc_runs"]}
+    log("[10d] AOT reload in a fresh process, bitwise phase 9: "
+        + json.dumps(aot))
+    # (g) the quickstart on the card
+    from repro_torch.examples import quickstart
+    t0 = time.perf_counter()
+    qs = quickstart.main([])
+    log(f"[10g] quickstart on the card: {json.dumps(qs)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return aot
 
 
 # ---------------------------------------------------------------------------
@@ -1230,19 +1478,27 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--aot-child"]:
+        return aot_child(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     smi = phase_card()
-    build_s, k1 = phase_build()
+    build_s, k1, stage_s = phase_build()
     cases = phase_kernels(k1)
-    counts, variants, (cfg, model, params) = phase_main_path(smi)
-    phase_continuous(smi, cfg, model, params)
-    del model, params
+    counts, variants, (cfg, model, params), static = phase_main_path(smi)
+    report, (dense_graph, reqs, want) = phase_continuous(smi, cfg, model,
+                                                         params)
+    phase_traced_continuous(smi, cfg, dense_graph, reqs, want,
+                            report["dense graph"]["tok_s_median"])
+    phase_obs_cost(smi, *static)
+    del model, params, static, dense_graph
     torch.cuda.empty_cache()
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)
-    p_counts, mm_variants, per_prog = phase_pipeline_main_path()
+    p_counts, mm_variants, per_prog, p9 = phase_pipeline_main_path()
+    p9["mm_variants"] = mm_variants
+    phase_services(smi, p9, stage_s, build_s)
     counts = {**counts, "matmul": p_counts["matmul"]}
     variants["matmul"] = mm_variants
     # the headline case of each kernel is its first: the main path's

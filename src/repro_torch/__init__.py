@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of :mod:`repro` for NVIDIA Hopper (H100).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
-layout (``kernels``, ``models``, ``configs``, ``serve``, ``launch``) and is
-held against it by the ``tests/test_torch_*.py`` parity tests.  It imports
+layout (``kernels``, ``models``, ``configs``, ``serve``, ``launch``,
+``core.dpia``, ``compiler``, ``obs``, ``ft``, ``testing``) and is held
+against it by the ``tests/test_torch_*.py`` parity tests.  It imports
 neither JAX nor anything of ``repro``.
 
 Every Pallas kernel on a ported path becomes a hand-written Hopper kernel

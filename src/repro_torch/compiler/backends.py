@@ -16,7 +16,8 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
-__all__ = ["Backend", "register_backend", "get_backend", "backend_names"]
+__all__ = ["Backend", "register_backend", "unregister_backend",
+           "get_backend", "backend_names", "ops_impls"]
 
 
 @dataclass(frozen=True)
@@ -59,6 +60,14 @@ def register_backend(backend: Backend, *, aliases: Tuple[str, ...] = (),
     return backend
 
 
+def unregister_backend(name: str) -> None:
+    """Remove a backend (and any aliases pointing at it)."""
+    with _LOCK:
+        _REGISTRY.pop(name, None)
+        for a in [a for a, t in _ALIASES.items() if t == name]:
+            del _ALIASES[a]
+
+
 def get_backend(name) -> Backend:
     """Resolve a backend by name/alias (or pass a Backend through).
 
@@ -79,3 +88,13 @@ def backend_names() -> Tuple[str, ...]:
     """Registered backend names, sorted (aliases not included)."""
     _ensure_builtins()
     return tuple(sorted(_REGISTRY))
+
+
+def ops_impls() -> Tuple[str, ...]:
+    """Valid kernel-layer impl names for ``repro_torch.kernels.ops``
+    dispatch: the two native rows (``plain``, and ``cuda`` for the ops
+    with a hand-written kernel) plus one ``dpia-<backend>`` per registered
+    backend.  The reference's ``ops_impls`` (``xla``, ``pallas``,
+    ``dpia-*``) excludes backends with compile-time requirements; the
+    port's backends have none."""
+    return ("plain", "cuda") + tuple(f"dpia-{b}" for b in backend_names())

@@ -53,6 +53,10 @@ SOURCE_FLAGS = {"matmul_wgmma": ("-I", str(CUTLASS_INCLUDE))}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# nvcc processes started by this process (one per source built): an AOT
+# reload that finds its libraries built keeps this at 0
+nvcc_runs = 0
+
 
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -87,9 +91,11 @@ def _compile(jobs) -> None:
     """Run one ``nvcc`` per (label, source, library, flags) job, all
     started together; keep each ptxas report beside its library; raise with
     the compiler's output when a build fails."""
+    global nvcc_runs
     if not jobs:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc_runs += len(jobs)
     procs = []
     for label, src, out, opts in jobs:
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,8 @@
 """The port's kernel API, as the models call it.
 
 Every op takes the arguments of ``repro.kernels.ops``'s function of the same
-name and an ``impl=`` naming one row of its table:
+name, an ``impl=`` naming one row of its table and an ``options=``
+(:class:`repro_torch.compiler.CompileOptions`):
 
   'plain'      — the plain PyTorch version (``ref``); the reference's 'xla'
   'cuda'       — the hand-written CUDA kernel: K1 RMSNorm, K2 matmul,
@@ -13,25 +14,37 @@ name and an ``impl=`` naming one row of its table:
   'dpia-cuda'  — the same strategy through the CUDA generator (K4):
                  one generated kernel per grid-level parfor
 
-``impl=None`` is 'cuda' for ``rmsnorm`` and ``flash_attention`` (the model
-path) and 'plain' elsewhere, as the reference defaults to 'xla'.  An unknown
-impl raises ``ValueError`` naming the valid ones.
+A row is chosen per call (``impl=``), per scope (``with
+repro_torch.compiler.options(backend=...):``, thread-local) or per explicit
+``options=``: the row is ``impl or options.backend or the op's default``.
+The default is 'cuda' for ``rmsnorm`` and ``flash_attention`` (the model
+path) and 'plain' elsewhere, as the reference defaults to 'xla'.  A
+user-registered Stage III backend ``<name>`` is the row ``dpia-<name>``
+of every op.  An unknown impl raises ``ValueError`` naming the valid ones.
 
 Dispatch follows the tensor.  On a CPU tensor every row computes through its
 plain counterpart (a kernel row: its plain version; a DPIA row: the torch
 Stage III).  On a CUDA tensor a kernel row ('cuda', 'dpia-cuda') launches its
-kernel or raises; no row substitutes another on failure.  Compiled DPIA
-programs are memoised per (kernel, shape, backend).  The reference's options
-scope, autotuned parameters and degradation ladder are not ported
-(ROADMAP.md).
+kernel or raises; no row substitutes another on failure (the reference's
+degradation ladder is not ported).  Compiled DPIA programs live in the
+process-wide executor cache (``repro_torch.compiler.executor_cache()``)
+under ``executors.make_key``, so a program staged once, or loaded from
+the AOT store, is found by every later call; each default-strategy
+decision is recorded in provenance (``obs.explain()``, origin
+``default``).  The reference's autotuned parameters wait for the
+autotuner (ROADMAP.md).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..compiler import Program
+from repro_torch import compiler, obs
+
+from ..compiler import CompileOptions, Program, current_options
+from ..compiler import executors as _executors
 from ..core.dpia import stage3_cuda
 from . import dpia_blas, ref
 from . import flash_attention as _fa
@@ -56,13 +69,22 @@ def _impl_handler(op: str, *impls: str):
     return deco
 
 
-def _dispatch(op: str, impl: Optional[str], *args, **kw):
-    name = impl or _DEFAULTS.get(op, "plain")
-    fn = _OP_IMPLS[op].get(name)
+def _dispatch(op: str, impl: Optional[str],
+              options: Optional[CompileOptions], *args, **kw):
+    opts = options if options is not None else current_options()
+    name = impl or opts.backend or _DEFAULTS.get(op, "plain")
+    table = _OP_IMPLS[op]
+    fn = table.get(name)
+    if (fn is None and name.startswith("dpia-")
+            and name in compiler.ops_impls()):
+        # a user-registered Stage III backend: the DPIA handlers derive the
+        # backend from the impl name, so the 'dpia-torch' handler serves
+        # every 'dpia-<registered>' impl
+        fn = table.get("dpia-torch")
     if fn is None:
         raise ValueError(f"{op}: unknown impl {name!r}; valid impls: "
-                         f"{sorted(_OP_IMPLS[op])}")
-    return fn(name, *args, **kw)
+                         f"{sorted(table)}")
+    return fn(name, opts, *args, **kw)
 
 
 def impls(op: str) -> Tuple[str, ...]:
@@ -71,13 +93,11 @@ def impls(op: str) -> Tuple[str, ...]:
 
 
 # ---------------------------------------------------------------------------
-# DPIA rows: default strategies, compiled once per (kernel, shape, backend)
+# DPIA rows: default strategies, staged once per executor key
 # ---------------------------------------------------------------------------
 
 # the reference's candidate block menu (repro/autotune/space.py:45)
 SPLIT_BLOCKS = (128, 256, 512, 1024, 2048, 4096, 8192)
-
-_compiled: Dict[Tuple, object] = {}
 
 
 def default_params(kernel: str, **shape) -> Dict[str, object]:
@@ -121,23 +141,68 @@ def program(kernel: str, **shape) -> Program:
     """``kernel``'s default strategy at ``shape`` as a Program."""
     params = default_params(kernel, **shape)
     return Program.from_builder(lambda: _BUILDERS[kernel](**shape, **params),
-                                name=program_name(kernel, **shape))
+                                name=program_name(kernel, **shape),
+                                kernel=kernel, shape=shape)
 
 
-def compiled(kernel: str, backend: str, **shape):
+def compiled(kernel: str, backend: str, *,
+             options: Optional[CompileOptions] = None, **shape):
     """``program(kernel, **shape).check().lower().compile(backend)``,
-    memoised per (kernel, shape, backend)."""
-    key = (kernel, backend, tuple(sorted(shape.items())))
-    fn = _compiled.get(key)
-    if fn is None:
-        fn = _compiled[key] = program(kernel, **shape).check().lower(
-            ).compile(backend)
-    return fn
+    memoised in the executor cache: staged at most once per key per
+    process, and never when the key was loaded from the AOT store.  The
+    staging records the default-strategy decision in provenance."""
+    opts = options if options is not None else current_options()
+    key = _executors.make_key(kernel, shape, backend,
+                              mesh=opts.mesh_descriptor(),
+                              layout=opts.kv_layout)
+
+    def build():
+        fn = program(kernel, **shape).check().lower().compile(
+            backend, options=opts)
+        obs.record("kernel", kernel, key, default_params(kernel, **shape),
+                   "default", shape=dict(shape), backend=backend,
+                   mesh=opts.mesh_descriptor(), layout=opts.kv_layout,
+                   note="autotune disabled in options (the port has no "
+                        "autotuner yet)")
+        return fn
+
+    return compiler.executor_cache().get_or_compile(key, build)
+
+
+def warm_kernel(kernel: str, *, backend: Optional[str] = None,
+                options: Optional[CompileOptions] = None, **shape):
+    """Stage (and, for ``cuda``, generate the source of) the executor the
+    DPIA dispatch path would use for ``kernel`` at ``shape``, without
+    running it: the same cache key as the ops' DPIA rows, so a warmed
+    executor is a guaranteed hit.  ``backend`` defaults to the options'
+    Stage III backend.  Persist the result with
+    ``repro_torch.compiler.executor_cache().save_aot(dir)``."""
+    opts = options if options is not None else current_options()
+    if kernel == "rmsnorm":
+        shape["eps"] = float(shape.get("eps", 1e-6))
+    return compiled(kernel, backend or opts.dpia_backend, options=opts,
+                    **shape)
 
 
 def clear_caches() -> None:
-    """Drop the memoised DPIA programs."""
-    _compiled.clear()
+    """Drop the staged DPIA programs (the executor cache)."""
+    compiler.executor_cache().clear()
+
+
+def set_default_impl(impl: str) -> None:
+    """Deprecated: mutate the process-wide default impl.
+
+    Use ``with repro_torch.compiler.options(backend=...):`` (thread-local
+    scope) or per-call ``impl=`` / ``options=`` instead."""
+    warnings.warn(
+        "set_default_impl is deprecated; use "
+        "repro_torch.compiler.options(backend=...) or pass impl=/options= "
+        "per call", DeprecationWarning, stacklevel=2)
+    valid = compiler.ops_impls()
+    if impl not in valid:
+        raise ValueError(f"unknown impl {impl!r}; valid backends: "
+                         f"{list(valid)}")
+    compiler.set_default_options(backend=impl)
 
 
 def _backend(impl: str) -> str:
@@ -196,133 +261,137 @@ def add_launches(delta: Dict[Tuple[str, Optional[str]], int],
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and each memoised generated program's."""
+    """Zero every kernel's count, and each cached generated program's."""
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
         for key in getattr(mod, "launches_by_variant", ()):
             mod.launches_by_variant[key] = 0
-    for fn in _compiled.values():
+    for fn in compiler.executor_cache().values():
         if fn.backend == "cuda":
             fn._fn.launches = 0
 
 
 # ---- BLAS ops (paper section 7) ---------------------------------------------
 
-def scal(alpha, x, impl: str | None = None):
-    return _dispatch("scal", impl, alpha, x)
+def scal(alpha, x, impl: str | None = None,
+         options: CompileOptions | None = None):
+    return _dispatch("scal", impl, options, alpha, x)
 
 
 @_impl_handler("scal", "plain")
-def _scal_ref(impl, alpha, x):
+def _scal_ref(impl, opts, alpha, x):
     return ref.scal(alpha, x)
 
 
 @_impl_handler("scal", "dpia-torch", "dpia-cuda")
-def _scal_dpia(impl, alpha, x):
-    fn = compiled("scal", _backend(impl), n=x.shape[0])
+def _scal_dpia(impl, opts, alpha, x):
+    fn = compiled("scal", _backend(impl), options=opts, n=x.shape[0])
     return fn(torch.as_tensor(alpha, dtype=x.dtype, device=x.device), x)
 
 
-def asum(x, impl: str | None = None):
-    return _dispatch("asum", impl, x)
+def asum(x, impl: str | None = None, options: CompileOptions | None = None):
+    return _dispatch("asum", impl, options, x)
 
 
 @_impl_handler("asum", "plain")
-def _asum_ref(impl, x):
+def _asum_ref(impl, opts, x):
     return ref.asum(x)
 
 
 @_impl_handler("asum", "dpia-torch", "dpia-cuda")
-def _asum_dpia(impl, x):
-    return compiled("asum", _backend(impl), n=x.shape[0])(x)
+def _asum_dpia(impl, opts, x):
+    return compiled("asum", _backend(impl), options=opts, n=x.shape[0])(x)
 
 
-def dot(x, y, impl: str | None = None):
-    return _dispatch("dot", impl, x, y)
+def dot(x, y, impl: str | None = None, options: CompileOptions | None = None):
+    return _dispatch("dot", impl, options, x, y)
 
 
 @_impl_handler("dot", "plain")
-def _dot_ref(impl, x, y):
+def _dot_ref(impl, opts, x, y):
     return ref.dot(x, y)
 
 
 @_impl_handler("dot", "dpia-torch", "dpia-cuda")
-def _dot_dpia(impl, x, y):
-    return compiled("dot", _backend(impl), n=x.shape[0])(x, y)
+def _dot_dpia(impl, opts, x, y):
+    return compiled("dot", _backend(impl), options=opts, n=x.shape[0])(x, y)
 
 
-def gemv(a, x, impl: str | None = None):
-    return _dispatch("gemv", impl, a, x)
+def gemv(a, x, impl: str | None = None, options: CompileOptions | None = None):
+    return _dispatch("gemv", impl, options, a, x)
 
 
 @_impl_handler("gemv", "plain")
-def _gemv_ref(impl, a, x):
+def _gemv_ref(impl, opts, a, x):
     return ref.gemv(a, x)
 
 
 @_impl_handler("gemv", "dpia-torch", "dpia-cuda")
-def _gemv_dpia(impl, a, x):
+def _gemv_dpia(impl, opts, a, x):
     m, n = a.shape
-    return compiled("gemv", _backend(impl), m=m, n=n)(a, x)
+    return compiled("gemv", _backend(impl), options=opts, m=m, n=n)(a, x)
 
 
 # ---- transformer ops ---------------------------------------------------------
 
-def matmul(a, b, impl: str | None = None, out_dtype=None):
-    return _dispatch("matmul", impl, a, b, out_dtype=out_dtype)
+def matmul(a, b, impl: str | None = None, out_dtype=None,
+           options: CompileOptions | None = None):
+    return _dispatch("matmul", impl, options, a, b, out_dtype=out_dtype)
 
 
 @_impl_handler("matmul", "plain")
-def _matmul_ref(impl, a, b, out_dtype=None):
+def _matmul_ref(impl, opts, a, b, out_dtype=None):
     return ref.matmul(a, b, out_dtype=out_dtype)
 
 
 @_impl_handler("matmul", "cuda")
-def _matmul_kernel(impl, a, b, out_dtype=None):
+def _matmul_kernel(impl, opts, a, b, out_dtype=None):
     return _mm.matmul(a, b, out_dtype=out_dtype)
 
 
 @_impl_handler("matmul", "dpia-torch", "dpia-cuda")
-def _matmul_dpia(impl, a, b, out_dtype=None):
+def _matmul_dpia(impl, opts, a, b, out_dtype=None):
     (m, k), n = a.shape, b.shape[1]
-    fn = compiled("matmul", _backend(impl), m=m, k=k, n=n)
+    fn = compiled("matmul", _backend(impl), options=opts, m=m, k=k, n=n)
     return fn(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
-def rmsnorm(x, w, eps: float = 1e-6, impl: str | None = None):
-    return _dispatch("rmsnorm", impl, x, w, eps=eps)
+def rmsnorm(x, w, eps: float = 1e-6, impl: str | None = None,
+            options: CompileOptions | None = None):
+    return _dispatch("rmsnorm", impl, options, x, w, eps=eps)
 
 
 @_impl_handler("rmsnorm", "plain")
-def _rmsnorm_ref(impl, x, w, eps=1e-6):
+def _rmsnorm_ref(impl, opts, x, w, eps=1e-6):
     return ref.rmsnorm(x, w, eps=eps)
 
 
 @_impl_handler("rmsnorm", "cuda")
-def _rmsnorm_kernel(impl, x, w, eps=1e-6):
+def _rmsnorm_kernel(impl, opts, x, w, eps=1e-6):
     return _rms.rmsnorm(x, w, eps=eps)
 
 
 @_impl_handler("rmsnorm", "dpia-torch", "dpia-cuda")
-def _rmsnorm_dpia(impl, x, w, eps=1e-6):
+def _rmsnorm_dpia(impl, opts, x, w, eps=1e-6):
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    fn = compiled("rmsnorm", _backend(impl), rows=x2.shape[0], d=d,
-                  eps=float(eps))
+    fn = compiled("rmsnorm", _backend(impl), options=opts, rows=x2.shape[0],
+                  d=d, eps=float(eps))
     return fn(x2.float().contiguous(), w.float()).reshape(x.shape).to(x.dtype)
 
 
-def softmax(x, axis: int = -1, impl: str | None = None):
-    return _dispatch("softmax", impl, x, axis=axis)
+def softmax(x, axis: int = -1, impl: str | None = None,
+            options: CompileOptions | None = None):
+    return _dispatch("softmax", impl, options, x, axis=axis)
 
 
 @_impl_handler("softmax", "plain")
-def _softmax_ref(impl, x, axis=-1):
+def _softmax_ref(impl, opts, x, axis=-1):
     return ref.softmax(x, dim=axis)
 
 
 @_impl_handler("softmax", "dpia-torch", "dpia-cuda")
-def _softmax_dpia(impl, x, axis=-1):
+def _softmax_dpia(impl, opts, x, axis=-1):
     if x.ndim < 2 or axis not in (-1, x.ndim - 1):
         # the DPIA strategy covers row softmax only (as in the reference)
         if x.device.type == "cpu":
@@ -331,26 +400,28 @@ def _softmax_dpia(impl, x, axis=-1):
                          f"matrix only; got axis {axis} of {x.ndim} dims")
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    fn = compiled("softmax", _backend(impl), rows=x2.shape[0], d=d)
+    fn = compiled("softmax", _backend(impl), options=opts, rows=x2.shape[0],
+                  d=d)
     return fn(x2.float().contiguous()).reshape(x.shape).to(x.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
-                    q_offset: int = 0, impl: str | None = None):
+                    q_offset: int = 0, impl: str | None = None,
+                    options: CompileOptions | None = None):
     """Attention (see :func:`ref.flash_attention`).  There is no DPIA
     flash-attention strategy in either package, so the ``dpia-*`` names take
     the 'cuda' row: K3 on a CUDA tensor, the plain version on a CPU one."""
-    return _dispatch("flash_attention", impl, q, k, v, causal=causal,
-                     scale=scale, q_offset=q_offset)
+    return _dispatch("flash_attention", impl, options, q, k, v,
+                     causal=causal, scale=scale, q_offset=q_offset)
 
 
 @_impl_handler("flash_attention", "plain")
-def _fa_ref(impl, q, k, v, *, causal=True, scale=None, q_offset=0):
+def _fa_ref(impl, opts, q, k, v, *, causal=True, scale=None, q_offset=0):
     return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                q_offset=q_offset)
 
 
 @_impl_handler("flash_attention", "cuda", "dpia-torch", "dpia-cuda")
-def _fa_kernel(impl, q, k, v, *, causal=True, scale=None, q_offset=0):
+def _fa_kernel(impl, opts, q, k, v, *, causal=True, scale=None, q_offset=0):
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                q_offset=q_offset)

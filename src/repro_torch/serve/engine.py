@@ -41,21 +41,40 @@ engines' other batch shapes round differently).  These streams give other bits t
 ``fold_in`` keys: the two packages agree token for token only in greedy
 mode.
 
+Observability (:mod:`repro_torch.obs`, the reference's names).  Spans:
+``engine.warm`` (an engine's first run: it builds the kernels it meets and
+captures the decode graph; the engine is marked warm at its end),
+``serve.step_chunk`` (one chunk boundary), ``serve.prefill_chunk`` (one
+prompt chunk of one request) and ``serve.decode_chunk``.  Every span reads
+the host's clock and none adds a device sync: ``serve.decode_chunk`` ends
+after the chunk's one host sync (reading its tokens), so it is the
+device's time for the chunk; ``serve.prefill_chunk`` wraps kernel launches
+with no sync after them, so on the card it times their enqueue.  Metrics:
+the ``serve.chunk_s`` histogram (the same decode chunk, host clock to the
+sync), the ``serve.kv_pool.used_blocks`` / ``free_blocks`` gauges (paged)
+and the ``serve.recompiles_after_warm`` counter and event, fed by the
+re-capture detector.  The scheduler records the request lifecycle
+(:mod:`repro_torch.serve.scheduler`).  No obs call runs inside the
+captured chunk function: a call there would run once, at capture, and
+never at a replay.
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
 takes it: ``kv_layout="auto"`` and ``tuning_cache=`` (the autotuner,
-ROADMAP.md queue 1 item 3); ``resilience=`` and ``journal=`` (queue 1 item
-4); :class:`ShardedEngine` (queue 1 item 6).  The reference's AOT
-executables, obs spans and fault sites come with those items too."""
+ROADMAP.md queue 1 item 3); ``resilience=`` and ``journal=`` (item 4,
+resilience); :class:`ShardedEngine` (item 6, mesh).  The reference's AOT
+executables and fault sites come with those slices too."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
 import logging
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import compiler, obs
 from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import Model
 from repro_torch.serve.graph import ChunkGraphs
@@ -306,22 +325,58 @@ class _EngineBase:
             out["graph_keys"] = list(self._graphs.keys)
         return out
 
+    @staticmethod
+    def _latency_stats() -> dict:
+        """count / mean / p50 / p95 / p99 of each serving latency histogram
+        with observations."""
+        reg = obs.registry()
+        out = {}
+        for name in ("serve.queue_wait_s", "serve.ttft_s", "serve.e2e_s",
+                     "serve.decode_tok_s", "serve.chunk_s"):
+            h = reg.histogram(name)
+            if h.count:
+                out[name.split(".", 1)[1]] = {
+                    "count": h.count, "mean": h.mean,
+                    "p50": h.percentile(0.50),
+                    "p95": h.percentile(0.95),
+                    "p99": h.percentile(0.99),
+                }
+        return out
+
     def mark_warm(self) -> None:
         """Declare the graphs warm: a capture past this point is a
-        *re-capture*, counted in ``stats()`` and logged."""
+        *re-capture*, counted in ``stats()``, in the
+        ``serve.recompiles_after_warm`` counter and event, and logged.
+        The first completed run marks the engine warm."""
         self._warm_captures = (self._graphs.captures
                                if self._graphs is not None else 0)
 
+    def _warm_run(self, run, **span_args):
+        """``run()``; the engine's first run goes in an ``engine.warm``
+        span and marks the engine warm when it completes."""
+        if self._warm_captures is not None:
+            return run()
+        with obs.span("engine.warm", max_seq=self.max_seq, chunk=self.chunk,
+                      **span_args):
+            out = run()
+        self.mark_warm()
+        return out
+
     def _check_recaptures(self) -> None:
-        """Compare the captures against the warm baseline; log each new key
-        once (a re-capture costs time, it is never an error)."""
+        """Compare the captures against the warm baseline; report each new
+        key once (a re-capture costs time, it is never an error)."""
         if self._warm_captures is None:
             return
         grew = self._graphs.captures - self._warm_captures
         if grew <= 0:
             return
         self._recaptures_after_warm += grew
+        base = self._warm_captures
         self._warm_captures = self._graphs.captures
+        obs.counter("serve.recompiles_after_warm").inc(grew)
+        obs.event("serve.recompile_after_warm",
+                  captures=self._graphs.captures, baseline_captures=base,
+                  keys=[str(k) for k in self._graphs.keys[-grew:]])
         log.warning("decode chunk captured after warm-up for key(s) %s "
                     "(batch, chunk, sampled): warm traffic should only "
                     "replay", self._graphs.keys[-grew:])
@@ -368,6 +423,10 @@ class BatchedEngine(_EngineBase):
         return st
 
     def run(self, requests: List[Request], seed: int = 0) -> List[List[int]]:
+        return self._warm_run(lambda: self._run(requests, seed),
+                              batch=len(requests))
+
+    def _run(self, requests: List[Request], seed: int) -> List[List[int]]:
         model, dev = self.model, self.device
         for r in requests:
             self._check_request(r)
@@ -563,16 +622,23 @@ class ContinuousEngine(_EngineBase):
         """:meth:`run`, returning each request's full outcome (time to
         first token included).  The first completed run marks the engine
         warm."""
-        self._run_seed = seed
-        rids = [self.submit(r, stream=i) for i, r in enumerate(requests)]
-        while not self.sched.idle:
-            self.step_chunk()
-        if self._warm_captures is None:
-            self.mark_warm()
-        return [self.take_result(rid) for rid in rids]
+        def run():
+            self._run_seed = seed
+            rids = [self.submit(r, stream=i) for i, r in enumerate(requests)]
+            while not self.sched.idle:
+                self.step_chunk()
+            return [self.take_result(rid) for rid in rids]
+        return self._warm_run(run, slots=self.slots)
 
     def stats(self) -> dict:
+        """The base engine's numbers, the scheduler's lifecycle totals, the
+        KV pool's (paged), the executor cache's statistics and percentile
+        summaries of the serving latency histograms (``latency``: the
+        process-wide metrics registry, so they cover every engine in the
+        process)."""
         out = super().stats()
+        out["executor_cache"] = compiler.executor_cache().stats()
+        out["latency"] = self._latency_stats()
         out["scheduler"] = self.sched.stats()
         if self.pool is not None:
             out["kv_pool"] = self.pool.stats()
@@ -596,9 +662,15 @@ class ContinuousEngine(_EngineBase):
         prefills by one chunk each, then decode one chunk.
 
         Returns the request ids that reached a terminal state at this
-        boundary."""
-        with torch.inference_mode():
-            return self._step_chunk()
+        boundary.  An exception leaving the engine dumps the flight
+        recorder (reason ``unhandled_exception``) and propagates."""
+        try:
+            with torch.inference_mode(), obs.span("serve.step_chunk"):
+                return self._step_chunk()
+        except Exception as e:
+            obs.flight_dump("unhandled_exception",
+                            error=f"{type(e).__name__}: {e}")
+            raise
 
     def _step_chunk(self) -> List[int]:
         finished: List[int] = []
@@ -607,6 +679,9 @@ class ContinuousEngine(_EngineBase):
                 self._evict_slot(slot)
             finished.append(rid)
         self.sched.admissions()               # reserve slots (and KV blocks)
+        if self.pool is not None:
+            obs.gauge("serve.kv_pool.used_blocks").set(self.pool.used_blocks)
+            obs.gauge("serve.kv_pool.free_blocks").set(self.pool.free_blocks)
         for slot, rid in self.sched.prefilling():
             if self._prefill_advance(slot, rid):      # one chunk per boundary
                 if self._finish_admit(slot, rid):
@@ -618,8 +693,19 @@ class ContinuousEngine(_EngineBase):
             sampled = any(self._requests[rid].temperature > 0.0
                           for rid in rids)
             slot_of = dict(zip(rids, busy))
-            retired = self.sched.record_chunk(
-                self._decode_chunk(self.st, sampled))
+            req_ids = ",".join(str(s.req_id) for s in self.sched.slots
+                               if not s.free)
+            t0 = time.perf_counter()
+            # ends after the chunk's one host sync (the tokens' read):
+            # the span and serve.chunk_s time the device's chunk
+            with obs.span("serve.decode_chunk", chunk=self.chunk,
+                          req_ids=req_ids):
+                rows = self._decode_chunk(self.st, sampled)
+            dt = time.perf_counter() - t0
+            obs.histogram("serve.chunk_s").observe(dt)
+            obs.drift_observe(f"serve|decode_chunk|slots={self.slots}"
+                              f"|chunk={self.chunk}", dt)
+            retired = self.sched.record_chunk(rows)
             for rid in retired:
                 self._park_lane(slot_of[rid])
             finished.extend(retired)
@@ -655,6 +741,14 @@ class ContinuousEngine(_EngineBase):
             self._begin_admit(slot)
         take = min(plen - start, self.buckets[-1])
         bucket = pick_bucket(take, self.buckets)
+        # no host sync inside: on the card the span times the enqueue
+        with obs.span("serve.prefill_chunk", slot=slot, req_id=rid,
+                      bucket=bucket, start=start):
+            self._prefill_chunk(slot, r, start, take, bucket)
+        return start + take >= plen
+
+    def _prefill_chunk(self, slot: int, r: Request, start: int, take: int,
+                       bucket: int) -> None:
         tokens = _prompt_tensor(r.prompt[start:start + take], bucket,
                                 self.device)
         lengths = _to_device(torch.tensor([take]), self.device)
@@ -675,7 +769,6 @@ class ContinuousEngine(_EngineBase):
         self.n_prefills += 1
         self._admit_logits[slot] = logits
         self.sched.prefill_advance(slot, take)
-        return start + take >= plen
 
     def _begin_admit(self, slot: int) -> None:
         """Set up the slot for its (possibly multi-chunk) prompt prefill."""

@@ -16,29 +16,23 @@ whole span (prompt + decode budget), and its pages are returned at
 retirement.  FIFO order is preserved (no head-of-line skipping), so a
 block-starved pool defers admissions rather than reordering them.
 
-Left out until ``obs/`` and ``testing/faults.py`` are ported (ROADMAP.md
-queue 1 item 4), each a call of the reference's:
+Observability (:mod:`repro_torch.obs`), with the reference's names:
+counters ``serve.requests_submitted`` / ``_admitted`` / ``_retired`` /
+``_<state>``, ``serve.admission_deferrals`` and ``serve.evacuations``;
+lifecycle events carrying ``req_id`` (``serve.submit``, ``serve.admit``,
+``serve.admission_deferred``, ``serve.first_token``, ``serve.retire``,
+``serve.request_terminal``, ``serve.evacuate``); the histograms
+``serve.queue_wait_s``, ``serve.ttft_s``, ``serve.e2e_s``,
+``serve.request_tokens`` and ``serve.decode_tok_s``; a flight-recorder
+dump when a request ends ``failed`` or ``timeout``.  Every clock is the
+host's, read at a chunk boundary.
 
-- ``submit``: ``obs.counter("serve.requests_submitted")``,
-  ``obs.event("serve.submit")``;
-- ``admissions``: the fault site ``faults.should_fire(
-  "serve.pool_exhausted")``, ``obs.counter("serve.admission_deferrals")``,
-  ``obs.event("serve.admission_deferred")``,
-  ``obs.counter("serve.requests_admitted")``,
-  ``obs.histogram("serve.queue_wait_s")``, ``obs.event("serve.admit")``;
-- ``record_first``: ``obs.histogram("serve.ttft_s")``,
-  ``obs.event("serve.first_token")``;
-- ``_retire``: ``obs.counter("serve.requests_retired")``,
-  ``obs.histogram("serve.request_tokens")``, ``obs.histogram(
-  "serve.e2e_s")``, ``obs.histogram("serve.decode_tok_s")``,
-  ``obs.event("serve.retire")``;
-- ``_finish``: ``obs.counter("serve.requests_<state>")``,
-  ``obs.event("serve.request_terminal")``, ``obs.flight_dump``;
-- ``evacuate``: ``obs.counter("serve.evacuations")``,
-  ``obs.event("serve.evacuate")``.
+Left out until the resilience slice (ROADMAP.md queue 1 item 4): the fault site
+``faults.should_fire("serve.pool_exhausted")`` in ``admissions``.
 
-The per-request timestamps stay (``t_submit``, ``t_admit``, ``t_first`` in
-``meta``): ``pop_result`` reads time to first token from them.
+The per-request timestamps (``t_submit``, ``t_admit``, ``t_first`` in
+``meta``) feed those histograms, and ``pop_result`` reads time to first
+token from them.
 """
 from __future__ import annotations
 
@@ -49,6 +43,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import obs
 from repro_torch.serve.resilience import RequestResult
 
 __all__ = ["seq_buckets", "pick_bucket", "Scheduler"]
@@ -156,6 +151,9 @@ class Scheduler:
                              "ttft_deadline_s": ttft_deadline_s}
         self.outputs[req_id] = []
         self.pending.append(req_id)
+        obs.counter("serve.requests_submitted").inc()
+        obs.event("serve.submit", req_id=req_id, prompt_len=prompt_len,
+                  max_new=max_new)
 
     # -- chunk-boundary decisions -------------------------------------------
 
@@ -182,6 +180,10 @@ class Scheduler:
                     # the queue head is block-starved: one deferral per
                     # boundary, however many slots were still free behind it
                     self.n_deferrals += 1
+                    obs.counter("serve.admission_deferrals").inc()
+                    obs.event("serve.admission_deferred", req_id=rid,
+                              need_blocks=need,
+                              free_blocks=self.pool.free_blocks)
                     break
                 self.pool.alloc(i, need)
             self.pending.popleft()
@@ -191,6 +193,11 @@ class Scheduler:
             slot.prefill_len = meta["prompt_len"]
             self.n_admits += 1
             meta["t_admit"] = now
+            obs.counter("serve.requests_admitted").inc()
+            obs.histogram("serve.queue_wait_s").observe(
+                now - meta["t_submit"])
+            obs.event("serve.admit", req_id=rid, slot=i,
+                      prompt_len=meta["prompt_len"])
             out.append((i, rid))
         return out
 
@@ -215,6 +222,10 @@ class Scheduler:
         meta = self.meta.get(slot.req_id)
         if meta is not None and "t_first" not in meta:
             meta["t_first"] = time.perf_counter()
+            ttft = meta["t_first"] - meta["t_submit"]
+            obs.histogram("serve.ttft_s").observe(ttft)
+            obs.event("serve.first_token", req_id=slot.req_id,
+                      slot=slot_idx, ttft_s=round(ttft, 6))
         if slot.remaining > 0:
             self.outputs[slot.req_id].append(int(token))
             slot.remaining -= 1
@@ -246,7 +257,21 @@ class Scheduler:
                 reason: str = "") -> None:
         slot = self.slots[slot_idx]
         rid = slot.req_id
+        meta = self.meta.get(rid)
         self.n_retires += 1
+        obs.counter("serve.requests_retired").inc()
+        if meta is not None:
+            now = time.perf_counter()
+            n_tok = len(self.outputs.get(rid, ()))
+            obs.histogram("serve.request_tokens").observe(n_tok)
+            obs.histogram("serve.e2e_s").observe(now - meta["t_submit"])
+            t_first = meta.get("t_first")
+            # decode throughput: tokens after the first, over the time after
+            # the first (prefill latency is TTFT's burden, not decode's)
+            if t_first is not None and n_tok > 1 and now > t_first:
+                obs.histogram("serve.decode_tok_s").observe(
+                    (n_tok - 1) / (now - t_first))
+        obs.event("serve.retire", req_id=rid, slot=slot_idx, state=state)
         slot.req_id = -1
         slot.remaining = 0
         slot.prefill_pos = slot.prefill_len = 0
@@ -264,6 +289,15 @@ class Scheduler:
             self.n_cancelled += 1
         elif state == "failed":
             self.n_failed += 1
+        if state != "ok":
+            obs.counter(f"serve.requests_{state}").inc()
+            obs.event("serve.request_terminal", req_id=rid, state=state,
+                      reason=reason)
+        if state in ("failed", "timeout"):
+            # the black box: everything the process saw leading up to this
+            # request going bad (cancellation is a caller action, not a
+            # failure: no dump)
+            obs.flight_dump(f"request_{state}", req_id=rid, why=reason)
 
     def _slot_of(self, rid: int) -> Optional[int]:
         for i, s in enumerate(self.slots):
@@ -309,8 +343,8 @@ class Scheduler:
         a function of the request's own stream), timing metadata resets so
         TTFT is measured against the *new* admission, and, paged, the
         slot's pages return to the pool.  Returns the evacuated req_id, or
-        None for a free slot.  ``reason`` is kept for the reference's
-        signature; with no obs layer nothing records it yet."""
+        None for a free slot.  ``reason`` rides into the
+        ``serve.evacuate`` event."""
         slot = self.slots[slot_idx]
         rid = slot.req_id
         if rid < 0:
@@ -327,6 +361,9 @@ class Scheduler:
             self.pool.free(slot_idx)
         self.pending.appendleft(rid)
         self.n_evacuations += 1
+        obs.counter("serve.evacuations").inc()
+        obs.event("serve.evacuate", req_id=rid, slot=slot_idx,
+                  reason=reason)
         return rid
 
     def check_deadlines(self, now: Optional[float] = None

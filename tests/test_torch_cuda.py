@@ -664,6 +664,80 @@ def test_decode_attention_on_the_card_matches_the_upcast_form(cuda_device,
     torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
 
 
+# ---------------------------------------------------------------------------
+# options scopes and the AOT store on the card
+# ---------------------------------------------------------------------------
+
+def test_ops_under_options_launch_the_kernel_their_impl_names(cuda_device):
+    """No impl=: the default options keep rmsnorm on K1 and attention on K3;
+    options(backend="cuda") takes matmul to K2; options(backend=
+    "dpia-cuda") takes the DPIA ops to K4 (one launch per stage), and K3
+    still serves attention; options(backend="plain") launches nothing."""
+    from repro_torch import compiler
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((64, 256), generator=g, device=cuda_device)
+    w = torch.ones(256, device=cuda_device)
+    b = torch.randn((256, 128), generator=g, device=cuda_device)
+    q = torch.randn((2, 64, 64), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    v = torch.randn(4096, generator=g, device=cuda_device)
+
+    def counts(fn):
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return ops.launch_counts()
+
+    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0}
+    assert counts(lambda: ops.rmsnorm(x, w)) == {**zero, "rmsnorm": 1}
+    assert counts(lambda: ops.flash_attention(q, q, q)) == {
+        **zero, "flash_attention": 1}
+    assert counts(lambda: ops.matmul(x, b)) == zero
+    with compiler.options(backend="cuda"):
+        p = mm_mod.plan(64, 128, 256, torch.float32)
+        assert counts(lambda: ops.matmul(x, b)) == {**zero,
+                                                    "matmul": p.launches}
+    with compiler.options(backend="dpia-cuda"):
+        fn = ops.compiled("asum", "cuda", n=4096)
+        got = {}
+        assert counts(lambda: got.setdefault("asum", ops.asum(v))) == {
+            **zero, "dpia_cuda": len(fn.stages)}
+        assert counts(lambda: ops.flash_attention(q, q, q)) == {
+            **zero, "flash_attention": 1}
+    torch.testing.assert_close(got["asum"], v.abs().sum(), rtol=1e-5,
+                               atol=1e-5 * v.abs().sum().item())
+    with compiler.options(backend="plain"):
+        assert counts(lambda: (ops.rmsnorm(x, w),
+                               ops.flash_attention(q, q, q))) == zero
+
+
+def test_aot_reload_on_the_card_builds_nothing(cuda_device, tmp_path):
+    """Executors saved to the AOT store and loaded into a fresh cache find
+    the libraries already built (the same generated sources): no nvcc
+    runs, and the outputs are bitwise the first executors'."""
+    from repro_torch import compiler
+    from repro_torch.compiler import executors
+    from repro_torch.kernels import _build
+    ops.clear_caches()
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randn((256, 128), generator=g, device=cuda_device)
+    x = torch.randn(128, generator=g, device=cuda_device)
+    with compiler.options(backend="dpia-cuda"):
+        want = [ops.gemv(a, x), ops.dot(x, x)]
+    torch.cuda.synchronize()
+    compiler.executor_cache().save_aot(str(tmp_path))
+    fresh = executors.ExecutorCache()
+    runs = _build.nvcc_runs
+    assert fresh.load_aot(str(tmp_path)) == 2
+    by_kernel = {fn.program.kernel: fn for fn in fresh.values()}
+    got = [by_kernel["gemv"](a, x), by_kernel["dot"](x, x)]
+    torch.cuda.synchronize()
+    assert _build.nvcc_runs == runs
+    for gt, w in zip(got, want):
+        assert torch.equal(gt, w)
+    ops.clear_caches()
+
+
 def test_capture_failure_raises(cuda_device, monkeypatch):
     """A chunk that cannot be captured (here: a host sync inside it) raises
     from the engine; it never quietly runs eagerly."""
