@@ -87,7 +87,10 @@ result):
 9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
    projection shapes and every DPIA op through ``impl="dpia-cuda"`` at the
    shapes of phase 7, with K2's and K4's launch counts checked, per K2
-   variant too;
+   variant too; (b) the same DPIA ops as a user calls them by default
+   (``impl="dpia-cuda"``, the tuner on, no measured record): the cuda row
+   takes no analytic pick, so each runs phase 9's executor, bitwise, its
+   eager time held to the ``autotune=False`` form's;
 10. compiler services and obs (``repro_torch.compiler``, ``repro_torch.obs``):
    (a) the DPIA ops of phase 9 under ``compiler.options(backend=
    "dpia-cuda")`` with no ``impl=``: K4's launches the sum of their stages,
@@ -107,17 +110,43 @@ result):
    (f) phase 4's static engine, tok/s with obs disabled and with tracing
    on, three runs each in turns, medians beside the card's name and power
    limit; (g) the quickstart (``repro_torch.examples.quickstart``) on the
-   card.
+   card, its step 5 a measured tune on the card;
+11. the autotuner on the card (``repro_torch.autotune``): (a) ``tune(kernel,
+   backend="cuda", measure=True, verify=True, top_k=4)`` for scal, asum,
+   dot at n = 2**22, rmsnorm (800, 2560), softmax (25600, 200) and matmul
+   (1024, 2560, 2560), every picked candidate generated by K4 and the
+   picks of all six built in one parallel nvcc batch first; for each
+   kernel the candidates enumerated and measured (none dropped but for
+   ``NotImplementedError`` or a verify miss), the analytic winner (the
+   ``gpu`` preset) and the measured one, the winner's and the default's
+   time as CUDA-graph replays, its bound, the ``torch`` call's time, and
+   the winner against its plain version within phase 7's tolerance; (b)
+   ``obs.audit_cache`` over that cache: whether the analytic ranking
+   agrees with the card's, and each timed candidate's time beside the
+   cost model's terms (what an ``h100`` preset would be fitted to); (c)
+   the same calls again: all cache hits, no ``autotune.measure`` span, no
+   nvcc run; (d) the ops under ``options(backend="dpia-cuda",
+   autotune=True, tuning_cache=...)``: executor keys carrying the tuned
+   params, outputs bitwise the winners', K4's launches the winners'
+   stages, and the op table's tuner fallback fired zero times; (e) right
+   after phase 4b, on its weights: ``ContinuousEngine(kv_layout="auto")``
+   serves 4b's traffic in the layout ``autotune.pick_kv_layout`` picks,
+   with 4b's exact K1 / K3 counts and its tokens bit for bit.  Phases 9
+   and 10 run the op rows under ``options(autotune=False)``, at phase 7's
+   programs.  Every tuning cache lives in a temporary directory
+   (``REPRO_AUTOTUNE_CACHE`` points there for the whole run).
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
-K3 and one entry per generated K4 program), the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``.
+K3, one entry per generated K4 program of phase 7 and one per tuned
+winner of phase 11), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1170,7 +1199,10 @@ def phase_dpia(build_s):
 def phase_pipeline_main_path():
     """The slice's main path through the entry points a user calls:
     ops.matmul(impl="cuda") at the projection shapes, every DPIA op with
-    impl="dpia-cuda"; counts zeroed just before and read just after."""
+    impl="dpia-cuda" at its default strategy (autotune off, so the
+    programs are phase 7's); counts zeroed just before and read just
+    after."""
+    from repro_torch import compiler
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1190,7 +1222,8 @@ def phase_pipeline_main_path():
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     outs = [ops.matmul(a, b, impl="cuda") for a, b in mm_in]
-    outs += [calls[k](a, sh) for k, sh, a in dpia_in]
+    with compiler.options(autotune=False):
+        outs += [calls[k](a, sh) for k, sh, a in dpia_in]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     mm_variants = ops.launch_counts_by_variant()["matmul"]
@@ -1221,6 +1254,52 @@ def phase_pipeline_main_path():
     return counts, mm_variants, per_prog, {
         "mm_in": mm_in, "dpia_in": dpia_in, "mm_out": outs[:len(mm_in)],
         "dpia_out": outs[len(mm_in):], "stages": stages}
+
+
+def phase_default_options(p9):
+    """[9b] the same DPIA ops as a user calls them by default: ``impl=
+    "dpia-cuda"`` under the default options (the tuner on unless
+    ``REPRO_AUTOTUNE=0``, this run's empty default cache).  The cuda row
+    takes only measured params, so with no measured record each op runs
+    phase 9's executor: no new executor staged, outputs bitwise phase 9's,
+    and its time (eager, interleaved with phase 9's form) held to that
+    form's."""
+    from repro_torch import compiler
+    from repro_torch.kernels import ops
+    opts = compiler.current_options()
+    keys = set(compiler.executor_cache().keys())
+
+    def user(k, a, sh):
+        return lambda: ops.rmsnorm(*a, eps=sh["eps"], impl="dpia-cuda") \
+            if k == "rmsnorm" else getattr(ops, k)(*a, impl="dpia-cuda")
+
+    def off(k, a, sh):
+        def run():
+            with compiler.options(autotune=False):
+                return user(k, a, sh)()
+        return run
+    rows = {}
+    for (k, sh, a), want in zip(p9["dpia_in"], p9["dpia_out"]):
+        got = user(k, a, sh)()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[9b] {k} {sh} under the default options "
+                                 f"is not phase 9's output")
+        t_def, t_off = [], []
+        for _ in range(2):
+            t_def.append(eager_auto(user(k, a, sh)))
+            t_off.append(eager_auto(off(k, a, sh)))
+        rows[ops.program_name(k, **sh)] = (min(t_def), min(t_off))
+    staged = set(compiler.executor_cache().keys()) - keys
+    slow = {n: t for n, t in rows.items() if t[0] > 1.5 * t[1] + 0.02}
+    if staged or slow:
+        raise AssertionError(f"[9b] default options: new executors "
+                             f"{sorted(staged)}; slower than autotune=False "
+                             f"(ms, ms): {slow}")
+    log(f"[9b] {len(rows)} dpia-cuda ops under the default options "
+        f"(autotune={opts.autotune}, no measured record): phase 9's "
+        f"executors, outputs bitwise phase 9's; eager ms (default options, "
+        f"autotune=False): " + json.dumps(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -1344,7 +1423,7 @@ def aot_child(directory: str) -> int:
     inputs = torch.load(os.path.join(directory, "inputs.pt"))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with compiler.options(backend="dpia-cuda"):
+    with compiler.options(backend="dpia-cuda", autotune=False):
         outs = [dpia_call(k, a, sh) for (k, sh), a in zip(DPIA_CASES,
                                                           inputs)]
     torch.cuda.synchronize()
@@ -1369,7 +1448,7 @@ def phase_services(smi, p9, stage_s, build_s):
     # (a) the DPIA ops under an options scope, no impl=
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with compiler.options(backend="dpia-cuda"):
+    with compiler.options(backend="dpia-cuda", autotune=False):
         outs = [dpia_call(k, a, sh) for k, sh, a in p9["dpia_in"]]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -1444,6 +1523,216 @@ def phase_services(smi, p9, stage_s, build_s):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the tuner on the card
+# ---------------------------------------------------------------------------
+
+# the pipeline's sizes (phase 7's; gemv has no strategy space to tune)
+TUNE_CASES = [("scal", dict(n=1 << 22)), ("asum", dict(n=1 << 22)),
+              ("dot", dict(n=1 << 22)), ("rmsnorm", dict(rows=800, d=2560)),
+              ("softmax", dict(rows=25600, d=200)),
+              ("matmul", dict(m=1024, k=2560, n=2560))]
+TUNE_TOP_K = 4
+# the only reasons the tuner may drop a candidate
+DROP_REASONS = {"unsupported", "verify"}
+
+
+def _op_shape(kernel, shape):
+    """The op layer's shape of a tuned kernel (rmsnorm's carries eps)."""
+    return {**shape, "eps": 1e-6} if kernel == "rmsnorm" else dict(shape)
+
+
+def _preset_inputs(record):
+    """Each timed candidate's measured time beside the cost model's terms
+    for it: what an ``h100`` preset would be fitted to."""
+    from repro_torch.autotune import cost, space
+    from repro_torch.obs.audit import _parse_params_key
+    out = {}
+    for pk, us in sorted(record["timings"].items()):
+        cand = space.candidate_from_params(
+            record["kernel"], _parse_params_key(pk), **record["shape"])
+        est = cost.estimate(cand.build()[0])
+        out[pk] = {"measured_us": us, **{k: float(v) for k, v in
+                                          vars(est).items() if v}}
+    return out
+
+
+def phase_tune(smi: str, cache_path: str):
+    """[11a-d] ``autotune.tune(backend="cuda", measure=True, verify=True)``
+    at the pipeline's sizes, every measured candidate generated by K4 and
+    timed on the card; the ranking audit; a second call served from the
+    cache; the op table under the tuned options."""
+    from repro_torch import autotune, compiler, obs
+    from repro_torch.autotune import measure, space
+    from repro_torch.compiler import executors
+    from repro_torch.kernels import _build, ops
+    t_phase = time.perf_counter()
+    fallbacks = obs.counter("kernels.fallbacks").value
+    # (a) every kernel's picks generated, then built in one nvcc batch
+    nvcc0 = _build.nvcc_runs
+    t0 = time.perf_counter()
+    gens = [c.program().check().lower().compile("cuda")
+            for k, sh in TUNE_CASES
+            for c in autotune.api.measure_picks(k, top_k=TUNE_TOP_K,
+                                                cache=cache_path, **sh)]
+    stage_s = time.perf_counter() - t0
+    nvcc_s = measure.build_candidates(gens)
+    batch = {"programs": len(gens), "stage_s": stage_s, "nvcc_s": nvcc_s,
+             "nvcc_runs": _build.nvcc_runs - nvcc0}
+    log("[11a] the picked candidates of every kernel, generated and built "
+        "in one parallel batch: " + json.dumps(batch))
+    rows, winners = [], {}
+    for kernel, shape in TUNE_CASES:
+        dropped = {}
+        t0 = time.perf_counter()
+        res = autotune.tune(kernel, backend="cuda", measure=True, verify=True,
+                            top_k=TUNE_TOP_K, cache=cache_path,
+                            dropped=dropped, **shape)
+        tune_s = time.perf_counter() - t0
+        bad = {pk: r for pk, r in dropped.items() if r not in DROP_REASONS}
+        if res.source != "measured" or bad or not res.timings:
+            raise AssertionError(f"[11a] {kernel}: source {res.source}, "
+                                 f"dropped {dropped}")
+        ranked = measure.rank_by_cost(space.enumerate_space(kernel, **shape))
+        default = space.default_params(kernel, **shape)
+        win = space.candidate_from_params(kernel, res.params, **shape)
+        wfn, args = measure.compile_candidate(win, "cuda")
+        dfn, _ = measure.compile_candidate(
+            space.candidate_from_params(kernel, default, **shape), "cuda")
+        plain = win.program().check().lower().compile("torch")
+        got = wfn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        atol, rtol = _dpia_tol(kernel, args, want)
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or \
+                (err > atol + rtol * want.abs()).any():
+            raise AssertionError(f"[11a] {kernel} winner {res.params}: "
+                                 f"max abs err {err.max().item()} against "
+                                 f"its plain version beyond atol {atol} + "
+                                 f"rtol {rtol}")
+        op_shape = _op_shape(kernel, shape)
+        nbytes, flops = _dpia_work(kernel, op_shape)
+        b_ms, b_by = bound(nbytes, flops, ELEMENTWISE_FLOPS)
+        row = {"program": space.program_name(kernel, res.params, **op_shape),
+               "kernel": kernel, "shape": shape, "params": res.params,
+               "default": default,
+               "analytic_winner": ranked[0][0].params_dict,
+               "measured_winner": res.params,
+               "enumerated": res.n_candidates, "measured": len(res.timings),
+               "dropped": dropped, "timings_us": res.timings,
+               "grids": [list(g) for g in wfn.plan.grids],
+               "stages": len(wfn.stages), "tune_s": tune_s,
+               "nvcc_s_batch": nvcc_s, "max_abs_err": err.max().item(),
+               "tol": [atol, rtol],
+               "ms": time_auto(lambda: wfn(*args)),
+               "default_ms": time_auto(lambda: dfn(*args)),
+               "eager_ms": eager_auto(lambda: wfn(*args)),
+               "plain_ms": plain_ms, "plain_calls": 1,
+               "library_ms": time_ms(_dpia_library(kernel, args, op_shape)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log("[11a] " + json.dumps(row))
+        rows.append(row)
+        winners[kernel] = (res, args, got)
+    # (b) the ranking audit over that cache, under the card's preset
+    tc = autotune.TuningCache(cache_path)
+    findings = {f["kernel"]: f for f in obs.auditor().audit_cache(tc)}
+    for kernel, _ in TUNE_CASES:
+        if kernel not in findings:
+            raise AssertionError(f"[11b] no ranking finding for {kernel}")
+        key = winners[kernel][0].key
+        log(f"[11b] {kernel}: analytic ranking (preset "
+            f"{autotune.cost.default_platform()}) agrees with the card: "
+            f"{findings[kernel]['agree']}; " + json.dumps(findings[kernel])
+            + "; preset inputs " + json.dumps(_preset_inputs(tc.get(key))))
+    # (c) the same calls again: cache hits, nothing measured or built
+    obs.enable()
+    obs.clear_trace()
+    nvcc0 = _build.nvcc_runs
+    try:
+        hits = [autotune.tune(k, backend="cuda", measure=True, verify=True,
+                              top_k=TUNE_TOP_K, cache=cache_path, **sh)
+                for k, sh in TUNE_CASES]
+        names = [e["name"] for e in obs.trace_events()]
+    finally:
+        obs.disable()
+        obs.clear_trace()
+    hit = {"sources": sorted({h.source for h in hits}),
+           "measure_spans": names.count("autotune.measure"),
+           "nvcc_runs": _build.nvcc_runs - nvcc0}
+    if hit != {"sources": ["cache"], "measure_spans": 0, "nvcc_runs": 0} \
+            or any(h.params != winners[k][0].params
+                   for h, (k, _) in zip(hits, TUNE_CASES)):
+        raise AssertionError(f"[11c] second tune calls: {hit}")
+    log("[11c] second tune calls: " + json.dumps(hit))
+    # (d) the op table under the tuned options: the winners, bit for bit
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with compiler.options(backend="dpia-cuda", autotune=True,
+                          tuning_cache=cache_path):
+        outs = {k: dpia_call(k, winners[k][1], _op_shape(k, sh))
+                for k, sh in TUNE_CASES}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launches = {}
+    for (kernel, shape), row in zip(TUNE_CASES, rows):
+        res, _, got = winners[kernel]
+        key = executors.make_key(kernel, _op_shape(kernel, shape), "cuda",
+                                 params=res.params)
+        fn = compiler.executor_cache().get(key)
+        if fn is None or not torch.equal(outs[kernel], got):
+            raise AssertionError(f"[11d] {kernel}: executor {key} "
+                                 f"{'missing' if fn is None else 'found'}; "
+                                 f"outputs bitwise the winner's: "
+                                 f"{torch.equal(outs[kernel], got)}")
+        launches[row["program"]] = fn.launches
+    stages = sum(r["stages"] for r in rows)
+    if counts != {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
+                  "dpia_cuda": stages} or \
+            launches != {r["program"]: r["stages"] for r in rows}:
+        raise AssertionError(f"[11d] launches {counts}, per program "
+                             f"{launches}; want {stages} K4 stages")
+    fired = int(obs.counter("kernels.fallbacks").value - fallbacks)
+    if fired:
+        raise AssertionError(f"[11] the op table's tuner fallback fired "
+                             f"{fired} times")
+    log(f"[11d] the {len(TUNE_CASES)} ops under options(backend="
+        f"'dpia-cuda', autotune=True, tuning_cache=...): executor keys "
+        f"carry the tuned params, outputs bitwise the winners', launches "
+        f"{counts} (per program {launches}), tuner fallbacks {fired}")
+    for r in rows:
+        r["launches"] = launches[r["program"]]
+    log(f"[11] phase 11a-d {time.perf_counter() - t_phase:.1f} s (cold "
+        f"nvcc included); card {smi}")
+    return rows
+
+
+def phase_tuned_serving(smi, cfg, model, params, reqs, want):
+    """[11e] phase 4b's traffic through ``ContinuousEngine(kv_layout=
+    "auto")``: the planner's layout, then a run after the warm-up with
+    phase 4b's exact K1 / K3 counts and its tokens bit for bit."""
+    from repro_torch import autotune
+    engine = continuous_engine(model, params, "auto", graph=True)
+    pick = autotune.pick_kv_layout(cfg, slots=SLOTS,
+                                   max_seq=continuous_max_seq(),
+                                   block_size=BLOCK)
+    engine.run(reqs, seed=5)                 # warm-up: captures
+    toks, rep = _continuous_run(engine, reqs, cfg)
+    if engine.kv_layout != pick["layout"] or toks != want:
+        raise AssertionError(f"[11e] layout {engine.kv_layout} (planner: "
+                             f"{pick['layout']}); tokens equal phase 4b's: "
+                             f"{toks == want}")
+    log(f"[11e] kv_layout='auto' chose {pick['layout']} "
+        + json.dumps(pick) + f"; tokens bitwise phase 4b's; {rep['tok_s']:.1f}"
+        f" tok/s, launches {rep['launches']}, K1 {rep['k1_variants']}; "
+        f"card {smi}")
+    del engine
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
@@ -1481,6 +1770,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--aot-child"]:
         return aot_child(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
+    # every tuning cache of this run lives in a temporary directory: the
+    # default cache (REPRO_AUTOTUNE_CACHE, read by the AOT child and the
+    # quickstart too) and phase 11's
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tune_dir,
+                                                      "default.json")
+    try:
+        return _run_phases(os.path.join(tune_dir, "phase11.json"))
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _run_phases(tune_cache: str) -> int:
     t_start = time.perf_counter()
     smi = phase_card()
     build_s, k1, stage_s = phase_build()
@@ -1491,6 +1793,7 @@ def main() -> int:
     phase_traced_continuous(smi, cfg, dense_graph, reqs, want,
                             report["dense graph"]["tok_s_median"])
     phase_obs_cost(smi, *static)
+    phase_tuned_serving(smi, cfg, model, params, reqs, want)
     del model, params, static, dense_graph
     torch.cuda.empty_cache()
     phase_against_cpu()
@@ -1498,7 +1801,9 @@ def main() -> int:
     dpia = phase_dpia(build_s)
     p_counts, mm_variants, per_prog, p9 = phase_pipeline_main_path()
     p9["mm_variants"] = mm_variants
+    phase_default_options(p9)
     phase_services(smi, p9, stage_s, build_s)
+    tuned = phase_tune(smi, tune_cache)
     counts = {**counts, "matmul": p_counts["matmul"]}
     variants["matmul"] = mm_variants
     # the headline case of each kernel is its first: the main path's
@@ -1522,6 +1827,13 @@ def main() -> int:
     for c in dpia:
         line.append({"name": f"dpia_cuda:{c['program']}", **K4,
                      "launches": per_prog[c["program"]],
+                     "max_abs_err": c["max_abs_err"],
+                     **{key: c[key] for key in _HEAD_KEYS},
+                     "card": smi, "cases": [c]})
+    # and one per tuned winner (phase 11: its launches are 11d's)
+    for c in tuned:
+        line.append({"name": f"dpia_cuda:{c['program']}", **K4,
+                     "launches": c["launches"],
                      "max_abs_err": c["max_abs_err"],
                      **{key: c[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": [c]})

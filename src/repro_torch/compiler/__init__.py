@@ -24,8 +24,7 @@ Quick use::
         y = ops.dot(x, y)
 
 The reference's ``default_interpret`` (Pallas interpret mode) has no
-counterpart here; ``Program.from_kernel`` waits for the autotuner
-(ROADMAP.md).
+counterpart here.
 """
 # NOTE: import order matters: ``backends`` and ``options`` must be bound
 # before ``program`` pulls in core.dpia, whose stage3 modules import

@@ -21,10 +21,10 @@ Where the port differs from the reference:
   (``kernels.ops``: the hand-written kernels K1 for ``rmsnorm`` and K3 for
   ``flash_attention``, ``plain`` elsewhere), so the model path does not
   move.  The reference's default is ``"xla"`` for every op.
-* ``autotune`` defaults to ``False`` and ``True`` raises
-  ``NotImplementedError``, as does a ``tuning_cache``: the autotuner is
-  not ported yet (ROADMAP.md queue 1 item 3, strategy/ and autotune/).
-  The reference reads ``REPRO_AUTOTUNE`` and defaults to ``True``.
+* ``autotune`` follows ``REPRO_AUTOTUNE`` as in the reference (on unless
+  it is ``"0"``); it changes the parameters of the DPIA rows only
+  (``dpia-*``), never an op's kernel or its device.  The ``dpia-cuda``
+  row takes only params measured on the card (``kernels.ops``).
 * ``mesh`` takes only ``None`` (mesh and sharded serving are not ported
   yet: ROADMAP.md queue 1 item 6, mesh);
   :meth:`CompileOptions.mesh_descriptor` is ``"single"``.
@@ -34,9 +34,10 @@ Where the port differs from the reference:
 """
 from __future__ import annotations
 
+import os
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass, replace as _dc_replace
+from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Optional
 
 from .backends import ops_impls
@@ -44,8 +45,9 @@ from .backends import ops_impls
 __all__ = ["CompileOptions", "options", "current_options",
            "set_default_options", "default_options"]
 
-_NEEDS_AUTOTUNE = ("the autotuner is not ported yet (ROADMAP.md queue 1 "
-                   "item 3, strategy/ and autotune/)")
+
+def _env_autotune() -> bool:
+    return os.environ.get("REPRO_AUTOTUNE", "1") != "0"
 
 
 @dataclass(frozen=True)
@@ -55,8 +57,10 @@ class CompileOptions:
     backend       kernel-layer impl name: 'plain' | 'cuda' | 'dpia-<stage3>'
                   (validated against the backend registry); None: each
                   op's own default row
-    autotune      must be False until the autotuner is ported
-    tuning_cache  must be None until the autotuner is ported
+    autotune      let repro_torch.autotune choose the DPIA rows' strategy
+                  params (default: the REPRO_AUTOTUNE env var, on unless
+                  it is "0")
+    tuning_cache  None (process default cache), a path, or a TuningCache
     mesh          must be None until the mesh slice is ported
     kv_layout     the serving KV-memory strategy this compilation scope
                   belongs to ('dense' | 'paged'); an executor-cache key
@@ -64,7 +68,7 @@ class CompileOptions:
                   never serve the other
     """
     backend: Optional[str] = None
-    autotune: bool = False
+    autotune: bool = field(default_factory=_env_autotune)
     tuning_cache: object = None
     mesh: object = None
     kv_layout: str = "dense"
@@ -74,9 +78,6 @@ class CompileOptions:
             raise ValueError(
                 f"unknown backend {self.backend!r}; valid backends: "
                 f"{list(ops_impls())} (or None: each op's default)")
-        if self.autotune or self.tuning_cache is not None:
-            raise NotImplementedError(f"autotune=True and tuning_cache=: "
-                                      f"{_NEEDS_AUTOTUNE}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh=: mesh and sharded serving are not ported yet "

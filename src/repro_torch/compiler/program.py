@@ -9,8 +9,10 @@ exposes the paper's pipeline as explicit stages:
                .lower()         # optional strategy rewrite + Stage I -> II
                .compile("cuda") # Stage III via the backend registry
 
-``lower`` takes no strategy (the term already is the strategy) or a rewrite
-callable (``expr -> expr``).  ``compile`` resolves its backend through
+``lower`` takes no strategy (the term already is the strategy), a
+``repro_torch.strategy`` program, a serialised strategy trace, a rewrite
+callable (``expr -> expr``), a params dict of the kernel's strategy space
+or ``"autotune"``.  ``compile`` resolves its backend through
 :mod:`repro_torch.compiler.backends`, by name or, with none given, from
 the :class:`~repro_torch.compiler.options.CompileOptions` passed or in
 scope.  ``Program.from_imperative`` wraps an already-imperative SCIR
@@ -23,9 +25,7 @@ program in the reference's document layout (``EXPORT_VERSION``), so a
 document is the same whichever package wrote it and a later process jumps
 straight to Stage III.
 
-The port's copy of ``repro.compiler.program``, without what waits for the
-autotuner's slice: ``from_kernel`` and the params-dict, trace and
-``"autotune"`` strategies raise ``NotImplementedError`` naming it.
+The port's copy of ``repro.compiler.program``.
 """
 from __future__ import annotations
 
@@ -48,10 +48,6 @@ __all__ = ["Program", "CompiledKernel", "program"]
 EXPORT_VERSION = 1
 
 OUT_NAME = "out#"
-
-_NEEDS_AUTOTUNE = ("the strategy language and the autotuner, which are not "
-                   "ported yet (ROADMAP.md queue 1 item 3, strategy/ and "
-                   "autotune/)")
 
 Strategy = Union[None, str, Dict[str, object], Callable[[P.Phrase], P.Phrase]]
 
@@ -111,11 +107,22 @@ class Program:
     @classmethod
     def from_kernel(cls, kernel: str, *, params: Optional[dict] = None,
                     **shape) -> "Program":
-        """A named kernel at a point of its strategy space: needs the
-        autotuner's candidate space."""
-        raise NotImplementedError(f"Program.from_kernel needs "
-                                  f"{_NEEDS_AUTOTUNE}; build the program "
-                                  f"with repro_torch.kernels.ops.program")
+        """A named benchmark kernel at a concrete shape.
+
+        ``params`` picks a point of the kernel's strategy space (the
+        ``repro_torch.autotune`` vocabulary); None means the un-tuned
+        default.  The derivation rides along as ``strategy_trace``."""
+        from repro_torch.autotune import space as space_mod
+        if params is None:
+            params = space_mod.default_params(kernel, **shape)
+        cand = space_mod.candidate_from_params(kernel, dict(params), **shape)
+        expr, arg_vars = cand.build()
+        prog = cls(expr, arg_vars, kernel=kernel, shape=shape, name=kernel)
+        try:
+            prog.strategy_trace = cand.trace_doc()
+        except Exception:
+            prog.strategy_trace = None
+        return prog
 
     @classmethod
     def from_imperative(cls, cmd: P.Phrase, arg_vars: Sequence[P.Var],
@@ -167,29 +174,74 @@ class Program:
               options: Optional[CompileOptions] = None) -> "Program":
         """Fix the strategy and translate to imperative DPIA (Stage I->II).
 
-        ``strategy`` is None (the term already *is* the strategy) or a
-        rewrite callable ``expr -> expr`` (semantics-preserving by the
-        caller's obligation).  Returns self when the term is unchanged, else
-        a new Program whose ``check()`` state starts fresh.  A params dict,
-        a serialised strategy trace or ``"autotune"`` raise
-        ``NotImplementedError``: they need the autotuner.  ``options`` is
-        taken for the reference's signature; no strategy the port lowers
-        reads it yet."""
+        strategy:
+          None            the term already *is* the strategy (default);
+          Strategy        a ``repro_torch.strategy`` program; applied to
+                          the term, failure raises, the trace is recorded
+                          on the result's ``strategy_trace``;
+          trace doc       a serialised ``StrategyTrace`` (dict with
+                          "steps"); deterministic replay of a derivation;
+          callable        a rewrite ``expr -> expr`` (semantics-preserving
+                          by the caller's obligation; re-check after);
+          params dict     a point of this kernel's strategy space
+                          (requires kernel/shape metadata);
+          "autotune"      resolve params via ``repro_torch.autotune`` (cost
+                          model + persistent cache; backend and cache from
+                          the options).
+
+        Returns self when the term is unchanged, else a new Program (whose
+        ``check()`` state starts fresh: rewrites must be re-checked)."""
         if strategy is None:
             self._translated()
             return self
-        if isinstance(strategy, (str, dict)):
-            raise NotImplementedError(
-                f"lower({strategy!r}): params dicts, strategy traces and "
-                f"'autotune' need {_NEEDS_AUTOTUNE}")
         if self.expr is None:
             raise ValueError("lower(strategy): an imperative-only Program "
                              "has no functional term to rewrite")
-        if not callable(strategy):
-            raise TypeError(f"lower: bad strategy {strategy!r}; expected None "
-                            f"or a rewrite callable")
-        prog = Program(strategy(self.expr), self.arg_vars, name=self.name,
+        from repro_torch import strategy as strategy_mod
+        if isinstance(strategy, strategy_mod.Strategy):
+            res = strategy.apply(self.expr)
+            if not res.ok:
+                raise ValueError(f"lower(strategy): strategy program failed "
+                                 f"on {self.name!r}: {res.reason}")
+            return self._derived(res.phrase, res.trace.to_doc())
+        if isinstance(strategy, dict) and strategy_mod.is_trace_doc(strategy):
+            res = strategy_mod.replay(strategy, self.expr)
+            if not res.ok:
+                raise ValueError(f"lower(trace): replay failed on "
+                                 f"{self.name!r}: {res.reason}")
+            return self._derived(res.phrase, res.trace.to_doc())
+        if callable(strategy):
+            return self._derived(strategy(self.expr), None)
+        if strategy == "autotune":
+            if self.kernel is None:
+                raise ValueError(
+                    'lower("autotune") needs kernel/shape metadata: build '
+                    'the Program with from_kernel(...) or pass a params '
+                    'dict')
+            from repro_torch import autotune
+            opts = options or current_options()
+            params = autotune.get_tuned(
+                self.kernel, backend=opts.dpia_backend,
+                cache=opts.tuning_cache, **self.shape)
+            return self.lower(params)
+        if isinstance(strategy, dict):
+            if self.kernel is None:
+                raise ValueError(
+                    "lower(params) needs kernel/shape metadata: build the "
+                    "Program with from_kernel(...)")
+            prog = Program.from_kernel(self.kernel, params=strategy,
+                                       **self.shape)
+            prog._translated()
+            return prog
+        raise TypeError(f"lower: bad strategy {strategy!r}; expected None, a "
+                        f"Strategy, a trace doc, a rewrite callable, a "
+                        f"params dict, or 'autotune'")
+
+    def _derived(self, expr: P.Phrase, trace: Optional[dict]) -> "Program":
+        """A new Program for the rewritten ``expr``, translated."""
+        prog = Program(expr, self.arg_vars, name=self.name,
                        kernel=self.kernel, shape=self.shape)
+        prog.strategy_trace = trace
         prog._translated()
         return prog
 

@@ -122,8 +122,14 @@ def fold_acc(a: P.Phrase, idxs: List, value, eval_i, leaf):  # noqa: C901
         m = a.m
         if len(idxs) >= 2:
             i, j, rest = idxs[0], idxs[1], idxs[2:]
-            if isinstance(i, tuple) or isinstance(j, tuple):
-                raise TypeError("joinAcc: mixed slice/index writes unsupported")
+            if isinstance(i, tuple):
+                raise TypeError("joinAcc: a slice of chunks is unsupported")
+            if isinstance(j, tuple) and j[0] == "ds":
+                # a slice within chunk i (a vectorised block's lanes):
+                # the same run of the joined axis
+                _, s0, sz = j
+                return fold_acc(a.a, [("ds", i * m + s0, sz)] + rest, value,
+                                eval_i, leaf)
             return fold_acc(a.a, [i * m + j] + rest, value, eval_i, leaf)
         if len(idxs) == 1:
             i = idxs[0]

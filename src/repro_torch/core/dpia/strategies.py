@@ -17,12 +17,15 @@ property-tested (tests/test_dpia_strategies.py):
   lift_lanes   map (elementwise g) xs = g* xs  (one whole-block VPU op)
   tile_matmul  naive row×col matmul = grid-blocked MXU k-chunk accumulation
 
-The port's copy of ``repro.core.dpia.strategies``.  The reference's strategy
-search and its autotuner shim wait for the port's autotune slice.
+plus a tiny exhaustive strategy search used by the benchmarks (the analogue
+of the ICFP'15 stochastic search, feasible here because our kernels have a
+small, structured strategy space).
+
+The port's copy of ``repro.core.dpia.strategies``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Iterable, List, Optional
 
 from . import phrases as P
 from .types import Arr, Num, Pair, Vec
@@ -237,3 +240,72 @@ def tile_matmul(e: P.Phrase, bm: int, bk: int) -> P.Phrase:
         "tile_matmul: inner body is not a dot-style reduction"
     assert m % bm == 0 and k % bk == 0, "tile_matmul: tiles must divide"
     return tiled_matmul_expr(e.e, bexpr, db.elem.n, bm, bk)
+
+
+# ---------------------------------------------------------------------------
+# strategy enumeration / search (the ICFP'15 search, miniaturised).
+# The real autotuner lives in repro_torch.autotune (generalised spaces,
+# analytic cost model, measured refinement, persistent cache); these entry
+# points are kept as thin compatibility shims over it.
+# ---------------------------------------------------------------------------
+
+def enumerate_dot_strategies(n: int, blocks: Iterable[int] = (256, 1024, 2048),
+                             lanes: Iterable[int] = (128,)) -> List[dict]:
+    """Strategy space for dot-product-like reductions of length n.
+
+    Compatibility shim: delegates to ``repro_torch.autotune.space`` (which
+    holds the generalised per-kernel spaces) and preserves the seed's
+    output format of ``{"block": b, "vector": w|None}`` dicts."""
+    from repro_torch.autotune import space as _space
+    return _space.dot_param_grid(n, blocks=blocks, lanes=lanes)
+
+
+def search(candidates: List[P.Phrase], cost_fn: Callable[[P.Phrase], float]
+           ) -> P.Phrase:
+    """Pick the candidate strategy minimising ``cost_fn`` (compiled cost).
+
+    Deterministic: NaN costs are treated as +inf, and ties (including the
+    all-infinite case) are broken by earliest position in ``candidates``,
+    so a fixed candidate order always yields the same winner.
+
+    A ``cost_fn`` that *raises* on some candidate (a cost model that cannot
+    price an exotic term) skips that candidate — warned once per process,
+    with an obs event per occurrence — instead of aborting the search; if
+    every candidate raises, the first is returned like the all-infinite
+    case."""
+    if not candidates:
+        raise ValueError(
+            "strategies.search: empty candidate list — enumerate a "
+            "non-empty strategy space first (see repro_torch.autotune.space; "
+            "e.g. no block size divides the input extent)")
+    best, best_c = candidates[0], float("inf")
+    for i, c in enumerate(candidates):
+        try:
+            cost = cost_fn(c)
+        except Exception as e:  # noqa: BLE001 — cost failure skips, not aborts
+            _warn_cost_failure(i, e)
+            continue
+        if cost == cost and cost < best_c:  # NaN-safe strict improvement
+            best, best_c = c, cost
+    return best
+
+
+_warned_cost_failure = False
+
+
+def _warn_cost_failure(index: int, exc: Exception) -> None:
+    global _warned_cost_failure
+    try:
+        from repro_torch import obs
+        obs.event("strategies.search.cost_error", candidate=index,
+                  error=f"{type(exc).__name__}: {exc}")
+    except Exception:
+        pass  # observability must never break the search
+    if not _warned_cost_failure:
+        _warned_cost_failure = True
+        import warnings
+        warnings.warn(
+            f"strategies.search: cost_fn raised on candidate {index} "
+            f"({type(exc).__name__}: {exc}); skipping it (warned once "
+            f"per process, every occurrence emits an obs event)",
+            RuntimeWarning, stacklevel=3)

@@ -10,10 +10,11 @@ The port's copy of ``examples/quickstart.py``:
 4. Run every registered backend against the mathematical reading: on the
    card ``cuda`` launches the generated kernels (K4), ``torch`` is the
    plain version.
+5. Let the autotuner pick the strategy instead (``repro_torch.autotune``):
+   candidates are rewrites of the functional spec, ranked by the cost
+   model, the best few timed (on the card: generated by K4, timed by CUDA
+   events) and the winner cached, so a second call is a cache hit.
 6. Scope kernel dispatch with ``compiler.options`` (thread-local).
-
-Step 5 of the reference (``autotune.tune``: let the autotuner pick the
-strategy) waits for the port's autotuner (ROADMAP.md queue 1 item 3).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart
       [--device cpu]     (the card by default)
@@ -25,7 +26,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch import compiler, resolve_device
+from repro_torch import autotune, compiler, resolve_device
 from repro_torch.core.dpia import interp, phrases as P, strategies
 from repro_torch.core.dpia.pretty import show
 from repro_torch.core.dpia.types import Arr, Num
@@ -85,13 +86,33 @@ def main(argv=None) -> dict:
               f"{got[backend]:+.6f}  == oracle OK")
     print(f"oracle (sequential reading): {oracle:+.6f}")
 
+    # -- 5. or let the autotuner derive the strategy -------------------------
+    # tune() consumes Programs: the candidate space comes from rewriting the
+    # program's functional spec, exactly as we rewrote it by hand above.
+    backend = "cuda" if device.type == "cuda" else "torch"
+    spec_prog = compiler.Program(dot_spec, [xs, ys], name="dot-spec")
+    # (the torch Stage III runs the candidates' loops in Python: one timed
+    # call each on the CPU)
+    res = autotune.tune(spec_prog, backend=backend, top_k=3,
+                        iters=3 if device.type == "cuda" else 1,
+                        verify=True, device=device)
+    print(f"\n== autotuned strategy ({backend} on {device.type}) ==\n"
+          f"{res.params}  ({res.source}, {res.n_candidates} candidates"
+          + (f", {res.measured_us:.1f} us" if res.measured_us else "") + ")")
+    res2 = autotune.tune(spec_prog, backend=backend, device=device)
+    print(f"second tune call: served from {res2.source} "
+          f"({autotune.default_cache().path})")
+    tuned = {"params": res.params, "source": res.source,
+             "measured_us": res.measured_us, "second_source": res2.source}
+
     # -- 6. scoped kernel dispatch (no process globals) ----------------------
     with compiler.options(backend="dpia-cuda"):
         scoped = float(ops.dot(ax, ay))  # the op layer dispatches like this
     np.testing.assert_allclose(scoped, oracle, rtol=RTOL)
     print(f"\nops.dot under options(backend='dpia-cuda') on {device.type}: "
           f"{scoped:+.6f} OK")
-    return {"oracle": oracle, "backends": got, "scoped": scoped}
+    return {"oracle": oracle, "backends": got, "tuned": tuned,
+            "scoped": scoped}
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@ name, an ``impl=`` naming one row of its table and an ``options=``
   'cuda'       — the hand-written CUDA kernel: K1 RMSNorm, K2 matmul,
                  K3 flash attention; the reference's 'pallas'.
                  Only ops that have one list it.
-  'dpia-torch' — the op's DPIA strategy (``dpia_blas.strategy_*`` at the
-                 reference's default parameters) through
+  'dpia-torch' — the op's DPIA strategy (a point of its strategy space,
+                 ``repro_torch.autotune``) through
                  ``Program.check().lower().compile("torch")``
   'dpia-cuda'  — the same strategy through the CUDA generator (K4):
                  one generated kernel per grid-level parfor
@@ -29,13 +29,28 @@ kernel or raises; no row substitutes another on failure (the reference's
 degradation ladder is not ported).  Compiled DPIA programs live in the
 process-wide executor cache (``repro_torch.compiler.executor_cache()``)
 under ``executors.make_key``, so a program staged once, or loaded from
-the AOT store, is found by every later call; each default-strategy
-decision is recorded in provenance (``obs.explain()``, origin
-``default``).  The reference's autotuned parameters wait for the
-autotuner (ROADMAP.md).
+the AOT store, is found by every later call; each decision is recorded
+in provenance (``obs.explain()``).
+
+Strategy parameters of the DPIA rows (block and tile sizes, reduce
+leaves) are chosen per shape and backend by ``repro_torch.autotune``
+when ``options.autotune`` is on, as it is by default
+(``REPRO_AUTOTUNE``): the ``dpia-torch`` row takes ``get_tuned`` (its
+cost model, or a measured record in its persistent cache); the
+``dpia-cuda`` row takes only a measured record (``get_measured``) and
+otherwise runs the default point, because the cost model has no preset
+measured on the card and its picks under the placeholder ``gpu`` preset
+ran up to 3x slower there than the defaults (PERF.md).
+``options(autotune=False)`` (or the deprecated ``set_autotune(False)``)
+runs each kernel's default point (``default_params``, the tuner's own).
+Executor keys carry the tuned params.  A failed lookup falls back to the default params, warning once
+(``kernels.fallbacks``): the parameters change, never the kernel or the
+device.  gemv has no strategy space and runs its default.
 """
 from __future__ import annotations
 
+import logging
+import threading
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
@@ -43,6 +58,8 @@ import torch
 
 from repro_torch import compiler, obs
 
+# the tuner's default points and program names: one source of truth
+from ..autotune.space import default_params, program_name  # noqa: F401
 from ..compiler import CompileOptions, Program, current_options
 from ..compiler import executors as _executors
 from ..core.dpia import stage3_cuda
@@ -50,6 +67,8 @@ from . import dpia_blas, ref
 from . import flash_attention as _fa
 from . import matmul as _mm
 from . import rmsnorm as _rms
+
+log = logging.getLogger("repro_torch.kernels.ops")
 
 # ---------------------------------------------------------------------------
 # table-driven dispatch
@@ -93,100 +112,168 @@ def impls(op: str) -> Tuple[str, ...]:
 
 
 # ---------------------------------------------------------------------------
-# DPIA rows: default strategies, staged once per executor key
+# DPIA rows: tuned or default strategies, staged once per executor key
 # ---------------------------------------------------------------------------
 
-# the reference's candidate block menu (repro/autotune/space.py:45)
-SPLIT_BLOCKS = (128, 256, 512, 1024, 2048, 4096, 8192)
+# gemv has no strategy space in the reference's tuner (autotune/space.py
+# ``_SPACES``): it always runs this row block
+GEMV_ROW_BLOCK = 128
+
+_tuned_memo: Dict[Tuple, Optional[dict]] = {}
+_warned: set = set()
+_LOCK = threading.Lock()
 
 
-def default_params(kernel: str, **shape) -> Dict[str, object]:
-    """The un-tuned strategy parameters each kernel ships with: the port's
-    copy of ``repro.autotune.space.default_params`` (space.py:304-323)."""
-    if kernel in ("dot", "asum", "scal"):
-        n = shape["n"]
-        b = 2048 if n % 2048 == 0 else max(
-            x for x in SPLIT_BLOCKS + (n,) if n % x == 0)
-        return {"block": b}
-    if kernel == "matmul":
-        return {"bm": min(128, shape["m"]), "bk": min(128, shape["k"])}
-    if kernel in ("rmsnorm", "softmax"):
-        return {"row_block": 8 if shape["rows"] % 8 == 0 else 1}
+def program(kernel: str, params: Optional[Dict[str, object]] = None,
+            **shape) -> Program:
+    """``kernel``'s strategy at ``shape`` as a Program: the point ``params``
+    of its strategy space (the default when None), derived from the naive
+    spec by its strategy program (``Program.from_kernel``), so the
+    ``strategy_trace`` rides along into the executor and the AOT store."""
     if kernel == "gemv":
-        return {"row_block": 128}
-    raise ValueError(f"default_params: unknown kernel {kernel!r}")
-
-
-_BUILDERS = {
-    "scal": lambda n, block: dpia_blas.strategy_scal(n, block),
-    "asum": lambda n, block: dpia_blas.strategy_asum(n, block),
-    "dot": lambda n, block: dpia_blas.strategy_dot(n, block),
-    "gemv": lambda m, n, row_block: dpia_blas.strategy_gemv(m, n, row_block),
-    "matmul": lambda m, k, n, bm, bk: dpia_blas.strategy_matmul(
-        m, k, n, bm, bk),
-    "rmsnorm": lambda rows, d, eps, row_block: dpia_blas.strategy_rmsnorm(
-        rows, d, eps, row_block),
-    "softmax": lambda rows, d, row_block: dpia_blas.strategy_softmax(
-        rows, d, row_block),
-}
-
-
-def program_name(kernel: str, **shape) -> str:
-    """The name of ``kernel``'s program at ``shape`` (its generated source is
-    built as ``build/dpia/<name>-<hash>.so``)."""
-    return "_".join([kernel] + [str(v) for v in shape.values()])
-
-
-def program(kernel: str, **shape) -> Program:
-    """``kernel``'s default strategy at ``shape`` as a Program."""
-    params = default_params(kernel, **shape)
-    return Program.from_builder(lambda: _BUILDERS[kernel](**shape, **params),
-                                name=program_name(kernel, **shape),
-                                kernel=kernel, shape=shape)
+        m, n = shape["m"], shape["n"]
+        prog = Program.from_builder(
+            lambda: dpia_blas.strategy_gemv(m, n, GEMV_ROW_BLOCK),
+            kernel=kernel, shape=shape)
+    else:
+        prog = Program.from_kernel(kernel, params=params, **shape)
+    prog.name = program_name(kernel, params, **shape)
+    return prog
 
 
 def compiled(kernel: str, backend: str, *,
-             options: Optional[CompileOptions] = None, **shape):
-    """``program(kernel, **shape).check().lower().compile(backend)``,
-    memoised in the executor cache: staged at most once per key per
-    process, and never when the key was loaded from the AOT store.  The
-    staging records the default-strategy decision in provenance."""
+             options: Optional[CompileOptions] = None,
+             params: Optional[Dict[str, object]] = None, **shape):
+    """``program(kernel, params, **shape).check().lower().compile(backend)``,
+    memoised in the executor cache under a key that carries ``params``
+    (None: the default strategy point): staged at most once per key per
+    process, and never when the key was loaded from the AOT store.  Staging
+    the default records its decision in provenance (a tuned decision is
+    recorded by the tuner)."""
     opts = options if options is not None else current_options()
-    key = _executors.make_key(kernel, shape, backend,
+    key = _executors.make_key(kernel, shape, backend, params=params,
                               mesh=opts.mesh_descriptor(),
                               layout=opts.kv_layout)
 
     def build():
-        fn = program(kernel, **shape).check().lower().compile(
+        fn = program(kernel, params, **shape).check().lower().compile(
             backend, options=opts)
-        obs.record("kernel", kernel, key, default_params(kernel, **shape),
-                   "default", shape=dict(shape), backend=backend,
-                   mesh=opts.mesh_descriptor(), layout=opts.kv_layout,
-                   note="autotune disabled in options (the port has no "
-                        "autotuner yet)")
+        if params is None:
+            obs.record("kernel", kernel, key, _default_of(kernel, shape),
+                       "default", shape=dict(shape), backend=backend,
+                       mesh=opts.mesh_descriptor(), layout=opts.kv_layout,
+                       note=("autotune disabled in options"
+                             if not opts.autotune else
+                             "no measured record (the cuda row takes no "
+                             "analytic pick)"
+                             if backend == "cuda" and kernel != "gemv" else
+                             "no tuned entry (no strategy space, or the "
+                             "lookup failed)"))
         return fn
 
     return compiler.executor_cache().get_or_compile(key, build)
 
 
+def _default_of(kernel: str, shape: Dict[str, object]) -> Dict[str, object]:
+    if kernel == "gemv":
+        return {"row_block": GEMV_ROW_BLOCK}
+    return default_params(kernel, **shape)
+
+
+def _warn_once(key: Tuple, msg: str) -> None:
+    """One-shot fallback signal: an obs event and the always-on
+    ``kernels.fallbacks`` counter every time, the module logger and a
+    ``RuntimeWarning`` once per key."""
+    obs.counter("kernels.fallbacks").inc()
+    obs.event("kernels.fallback", kind=str(key[0]),
+              key="/".join(str(k) for k in key), msg=msg)
+    with _LOCK:
+        if key in _warned:
+            return
+        _warned.add(key)
+    log.warning("%s", msg)
+    warnings.warn(msg, RuntimeWarning, stacklevel=4)
+
+
+def _cache_token(cache) -> str:
+    if cache is None:
+        return "<default>"
+    path = getattr(cache, "path", None)
+    return str(path) if path is not None else str(cache)
+
+
+def _tuned(kernel: str, backend: str, opts: CompileOptions,
+           **shape) -> Optional[dict]:
+    """Tuned params for the kernel at this shape, or None (use defaults).
+
+    Steady state is one dict lookup (a per-process memo); a cold shape
+    costs one analytic ranking pass through the tuner's persistent cache
+    (``autotune.get_tuned``, keyed by the backend, the mesh descriptor and
+    the KV layout).  The ``cuda`` backend takes only a measured record
+    (``autotune.get_measured``; None without one): the cost model has no
+    preset measured on the card.  A failing lookup falls back to the
+    default params and warns once per kernel / backend: the fallback
+    changes parameters, never the kernel or the device."""
+    if not opts.autotune:
+        return None
+    memo_key = (kernel, backend, opts.mesh_descriptor(), opts.kv_layout,
+                _cache_token(opts.tuning_cache),
+                tuple(sorted(shape.items())))
+    if memo_key in _tuned_memo:
+        return _tuned_memo[memo_key]
+    from repro_torch import autotune
+    try:
+        lookup = (autotune.get_measured if backend == "cuda"
+                  else autotune.get_tuned)
+        params = lookup(kernel, backend=backend,
+                        mesh=opts.mesh_descriptor(),
+                        cache=opts.tuning_cache, layout=opts.kv_layout,
+                        **shape)
+    except Exception as e:  # the op runs with its defaults; never breaks
+        params = None
+        _warn_once(("tune", kernel, backend),
+                   f"autotune lookup failed for {kernel!r} (backend "
+                   f"{backend!r}): {type(e).__name__}: {e}; using the "
+                   f"default strategy params")
+    _tuned_memo[memo_key] = params
+    return params
+
+
+def _tuned_or_default(kernel: str, backend: str, opts: CompileOptions,
+                      **shape):
+    """The executor a DPIA row runs: the tuned candidate's when the options
+    enable the tuner and the kernel has a strategy space, else the
+    default's.  The tuner keys on the shape without ``eps``.  Staging
+    tuned params that fail raises, as any staging failure does: no row
+    substitutes another program on failure."""
+    params = None
+    if kernel != "gemv":
+        params = _tuned(kernel, backend, opts,
+                        **{k: v for k, v in shape.items() if k != "eps"})
+    return compiled(kernel, backend, options=opts, params=params, **shape)
+
+
 def warm_kernel(kernel: str, *, backend: Optional[str] = None,
                 options: Optional[CompileOptions] = None, **shape):
     """Stage (and, for ``cuda``, generate the source of) the executor the
-    DPIA dispatch path would use for ``kernel`` at ``shape``, without
-    running it: the same cache key as the ops' DPIA rows, so a warmed
-    executor is a guaranteed hit.  ``backend`` defaults to the options'
-    Stage III backend.  Persist the result with
+    DPIA dispatch path would use for ``kernel`` at ``shape``, tuned params
+    included, without running it: the same cache key as the ops' DPIA
+    rows, so a warmed executor is a guaranteed hit.  ``backend`` defaults
+    to the options' Stage III backend.  Persist the result with
     ``repro_torch.compiler.executor_cache().save_aot(dir)``."""
     opts = options if options is not None else current_options()
     if kernel == "rmsnorm":
         shape["eps"] = float(shape.get("eps", 1e-6))
-    return compiled(kernel, backend or opts.dpia_backend, options=opts,
-                    **shape)
+    return _tuned_or_default(kernel, backend or opts.dpia_backend, opts,
+                             **shape)
 
 
 def clear_caches() -> None:
-    """Drop the staged DPIA programs (the executor cache)."""
+    """Drop the staged DPIA programs (the executor cache), the tuned-params
+    memo and the one-shot warning state."""
     compiler.executor_cache().clear()
+    _tuned_memo.clear()
+    _warned.clear()
 
 
 def set_default_impl(impl: str) -> None:
@@ -203,6 +290,20 @@ def set_default_impl(impl: str) -> None:
         raise ValueError(f"unknown impl {impl!r}; valid backends: "
                          f"{list(valid)}")
     compiler.set_default_options(backend=impl)
+
+
+def set_autotune(enabled: bool, cache=None) -> None:
+    """Deprecated: toggle autotuned strategy selection process-wide.
+
+    Use ``with repro_torch.compiler.options(autotune=...,
+    tuning_cache=...):`` instead.  Compiled programs and the params memo
+    are dropped so the change takes effect."""
+    warnings.warn(
+        "set_autotune is deprecated; use "
+        "repro_torch.compiler.options(autotune=..., tuning_cache=...)",
+        DeprecationWarning, stacklevel=2)
+    compiler.set_default_options(autotune=bool(enabled), tuning_cache=cache)
+    clear_caches()
 
 
 def _backend(impl: str) -> str:
@@ -285,7 +386,7 @@ def _scal_ref(impl, opts, alpha, x):
 
 @_impl_handler("scal", "dpia-torch", "dpia-cuda")
 def _scal_dpia(impl, opts, alpha, x):
-    fn = compiled("scal", _backend(impl), options=opts, n=x.shape[0])
+    fn = _tuned_or_default("scal", _backend(impl), opts, n=x.shape[0])
     return fn(torch.as_tensor(alpha, dtype=x.dtype, device=x.device), x)
 
 
@@ -300,7 +401,7 @@ def _asum_ref(impl, opts, x):
 
 @_impl_handler("asum", "dpia-torch", "dpia-cuda")
 def _asum_dpia(impl, opts, x):
-    return compiled("asum", _backend(impl), options=opts, n=x.shape[0])(x)
+    return _tuned_or_default("asum", _backend(impl), opts, n=x.shape[0])(x)
 
 
 def dot(x, y, impl: str | None = None, options: CompileOptions | None = None):
@@ -314,7 +415,8 @@ def _dot_ref(impl, opts, x, y):
 
 @_impl_handler("dot", "dpia-torch", "dpia-cuda")
 def _dot_dpia(impl, opts, x, y):
-    return compiled("dot", _backend(impl), options=opts, n=x.shape[0])(x, y)
+    fn = _tuned_or_default("dot", _backend(impl), opts, n=x.shape[0])
+    return fn(x, y)
 
 
 def gemv(a, x, impl: str | None = None, options: CompileOptions | None = None):
@@ -329,7 +431,7 @@ def _gemv_ref(impl, opts, a, x):
 @_impl_handler("gemv", "dpia-torch", "dpia-cuda")
 def _gemv_dpia(impl, opts, a, x):
     m, n = a.shape
-    return compiled("gemv", _backend(impl), options=opts, m=m, n=n)(a, x)
+    return _tuned_or_default("gemv", _backend(impl), opts, m=m, n=n)(a, x)
 
 
 # ---- transformer ops ---------------------------------------------------------
@@ -352,7 +454,7 @@ def _matmul_kernel(impl, opts, a, b, out_dtype=None):
 @_impl_handler("matmul", "dpia-torch", "dpia-cuda")
 def _matmul_dpia(impl, opts, a, b, out_dtype=None):
     (m, k), n = a.shape, b.shape[1]
-    fn = compiled("matmul", _backend(impl), options=opts, m=m, k=k, n=n)
+    fn = _tuned_or_default("matmul", _backend(impl), opts, m=m, k=k, n=n)
     return fn(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
@@ -375,8 +477,8 @@ def _rmsnorm_kernel(impl, opts, x, w, eps=1e-6):
 def _rmsnorm_dpia(impl, opts, x, w, eps=1e-6):
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    fn = compiled("rmsnorm", _backend(impl), options=opts, rows=x2.shape[0],
-                  d=d, eps=float(eps))
+    fn = _tuned_or_default("rmsnorm", _backend(impl), opts,
+                           rows=x2.shape[0], d=d, eps=float(eps))
     return fn(x2.float().contiguous(), w.float()).reshape(x.shape).to(x.dtype)
 
 
@@ -400,8 +502,8 @@ def _softmax_dpia(impl, opts, x, axis=-1):
                          f"matrix only; got axis {axis} of {x.ndim} dims")
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    fn = compiled("softmax", _backend(impl), options=opts, rows=x2.shape[0],
-                  d=d)
+    fn = _tuned_or_default("softmax", _backend(impl), opts,
+                           rows=x2.shape[0], d=d)
     return fn(x2.float().contiguous()).reshape(x.shape).to(x.dtype)
 
 

@@ -16,17 +16,19 @@ any run:
               snapshot): ``obs.counter("x").inc()``,
               ``obs.metrics_snapshot()``
   provenance  a record per strategy decision (kernel strategy, KV
-              layout): inputs, params, origin (``default``,
-              ``aot-loaded``): ``print(obs.explain())``
+              layout): inputs, params, origin (``analytic``,
+              ``measured``, ``cache(...)``, ``default``, ``aot-loaded``):
+              ``print(obs.explain())``
   recorder    always-on flight recorder: a bounded ring of recent
               boundary events / spans / counter deltas, dumped as one JSON
               black box when an artefact is quarantined (and, with the
               resilience slice, when a request fails):
               ``obs.flight_dump`` / ``obs.flight_dumps``
   audit       drift audit: baseline-relative per-key cost statistics
-              that fire ``tune.drift`` (``obs.drift_observe``); the
-              ranking audit (``obs.audit_cache``) needs the autotuner's
-              cost model and raises until that slice
+              that fire ``tune.drift`` (``obs.drift_observe``), and the
+              ranking audit (``obs.audit_cache``): the cost model's order
+              of a tuning record's candidates against their measured
+              order
   report      one human-readable rendering of all of the above:
               ``python -m repro_torch.obs.report``
 

@@ -9,11 +9,12 @@ times).  The audit is baseline-relative: the first ``min_samples``
 observations establish the key's own baseline ratio, and only a later
 shift beyond ``tolerance``x of that baseline fires.
 
-**Ranking drift** (:meth:`DriftAuditor.audit_record`,
-:meth:`DriftAuditor.audit_cache`) re-ranks a tuning-cache record's timed
-candidates under the autotuner's cost model.  The port has no autotuner
-yet (ROADMAP.md queue 1 item 3, strategy/ and autotune/), so both raise
-``NotImplementedError`` naming it.
+**Ranking drift** (:meth:`DriftAuditor.audit_record`): for tuning-cache
+records that carry measured ``timings`` per candidate, rebuild each
+candidate (``space.candidate_from_params``), re-rank analytically under
+the current ``HwModel``, and compare the predicted argmin against the
+measured argmin.  Disagreement means the model would pick the wrong
+strategy today.
 
 A firing emits a ``tune.drift`` event + counter, lands in the flight
 recorder ring, and annotates the decision's provenance entry ``stale``
@@ -33,10 +34,6 @@ __all__ = ["DriftAuditor", "auditor", "observe", "audit_record",
            "audit_cache", "snapshot", "reset"]
 
 _TINY = 1e-12
-
-_NEEDS_AUTOTUNE = ("the ranking audit re-ranks candidates under the "
-                   "autotuner's cost model, which is not ported yet "
-                   "(ROADMAP.md queue 1 item 3, strategy/ and autotune/)")
 
 
 class _KeyStats:
@@ -76,6 +73,7 @@ class DriftAuditor:
         self.min_samples = min_samples
         self.tolerance = tolerance        # x-factor beyond baseline to fire
         self._stats: Dict[str, _KeyStats] = {}
+        self._rank_fired: Dict[str, dict] = {}
         self._lock = threading.Lock()
 
     # -- ratio drift ---------------------------------------------------------
@@ -115,15 +113,65 @@ class DriftAuditor:
 
     def audit_record(self, kernel: str, key: str, record: dict,
                      hw=None) -> Optional[dict]:
-        """Re-rank a tuning-cache record's measured candidates under the
-        cost model: needs the autotuner, which the port does not have
-        yet."""
-        raise NotImplementedError(_NEEDS_AUTOTUNE)
+        """Re-rank a tuning-cache record's measured candidates analytically;
+        fire ``tune.drift`` (kind ``ranking``) when the roofline's best is
+        not the measured best.  Returns a finding dict, or None when the
+        record has fewer than two timed candidates (nothing to mis-rank)."""
+        timings = record.get("timings") or {}
+        if len(timings) < 2:
+            return None
+        from repro_torch.autotune import cost as cost_mod
+        from repro_torch.autotune import space as space_mod
+        if hw is None:
+            hw = cost_mod.hw_model()
+        shape = {k: v for k, v in (record.get("shape") or {}).items()}
+        predicted: Dict[str, float] = {}
+        for pk in timings:
+            try:
+                cand = space_mod.candidate_from_params(
+                    kernel, _parse_params_key(pk), **shape)
+                expr, _ = cand.build()
+                predicted[pk] = cost_mod.predicted_seconds(expr, hw)
+            except Exception:
+                predicted[pk] = float("inf")
+        if all(math.isinf(s) for s in predicted.values()):
+            return None
+        meas_best = min(timings, key=lambda pk: (timings[pk], pk))
+        pred_best = min(predicted, key=lambda pk: (predicted[pk], pk))
+        agree = meas_best == pred_best
+        # how much slower the model's pick actually ran, measured
+        slowdown = timings[pred_best] / max(timings[meas_best], _TINY)
+        finding = {"key": key, "kernel": kernel, "agree": agree,
+                   "measured_best": meas_best, "predicted_best": pred_best,
+                   "slowdown_x": round(slowdown, 3),
+                   "n_candidates": len(timings)}
+        if not agree:
+            with self._lock:
+                first = key not in self._rank_fired
+                self._rank_fired[key] = finding
+            if first:
+                self._fire("ranking", key, kernel=kernel,
+                           predicted_best=pred_best,
+                           measured_best=meas_best,
+                           slowdown_x=finding["slowdown_x"],
+                           note=f"roofline prefers [{pred_best}] but "
+                                f"[{meas_best}] measured "
+                                f"{slowdown:.2f}x faster")
+        return finding
 
     def audit_cache(self, cache, hw=None) -> List[dict]:
-        """:meth:`audit_record` over a tuning cache: needs the autotuner,
-        which the port does not have yet."""
-        raise NotImplementedError(_NEEDS_AUTOTUNE)
+        """Run :meth:`audit_record` over every record in a TuningCache that
+        carries timings; returns the findings (agreeing ones included)."""
+        findings = []
+        for key in cache.keys():
+            rec = cache.get(key)
+            if not rec:
+                continue
+            kernel = rec.get("kernel") or key.split("|", 1)[0]
+            f = self.audit_record(kernel, key, rec, hw=hw)
+            if f is not None:
+                findings.append(f)
+        return findings
 
     # -- firing + export -----------------------------------------------------
 
@@ -145,13 +193,43 @@ class DriftAuditor:
                 "tolerance": self.tolerance,
                 "min_samples": self.min_samples,
                 "keys": {k: st.to_doc() for k, st in self._stats.items()},
-                "ranking": {},      # the ranking audit is not ported yet
-                "fired": sum(1 for st in self._stats.values() if st.fired),
+                "ranking": {k: dict(f) for k, f in self._rank_fired.items()},
+                "fired": sum(1 for st in self._stats.values() if st.fired)
+                + len(self._rank_fired),
             }
 
     def reset(self) -> None:
         with self._lock:
             self._stats.clear()
+            self._rank_fired.clear()
+
+
+def _parse_params_key(pk: str) -> Dict[str, object]:
+    """Invert ``space.params_key``: ``"bk=128,bm=64"`` -> typed dict."""
+    params: Dict[str, object] = {}
+    if not pk:
+        return params
+    for part in pk.split(","):
+        k, _, v = part.partition("=")
+        params[k] = _coerce(v)
+    return params
+
+
+def _coerce(v: str):
+    if v == "None":
+        return None
+    if v == "True":
+        return True
+    if v == "False":
+        return False
+    try:
+        return int(v)
+    except ValueError:
+        pass
+    try:
+        return float(v)
+    except ValueError:
+        return v
 
 
 # ---------------------------------------------------------------------------

@@ -14,14 +14,18 @@ pick this" report::
 Each :class:`Decision` carries the decision *inputs* (kernel, shape, dtype,
 backend, mesh descriptor, KV layout), the chosen params, the predicted
 cost terms and measured time where a tuner supplied them, and the
-**origin**.  The port records two origins so far:
+**origin**:
 
-    default           the kernel's canonical default params (the port has
-                      no autotuner yet: ROADMAP.md queue 1 item 3)
+    analytic          ranked by the cost model (``autotune.tune``,
+                      ``measure=False``)
+    measured          timed on the device (``measure=True``)
+    cache(<source>)   served from the persistent tuning cache
+    default           the kernel's canonical default params (autotune off
+                      in the options, or no tuned entry)
     aot-loaded        an executor rebuilt from the AOT program store
 
-and the reference's others (``analytic``, ``measured``, ``cache(...)``,
-``degraded(a->b)``) arrive with the autotuner and resilience slices.
+The reference's ``degraded(a->b)`` arrives with the resilience slice
+(ROADMAP.md queue 1 item 4).
 
 Recording is always on (it happens when the op layer stages an executor,
 once per executor key, never on a hot call path) and keyed by the
@@ -94,10 +98,14 @@ class Decision:
 
 
 def _trace_str(doc: dict) -> str:
-    """Render a serialised StrategyTrace: the reference's plain fallback,
-    one rule name a step (the port's ``strategy`` package, whose
-    ``StrategyTrace.describe`` the reference prefers, is not ported yet)."""
-    return " ; ".join(str(s.get("rule", "?")) for s in doc.get("steps", ()))
+    """Render a serialised StrategyTrace (lazy import: repro_torch.strategy
+    is a consumer of obs, so the dependency must not run at module load)."""
+    try:
+        from repro_torch.strategy.lang import StrategyTrace
+        return StrategyTrace.from_doc(doc).describe()
+    except Exception:
+        return " ; ".join(str(s.get("rule", "?"))
+                          for s in doc.get("steps", ()))
 
 
 def _plain(v):

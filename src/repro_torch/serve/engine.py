@@ -58,13 +58,26 @@ re-capture detector.  The scheduler records the request lifecycle
 captured chunk function: a call there would run once, at capture, and
 never at a replay.
 
+The tuner (:mod:`repro_torch.autotune`): ``ContinuousEngine(kv_layout=
+"auto")`` ranks the dense and paged layouts with the HBM-bytes roofline
+(``autotune.pick_kv_layout``) and takes the winner.  An engine given a
+``tuning_cache`` (a path or an ``autotune.TuningCache``; the continuous
+engine) runs every request under ``compiler.options(tuning_cache=...,
+kv_layout=...)`` and at its warm boundary audits the measured records of
+that cache (``obs.audit_cache``).  The reference also pre-tunes the
+model's op shapes at construction and exports their executors to an AOT
+store; the port's model path (K1, K3, the projections) dispatches through
+no DPIA row and takes no tuned parameter, so that warm-up waits for a
+model path that does (ROADMAP.md queue 1).
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
-takes it: ``kv_layout="auto"`` and ``tuning_cache=`` (the autotuner,
-ROADMAP.md queue 1 item 3); ``resilience=`` and ``journal=`` (item 4,
+takes it: ``resilience=`` and ``journal=`` (ROADMAP.md queue 1 item 4,
 resilience); :class:`ShardedEngine` (item 6, mesh).  The reference's AOT
-executables and fault sites come with those slices too."""
+executables of the model and its fault sites come with those slices
+too."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -250,13 +263,17 @@ class _EngineBase:
     work counters and the re-capture detector."""
 
     def __init__(self, model: Model, params, *, max_seq: int, chunk: int,
-                 graph: bool = True):
+                 graph: bool = True, kv_layout: str = "dense",
+                 tuning_cache=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.model = model
         self.params = params
         self.max_seq = max_seq
         self.chunk = chunk
+        self.kv_layout = kv_layout
+        self.tuning_cache = tuning_cache
+        self._drift_audited = False
         self.device = params["embed"].device
         self._graphs = (ChunkGraphs(self.device)
                         if graph and self.device.type == "cuda" else None)
@@ -267,6 +284,28 @@ class _EngineBase:
         self.n_prefills = 0
         self.n_decode_steps = 0
         self.n_chunks = 0
+
+    # -- the tuner: options scope, drift audit -------------------------------
+
+    def _options_scope(self):
+        """The compile-options scope this engine's requests run under."""
+        if self.tuning_cache is None:
+            return contextlib.nullcontext()
+        # kv_layout is a strategy dimension: executors staged under this
+        # scope carry it in their keys, like the mesh descriptor
+        return compiler.options(tuning_cache=self.tuning_cache,
+                                kv_layout=self.kv_layout)
+
+    def _audit_drift(self) -> None:
+        """At the warm boundary, once per engine: re-rank every measured
+        record of this engine's tuning cache under the current cost model
+        and fire ``tune.drift`` where the model's pick is not the measured
+        one (analytic only: builds terms, compiles nothing)."""
+        if self.tuning_cache is None or self._drift_audited:
+            return
+        self._drift_audited = True
+        from repro_torch.autotune.api import _resolve_cache
+        obs.audit_cache(_resolve_cache(self.tuning_cache))
 
     # -- the decode chunk ----------------------------------------------------
 
@@ -350,15 +389,17 @@ class _EngineBase:
         The first completed run marks the engine warm."""
         self._warm_captures = (self._graphs.captures
                                if self._graphs is not None else 0)
+        self._audit_drift()
 
     def _warm_run(self, run, **span_args):
         """``run()``; the engine's first run goes in an ``engine.warm``
         span and marks the engine warm when it completes."""
-        if self._warm_captures is not None:
-            return run()
-        with obs.span("engine.warm", max_seq=self.max_seq, chunk=self.chunk,
-                      **span_args):
-            out = run()
+        with self._options_scope():
+            if self._warm_captures is not None:
+                return run()
+            with obs.span("engine.warm", max_seq=self.max_seq,
+                          chunk=self.chunk, **span_args):
+                out = run()
         self.mark_warm()
         return out
 
@@ -497,7 +538,10 @@ class ContinuousEngine(_EngineBase):
       * ``"paged"``: KV lives in a pool of ``kv_blocks`` pages of
         ``block_size`` positions (:mod:`repro_torch.serve.paged`); each slot
         maps into the pool through a ``(max_blocks,)`` block-table row,
-        pages are reserved at admission and freed at retirement.
+        pages are reserved at admission and freed at retirement;
+      * ``"auto"``: the layout ``autotune.pick_kv_layout`` ranks first for
+        this model and engine shape (the HBM-bytes roofline, cached in
+        ``tuning_cache``).
 
     ``prefill_chunk`` caps the admission bucket set: prompts longer than it
     are CHUNKED, one prefill chunk per boundary, so a long prompt does not
@@ -513,17 +557,18 @@ class ContinuousEngine(_EngineBase):
                  kv_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, *, graph: bool = True,
                  tuning_cache=None, resilience=None, journal=None):
-        if kv_layout == "auto" or tuning_cache is not None:
-            raise NotImplementedError(
-                "kv_layout='auto' and tuning_cache= need the autotuner, "
-                "which is not ported yet (ROADMAP.md queue 1 item 3)")
         if resilience is not None or journal is not None:
             raise NotImplementedError(
                 "resilience= and journal= come with the rest of the serving "
                 "spine (ROADMAP.md queue 1 item 4)")
+        if kv_layout == "auto":
+            from repro_torch import autotune
+            kv_layout = autotune.pick_kv_layout(
+                model.cfg, slots=slots, max_seq=max_seq,
+                block_size=block_size, cache=tuning_cache)["layout"]
         if kv_layout not in ("dense", "paged"):
-            raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
-                             f"{kv_layout!r}")
+            raise ValueError(f"kv_layout must be 'dense', 'paged' or "
+                             f"'auto', got {kv_layout!r}")
         if kv_layout == "paged":
             if max_seq % block_size != 0:
                 raise ValueError(
@@ -534,8 +579,8 @@ class ContinuousEngine(_EngineBase):
             self.max_blocks = max_seq // block_size
             self.kv_blocks = int(kv_blocks or slots * self.max_blocks)
         super().__init__(model, params, max_seq=max_seq, chunk=chunk,
-                         graph=graph)
-        self.kv_layout = kv_layout
+                         graph=graph, kv_layout=kv_layout,
+                         tuning_cache=tuning_cache)
         self.slots = slots
         self.prefill_chunk = prefill_chunk
         limit = (max_seq if prefill_chunk is None

@@ -80,16 +80,25 @@ inline float __shfl_sync(unsigned, float v, int src) {
   g_xch[t] = v; b->arrive_and_wait(); float r = g_xch[(t & ~31) | (src & 31)]; b->arrive_and_wait(); return r;
 }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+// One std::thread per CUDA thread for the whole launch: each walks the
+// blocks in order and meets the others at an end-of-block barrier after
+// each, so blocks still run one after another (their statics and g_smem are
+// reused).  That barrier is not __syncthreads' one: a thread that leaves
+// the body while the others wait in a __syncthreads still hangs the launch,
+// as such a divergent barrier must.
 inline void emu_launch(dim3 grid, int nt, std::function<void()> f) {
   gridDim = grid; blockDim = dim3(nt);
-  for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y) for (unsigned x = 0; x < grid.x; ++x) {
-    std::barrier<> bar(nt); g_bar = &bar;
-    std::vector<std::barrier<>*> w; for (int i = 0; i < nt / 32; ++i) w.push_back(new std::barrier<>(32)); g_warp = w;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; ++t) ts.emplace_back([&, t] { threadIdx = dim3(t); blockIdx = dim3(x, y, z); f(); });
-    for (auto& th : ts) th.join();
-    for (auto* p : w) delete p;
-  }
+  std::barrier<> bar(nt), done(nt); g_bar = &bar;
+  std::vector<std::barrier<>*> w; for (int i = 0; i < nt / 32; ++i) w.push_back(new std::barrier<>(32)); g_warp = w;
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nt; ++t) ts.emplace_back([&, t] {
+    threadIdx = dim3(t);
+    for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y) for (unsigned x = 0; x < grid.x; ++x) {
+      blockIdx = dim3(x, y, z); f(); done.arrive_and_wait();
+    }
+  });
+  for (auto& th : ts) th.join();
+  for (auto* p : w) delete p;
 }
 
 // ---- csrc/tc_sm80.cuh ------------------------------------------------------

@@ -147,12 +147,18 @@ def test_registered_backend_drives_ops_and_unregisters(rng):
 # options: explicit, scoped, thread-local
 # ---------------------------------------------------------------------------
 
-def test_option_defaults():
+def test_option_defaults(monkeypatch):
     opts = compiler.current_options()
     assert opts == compiler.default_options() == compiler.CompileOptions()
+    # autotune follows REPRO_AUTOTUNE as in the reference: on unless "0"
+    env_on = os.environ.get("REPRO_AUTOTUNE", "1") != "0"
     assert (opts.backend, opts.autotune, opts.tuning_cache, opts.mesh,
-            opts.kv_layout) == (None, False, None, None, "dense")
+            opts.kv_layout) == (None, env_on, None, None, "dense")
     assert opts.mesh_descriptor() == "single" and opts.resolved_mesh() is None
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    assert compiler.CompileOptions().autotune is False
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    assert compiler.CompileOptions().autotune is True
 
 
 def test_option_validation():
@@ -168,15 +174,34 @@ def test_option_validation():
             pass  # pragma: no cover
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("autotune", True, "autotune"), ("tuning_cache", "x.json", "autotune"),
-    ("mesh", object(), "mesh")])
+@pytest.mark.parametrize("field,value,item", [("mesh", object(), "mesh")])
 def test_unported_option_fields_raise_naming_their_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         compiler.CompileOptions(**{field: value})
     with pytest.raises(NotImplementedError):
         with compiler.options(**{field: value}):
             pass  # pragma: no cover
+
+
+@pytest.mark.parametrize("field,value", [("autotune", False),
+                                         ("tuning_cache", "x.json")])
+def test_autotune_and_tuning_cache_are_scoped_options(tmp_path, rng, field,
+                                                      value):
+    """The tuner's two fields scope like any other: ``autotune=False`` runs
+    the default point (executor key ``default``), ``tuning_cache=`` sends
+    the op rows' lookups to that cache (its file gets the record)."""
+    if field == "tuning_cache":
+        value = str(tmp_path / value)
+    x = torch.from_numpy(rng.randn(4096).astype(np.float32))
+    with compiler.options(**{"autotune": True, field: value}) as opts:
+        assert getattr(opts, field) == value
+        ops.asum(x, impl="dpia-torch")
+    (key,) = compiler.executor_cache().keys()
+    if field == "autotune":
+        assert key.endswith("|default")
+    else:
+        assert not key.endswith("|default")
+        assert json.loads(Path(value).read_text())["entries"]
 
 
 def test_scoping_and_nesting():
@@ -321,25 +346,29 @@ def test_make_key_is_canonical():
 
 
 def test_ops_build_once_then_hit_and_record_provenance(rng):
+    """The default strategy point (``autotune=False``): one build per key,
+    hits after, its decision recorded with origin ``default``."""
     obs.clear_decisions()
     x = torch.from_numpy(rng.randn(4096).astype(np.float32))
-    for _ in range(3):
-        ops.asum(x, impl="dpia-cuda")
-    ops.asum(x, impl="dpia-cuda", options=compiler.CompileOptions(
-        kv_layout="paged"))                 # a layout is a key dimension
-    st = compiler.executor_cache().stats()
-    assert st == {"entries": 2, "hits": 2, "builds": 2, "aot_loads": 0}
-    key = executors.make_key("asum", {"n": 4096}, "cuda")
-    fn = ops.compiled("asum", "cuda", n=4096)
-    assert compiler.executor_cache().get(key) is fn
-    assert (fn.program.kernel, fn.program.shape) == ("asum", {"n": 4096})
-    (d,) = [d for d in obs.decisions() if d.key == key]
-    assert (d.origin, d.params, d.layout) == ("default", {"block": 2048},
-                                              "dense")
-    assert "asum" in obs.explain("asum") and "origin default" in \
-        obs.explain("asum")
-    assert ops.warm_kernel("asum", backend="cuda", n=4096) is fn
-    assert ops.warm_kernel("rmsnorm", rows=8, d=32).backend == "torch"
+    with compiler.options(autotune=False):
+        for _ in range(3):
+            ops.asum(x, impl="dpia-cuda")
+        ops.asum(x, impl="dpia-cuda", options=compiler.CompileOptions(
+            kv_layout="paged", autotune=False))  # a layout is a key dimension
+        st = compiler.executor_cache().stats()
+        assert st == {"entries": 2, "hits": 2, "builds": 2, "aot_loads": 0}
+        key = executors.make_key("asum", {"n": 4096}, "cuda")
+        fn = ops.compiled("asum", "cuda", n=4096)
+        assert compiler.executor_cache().get(key) is fn
+        assert (fn.program.kernel, fn.program.shape) == ("asum", {"n": 4096})
+        (d,) = [d for d in obs.decisions() if d.key == key]
+        assert (d.origin, d.params, d.layout) == (
+            "default", {"block": 2048, "leaf": "vpu"}, "dense")
+        assert d.note == "autotune disabled in options"
+        assert "asum" in obs.explain("asum") and "origin default" in \
+            obs.explain("asum")
+        assert ops.warm_kernel("asum", backend="cuda", n=4096) is fn
+        assert ops.warm_kernel("rmsnorm", rows=8, d=32).backend == "torch"
 
 
 def test_reset_launch_counts_walks_the_cache(rng):
@@ -378,13 +407,27 @@ def test_stage_spans_and_options_backend():
     assert _spans("compiler.compile")[0]["args"]["backend"] == "cuda"
 
 
-def test_unported_strategies_raise_naming_the_autotuner():
-    prog = ops.program("dot", n=4096)
-    for strategy in ("autotune", {"block": 1024}, {"steps": []}):
-        with pytest.raises(NotImplementedError, match="autotune"):
-            prog.lower(strategy)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        compiler.Program.from_kernel("dot", n=4096)
+def test_lower_takes_params_traces_and_autotune(tmp_path):
+    """``lower`` takes a params dict, a trace document and ``"autotune"``
+    (``from_kernel`` metadata required), each a new Program whose
+    ``strategy_trace`` is its derivation; a term without kernel metadata
+    refuses params and ``"autotune"``."""
+    prog = compiler.Program.from_kernel("dot", n=4096)
+    assert prog.strategy_trace["steps"] and prog.kernel == "dot"
+    p1024 = prog.lower({"block": 1024, "leaf": "vpu"})
+    assert p1024 is not prog and p1024.strategy_trace["steps"][1][
+        "params"]["block"] == 1024
+    replayed = ops.program("dot", params=None, n=4096).lower(
+        {"steps": []})                     # the empty derivation: identity
+    assert replayed.strategy_trace == {"version": 1, "steps": []}
+    cache = str(tmp_path / "t.json")
+    with compiler.options(tuning_cache=cache):
+        tuned = prog.lower("autotune")
+    assert tuned.strategy_trace["steps"]
+    bare = compiler.Program(prog.expr, prog.arg_vars)
+    for strategy in ("autotune", {"block": 1024}):
+        with pytest.raises(ValueError, match="from_kernel"):
+            bare.lower(strategy)
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +435,17 @@ def test_unported_strategies_raise_naming_the_autotuner():
 # ---------------------------------------------------------------------------
 
 def _reference_program(kernel, shape):
-    params = ops.default_params(kernel, **shape)
-    expr, argv = getattr(jax_blas, f"strategy_{kernel}")(**shape, **params)
-    return jcompiler.Program(expr, argv, name=ops.program_name(kernel,
-                                                               **shape),
-                             kernel=kernel, shape=shape)
+    """The reference's program of ``kernel`` at its default strategy point:
+    ``Program.from_kernel`` (gemv, which has no strategy space, through its
+    builder), named as the port names it."""
+    if kernel == "gemv":
+        expr, argv = jax_blas.strategy_gemv(shape["m"], shape["n"],
+                                            ops.GEMV_ROW_BLOCK)
+        prog = jcompiler.Program(expr, argv, kernel=kernel, shape=shape)
+    else:
+        prog = jcompiler.Program.from_kernel(kernel, **shape)
+    prog.name = ops.program_name(kernel, **shape)
+    return prog
 
 
 @pytest.mark.parametrize("kernel,shape", CASES, ids=[c[0] for c in CASES])
@@ -493,15 +542,30 @@ _CHILD = textwrap.dedent("""
 def test_aot_reload_in_a_fresh_process(rng, tmp_path):
     """save_aot here, load_aot in a new process: the same outputs bit for
     bit, no Stage I/II and no SCIR check there, and the same generated
-    sources (on the card: the libraries built here, no nvcc)."""
+    sources (on the card: the libraries built here, no nvcc).  Both
+    processes read one tuning cache of this test's own (the child as its
+    default cache), holding a measured record for each kernel with a
+    strategy space (the ``dpia-cuda`` row takes no other), so the child's
+    tuned keys are the ones stored."""
+    from repro_torch import autotune
     args = [_torch(_inputs(k, sh, rng)) for k, sh in CASES]
-    with compiler.options(backend="dpia-cuda"):
+    tuning = str(tmp_path / "autotune.json")
+    records = autotune.TuningCache(tuning)
+    for kernel, shape in CASES:
+        if kernel != "gemv":
+            res = autotune.tune(kernel, backend="cuda", cache=records,
+                                measure=False, **{k: v for k, v in
+                                                  shape.items() if k != "eps"})
+            records.put(res.key, {**records.get(res.key),
+                                  "source": "measured"})
+    with compiler.options(backend="dpia-cuda", tuning_cache=tuning):
         want = [_call(k, a, sh) for (k, sh), a in zip(CASES, args)]
     cache = compiler.executor_cache()
     assert cache.save_aot(str(tmp_path / "aot")) == len(CASES)
     assert cache.save_aot(str(tmp_path / "aot")) == 0    # content-addressed
     torch.save(args, tmp_path / "in.pt")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_AUTOTUNE_CACHE=tuning)
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, str(tmp_path / "aot"),
          str(tmp_path / "in.pt"), str(tmp_path / "out.pt"),
@@ -513,7 +577,12 @@ def test_aot_reload_in_a_fresh_process(rng, tmp_path):
     assert rep["stats"] == {"entries": len(CASES), "hits": len(CASES),
                             "builds": 0, "aot_loads": len(CASES)}
     assert (rep["lower"], rep["check"], rep["compile"]) == (0, 0, len(CASES))
-    assert rep["nvcc_runs"] == 0 and rep["origins"] == ["aot-loaded"]
+    # the executors come from the AOT store, the tuned params of their
+    # keys from the tuning cache the parent wrote
+    assert rep["nvcc_runs"] == 0
+    assert rep["origins"] == (["aot-loaded", "cache(measured)"]
+                              if compiler.current_options().autotune
+                              else ["aot-loaded"])
     assert rep["targets"] == sorted(
         _build.generated_target(fn.name, fn.source).name
         for fn in cache.values())
@@ -570,7 +639,13 @@ def test_quickstart_runs_on_the_cpu(capsys):
     assert set(res["backends"]) == {"torch", "cuda"}
     for v in (*res["backends"].values(), res["scoped"]):
         np.testing.assert_allclose(v, res["oracle"], rtol=quickstart.RTOL)
-    assert "== oracle OK" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "== oracle OK" in out
+    # step 5: a measured tune of the spec's rewrites, then a cache hit
+    assert res["tuned"]["source"] == "measured"
+    assert res["tuned"]["second_source"] == "cache"
+    assert "rewrite" in res["tuned"]["params"]
+    assert "== autotuned strategy (torch on cpu) ==" in out
 
 
 def test_no_warning_from_the_port_on_the_dpia_path(rng):

@@ -269,14 +269,49 @@ def test_request_checks_and_unported_options_raise(setup):
                          block_size=16)
     with pytest.raises(ValueError, match="kv_layout"):
         ContinuousEngine(model, params, kv_layout="sparse")
-    for kw, item in (({"kv_layout": "auto"}, "item 3"),
-                     ({"tuning_cache": "t.json"}, "item 3"),
-                     ({"resilience": object()}, "item 4"),
+    for kw, item in (({"resilience": object()}, "item 4"),
                      ({"journal": "j.log"}, "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousEngine(model, params, **kw)
     with pytest.raises(NotImplementedError, match="item 6"):
         ShardedEngine(model, params)
+
+
+def test_kv_layout_auto_and_tuning_cache(setup, tmp_path, monkeypatch):
+    """``kv_layout="auto"`` takes the layout the reference's planner picks
+    for this model and engine shape and serves that layout's tokens;
+    ``tuning_cache=`` scopes the engine's runs to that cache and layout
+    and audits the cache at the warm boundary.  The engine pre-tunes and
+    stages nothing (its model path runs no DPIA row): the cache holds the
+    layout decision alone and no AOT store is written."""
+    from repro import autotune as jautotune
+    from repro_torch import autotune, compiler
+    model, params, prompts, want = setup
+    # the reference plans for the CPU here: so does the port on any machine
+    monkeypatch.setattr(autotune.cost, "default_platform", lambda: "cpu")
+    cache = str(tmp_path / "t.json")
+    engine = ContinuousEngine(model, params, kv_layout="auto",
+                              tuning_cache=cache, **ENGINE)
+    pick = autotune.pick_kv_layout(model.cfg, slots=ENGINE["slots"],
+                                   max_seq=MAX_SEQ, cache=cache)
+    jpick = jautotune.pick_kv_layout(
+        jax_smoke_config("qwen3_4b"), slots=ENGINE["slots"],
+        max_seq=MAX_SEQ, platform="cpu", cache=str(tmp_path / "j.json"))
+    assert engine.kv_layout == pick["layout"] == jpick["layout"]
+    seen = []
+    real = model.decode_step
+
+    def decode_step(*a, **kw):
+        opts = compiler.current_options()
+        seen.append((opts.tuning_cache, opts.kv_layout))
+        return real(*a, **kw)
+    monkeypatch.setattr(model, "decode_step", decode_step)
+    assert engine.run(_requests(prompts)) == want[engine.kv_layout]
+    assert seen and set(seen) == {(cache, engine.kv_layout)}
+    assert [k.split("|")[0] for k in autotune.TuningCache(cache).keys()] \
+        == ["kv_layout"]
+    assert not (tmp_path / "t.json.aot").exists()
+    assert engine._drift_audited
 
 
 def test_launcher_serves_continuous_paged_on_the_cpu(capsys):

@@ -697,7 +697,7 @@ def test_ops_under_options_launch_the_kernel_their_impl_names(cuda_device):
         p = mm_mod.plan(64, 128, 256, torch.float32)
         assert counts(lambda: ops.matmul(x, b)) == {**zero,
                                                     "matmul": p.launches}
-    with compiler.options(backend="dpia-cuda"):
+    with compiler.options(backend="dpia-cuda", autotune=False):
         fn = ops.compiled("asum", "cuda", n=4096)
         got = {}
         assert counts(lambda: got.setdefault("asum", ops.asum(v))) == {
@@ -735,6 +735,42 @@ def test_aot_reload_on_the_card_builds_nothing(cuda_device, tmp_path):
     assert _build.nvcc_runs == runs
     for gt, w in zip(got, want):
         assert torch.equal(gt, w)
+    ops.clear_caches()
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("dot", {"n": 1 << 16}), ("matmul", {"m": 128, "k": 256, "n": 128}),
+    ("softmax", {"rows": 256, "d": 200})])
+def test_measured_tune_on_the_card(cuda_device, tmp_path, kernel, shape):
+    """``tune(backend="cuda", measure=True)`` compiles each picked
+    candidate with K4, builds them in one batch and times them on the
+    card; nothing is dropped; the winner, run through the op table under
+    the tuned options, matches its plain version (the torch Stage III on
+    the same card tensors); a second call is a cache hit."""
+    from repro_torch import autotune, compiler
+    from repro_torch.autotune import measure, space
+    ops.clear_caches()
+    path = str(tmp_path / "t.json")
+    dropped = {}
+    res = autotune.tune(kernel, backend="cuda", cache=path, top_k=3,
+                        iters=3, verify=True, dropped=dropped, **shape)
+    assert res.source == "measured" and dropped == {}
+    assert len(res.timings) >= 2
+    assert all(t > 0 for t in res.timings.values())
+    cand = space.candidate_from_params(kernel, res.params, **shape)
+    fn, args = measure.compile_candidate(cand, "cuda")
+    plain = cand.program().check().lower().compile("torch")
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * float(want.abs().max()) if kernel == "dot" else 1e-4
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+    with compiler.options(backend="dpia-cuda", autotune=True,
+                          tuning_cache=path):
+        op = getattr(ops, kernel)(*args)
+        (key,) = compiler.executor_cache().keys()
+    assert torch.equal(op, got) and key.endswith(res.params_key())
+    assert autotune.tune(kernel, backend="cuda", cache=path,
+                         **shape).source == "cache"
     ops.clear_caches()
 
 

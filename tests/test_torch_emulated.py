@@ -103,8 +103,9 @@ STRATEGIES = {
 }
 
 
-def _run(lib, fn, args):
-    """Launch every stage of a generated program on CPU buffers."""
+def _run(lib, fn, args, prefix=""):
+    """Launch every stage of a generated program on CPU buffers (entry
+    points ``<prefix>launch_stage<k>``)."""
     plan = fn.plan
     outs = [torch.zeros(s) for _, s in stage3_cuda.leaves(fn.out.t.d)]
     host = [torch.zeros(s) for _, d in plan.host
@@ -113,7 +114,7 @@ def _run(lib, fn, args):
     ptrs = ([a.data_ptr() for a in args] + [t.data_ptr() for t in outs + host]
             + [scratch.data_ptr(), None])
     for st in plan.stages:
-        launch = getattr(lib, f"launch_stage{st.index}")
+        launch = getattr(lib, f"{prefix}launch_stage{st.index}")
         launch.argtypes = [ctypes.c_void_p] * len(ptrs)
         launch.restype = ctypes.c_int
         assert launch(*ptrs) == 0
@@ -198,6 +199,110 @@ def test_thread0_and_block_wide_statements_alternate(gxx, rng):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-5)
 
+
+# ---------------------------------------------------------------------------
+# K4 over the tuner's strategy spaces: every distinct derivation and grid
+# ---------------------------------------------------------------------------
+
+# the autotuner's kernels at small shapes: each candidate of each space
+SPACE_SHAPES = {"scal": {"n": 4096}, "asum": {"n": 4096}, "dot": {"n": 4096},
+                "rmsnorm": {"rows": 16, "d": 256},
+                "softmax": {"rows": 16, "d": 64},
+                "matmul": {"m": 64, "k": 64, "n": 64}}
+
+
+def _space_programs(kernel):
+    """(label, staged Program, generated program) of each candidate of
+    ``kernel``'s space whose (derivation, grids) no earlier one has."""
+    from repro_torch.autotune import space
+    out, seen = [], set()
+    for cand in space.enumerate_space(kernel, **SPACE_SHAPES[kernel]):
+        prog = cand.program().check().lower()
+        gen = prog.compile("cuda")._fn
+        doc = cand.trace_doc() or {"steps": []}
+        key = (tuple((s["rule"], tuple(sorted(s["params"].items())))
+                     for s in doc["steps"]), tuple(gen.plan.grids))
+        if key not in seen:
+            seen.add(key)
+            out.append((cand.params_key(), prog, gen))
+    return out
+
+
+def _emulated_batch(sources):
+    """Several generated programs in one translation unit for
+    tests/cuda_emu.h: program ``i`` in ``namespace c<i>`` with its entry
+    points renamed ``c<i>_launch_stage<k>``."""
+    parts = ['#include "cuda_emu.h"\n#include <math.h>\n']
+    for i, src in enumerate(sources):
+        body = _emulated(src).replace('#include "cuda_emu.h"\n', "")
+        body = body.replace("#include <math.h>\n", "")
+        body = body.replace("launch_stage", f"c{i}_launch_stage")
+        parts.append(f"namespace c{i} {{\n{body}\n}}  // namespace c{i}\n")
+    return "".join(parts)
+
+
+@pytest.fixture(scope="module")
+def space_libs(tmp_path_factory):
+    """Each kernel's space as one library, the six g++ builds started
+    together."""
+    path = shutil.which("g++")
+    if path is None:
+        pytest.skip("needs g++ (C++20) to emulate the CUDA sources")
+    out = tmp_path_factory.mktemp("emu_space")
+    progs, procs = {}, {}
+    for kernel in SPACE_SHAPES:
+        progs[kernel] = _space_programs(kernel)
+        cpp, so = out / f"{kernel}.cpp", out / f"{kernel}.so"
+        cpp.write_text(_emulated_batch([g.source for _, _, g
+                                        in progs[kernel]]))
+        procs[kernel] = (so, subprocess.Popen(
+            [path, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             "-I", str(HERE), "-o", str(so), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for kernel, (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log[-3000:]
+        libs[kernel] = ctypes.CDLL(str(so))
+    return {k: (libs[k], progs[k]) for k in SPACE_SHAPES}
+
+
+def _space_inputs(kernel, rng):
+    shape = SPACE_SHAPES[kernel]
+
+    def r(*s):
+        return torch.tensor(rng.randn(*s), dtype=torch.float32)
+    if kernel == "scal":
+        return [r(1).reshape(()), r(shape["n"])]
+    if kernel in ("asum", "dot"):
+        return [r(shape["n"]) for _ in range(1 if kernel == "asum" else 2)]
+    if kernel in ("rmsnorm", "softmax"):
+        x = [r(shape["rows"], shape["d"])]
+        return x + ([r(shape["d"])] if kernel == "rmsnorm" else [])
+    return [r(shape["m"], shape["k"]), r(shape["k"], shape["n"])]
+
+
+@pytest.mark.parametrize("kernel", sorted(SPACE_SHAPES))
+def test_space_candidates_match_torch_stage3(space_libs, rng, kernel):
+    """Each distinct (derivation, grid) of the kernel's space, as K4
+    generates it (vectorize(128) under scal, ``leaf="seq"`` blocked
+    reductions, row blocks 1-16, bm / bk 32-64), against the torch Stage
+    III on the same inputs (fp32 in other orders: 1e-5)."""
+    lib, progs = space_libs[kernel]
+    assert len(progs) > 2
+    args = _space_inputs(kernel, rng)
+    for i, (label, prog, gen) in enumerate(progs):
+        want = prog.compile("torch")(*args)
+        got = _run(lib, gen, [a.reshape(-1).clone() for a in args],
+                   prefix=f"c{i}_")
+        np.testing.assert_allclose(got.reshape(want.shape).numpy(),
+                                   want.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{kernel} {label}")
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def k2(gxx):

@@ -313,7 +313,7 @@ def test_provenance_record_annotate_explain():
     assert obs.provenance.get("dot|n=8|k") is d
     text = obs.explain("dot")
     assert "picked block=4" in text and "origin default" in text
-    assert "derived by split ; fuse" in text       # the plain fallback
+    assert "derived by split ; fuse" in text       # no params, no paths
     obs.annotate("dot|n=8|k", origin="default[stale]")
     assert obs.decisions("kernel")[0].origin == "default[stale]"
     assert json.dumps(obs.decisions()[0].to_doc())
@@ -408,11 +408,45 @@ def test_stable_measurements_stay_quiet_and_match_the_reference():
     assert mine.observe("unit|x", 0.0) is None       # non-positive: ignored
 
 
-def test_ranking_audit_raises_naming_the_autotuner():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*autotune"):
-        obs.audit_record("dot", "k", {"timings": {"a": 1.0, "b": 2.0}})
-    with pytest.raises(NotImplementedError, match="autotune"):
-        obs.audit_cache(object())
+@pytest.mark.parametrize("kernel,shape,timings", [
+    # the measured order agrees with the cpu preset's analytic order
+    ("dot", {"n": 4096}, {"block=4096,leaf=vpu": 5.0,
+                          "block=2048,leaf=vpu": 6.0,
+                          "block=None,leaf=seq": 90.0}),
+    # it does not: the model's pick measured 3x slower
+    ("matmul", {"m": 64, "k": 64, "n": 64}, {"bk=64,bm=64": 30.0,
+                                             "bk=32,bm=32": 10.0}),
+])
+def test_ranking_audit_matches_the_reference(tmp_path, kernel, shape,
+                                              timings):
+    """``audit_record`` re-ranks a record's timed candidates under the cost
+    model (the ``cpu`` preset on both sides) and returns the reference's
+    finding; ``audit_cache`` runs it over a tuning cache, fires
+    ``tune.drift`` once for a disagreeing key and marks its provenance
+    ``[stale]``."""
+    from repro.autotune import cost as jcost
+    from repro.obs import audit as jaudit
+    from repro_torch.autotune import TuningCache, cost
+    key = f"{kernel}|k"
+    record = {"kernel": kernel, "timings": timings, "shape": shape}
+    want = jaudit.DriftAuditor().audit_record(kernel, key, record,
+                                              hw=jcost.hw_model("cpu"))
+    mine = audit.DriftAuditor()
+    got = mine.audit_record(kernel, key, record, hw=cost.hw_model("cpu"))
+    assert got == want
+    assert audit.DriftAuditor().audit_record(
+        kernel, key, {"timings": {"x": 1.0}}) is None   # nothing to rank
+    cache = TuningCache(str(tmp_path / "t.json"))
+    cache.put(key, record)
+    obs.record("kernel", kernel, key, {}, "measured")
+    before = obs.counter("tune.drift").value
+    for _ in range(2):
+        findings = obs.auditor().audit_cache(cache, hw=cost.hw_model("cpu"))
+    assert findings == [want]
+    fired = 0 if want["agree"] else 1
+    assert obs.counter("tune.drift").value == before + fired
+    assert obs.provenance.get(key).origin == (
+        "measured" if want["agree"] else "measured[stale]")
 
 
 # ---------------------------------------------------------------------------
