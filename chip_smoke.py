@@ -134,16 +134,44 @@ result):
    with 4b's exact K1 / K3 counts and its tokens bit for bit.  Phases 9
    and 10 run the op rows under ``options(autotune=False)``, at phase 7's
    programs.  Every tuning cache lives in a temporary directory
-   (``REPRO_AUTOTUNE_CACHE`` points there for the whole run).
+   (``REPRO_AUTOTUNE_CACHE`` points there for the whole run);
+12. serving under faults, right after phase 11e on phase 4's weights:
+   phase 4b's engine shape (4 slots, chunk 8, prefill chunk 128, block
+   16, the chunk a CUDA graph) on 12 requests (4b's eight prompts and
+   120 / 33 / 77 / 150; 32 new tokens each, request 1 at T=0.8, top-k
+   50), every run seeded 0 and every drill on a warm engine held bit for
+   bit against a fault-free run of the same engine, K1 / K3 counts zeroed
+   before each run and read after it: (a) dense, the watchdog at 0.15 s:
+   ``serve.nan_prefill`` on request 1, ``serve.nan_decode`` on request
+   2, ``serve.chunk_error(times=2)`` (retried), ``serve.slow_chunk`` of
+   0.2 s and request 11 at a 1 ms TTFT deadline: the hit requests end
+   failed / timeout with their reasons, 2 retries, a straggler, no
+   capture; (b) ``serve.chunk_error(times=3)`` past the 2 retries: the
+   in-flight requests fail, the chunk's buffers are rebuilt in place
+   (same tensors, no capture) and the queued requests are served; (c)
+   paged with 32 pages (the queue head defers): ``serve.nan_decode`` on
+   request 0 (its pages scrubbed and reissued), then
+   ``serve.pool_corrupt`` at boundary 5: one ``degraded(paged->dense)``
+   decision and one flight dump, the pending requests served on a new
+   capture of the dense chunk, the trash page finite at every paged
+   boundary; (d) a dense engine with ``journal=`` abandoned after 4
+   boundaries and ``domains.replay`` into a fresh engine, twice: every
+   live request's tokens, the journal's bytes and records; (e) tok/s of
+   phase 4's static engine with the NaN guard against
+   ``nan_guard=False``, and of a dense engine built with ``journal=``
+   on phase 4b's traffic with the journal detached and attached, three
+   runs each in turns, with the host seconds of the journal's writes.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
 K3, one entry per generated K4 program of phase 7 and one per tuned
 winner of phase 11), the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``; a ``[12] summary`` line before them
+gathers phase 12's results.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -666,12 +694,12 @@ def continuous_max_seq() -> int:
     return -(-(max(CONT_PROMPT_LENS) + MAX_NEW + CHUNK) // BLOCK) * BLOCK
 
 
-def continuous_engine(model, params, layout: str, graph: bool):
+def continuous_engine(model, params, layout: str, graph: bool, **kw):
     from repro_torch.serve.engine import ContinuousEngine
     return ContinuousEngine(model, params, max_seq=continuous_max_seq(),
                             slots=SLOTS, chunk=CHUNK, kv_layout=layout,
                             block_size=BLOCK, prefill_chunk=PREFILL_CHUNK,
-                            graph=graph)
+                            graph=graph, **kw)
 
 
 def _prefill_rows(buckets):
@@ -1733,6 +1761,349 @@ def phase_tuned_serving(smi, cfg, model, params, reqs, want):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: serving under faults
+# ---------------------------------------------------------------------------
+
+# phase 4b's eight prompts and four more; request 1 samples (T=0.8, top-k
+# 50).  Every run of the phase is seeded 0.
+FAULT_PROMPT_LENS = CONT_PROMPT_LENS + (120, 33, 77, 150)
+# pages for the paged drill: the first four requests need 15 + 12 + 6 + 4
+# = 37, so the queue head defers
+FAULT_KV_BLOCKS = 32
+SLOW_CHUNK_S = 0.2           # serve.slow_chunk's sleep
+CHUNK_DEADLINE_S = 0.15      # the straggler watchdog's deadline (12a, 12b)
+JOURNAL_BOUNDARIES = 4       # 12d: boundaries served before the crash
+COST_ROUNDS = 3              # 12e: timed runs of each side, in turns
+
+
+def fault_requests(vocab: int):
+    from repro_torch.launch import serve
+    reqs = serve.make_requests(vocab, FAULT_PROMPT_LENS, MAX_NEW, seed=3)
+    reqs[1].temperature, reqs[1].top_k = 0.8, 50
+    return reqs
+
+
+def _serve(engine, reqs, spec_of=None, on_boundary=None):
+    """Submit ``reqs`` (streams 0, 1, ...), then step the engine to idle
+    under the fault plan ``spec_of(rids)``; ``on_boundary(engine)`` runs
+    after every boundary.  K1 / K3 counts are zeroed just before and read
+    just after.  Returns the results in request order and the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.testing import faults
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rids = [engine.submit(r, stream=i) for i, r in enumerate(reqs)]
+    with faults.inject(spec_of(rids) if spec_of else ""):
+        while not engine.sched.idle:
+            engine.step_chunk()
+            if on_boundary is not None:
+                on_boundary(engine)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if not counts["rmsnorm"] or not counts["flash_attention"]:
+        raise AssertionError(f"[12] launches {counts}: the run must go "
+                             f"through K1 and K3")
+    return [engine.take_result(rid) for rid in rids], counts
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _check_drill(what, results, want, expect):
+    """``expect``: request index -> (state, reason prefix) of the requests
+    the faults hit; every other request ends ok with the fault-free run's
+    tokens, bit for bit."""
+    for i, r in enumerate(results):
+        state, reason = expect.get(i, ("ok", ""))
+        if r.state != state or not r.reason.startswith(reason):
+            raise AssertionError(f"{what}: request {i} ended {r.state!r} "
+                                 f"({r.reason!r}); want {state!r} "
+                                 f"({reason!r}...)")
+        if r.state == "ok" and list(r.tokens) != want[i]:
+            raise AssertionError(f"{what}: innocent request {i} gave other "
+                                 f"tokens than the fault-free run")
+
+
+def _trash_page_finite(engine) -> bool:
+    k, v = engine.st.cache
+    return bool(torch.isfinite(k[:, engine.kv_blocks]).all()
+                and torch.isfinite(v[:, engine.kv_blocks]).all())
+
+
+def phase_faults(smi: str, cfg, model, params, static, cont):
+    """[12] serving under faults at full width: every drill on a warm
+    engine with the chunk as a CUDA graph, held bit for bit against a
+    fault-free run of the same engine; then the guard's and the journal's
+    cost."""
+    from repro_torch import obs
+    from repro_torch.ft import artefacts
+    from repro_torch.serve import domains
+    from repro_torch.serve.engine import BatchedEngine
+    from repro_torch.serve.resilience import ResilienceConfig
+    t_phase = time.perf_counter()
+    reqs = fault_requests(cfg.vocab)
+    summary = {}
+
+    # 12a / 12b: dense, the watchdog armed
+    dense = continuous_engine(
+        model, params, "dense", graph=True,
+        resilience=ResilienceConfig(chunk_deadline_s=CHUNK_DEADLINE_S))
+    warm, _ = _serve(dense, reqs)              # captures; the reference
+    want = [list(r.tokens) for r in warm]
+    if any(r.state != "ok" or len(r.tokens) != MAX_NEW for r in warm):
+        raise AssertionError(f"[12] fault-free run: {warm}")
+    st0 = dense.st
+    ptrs0 = [t.data_ptr() for t in (*st0.cache, st0.tokens, st0.pos,
+                                    st0.out)]
+
+    drill = list(reqs)
+    drill[11] = dataclasses.replace(reqs[11], ttft_deadline_s=1e-3)
+    before = dense.stats()
+    res, counts = _serve(dense, drill, lambda rids: (
+        f"serve.nan_prefill(req_id={rids[1]}); "
+        f"serve.nan_decode(req_id={rids[2]}); "
+        f"serve.chunk_error(times=2); "
+        f"serve.slow_chunk(times=1, value={SLOW_CHUNK_S})"))
+    after = dense.stats()
+    rs = _delta(after["resilience"], before["resilience"])
+    _check_drill("[12a]", res, want, {
+        1: ("failed", "non-finite prefill logits"),
+        2: ("failed", "non-finite logits in decode chunk"),
+        11: ("timeout", "ttft deadline expired")})
+    if rs["stragglers"] < 1 or rs["chunk_retries"] != 2 or \
+            rs["nan_quarantines"] != 2 or after["recaptures_after_warm"] or \
+            after["captures"] != before["captures"]:
+        raise AssertionError(f"[12a] resilience {rs}, captures "
+                             f"{before['captures']} -> {after['captures']}, "
+                             f"re-captures {after['recaptures_after_warm']}")
+    summary["12a"] = {"states": [r.state for r in res], "resilience": rs,
+                      "captures": after["captures"],
+                      "recaptures_after_warm":
+                          after["recaptures_after_warm"],
+                      "launches": counts}
+    log("[12a] dense, graph: nan_prefill(request 1), nan_decode(request 2), "
+        "chunk_error(times=2), slow_chunk 0.2 s against a 0.15 s deadline, "
+        "request 11 at ttft_deadline 1 ms; innocent requests bitwise the "
+        "fault-free run: " + json.dumps(summary["12a"]))
+
+    before = dense.stats()
+    res, counts = _serve(dense, reqs, lambda rids: "serve.chunk_error(times=3)")
+    after = dense.stats()
+    rs = _delta(after["resilience"], before["resilience"])
+    failed = [i for i, r in enumerate(res) if r.state == "failed"]
+    _check_drill("[12b]", res, want, {
+        i: ("failed", "decode chunk failed: InjectedFault") for i in failed})
+    ptrs = [t.data_ptr() for t in (*dense.st.cache, dense.st.tokens,
+                                   dense.st.pos, dense.st.out)]
+    if not failed or len(failed) == len(res) or rs["chunk_quarantines"] != 1 \
+            or rs["chunk_retries"] != 2 or dense.st is not st0 or \
+            ptrs != ptrs0 or after["recaptures_after_warm"] or \
+            after["captures"] != before["captures"]:
+        raise AssertionError(f"[12b] failed {failed}, resilience {rs}, "
+                             f"buffers kept {ptrs == ptrs0}, captures "
+                             f"{before['captures']} -> {after['captures']}")
+    summary["12b"] = {"failed": failed, "resilience": rs,
+                      "buffers_kept": True,
+                      "recaptures_after_warm":
+                          after["recaptures_after_warm"],
+                      "launches": counts}
+    log("[12b] dense, graph: chunk_error(times=3) past 2 retries: in-flight "
+        "requests fail, the buffers rebuilt in place (same tensors, no "
+        "capture), queued requests bitwise the fault-free run: "
+        + json.dumps(summary["12b"]))
+
+    # 12c: paged, a pool the queue head defers on
+    paged = continuous_engine(model, params, "paged", graph=True,
+                              kv_blocks=FAULT_KV_BLOCKS)
+    warm_p, _ = _serve(paged, reqs)
+    want_p = [list(r.tokens) for r in warm_p]
+    if want_p != want:
+        raise AssertionError("[12c] fault-free paged run != fault-free "
+                             "dense run (paged decode is the dense "
+                             "computation)")
+    paged_graphs = paged._graphs
+    obs.flight_clear()
+    obs.clear_decisions()
+    before = paged.stats()
+    trash = []
+
+    def check_trash(engine):
+        if engine.kv_layout == "paged":
+            trash.append(_trash_page_finite(engine))
+    res, counts = _serve(paged, reqs, lambda rids: (
+        f"serve.nan_decode(req_id={rids[0]}); serve.pool_corrupt(after=4)"),
+        on_boundary=check_trash)
+    after = paged.stats()
+    rs = _delta(after["resilience"], before["resilience"])
+    deferrals = (after["scheduler"]["deferrals"]
+                 - before["scheduler"]["deferrals"])
+    corrupt = [i for i, r in enumerate(res)
+               if r.reason.startswith("kv pool corrupt")]
+    _check_drill("[12c]", res, want_p, {
+        0: ("failed", "non-finite logits in decode chunk"),
+        **{i: ("failed", "kv pool corrupt") for i in corrupt}})
+    decs = [d for d in obs.decisions()
+            if d.origin == "degraded(paged->dense)"]
+    dumps = [d["reason"] for d in obs.flight_dumps()]
+    on_dense = [i for i, r in enumerate(res) if r.ok and
+                i > max(corrupt, default=len(res))]
+    if deferrals < 1 or rs["nan_quarantines"] != 1 or \
+            rs["degradations"] != 1 or len(decs) != 1 or \
+            dumps.count("degradation") != 1 or not all(trash) or \
+            len(trash) < 3 or paged.kv_layout != "dense" or \
+            paged._graphs is paged_graphs or not on_dense:
+        raise AssertionError(f"[12c] deferrals {deferrals}, resilience "
+                             f"{rs}, decisions {len(decs)}, dumps {dumps}, "
+                             f"trash page finite {trash}, layout "
+                             f"{paged.kv_layout}, served on dense {on_dense}")
+    summary["12c"] = {"states": [r.state for r in res], "resilience": rs,
+                      "deferrals": deferrals,
+                      "degradation_decisions": len(decs),
+                      "degradation_dumps": dumps.count("degradation"),
+                      "trash_page_finite_boundaries": len(trash),
+                      "served_on_dense": on_dense,
+                      "dense_captures": after["captures"],
+                      "dense_graph_keys": after["graph_keys"],
+                      "launches": counts}
+    log(f"[12c] paged ({FAULT_KV_BLOCKS} pages), graph: nan_decode(request "
+        "0) scrubbed and reissued, then pool_corrupt at boundary 5 -> "
+        "dense; innocent requests bitwise the fault-free paged run: "
+        + json.dumps(summary["12c"]))
+    del paged, paged_graphs
+
+    # 12d: the journal, an abandoned engine and its replay
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "journal.jsonl")
+        crashed = continuous_engine(model, params, "dense", graph=True,
+                                    journal=path)
+        for i, r in enumerate(reqs):
+            crashed.submit(r, stream=i)
+        for _ in range(JOURNAL_BOUNDARIES):
+            crashed.step_chunk()
+        del crashed                            # the crash
+        torch.cuda.synchronize()
+        nbytes = os.path.getsize(path)
+        records, clean = artefacts.read_records(path)
+        state = domains.SchedulerJournal.load(path)
+        live = sorted(state.live())
+        fresh = continuous_engine(model, params, "dense", graph=True)
+        t0 = time.perf_counter()
+        got = domains.replay(path, fresh, seed=0)
+        replay_s = time.perf_counter() - t0
+        again = domains.replay(path, fresh, seed=0)
+    # what the crashed engine emitted is a prefix of the fault-free run,
+    # and all of it for the requests that ended before the crash
+    emitted_prefix = all(r["emitted"] == want[rid][:len(r["emitted"])]
+                         for rid, r in state.requests.items())
+    ended_ok = all(state.terminals.get(rid) == ("ok", "")
+                   and state.requests[rid]["emitted"] == want[rid]
+                   for rid in range(len(reqs)) if rid not in live)
+    if not clean or sorted(got) != live or again != got or not live or \
+            any(got[rid] != want[rid] for rid in live) or \
+            not emitted_prefix or not ended_ok or \
+            len(state.requests) != len(reqs):
+        raise AssertionError(f"[12d] clean {clean}, live {live}, replayed "
+                             f"{sorted(got)}, idempotent {again == got}, "
+                             f"emitted prefixes {emitted_prefix}, ended "
+                             f"before the crash as run {ended_ok}")
+    kinds = {}
+    for r in records:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    summary["12d"] = {"boundaries": JOURNAL_BOUNDARIES,
+                      "journal_bytes": nbytes, "records": kinds,
+                      "live": len(live),
+                      "ended_before_crash": len(state.terminals),
+                      "emitted_at_crash": sum(len(r["emitted"]) for r in
+                                              state.requests.values()),
+                      "replay_s": replay_s}
+    log("[12d] journal of a dense engine abandoned after 4 boundaries, "
+        "replayed into a fresh engine twice: every live request bitwise "
+        "the fault-free run: " + json.dumps(summary["12d"]))
+    del fresh, dense
+    torch.cuda.empty_cache()
+
+    # 12e: what the guard and the journal cost
+    s_engine, s_reqs, s_want = static
+    unguarded = BatchedEngine(model, params,
+                              max_seq=max(PROMPT_LENS) + MAX_NEW + CHUNK,
+                              chunk=CHUNK,
+                              resilience=ResilienceConfig(nan_guard=False))
+    if unguarded.run(s_reqs) != s_want:
+        raise AssertionError("[12e] the guard changed the static tokens")
+    tok_s = {"guard": [], "no_guard": []}
+    for r in range(COST_ROUNDS):
+        order = (("guard", s_engine), ("no_guard", unguarded))
+        for name, eng in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng.run(s_reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if outs != s_want:
+                raise AssertionError(f"[12e] static {name}: other tokens")
+            tok_s[name].append(sum(map(len, outs)) / dt)
+    del unguarded
+    # the journal on one engine, attached and detached in turns (one
+    # engine's graphs on both sides), its writes timed on the host clock
+    class TimedJournal(domains.SchedulerJournal):
+        seconds = 0.0
+
+        def _timed(self, write, *args, **kw):
+            t0 = time.perf_counter()
+            write(*args, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def record_submit(self, *args, **kw):
+            self._timed(super().record_submit, *args, **kw)
+
+        def record_progress(self, *args, **kw):
+            self._timed(super().record_progress, *args, **kw)
+
+        def record_terminal(self, *args, **kw):
+            self._timed(super().record_terminal, *args, **kw)
+
+    _, c_reqs, c_want = cont
+    with tempfile.TemporaryDirectory() as d:
+        journal = TimedJournal(os.path.join(d, "journal.jsonl"))
+        engine = continuous_engine(model, params, "dense", graph=True,
+                                   journal=journal)
+        engine.run(c_reqs, seed=5)             # warm-up: captures
+        run_s, journal_s = [], []
+        for r in range(COST_ROUNDS):
+            order = ("no_journal", "journal")
+            for name in (order if r % 2 == 0 else order[::-1]):
+                engine.journal = journal if name == "journal" else None
+                before = journal.seconds
+                toks, rep = _continuous_run(engine, c_reqs, cfg)
+                if toks != c_want:
+                    raise AssertionError(f"[12e] continuous {name}: other "
+                                         f"tokens than phase 4b's")
+                tok_s.setdefault(name, []).append(rep["tok_s"])
+                if name == "journal":
+                    run_s.append(rep["s"])
+                    journal_s.append(journal.seconds - before)
+        records = len(artefacts.read_records(journal.path)[0])
+        journal_bytes = os.path.getsize(journal.path)
+        del engine
+    torch.cuda.empty_cache()
+    summary["12e"] = {k: {"median": statistics.median(v), "runs": v}
+                      for k, v in tok_s.items()}
+    summary["12e"]["journal"].update(
+        host_s=journal_s, run_s=run_s,
+        records_a_run=records // (COST_ROUNDS + 1),
+        bytes_a_run=journal_bytes // (COST_ROUNDS + 1))
+    log(f"[12e] tok/s, {COST_ROUNDS} runs each in turns: static batch 4 "
+        "with the NaN guard (default ResilienceConfig) against "
+        "nan_guard=False; continuous (phase 4b's traffic, dense, graph), one "
+        "engine built with journal= and run with it detached and attached, "
+        "with the host seconds of its journal writes: "
+        + json.dumps(summary["12e"]) + f"; card {smi}")
+    summary["s"] = time.perf_counter() - t_phase
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
@@ -1794,6 +2165,8 @@ def _run_phases(tune_cache: str) -> int:
                             report["dense graph"]["tok_s_median"])
     phase_obs_cost(smi, *static)
     phase_tuned_serving(smi, cfg, model, params, reqs, want)
+    faults = phase_faults(smi, cfg, model, params, static,
+                          (dense_graph, reqs, want))
     del model, params, static, dense_graph
     torch.cuda.empty_cache()
     phase_against_cpu()
@@ -1837,6 +2210,7 @@ def _run_phases(tune_cache: str) -> int:
                      "max_abs_err": c["max_abs_err"],
                      **{key: c[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": [c]})
+    log("[12] summary: " + json.dumps(faults))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -1,1 +1,2 @@
-"""Fault tolerance: checksummed artefact stores (``artefacts``)."""
+"""Fault tolerance: checksummed artefact stores (``artefacts``) and the
+step watchdog with the NaN guard (``resilience``)."""

@@ -70,11 +70,39 @@ store; the port's model path (K1, K3, the projections) dispatches through
 no DPIA row and takes no tuned parameter, so that warm-up waits for a
 model path that does (ROADMAP.md queue 1).
 
-Not ported yet, each raising ``NotImplementedError`` where the reference
-takes it: ``resilience=`` and ``journal=`` (ROADMAP.md queue 1 item 4,
-resilience); :class:`ShardedEngine` (item 6, mesh).  The reference's AOT
-executables of the model and its fault sites come with those slices
-too."""
+Resilience (``resilience=``, a
+:class:`repro_torch.serve.resilience.ResilienceConfig`; its defaults are
+on).  Every chunk goes through :meth:`_EngineBase._call_chunk`: the fault
+sites ``serve.slow_chunk`` and ``serve.chunk_error``, the straggler
+watchdog (``chunk_deadline_s``), armed before the chunk is dispatched and
+disarmed after its host sync, so it covers the device's time, and
+bounded retry with backoff.  Retry follows from what the port's chunk
+does to its buffers: it writes the KV cache in place, so only a failure
+*before* the chunk is enqueued leaves the state as it was.  An injected
+fault fires there, and may be retried; past the retry budget the
+continuous engine fails its in-flight requests and rebuilds its buffers
+in place.  An exception from the chunk itself (the capture, the replay,
+the eager chunk, the host sync) is neither retried nor quarantined: on
+the card a CUDA error is sticky for the context, so it propagates after
+the ``unhandled_exception`` flight dump.  The NaN guard runs inside the
+chunk (inside the captured graph): each step ANDs ``isfinite(logits)
+.all(-1)`` into a per-lane flag, sticky across the chunk, written into
+the last column of the chunk's token buffer, so the chunk's one host sync
+reads tokens and flags together; a flagged lane's request fails at the
+boundary, co-batched requests untouched.  The continuous engine also
+checks prompts' logits at admission, validates the paged block pool at
+every boundary (corruption degrades the engine paged -> dense, a new
+capture of the dense chunk) and scrubs a quarantined request's pages, and
+the trash page, before they are reused.
+
+A continuous engine given ``journal=`` (a path or a
+:class:`repro_torch.serve.domains.SchedulerJournal`) journals every
+submission, each boundary's emitted tokens and every terminal state, so a
+killed engine's surviving requests ``domains.replay`` to token identity.
+
+Not ported yet: :class:`ShardedEngine` (ROADMAP.md queue 1 item 6, mesh)
+raises ``NotImplementedError``; the reference's AOT executables of the
+model come with it."""
 from __future__ import annotations
 
 import contextlib
@@ -88,12 +116,16 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch import compiler, obs
+from repro_torch.ft.resilience import Watchdog
 from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import Model
+from repro_torch.serve.domains import SchedulerJournal
 from repro_torch.serve.graph import ChunkGraphs
 from repro_torch.serve.paged import BlockPool, table_row
-from repro_torch.serve.resilience import RequestResult
+from repro_torch.serve.resilience import (RequestResult, ResilienceConfig,
+                                          record_degradation)
 from repro_torch.serve.scheduler import Scheduler, pick_bucket, seq_buckets
+from repro_torch.testing import faults
 
 log = logging.getLogger("repro_torch.serve.engine")
 
@@ -213,7 +245,9 @@ class _DecodeState:
     temps: torch.Tensor                  # (b,) float32
     top_ks: torch.Tensor                 # (b,)
     generators: List[torch.Generator]    # one stream a lane
-    out: torch.Tensor                    # (b, chunk) the chunk's tokens
+    # (b, chunk + 1): the chunk's tokens, then the NaN guard's flag (1: a
+    # step of the chunk gave the lane a non-finite logit)
+    out: torch.Tensor
 
     @classmethod
     def new(cls, cache, block_tables, b: int, chunk: int, device):
@@ -225,7 +259,7 @@ class _DecodeState:
                    top_ks=z((b,)),
                    generators=[torch.Generator(device=device)
                                for _ in range(b)],
-                   out=z((b, chunk)))
+                   out=z((b, chunk + 1)))
 
 
 def _slot_axis(big, small) -> Optional[int]:
@@ -260,11 +294,13 @@ def _prompt_tensor(prompt, length: int, device) -> torch.Tensor:
 
 class _EngineBase:
     """Model/params, the one decode chunk function and its graphs, the
-    work counters and the re-capture detector."""
+    chunk's resilience wrapping, the work counters and the re-capture
+    detector."""
 
     def __init__(self, model: Model, params, *, max_seq: int, chunk: int,
                  graph: bool = True, kv_layout: str = "dense",
-                 tuning_cache=None):
+                 tuning_cache=None,
+                 resilience: Optional[ResilienceConfig] = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.model = model
@@ -274,6 +310,16 @@ class _EngineBase:
         self.kv_layout = kv_layout
         self.tuning_cache = tuning_cache
         self._drift_audited = False
+        self.resilience = resilience or ResilienceConfig()
+        self._watchdog: Optional[Watchdog] = None
+        if self.resilience.chunk_deadline_s is not None:
+            self._watchdog = Watchdog(self.resilience.chunk_deadline_s,
+                                      on_straggler=self._on_straggler)
+        self._n_chunk_calls = 0
+        self._n_chunk_retries = 0
+        self._n_chunk_quarantines = 0
+        self._n_nan_quarantines = 0
+        self._n_degradations = 0
         self.device = params["embed"].device
         self._graphs = (ChunkGraphs(self.device)
                         if graph and self.device.type == "cuda" else None)
@@ -311,13 +357,15 @@ class _EngineBase:
 
     def _chunk_fn(self, st: _DecodeState, sampled: bool) -> None:
         """``chunk`` decode steps over ``st``, sampling included, leaving
-        the tokens in ``st.out`` and the lanes' state in ``st``: the body a
+        the tokens (and, with the NaN guard, each lane's flag in the last
+        column) in ``st.out`` and the lanes' state in ``st``: the body a
         CUDA graph captures.  Paged: each slot's pages are gathered into a
         dense-shaped view once per chunk; steps attend and update the view
         and mirror each token's write into the pool."""
         model, params, bt = self.model, self.params, st.block_tables
         view = None if bt is None else model.gather_paged_view(st.cache, bt)
         tok, pos = st.tokens, st.pos
+        finite = None
         for i in range(self.chunk):
             if view is None:
                 logits, _ = model.decode_step(params, tok[:, None], st.cache,
@@ -326,18 +374,27 @@ class _EngineBase:
                 logits, _, view = model.decode_step(
                     params, tok[:, None], st.cache, pos, block_tables=bt,
                     kv_view=view)
+            if self.resilience.nan_guard:
+                # pure observation: the token dataflow is untouched, so
+                # clean lanes keep their tokens bit for bit
+                step_ok = torch.isfinite(
+                    logits.reshape(logits.shape[0], -1)).all(dim=-1)
+                finite = step_ok if finite is None else finite & step_ok
             tok = sample_tokens(logits, st.generators, st.temps, st.top_ks,
                                 sampled=sampled)
             # a retired lane keeps decoding to the chunk's end; past max_seq
             # its writes drop
             pos = (pos + 1).clamp(max=self.max_seq)
             st.out[:, i] = tok
+        if finite is not None:
+            st.out[:, self.chunk] = ~finite
         st.tokens.copy_(tok)
         st.pos.copy_(pos)
 
-    def _decode_chunk(self, st: _DecodeState, sampled: bool) -> List[List[int]]:
+    def _decode_chunk(self, st: _DecodeState, sampled: bool):
         """Run one chunk (a graph replay on the card unless ``graph=False``)
-        and return its (b, chunk) tokens: the chunk's one host sync."""
+        and return its (b, chunk) tokens and each lane's NaN flag: the
+        chunk's one host sync reads both."""
         if self._graphs is None:
             self._chunk_fn(st, sampled)
         else:
@@ -347,7 +404,68 @@ class _EngineBase:
             self._check_recaptures()
         self.n_decode_steps += self.chunk
         self.n_chunks += 1
-        return st.out.tolist()
+        out = st.out.tolist()
+        return ([row[:self.chunk] for row in out],
+                [bool(row[self.chunk]) for row in out])
+
+    # -- the chunk's resilience wrapping -------------------------------------
+
+    def _on_straggler(self, chunk_i: int, dt: float) -> None:
+        obs.counter("serve.stragglers").inc()
+        obs.event("serve.straggler", chunk=chunk_i, elapsed_s=round(dt, 4))
+        log.warning("decode chunk %d exceeded the chunk deadline "
+                    "(%.3fs > %.3fs) — straggler suspected", chunk_i, dt,
+                    self.resilience.chunk_deadline_s)
+
+    def _call_chunk(self, st: _DecodeState, sampled: bool,
+                    req_ids: str = ""):
+        """:meth:`_decode_chunk` with the resilience wrapping: the
+        ``serve.slow_chunk`` / ``serve.chunk_error`` fault sites, the
+        straggler watchdog and bounded retry with backoff.
+
+        ``req_ids`` (comma-joined active request ids) attributes the fault
+        sites and failure events to the requests riding the chunk.
+
+        The watchdog is armed before the chunk is dispatched and disarmed
+        after its host sync: on the card a replay returns at once and the
+        device's time is paid at the sync.  Only a failure before dispatch
+        is retried (an injected fault fires there, with the buffers
+        untouched); past ``max_chunk_retries`` it propagates, and the
+        continuous engine quarantines.  An exception from the chunk itself
+        is not caught here: the chunk writes the KV cache in place, and on
+        the card a CUDA error is sticky for the context, so neither a
+        retry nor a rebuild could be trusted."""
+        rc = self.resilience
+        self._n_chunk_calls += 1
+        attempt = 0
+        while True:
+            if self._watchdog is not None:
+                self._watchdog.arm(self._n_chunk_calls)
+            try:
+                try:
+                    f = faults.should_fire("serve.slow_chunk",
+                                           req_ids=req_ids)
+                    if f is not None:
+                        time.sleep(float(f.value or 0.05))
+                    faults.raise_if("serve.chunk_error", req_ids=req_ids)
+                except faults.InjectedFault as e:
+                    attempt += 1
+                    obs.counter("serve.chunk_failures").inc()
+                    obs.event("serve.chunk_failure", attempt=attempt,
+                              req_ids=req_ids,
+                              error=f"{type(e).__name__}: {e}")
+                    if attempt > rc.max_chunk_retries:
+                        raise
+                    self._n_chunk_retries += 1
+                    log.warning("decode chunk failed before dispatch (%s: "
+                                "%s); retry %d/%d", type(e).__name__, e,
+                                attempt, rc.max_chunk_retries)
+                else:
+                    return self._decode_chunk(st, sampled)
+            finally:
+                if self._watchdog is not None:
+                    self._watchdog.disarm()
+            time.sleep(rc.retry_backoff_s * attempt)
 
     # -- stats and the re-capture detector -----------------------------------
 
@@ -362,6 +480,14 @@ class _EngineBase:
             out["captures"] = self._graphs.captures
             out["recaptures_after_warm"] = self._recaptures_after_warm
             out["graph_keys"] = list(self._graphs.keys)
+        out["resilience"] = {
+            "chunk_retries": self._n_chunk_retries,
+            "chunk_quarantines": self._n_chunk_quarantines,
+            "nan_quarantines": self._n_nan_quarantines,
+            "degradations": self._n_degradations,
+            "stragglers": (len(self._watchdog.events)
+                           if self._watchdog is not None else 0),
+        }
         return out
 
     @staticmethod
@@ -396,11 +522,13 @@ class _EngineBase:
         span and marks the engine warm when it completes."""
         with self._options_scope():
             if self._warm_captures is not None:
-                return run()
-            with obs.span("engine.warm", max_seq=self.max_seq,
-                          chunk=self.chunk, **span_args):
                 out = run()
-        self.mark_warm()
+            else:
+                with obs.span("engine.warm", max_seq=self.max_seq,
+                              chunk=self.chunk, **span_args):
+                    out = run()
+        if self._warm_captures is None:    # first run, or degraded in it
+            self.mark_warm()
         return out
 
     def _check_recaptures(self) -> None:
@@ -447,12 +575,18 @@ class BatchedEngine(_EngineBase):
     batch max and ``prefill(lengths=...)`` takes each row's real next-token
     logits, so padding never distorts positions or outputs.  The chunk's
     buffers are kept per batch size and zeroed at each run, so a later run
-    of as many requests replays the graphs of the first."""
+    of as many requests replays the graphs of the first.
+
+    ``resilience`` wraps each chunk (fault sites, watchdog, retry before
+    dispatch); the chunk computes the NaN guard's flags as the continuous
+    engine's does, and, as in the reference, the static engine does not
+    act on them: it has no lane to quarantine a request from."""
 
     def __init__(self, model: Model, params, max_seq: int = 512,
-                 chunk: int = 8, *, graph: bool = True):
+                 chunk: int = 8, *, graph: bool = True,
+                 resilience: Optional[ResilienceConfig] = None):
         super().__init__(model, params, max_seq=max_seq, chunk=chunk,
-                         graph=graph)
+                         graph=graph, resilience=resilience)
         self._states: Dict[int, _DecodeState] = {}
 
     def _state(self, b: int) -> _DecodeState:
@@ -502,7 +636,9 @@ class BatchedEngine(_EngineBase):
                     outs[i].append(t)
                     remaining[i] -= 1
             while any(n > 0 for n in remaining):
-                rows = self._decode_chunk(st, sampled)
+                live = ",".join(str(i) for i, n in enumerate(remaining)
+                                if n > 0)
+                rows, _ = self._call_chunk(st, sampled, req_ids=live)
                 for i in range(b):
                     take = min(remaining[i], self.chunk)
                     outs[i].extend(rows[i][:take])
@@ -549,6 +685,10 @@ class ContinuousEngine(_EngineBase):
     chunk attends within itself (K3); continuation chunks attend to the
     whole cache (dense ``prefill(attend_cache=True)``, paged
     ``first=False``).
+
+    ``resilience`` (a :class:`ResilienceConfig`; the defaults are on) and
+    ``journal`` (a path or a :class:`SchedulerJournal`): see the module
+    docstring.
     """
 
     def __init__(self, model: Model, params, max_seq: int = 512,
@@ -556,11 +696,9 @@ class ContinuousEngine(_EngineBase):
                  kv_layout: str = "dense", block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, *, graph: bool = True,
-                 tuning_cache=None, resilience=None, journal=None):
-        if resilience is not None or journal is not None:
-            raise NotImplementedError(
-                "resilience= and journal= come with the rest of the serving "
-                "spine (ROADMAP.md queue 1 item 4)")
+                 tuning_cache=None,
+                 resilience: Optional[ResilienceConfig] = None,
+                 journal=None):
         if kv_layout == "auto":
             from repro_torch import autotune
             kv_layout = autotune.pick_kv_layout(
@@ -580,17 +718,26 @@ class ContinuousEngine(_EngineBase):
             self.kv_blocks = int(kv_blocks or slots * self.max_blocks)
         super().__init__(model, params, max_seq=max_seq, chunk=chunk,
                          graph=graph, kv_layout=kv_layout,
-                         tuning_cache=tuning_cache)
+                         tuning_cache=tuning_cache, resilience=resilience)
         self.slots = slots
         self.prefill_chunk = prefill_chunk
         limit = (max_seq if prefill_chunk is None
                  else max(min(prefill_chunk, max_seq), min_bucket))
         self.buckets = seq_buckets(limit, min_bucket)
+        if journal is None or isinstance(journal, SchedulerJournal):
+            self.journal = journal
+        else:
+            self.journal = SchedulerJournal(journal)
         self._reset_state()
 
     # -- device state --------------------------------------------------------
 
-    def _reset_state(self) -> None:
+    def _init_device_state(self) -> None:
+        """Build the chunk's buffers for the current ``kv_layout``, every
+        lane parked.  A captured graph reads the buffers it was captured on,
+        so only construction and the paged -> dense degradation (which
+        drops the graphs) may call this; the chunk-failure rebuild works in
+        place (:meth:`_rebuild_in_place`)."""
         b, dev = self.slots, self.device
         if self.kv_layout == "paged":
             cache = self.model.init_paged_cache(
@@ -606,13 +753,36 @@ class ContinuousEngine(_EngineBase):
             tables, self.pool = None, None
         self.st = _DecodeState.new(cache, tables, b, self.chunk, dev)
         self.st.pos.fill_(self.max_seq)       # every lane parked
-        self.sched = Scheduler(b, pool=self.pool)
-        self._requests: Dict[int, Request] = {}
-        self._stream_seeds: Dict[int, int] = {}
         self._staging: Dict[int, KVCache] = {}
         self._admit_logits: Dict[int, torch.Tensor] = {}
+
+    def _reset_state(self) -> None:
+        self._init_device_state()
+        self.sched = Scheduler(self.slots, pool=self.pool)
+        self._requests: Dict[int, Request] = {}
+        self._stream_seeds: Dict[int, int] = {}
         self._next_id = 0
         self._run_seed = 0
+
+    def _rebuild_in_place(self) -> None:
+        """Reset the chunk's buffers after a chunk failure, in place: zero
+        the cache (the trash page included), park every lane, reset the
+        block tables and the pool.  ``self.st`` keeps its tensors, so the
+        captured graphs stay valid and the rebuild costs no capture."""
+        st = self.st
+        st.cache.k.zero_()
+        st.cache.v.zero_()
+        st.pos.fill_(self.max_seq)
+        st.tokens.zero_()
+        st.temps.zero_()
+        st.top_ks.zero_()
+        if st.block_tables is not None:
+            st.block_tables.fill_(self.kv_blocks)
+        if self.pool is not None:
+            self.pool = BlockPool(self.kv_blocks, self.block_size)
+            self.sched.pool = self.pool
+        self._staging.clear()
+        self._admit_logits.clear()
 
     # -- API -----------------------------------------------------------------
 
@@ -633,6 +803,14 @@ class ContinuousEngine(_EngineBase):
                           max(int(request.max_new_tokens), 0),
                           deadline_s=request.deadline_s,
                           ttft_deadline_s=request.ttft_deadline_s)
+        if self.journal is not None:
+            self.journal.record_submit(
+                rid, request.prompt,
+                max_new=max(int(request.max_new_tokens), 0),
+                temperature=request.temperature, top_k=request.top_k or 0,
+                stream=rid if stream is None else stream,
+                deadline_s=request.deadline_s,
+                ttft_deadline_s=request.ttft_deadline_s)
         return rid
 
     def take_output(self, rid: int) -> List[int]:
@@ -654,6 +832,13 @@ class ContinuousEngine(_EngineBase):
         slot = self.sched.cancel(rid, reason)
         if slot is not None:
             self._evict_slot(slot)
+        if self.journal is not None and rid in self.sched.done:
+            # cancellation happens between boundaries: journal the final
+            # snapshot and the terminal now (there may be no next boundary)
+            toks = self.sched.outputs.get(rid)
+            if toks:
+                self.journal.record_progress(rid, toks)
+            self.journal.record_terminal(rid, *self.sched.done[rid])
         self._requests.pop(rid, None)
         self._stream_seeds.pop(rid, None)
 
@@ -711,11 +896,26 @@ class ContinuousEngine(_EngineBase):
         recorder (reason ``unhandled_exception``) and propagates."""
         try:
             with torch.inference_mode(), obs.span("serve.step_chunk"):
-                return self._step_chunk()
+                finished = self._step_chunk()
         except Exception as e:
             obs.flight_dump("unhandled_exception",
                             error=f"{type(e).__name__}: {e}")
             raise
+        if self.journal is not None:
+            self._journal_sync(finished)
+        return finished
+
+    def _journal_sync(self, finished: List[int]) -> None:
+        """Journal this boundary: an emitted-token snapshot per request
+        with new tokens, then a terminal record per request that ended.
+        Chunk boundaries are the journal's granularity: inside a chunk the
+        host observes nothing."""
+        for rid, toks in self.sched.outputs.items():
+            self.journal.record_progress(rid, toks)
+        for rid in finished:
+            state_reason = self.sched.done.get(rid)
+            if state_reason is not None:
+                self.journal.record_terminal(rid, *state_reason)
 
     def _step_chunk(self) -> List[int]:
         finished: List[int] = []
@@ -723,6 +923,15 @@ class ContinuousEngine(_EngineBase):
             if slot is not None:
                 self._evict_slot(slot)
             finished.append(rid)
+        # pool integrity: a corrupt block pool means tables may alias pages
+        # across requests; degrade paged -> dense instead of decoding
+        # through a damaged mapping
+        if self.pool is not None and self.resilience.pool_check:
+            if faults.should_fire("serve.pool_corrupt") is not None:
+                faults.corrupt_pool(self.pool)
+            problems = self.pool.validate()
+            if problems:
+                finished.extend(self._degrade_to_dense("; ".join(problems)))
         self.sched.admissions()               # reserve slots (and KV blocks)
         if self.pool is not None:
             obs.gauge("serve.kv_pool.used_blocks").set(self.pool.used_blocks)
@@ -741,23 +950,155 @@ class ContinuousEngine(_EngineBase):
             req_ids = ",".join(str(s.req_id) for s in self.sched.slots
                                if not s.free)
             t0 = time.perf_counter()
-            # ends after the chunk's one host sync (the tokens' read):
-            # the span and serve.chunk_s time the device's chunk
-            with obs.span("serve.decode_chunk", chunk=self.chunk,
-                          req_ids=req_ids):
-                rows = self._decode_chunk(self.st, sampled)
-            dt = time.perf_counter() - t0
-            obs.histogram("serve.chunk_s").observe(dt)
-            obs.drift_observe(f"serve|decode_chunk|slots={self.slots}"
-                              f"|chunk={self.chunk}", dt)
-            retired = self.sched.record_chunk(rows)
-            for rid in retired:
-                self._park_lane(slot_of[rid])
-            finished.extend(retired)
+            try:
+                # ends after the chunk's one host sync (the tokens' read):
+                # the span and serve.chunk_s time the device's chunk
+                with obs.span("serve.decode_chunk", chunk=self.chunk,
+                              req_ids=req_ids):
+                    rows, bad = self._call_chunk(self.st, sampled, req_ids)
+            except faults.InjectedFault as e:
+                # only a failure before dispatch reaches here (past its
+                # retries): the buffers are as the last chunk left them
+                if not self.resilience.quarantine_on_chunk_failure:
+                    raise
+                finished.extend(self._quarantine_chunk_failure(e))
+            else:
+                dt = time.perf_counter() - t0
+                obs.histogram("serve.chunk_s").observe(dt)
+                obs.drift_observe(f"serve|decode_chunk|slots={self.slots}"
+                                  f"|chunk={self.chunk}", dt)
+                if self.resilience.nan_guard and any(bad):
+                    finished.extend(self._quarantine_nan_rows(bad))
+                retired = self.sched.record_chunk(rows)
+                for rid in retired:
+                    self._park_lane(slot_of[rid])
+                finished.extend(retired)
         for rid in finished:                  # release prompts at retire
             self._requests.pop(rid, None)
             self._stream_seeds.pop(rid, None)
         return finished
+
+    # -- quarantine and degradation ------------------------------------------
+
+    def _quarantine_nan_rows(self, bad: List[bool]) -> List[int]:
+        """Fail the requests whose lanes the chunk's NaN guard flagged: the
+        lane is parked and, paged, its pages (and the trash page) are
+        scrubbed before they return to the pool.  Flags of free or
+        prefilling lanes are stale lanes decoding padding: ignored."""
+        out: List[int] = []
+        for i, s in enumerate(self.sched.slots):
+            if not bad[i] or s.free or s.prefilling:
+                continue
+            out.append(s.req_id)
+            self._quarantine_nan(i, s.req_id,
+                                 "non-finite logits in decode chunk")
+        return out
+
+    def _quarantine_nan(self, slot: int, rid: int, reason: str,
+                        **where) -> None:
+        """Fail ``rid`` for non-finite logits: its lane is parked and,
+        paged, its pages and the trash page are scrubbed before they are
+        reused."""
+        self._n_nan_quarantines += 1
+        obs.counter("serve.nan_quarantines").inc()
+        obs.event("serve.nan_quarantine", req_id=rid, slot=slot, **where)
+        log.warning("request %d: %s (slot %d) — quarantined, co-batched "
+                    "requests unaffected", rid, reason, slot)
+        if self.kv_layout == "paged":
+            self._scrub_pages(self.pool.owned(slot))
+        self.sched.fail(rid, reason)
+        self._evict_slot(slot)
+
+    def _quarantine_chunk_failure(self, e: Exception) -> List[int]:
+        """The decode chunk failed before dispatch past the retry budget:
+        fail every in-flight request and rebuild the chunk's buffers in
+        place.  Pending requests survive in the queue and admit into the
+        rebuilt state."""
+        self._n_chunk_quarantines += 1
+        obs.counter("serve.chunk_quarantines").inc()
+        obs.event("serve.chunk_quarantine",
+                  error=f"{type(e).__name__}: {e}")
+        log.warning("decode chunk failed past the retry budget (%s: %s); "
+                    "failing in-flight requests and rebuilding device "
+                    "state in place", type(e).__name__, e)
+        failed = self._fail_in_flight(
+            f"decode chunk failed: {type(e).__name__}: {e}")
+        self._rebuild_in_place()
+        return failed
+
+    def _fail_in_flight(self, reason: str) -> List[int]:
+        """Fail every admitted request (shared device state is suspect);
+        returns their ids.  Queued requests are untouched."""
+        failed: List[int] = []
+        for i, s in enumerate(self.sched.slots):
+            if s.free:
+                continue
+            rid = s.req_id
+            self.sched.fail(rid, reason)
+            self._evict_slot(i)
+            self._requests.pop(rid, None)
+            self._stream_seeds.pop(rid, None)
+            failed.append(rid)
+        return failed
+
+    def _degrade_to_dense(self, reason: str) -> List[int]:
+        """The paged -> dense rung of the degradation ladder: the block
+        pool failed validation, so the engine abandons the paged layout
+        rather than write through a damaged page mapping.  In-flight
+        requests fail (their pages are suspect); pending requests admit
+        into a new dense cache; the switch is recorded as an obs provenance
+        Decision with origin ``degraded(paged->dense)`` and a flight dump.
+
+        The dense chunk reads other buffers than the captured paged one, so
+        the engine's graphs are dropped and the dense chunk is captured
+        anew; the warm baseline is reset, so that capture is not counted
+        as a re-capture after warm-up (the run marks the engine warm again
+        when it completes)."""
+        self._n_degradations += 1
+        log.warning("KV block pool failed validation (%s); degrading "
+                    "kv_layout paged -> dense", reason)
+        failed = self._fail_in_flight(f"kv pool corrupt: {reason}")
+        record_degradation(
+            "kv_layout", "serve.engine",
+            key=f"serve|kv_layout|slots={self.slots}|max_seq={self.max_seq}",
+            frm="paged", to="dense", layout="dense", note=reason)
+        self.kv_layout = "dense"
+        if self._graphs is not None:
+            self._graphs = ChunkGraphs(self.device)
+        self._warm_captures = None
+        self.st = None                # free the page pools first
+        # ordinary tensors, as at construction: cancel() writes them
+        # outside inference mode
+        with torch.inference_mode(False):
+            self._init_device_state()
+        self.sched.pool = None
+        return failed
+
+    def _scrub_pages(self, blocks: List[int]) -> None:
+        """Zero the pool pages ``blocks`` and the trash page.  Attention's
+        masking keeps a masked position's *weight* at zero, but ``0 * NaN``
+        is NaN: a poisoned page handed to its next owner would re-poison
+        it, and a NaN in the trash page (every lane reads it through its
+        sentinel table entries) would poison every co-batched request."""
+        idx = _to_device(torch.tensor(sorted(blocks) + [self.kv_blocks]),
+                         self.device)
+        self.st.cache.k.index_fill_(1, idx, 0.0)
+        self.st.cache.v.index_fill_(1, idx, 0.0)
+
+    def _poison_slot_cache(self, slot: int) -> None:
+        """Deterministic damage for the ``serve.nan_decode`` drill: fill the
+        slot's cached KV with NaN (paged: its pages) so its next decode
+        chunk trips the NaN guard, the flaky-HBM poison model."""
+        k, v = self.st.cache
+        if self.kv_layout == "paged":
+            blocks = self.pool.owned(slot)
+            if blocks:
+                idx = _to_device(torch.tensor(sorted(blocks)), self.device)
+                k.index_fill_(1, idx, float("nan"))
+                v.index_fill_(1, idx, float("nan"))
+            return
+        k[:, slot].fill_(float("nan"))
+        v[:, slot].fill_(float("nan"))
 
     def _park_lane(self, slot: int) -> None:
         """Neutralise a freed lane: position past max_seq, so its decode
@@ -767,8 +1108,8 @@ class ContinuousEngine(_EngineBase):
 
     def _evict_slot(self, slot: int) -> None:
         """Neutralise a lane whose request terminated outside the normal
-        retire path (cancel, timeout): park it and drop its admission
-        scratch."""
+        retire path (cancel, timeout, failure): park it and drop its
+        admission scratch."""
         self._park_lane(slot)
         self._staging.pop(slot, None)
         self._admit_logits.pop(slot, None)
@@ -812,6 +1153,12 @@ class ContinuousEngine(_EngineBase):
                 self.params, tokens, staging, start=start, lengths=lengths,
                 attend_cache=start > 0)
         self.n_prefills += 1
+        rid = self.sched.slots[slot].req_id
+        if (start + take >= len(r.prompt)
+                and faults.should_fire("serve.nan_prefill",
+                                       req_id=rid) is not None):
+            # poison drill: the request's admission logits read as NaN
+            logits = torch.full_like(logits, float("nan"))
         self._admit_logits[slot] = logits
         self.sched.prefill_advance(slot, take)
 
@@ -840,12 +1187,27 @@ class ContinuousEngine(_EngineBase):
         first = sample_tokens(logits, [gen], st.temps[slot:slot + 1],
                               st.top_ks[slot:slot + 1],
                               sampled=r.temperature > 0.0)
+        # one host sync per ADMISSION (not per token): the first token and,
+        # with the guard, whether the prompt's logits are finite
+        if self.resilience.nan_guard:
+            token, finite = torch.stack(
+                [first[0], torch.isfinite(logits).all().long()]).tolist()
+            if not finite:
+                # before the lane joins the decode batch (it stays parked)
+                self._quarantine_nan(slot, rid, "non-finite prefill logits",
+                                     where="prefill")
+                return True
+        else:
+            token = int(first[0])
         st.tokens[slot:slot + 1].copy_(first)
         st.pos[slot].fill_(len(r.prompt))
-        # one host sync per ADMISSION (not per token): the first token
-        done = self.sched.record_first(slot, int(first[0]))
+        done = self.sched.record_first(slot, token)
         if done:
             self._park_lane(slot)
+        elif faults.should_fire("serve.nan_decode", req_id=rid) is not None:
+            # poison drill: NaN the slot's cached KV so the next decode
+            # chunk trips the in-chunk NaN guard for this lane
+            self._poison_slot_cache(slot)
         return done
 
 

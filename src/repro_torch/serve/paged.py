@@ -105,8 +105,10 @@ class BlockPool:
         """Check the allocator invariants; returns the violations (empty =
         healthy): every block id in range; no id both free and owned; no id
         owned twice or free twice; free + owned covers exactly the pool.
-        (The reference's engine degrades paged -> dense on a violation;
-        that rung comes with the resilience layer, ROADMAP.md.)"""
+        "In range" is below ``n_blocks``: the trash page ``n_blocks`` is
+        never handed out, so an id naming it (or past it) is damage too.
+        The continuous engine checks this at every chunk boundary and
+        degrades paged -> dense on a violation."""
         problems: List[str] = []
         seen: Dict[int, str] = {}
         for b in self._free:

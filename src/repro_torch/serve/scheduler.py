@@ -27,8 +27,9 @@ lifecycle events carrying ``req_id`` (``serve.submit``, ``serve.admit``,
 dump when a request ends ``failed`` or ``timeout``.  Every clock is the
 host's, read at a chunk boundary.
 
-Left out until the resilience slice (ROADMAP.md queue 1 item 4): the fault site
-``faults.should_fire("serve.pool_exhausted")`` in ``admissions``.
+The fault site ``serve.pool_exhausted`` (ctx ``req_id``) in ``admissions``
+makes the queue head read as block-starved: it defers, as a full pool
+would (``repro_torch.testing.faults``).
 
 The per-request timestamps (``t_submit``, ``t_admit``, ``t_first`` in
 ``meta``) feed those histograms, and ``pop_result`` reads time to first
@@ -45,6 +46,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch import obs
 from repro_torch.serve.resilience import RequestResult
+from repro_torch.testing import faults
 
 __all__ = ["seq_buckets", "pick_bucket", "Scheduler"]
 
@@ -173,17 +175,21 @@ class Scheduler:
                 continue
             rid = self.pending[0]
             meta = self.meta[rid]
-            if self.pool is not None:
-                need = self.pool.blocks_for(meta["prompt_len"]
-                                            + meta["max_new"])
-                if not self.pool.can_alloc(need):
+            starved = faults.should_fire("serve.pool_exhausted",
+                                         req_id=rid) is not None
+            if self.pool is not None or starved:
+                need = (self.pool.blocks_for(meta["prompt_len"]
+                                             + meta["max_new"])
+                        if self.pool is not None else 0)
+                if starved or not self.pool.can_alloc(need):
                     # the queue head is block-starved: one deferral per
                     # boundary, however many slots were still free behind it
                     self.n_deferrals += 1
                     obs.counter("serve.admission_deferrals").inc()
                     obs.event("serve.admission_deferred", req_id=rid,
                               need_blocks=need,
-                              free_blocks=self.pool.free_blocks)
+                              free_blocks=(self.pool.free_blocks
+                                           if self.pool is not None else 0))
                     break
                 self.pool.alloc(i, need)
             self.pending.popleft()

@@ -2,9 +2,11 @@
 
 The port's copy of ``repro.testing.faults`` (framework-neutral).  A fault
 degrades what it hits instead of crashing the process only where a path
-handles it: a corrupt artefact file is quarantined and rebuilt, a failed
-executor build raises into its caller (the port has no degradation
-ladder).  Those paths are only trustworthy if they are exercised: this
+handles it: a NaN request is quarantined, a failed decode chunk is retried
+or its in-flight requests fail, a corrupt block pool degrades the engine
+paged -> dense, a corrupt artefact file is quarantined and rebuilt; a
+failed executor build raises into its caller (the port has no kernel
+degradation ladder).  Those paths are only trustworthy if they are exercised: this
 module makes every fault a *scheduled, replayable event* instead of
 something a test monkeypatches ad hoc.
 
@@ -35,17 +37,23 @@ Spec grammar (semicolon-separated faults)::
 
 Sites wired into the port:
 
+    serve.nan_prefill   ctx req_id: poison a request's admission logits
+    serve.nan_decode    ctx req_id: poison a slot's KV cache after admit
+    serve.chunk_error   ctx req_ids: raise a transient error before the
+                        decode chunk is dispatched (req_ids: comma-joined
+                        active ids)
+    serve.slow_chunk    ctx req_ids: sleep ``value`` s before the chunk
+    serve.pool_exhausted  ctx req_id: admission sees a block-starved pool
+                        (deferral)
+    serve.pool_corrupt  damage the KV block pool (validate() then catches)
     executor.build      ctx key: raise InjectedFault in executor staging
                         (``compiler.executors.ExecutorCache``)
     artefact.corrupt    ctx what, path: a JSON artefact reads as corrupt
                         (``ft.artefacts.load_json``)
 
-The reference's serving sites (``serve.nan_prefill``, ``serve.nan_decode``,
-``serve.chunk_error``, ``serve.slow_chunk``, ``serve.pool_exhausted``,
-``serve.pool_corrupt``) come with the port's resilience slice, and the
-mesh sites (``mesh.host_lost``, ``mesh.host_slow``,
-``collective.timeout``) with its mesh slice (ROADMAP.md queue 1 items 4
-and 6).  A plan naming them parses and never fires.
+The reference's mesh sites (``mesh.host_lost``, ``mesh.host_slow``,
+``collective.timeout``) come with the port's mesh slice (ROADMAP.md queue
+1 item 6).  A plan naming them parses and never fires.
 
 When no plan is active (no ``inject`` scope, no ``REPRO_FAULTS``),
 ``should_fire`` is two dict lookups — the sites cost nothing in
@@ -275,10 +283,9 @@ def corrupt_json_file(path: str, mode: str = "garbage") -> str:
 
 
 def corrupt_pool(pool) -> str:
-    """Deterministically damage a ``repro_torch.serve.paged.BlockPool``:
-    double-book one block id (the bit-flip model; the pool's
-    ``validate()``, which catches it, comes with the resilience slice).
-    Returns a description of the damage."""
+    """Deterministically damage a ``repro_torch.serve.paged.BlockPool`` so
+    its ``validate()`` fails: double-book one block id (the bit-flip
+    model).  Returns a description of the damage."""
     if pool._free:
         b = pool._free[-1]
         pool._free.append(b)

@@ -26,8 +26,10 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import attention as attn
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import Model
+from repro_torch.serve.domains import SchedulerJournal
 from repro_torch.serve.engine import (BatchedEngine, ContinuousEngine,
                                       Request, ShardedEngine, sample_tokens)
+from repro_torch.serve.resilience import ResilienceConfig
 
 MAX_SEQ = 48
 LENGTHS = (7, 21, 3, 12, 5)              # 21 > prefill_chunk: three chunks
@@ -256,7 +258,7 @@ def test_expired_deadline_times_out_with_partial_tokens(setup):
     assert res.state == "timeout" and res.tokens == () and not res.ok
 
 
-def test_request_checks_and_unported_options_raise(setup):
+def test_request_checks_and_unported_options_raise(setup, tmp_path):
     model, params, _, _ = setup
     paged = ContinuousEngine(model, params, kv_layout="paged", block_size=16,
                              kv_blocks=2, **{**ENGINE, "max_seq": 64})
@@ -269,10 +271,13 @@ def test_request_checks_and_unported_options_raise(setup):
                          block_size=16)
     with pytest.raises(ValueError, match="kv_layout"):
         ContinuousEngine(model, params, kv_layout="sparse")
-    for kw, item in (({"resilience": object()}, "item 4"),
-                     ({"journal": "j.log"}, "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousEngine(model, params, **kw)
+    # resilience= and journal= are ported (tests/test_torch_resilience.py,
+    # tests/test_torch_journal.py); the sharded engine is not
+    engine = ContinuousEngine(model, params,
+                              resilience=ResilienceConfig(nan_guard=False),
+                              journal=tmp_path / "j.jsonl")
+    assert not engine.resilience.nan_guard
+    assert isinstance(engine.journal, SchedulerJournal)
     with pytest.raises(NotImplementedError, match="item 6"):
         ShardedEngine(model, params)
 

@@ -774,6 +774,139 @@ def test_measured_tune_on_the_card(cuda_device, tmp_path, kernel, shape):
     ops.clear_caches()
 
 
+# ---------------------------------------------------------------------------
+# serving resilience under the graph
+# ---------------------------------------------------------------------------
+
+def _syncs(fn) -> int:
+    """The host syncs ``fn()`` makes: the sync detector in warn mode."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_a_decode_boundary_reads_the_host_once(cuda_device, kind):
+    """With the NaN guard on, a boundary that only decodes (a replay)
+    makes one device-to-host read: the tokens and the guard's flags
+    together."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    engine = _engines(model, params, kind, True)
+    engine.run(_traffic(2), seed=0)                   # captures
+    assert engine.resilience.nan_guard
+    rid = engine.submit(Request(prompt=list(range(9)), max_new_tokens=30))
+    engine.step_chunk()                               # admitted, decoding
+    assert _syncs(engine.step_chunk) == 1
+    assert engine.stats()["recaptures_after_warm"] == 0
+    engine.cancel(rid)
+
+
+def _drill(engine, reqs, spec_of):
+    from repro_torch.testing import faults
+    rids = [engine.submit(r, stream=i) for i, r in enumerate(reqs)]
+    with faults.inject(spec_of(rids)):
+        while not engine.sched.idle:
+            engine.step_chunk()
+    return [engine.take_result(rid) for rid in rids]
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_nan_guard_quarantines_inside_the_replayed_chunk(cuda_device, kind):
+    """The flag is computed by the captured graph: a poisoned lane fails,
+    the other requests keep the fault-free tokens (the sampled one
+    included), no capture; paged, the trash page stays finite."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    reqs = _traffic()
+    engine = _engines(model, params, kind, True)
+    want = engine.run(reqs, seed=0)                   # captures both keys
+    res = _drill(engine, reqs,
+                 lambda rids: f"serve.nan_decode(req_id={rids[2]})")
+    assert [r.state for r in res] == ["ok", "ok", "failed", "ok", "ok"]
+    assert [list(r.tokens) for r in res if r.ok] == [
+        w for i, w in enumerate(want) if i != 2]
+    st = engine.stats()
+    assert st["resilience"]["nan_quarantines"] == 1
+    assert st["recaptures_after_warm"] == 0
+    if kind == "paged":
+        k, v = engine.st.cache
+        assert torch.isfinite(k[:, engine.kv_blocks]).all()
+        assert torch.isfinite(v[:, engine.kv_blocks]).all()
+
+
+def test_chunk_failure_rebuild_keeps_the_graphs_buffers(cuda_device):
+    """Past the retry budget the in-flight requests fail and the buffers
+    are rebuilt in place: the same tensors, no capture, and the queued
+    requests replay the graph to the fault-free tokens."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    reqs = _traffic()
+    engine = _engines(model, params, "paged", True)
+    want = engine.run(reqs, seed=0)
+    st = engine.st
+    ptrs = [t.data_ptr() for t in (*st.cache, st.tokens, st.pos, st.out,
+                                   st.block_tables)]
+    captures = engine.stats()["captures"]
+    res = _drill(engine, reqs, lambda rids: "serve.chunk_error(times=3)")
+    failed = [i for i, r in enumerate(res) if r.state == "failed"]
+    assert failed and len(failed) < len(reqs)
+    assert all(list(r.tokens) == want[i] for i, r in enumerate(res)
+               if r.ok)
+    assert engine.st is st and ptrs == [
+        t.data_ptr() for t in (*st.cache, st.tokens, st.pos, st.out,
+                               st.block_tables)]
+    stats = engine.stats()
+    assert stats["captures"] == captures
+    assert stats["recaptures_after_warm"] == 0
+    assert stats["resilience"]["chunk_quarantines"] == 1
+
+
+def test_degradation_captures_the_dense_chunk_anew(cuda_device):
+    """paged -> dense drops the paged chunk's graphs (they read the page
+    pools) and captures the dense chunk: not a re-capture after warm-up;
+    requests admitted after it get the fault-free (paged = dense) tokens."""
+    from repro_torch import obs
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    reqs = _traffic()
+    engine = _engines(model, params, "paged", True)
+    want = engine.run(reqs, seed=0)
+    graphs = engine._graphs
+    obs.clear_decisions()
+    res = _drill(engine, reqs, lambda rids: "serve.pool_corrupt(after=1)")
+    assert engine.kv_layout == "dense" and engine._graphs is not graphs
+    assert engine._graphs.captures >= 1
+    assert any(r.ok for r in res) and any(r.state == "failed" for r in res)
+    assert all(list(r.tokens) == want[i] for i, r in enumerate(res)
+               if r.ok)
+    assert [d.origin for d in obs.decisions()].count(
+        "degraded(paged->dense)") == 1
+    assert engine.run(reqs, seed=0) == want           # dense, replays
+    assert engine.stats()["recaptures_after_warm"] == 0
+
+
+def test_nan_guard_changes_no_token(cuda_device):
+    """The guard is pure observation: static and continuous engines give
+    the same tokens with it on and off."""
+    _, model, params = _smoke(cuda_device, "bfloat16")
+    from repro_torch.serve.resilience import ResilienceConfig
+    off = ResilienceConfig(nan_guard=False)
+    reqs = _traffic()
+    for kind in ("static", "paged"):
+        on = _engines(model, params, kind, True).run(reqs, seed=2)
+        eng = (BatchedEngine(model, params, max_seq=64, chunk=4,
+                             resilience=off) if kind == "static" else
+               ContinuousEngine(model, params, max_seq=64, slots=2, chunk=4,
+                                min_bucket=8, prefill_chunk=16,
+                                kv_layout="paged", block_size=16,
+                                resilience=off))
+        assert eng.run(reqs, seed=2) == on
+
+
 def test_capture_failure_raises(cuda_device, monkeypatch):
     """A chunk that cannot be captured (here: a host sync inside it) raises
     from the engine; it never quietly runs eagerly."""

@@ -78,9 +78,15 @@ def test_engine_counts_work_and_host_syncs(models):
     engine = BatchedEngine(model, params, max_seq=48, chunk=4)
     engine.run([Request(prompt=[1, 2, 3], max_new_tokens=10),
                 Request(prompt=[4], max_new_tokens=2)])
-    # first token from the prefill, 9 more in ceil(9 / 4) = 3 chunks
+    # first token from the prefill, 9 more in ceil(9 / 4) = 3 chunks; a
+    # fault-free run moves no resilience counter
     assert engine.stats() == {"prefills": 1, "decode_steps": 12,
-                              "chunks": 3}
+                              "chunks": 3,
+                              "resilience": {"chunk_retries": 0,
+                                             "chunk_quarantines": 0,
+                                             "nan_quarantines": 0,
+                                             "degradations": 0,
+                                             "stragglers": 0}}
 
 
 def test_engine_rejects_request_longer_than_cache(models):
