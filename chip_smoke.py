@@ -160,19 +160,41 @@ result):
    phase 4's static engine with the NaN guard against
    ``nan_guard=False``, and of a dense engine built with ``journal=``
    on phase 4b's traffic with the journal detached and attached, three
-   runs each in turns, with the host seconds of the journal's writes.
+   runs each in turns, with the host seconds of the journal's writes;
+13. training, right after phase 12 (its serving weights freed): (a) the
+   backward kernels of K1 (at (2048, 2560), (65536, 128), (16384, 128))
+   and K3 (q (128, 512, 128), kv (32, 512, 128), causal) in bf16 and
+   fp32 against their plain versions (and K3's row log-sum-exp), bitwise
+   repeatable, with their times, bounds and the library's backward
+   (``F.rms_norm``'s, SDPA's); qwen3-4b at full width (bf16, 36 layers,
+   remat, weights from seed 0, batch 4 x seq 512): (c) one step at
+   ``microbatches=2`` on the fresh state (lr 0 at step 0: the params keep
+   their bits), its loss within 1e-3 and its gradient norm within 5 % of
+   (b)'s first step; (b) ``TrainLoop`` for 6 steps with no checkpoint:
+   every leaf's gradient set and finite after step 1, every matrix
+   changed after step 2, exact K1 / K3 forward and backward launches a
+   step, step time, tok/s, MFU (6 x matmul params x tokens / step time /
+   989 TFLOP/s) and peak memory; (d) a loss that is NaN on the third
+   call: ``applied`` 0, every tensor of the state bitwise kept
+   (checksums), one skipped step; (e) this script with
+   ``--train-child`` in a fresh process (deterministic algorithms,
+   ``CUBLAS_WORKSPACE_CONFIG``): 20 smoke-config steps (fp32) equal 10,
+   a checkpoint, a restore and 10 more, bitwise, and the card's step-1
+   state equals the CPU's.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
-K3, one entry per generated K4 program of phase 7 and one per tuned
-winner of phase 11), the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``; a ``[12] summary`` line before them
-gathers phase 12's results.
+K3, the backward kernels of K1 and K3 (their launches phase 13b's), one
+entry per generated K4 program of phase 7 and one per tuned winner of
+phase 11), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``; ``[12] summary`` and ``[13] summary``
+lines before them gather phases 12 and 13.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -234,25 +256,30 @@ CPU_LAYERS = 2
 CPU_PROMPT_LENS = (100, 37)
 CPU_MAX_NEW = 6
 LOGIT_TOL = 1e-3
+# no path but training launches a backward kernel: every exact count of
+# the serving and pipeline phases holds them at 0
+NO_BWD = {"rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, trials: int = 7) -> float:
+def time_ms(fn, reps: int = 20, trials: int = 7, stream=None) -> float:
     """Device time of one call: the median over ``trials`` replays of a
     CUDA graph holding ``reps`` back-to-back calls, from CUDA events, after
     a warm-up.  Replaying a graph takes the host's launch cost out, so a
-    kernel of a few microseconds is timed by its work on the card."""
-    side = torch.cuda.Stream()
+    kernel of a few microseconds is timed by its work on the card.
+    ``stream``: warm up and capture on that stream (a backward pass must
+    run on the stream of its forward)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -631,7 +658,7 @@ def phase_main_path(smi: str):
     per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
     want = {"flash_attention": cfg.n_layers * prefills,
             "rmsnorm": per_pass * (prefills + steps),
-            "matmul": 0, "dpia_cuda": 0}
+            "matmul": 0, "dpia_cuda": 0, **NO_BWD}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want} for "
                              f"{prefills} prefill(s), {steps} decode steps")
@@ -738,7 +765,7 @@ def _continuous_run(engine, reqs, cfg):
     per_pass = 4 * cfg.n_layers + 1
     want = {"flash_attention": cfg.n_layers * admits,
             "rmsnorm": per_pass * (prefills + steps),
-            "matmul": 0, "dpia_cuda": 0}
+            "matmul": 0, "dpia_cuda": 0, **NO_BWD}
     want_k1 = {"packed": 2 * cfg.n_layers * (prefills + steps),
                "warp": 0, "block": 0}
     for r in rows + [SLOTS] * steps:     # the d_model rows of each pass
@@ -1261,7 +1288,7 @@ def phase_pipeline_main_path():
                  for k, sh in DPIA_CASES)
     plans = [mm.plan(m, n, k, torch.bfloat16) for m, k, n in MM_SHAPES]
     want = {"rmsnorm": 0, "matmul": sum(p.launches for p in plans),
-            "flash_attention": 0, "dpia_cuda": stages}
+            "flash_attention": 0, "dpia_cuda": stages, **NO_BWD}
     want_variants = {"wgmma": sum(p.variant == "wgmma" for p in plans),
                      "splitk_reduce": sum(p.split > 1 for p in plans),
                      "simt": sum(p.variant == "simt" for p in plans)}
@@ -1472,7 +1499,8 @@ def phase_services(smi, p9, stage_s, build_s):
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
     n = len(DPIA_CASES)
-    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0}
+    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0,
+            **NO_BWD}
     # (a) the DPIA ops under an options scope, no impl=
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1718,7 +1746,7 @@ def phase_tune(smi: str, cache_path: str):
         launches[row["program"]] = fn.launches
     stages = sum(r["stages"] for r in rows)
     if counts != {"rmsnorm": 0, "matmul": 0, "flash_attention": 0,
-                  "dpia_cuda": stages} or \
+                  "dpia_cuda": stages, **NO_BWD} or \
             launches != {r["program"]: r["stages"] for r in rows}:
         raise AssertionError(f"[11d] launches {counts}, per program "
                              f"{launches}; want {stages} K4 stages")
@@ -2104,6 +2132,487 @@ def phase_faults(smi: str, cfg, model, params, static, cont):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+# K1 / K3 backward against their plain versions on the card, |err| <= atol
+# * max|plain| + rtol * |plain|.  fp32: the same fp32 arithmetic in another
+# order (dw sums 2048-65536 rows).  bf16: both compute in fp32 from the
+# same bf16 inputs and round each gradient once; another order of sums
+# flips that rounding (2**-8 relative).
+BWD_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+LSE_TOL = 1e-4          # fp32 row log-sum-exp, values of order 10
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 3e-4, 2, 6
+NAN_CALL = 3
+# the card's step-1 state against the CPU's (smoke config, fp32, TF32
+# off): gradients summed in other orders, |err| <= 1e-4 |cpu| + 1e-5
+# max|cpu| per leaf
+STATE_TOL = (1e-5, 1e-4)
+SMOKE_STEPS = 20
+
+
+def check_bwd(got, want, dtype, what: str) -> float:
+    """``got`` against ``want`` under :data:`BWD_TOLS`; the max abs err."""
+    atol, rtol = BWD_TOLS[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > atol * w.abs().max() + rtol * w.abs()
+    if bad.any() or not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements beyond "
+                             f"atol {atol} x max + rtol {rtol}; max abs err "
+                             f"{err.max().item()}")
+    return err.max().item()
+
+
+def time_backward_ms(forward, inputs, grad_out) -> float:
+    """Device time of one autograd backward of ``forward()`` (a library
+    call's yardstick): the forward runs once on a side stream, then
+    :func:`time_ms` captures backward passes (``retain_graph``) on that
+    stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+    return time_ms(lambda: torch.autograd.grad(out, inputs, grad_out,
+                                               retain_graph=True),
+                   reps=10, stream=side)
+
+
+def _rmsnorm_bwd_case(rows, d, dtype, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen,
+                               device="cuda")).to(dtype)
+    dy = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    before = rms.backward.launches
+    dx, dw = rms._launch_bwd(x, w, dy, 1e-6)
+    if rms.backward.launches != before + 1:
+        raise AssertionError("rmsnorm_bwd was not launched")
+    want_dx, want_dw = ref.rmsnorm_bwd(x, w, dy)
+    what = f"rmsnorm_bwd {(rows, d)} {dtype}"
+    errs = {"dx": check_bwd(dx, want_dx, dtype, what + " dx"),
+            "dw": check_bwd(dw, want_dw, dtype, what + " dw")}
+    again = rms._launch_bwd(x, w, dy, 1e-6)
+    if not (torch.equal(again[0], dx) and torch.equal(again[1], dw)):
+        raise AssertionError(f"{what}: two launches gave different bits")
+    elt = x.element_size()
+    b_ms, b_by = bound((3 * rows * d + 2 * d) * elt, 10 * rows * d,
+                       ELEMENTWISE_FLOPS)
+    xa = x.detach().requires_grad_()
+    wa = w.detach().requires_grad_()
+    return {"shape": [rows, d], "dtype": str(dtype).split(".")[-1],
+            "blocks": rms.bwd_blocks(rows), "max_abs_err": max(errs.values()),
+            "errs": errs, "tol": list(BWD_TOLS[dtype]), "bitwise_repeat": True,
+            "ms": time_ms(lambda: rms._launch_bwd(x, w, dy, 1e-6)),
+            "eager_ms": eager_ms(lambda: rms._launch_bwd(x, w, dy, 1e-6)),
+            "plain_ms": time_ms(lambda: ref.rmsnorm_bwd(x, w, dy)),
+            "library_ms": time_backward_ms(
+                lambda: F.rms_norm(xa, (d,), wa, 1e-6), (xa, wa), dy),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = (0.5 * torch.randn((b * nh, s, hd), generator=gen,
+                           device="cuda")).to(dtype)
+    k = (0.5 * torch.randn((b * nkv, s, hd), generator=gen,
+                           device="cuda")).to(dtype)
+    v = torch.randn((b * nkv, s, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b * nh, s, hd), generator=gen, device="cuda").to(dtype)
+    o, lse = fa._launch(q, k, v, causal=True, scale=None, q_offset=0,
+                        with_lse=True)
+    want_o, want_lse = ref.flash_attention(q, k, v, causal=True,
+                                           return_lse=True)
+    what = f"flash_attention_bwd {(b * nh, s, hd)} {dtype}"
+    check_close(o, want_o, dtype, what + " forward")
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"{what}: lse max abs err {lse_err} > {LSE_TOL}")
+    before = fa.backward.launches
+
+    def kernel():
+        return fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=None)
+    got = kernel()
+    if fa.backward.launches != before + 1:
+        raise AssertionError("flash_attention_bwd was not launched")
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    errs = {n: check_bwd(g, w, dtype, f"{what} {n}")
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    again = kernel()
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        raise AssertionError(f"{what}: two launches gave different bits")
+    pairs = s * (s + 1) // 2
+    elt = q.element_size()
+    # the function's work: S = QK^T recomputed, dP = dO V^T, dV = P^T dO,
+    # dQ = dS K, dK = dS^T Q over the causal pairs of every query head;
+    # its bytes: q, o, dO read and dQ written; k, v read and dK, dV
+    # written; lse read
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, 10 * b * nh * hd * pairs, PEAK_FLOPS[dtype])
+    q4, k4, v4 = (t.detach().view(b, n, s, hd).requires_grad_()
+                  for t, n in ((q, nh), (k, nkv), (v, nkv)))
+    return {"q": [b * nh, s, hd], "kv": [b * nkv, s, hd], "causal": True,
+            "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": max(errs.values()), "errs": errs,
+            "lse_max_abs_err": lse_err, "tol": list(BWD_TOLS[dtype]),
+            "bitwise_repeat": True,
+            "ms": time_ms(kernel), "eager_ms": eager_ms(kernel),
+            "plain_ms": time_ms(lambda: ref.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=True)),
+            "library_ms": time_backward_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True),
+                (q4, k4, v4), do.view(b, nh, s, hd)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_train_kernels():
+    """[13a] the backward kernels against their plain versions on the
+    card, at the shapes one full-width train step gives them."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t = TRAIN_BATCH * TRAIN_SEQ
+    rms = [_rmsnorm_bwd_case(r, d, dt, gen)
+           for dt in (torch.bfloat16, torch.float32)
+           for r, d in ((t, 2560), (t * 32, 128), (t * 8, 128))]
+    fa = [_flash_bwd_case(TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128, dt, gen)
+          for dt in (torch.bfloat16, torch.float32)]
+    for name, cases in (("rmsnorm_bwd", rms), ("flash_attention_bwd", fa)):
+        for c in cases:
+            log(f"[13a] {name} " + json.dumps(c))
+    return {"rmsnorm_bwd": rms, "flash_attention_bwd": fa}
+
+
+def checksums(state) -> list:
+    """Two 64-bit checksums of the raw bits of every tensor of ``state``
+    (a plain sum and a sum of xor-shifted words), read in one sync: equal
+    lists mean nothing was written, short of an exact cancellation."""
+    from repro_torch.optim import adamw
+    sums = []
+    for _, leaf in adamw.leaves(state):
+        for t in (leaf if isinstance(leaf, adamw.QTensor) else (leaf,)):
+            bits = t.detach().reshape(-1).view(
+                {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+                    t.element_size()])
+            sums += [bits.sum(dtype=torch.int64),
+                     (bits ^ (bits >> 3)).sum(dtype=torch.int64)]
+    return torch.stack(sums).tolist()
+
+
+def _matrix_ids(state):
+    from repro_torch.optim import adamw
+    return [(p, t) for p, t in adamw.leaves(state["params"]) if t.ndim >= 2]
+
+
+def phase_train(smi):
+    """[13b-d] qwen3-4b at full width (bf16, 36 layers, remat): one step
+    at microbatches=2 (13c), 6 TrainLoop steps (13b), the NaN drill
+    (13d)."""
+    import gc
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.ft.resilience import TrainLoop
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_state, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"[13] start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+    cfg = config(ARCH)
+    if not (cfg.remat and cfg.dtype == "bfloat16" and cfg.n_layers == 36):
+        raise AssertionError(f"qwen3-4b at full width, bf16, remat: {cfg}")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    n_params = sum(t.numel() for _, t in adamw.leaves(state["params"]))
+    # model FLOPs: 6 x the matmul params (every 2-D leaf but the embedding
+    # lookup) x tokens; remat's recompute is not counted
+    n_matmul = sum(t.numel() for p, t in _matrix_ids(state)
+                   if p != ("embed",))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+
+    # 13c first, on the fresh state: lr is 0 at step 0, so the params keep
+    # their bits; then the moments and counters go back to zero
+    before = checksums(state["params"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m_mb = make_train_step(model, microbatches=2, **kw)(
+        state, data.global_batch_at(0))
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    mb_peak = torch.cuda.max_memory_allocated() / 2**30
+    if checksums(state["params"]) != before or m_mb["applied"] != 1:
+        raise AssertionError(f"[13c] the lr-0 step changed the params or "
+                             f"was not applied: {m_mb}")
+    for _, t in adamw.leaves(state["opt"]):
+        t.zero_()
+    state["step"].zero_()
+
+    # 13b: TrainLoop, 6 steps, no checkpoint inside the run
+    step = make_train_step(model, **kw)
+    first = {k: torch.as_tensor(v).cuda().long()
+             for k, v in data.global_batch_at(0).items()}
+    matrices = _matrix_ids(state)
+    mat_before = checksums([t for _, t in matrices])
+    rows, counts_total = [], {}
+    check = {}
+    clock = [0.0]
+
+    def on_metrics(i, m):
+        # the step returns with its AdamW kernels still queued (its one
+        # host sync is the guard's read, before the update): wait for them
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - clock[0]
+        counts = ops.launch_counts()
+        for k, n in counts.items():
+            counts_total[k] = counts_total.get(k, 0) + n
+        rows.append({"step": i + 1, "loss": m["loss"],
+                     "grad_norm": m["grad_norm"], "lr": m["lr"],
+                     "applied": m["applied"], "s": dt, "tok_s": tokens / dt,
+                     "mfu": 6 * n_matmul * tokens / dt / PEAK_FLOPS[
+                         torch.bfloat16],
+                     "launches": {k: counts[k] for k in (
+                         "rmsnorm", "rmsnorm_bwd", "flash_attention",
+                         "flash_attention_bwd")}})
+        if i == 0:
+            # every leaf's gradient at the state after step 1, set and
+            # finite (autograd.grad raises for a leaf the loss misses)
+            flat = [t for _, t in adamw.leaves(state["params"])]
+            grads = torch.autograd.grad(model.loss(state["params"], first),
+                                        flat)
+            bad = [p for (p, _), g in zip(adamw.leaves(state["params"]),
+                                          grads)
+                   if g is None or not bool(torch.isfinite(g).all())]
+            check["grad_leaves"], check["grad_bad"] = len(grads), bad
+            del grads
+        if i == 1:
+            after = checksums([t for _, t in matrices])
+            check["unchanged_matrices"] = [
+                p for j, (p, _) in enumerate(matrices)
+                if after[2 * j:2 * j + 2] == mat_before[2 * j:2 * j + 2]]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        clock[0] = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(step, CheckpointManager(ckdir), data,
+                         ckpt_every=10 ** 9)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        clock[0] = time.perf_counter()
+        state = loop.run(state, num_steps=TRAIN_STEPS, on_metrics=on_metrics)
+        if os.listdir(ckdir):
+            raise AssertionError("[13b] the run wrote a checkpoint")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_pass_k1 = cfg.n_layers * 4 + 1
+    want_step = {"rmsnorm": 2 * per_pass_k1 - 1, "rmsnorm_bwd": per_pass_k1,
+                 "flash_attention": 2 * cfg.n_layers,
+                 "flash_attention_bwd": cfg.n_layers}
+    bad_launch = [r["launches"] for r in rows if r["launches"] != want_step]
+    losses = [r["loss"] for r in rows]
+    if check["grad_bad"] or check["grad_leaves"] != len(
+            adamw.leaves(state["params"])) or check["unchanged_matrices"] \
+            or bad_launch or not all(map(math.isfinite, losses)) or \
+            any(r["applied"] != 1 for r in rows):
+        raise AssertionError(f"[13b] leaves without a finite gradient "
+                             f"{check['grad_bad']}, matrices unchanged after "
+                             f"step 2 {check['unchanged_matrices']}, launches "
+                             f"{bad_launch} (want {want_step} a step), "
+                             f"losses {losses}")
+    steady = [r["s"] for r in rows[1:]]
+    summary = {"state_gib": state_gib, "init_s": init_s, "params": n_params,
+               "matmul_params": n_matmul, "tokens_a_step": tokens,
+               "peak_gib": peak, "steps": rows,
+               "median_step_s": statistics.median(steady),
+               "median_tok_s": tokens / statistics.median(steady),
+               "median_mfu": 6 * n_matmul * tokens / statistics.median(
+                   steady) / PEAK_FLOPS[torch.bfloat16],
+               "launches_a_step": want_step,
+               "grad_leaves_finite": check["grad_leaves"]}
+    log(f"[13b] qwen3-4b full width (36 layers, d_model 2560, bf16, remat, "
+        f"weights from seed 0), TrainLoop batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}, "
+        f"{TRAIN_STEPS} steps; MFU = 6 x {n_matmul} matmul params x "
+        f"{tokens} tokens / step s / 989e12: " + json.dumps(summary)
+        + f"; card {smi}")
+    mb_rel = abs(m_mb["loss"] - rows[0]["loss"]) / abs(rows[0]["loss"])
+    gn_rel = abs(m_mb["grad_norm"] - rows[0]["grad_norm"]) / \
+        rows[0]["grad_norm"]
+    if not (mb_rel <= 1e-3 and gn_rel <= 0.05):
+        raise AssertionError(f"[13c] microbatches=2: loss {m_mb['loss']} vs "
+                             f"{rows[0]['loss']} (rel {mb_rel}), grad_norm "
+                             f"{m_mb['grad_norm']} vs {rows[0]['grad_norm']} "
+                             f"(rel {gn_rel})")
+    log("[13c] " + json.dumps({"microbatches": 2, "loss": m_mb["loss"],
+                               "loss_rel_to_13b": mb_rel,
+                               "grad_norm": m_mb["grad_norm"],
+                               "grad_norm_rel_to_13b": gn_rel,
+                               "s": mb_s, "peak_gib": mb_peak}))
+
+    # 13d: a loss that is NaN on the third call
+    class NanOnThird(Model):
+        calls = 0
+
+        def loss(self, params, batch):
+            NanOnThird.calls += 1
+            out = super().loss(params, batch)
+            return out * float("nan") if self.calls == NAN_CALL else out
+
+    nan_step = make_train_step(NanOnThird(cfg), **kw)
+    seen = {}
+
+    def watched(st, batch):
+        if NanOnThird.calls == NAN_CALL - 1:
+            seen["before"] = checksums(st)
+        new, m = nan_step(st, batch)
+        if NanOnThird.calls == NAN_CALL:
+            seen["after"], seen["m"] = checksums(new), m
+        return new, m
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        loop = TrainLoop(watched, CheckpointManager(ckdir), data,
+                         ckpt_every=10 ** 9)
+        step_before = int(state["step"])
+        state = loop.run(state, num_steps=NAN_CALL)
+    if seen["m"]["applied"] != 0 or seen["after"] != seen["before"] or \
+            loop.skipped_steps != 1 or \
+            int(state["step"]) != step_before + NAN_CALL - 1:
+        raise AssertionError(f"[13d] the NaN step: metrics {seen['m']}, "
+                             f"state kept bitwise "
+                             f"{seen['after'] == seen['before']}, skipped "
+                             f"{loop.skipped_steps}")
+    log("[13d] " + json.dumps({
+        "nan_call": NAN_CALL, "metrics": seen["m"],
+        "state_bitwise_kept": True, "checksummed_tensors": len(
+            seen["after"]) // 2, "skipped_steps": loop.skipped_steps}))
+    del state, step, nan_step, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t_phase
+    return summary, counts_total
+
+
+def train_child() -> int:
+    """``--train-child``: [13e] the smoke config (fp32) on the card, with
+    deterministic algorithms (the embedding's index-add gradient through
+    the deterministic sort-based path): 20 straight steps against 10, a
+    checkpoint, a restore and 10 more, bitwise; the card's step-1 state
+    against the CPU's.  Prints one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import copy
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.ft.resilience import TrainLoop
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_state, make_train_step
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = smoke_config(ARCH)
+    model = Model(cfg)
+    cpu0 = make_train_state(model, torch.Generator().manual_seed(0),
+                            device="cpu")
+
+    def to(state, device):
+        return adamw.tree_map(
+            lambda t: (adamw.QTensor(*(x.detach().to(device) for x in t))
+                       if isinstance(t, adamw.QTensor) else
+                       t.detach().to(device).requires_grad_(t.requires_grad)),
+            state)
+    card0 = to(cpu0, "cuda")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4))
+    step = make_train_step(model, base_lr=1e-3, warmup=2,
+                           total_steps=SMOKE_STEPS)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        a = TrainLoop(step, CheckpointManager(os.path.join(d, "a")), data,
+                      ckpt_every=10 ** 9).run(copy.deepcopy(card0),
+                                              num_steps=SMOKE_STEPS)
+        mgr = CheckpointManager(os.path.join(d, "b"), async_save=False)
+        TrainLoop(step, mgr, data, ckpt_every=SMOKE_STEPS // 2).run(
+            copy.deepcopy(card0), num_steps=SMOKE_STEPS // 2)
+        saved = mgr.all_steps()
+        b = TrainLoop(step, mgr, data, ckpt_every=SMOKE_STEPS // 2).run(
+            copy.deepcopy(card0), num_steps=SMOKE_STEPS)
+    counts = ops.launch_counts()
+    bitwise = all(torch.equal(x, y) for (_, x), (_, y)
+                  in zip(adamw.leaves(a), adamw.leaves(b)))
+    # one step on each device from the same state and batch
+    batch = data.global_batch_at(0)
+    cpu1, m_cpu = step(copy.deepcopy(cpu0), batch)
+    card1, m_card = step(copy.deepcopy(card0), batch)
+    worst, bad = 0.0, []
+    for (path, x), (_, y) in zip(adamw.leaves(card1), adamw.leaves(cpu1)):
+        x, y = x.detach().cpu().float(), y.detach().float()
+        err = (x - y).abs()
+        worst = max(worst, err.max().item())
+        if (err > STATE_TOL[0] * y.abs().max() + STATE_TOL[1] * y.abs()
+                ).any():
+            bad.append("/".join(map(str, path)))
+    print(json.dumps({
+        "resume_bitwise": bitwise, "checkpoints": saved,
+        "launches": counts, "deterministic": True,
+        "card_vs_cpu_bad_leaves": bad,
+        "card_vs_cpu_max_abs_err": worst, "tol": list(STATE_TOL),
+        "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+        "grad_norm_card": m_card["grad_norm"],
+        "grad_norm_cpu": m_cpu["grad_norm"],
+        "s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase_train_smoke(smi):
+    """[13e] the smoke config on the card in a fresh process (deterministic
+    algorithms want ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts,
+    which this process did long ago)."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--train-child"], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=str(ROOT))
+    if r.returncode != 0:
+        raise AssertionError(f"[13e] the train child failed "
+                             f"(rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    if not rep["resume_bitwise"] or rep["checkpoints"] != [
+            SMOKE_STEPS // 2] or rep["card_vs_cpu_bad_leaves"] or \
+            rep["launches"]["rmsnorm_bwd"] == 0 or \
+            rep["launches"]["flash_attention_bwd"] == 0:
+        raise AssertionError(f"[13e] {rep}")
+    rep["process_s"] = time.perf_counter() - t0
+    log("[13e] smoke config, fp32, on the card (torch.use_deterministic_"
+        "algorithms(True), CUBLAS_WORKSPACE_CONFIG=:4096:8): 20 straight "
+        "steps = 10 + checkpoint + restore + 10, bitwise; the card's "
+        "step-1 state against the CPU's: " + json.dumps(rep)
+        + f"; card {smi}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
@@ -2115,6 +2624,14 @@ KERNELS = [
     {"name": "matmul", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
      "replaces": "src/repro/kernels/matmul.py:56"},
+    # the backward kernels of K1 and K3 (phase 13): the TPU kernels have
+    # none (the reference trains through XLA's autodiff of its jnp path)
+    {"name": "rmsnorm_bwd", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+     "replaces": "src/repro/kernels/rmsnorm.py:36"},
+    {"name": "flash_attention_bwd", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "replaces": "src/repro/kernels/flash_attention.py:90"},
 ]
 # the source of each variant of a kernel that has several
 VARIANT_SOURCES = {
@@ -2140,6 +2657,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--aot-child"]:
         return aot_child(sys.argv[2])
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child()
     sys.path.insert(0, str(ROOT / "src"))
     # every tuning cache of this run lives in a temporary directory: the
     # default cache (REPRO_AUTOTUNE_CACHE, read by the AOT child and the
@@ -2169,6 +2688,9 @@ def _run_phases(tune_cache: str) -> int:
                           (dense_graph, reqs, want))
     del model, params, static, dense_graph
     torch.cuda.empty_cache()
+    cases.update(phase_train_kernels())
+    train, train_counts = phase_train(smi)
+    train["13e"] = phase_train_smoke(smi)
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)
@@ -2177,7 +2699,9 @@ def _run_phases(tune_cache: str) -> int:
     phase_default_options(p9)
     phase_services(smi, p9, stage_s, build_s)
     tuned = phase_tune(smi, tune_cache)
-    counts = {**counts, "matmul": p_counts["matmul"]}
+    counts = {**counts, "matmul": p_counts["matmul"],
+              "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
+              "flash_attention_bwd": train_counts["flash_attention_bwd"]}
     variants["matmul"] = mm_variants
     # the headline case of each kernel is its first: the main path's
     # prefill shape in bf16 (K2: the (800, 2560) x (2560, 4096) projection);
@@ -2211,6 +2735,9 @@ def _run_phases(tune_cache: str) -> int:
                      **{key: c[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": [c]})
     log("[12] summary: " + json.dumps(faults))
+    log("[13] summary: " + json.dumps({
+        k: train[k] for k in ("median_step_s", "median_tok_s", "median_mfu",
+                              "peak_gib", "launches_a_step", "s")}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -23,7 +23,7 @@ them automatically.  The port's copy of ``repro.autotune``:
            ``@autotuned`` / ``pick_kv_layout`` / warm-up entry points
 
 Not ported: the mesh-placement space and ``backend="shardmap"`` (ROADMAP.md
-queue 1 item 6) and ``xla_cost``'s HLO refinement (item 7), which raise.
+queue 1 item 7) and ``xla_cost``'s HLO refinement (item 8), which raise.
 """
 from . import api, cache, cost, measure, space  # noqa: F401
 from .api import (  # noqa: F401

@@ -26,7 +26,7 @@ the default) and ``"cuda"`` (K4: every measured candidate is generated
 CUDA, launched and timed on the card).  Measuring runs on the card unless
 ``device="cpu"`` is passed.  The mesh descriptor is always ``"single"``:
 a mesh and ``backend="shardmap"`` raise until the mesh slice (ROADMAP.md
-queue 1 item 6).
+queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from .cache import TuningCache, default_cache, make_key
 Spec = Union[str, P.Phrase, Program]
 
 _NEEDS_MESH = ("mesh and sharded serving are not ported yet (ROADMAP.md "
-               "queue 1 item 6, mesh)")
+               "queue 1 item 7, mesh)")
 
 
 @dataclass

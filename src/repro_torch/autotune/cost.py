@@ -315,5 +315,5 @@ def xla_cost(fn, args, hw: HwModel = DEFAULT_HW) -> Optional[float]:
     no XLA, so this raises until the HLO analysis has a counterpart."""
     raise NotImplementedError(
         "xla_cost reads XLA's HLO; the port has no counterpart of "
-        "repro.analysis.hlo_counter yet (ROADMAP.md queue 1 item 7, "
+        "repro.analysis.hlo_counter yet (ROADMAP.md queue 1 item 8, "
         "analysis/hlo*.py)")

@@ -26,7 +26,7 @@ Where the port differs from the reference:
   (``dpia-*``), never an op's kernel or its device.  The ``dpia-cuda``
   row takes only params measured on the card (``kernels.ops``).
 * ``mesh`` takes only ``None`` (mesh and sharded serving are not ported
-  yet: ROADMAP.md queue 1 item 6, mesh);
+  yet: ROADMAP.md queue 1 item 7, mesh);
   :meth:`CompileOptions.mesh_descriptor` is ``"single"``.
 * the reference's ``interpret`` (Pallas interpret mode) and ``jit``
   (``jax.jit`` around compiled programs) have no counterpart here and are
@@ -81,7 +81,7 @@ class CompileOptions:
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh=: mesh and sharded serving are not ported yet "
-                "(ROADMAP.md queue 1 item 6, mesh)")
+                "(ROADMAP.md queue 1 item 7, mesh)")
         if self.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{self.kv_layout!r}")

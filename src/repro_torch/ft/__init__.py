@@ -1,2 +1,2 @@
-"""Fault tolerance: checksummed artefact stores (``artefacts``) and the
-step watchdog with the NaN guard (``resilience``)."""
+"""Fault tolerance: checksummed artefact stores (``artefacts``), the step
+watchdog, the NaN guard and the train loop (``resilience``)."""

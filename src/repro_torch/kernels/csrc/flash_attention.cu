@@ -45,8 +45,35 @@
 // row at a time, warp shuffles give the row max and sum, and each lane
 // keeps D/32 output columns of each of its warp's 16 rows in registers.
 //
-// C entry point (bound with ctypes): returns cudaGetLastError() after the
-// launch; launches on the given stream; allocates nothing.
+// Both forward kernels write each row's fp32 log-sum-exp of the scaled
+// scores when given an `lse` buffer (training; serving passes null).
+//
+// Backward (`repro_flash_attention_bwd`, training; the TPU kernel has none:
+// the reference trains through XLA's autodiff of its einsum path).  FA2's
+// algorithm at q_offset 0, causal or not, GQA, in three launches with no
+// atomics, so a gradient is the same bits every run:
+//   flash_bwd_delta  D = rowsum(dO * O) in fp32, a row a warp;
+//   flash_bwd_dkv    a block per (kv head, 32-key tile) accumulates dK and
+//                    dV in registers over its group's query heads and the
+//                    32-row q tiles from the causal frontier on;
+//   flash_bwd_dq     a block per (query head, 32-row q tile) accumulates
+//                    dQ over its kv tiles up to the frontier.
+// Each rebuilds P = exp(scale * q.k - lse) for its (q tile, kv tile) pairs
+// from the saved lse, so S x S never exists in memory; dS = P * (dO.v - D).
+// SIMT with fp32 arithmetic for both dtypes (bf16 inputs are widened as
+// they are staged): tiles in shared memory as fp32 (K and V rows padded
+// by one float, P and dS by one column, so lane j reading row j is free
+// of bank conflicts); lane j scores key j for the rows of its warp; a
+// thread keeps 4-column-strided accumulators of one key (dK, dV) or one
+// query row (dQ).  Operations bound it at the main path's shape (5
+// matmuls' worth over the causal pairs, ~4x the bytes' time at the bf16
+// tensor-core rate); this first version recomputes S and dP in both
+// kernels and stays off the tensor cores: the mma / wgmma redesign is
+// ROADMAP queue 2's.
+//
+// C entry points (bound with ctypes): return cudaGetLastError() after the
+// launches; launch on the given stream; allocate nothing (the wrapper
+// passes lse, and the backward's D as scratch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,8 +125,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int group, int sq,
-          int sk, float scale, int causal, int q_offset) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int group, int sq, int sk, float scale,
+          int causal, int q_offset) {
   constexpr int kCols = (D + 31) / 32;         // output columns per lane
   constexpr int kKStride = D + 1;
   extern __shared__ float smem[];
@@ -185,6 +213,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + warp * kRowsPerWarp + r;
     if (qpos >= sq) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * sq + qpos] = m[r] + logf(l_safe);
     T* orow = o + ((size_t)bh * sq + qpos) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -196,8 +226,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int bkv, int sq, int sk, float scale, int causal,
-                   int q_offset, cudaStream_t stream) {
+                   float* lse, int bh, int bkv, int sq, int sk, float scale,
+                   int causal, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -206,20 +236,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   flash_fwd<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), bh / bkv, sq, sk, scale,
-      causal, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, bh / bkv, sq, sk,
+      scale, causal, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int bh, int bkv, int sq, int sk, int d, float scale,
-                     int causal, int q_offset, cudaStream_t stream) {
+                     float* lse, int bh, int bkv, int sq, int sk, int d,
+                     float scale, int causal, int q_offset,
+                     cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -230,6 +261,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 constexpr int kMmaBQ = 64;                     // query rows per block
 constexpr int kMmaBK = 64;                     // keys per K / V tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -242,8 +274,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
-              float scale_log2, int causal, int q_offset) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              int group, int sq, int sk, float scale_log2, int causal,
+              int q_offset) {
   constexpr int kS = D + 8;                    // padded row, elements
   constexpr int kChunks = D / 8;               // 16-byte chunks per row
   constexpr int kKSteps = D / 16;              // k16 steps of Q.K^T
@@ -422,6 +455,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + 8 * r;
     if (row >= sq) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    // m and l are in the log2 domain: lse = ln(2^m * l)
+    if (lse != nullptr && t4 == 0)
+      lse[(size_t)bh * sq + row] = (m[r] + log2f(l_safe)) * kLn2;
     __nv_bfloat16* orow = o + ((size_t)bh * sq + row) * D;
 #pragma unroll
     for (int j = 0; j < kOBlocks; ++j) {
@@ -434,8 +470,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int bh, int bkv, int sq, int sk, float scale,
-                       int causal, int q_offset, cudaStream_t stream) {
+                       float* lse, int bh, int bkv, int sq, int sk,
+                       float scale, int causal, int q_offset,
+                       cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -445,18 +482,281 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   flash_fwd_mma<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh / bkv, sq, sk, scale * kLog2e, causal, q_offset);
+      lse, bh / bkv, sq, sk, scale * kLog2e, causal, q_offset);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
-                         int bh, int bkv, int sq, int sk, int d, float scale,
-                         int causal, int q_offset, cudaStream_t stream) {
+                         float* lse, int bh, int bkv, int sq, int sk, int d,
+                         float scale, int causal, int q_offset,
+                         cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_mma<16>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 32: return launch_mma<32>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 64: return launch_mma<64>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 128: return launch_mma<128>(q, k, v, o, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 16: return launch_mma<16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 32: return launch_mma<32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 64: return launch_mma<64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 128: return launch_mma<128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---- backward (see the header note) ---------------------------------------
+
+constexpr int kBR = 32;                        // query rows per tile
+constexpr int kBC = 32;                        // keys per tile: one a lane
+constexpr int kBwdThreads = 128;               // four warps
+constexpr int kPS = kBC + 1;                   // padded P / dS row
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // Q, dO [kBR][D]; K, V [kBC][D + 1]; P, dS [kBR][kBC + 1]; lse, D [kBR]
+  return sizeof(float) *
+         (size_t)(2 * kBR * D + 2 * kBC * (D + 1) + 2 * kBR * kPS + 2 * kBR);
+}
+
+// rows [r0, r0 + n) of a (rows, D) matrix of T into an fp32 tile of row
+// stride S; rows past the edge are zero
+template <typename T, int D, int S>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, int r0,
+                                          int rows, int n) {
+  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
+    const int r = e / D, c = e % D;
+    dst[r * S + c] = r0 + r < rows ? to_f32(src[(size_t)(r0 + r) * D + c])
+                                   : 0.f;
+  }
+}
+
+// D = rowsum(dO * O) in fp32: a row a warp
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, long long rows, int d) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * (kBwdThreads / 32) +
+                        threadIdx.x / 32;
+  if (row >= rows) return;                     // uniform across the warp
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32)
+    s = fmaf(to_f32(o[row * d + c]), to_f32(dout[row * d + c]), s);
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// The P and dS tiles of query rows [q0, q0 + kBR) against keys [k0, k0 +
+// kBC), from the staged Q, dO, K, V, lse and D: lane j takes key j, warp w
+// rows w, w + 4, ...; P = exp(scale * q.k - lse) (0 where masked), dS =
+// P * (dO.v - D).
+template <int D>
+__device__ __forceinline__ void bwd_scores(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* dl_s, float* ps, float* dss, int q0,
+    int k0, int sq, int sk, int causal, float scale) {
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
+  const float* krow = ks + j * (D + 1);
+  const float* vrow = vs + j * (D + 1);
+  const int key = k0 + j;
+#pragma unroll 2
+  for (int i = warp; i < kBR; i += kBwdThreads / 32) {
+    const float* qrow = qs + i * D;
+    const float* dorow = dos + i * D;
+    float s = 0.f, dp = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D; ++c) {
+      s = fmaf(qrow[c], krow[c], s);
+      dp = fmaf(dorow[c], vrow[c], dp);
+    }
+    const int qpos = q0 + i;
+    const bool valid = qpos < sq && key < sk && (!causal || key <= qpos);
+    const float p = valid ? expf(s * scale - lse_s[i]) : 0.f;
+    ps[i * kPS + j] = p;
+    dss[i * kPS + j] = p * (dp - dl_s[i]);
+  }
+}
+
+// dK and dV of one (kv head, kv tile): the group's query heads in order,
+// each over its q tiles from the causal frontier on.  Thread t holds key
+// t / 4, columns t % 4 + 4 m, of both accumulators.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dk, T* __restrict__ dv, int group, int sq,
+              int sk, float scale, int causal) {
+  constexpr int kCols = D / 4;
+  extern __shared__ float smem[];
+  float* qs = smem;                            // [kBR][D]
+  float* dos = qs + kBR * D;                   // [kBR][D]
+  float* ks = dos + kBR * D;                   // [kBC][D + 1]
+  float* vs = ks + kBC * (D + 1);              // [kBC][D + 1]
+  float* ps = vs + kBC * (D + 1);              // [kBR][kPS]
+  float* dss = ps + kBR * kPS;                 // [kBR][kPS]
+  float* lse_s = dss + kBR * kPS;              // [kBR]
+  float* dl_s = lse_s + kBR;                   // [kBR]
+
+  const int kvh = blockIdx.y;
+  const int k0 = blockIdx.x * kBC;
+  const int jt = threadIdx.x / 4, c0 = threadIdx.x % 4;
+  stage_f32<T, D, D + 1>(ks, k + (size_t)kvh * sk * D, k0, sk, kBC);
+  stage_f32<T, D, D + 1>(vs, v + (size_t)kvh * sk * D, k0, sk, kBC);
+  float dka[kCols], dva[kCols];
+#pragma unroll
+  for (int m = 0; m < kCols; ++m) dka[m] = dva[m] = 0.f;
+
+  const int n_qt = (sq + kBR - 1) / kBR;
+  // a query row below k0 sees no key of this tile
+  const int qt0 = causal ? k0 / kBR : 0;
+  for (int h = 0; h < group; ++h) {
+    const int bh = kvh * group + h;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kBR;
+      __syncthreads();   // the previous tile's Q, dO, P and dS are consumed
+      stage_f32<T, D, D>(qs, q + (size_t)bh * sq * D, q0, sq, kBR);
+      stage_f32<T, D, D>(dos, dout + (size_t)bh * sq * D, q0, sq, kBR);
+      for (int i = threadIdx.x; i < kBR; i += blockDim.x) {
+        const bool in = q0 + i < sq;
+        lse_s[i] = in ? lse[(size_t)bh * sq + q0 + i] : 0.f;
+        dl_s[i] = in ? delta[(size_t)bh * sq + q0 + i] : 0.f;
+      }
+      __syncthreads();
+      bwd_scores<D>(qs, dos, ks, vs, lse_s, dl_s, ps, dss, q0, k0, sq, sk,
+                    causal, scale);
+      __syncthreads();
+      for (int i = 0; i < kBR; ++i) {
+        const float p = ps[i * kPS + jt];
+        const float ds = dss[i * kPS + jt];
+        const float* dorow = dos + i * D;
+        const float* qrow = qs + i * D;
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) {
+          dva[m] = fmaf(p, dorow[c0 + 4 * m], dva[m]);
+          dka[m] = fmaf(ds, qrow[c0 + 4 * m], dka[m]);
+        }
+      }
+    }
+  }
+  if (k0 + jt < sk) {
+    T* dkrow = dk + ((size_t)kvh * sk + k0 + jt) * D;
+    T* dvrow = dv + ((size_t)kvh * sk + k0 + jt) * D;
+#pragma unroll
+    for (int m = 0; m < kCols; ++m) {
+      dkrow[c0 + 4 * m] = from_f32<T>(dka[m] * scale);
+      dvrow[c0 + 4 * m] = from_f32<T>(dva[m]);
+    }
+  }
+}
+
+// dQ of one (query head, q tile): its kv tiles up to the causal frontier.
+// Thread t holds row t / 4, columns t % 4 + 4 m.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int group, int sq, int sk, float scale,
+             int causal) {
+  constexpr int kCols = D / 4;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kBR * D;
+  float* ks = dos + kBR * D;
+  float* vs = ks + kBC * (D + 1);
+  float* ps = vs + kBC * (D + 1);
+  float* dss = ps + kBR * kPS;
+  float* lse_s = dss + kBR * kPS;
+  float* dl_s = lse_s + kBR;
+
+  const int bh = blockIdx.y;
+  const int kvh = bh / group;
+  const int q0 = blockIdx.x * kBR;
+  const int it = threadIdx.x / 4, c0 = threadIdx.x % 4;
+  stage_f32<T, D, D>(qs, q + (size_t)bh * sq * D, q0, sq, kBR);
+  stage_f32<T, D, D>(dos, dout + (size_t)bh * sq * D, q0, sq, kBR);
+  for (int i = threadIdx.x; i < kBR; i += blockDim.x) {
+    const bool in = q0 + i < sq;
+    lse_s[i] = in ? lse[(size_t)bh * sq + q0 + i] : 0.f;
+    dl_s[i] = in ? delta[(size_t)bh * sq + q0 + i] : 0.f;
+  }
+  float dqa[kCols];
+#pragma unroll
+  for (int m = 0; m < kCols; ++m) dqa[m] = 0.f;
+
+  const int n_kt = (sk + kBC - 1) / kBC;
+  const int n_live =
+      causal ? min((min(q0 + kBR, sq) - 1) / kBC + 1, n_kt) : n_kt;
+  for (int kt = 0; kt < n_live; ++kt) {
+    const int k0 = kt * kBC;
+    __syncthreads();     // the previous tile's K, V and dS are consumed
+    stage_f32<T, D, D + 1>(ks, k + (size_t)kvh * sk * D, k0, sk, kBC);
+    stage_f32<T, D, D + 1>(vs, v + (size_t)kvh * sk * D, k0, sk, kBC);
+    __syncthreads();
+    bwd_scores<D>(qs, dos, ks, vs, lse_s, dl_s, ps, dss, q0, k0, sq, sk,
+                  causal, scale);
+    __syncthreads();
+    for (int j = 0; j < kBC; ++j) {
+      const float ds = dss[it * kPS + j];
+      const float* krow = ks + j * (D + 1);
+#pragma unroll
+      for (int m = 0; m < kCols; ++m)
+        dqa[m] = fmaf(ds, krow[c0 + 4 * m], dqa[m]);
+    }
+  }
+  if (q0 + it < sq) {
+    T* dqrow = dq + ((size_t)bh * sq + q0 + it) * D;
+#pragma unroll
+    for (int m = 0; m < kCols; ++m) dqrow[c0 + 4 * m] = from_f32<T>(dqa[m] * scale);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int bh,
+                       int bkv, int sq, int sk, float scale, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  const int group = bh / bkv;
+  const long long rows = (long long)bh * sq;
+  const int delta_blocks = (int)((rows + kBwdThreads / 32 - 1) /
+                                 (kBwdThreads / 32));
+  flash_bwd_delta<T><<<delta_blocks, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((sk + kBC - 1) / kBC, bkv);
+  flash_bwd_dkv<T, D><<<grid_kv, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), group, sq, sk, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((sq + kBR - 1) / kBR, bh);
+  flash_bwd_dq<T, D><<<grid_q, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), group, sq, sk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* delta, int bh,
+                         int bkv, int sq, int sk, int d, float scale,
+                         int causal, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_bwd<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 32: return launch_bwd<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 64: return launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 128: return launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -464,20 +764,23 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the mma kernel).
-// q, k, v, o contiguous on the device.
+// q, k, v, o contiguous on the device.  lse: null, or fp32 (bh, sq) that
+// receives each row's log-sum-exp of the scaled scores (what the backward
+// needs); the serving path passes null.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype,
-                                     int bh, int bkv, int sq, int sk, int d,
-                                     float scale, int causal, int q_offset,
-                                     void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int dtype, int bh, int bkv, int sq,
+                                     int sk, int d, float scale, int causal,
+                                     int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_d<float>(q, k, v, o, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
+      err = launch_d<float>(q, k, v, o, l, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
       break;
     case 1:
-      err = launch_mma_d(q, k, v, o, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
+      err = launch_mma_d(q, k, v, o, l, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -494,4 +797,36 @@ extern "C" int repro_flash_attention_mma_smem(int d) {
     case 128: return (int)mma_smem_bytes<128>();
     default: return -1;
   }
+}
+
+// The backward of the forward above at q_offset 0: dq (bh, sq, d), dk and
+// dv (bkv, sk, d) in the inputs' dtype (0 = float32, 1 = bfloat16) from q,
+// k, v, the forward's output o and fp32 lse (bh, sq), and the output
+// gradient dout; `delta` is fp32 scratch of bh * sq.  Three launches on
+// the given stream (D, then dK / dV, then dQ); no atomics.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
+                                         const void* v, const void* o,
+                                         const void* lse, const void* dout,
+                                         void* dq, void* dk, void* dv,
+                                         void* delta, int dtype, int bh,
+                                         int bkv, int sq, int sk, int d,
+                                         float scale, int causal,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || bkv <= 0 || bh % bkv || sq <= 0 || sk <= 0)
+    return cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = launch_bwd_d<float>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
+      break;
+    case 1:
+      err = launch_bwd_d<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

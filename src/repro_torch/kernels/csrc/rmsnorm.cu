@@ -42,9 +42,13 @@
 // vector of one element).  Lanes past the row's end and rows past `rows`
 // load zeros and store nothing, but still take part in the shuffles.
 //
-// C entry point (bound with ctypes): returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape of launch it has no kernel
-// for; launches on the given stream; allocates nothing.
+// The backward (`repro_rmsnorm_bwd`, training; the TPU kernel has none:
+// the reference trains through XLA's autodiff) is at the end of this file,
+// with its own note.
+//
+// C entry points (bound with ctypes): return cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a shape of launch they have no
+// kernel for; launch on the given stream; allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -283,6 +287,114 @@ cudaError_t launch(const void* x, const void* w, void* y, int rows, int d,
   }
 }
 
+// ---- backward -------------------------------------------------------------
+//
+// The gradient of the forward above, for the output gradient dy (rows, d):
+//   r = rsqrt(mean(x^2) + eps), dn = dy * w,
+//   dx = r * dn - x * r^3 * mean(dn * x)      (rounded once to T),
+//   dw = sum over rows of dy * n, n = (x * r) rounded to T (the forward's
+//        rounding order: n is what multiplied w).
+// Bytes bound it, as the forward: a read of x and dy, a write of dx, ten
+// flops an element.  rstd is recomputed (the forward saves nothing).
+//
+// rmsnorm_bwd_rows: a row a warp (kBwdWarps warps a block, each walking its
+// block's rows in order), lanes over the columns; the row's two sums (x^2,
+// dn * x) by the forward's fixed butterfly, then a second pass over the
+// row (from L1) writes dx and adds dy * n into the warp's fp32 column
+// partials in shared memory [kBwdWarps][d].  The block adds its warps'
+// partials in warp order into its row of `partial` (blocks, d).
+// rmsnorm_bwd_cols: dw by a fixed-order column sum over those rows: warp k
+// of a block adds rows k, k + 8, ... for 32 columns (coalesced), then
+// warp 0 adds the eight sums in order.  No atomics: a step is the same
+// bits every time.
+
+constexpr int kBwdWarps = 4;
+constexpr int kColWarps = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ dy, T* __restrict__ dx,
+                 float* __restrict__ partial, int rows, int d,
+                 int rows_per_block, float eps) {
+  extern __shared__ float smem[];          // [kBwdWarps][d] column partials
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* acc = smem + (size_t)warp * d;
+  for (int c = lane; c < d; c += 32) acc[c] = 0.f;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min((long long)rows, r0 + rows_per_block);
+  for (long long row = r0 + warp; row < r1; row += kBwdWarps) {
+    const T* xr = x + row * d;
+    const T* dyr = dy + row * d;
+    float ss = 0.f, sd = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(xr[c]);
+      const float dn = to_f32(dyr[c]) * to_f32(w[c]);
+      ss = fmaf(xv, xv, ss);
+      sd = fmaf(dn, xv, sd);
+    }
+    ss = group_sum<32>(ss);
+    sd = group_sum<32>(sd);
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float coef = r * r * r * (sd / (float)d);
+    T* dxr = dx + row * d;
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(xr[c]);
+      const float dyv = to_f32(dyr[c]);
+      dxr[c] = from_f32<T>(r * (dyv * to_f32(w[c])) - xv * coef);
+      acc[c] = fmaf(dyv, to_f32(from_f32<T>(xv * r)), acc[c]);
+    }
+  }
+  __syncthreads();
+  float* out = partial + (size_t)blockIdx.x * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < kBwdWarps; ++k) s += smem[(size_t)k * d + c];
+    out[c] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kColWarps * 32)
+rmsnorm_bwd_cols(const float* __restrict__ partial, T* __restrict__ dw,
+                 int blocks, int d) {
+  __shared__ float part[kColWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < d)
+    for (int b = warp; b < blocks; b += kColWarps)
+      s += partial[(size_t)b * d + c];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float t = 0.f;
+    for (int k = 0; k < kColWarps; ++k) t += part[k][lane];
+    dw[c] = from_f32<T>(t);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
+                       void* dx, void* dw, void* partial, int rows, int d,
+                       float eps, int blocks, cudaStream_t s) {
+  const int rpb = (rows + blocks - 1) / blocks;
+  const int smem = (int)(sizeof(float) * kBwdWarps * d);
+  cudaError_t err = cudaFuncSetAttribute(
+      rmsnorm_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_rows<T><<<blocks, kBwdWarps * 32, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<float*>(partial), rows, d, rpb, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int col_blocks = (d + 31) / 32;
+  rmsnorm_bwd_cols<T><<<col_blocks, kColWarps * 32, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<T*>(dw), blocks, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  vector: 16-byte accesses (d *
@@ -299,6 +411,24 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int rows,
     case 1: err = launch<float, 4>(x, w, y, rows, d, eps, tpr, vpt, threads, grid, s); break;
     case 2: err = launch<__nv_bfloat16, 1>(x, w, y, rows, d, eps, tpr, vpt, threads, grid, s); break;
     case 3: err = launch<__nv_bfloat16, 8>(x, w, y, rows, d, eps, tpr, vpt, threads, grid, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The backward: dx (rows, d) and dw (d,) in the dtype of x, for dy (rows,
+// d); `partial` is fp32 scratch of blocks x d (blocks as planned by
+// kernels/rmsnorm.py's bwd_blocks()).  Two launches on the given stream.
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
+                                 const void* dy, void* dx, void* dw,
+                                 void* partial, int rows, int d, float eps,
+                                 int dtype, int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (dtype) {
+    case 0: err = launch_bwd<float>(x, w, dy, dx, dw, partial, rows, d, eps, blocks, s); break;
+    case 1: err = launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, partial, rows, d, eps, blocks, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -13,16 +13,27 @@ TPU kernel, ragged Sq / Sk are masked in the kernel rather than asserted to
 divide the tiles.  The source's header note says what bounds it on the card
 and how each variant is laid out.
 
-``flash_attention`` computes the plain version (:func:`ref.flash_attention`)
-for CPU tensors and launches the kernel for CUDA tensors; a CUDA call the
-kernel does not take raises.  ``launches`` counts kernel launches,
-``launches_by_variant`` per variant.
+Both variants can also write each row's fp32 log-sum-exp (``lse``), which
+the backward ``repro_flash_attention_bwd`` (same source; SIMT, fp32
+arithmetic, causal or not, GQA, ``q_offset`` 0) reads to rebuild the
+probabilities tile by tile without materialising S x S.
+:class:`_FlashAttentionFn` ties the two together for autograd.
+
+``flash_attention`` computes the plain version (:func:`ref.flash_attention`,
+backward :func:`ref.flash_attention_bwd`) for CPU tensors and launches the
+kernels for CUDA tensors; a CUDA call a kernel does not take raises.  It
+goes through :class:`_FlashAttentionFn` only when autograd will need a
+gradient; otherwise it launches the forward alone, with no ``lse``, as
+serving does.  ``launches`` counts forward launches, ``launches_by_variant``
+per variant, ``backward.launches`` calls of the backward (three kernels
+each).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import types
 
 import torch
 
@@ -30,11 +41,14 @@ from . import _build, ref
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 launches = 0
 launches_by_variant = {"mma": 0, "simt": 0}
+backward = types.SimpleNamespace(launches=0)
 
 
 def variant(dtype) -> str:
@@ -52,16 +66,60 @@ def _entry():
                            _ARGTYPES)
 
 
+@functools.cache
+def _bwd_entry():
+    return _build.function("flash_attention", "repro_flash_attention_bwd",
+                           _BWD_ARGTYPES)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     q_offset: int = 0):
+    """Attention (see :func:`ref.flash_attention`); differentiable at
+    ``q_offset`` 0."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset:
+            raise ValueError(f"flash_attention: the backward takes q_offset "
+                             f"0, not {q_offset}")
+        return _FlashAttentionFn.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    q_offset=q_offset)
     return _launch(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
 
 
-def _launch(q, k, v, *, causal, scale, q_offset):
-    global launches
+class _FlashAttentionFn(torch.autograd.Function):
+    """K3 and its backward kernel for autograd (the plain versions on the
+    CPU).  Saves q, k, v, the output and the row log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cpu":
+            o, lse = ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                         return_lse=True)
+        else:
+            o, lse = _launch(q, k, v, causal=causal, scale=scale, q_offset=0,
+                             with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=ctx.causal,
+                                            scale=ctx.scale)
+        else:
+            grads = _launch_bwd(q, k, v, o, lse, do.contiguous(),
+                                causal=ctx.causal, scale=ctx.scale)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def _check(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
@@ -84,18 +142,67 @@ def _launch(q, k, v, *, causal, scale, q_offset):
         raise ValueError("flash_attention: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+
+
+def _launch(q, k, v, *, causal, scale, q_offset, with_lse=False):
+    """K3's output, and with ``with_lse`` its fp32 row log-sum-exp (bh,
+    sq) too."""
+    global launches
+    _check(q, k, v)
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0 or sk == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if with_lse else out
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[q.dtype], bh, bkv, sq, sk, d, scale,
-                int(causal), int(q_offset), stream)
+                      lse.data_ptr() if with_lse else None,
+                      _DTYPE_CODES[q.dtype], bh, bkv, sq, sk, d, scale,
+                      int(causal), int(q_offset), stream)
     _build.check(rc, f"flash_attention ({variant(q.dtype)})")
     launches += 1
     launches_by_variant[variant(q.dtype)] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
+    """``(dq, dk, dv)`` from ``repro_flash_attention_bwd`` for CUDA
+    tensors: the forward's inputs, its output ``o`` and row log-sum-exp
+    ``lse``, and the output gradient ``do`` (``o``'s shape and dtype)."""
+    _check(q, k, v)
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} must be a "
+                             f"contiguous tensor like q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    if lse.shape != (bh, sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} must be contiguous float32 "
+                         f"({bh}, {sq}) on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          delta.data_ptr(), _DTYPE_CODES[q.dtype], bh, bkv,
+                          sq, sk, d, scale, int(causal), stream)
+    _build.check(rc, "flash_attention_bwd")
+    backward.launches += 1
+    return dq, dk, dv

@@ -315,13 +315,17 @@ def _backend(impl: str) -> str:
 # ---------------------------------------------------------------------------
 
 _KERNEL_MODULES = {"rmsnorm": _rms, "matmul": _mm, "flash_attention": _fa,
-                   "dpia_cuda": stage3_cuda}
+                   "dpia_cuda": stage3_cuda,
+                   "rmsnorm_bwd": _rms.backward,
+                   "flash_attention_bwd": _fa.backward}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset: K1 ``rmsnorm``, K2
-    ``matmul``, K3 ``flash_attention`` and K4 ``dpia_cuda`` (every kernel
-    of every generated program)."""
+    ``matmul``, K3 ``flash_attention``, K4 ``dpia_cuda`` (every kernel
+    of every generated program), and the backward kernels of K1 and K3
+    (``rmsnorm_bwd``, ``flash_attention_bwd``: one count a call of the
+    C entry point, which launches two and three kernels)."""
     return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 

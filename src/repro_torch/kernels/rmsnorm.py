@@ -17,15 +17,27 @@ product rounded once more to ``x.dtype`` (the reference's rounding order).
 The source's header note says what bounds it on the card and how each
 variant is laid out.
 
-``rmsnorm`` computes the plain version (:func:`ref.rmsnorm`) for CPU tensors
-and launches the kernel for CUDA tensors; a CUDA call the kernel does not
-take, or a failed build or launch, raises.  ``launches`` counts kernel
-launches, ``launches_by_variant`` per variant.  The library is built and
-loaded on the first launch, so this module imports without ``nvcc``.
+The backward (``repro_rmsnorm_bwd`` in the same source) recomputes the
+row's fp32 ``rstd`` and gives ``dx`` and ``dw``; ``dw`` is a fixed-order
+column sum (per-block fp32 partials, then one reduction kernel), so a
+gradient is the same bits every time.  :class:`_RMSNormFn` ties the two
+together for autograd.
+
+``rmsnorm`` computes the plain version (:func:`ref.rmsnorm`, backward
+:func:`ref.rmsnorm_bwd`) for CPU tensors and launches the kernels for CUDA
+tensors; a CUDA call a kernel does not take, or a failed build or launch,
+raises.  It goes through :class:`_RMSNormFn` only when autograd will need
+a gradient (grad mode on and an input that requires one); otherwise it
+calls the forward alone, as serving and CUDA graph captures do.
+``launches`` counts forward launches, ``launches_by_variant`` per variant,
+``backward.launches`` calls of the backward (two kernels each).  The
+library is built and loaded on the first launch, so this module imports
+without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
+import types
 from typing import NamedTuple
 
 import torch
@@ -44,8 +56,14 @@ BLOCK_VPT = 4             # accesses a thread of the block variant holds
 FEW_ROWS_WARPS = 4        # warps a packed or warp block of too few rows
 BLOCK_MAX = 1024
 
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+BWD_WARPS = 4             # rows a backward block walks at once
+BWD_MAX_D = 14528         # its warps' fp32 column partials in 227 KB
+
 launches = 0
 launches_by_variant = {"packed": 0, "warp": 0, "block": 0}
+backward = types.SimpleNamespace(launches=0)
 
 
 class Plan(NamedTuple):
@@ -124,29 +142,71 @@ def _entry():
     return _fn
 
 
+def bwd_blocks(rows: int) -> int:
+    """Blocks of a backward launch over ``rows`` rows: a row a warp, up to
+    eight blocks an SM (each block's column partials are one row of the
+    fp32 scratch the reduction reads)."""
+    return max(1, min(_cdiv(rows, BWD_WARPS), 8 * SMS))
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` (any leading dims) scaled by
-    ``w`` of shape ``(d,)``."""
+    ``w`` of shape ``(d,)``; differentiable."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNormFn.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x, w, eps):
     if x.device.type == "cpu":
         return ref.rmsnorm(x, w, eps=eps)
     return _launch(x, w, eps)
 
 
-def _launch(x, w, eps):
-    global launches
+def _backward(x, w, dy, eps):
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd(x, w, dy, eps=eps)
+    return _launch_bwd(x, w, dy, eps)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """K1 and its backward kernel for autograd (the plain versions on the
+    CPU).  Saves ``x`` and ``w``; the backward recomputes ``rstd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _backward(x, w, dy.contiguous(), ctx.eps)
+        need_x, need_w, _ = ctx.needs_input_grad
+        return dx if need_x else None, dw if need_w else None, None
+
+
+def _check(x, w, what="rmsnorm"):
     if not x.is_cuda:
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+        raise ValueError(f"{what}: no kernel for device {x.device}")
     d = x.shape[-1]
-    dev = x.get_device()
-    if w.shape != (d,) or w.get_device() != dev:
-        raise ValueError(f"rmsnorm: weight {tuple(w.shape)} on {w.device} "
+    if w.shape != (d,) or w.get_device() != x.get_device():
+        raise ValueError(f"{what}: weight {tuple(w.shape)} on {w.device} "
                          f"does not match x {tuple(x.shape)} on {x.device}")
-    dtype = x.dtype
-    if dtype not in _DTYPES or w.dtype != dtype:
-        raise ValueError(f"rmsnorm: dtypes {dtype}/{w.dtype}; the kernel "
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"{what}: dtypes {x.dtype}/{w.dtype}; the kernel "
                          f"takes one of {_DTYPES} for both")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm: x and w must be contiguous")
+        raise ValueError(f"{what}: x and w must be contiguous")
+
+
+def _launch(x, w, eps):
+    global launches
+    _check(x, w)
+    d = x.shape[-1]
+    dev = x.get_device()
+    dtype = x.dtype
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -167,3 +227,39 @@ def _launch(x, w, eps):
     launches += 1
     launches_by_variant[p.variant] += 1
     return out
+
+
+_bwd_fn = None             # the backward's C entry point, on first launch
+
+
+def _launch_bwd(x, w, dy, eps):
+    """``(dx, dw)`` from ``repro_rmsnorm_bwd`` for CUDA tensors ``x``,
+    ``w`` and the output gradient ``dy`` (x's shape and dtype)."""
+    global _bwd_fn
+    _check(x, w, "rmsnorm_bwd")
+    d = x.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
+            or dy.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device} must be a contiguous tensor like x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if d > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} > {BWD_MAX_D} elements")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    blocks = bwd_blocks(rows)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    if _bwd_fn is None:
+        _bwd_fn = _build.function("rmsnorm", "repro_rmsnorm_bwd",
+                                  _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        rc = _bwd_fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                     dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), rows,
+                     d, eps, int(x.dtype == torch.bfloat16), blocks,
+                     torch._C._cuda_getCurrentRawStream(x.get_device()))
+    _build.check(rc, "rmsnorm_bwd")
+    backward.launches += 1
+    return dx, dw

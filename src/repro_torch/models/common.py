@@ -1,4 +1,4 @@
-"""Model configuration + shared components (norms, RoPE, init).
+"""Model configuration + shared components (norms, RoPE, init, the loss).
 
 The port's own copy of ``repro.models.common``: the same ``ModelConfig``
 fields, the same RoPE and init distributions, with ``torch.Generator``s in
@@ -68,6 +68,20 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, dtype,
 
 def rmsnorm(x, w, eps: float = 1e-6):
     return ops.rmsnorm(x, w, eps=eps)
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
+    """Next-token CE in float32 with z-loss regulariser; labels -100 masked
+    (``repro.models.common.cross_entropy``)."""
+    logits = logits.float()
+    mask = labels >= 0
+    labels_safe = torch.where(mask, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_safe[..., None].long())[..., 0] - lse
+    n = mask.sum().clamp(min=1)
+    loss = -(ll * mask).sum() / n
+    zl = z_loss * ((lse * mask) ** 2).sum() / n
+    return loss + zl
 
 
 def rope_freqs(hd: int, theta: float, positions):

@@ -7,7 +7,13 @@ this module needs no JAX: ``embed``, ``ln_f``, ``head`` and
 ``blocks``, whose leaves carry a leading layer axis of length
 ``cfg.n_layers``.  It returns the port's params dict, with one entry of
 ``blocks`` per layer, in ``cfg.dtype`` on ``device``.  Arrays in
-bfloat16 (``ml_dtypes``) convert exactly through float32."""
+bfloat16 (``ml_dtypes``) convert exactly through float32.
+
+``train_state_from_numpy(cfg, tree)`` does the same for the reference's
+``make_train_state`` tree (``params``, ``opt.m``, ``opt.v``, ``opt.step``,
+``step``): the port's train state (``repro_torch.train.step``), params
+requiring grad, moments fp32 or 8-bit ``QTensor``s (a stacked leaf's one
+scale copied to every layer)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -26,26 +32,72 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
-def _layer(node: Any, i: int, dtype, device):
+def _is_qtensor(node) -> bool:
+    """The reference's 8-bit moment leaf: a ``(q, scale)`` NamedTuple."""
+    return tuple(getattr(node, "_fields", ())) == ("q", "scale")
+
+
+def _layer(node: Any, i: int, leaf):
+    """Layer ``i`` of a stacked subtree of the reference, each leaf (an
+    array or a QTensor) through ``leaf(node, i)``."""
     if node is None:
         return None
-    if hasattr(node, "_asdict"):          # a NamedTuple of the reference
-        node = node._asdict()
+    if hasattr(node, "_asdict") and not _is_qtensor(node):
+        node = node._asdict()             # a NamedTuple of the reference
     if isinstance(node, dict):
-        return {k: _layer(v, i, dtype, device) for k, v in node.items()}
-    return _tensor(np.asarray(node)[i], dtype, device)
+        return {k: _layer(v, i, leaf) for k, v in node.items()}
+    return leaf(node, i)
+
+
+def _port_layout(cfg: ModelConfig, tree: Dict[str, Any], leaf) -> Dict:
+    """A params-shaped tree of the reference in the port's layout; a
+    top-level leaf goes through ``leaf(node, None)``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return {
+        "embed": leaf(tree["embed"], None),
+        "ln_f": leaf(tree["ln_f"], None),
+        "head": leaf(tree["head"], None),
+        "blocks": [_layer(tree["blocks"], i, leaf)
+                   for i in range(cfg.n_layers)],
+    }
+
+
+def _pick(a, i):
+    a = np.asarray(a)
+    return a if i is None else a[i]
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: DeviceLike = None) -> Dict:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     device = resolve_device(device)
     dt = cfg.torch_dtype
-    return {
-        "embed": _tensor(tree["embed"], dt, device),
-        "ln_f": _tensor(tree["ln_f"], dt, device),
-        "head": _tensor(tree["head"], dt, device),
-        "blocks": [_layer(tree["blocks"], i, dt, device)
-                   for i in range(cfg.n_layers)],
-    }
+    return _port_layout(cfg, tree,
+                        lambda a, i: _tensor(_pick(a, i), dt, device))
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                           device: DeviceLike = None) -> Dict:
+    """The reference's train state, as numpy, in the port's layout."""
+    from repro_torch.optim import adamw
+    device = resolve_device(device)
+    params = params_from_numpy(cfg, tree["params"], device)
+    for _, p in adamw.leaves(params):
+        p.requires_grad_(True)
+
+    def moment(node, i):
+        if _is_qtensor(node):
+            return adamw.QTensor(
+                torch.tensor(_pick(node.q, i), dtype=torch.int8,
+                             device=device),
+                _tensor(node.scale, torch.float32, device))
+        return _tensor(_pick(node, i), torch.float32, device)
+
+    def step(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+    opt = tree["opt"]
+    return {"params": params,
+            "opt": {"m": _port_layout(cfg, opt["m"], moment),
+                    "v": _port_layout(cfg, opt["v"], moment),
+                    "step": step(opt["step"])},
+            "step": step(tree["step"])}

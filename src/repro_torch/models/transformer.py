@@ -1,6 +1,6 @@
 """Model assembly for the dense family: pre-norm GQA transformer blocks and
-the Model API (forward / init_cache / prefill / decode_step, and the paged
-serving cache: init_paged_cache / prefill_paged / gather_paged_view).
+the Model API (forward / loss / init_cache / prefill / decode_step, and the
+paged serving cache: init_paged_cache / prefill_paged / gather_paged_view).
 
 The port of ``repro.models.transformer.Model`` for ``family="dense"``.
 Params are a plain dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
@@ -10,18 +10,26 @@ layer axis; the layer loop is a Python loop in place of ``lax.scan``.  The
 KV cache is layer-stacked as in the reference and is updated in place.
 The other families (moe, hybrid, ssm, vlm, audio) wait for their slices of
 the port (ROADMAP.md, queue 1), so the recurrent staging state of the
-paged methods is always None here."""
+paged methods is always None here.
+
+Training: with ``cfg.remat`` and grad mode on, ``forward`` runs each block
+under ``torch.utils.checkpoint`` (non-reentrant), as the reference runs its
+scanned block under ``jax.checkpoint``: a block's activations are
+recomputed in the backward, only its input is kept.  K1 and K3 are
+differentiable there (their ``autograd.Function``s, backward kernels on
+the card)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from .attention import KVCache
-from .common import ModelConfig, init_dense, rmsnorm
+from .common import ModelConfig, cross_entropy, init_dense, rmsnorm
 
 
 def _block_fwd(p, cfg: ModelConfig, x, positions):
@@ -66,10 +74,27 @@ class Model:
         x = params["embed"][tokens]
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in params["blocks"]:
-            x = _block_fwd(layer, cfg, x, positions)
+            if remat:
+                # the model draws no random numbers: no RNG state to stash
+                x = checkpoint(_block_fwd, layer, cfg, x, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _block_fwd(layer, cfg, x, positions)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         return x @ params["head"]
+
+    def loss(self, params, batch):
+        """Mean next-token cross entropy (fp32, z-loss 1e-4, labels -100
+        masked) of ``batch["tokens"]`` (b, s) against ``batch["labels"]``
+        (b, s)."""
+        if self.cfg.n_experts:
+            raise NotImplementedError(
+                "the MoE load-balancing term of the loss comes with the MoE "
+                "family (ROADMAP.md queue 1 item 8)")
+        logits = self.forward(params, batch["tokens"])
+        return cross_entropy(logits, batch["labels"])
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

@@ -23,7 +23,7 @@ re-decodes from its prompt and reproduces its tokens bit for bit.
 
 :class:`FailureDomains`, :class:`HostEvent` and :func:`retune_for_mesh`
 (host loss and straggler survival for the sharded engine) come with mesh
-and sharded serving, ROADMAP.md queue 1 item 6, and raise
+and sharded serving, ROADMAP.md queue 1 item 7, and raise
 ``NotImplementedError`` until then.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ from repro_torch.ft import artefacts
 __all__ = ["FailureDomains", "HostEvent", "SchedulerJournal", "JournalState",
            "replay", "retune_for_mesh", "JOURNAL_KINDS"]
 
-_MESH = "comes with mesh and sharded serving (ROADMAP.md queue 1 item 6)"
+_MESH = "comes with mesh and sharded serving (ROADMAP.md queue 1 item 7)"
 
 
 class HostEvent:

@@ -53,7 +53,7 @@ Sites wired into the port:
 
 The reference's mesh sites (``mesh.host_lost``, ``mesh.host_slow``,
 ``collective.timeout``) come with the port's mesh slice (ROADMAP.md queue
-1 item 6).  A plan naming them parses and never fires.
+1 item 7).  A plan naming them parses and never fires.
 
 When no plan is active (no ``inject`` scope, no ``REPRO_FAULTS``),
 ``should_fire`` is two dict lookups — the sites cost nothing in

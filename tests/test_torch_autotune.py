@@ -69,7 +69,7 @@ def test_presets_are_the_references_word_for_word():
                                  else "cpu")
     assert cost.hw_model() == cost.HW_PRESETS["cpu"]
     assert cost.hw_model("gpu") == cost.HW_PRESETS["gpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
         cost.xla_cost(lambda x: x, ())
 
 
@@ -208,7 +208,7 @@ def test_args_for_draws_the_references_inputs():
 @pytest.mark.parametrize("mesh,backend", [("data=8", "torch"),
                                           (None, "shardmap")])
 def test_mesh_tuning_raises_naming_item_6(mesh, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         autotune.tune("dot", n=1024, mesh=mesh, backend=backend,
                       measure=False)
 

@@ -278,7 +278,7 @@ def test_request_checks_and_unported_options_raise(setup, tmp_path):
                               journal=tmp_path / "j.jsonl")
     assert not engine.resilience.nan_guard
     assert isinstance(engine.journal, SchedulerJournal)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ShardedEngine(model, params)
 
 

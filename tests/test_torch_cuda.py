@@ -1,5 +1,6 @@
-"""The port on the card: each kernel against its plain PyTorch version, and
-the serving path's launches and tokens.
+"""The port on the card: each kernel against its plain PyTorch version (the
+backward kernels of K1 and K3 too), the serving path's launches and
+tokens, and training's gradients and steps.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 decision is made in a fixture, never at import).  The module imports
@@ -201,7 +202,8 @@ def test_engine_on_card_launches_kernels_and_matches_cpu(cuda_device):
     assert ops.launch_counts() == {
         "flash_attention": cfg.n_layers,
         "rmsnorm": (cfg.n_layers * 4 + 1) * (1 + steps),
-        "matmul": 0, "dpia_cuda": 0}
+        "matmul": 0, "dpia_cuda": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0}
 
 
 def test_decode_step_and_sampling_never_sync_the_host(cuda_device):
@@ -564,7 +566,8 @@ def test_graph_launch_counts_are_exact_with_replays(cuda_device):
     assert ops.launch_counts() == {
         "rmsnorm": (4 * cfg.n_layers + 1) * (prefills + steps),
         "flash_attention": cfg.n_layers * admits,
-        "matmul": 0, "dpia_cuda": 0}
+        "matmul": 0, "dpia_cuda": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("kind", ["static", "dense", "paged"])
@@ -688,7 +691,8 @@ def test_ops_under_options_launch_the_kernel_their_impl_names(cuda_device):
         torch.cuda.synchronize()
         return ops.launch_counts()
 
-    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0}
+    zero = {"rmsnorm": 0, "matmul": 0, "flash_attention": 0, "dpia_cuda": 0,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
     assert counts(lambda: ops.rmsnorm(x, w)) == {**zero, "rmsnorm": 1}
     assert counts(lambda: ops.flash_attention(q, q, q)) == {
         **zero, "flash_attention": 1}
@@ -905,6 +909,186 @@ def test_nan_guard_changes_no_token(cuda_device):
                                 kv_layout="paged", block_size=16,
                                 resilience=off))
         assert eng.run(reqs, seed=2) == on
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels of K1 and K3, and the train step
+# ---------------------------------------------------------------------------
+
+# backward kernel against its plain version, |err| <= atol * max(1,
+# max|plain|) + rtol * |plain|: fp32 another order of sums; bf16 one
+# rounding of each gradient (chip_smoke phase 13a's tolerances).  The floor
+# of 1: dx is a difference of terms of order 1 (r * dn and x * r^3 *
+# mean(dn * x)), which cancel to ~1e-6 for a row of one element.
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _close_bwd(got, want, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= atol * max(1.0, w.abs().max().item())
+            + rtol * w.abs()).all(), (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 24), (37, 128), (200, 2560),
+                                   (5000, 128), (2, 9000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x, dy = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+             for _ in range(2))
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=g,
+                               device=cuda_device)).to(dtype)
+    before = rms_mod.backward.launches
+    dx, dw = rms_mod._launch_bwd(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert rms_mod.backward.launches == before + 1
+    for got, want in zip((dx, dw), ref.rmsnorm_bwd(x, w, dy)):
+        _close_bwd(got, want, dtype)
+    again = rms_mod._launch_bwd(x, w, dy, 1e-6)      # a fixed order of sums
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("bh,bkv,s,d,causal", [
+    (2, 1, 37, 16, True), (8, 2, 70, 64, True), (4, 4, 33, 128, False),
+    (32, 8, 128, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
+                                                  causal, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q = (0.5 * torch.randn((bh, s, d), generator=g,
+                           device=cuda_device)).to(dtype)
+    k = (0.5 * torch.randn((bkv, s, d), generator=g,
+                           device=cuda_device)).to(dtype)
+    v = torch.randn((bkv, s, d), generator=g, device=cuda_device).to(dtype)
+    do = torch.randn((bh, s, d), generator=g, device=cuda_device).to(dtype)
+    o, lse = fa_mod._launch(q, k, v, causal=causal, scale=None, q_offset=0,
+                            with_lse=True)
+    want_o, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                           return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    before = fa_mod.backward.launches
+    got = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=causal, scale=None)
+    torch.cuda.synchronize()
+    assert fa_mod.backward.launches == before + 1
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for a, b in zip(got, want):
+        _close_bwd(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_backward_sets_every_gradient_on_the_card(cuda_device, dtype):
+    """loss.backward() through K1, K3 and their backward kernels (remat on):
+    every parameter's gradient is set and finite, each backward kernel
+    launched once a forward launch, and the card's gradients agree with
+    the CPU's (plain versions) in fp32."""
+    from repro_torch.optim import adamw
+    cfg, model, params = _smoke(cuda_device, dtype)
+    assert cfg.remat
+    for _, p in adamw.leaves(params):
+        p.requires_grad_(True)
+    g = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 24), generator=g)
+             for k in ("tokens", "labels")}
+    ops.reset_launch_counts()
+    loss = model.loss(params, {k: v.to(cuda_device)
+                               for k, v in batch.items()})
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_pass = 4 * cfg.n_layers + 1
+    assert counts["rmsnorm_bwd"] == per_pass
+    assert counts["rmsnorm"] == 2 * per_pass - 1       # remat's recompute
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    leaves = adamw.leaves(params)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for _, p in leaves)
+    if dtype == "float32":
+        cpu = adamw.tree_map(lambda t: t.detach().cpu().requires_grad_(),
+                             params)
+        model.loss(cpu, batch).backward()
+        for (path, p), (_, c) in zip(leaves, adamw.leaves(cpu)):
+            torch.testing.assert_close(p.grad.cpu(), c.grad, rtol=1e-4,
+                                       atol=1e-5, msg=str(path))
+
+
+def test_inference_launches_no_backward_and_no_function(cuda_device):
+    """Grad disabled (or no input requiring grad): the forward alone, K1 /
+    K3 counts those of a forward pass, no backward launch; the continuous
+    engine re-captures nothing after warm-up."""
+    cfg, model, params = _smoke(cuda_device, "bfloat16")
+    tokens = torch.randint(0, cfg.vocab, (2, 12), device=cuda_device)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = model.forward(params, tokens)
+    assert out.grad_fn is None
+    per_pass = 4 * cfg.n_layers + 1
+    assert ops.launch_counts() == {
+        "rmsnorm": per_pass, "flash_attention": cfg.n_layers, "matmul": 0,
+        "dpia_cuda": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+    engine = _engines(model, params, "dense", True)
+    engine.run(_traffic(), seed=0)
+    captures = engine.stats()["captures"]
+    ops.reset_launch_counts()
+    engine.run(_traffic(), seed=0)
+    counts = ops.launch_counts()
+    assert counts["rmsnorm_bwd"] == counts["flash_attention_bwd"] == 0
+    assert counts["rmsnorm"] > 0 and counts["flash_attention"] > 0
+    assert engine.stats()["captures"] == captures
+    assert engine.stats()["recaptures_after_warm"] == 0
+
+
+def test_a_missing_backward_kernel_raises(cuda_device):
+    """A CUDA tensor whose backward has no kernel raises; nothing falls
+    back to the plain version: rows longer than the backward's shared
+    memory holds (the forward takes them), a gradient through K3 at
+    q_offset > 0."""
+    x = torch.randn(2, rms_mod.BWD_MAX_D + 64, device=cuda_device,
+                    requires_grad=True)
+    w = torch.ones(x.shape[-1], device=cuda_device, requires_grad=True)
+    y = ops.rmsnorm(x, w)
+    with pytest.raises(ValueError, match="rmsnorm_bwd"):
+        y.sum().backward()
+    q = torch.randn(2, 3, 16, device=cuda_device, requires_grad=True)
+    kv = torch.randn(2, 9, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="q_offset 0"):
+        ops.flash_attention(q, kv, kv, q_offset=6)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Two steps of the smoke config (fp32, TF32 off) from one state on
+    the card and on the CPU: the losses, and the state after step 1."""
+    import copy
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = smoke_config("qwen3_4b")
+    model = Model(cfg)
+    cpu = make_train_state(model, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card = adamw.tree_map(lambda t: t.detach().to(cuda_device)
+                          .requires_grad_(t.requires_grad), cpu)
+    step = make_train_step(model, base_lr=1e-3, warmup=2)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4))
+    for i in range(2):
+        batch = data.global_batch_at(i)
+        cpu, m_cpu = step(cpu, batch)
+        card, m_card = step(card, copy.deepcopy(batch))
+        np_tol = dict(rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(torch.tensor(m_card["loss"]),
+                                   torch.tensor(m_cpu["loss"]), **np_tol)
+        if i == 0:
+            for (path, a), (_, b) in zip(adamw.leaves(card),
+                                         adamw.leaves(cpu)):
+                a, b = a.detach().cpu(), b.detach()
+                assert ((a - b).abs() <= 1e-5 * b.abs().max()
+                        + 1e-4 * b.abs()).all(), path
 
 
 def test_capture_failure_raises(cuda_device, monkeypatch):

@@ -453,13 +453,25 @@ def test_emulated_pack_bf16x2_rounds_like_torch(prims, lo, hi):
 
 
 @pytest.fixture(scope="module")
-def k3(gxx):
-    lib = gxx("k3_flash", _emulated((_build.CSRC / "flash_attention.cu")
-                                    .read_text()))
-    fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+def k3_lib(gxx):
+    return gxx("k3_flash", _emulated((_build.CSRC / "flash_attention.cu")
+                                     .read_text()))
+
+
+@pytest.fixture(scope="module")
+def k3(k3_lib):
+    from repro_torch.kernels import flash_attention as fa
+    fn = k3_lib.repro_flash_attention
+    fn.argtypes = fa._ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def k3_bwd(k3_lib):
+    from repro_torch.kernels import flash_attention as fa
+    fn = k3_lib.repro_flash_attention_bwd
+    fn.argtypes = fa._BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -484,12 +496,78 @@ def test_flash_attention_source_matches_plain(k3, bh, bkv, sq, sk, d, causal,
     v = torch.randn((bkv, sk, d), generator=g).to(dtype)
     o = torch.full((bh, sq, d), float("nan"), dtype=dtype)
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
-    assert k3(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
-              bh, bkv, sq, sk, d, 1.0 / d ** 0.5, int(causal), q_offset,
-              None) == 0
+    assert k3(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+              code, bh, bkv, sq, sk, d, 1.0 / d ** 0.5, int(causal),
+              q_offset, None) == 0
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     tol = K3_TOL[dtype]
     torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _k3_inputs(bh, bkv, sq, sk, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = (0.5 * torch.randn((bh, sq, d), generator=g)).to(dtype)
+    k = (0.5 * torch.randn((bkv, sk, d), generator=g)).to(dtype)
+    v = torch.randn((bkv, sk, d), generator=g).to(dtype)
+    return q, k, v, g
+
+
+# the row log-sum-exp both variants write when asked: fp32 against the
+# plain version's, from the same inputs (bf16: the same bf16 inputs; the
+# kernel's exp2 in the log2 domain and another order of sums)
+@pytest.mark.parametrize("bh,bkv,sq,sk,d,causal,q_offset",
+                         [(2, 1, 37, 37, 16, True, 0),
+                          (4, 2, 70, 70, 64, False, 0),
+                          (4, 2, 5, 70, 32, True, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_source_writes_lse(k3, bh, bkv, sq, sk, d, causal,
+                                           q_offset, dtype):
+    q, k, v, _ = _k3_inputs(bh, bkv, sq, sk, d, dtype, sq + d)
+    o = torch.full((bh, sq, d), float("nan"), dtype=dtype)
+    lse = torch.full((bh, sq), float("nan"))
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert k3(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), code, bh, bkv, sq, sk, d, 1.0 / d ** 0.5,
+              int(causal), q_offset, None) == 0
+    want_o, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                           q_offset=q_offset, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    tol = K3_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+
+
+# K3's backward under emulation against its plain version, from the plain
+# forward's output and lse.  fp32: the same fp32 arithmetic in another
+# order (sums over up to 70 keys and a GQA group).  bf16: both compute in
+# fp32 from the same bf16 inputs and round each gradient once; another
+# order of sums flips at most that rounding (2**-8 relative) of values of
+# order 1.
+K3_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+K3_BWD_CASES = [(2, 1, 37, 16, True), (4, 2, 70, 32, True),
+                (2, 2, 33, 64, False), (2, 1, 5, 128, True),
+                (4, 1, 64, 16, True)]
+
+
+@pytest.mark.parametrize("bh,bkv,s,d,causal", K3_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_source_matches_plain(k3_bwd, bh, bkv, s, d,
+                                                  causal, dtype):
+    q, k, v, g = _k3_inputs(bh, bkv, s, s, d, dtype, 3 * s + d)
+    o, lse = ref.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn((bh, s, d), generator=g).to(dtype)
+    outs = [torch.full(t.shape, float("nan"), dtype=dtype) for t in (q, k, v)]
+    delta = torch.full((bh, s), float("nan"))
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert k3_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), do.data_ptr(),
+                  *[t.data_ptr() for t in outs], delta.data_ptr(), code, bh,
+                  bkv, s, s, d, 1.0 / d ** 0.5, int(causal), None) == 0
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    tol = K3_BWD_TOL[dtype]
+    for name, got, w in zip(("dq", "dk", "dv"), outs, want):
+        assert torch.isfinite(got.float()).all(), f"{name} never written"
+        torch.testing.assert_close(got.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +668,70 @@ def test_rmsnorm_source_is_bitwise_repeatable(k1):
     a, _ = _k1_run(k1, x, w)
     b, _ = _k1_run(k1, x, w)
     assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def k1_bwd(gxx):
+    from repro_torch.kernels import rmsnorm as rms
+    lib = gxx("k1_rmsnorm_bwd", _emulated((_build.CSRC / "rmsnorm.cu")
+                                          .read_text()))
+    fn = lib.repro_rmsnorm_bwd
+    fn.argtypes = rms._BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _k1_bwd_run(k1_bwd, x, w, dy, eps=1e-6):
+    """One emulated ``repro_rmsnorm_bwd`` as ``rmsnorm._launch_bwd`` makes
+    it, outputs starting as NaN."""
+    from repro_torch.kernels import rmsnorm as rms
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.full(x.shape, float("nan"), dtype=x.dtype)
+    dw = torch.full((d,), float("nan"), dtype=x.dtype)
+    blocks = rms.bwd_blocks(rows)
+    partial = torch.full((blocks, d), float("nan"))
+    assert k1_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), partial.data_ptr(), rows, d, eps,
+                  int(x.dtype == torch.bfloat16), blocks, None) == 0
+    return dx, dw
+
+
+# K1's backward against its plain version.  fp32: the same arithmetic in
+# another order (dw sums up to 4300 rows).  bf16: each gradient is one
+# rounding of nearly the same fp32 value (2**-8 relative), dw's row sums
+# growing with the rows.  Shapes: lanes masked off (24, 100), a
+# d_model row (2560), several rows a warp (4300 rows: 269 blocks' worth
+# of rows each warp walks in order), one row.
+K1_BWD_SHAPES = [(1, 1), (3, 24), (37, 128), (5, 2560), (140, 100),
+                 (4300, 8)]
+
+
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES,
+                         ids=[f"{r}x{d}" for r, d in K1_BWD_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_source_matches_plain(k1_bwd, shape, dtype):
+    g = torch.Generator().manual_seed(shape[0] * 31 + shape[1])
+    x = torch.randn(shape, generator=g).to(dtype)
+    w = (1 + 0.5 * torch.randn(shape[-1], generator=g)).to(dtype)
+    dy = torch.randn(shape, generator=g).to(dtype)
+    dx, dw = _k1_bwd_run(k1_bwd, x, w, dy)
+    want_dx, want_dw = ref.rmsnorm_bwd(x, w, dy)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw.float()).all()
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol,
+                               atol=tol * shape[0] ** 0.5)
+
+
+def test_rmsnorm_bwd_source_is_bitwise_repeatable(k1_bwd):
+    """dw is a fixed-order column sum: two runs give the same bits."""
+    g = torch.Generator().manual_seed(8)
+    x, dy = torch.randn(600, 96, generator=g), torch.randn(600, 96, generator=g)
+    w = torch.randn(96, generator=g)
+    a = _k1_bwd_run(k1_bwd, x, w, dy)
+    b = _k1_bwd_run(k1_bwd, x, w, dy)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("shape", [(37, 128), (140, 2560), (5, 2560),

@@ -159,7 +159,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     torch.testing.assert_close(ops.flash_attention(q, k, k),
                                ref.flash_attention(q, k, k), rtol=0, atol=0)
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
-                                   "flash_attention": 0, "dpia_cuda": 0}
+                                   "flash_attention": 0, "dpia_cuda": 0,
+                                   "rmsnorm_bwd": 0,
+                                   "flash_attention_bwd": 0}
     assert ops.launch_counts_by_variant() == {
         "rmsnorm": {"packed": 0, "warp": 0, "block": 0},
         "matmul": {"wgmma": 0, "splitk_reduce": 0, "simt": 0},

@@ -432,12 +432,11 @@ def test_guard_update_equals_the_reference(metrics):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: ft.elastic_remesh("data=8"), "item 6"),
-    (lambda: ft.TrainLoop(None, None, None), "item 7"),
-    (lambda: domains.FailureDomains(None, hosts=2), "item 6"),
-    (lambda: domains.HostEvent("lost", 1), "item 6"),
+    (lambda: ft.elastic_remesh("data=8"), "item 7"),
+    (lambda: domains.FailureDomains(None, hosts=2), "item 7"),
+    (lambda: domains.HostEvent("lost", 1), "item 7"),
     (lambda: domains.retune_for_mesh(None, "data=4", max_seq=64,
-                                     batch_sizes=(1,), cache=None), "item 6"),
+                                     batch_sizes=(1,), cache=None), "item 7"),
 ])
 def test_unported_pieces_raise_naming_their_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

@@ -102,7 +102,9 @@ def test_engine_on_cpu_launches_no_kernel(models):
     BatchedEngine(model, params, max_seq=32).run(
         [Request(prompt=[5, 6, 7], max_new_tokens=3)])
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
-                                   "flash_attention": 0, "dpia_cuda": 0}
+                                   "flash_attention": 0, "dpia_cuda": 0,
+                                   "rmsnorm_bwd": 0,
+                                   "flash_attention_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
