@@ -163,20 +163,24 @@ result):
    runs each in turns, with the host seconds of the journal's writes;
 13. training, right after phase 12 (its serving weights freed): (a) the
    backward kernels of K1 (at (2048, 2560), (65536, 128), (16384, 128))
-   and K3 (q (128, 512, 128), kv (32, 512, 128), causal) in bf16 and
-   fp32 against their plain versions (and K3's row log-sum-exp), bitwise
-   repeatable, with their times, bounds and the library's backward
-   (``F.rms_norm``'s, SDPA's); qwen3-4b at full width (bf16, 36 layers,
+   and K3 (q (128, 512, 128), kv (32, 512, 128), causal; in bf16 also
+   at the ragged S 200) in bf16 and fp32 against their plain versions
+   (and K3's row log-sum-exp), bitwise repeatable, with their times,
+   bounds, the library's backward (``F.rms_norm``'s, SDPA's), each
+   case's plan or variant (K3-bwd: ``mma`` for bf16, ``simt`` for fp32,
+   each launch counted) and ptxas's registers and spills of every
+   backward instance; qwen3-4b at full width (bf16, 36 layers,
    remat, weights from seed 0, batch 4 x seq 512): (c) one step at
    ``microbatches=2`` on the fresh state (lr 0 at step 0: the params keep
    their bits), its loss within 1e-3 and its gradient norm within 5 % of
    (b)'s first step; (b) ``TrainLoop`` for 6 steps with no checkpoint:
    every leaf's gradient set and finite after step 1, every matrix
    changed after step 2, exact K1 / K3 forward and backward launches a
-   step, step time, tok/s, MFU (6 x matmul params x tokens / step time /
-   989 TFLOP/s) and peak memory; (d) a loss that is NaN on the third
-   call: ``applied`` 0, every tensor of the state bitwise kept
-   (checksums), one skipped step; (e) this script with
+   step (K3-bwd: 36 ``mma``, 0 ``simt``), step time, tok/s, MFU (6 x
+   matmul params x tokens / step time / 989 TFLOP/s) and peak memory;
+   (d) a loss that is NaN on the third call: ``applied`` 0, every tensor
+   of the state bitwise kept (checksums), one skipped step; (e) this
+   script with
    ``--train-child`` in a fresh process (deterministic algorithms,
    ``CUBLAS_WORKSPACE_CONFIG``): 20 smoke-config steps (fp32) equal 10,
    a checkpoint, a restore and 10 more, bitwise, and the card's step-1
@@ -184,11 +188,11 @@ result):
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
-K3, the backward kernels of K1 and K3 (their launches phase 13b's), one
-entry per generated K4 program of phase 7 and one per tuned winner of
-phase 11), the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``; ``[12] summary`` and ``[13] summary``
-lines before them gather phases 12 and 13.
+K3, the backward kernels of K1 and K3 (their launches, and K3-bwd's per
+variant, phase 13b's), one entry per generated K4 program of phase 7 and
+one per tuned winner of phase 11), the card's name and power limit,
+and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
+``[13] summary`` lines before them gather phases 12 and 13.
 """
 from __future__ import annotations
 
@@ -386,11 +390,16 @@ def phase_build():
                 log(f"    ptxas {src} {kernel}: {line.strip()}")
     # dynamic shared memory, which ptxas does not see: the sources report it
     import ctypes
-    fa_smem = _build.library("flash_attention").repro_flash_attention_mma_smem
+    fa_lib = _build.library("flash_attention")
+    fa_smem = fa_lib.repro_flash_attention_mma_smem
+    fa_bwd_smem = fa_lib.repro_flash_attention_bwd_mma_smem
     mm_smem = _build.library("matmul_wgmma").repro_matmul_wgmma_smem
-    fa_smem.argtypes = mm_smem.argtypes = [ctypes.c_int]
+    fa_smem.argtypes = fa_bwd_smem.argtypes = mm_smem.argtypes = [
+        ctypes.c_int]
     log(f"[2] dynamic shared memory: flash_fwd_mma "
         f"{ {d: fa_smem(d) for d in (16, 32, 64, 128)} } B by head dim; "
+        f"flash_bwd_dkv_mma and flash_bwd_dq_mma "
+        f"{ {d: fa_bwd_smem(d) for d in (16, 32, 64, 128)} } B each; "
         f"gemm_wgmma { {bn: mm_smem(bn) for bn in (128, 256)} } B by tile "
         f"width")
     k1 = k1_ptxas(_build.target("rmsnorm").with_suffix(".log").read_text())
@@ -2179,7 +2188,26 @@ def time_backward_ms(forward, inputs, grad_out) -> float:
                    reps=10, stream=side)
 
 
-def _rmsnorm_bwd_case(rows, d, dtype, gen):
+def bwd_ptxas() -> dict:
+    """Registers and spills of the backward kernels' instances (ptxas's
+    ``-v`` report of their sources): K1-bwd's rows kernel by (dtype,
+    elements an access, threads a row, accesses a thread), K3-bwd's mma
+    kernels by (kernel, head dim)."""
+    from repro_torch.kernels import _build
+    k1 = _build.ptxas_report(
+        _build.target("rmsnorm").with_suffix(".log").read_text(),
+        r"rmsnorm_bwd_rowsI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+    k3 = _build.ptxas_report(
+        _build.target("flash_attention").with_suffix(".log").read_text(),
+        r"flash_bwd_(dkv|dq)_mmaILi(\d+)E")
+    return {"rmsnorm_bwd": {
+                f"{'fp32' if t == 'f' else 'bf16'} N{n} TPR{p} VPT{v}": r
+                for (t, n, p, v), r in sorted(k1.items())},
+            "flash_attention_bwd": {f"{k} D{dd}": r
+                                    for (k, dd), r in sorted(k3.items())}}
+
+
+def _rmsnorm_bwd_case(rows, d, dtype, gen, ptxas):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rms
@@ -2203,8 +2231,13 @@ def _rmsnorm_bwd_case(rows, d, dtype, gen):
                        ELEMENTWISE_FLOPS)
     xa = x.detach().requires_grad_()
     wa = w.detach().requires_grad_()
+    p = rms.bwd_plan(rows, d, dtype)
+    name = (f"{'fp32' if dtype == torch.float32 else 'bf16'} N"
+            f"{16 // elt if p.vector else 1} TPR{p.threads_per_row} VPT"
+            f"{p.vectors_per_thread}")
     return {"shape": [rows, d], "dtype": str(dtype).split(".")[-1],
-            "blocks": rms.bwd_blocks(rows), "max_abs_err": max(errs.values()),
+            "plan": p._asdict(), "ptxas": ptxas["rmsnorm_bwd"].get(name),
+            "max_abs_err": max(errs.values()),
             "errs": errs, "tol": list(BWD_TOLS[dtype]), "bitwise_repeat": True,
             "ms": time_ms(lambda: rms._launch_bwd(x, w, dy, 1e-6)),
             "eager_ms": eager_ms(lambda: rms._launch_bwd(x, w, dy, 1e-6)),
@@ -2214,7 +2247,7 @@ def _rmsnorm_bwd_case(rows, d, dtype, gen):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen):
+def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen, ptxas):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -2234,12 +2267,16 @@ def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen):
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"{what}: lse max abs err {lse_err} > {LSE_TOL}")
     before = fa.backward.launches
+    variant = fa.variant(dtype)
+    before_v = fa.backward.launches_by_variant[variant]
 
     def kernel():
         return fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=None)
     got = kernel()
-    if fa.backward.launches != before + 1:
-        raise AssertionError("flash_attention_bwd was not launched")
+    if fa.backward.launches != before + 1 or \
+            fa.backward.launches_by_variant[variant] != before_v + 1:
+        raise AssertionError(f"flash_attention_bwd ({variant}) was not "
+                             f"launched")
     want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     errs = {n: check_bwd(g, w, dtype, f"{what} {n}")
             for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -2257,7 +2294,10 @@ def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen):
     q4, k4, v4 = (t.detach().view(b, n, s, hd).requires_grad_()
                   for t, n in ((q, nh), (k, nkv), (v, nkv)))
     return {"q": [b * nh, s, hd], "kv": [b * nkv, s, hd], "causal": True,
-            "dtype": str(dtype).split(".")[-1],
+            "dtype": str(dtype).split(".")[-1], "variant": variant,
+            "ptxas": ({n: r for n, r in ptxas["flash_attention_bwd"].items()
+                       if n.endswith(f" D{hd}")} if variant == "mma"
+                      else None),
             "max_abs_err": max(errs.values()), "errs": errs,
             "lse_max_abs_err": lse_err, "tol": list(BWD_TOLS[dtype]),
             "bitwise_repeat": True,
@@ -2276,11 +2316,17 @@ def phase_train_kernels():
     card, at the shapes one full-width train step gives them."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     t = TRAIN_BATCH * TRAIN_SEQ
-    rms = [_rmsnorm_bwd_case(r, d, dt, gen)
+    ptxas = bwd_ptxas()
+    log("[13a] ptxas of the backward kernels [registers, spills]: "
+        + json.dumps(ptxas))
+    rms = [_rmsnorm_bwd_case(r, d, dt, gen, ptxas)
            for dt in (torch.bfloat16, torch.float32)
            for r, d in ((t, 2560), (t * 32, 128), (t * 8, 128))]
-    fa = [_flash_bwd_case(TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128, dt, gen)
-          for dt in (torch.bfloat16, torch.float32)]
+    # the train step's shape in both dtypes, then a ragged length (the
+    # serving prefill's) in bf16
+    fa = [_flash_bwd_case(TRAIN_BATCH, 32, 8, s, 128, dt, gen, ptxas)
+          for s, dt in ((TRAIN_SEQ, torch.bfloat16),
+                        (TRAIN_SEQ, torch.float32), (200, torch.bfloat16))]
     for name, cases in (("rmsnorm_bwd", rms), ("flash_attention_bwd", fa)):
         for c in cases:
             log(f"[13a] {name} " + json.dumps(c))
@@ -2372,7 +2418,7 @@ def phase_train(smi):
              for k, v in data.global_batch_at(0).items()}
     matrices = _matrix_ids(state)
     mat_before = checksums([t for _, t in matrices])
-    rows, counts_total = [], {}
+    rows, counts_total, bwd_variants = [], {}, {}
     check = {}
     clock = [0.0]
 
@@ -2382,8 +2428,11 @@ def phase_train(smi):
         torch.cuda.synchronize()
         dt = time.perf_counter() - clock[0]
         counts = ops.launch_counts()
+        bwd_v = ops.launch_counts_by_variant()["flash_attention_bwd"]
         for k, n in counts.items():
             counts_total[k] = counts_total.get(k, 0) + n
+        for k, n in bwd_v.items():
+            bwd_variants[k] = bwd_variants.get(k, 0) + n
         rows.append({"step": i + 1, "loss": m["loss"],
                      "grad_norm": m["grad_norm"], "lr": m["lr"],
                      "applied": m["applied"], "s": dt, "tok_s": tokens / dt,
@@ -2391,7 +2440,8 @@ def phase_train(smi):
                          torch.bfloat16],
                      "launches": {k: counts[k] for k in (
                          "rmsnorm", "rmsnorm_bwd", "flash_attention",
-                         "flash_attention_bwd")}})
+                         "flash_attention_bwd")},
+                     "flash_attention_bwd_variants": bwd_v})
         if i == 0:
             # every leaf's gradient at the state after step 1, set and
             # finite (autograd.grad raises for a leaf the loss misses)
@@ -2427,7 +2477,10 @@ def phase_train(smi):
     want_step = {"rmsnorm": 2 * per_pass_k1 - 1, "rmsnorm_bwd": per_pass_k1,
                  "flash_attention": 2 * cfg.n_layers,
                  "flash_attention_bwd": cfg.n_layers}
-    bad_launch = [r["launches"] for r in rows if r["launches"] != want_step]
+    want_bwd_variants = {"mma": cfg.n_layers, "simt": 0}
+    bad_launch = [(r["launches"], r["flash_attention_bwd_variants"])
+                  for r in rows if r["launches"] != want_step or
+                  r["flash_attention_bwd_variants"] != want_bwd_variants]
     losses = [r["loss"] for r in rows]
     if check["grad_bad"] or check["grad_leaves"] != len(
             adamw.leaves(state["params"])) or check["unchanged_matrices"] \
@@ -2436,7 +2489,8 @@ def phase_train(smi):
         raise AssertionError(f"[13b] leaves without a finite gradient "
                              f"{check['grad_bad']}, matrices unchanged after "
                              f"step 2 {check['unchanged_matrices']}, launches "
-                             f"{bad_launch} (want {want_step} a step), "
+                             f"{bad_launch} (want {want_step} and K3-bwd "
+                             f"{want_bwd_variants} a step), "
                              f"losses {losses}")
     steady = [r["s"] for r in rows[1:]]
     summary = {"state_gib": state_gib, "init_s": init_s, "params": n_params,
@@ -2447,6 +2501,7 @@ def phase_train(smi):
                "median_mfu": 6 * n_matmul * tokens / statistics.median(
                    steady) / PEAK_FLOPS[torch.bfloat16],
                "launches_a_step": want_step,
+               "flash_attention_bwd_variants_a_step": want_bwd_variants,
                "grad_leaves_finite": check["grad_leaves"]}
     log(f"[13b] qwen3-4b full width (36 layers, d_model 2560, bf16, remat, "
         f"weights from seed 0), TrainLoop batch {TRAIN_BATCH} x seq "
@@ -2507,7 +2562,7 @@ def phase_train(smi):
     gc.collect()
     torch.cuda.empty_cache()
     summary["s"] = time.perf_counter() - t_phase
-    return summary, counts_total
+    return summary, counts_total, bwd_variants
 
 
 def train_child() -> int:
@@ -2643,6 +2698,9 @@ VARIANT_SOURCES = {
     "matmul": {"wgmma": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                "splitk_reduce": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                "simt": "src/repro_torch/kernels/csrc/matmul.cu"},
+    "flash_attention_bwd": {
+        "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
 K4 = {"route": "cuda", "source": "src/repro_torch/core/dpia/stage3_cuda.py",
       "replaces": "src/repro/core/dpia/stage3_pallas.py:430"}
@@ -2689,7 +2747,7 @@ def _run_phases(tune_cache: str) -> int:
     del model, params, static, dense_graph
     torch.cuda.empty_cache()
     cases.update(phase_train_kernels())
-    train, train_counts = phase_train(smi)
+    train, train_counts, variants["flash_attention_bwd"] = phase_train(smi)
     train["13e"] = phase_train_smoke(smi)
     phase_against_cpu()
     cases["matmul"] = phase_matmul()
@@ -2737,7 +2795,8 @@ def _run_phases(tune_cache: str) -> int:
     log("[12] summary: " + json.dumps(faults))
     log("[13] summary: " + json.dumps({
         k: train[k] for k in ("median_step_s", "median_tok_s", "median_mfu",
-                              "peak_gib", "launches_a_step", "s")}))
+                              "peak_gib", "launches_a_step",
+                              "flash_attention_bwd_variants_a_step", "s")}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -35,7 +35,9 @@ log = logging.getLogger("repro_torch.ckpt")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().to("cpu")
+    # a copy even for a CPU tensor: an async save writes it after the train
+    # thread has moved on, and the step updates its state in place
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()

@@ -1,4 +1,5 @@
-// Flash attention forward (online softmax, causal + GQA) for Hopper, sm_90a.
+// Flash attention (online softmax, causal + GQA) and its backward for
+// Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` in
 // src/repro/kernels/flash_attention.py and computes what it computes:
@@ -51,25 +52,58 @@
 // Backward (`repro_flash_attention_bwd`, training; the TPU kernel has none:
 // the reference trains through XLA's autodiff of its einsum path).  FA2's
 // algorithm at q_offset 0, causal or not, GQA, in three launches with no
-// atomics, so a gradient is the same bits every run:
-//   flash_bwd_delta  D = rowsum(dO * O) in fp32, a row a warp;
-//   flash_bwd_dkv    a block per (kv head, 32-key tile) accumulates dK and
-//                    dV in registers over its group's query heads and the
-//                    32-row q tiles from the causal frontier on;
-//   flash_bwd_dq     a block per (query head, 32-row q tile) accumulates
-//                    dQ over its kv tiles up to the frontier.
-// Each rebuilds P = exp(scale * q.k - lse) for its (q tile, kv tile) pairs
-// from the saved lse, so S x S never exists in memory; dS = P * (dO.v - D).
-// SIMT with fp32 arithmetic for both dtypes (bf16 inputs are widened as
-// they are staged): tiles in shared memory as fp32 (K and V rows padded
-// by one float, P and dS by one column, so lane j reading row j is free
-// of bank conflicts); lane j scores key j for the rows of its warp; a
-// thread keeps 4-column-strided accumulators of one key (dK, dV) or one
-// query row (dQ).  Operations bound it at the main path's shape (5
-// matmuls' worth over the causal pairs, ~4x the bytes' time at the bf16
-// tensor-core rate); this first version recomputes S and dP in both
-// kernels and stays off the tensor cores: the mma / wgmma redesign is
-// ROADMAP queue 2's.
+// atomics, so a gradient is the same bits every run: D = rowsum(dO * O),
+// then dK / dV with a block per (kv head, key tile) summing over its
+// group's query heads and the q tiles from the causal frontier on, then dQ
+// with a block per (query head, q tile) over its kv tiles up to the
+// frontier.  Each rebuilds P = exp(scale * q.k - lse) from the forward's
+// saved lse, so S x S never exists in memory; dS = P * (dP - D), dP =
+// dO.v.  The entry point picks the kernels by dtype, as the forward:
+//
+// bf16, `flash_bwd_delta_mma` / `flash_bwd_dkv_mma` / `flash_bwd_dq_mma`
+// (tensor cores).  What bounds it: at the train step's shape (q (128, 512,
+// 128), kv (32, 512, 128), causal) the five products over the causal
+// pairs are 2.2e10 FLOP, 3.0e10 with S and dP recomputed in both kernels
+// (0.022-0.030 ms at 989 TFLOP/s), against ~84 MB moved (q, o, dO, dQ; k,
+// v, dK, dV; lse: 0.025 ms at 3.35 TB/s): operations and bytes about
+// even, so the products must run on the tensor cores and the tiles stay
+// on chip.  The design is the
+// forward's: mma.m16n8k16 (bf16 in, fp32 accumulate) on fragments from
+// ldmatrix.x4, 64-row tiles staged by 16-byte cp.async copies (zero-filled
+// past Sq / Sk) into rows padded by 16 bytes, 4 warps of 16 rows.
+//   D: D / 8 lanes a row, one 16-byte access each, a butterfly.
+//   dK / dV: K and V (64 keys) stay in shared memory; Q and dO tiles (and
+//     64 lse, D) stream in double-buffered, lse and D through registers.
+//     The products come out transposed, S^T = K.Q^T and dP^T = V.dO^T, so
+//     a warp's rows are its 16 keys: P^T = exp2(S^T scale log2e - lse
+//     log2e) and dS^T = P^T (dP^T - D) are formed on the accumulator
+//     fragments and, rounded to bf16, are the A fragments of dV += P^T.dO
+//     and dK += dS^T.Q (dO, Q by ldmatrix.x4.trans): no P or dS tile goes
+//     to shared memory.  A q tile is taken 32 queries at a time: 128 dK /
+//     dV accumulators and 32 of S^T / dP^T a thread at D = 128 (245
+//     registers, no spills).  A chunk wholly above a warp's keys is skipped.
+//   dQ: Q, dO, lse and D staged once; K / V tiles double-buffered up to
+//     the frontier; S = Q.K^T, dP = dO.V^T, dS in registers, dQ += dS.K
+//     (K by ldmatrix.x4.trans).
+// Masks are applied only on tiles that cross the causal diagonal or a
+// ragged edge.  Load balance: under the causal mask the first key tile
+// sees 8x the q tiles of the last one at S 512, so the dK / dV grid puts
+// the head on x and the key tile on y (the first key tiles of every head
+// are handed out first) and the dQ grid hands out the last q tiles first.
+// Numerics: P is rounded to bf16 before dV's product and dS before dK's
+// and dQ's, as every tensor-core flash backward does; S, dP, D and every
+// sum stay fp32.  As the forward's note says of P, that rounding adds at
+// most 2^-9 relative to each term of a gradient's sum, under the
+// gradient's own bf16 rounding (2^-8), so the bf16 tolerances hold as
+// before: 1e-2 x max + 1e-2 |plain| on the card, 2e-2 under emulation.
+//
+// fp32, `flash_bwd_delta` / `flash_bwd_dkv` / `flash_bwd_dq` (SIMT, the
+// first version, unchanged): fp32 FMAs on the CUDA cores (TF32 would break
+// the fp32 checks); 32 x 32 tiles staged in shared memory as fp32 (K and V
+// rows padded by one float, P and dS by one column, so lane j reading row
+// j is free of bank conflicts); lane j scores key j for the rows of its
+// warp; a thread keeps 4-column-strided accumulators of one key (dK, dV)
+// or one query row (dQ).
 //
 // C entry points (bound with ctypes): return cudaGetLastError() after the
 // launches; launch on the given stream; allocate nothing (the wrapper
@@ -263,6 +297,22 @@ constexpr int kMmaBK = 64;                     // keys per K / V tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a tile of rows padded
+// by 16 bytes, by 16-byte cp.async copies of the block's threads; rows past
+// the edge are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int r0,
+                                           int rows) {
+  constexpr int kChunks = D / 8;               // 16-byte chunks per row
+  for (int c = threadIdx.x; c < 64 * kChunks; c += kWarps * 32) {
+    const int r = c / kChunks, ch = c % kChunks;
+    const bool in = r0 + r < rows;
+    cp_async_16(dst + r * (D + 8) + ch * 8,
+                src + (size_t)(in ? r0 + r : 0) * D + ch * 8, in ? 16 : 0);
+  }
+}
+
 template <int D>
 constexpr size_t mma_smem_bytes() {
   // Q tile + two K tiles + two V tiles, bf16 rows padded by 8 elements
@@ -278,7 +328,6 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               int group, int sq, int sk, float scale_log2, int causal,
               int q_offset) {
   constexpr int kS = D + 8;                    // padded row, elements
-  constexpr int kChunks = D / 8;               // 16-byte chunks per row
   constexpr int kKSteps = D / 16;              // k16 steps of Q.K^T
   constexpr int kSBlocks = kMmaBK / 8;         // n8 blocks of a score row
   constexpr int kOBlocks = D / 8;              // n8 blocks of an output row
@@ -298,18 +347,6 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (size_t)(bh / group) * sk * D;
   const __nv_bfloat16* vb = v + (size_t)(bh / group) * sk * D;
 
-  // rows [r0, r0 + 64) of a (rows, D) matrix into a padded tile; rows past
-  // the edge are zero-filled
-  auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
-                   int rows) {
-    for (int c = tid; c < 64 * kChunks; c += kWarps * 32) {
-      const int r = c / kChunks, ch = c % kChunks;
-      const bool in = r0 + r < rows;
-      cp_async_16(dst + r * kS + ch * 8,
-                  src + (size_t)(in ? r0 + r : 0) * D + ch * 8, in ? 16 : 0);
-    }
-  };
-
   const int n_tiles = (sk + kMmaBK - 1) / kMmaBK;
   int n_live = n_tiles;
   if (causal) {
@@ -318,9 +355,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     n_live = min(hi_pos / kMmaBK + 1, n_tiles);
   }
 
-  stage(qs, qb, q0, sq);
-  stage(ks, kb, 0, sk);
-  stage(vs, vb, 0, sk);
+  stage_rows<D>(qs, qb, q0, sq);
+  stage_rows<D>(ks, kb, 0, sk);
+  stage_rows<D>(vs, vb, 0, sk);
   cp_async_commit();
 
   // this thread's two query rows (fragment rows g and g + 8)
@@ -338,8 +375,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_live; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_live) {                      // prefetch tile t + 1
-      stage(ks + (buf ^ 1) * kMmaBK * kS, kb, (t + 1) * kMmaBK, sk);
-      stage(vs + (buf ^ 1) * kMmaBK * kS, vb, (t + 1) * kMmaBK, sk);
+      stage_rows<D>(ks + (buf ^ 1) * kMmaBK * kS, kb, (t + 1) * kMmaBK, sk);
+      stage_rows<D>(vs + (buf ^ 1) * kMmaBK * kS, vb, (t + 1) * kMmaBK, sk);
       cp_async_commit();
       cp_async_wait<1>();                      // tile t (and Q) landed
     } else {
@@ -500,7 +537,7 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
 }
 
 
-// ---- backward (see the header note) ---------------------------------------
+// ---- fp32 backward: SIMT (see the header note) ----------------------------
 
 constexpr int kBR = 32;                        // query rows per tile
 constexpr int kBC = 32;                        // keys per tile: one a lane
@@ -761,6 +798,465 @@ cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---- bf16 backward: mma.sync + cp.async (see the header note) ------------
+
+constexpr int kBwdTile = 64;                   // q rows and keys per tile
+constexpr int kQC = 32;                        // q columns of S^T held at once
+
+// D = rowsum(dO * O) in fp32 over bf16 rows of D elements: D / 8 lanes a
+// row, one 16-byte access of each a lane (its eight products in order),
+// then a butterfly over the row's lanes
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta_mma(const __nv_bfloat16* __restrict__ o,
+                    const __nv_bfloat16* __restrict__ dout,
+                    float* __restrict__ delta, long long rows) {
+  constexpr int kLanes = D / 8;
+  const long long row =
+      ((long long)blockIdx.x * kBwdThreads + threadIdx.x) / kLanes;
+  const int c = (threadIdx.x % kLanes) * 8;
+  float s = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + c);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 fa = __bfloat1622float2(ha[k]);
+      const float2 fb = __bfloat1622float2(hb[k]);
+      s = fmaf(fa.x, fb.x, s);
+      s = fmaf(fa.y, fb.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && c == 0) delta[row] = s;
+}
+
+template <int D>
+constexpr size_t bwd_mma_smem_bytes() {
+  // six bf16 tiles of 64 rows padded by 8 elements (dK / dV: K, V and two
+  // each of Q and dO; dQ: Q, dO and two each of K and V) and two pairs of
+  // 64 floats (lse in the log2 domain, D)
+  return sizeof(__nv_bfloat16) * 6 * kBwdTile * (D + 8) +
+         sizeof(float) * 4 * kBwdTile;
+}
+
+// dK and dV of one (kv head, 64-key tile): warp w owns keys 16w..16w+15 of
+// the tile; the block walks its group's query heads in order, each over
+// its 64-row q tiles from the causal frontier on, Q / dO double-buffered.
+// S^T = K.Q^T and dP^T = V.dO^T come out with a warp's keys as rows, so
+// P^T and dS^T are A fragments of dV += P^T.dO and dK += dS^T.Q as they
+// stand in registers.
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int group, int sq, int sk,
+                  float scale, float scale_log2, int causal) {
+  constexpr int kS = D + 8;                    // padded row, elements
+  constexpr int kTileElems = kBwdTile * kS;
+  constexpr int kKSteps = D / 16;              // k16 steps over the head dim
+  constexpr int kCB = kQC / 8;                 // n8 blocks of a q chunk
+  constexpr int kDBlocks = D / 8;              // n8 blocks of a dK / dV row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTileElems;
+  __nv_bfloat16* qs = vs + kTileElems;         // [2][64][kS]
+  __nv_bfloat16* dos = qs + 2 * kTileElems;    // [2][64][kS]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileElems);  // [2][64]
+  float* dl_s = lse_s + 2 * kBwdTile;                              // [2][64]
+
+  const int kvh = blockIdx.x;
+  // the first key tiles see the most q tiles: blockIdx.y 0 of every head
+  // is handed out first
+  const int k0 = blockIdx.y * kBwdTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;       // fragment row / column pair
+  const int mi = lane / 8, mr = lane % 8;      // ldmatrix: matrix, row
+  const int n_qt = (sq + kBwdTile - 1) / kBwdTile;
+  const int qt0 = causal ? k0 / kBwdTile : 0;  // no query row below k0 sees it
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_it = group * per_head;
+
+  float dka[kDBlocks][4], dva[kDBlocks][4];
+#pragma unroll
+  for (int j = 0; j < kDBlocks; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  // item it: query head kvh * group + it / per_head, q tile qt0 + it %
+  // per_head; its Q and dO by cp.async, its lse and D through registers
+  auto head_row = [&](int it) {
+    return (size_t)(kvh * group + it / per_head) * sq;
+  };
+  auto q_row0 = [&](int it) { return (qt0 + it % per_head) * kBwdTile; };
+  auto load_q = [&](int it, int b) {
+    const size_t base = head_row(it) * D;
+    stage_rows<D>(qs + b * kTileElems, q + base, q_row0(it), sq);
+    stage_rows<D>(dos + b * kTileElems, dout + base, q_row0(it), sq);
+  };
+  // threads 0-63 carry lse (times log2 e), 64-127 D, of one row each
+  auto fetch_stats = [&](int it) {
+    const int r = q_row0(it) + (tid & 63);
+    if (r >= sq) return 0.f;
+    const size_t i = head_row(it) + r;
+    return tid < 64 ? lse[i] * kLog2e : delta[i];
+  };
+  auto put_stats = [&](int b, float x) {
+    (tid < 64 ? lse_s : dl_s)[b * kBwdTile + (tid & 63)] = x;
+  };
+
+  if (n_it > 0) {
+    const size_t kv_base = (size_t)kvh * sk * D;
+    stage_rows<D>(ks, k + kv_base, k0, sk);
+    stage_rows<D>(vs, v + kv_base, k0, sk);
+    load_q(0, 0);
+    cp_async_commit();
+    put_stats(0, fetch_stats(0));
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int b = it & 1;
+    float next = 0.f;
+    if (it + 1 < n_it) {                       // prefetch item it + 1
+      load_q(it + 1, b ^ 1);
+      cp_async_commit();
+      next = fetch_stats(it + 1);
+      cp_async_wait<1>();                      // item it (and K, V) landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* qt = qs + b * kTileElems;
+    const __nv_bfloat16* dot = dos + b * kTileElems;
+    const float* ls = lse_s + b * kBwdTile;
+    const float* dls = dl_s + b * kBwdTile;
+    const int q0 = q_row0(it);
+    // mask only a tile that crosses the causal diagonal or the ragged Sq
+    // edge; keys past Sk are zero rows whose dK / dV are never written
+    const bool edge = (causal && k0 + kBwdTile - 1 > q0) ||
+                      q0 + kBwdTile > sq;
+
+#pragma unroll
+    for (int c = 0; c < kBwdTile / kQC; ++c) {
+      const int qc0 = c * kQC;
+      // a chunk whose queries all precede this warp's keys is all masked
+      if (causal && q0 + qc0 + kQC - 1 < k0 + warp * 16) continue;
+      float st[kCB][4], dpt[kCB][4];
+#pragma unroll
+      for (int j = 0; j < kCB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x kQC queries a warp
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t ka[4], va[4];
+        const int a_off = (warp * 16 + (lane & 15)) * kS + kk * 16 +
+                          (lane >> 4) * 8;
+        ldmatrix_x4(ka, ks + a_off);
+        ldmatrix_x4(va, vs + a_off);
+#pragma unroll
+        for (int j2 = 0; j2 < kCB / 2; ++j2) {
+          // matrices: queries qc0 + j2*16 + {0..7, 8..15} x dims kk*16 +
+          // {0..7, 8..15}
+          uint32_t qb[4], ob[4];
+          const int b_off = (qc0 + j2 * 16 + (mi >> 1) * 8 + mr) * kS +
+                            kk * 16 + (mi & 1) * 8;
+          ldmatrix_x4(qb, qt + b_off);
+          ldmatrix_x4(ob, dot + b_off);
+          mma_16816_bf16(st[2 * j2], ka, qb);
+          mma_16816_bf16(st[2 * j2 + 1], ka, qb + 2);
+          mma_16816_bf16(dpt[2 * j2], va, ob);
+          mma_16816_bf16(dpt[2 * j2 + 1], va, ob + 2);
+        }
+      }
+      // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < kCB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qc0 + j * 8 + 2 * t4 + (e & 1);
+          float p = exp2f(st[j][e] * scale_log2 - ls[qi]);
+          if (edge) {
+            const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+            if (q0 + qi >= sq || (causal && key > q0 + qi)) p = 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dls[qi]);
+        }
+      }
+      // dV += P^T.dO, dK += dS^T.Q over the chunk's queries: P^T and dS^T
+      // rounded to bf16 are the A fragments, dO / Q by ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < kQC / 16; ++kc) {
+        const uint32_t pa[4] = {
+            pack_bf16x2(st[2 * kc][0], st[2 * kc][1]),
+            pack_bf16x2(st[2 * kc][2], st[2 * kc][3]),
+            pack_bf16x2(st[2 * kc + 1][0], st[2 * kc + 1][1]),
+            pack_bf16x2(st[2 * kc + 1][2], st[2 * kc + 1][3])};
+        const uint32_t sa[4] = {
+            pack_bf16x2(dpt[2 * kc][0], dpt[2 * kc][1]),
+            pack_bf16x2(dpt[2 * kc][2], dpt[2 * kc][3]),
+            pack_bf16x2(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]),
+            pack_bf16x2(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3])};
+#pragma unroll
+        for (int j2 = 0; j2 < D / 16; ++j2) {
+          // matrices: queries qc0 + kc*16 + {0..7, 8..15} x dims j2*16 +
+          // {0..7, 8..15}
+          uint32_t ob[4], qb[4];
+          const int off = (qc0 + kc * 16 + (mi & 1) * 8 + mr) * kS +
+                          j2 * 16 + (mi >> 1) * 8;
+          ldmatrix_x4_trans(ob, dot + off);
+          ldmatrix_x4_trans(qb, qt + off);
+          mma_16816_bf16(dva[2 * j2], pa, ob);
+          mma_16816_bf16(dva[2 * j2 + 1], pa, ob + 2);
+          mma_16816_bf16(dka[2 * j2], sa, qb);
+          mma_16816_bf16(dka[2 * j2 + 1], sa, qb + 2);
+        }
+      }
+    }
+    if (it + 1 < n_it) put_stats(b ^ 1, next);
+    __syncthreads();   // item it consumed before it + 2 overwrites its buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key >= sk) continue;
+    const size_t row = ((size_t)kvh * sk + key) * D;
+#pragma unroll
+    for (int j = 0; j < kDBlocks; ++j) {
+      const int col = j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+          __floats2bfloat162_rn(dka[j][2 * r] * scale,
+                                dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
+// dQ of one (query head, 64-row q tile): warp w owns rows 16w..16w+15; Q,
+// dO, lse and D staged once, K / V tiles double-buffered up to the causal
+// frontier.  S = Q.K^T, dP = dO.V^T, dS in registers, dQ += dS.K.
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int group, int sq, int sk,
+                 float scale, float scale_log2, int causal) {
+  constexpr int kS = D + 8;
+  constexpr int kTileElems = kBwdTile * kS;
+  constexpr int kKSteps = D / 16;
+  constexpr int kSBlocks = kBwdTile / 8;       // n8 blocks of a score row
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kTileElems;
+  __nv_bfloat16* ks = dos + kTileElems;        // [2][64][kS]
+  __nv_bfloat16* vs = ks + 2 * kTileElems;     // [2][64][kS]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTileElems);   // [64]
+  float* dl_s = lse_s + kBwdTile;                                  // [64]
+
+  const int bh = blockIdx.x;
+  // the last q tiles cross the most kv tiles: hand them out first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int mi = lane / 8, mr = lane % 8;
+  const size_t q_base = (size_t)bh * sq;
+  const __nv_bfloat16* kb = k + (size_t)(bh / group) * sk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bh / group) * sk * D;
+
+  const int n_kt = (sk + kBwdTile - 1) / kBwdTile;
+  const int n_live = causal
+      ? min((min(q0 + kBwdTile, sq) - 1) / kBwdTile + 1, n_kt) : n_kt;
+
+  stage_rows<D>(qs, q + q_base * D, q0, sq);
+  stage_rows<D>(dos, dout + q_base * D, q0, sq);
+  stage_rows<D>(ks, kb, 0, sk);
+  stage_rows<D>(vs, vb, 0, sk);
+  cp_async_commit();
+  {
+    // rows past Sq: lse and D 0, with zero Q and dO their dS is 0
+    const int r = q0 + (tid & 63);
+    const float x = r >= sq ? 0.f
+                  : tid < 64 ? lse[q_base + r] * kLog2e : delta[q_base + r];
+    (tid < 64 ? lse_s : dl_s)[tid & 63] = x;
+  }
+
+  const int row0 = q0 + warp * 16 + g;         // this thread's rows: +0, +8
+  float dqa[kDBlocks][4];
+#pragma unroll
+  for (int j = 0; j < kDBlocks; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  for (int t = 0; t < n_live; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_live) {                      // prefetch tile t + 1
+      stage_rows<D>(ks + (buf ^ 1) * kTileElems, kb, (t + 1) * kBwdTile, sk);
+      stage_rows<D>(vs + (buf ^ 1) * kTileElems, vb, (t + 1) * kBwdTile, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + buf * kTileElems;
+    const __nv_bfloat16* vt = vs + buf * kTileElems;
+
+    // S = Q.K^T and dP = dO.V^T: 16 rows x 64 keys a warp
+    float s[kSBlocks][4], dp[kSBlocks][4];
+#pragma unroll
+    for (int j = 0; j < kSBlocks; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qa[4], oa[4];
+      const int a_off = (warp * 16 + (lane & 15)) * kS + kk * 16 +
+                        (lane >> 4) * 8;
+      ldmatrix_x4(qa, qs + a_off);
+      ldmatrix_x4(oa, dos + a_off);
+#pragma unroll
+      for (int j2 = 0; j2 < kSBlocks / 2; ++j2) {
+        // matrices: keys j2*16 + {0..7, 8..15} x dims kk*16 + {0..7, 8..15}
+        uint32_t kf[4], vf[4];
+        const int b_off = (j2 * 16 + (mi >> 1) * 8 + mr) * kS + kk * 16 +
+                          (mi & 1) * 8;
+        ldmatrix_x4(kf, kt + b_off);
+        ldmatrix_x4(vf, vt + b_off);
+        mma_16816_bf16(s[2 * j2], qa, kf);
+        mma_16816_bf16(s[2 * j2 + 1], qa, kf + 2);
+        mma_16816_bf16(dp[2 * j2], oa, vf);
+        mma_16816_bf16(dp[2 * j2 + 1], oa, vf + 2);
+      }
+    }
+    // dS = P (dP - D), P = exp2(S scale log2e - lse log2e); mask only a tile
+    // that crosses the causal diagonal or the ragged Sk edge
+    const int k0 = t * kBwdTile;
+    const bool edge = k0 + kBwdTile > sk ||
+                      (causal && k0 + kBwdTile - 1 > q0);
+    const float lr[2] = {lse_s[warp * 16 + g], lse_s[warp * 16 + g + 8]};
+    const float dr[2] = {dl_s[warp * 16 + g], dl_s[warp * 16 + g + 8]};
+#pragma unroll
+    for (int j = 0; j < kSBlocks; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[j][e] * scale_log2 - lr[e >> 1]);
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (key >= sk || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+        }
+        s[j][e] = p * (dp[j][e] - dr[e >> 1]);
+      }
+    }
+    // dQ += dS.K: dS rounded to bf16 is the A fragment, K by ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) {
+      const uint32_t sa[4] = {
+          pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
+          pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
+          pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+          pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int j2 = 0; j2 < D / 16; ++j2) {
+        // matrices: keys kc*16 + {0..7, 8..15} x dims j2*16 + {0..7, 8..15}
+        uint32_t kf[4];
+        ldmatrix_x4_trans(kf, kt + (kc * 16 + (mi & 1) * 8 + mr) * kS +
+                                  j2 * 16 + (mi >> 1) * 8);
+        mma_16816_bf16(dqa[2 * j2], sa, kf);
+        mma_16816_bf16(dqa[2 * j2 + 1], sa, kf + 2);
+      }
+    }
+    __syncthreads();   // tile t consumed before t + 2 overwrites its buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    __nv_bfloat16* out = dq + (q_base + row) * D;
+#pragma unroll
+    for (int j = 0; j < kDBlocks; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t4) =
+          __floats2bfloat162_rn(dqa[j][2 * r] * scale,
+                                dqa[j][2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
+                           const void* o, const float* lse, const void* dout,
+                           void* dq, void* dk, void* dv, float* delta,
+                           int bh, int bkv, int sq, int sk, float scale,
+                           int causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = bwd_mma_smem_bytes<D>();
+  const int group = bh / bkv;
+  const long long rows = (long long)bh * sq;
+  const int delta_blocks = (int)((rows * (D / 8) + kBwdThreads - 1) /
+                                 kBwdThreads);
+  flash_bwd_delta_mma<D><<<delta_blocks, kBwdThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
+      rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_mma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_mma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(bkv, (sk + kBwdTile - 1) / kBwdTile);
+  flash_bwd_dkv_mma<D><<<grid_kv, kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), group, sq, sk,
+      scale, scale * kLog2e, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(bh, (sq + kBwdTile - 1) / kBwdTile);
+  flash_bwd_dq_mma<D><<<grid_q, kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), group, sq, sk, scale, scale * kLog2e,
+      causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_mma_d(const void* q, const void* k, const void* v,
+                             const void* o, const float* lse,
+                             const void* dout, void* dq, void* dk, void* dv,
+                             float* delta, int bh, int bkv, int sq, int sk,
+                             int d, float scale, int causal,
+                             cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_bwd_mma<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 32: return launch_bwd_mma<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 64: return launch_bwd_mma<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 128: return launch_bwd_mma<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the mma kernel).
@@ -799,6 +1295,17 @@ extern "C" int repro_flash_attention_mma_smem(int d) {
   }
 }
 
+// dynamic shared memory of each bf16 (mma) backward kernel at head dim d
+extern "C" int repro_flash_attention_bwd_mma_smem(int d) {
+  switch (d) {
+    case 16: return (int)bwd_mma_smem_bytes<16>();
+    case 32: return (int)bwd_mma_smem_bytes<32>();
+    case 64: return (int)bwd_mma_smem_bytes<64>();
+    case 128: return (int)bwd_mma_smem_bytes<128>();
+    default: return -1;
+  }
+}
+
 // The backward of the forward above at q_offset 0: dq (bh, sq, d), dk and
 // dv (bkv, sk, d) in the inputs' dtype (0 = float32, 1 = bfloat16) from q,
 // k, v, the forward's output o and fp32 lse (bh, sq), and the output
@@ -823,7 +1330,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
       err = launch_bwd_d<float>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
       break;
     case 1:
-      err = launch_bwd_d<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
+      err = launch_bwd_mma_d(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -294,63 +294,204 @@ cudaError_t launch(const void* x, const void* w, void* y, int rows, int d,
 //   dx = r * dn - x * r^3 * mean(dn * x)      (rounded once to T),
 //   dw = sum over rows of dy * n, n = (x * r) rounded to T (the forward's
 //        rounding order: n is what multiplied w).
-// Bytes bound it, as the forward: a read of x and dy, a write of dx, ten
-// flops an element.  rstd is recomputed (the forward saves nothing).
+// Each element's arithmetic is in that order: dn = dy * w rounded to fp32,
+// fma'd into the row's sum; dx from r * dn and x * coef; dy * n fma'd into
+// the column's sum.  Bytes bound it, as the forward: a read of x and dy, a
+// write of dx, ten flops an element.  rstd is recomputed (the forward
+// saves nothing).
 //
-// rmsnorm_bwd_rows: a row a warp (kBwdWarps warps a block, each walking its
-// block's rows in order), lanes over the columns; the row's two sums (x^2,
-// dn * x) by the forward's fixed butterfly, then a second pass over the
-// row (from L1) writes dx and adds dy * n into the warp's fp32 column
-// partials in shared memory [kBwdWarps][d].  The block adds its warps'
-// partials in warp order into its row of `partial` (blocks, d).
+// rmsnorm_bwd_rows: a row is TPR threads (1-32 lanes of a warp, or 64-256
+// threads of the block), each holding VPT accesses of N elements (16 bytes
+// where the row and the pointers allow, else one element), as the
+// forward's warp variant does: x and dy are read once, into registers,
+// and held between the row's two sums (x^2 and dn * x, each access summed
+// in index order, the accesses in order, then the forward's butterfly
+// over the row's lanes and, past a warp, the warps' totals in order
+// through shared memory) and its writes.  w is read again beside the
+// writes (from L1).  Each thread keeps the dw partials of its columns in
+// registers across the rows it walks: a block of 256 threads holds 256 /
+// TPR rows at a time and walks its share of the rows in order, so the
+// grid is a few blocks an SM (as the plan in kernels/rmsnorm.py sizes it)
+// and writes one fp32 partial row a block.  At the end, the lanes of a
+// warp that hold the same columns add them by a butterfly, the holders
+// (warps, or the block's row slots) post theirs to rows of shared memory
+// (up to 80 KB), and the block adds those rows in holder order into its
+// row of `partial`.
 // rmsnorm_bwd_cols: dw by a fixed-order column sum over those rows: warp k
-// of a block adds rows k, k + 8, ... for 32 columns (coalesced), then
-// warp 0 adds the eight sums in order.  No atomics: a step is the same
+// of a block adds rows k, k + 16, ... for 32 columns (coalesced), then
+// warp 0 adds the sixteen sums in order.  No atomics: a step is the same
 // bits every time.
 
-constexpr int kBwdWarps = 4;
-constexpr int kColWarps = 8;
+constexpr int kBwdThreads = 256;
+constexpr int kColWarps = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// the N elements of an access as floats, and back (rounded to T)
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const Vec<T, N>& a, float (&f)[N]) {
+  if constexpr (N == 8 && sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 p = __bfloat1622float2(a.h[k]);
+      f[2 * k] = p.x;
+      f[2 * k + 1] = p.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = to_f32(a.v[e]);
+  }
+}
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> pack(const float (&f)[N]) {
+  Vec<T, N> out;
+  if constexpr (N == 8 && sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      out.h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out.v[e] = from_f32<T>(f[e]);
+  }
+  return out;
+}
+
+template <typename T, int N, int TPR, int VPT>
+__global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ dy, T* __restrict__ dx,
                  float* __restrict__ partial, int rows, int d,
                  int rows_per_block, float eps) {
-  extern __shared__ float smem[];          // [kBwdWarps][d] column partials
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* acc = smem + (size_t)warp * d;
-  for (int c = lane; c < d; c += 32) acc[c] = 0.f;
+  using V = Vec<T, N>;
+  constexpr int kSlots = kBwdThreads / TPR;      // rows held at once
+  constexpr int kRowWarps = TPR > 32 ? TPR / 32 : 1;
+  extern __shared__ float smem[];                // [holders][d]: dw
+  __shared__ float2 red[kBwdThreads / 32];       // TPR > 32: warps' sums
+  const int slot = threadIdx.x / TPR, lane = threadIdx.x % TPR;
+  const int nvec = d / N;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min((long long)rows, r0 + rows_per_block);
-  for (long long row = r0 + warp; row < r1; row += kBwdWarps) {
-    const T* xr = x + row * d;
-    const T* dyr = dy + row * d;
-    float ss = 0.f, sd = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float xv = to_f32(xr[c]);
-      const float dn = to_f32(dyr[c]) * to_f32(w[c]);
-      ss = fmaf(xv, xv, ss);
-      sd = fmaf(dn, xv, sd);
+  const V* wr = reinterpret_cast<const V*>(w);
+
+  float dwa[VPT][N];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e) dwa[j][e] = 0.f;
+
+  // the same number of passes in every thread: TPR > 32 meets barriers
+  for (long long base = r0; base < r1; base += kSlots) {
+    const long long row = base + slot;
+    const bool live = row < r1;
+    const V* xr = reinterpret_cast<const V*>(x + row * d);
+    const V* dyr = reinterpret_cast<const V*>(dy + row * d);
+    V xv[VPT], gv[VPT];
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {              // every load before any add
+      const int v = lane + TPR * j;
+      if (live && v < nvec) {
+        xv[j] = load(xr + v);
+        gv[j] = load(dyr + v);
+      } else {
+        xv[j] = V{};
+        gv[j] = V{};
+      }
     }
-    ss = group_sum<32>(ss);
-    sd = group_sum<32>(sd);
+    float ss = 0.f, sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = lane + TPR * j;
+      float xf[N], gf[N], wf[N];
+      unpack(xv[j], xf);
+      unpack(gv[j], gf);
+      unpack(v < nvec ? load(wr + v) : V{}, wf);
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        a = fmaf(xf[e], xf[e], a);
+        b = fmaf(gf[e] * wf[e], xf[e], b);
+      }
+      ss += a;
+      sd += b;
+    }
+    constexpr int kLanes = TPR < 32 ? TPR : 32;
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sd += __shfl_xor_sync(0xffffffffu, sd, o);
+    }
+    if constexpr (TPR > 32) {
+      const int warp = threadIdx.x / 32;
+      if (threadIdx.x % 32 == 0) red[warp] = float2{ss, sd};
+      __syncthreads();
+      ss = sd = 0.f;
+#pragma unroll
+      for (int k = 0; k < kRowWarps; ++k) {
+        const float2 t = red[slot * kRowWarps + k];
+        ss += t.x;
+        sd += t.y;
+      }
+      __syncthreads();                           // red read before reuse
+    }
     const float r = rsqrtf(ss / (float)d + eps);
     const float coef = r * r * r * (sd / (float)d);
-    T* dxr = dx + row * d;
-    for (int c = lane; c < d; c += 32) {
-      const float xv = to_f32(xr[c]);
-      const float dyv = to_f32(dyr[c]);
-      dxr[c] = from_f32<T>(r * (dyv * to_f32(w[c])) - xv * coef);
-      acc[c] = fmaf(dyv, to_f32(from_f32<T>(xv * r)), acc[c]);
+    if (!live) continue;
+    V* dxr = reinterpret_cast<V*>(dx + row * d);
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = lane + TPR * j;
+      if (v >= nvec) continue;
+      float xf[N], gf[N], wf[N], out[N];
+      unpack(xv[j], xf);
+      unpack(gv[j], gf);
+      unpack(load(wr + v), wf);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        out[e] = r * (gf[e] * wf[e]) - xf[e] * coef;
+        dwa[j][e] = fmaf(gf[e], to_f32(from_f32<T>(xf[e] * r)), dwa[j][e]);
+      }
+      store(dxr + v, pack<T, N>(out));
+    }
+  }
+
+  // lanes of a warp holding the same columns (TPR < 32): a butterfly
+#pragma unroll
+  for (int o = TPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < VPT; ++j)
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        dwa[j][e] += __shfl_xor_sync(0xffffffffu, dwa[j][e], o);
+  // then the holders (each warp's first TPR lanes when TPR < 32, else each
+  // row slot) post their partials to their own row of shared memory, an
+  // access's N floats as 16-byte stores where N allows (no bank
+  // conflicts), and the block adds the rows in holder order column by
+  // column
+  constexpr int kHolders = TPR < 32 ? kBwdThreads / 32 : kSlots;
+  const int holder = TPR < 32 ? threadIdx.x / 32 : slot;
+  if (TPR >= 32 || threadIdx.x % 32 < TPR) {
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = lane + TPR * j;
+      if (v >= nvec) continue;
+      float* c = smem + (size_t)holder * d + v * N;
+      if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < N / 4; ++k)
+          reinterpret_cast<float4*>(c)[k] =
+              float4{dwa[j][4 * k], dwa[j][4 * k + 1], dwa[j][4 * k + 2],
+                     dwa[j][4 * k + 3]};
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) c[e] = dwa[j][e];
+      }
     }
   }
   __syncthreads();
   float* out = partial + (size_t)blockIdx.x * d;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < kBwdWarps; ++k) s += smem[(size_t)k * d + c];
-    out[c] = s;
+  for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int h = 0; h < kHolders; ++h) t += smem[(size_t)h * d + c];
+    out[c] = t;
   }
 }
 
@@ -362,9 +503,11 @@ rmsnorm_bwd_cols(const float* __restrict__ partial, T* __restrict__ dw,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = blockIdx.x * 32 + lane;
   float s = 0.f;
-  if (c < d)
+  if (c < d) {
+#pragma unroll 8
     for (int b = warp; b < blocks; b += kColWarps)
       s += partial[(size_t)b * d + c];
+  }
   part[warp][lane] = s;
   __syncthreads();
   if (warp == 0 && c < d) {
@@ -374,16 +517,19 @@ rmsnorm_bwd_cols(const float* __restrict__ partial, T* __restrict__ dw,
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
-                       void* dx, void* dw, void* partial, int rows, int d,
-                       float eps, int blocks, cudaStream_t s) {
+template <typename T, int N, int TPR, int VPT>
+cudaError_t go_bwd(const void* x, const void* w, const void* dy, void* dx,
+                   void* dw, void* partial, int rows, int d, float eps,
+                   int blocks, cudaStream_t s) {
   const int rpb = (rows + blocks - 1) / blocks;
-  const int smem = (int)(sizeof(float) * kBwdWarps * d);
+  // a row of d floats for each holder of dw partials: <= 80 KB
+  const int smem = (int)sizeof(float) * d *
+                   (TPR < 32 ? kBwdThreads / 32 : kBwdThreads / TPR);
   cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      rmsnorm_bwd_rows<T, N, TPR, VPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  rmsnorm_bwd_rows<T><<<blocks, kBwdWarps * 32, smem, s>>>(
+  rmsnorm_bwd_rows<T, N, TPR, VPT><<<blocks, kBwdThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(dy), static_cast<T*>(dx),
       static_cast<float*>(partial), rows, d, rpb, eps);
@@ -393,6 +539,29 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
   rmsnorm_bwd_cols<T><<<col_blocks, kColWarps * 32, 0, s>>>(
       static_cast<const float*>(partial), static_cast<T*>(dw), blocks, d);
   return cudaGetLastError();
+}
+
+// the backward's instances: (threads a row, accesses a thread) as
+// kernels/rmsnorm.py's bwd_plan() picks them
+template <typename T, int N>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
+                       void* dx, void* dw, void* partial, int rows, int d,
+                       float eps, int tpr, int vpt, int blocks,
+                       cudaStream_t s) {
+  if (d % N || (long long)tpr * vpt * N < d) return cudaErrorInvalidValue;
+#define REPRO_BWD(P, V)                                                   \
+  if (tpr == P && vpt == V)                                               \
+    return go_bwd<T, N, P, V>(x, w, dy, dx, dw, partial, rows, d, eps,    \
+                              blocks, s);
+  REPRO_BWD(1, 1) REPRO_BWD(2, 1) REPRO_BWD(4, 1) REPRO_BWD(8, 1)
+  REPRO_BWD(16, 1) REPRO_BWD(32, 1) REPRO_BWD(32, 2) REPRO_BWD(32, 4)
+  REPRO_BWD(32, 10) REPRO_BWD(64, 10) REPRO_BWD(128, 10) REPRO_BWD(256, 10)
+#undef REPRO_BWD
+  if constexpr (N == 1)        // one element an access: rows up to 256 x 40
+    if (tpr == 256 && vpt == 40)
+      return go_bwd<T, 1, 256, 40>(x, w, dy, dx, dw, partial, rows, d, eps,
+                                   blocks, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -417,18 +586,22 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int rows,
 }
 
 // The backward: dx (rows, d) and dw (d,) in the dtype of x, for dy (rows,
-// d); `partial` is fp32 scratch of blocks x d (blocks as planned by
-// kernels/rmsnorm.py's bwd_blocks()).  Two launches on the given stream.
+// d); `partial` is fp32 scratch of blocks x d.  vector, tpr, vpt and
+// blocks as planned by kernels/rmsnorm.py's bwd_plan().  Two launches on
+// the given stream.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w,
                                  const void* dy, void* dx, void* dw,
                                  void* partial, int rows, int d, float eps,
-                                 int dtype, int blocks, void* stream) {
+                                 int dtype, int vector, int tpr, int vpt,
+                                 int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
   cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_bwd<float>(x, w, dy, dx, dw, partial, rows, d, eps, blocks, s); break;
-    case 1: err = launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, partial, rows, d, eps, blocks, s); break;
+  switch (dtype * 2 + (vector ? 1 : 0)) {
+    case 0: err = launch_bwd<float, 1>(x, w, dy, dx, dw, partial, rows, d, eps, tpr, vpt, blocks, s); break;
+    case 1: err = launch_bwd<float, 4>(x, w, dy, dx, dw, partial, rows, d, eps, tpr, vpt, blocks, s); break;
+    case 2: err = launch_bwd<__nv_bfloat16, 1>(x, w, dy, dx, dw, partial, rows, d, eps, tpr, vpt, blocks, s); break;
+    case 3: err = launch_bwd<__nv_bfloat16, 8>(x, w, dy, dx, dw, partial, rows, d, eps, tpr, vpt, blocks, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

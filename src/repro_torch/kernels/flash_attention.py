@@ -14,9 +14,11 @@ divide the tiles.  The source's header note says what bounds it on the card
 and how each variant is laid out.
 
 Both variants can also write each row's fp32 log-sum-exp (``lse``), which
-the backward ``repro_flash_attention_bwd`` (same source; SIMT, fp32
-arithmetic, causal or not, GQA, ``q_offset`` 0) reads to rebuild the
-probabilities tile by tile without materialising S x S.
+the backward ``repro_flash_attention_bwd`` (same source; causal or not,
+GQA, ``q_offset`` 0) reads to rebuild the probabilities tile by tile
+without materialising S x S.  Its variant is chosen by dtype as the
+forward's: ``mma`` for bf16 (FA2's backward on the tensor cores, dK / dV
+and dQ in separate kernels, no atomics), ``simt`` for fp32.
 :class:`_FlashAttentionFn` ties the two together for autograd.
 
 ``flash_attention`` computes the plain version (:func:`ref.flash_attention`,
@@ -26,7 +28,7 @@ goes through :class:`_FlashAttentionFn` only when autograd will need a
 gradient; otherwise it launches the forward alone, with no ``lse``, as
 serving does.  ``launches`` counts forward launches, ``launches_by_variant``
 per variant, ``backward.launches`` calls of the backward (three kernels
-each).
+each) and ``backward.launches_by_variant`` those per variant.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 
 launches = 0
 launches_by_variant = {"mma": 0, "simt": 0}
-backward = types.SimpleNamespace(launches=0)
+backward = types.SimpleNamespace(launches=0,
+                                 launches_by_variant={"mma": 0, "simt": 0})
 
 
 def variant(dtype) -> str:
@@ -203,6 +206,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                           delta.data_ptr(), _DTYPE_CODES[q.dtype], bh, bkv,
                           sq, sk, d, scale, int(causal), stream)
-    _build.check(rc, "flash_attention_bwd")
+    _build.check(rc, f"flash_attention_bwd ({variant(q.dtype)})")
     backward.launches += 1
+    backward.launches_by_variant[variant(q.dtype)] += 1
     return dq, dk, dv

@@ -332,7 +332,8 @@ def launch_counts() -> Dict[str, int]:
 def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
     """Launches since the last reset per variant of the kernels that have
     several: K1 ``rmsnorm`` (packed, warp, block), K2 ``matmul`` (wgmma,
-    splitk_reduce, simt) and K3 ``flash_attention`` (mma, simt)."""
+    splitk_reduce, simt), K3 ``flash_attention`` and its backward
+    ``flash_attention_bwd`` (mma, simt)."""
     return {name: dict(mod.launches_by_variant)
             for name, mod in _KERNEL_MODULES.items()
             if hasattr(mod, "launches_by_variant")}

@@ -17,11 +17,13 @@ product rounded once more to ``x.dtype`` (the reference's rounding order).
 The source's header note says what bounds it on the card and how each
 variant is laid out.
 
-The backward (``repro_rmsnorm_bwd`` in the same source) recomputes the
-row's fp32 ``rstd`` and gives ``dx`` and ``dw``; ``dw`` is a fixed-order
-column sum (per-block fp32 partials, then one reduction kernel), so a
-gradient is the same bits every time.  :class:`_RMSNormFn` ties the two
-together for autograd.
+The backward (``repro_rmsnorm_bwd`` in the same source, laid out by
+:func:`bwd_plan`) recomputes the row's fp32 ``rstd`` and gives ``dx`` and
+``dw`` from one read of ``x`` and ``dy``, rows held in registers as 16-byte
+accesses where the row allows; ``dw`` is a fixed-order column sum (each
+block's fp32 partials, kept in registers while it walks its rows, then one
+reduction kernel), so a gradient is the same bits every time.
+:class:`_RMSNormFn` ties the two together for autograd.
 
 ``rmsnorm`` computes the plain version (:func:`ref.rmsnorm`, backward
 :func:`ref.rmsnorm_bwd`) for CPU tensors and launches the kernels for CUDA
@@ -57,13 +59,22 @@ FEW_ROWS_WARPS = 4        # warps a packed or warp block of too few rows
 BLOCK_MAX = 1024
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-BWD_WARPS = 4             # rows a backward block walks at once
-BWD_MAX_D = 14528         # its warps' fp32 column partials in 227 KB
+                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+BWD_THREADS = 256         # threads of a backward block
+BWD_VPT = (1, 2, 4, 10)   # accesses a thread, rows of up to 32 threads
+BWD_WIDE_VPT = 10         # accesses a thread, rows of 64-256 threads
+BWD_MAX_D = 10240         # a row of 256 threads x 40 elements (one an access)
 
 launches = 0
 launches_by_variant = {"packed": 0, "warp": 0, "block": 0}
 backward = types.SimpleNamespace(launches=0)
+
+
+class BwdPlan(NamedTuple):
+    vector: bool               # 16-byte accesses, else one element each
+    threads_per_row: int       # 1-32 lanes of a warp, or 64-256 threads
+    vectors_per_thread: int    # accesses a thread holds
+    blocks: int                # blocks of BWD_THREADS; partial rows of dw
 
 
 class Plan(NamedTuple):
@@ -142,11 +153,49 @@ def _entry():
     return _fn
 
 
-def bwd_blocks(rows: int) -> int:
-    """Blocks of a backward launch over ``rows`` rows: a row a warp, up to
-    eight blocks an SM (each block's column partials are one row of the
-    fp32 scratch the reduction reads)."""
-    return max(1, min(_cdiv(rows, BWD_WARPS), 8 * SMS))
+def bwd_plan(rows: int, d: int, dtype, aligned: bool = True) -> BwdPlan:
+    """The layout and grid of a backward launch over ``rows`` rows of ``d``
+    elements of ``dtype``, as pure arithmetic.
+
+    The rule:
+
+    - accesses as the forward's (16 bytes when ``d * itemsize`` is a
+      multiple of 16 and ``aligned``, else one element); ``n`` a row;
+    - ``n <= 32``: ``next_pow2(n)`` lanes a row, one access a lane (a
+      128-wide bf16 qk_norm row is 16 lanes, two rows a warp);
+    - else the fewest of 32, 64, 128 or 256 threads a row that hold it at
+      10 accesses a thread, and the fewest of ``BWD_VPT`` (32 threads) or
+      10 accesses that hold it (d_model 2560 bf16: 32 x 10); a row of one
+      element an access longer than 2560 takes 256 x 40;
+    - blocks: as many as fit an SM at once (by a count of the registers
+      that hold x, dy and dw, a thread), times 132, or fewer where the rows
+      run out, then as few as hold the same rows a block; each block walks
+      its rows and writes one fp32 partial row of dw.
+    """
+    if dtype not in _DTYPES:
+        raise ValueError(f"rmsnorm_bwd: no kernel for {dtype}")
+    if not 0 < d <= BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} elements; the kernel "
+                         f"takes 1 to {BWD_MAX_D}")
+    itemsize = 4 if dtype == torch.float32 else 2
+    vector = aligned and (d * itemsize) % 16 == 0
+    per = 16 // itemsize if vector else 1
+    n = d // per
+    if n <= 32:
+        tpr, vpt = 1 << (n - 1).bit_length(), 1
+    elif n > 256 * BWD_WIDE_VPT:
+        tpr, vpt = 256, 40
+    else:
+        tpr = next(t for t in (32, 64, 128, 256) if n <= t * BWD_WIDE_VPT)
+        vpt = (next(v for v in BWD_VPT if 32 * v >= n) if tpr == 32
+               else BWD_WIDE_VPT)
+    # registers a thread: x and dy as loaded (itemsize / 2 words an
+    # element for the two), dw in fp32 (one), and ~32 more
+    regs = vpt * per * (itemsize // 2 + 1) + 32
+    per_sm = max(1, min(8, 65536 // (BWD_THREADS * regs)))
+    blocks = max(1, min(_cdiv(rows, BWD_THREADS // tpr), per_sm * SMS))
+    # the same rows a block (the kernel's rows_per_block), none idle
+    return BwdPlan(vector, tpr, vpt, _cdiv(rows, _cdiv(rows, blocks)))
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
@@ -249,16 +298,19 @@ def _launch_bwd(x, w, dy, eps):
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, torch.zeros_like(w)
+    ptrs = x.data_ptr() | w.data_ptr() | dy.data_ptr() | dx.data_ptr()
+    p = bwd_plan(rows, d, x.dtype, aligned=not ptrs & 15)
     dw = torch.empty_like(w)
-    blocks = bwd_blocks(rows)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    partial = torch.empty((p.blocks, d), dtype=torch.float32,
+                          device=x.device)
     if _bwd_fn is None:
         _bwd_fn = _build.function("rmsnorm", "repro_rmsnorm_bwd",
                                   _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         rc = _bwd_fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                      dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), rows,
-                     d, eps, int(x.dtype == torch.bfloat16), blocks,
+                     d, eps, int(x.dtype == torch.bfloat16), p.vector,
+                     p.threads_per_row, p.vectors_per_thread, p.blocks,
                      torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(rc, "rmsnorm_bwd")
     backward.launches += 1

@@ -932,7 +932,8 @@ def _close_bwd(got, want, dtype):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 24), (37, 128), (200, 2560),
-                                   (5000, 128), (2, 9000)])
+                                   (5000, 128), (2, 9000), (2, 9001),
+                                   (2048, 2560), (65536, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -952,7 +953,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype):
 
 @pytest.mark.parametrize("bh,bkv,s,d,causal", [
     (2, 1, 37, 16, True), (8, 2, 70, 64, True), (4, 4, 33, 128, False),
-    (32, 8, 128, 128, True)])
+    (32, 8, 128, 128, True), (8, 2, 200, 32, True), (128, 32, 512, 128, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
                                                   causal, dtype):
@@ -971,12 +972,18 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
                                atol=TOL[dtype])
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     before = fa_mod.backward.launches
+    by_variant = dict(fa_mod.backward.launches_by_variant)
     got = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=causal, scale=None)
     torch.cuda.synchronize()
     assert fa_mod.backward.launches == before + 1
+    by_variant["mma" if dtype == torch.bfloat16 else "simt"] += 1
+    assert fa_mod.backward.launches_by_variant == by_variant
     want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(got, want):
         _close_bwd(a, b, dtype)
+    again = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=causal,
+                               scale=None)              # no atomics
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -537,21 +537,24 @@ def test_flash_attention_source_writes_lse(k3, bh, bkv, sq, sk, d, causal,
 
 
 # K3's backward under emulation against its plain version, from the plain
-# forward's output and lse.  fp32: the same fp32 arithmetic in another
-# order (sums over up to 70 keys and a GQA group).  bf16: both compute in
-# fp32 from the same bf16 inputs and round each gradient once; another
-# order of sums flips at most that rounding (2**-8 relative) of values of
-# order 1.
+# forward's output and lse.  fp32 (the SIMT kernels): the same fp32
+# arithmetic in another order (sums over up to 130 keys and a GQA group).
+# bf16 (the mma kernels): S, dP and every sum in fp32 from the same bf16
+# inputs; P rounded to bf16 before dV's product and dS before dK's and
+# dQ's add at most 2**-9 relative to each term, under the gradients' own
+# rounding (2**-8 relative) of values of order 1.
 K3_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (bh, bkv, s, d, causal): one tile; three 64-tiles with a ragged edge
+# (130); a GQA group of 4 at D = 128; non-causal over two tiles
 K3_BWD_CASES = [(2, 1, 37, 16, True), (4, 2, 70, 32, True),
                 (2, 2, 33, 64, False), (2, 1, 5, 128, True),
-                (4, 1, 64, 16, True)]
+                (4, 1, 64, 16, True), (2, 1, 130, 32, True),
+                (4, 1, 70, 128, True), (2, 1, 100, 16, False)]
 
 
-@pytest.mark.parametrize("bh,bkv,s,d,causal", K3_BWD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_source_matches_plain(k3_bwd, bh, bkv, s, d,
-                                                  causal, dtype):
+def _k3_bwd_run(k3_bwd, bh, bkv, s, d, causal, dtype):
+    """One emulated ``repro_flash_attention_bwd`` from the plain forward's
+    output and lse, outputs starting as NaN: ``(grads, inputs)``."""
     q, k, v, g = _k3_inputs(bh, bkv, s, s, d, dtype, 3 * s + d)
     o, lse = ref.flash_attention(q, k, v, causal=causal, return_lse=True)
     do = torch.randn((bh, s, d), generator=g).to(dtype)
@@ -562,12 +565,28 @@ def test_flash_attention_bwd_source_matches_plain(k3_bwd, bh, bkv, s, d,
                   lse.data_ptr(), do.data_ptr(),
                   *[t.data_ptr() for t in outs], delta.data_ptr(), code, bh,
                   bkv, s, s, d, 1.0 / d ** 0.5, int(causal), None) == 0
-    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    return outs, (q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("bh,bkv,s,d,causal", K3_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_source_matches_plain(k3_bwd, bh, bkv, s, d,
+                                                  causal, dtype):
+    outs, inputs = _k3_bwd_run(k3_bwd, bh, bkv, s, d, causal, dtype)
+    want = ref.flash_attention_bwd(*inputs, causal=causal)
     tol = K3_BWD_TOL[dtype]
     for name, got, w in zip(("dq", "dk", "dv"), outs, want):
         assert torch.isfinite(got.float()).all(), f"{name} never written"
         torch.testing.assert_close(got.float(), w.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_attention_bwd_mma_source_is_bitwise_repeatable(k3_bwd):
+    """No atomics, sums in a fixed order: two runs of the bf16 kernels
+    (three tiles, a ragged edge, a GQA group of 2) give the same bits."""
+    a, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.bfloat16)
+    b, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.bfloat16)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -683,28 +702,45 @@ def k1_bwd(gxx):
 
 def _k1_bwd_run(k1_bwd, x, w, dy, eps=1e-6):
     """One emulated ``repro_rmsnorm_bwd`` as ``rmsnorm._launch_bwd`` makes
-    it, outputs starting as NaN."""
+    it, outputs starting as NaN: ``(dx, dw)`` and the plan."""
     from repro_torch.kernels import rmsnorm as rms
     d = x.shape[-1]
     rows = x.numel() // d
     dx = torch.full(x.shape, float("nan"), dtype=x.dtype)
     dw = torch.full((d,), float("nan"), dtype=x.dtype)
-    blocks = rms.bwd_blocks(rows)
-    partial = torch.full((blocks, d), float("nan"))
+    ptrs = x.data_ptr() | w.data_ptr() | dy.data_ptr() | dx.data_ptr()
+    p = rms.bwd_plan(rows, d, x.dtype, aligned=not ptrs & 15)
+    partial = torch.full((p.blocks, d), float("nan"))
     assert k1_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                   dw.data_ptr(), partial.data_ptr(), rows, d, eps,
-                  int(x.dtype == torch.bfloat16), blocks, None) == 0
-    return dx, dw
+                  int(x.dtype == torch.bfloat16), p.vector,
+                  p.threads_per_row, p.vectors_per_thread, p.blocks,
+                  None) == 0
+    return (dx, dw), p
 
 
-# K1's backward against its plain version.  fp32: the same arithmetic in
-# another order (dw sums up to 4300 rows).  bf16: each gradient is one
-# rounding of nearly the same fp32 value (2**-8 relative), dw's row sums
-# growing with the rows.  Shapes: lanes masked off (24, 100), a
-# d_model row (2560), several rows a warp (4300 rows: 269 blocks' worth
-# of rows each warp walks in order), one row.
+def _assert_k1_bwd_close(got, want, rows):
+    """fp32: the same arithmetic in another order (dw sums up to 4300
+    rows).  bf16: each gradient is one rounding of nearly the same fp32
+    value (2**-8 relative), dw's row sums growing with the rows."""
+    (dx, dw), (want_dx, want_dw) = got, want
+    tol = 1e-5 if dx.dtype == torch.float32 else 1e-2
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw.float()).all()
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol,
+                               atol=tol * rows ** 0.5)
+
+
+# K1's backward against its plain version, with the layout bwd_plan()
+# gives (threads a row, accesses a thread; bf16 / fp32): lanes masked off
+# (24: 4 / 8 lanes; 100: one element an access in bf16, 32 x 4), a d_model
+# row (2560: 32 x 10 / 64 x 10, two warps' sums through shared memory),
+# two rows a warp (128 bf16: 16 lanes), one row, several blocks of
+# several passes each (4300 x 8: 1 / 2 lanes a row, 17 / 34 blocks; 600 x
+# 2560: 75 / 132 blocks), rows of 128 / 256 threads (9000) and one
+# element an access past 2560 (9001: 256 x 40).
 K1_BWD_SHAPES = [(1, 1), (3, 24), (37, 128), (5, 2560), (140, 100),
-                 (4300, 8)]
+                 (4300, 8), (600, 2560), (2, 9000), (2, 9001)]
 
 
 @pytest.mark.parametrize("shape", K1_BWD_SHAPES,
@@ -715,22 +751,35 @@ def test_rmsnorm_bwd_source_matches_plain(k1_bwd, shape, dtype):
     x = torch.randn(shape, generator=g).to(dtype)
     w = (1 + 0.5 * torch.randn(shape[-1], generator=g)).to(dtype)
     dy = torch.randn(shape, generator=g).to(dtype)
-    dx, dw = _k1_bwd_run(k1_bwd, x, w, dy)
-    want_dx, want_dw = ref.rmsnorm_bwd(x, w, dy)
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw.float()).all()
-    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol,
-                               atol=tol * shape[0] ** 0.5)
+    got, p = _k1_bwd_run(k1_bwd, x, w, dy)
+    assert p.vector == ((shape[-1] * x.element_size()) % 16 == 0)
+    _assert_k1_bwd_close(got, ref.rmsnorm_bwd(x, w, dy), shape[0])
 
 
-def test_rmsnorm_bwd_source_is_bitwise_repeatable(k1_bwd):
-    """dw is a fixed-order column sum: two runs give the same bits."""
+@pytest.mark.parametrize("rows,d", [(37, 128), (140, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_source_misaligned_view_takes_scalar_accesses(
+        k1_bwd, dtype, rows, d):
+    """Rows cut from a flat buffer one element in: one element an access
+    (d_model: 256 threads x 10), the same values."""
+    g = torch.Generator().manual_seed(9)
+    flat = torch.randn(2, 1 + rows * d, generator=g).to(dtype)
+    x, dy = flat[0, 1:].view(rows, d), flat[1, 1:].view(rows, d)
+    w = (1 + 0.5 * torch.randn(d, generator=g)).to(dtype)
+    got, p = _k1_bwd_run(k1_bwd, x, w, dy)
+    assert not p.vector
+    _assert_k1_bwd_close(got, ref.rmsnorm_bwd(x, w, dy), rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_source_is_bitwise_repeatable(k1_bwd, dtype):
+    """dw is a fixed-order column sum over several blocks of several
+    passes: two runs give the same bits."""
     g = torch.Generator().manual_seed(8)
-    x, dy = torch.randn(600, 96, generator=g), torch.randn(600, 96, generator=g)
-    w = torch.randn(96, generator=g)
-    a = _k1_bwd_run(k1_bwd, x, w, dy)
-    b = _k1_bwd_run(k1_bwd, x, w, dy)
+    x, dy = (torch.randn(600, 96, generator=g).to(dtype) for _ in range(2))
+    w = torch.randn(96, generator=g).to(dtype)
+    (a, p), (b, _) = (_k1_bwd_run(k1_bwd, x, w, dy) for _ in range(2))
+    assert p.blocks > 1
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 

@@ -165,7 +165,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     assert ops.launch_counts_by_variant() == {
         "rmsnorm": {"packed": 0, "warp": 0, "block": 0},
         "matmul": {"wgmma": 0, "splitk_reduce": 0, "simt": 0},
-        "flash_attention": {"mma": 0, "simt": 0}}
+        "flash_attention": {"mma": 0, "simt": 0},
+        "flash_attention_bwd": {"mma": 0, "simt": 0}}
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -377,6 +378,52 @@ def test_rmsnorm_plan_refuses_other_dtypes():
     from repro_torch.kernels import rmsnorm as rms
     with pytest.raises(ValueError, match="no kernel"):
         rms.plan(4, 128, torch.float16)
+
+
+# K1's backward plan: (rows, d, dtype, aligned) -> (vector, threads a row,
+# accesses a thread, blocks).  A train step's shapes (2048 d_model rows,
+# 65536 / 16384 qk_norm rows): 128 blocks of 16 rows for the d_model rows
+# (a row in ~235 registers a thread: one block an SM), up to 5 x 132 for
+# the light qk_norm rows; short rows lanes of a warp, long ones up to the
+# block; one element an access where the row or a pointer forbids 16 bytes
+@pytest.mark.parametrize("rows,d,dtype,aligned,want", [
+    (2048, 2560, torch.bfloat16, True, (True, 32, 10, 128)),
+    (65536, 128, torch.bfloat16, True, (True, 16, 1, 656)),
+    (16384, 128, torch.bfloat16, True, (True, 16, 1, 656)),
+    (2048, 2560, torch.float32, True, (True, 64, 10, 128)),
+    (65536, 128, torch.float32, True, (True, 32, 1, 656)),
+    (37, 128, torch.bfloat16, True, (True, 16, 1, 3)),
+    (4300, 8, torch.bfloat16, True, (True, 1, 1, 17)),
+    (1, 1, torch.float32, True, (False, 1, 1, 1)),
+    (140, 100, torch.bfloat16, True, (False, 32, 4, 18)),
+    (140, 2560, torch.bfloat16, False, (False, 256, 10, 140)),
+    (3, 1000, torch.bfloat16, True, (True, 32, 4, 1)),
+    (2, 9000, torch.bfloat16, True, (True, 128, 10, 1)),
+    (2, 9000, torch.float32, True, (True, 256, 10, 2)),
+    (2, 9001, torch.bfloat16, True, (False, 256, 40, 2)),
+])
+def test_rmsnorm_bwd_plan(rows, d, dtype, aligned, want):
+    """A row is held whole, by the fewest threads of a launchable
+    instance; the grid never exceeds the rows' slots nor 8 x 132 blocks,
+    and every block has rows."""
+    from repro_torch.kernels import rmsnorm as rms
+    p = rms.bwd_plan(rows, d, dtype, aligned=aligned)
+    assert tuple(p) == want
+    per = (16 // (4 if dtype == torch.float32 else 2)) if p.vector else 1
+    assert p.threads_per_row * p.vectors_per_thread * per >= d
+    slots = rms.BWD_THREADS // p.threads_per_row
+    assert p.blocks <= min(-(-rows // slots), 8 * rms.SMS)
+    assert (p.blocks - 1) * -(-rows // p.blocks) < rows
+
+
+def test_rmsnorm_bwd_plan_refuses_rows_past_its_registers():
+    from repro_torch.kernels import rmsnorm as rms
+    assert rms.bwd_plan(1, rms.BWD_MAX_D, torch.float32).threads_per_row \
+        == 256
+    with pytest.raises(ValueError, match="rmsnorm_bwd"):
+        rms.bwd_plan(1, rms.BWD_MAX_D + 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        rms.bwd_plan(4, 128, torch.float16)
 
 
 def test_flash_attention_variant_by_dtype():

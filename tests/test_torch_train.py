@@ -28,6 +28,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -694,6 +695,47 @@ def test_train_state_roundtrip_async_and_retention(tmp_path):
             assert x.dtype == y.dtype and x.requires_grad == y.requires_grad
     assert "params/blocks/1/attn/wq" in np.load(
         os.path.join(mgr.dir, "step_0000000003", "arrays.npz")).files
+
+
+@pytest.mark.parametrize("use_8bit", [False, True], ids=["fp32", "8bit"])
+def test_async_save_holds_the_step_it_was_given(tmp_path, monkeypatch,
+                                                use_8bit):
+    """An async save of a CPU state, whose write is held back until the
+    train thread has updated every leaf in place (fp32 params and moments,
+    8-bit payloads and scales, the int32 counters), restores the saved
+    step bitwise: the host copy is taken at ``save``, not aliased."""
+    import repro_torch.ckpt.manager as manager
+    cfg = ModelConfig(**tiny(opt_8bit=use_8bit))
+    model = Model(cfg)
+    state = tstep.make_train_state(model, torch.Generator().manual_seed(1),
+                                   use_8bit=use_8bit, device="cpu")
+    step = tstep.make_train_step(model, base_lr=1e-2, warmup=1)
+    for batch in batches(2):
+        state, _ = step(state, batch)
+    saved = clone(state)
+    go, savez = threading.Event(), manager.np.savez
+
+    def held(*args, **kw):
+        assert go.wait(timeout=60)
+        return savez(*args, **kw)
+    monkeypatch.setattr(manager.np, "savez", held)
+    mgr = _mgr(tmp_path, async_save=True)
+    kinds = set()
+    try:
+        mgr.save(4, state)
+        with torch.no_grad():
+            for _, leaf in adamw.leaves(state):
+                for t in (leaf if isinstance(leaf, adamw.QTensor)
+                          else [leaf]):
+                    t.add_(1)
+                    kinds.add(t.dtype)
+    finally:
+        go.set()
+        mgr.wait()
+    assert kinds == {torch.float32, torch.int32} | (
+        {torch.int8} if use_8bit else set())
+    _, restored, _ = mgr.restore_latest(clone(saved))
+    assert_bitwise(restored, saved)
 
 
 def test_checkpoint_of_the_reference_state_restores_into_the_port(tmp_path):
