@@ -29,7 +29,8 @@ result):
    phase 4b's prefill rows (one request at each bucket) and phase 5's
    shapes in fp32; K3: ``mma`` for bf16, at phase 4's shapes and at phase
    4b's first prefill chunks, ``simt`` for fp32; K2: ``wgmma``, with split
-   K below one wave, or ``simt``); and decode attention (plain PyTorch) at
+   K below one wave, or ``mma`` for bf16, ``skinny`` or ``tf32x3`` for
+   fp32); and decode attention (plain PyTorch) at
    a decode step's shape, the card's bf16-read form against the upcast
    form, both timed;
 4. the main path: ``repro_torch.launch.serve``'s code serving qwen3-4b at
@@ -67,9 +68,13 @@ result):
    equal tokens, the sampled request included;
 6. K2, the hand-written matmul, against its plain version at qwen3-4b's
    projection shapes and one ragged shape, in bf16 and fp32 (times as in
-   phase 3, the library call being ``torch.matmul``), the variant of each
-   asserted; and the tile-width check of ``matmul.plan``: both wgmma tile
-   widths timed at the prefill projections;
+   phase 3, the library call being ``torch.matmul``), the regime of each
+   asserted and launched (``wgmma`` / ``mma`` for bf16, ``skinny`` /
+   ``tf32x3`` for fp32), each case's max abs error against a float64
+   product on the card too, and for ``tf32x3`` a second bound, that of
+   the work it does (three tensor-core products a product at 495
+   TFLOP/s, or bytes); and the tile-width check of ``matmul.plan``: both
+   wgmma tile widths timed at the prefill projections;
 7. K4, the DPIA pipeline on the card: for each of the paper's BLAS
    strategies at the Fig. 7 sizes and the transformer strategies at
    qwen3-4b's shapes, ``Program(expr, args).check().lower()
@@ -84,8 +89,9 @@ result):
    spills per stage;
 8. Fig. 7 on the card: generated / library time for scal, asum, dot and
    gemv at both sizes (a reproduction, no claim);
-9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at the
-   projection shapes and every DPIA op through ``impl="dpia-cuda"`` at the
+9. the main path of the pipeline slice: ``ops.matmul(impl="cuda")`` at
+   phase 6's shapes in bf16 and fp32 (every K2 regime and both split
+   reductions launched) and every DPIA op through ``impl="dpia-cuda"`` at the
    shapes of phase 7, with K2's and K4's launch counts checked, per K2
    variant too; (b) the same DPIA ops as a user calls them by default
    (``impl="dpia-cuda"``, the tuner on, no measured record): the cuda row
@@ -167,8 +173,9 @@ result):
    at the ragged S 200) in bf16 and fp32 against their plain versions
    (and K3's row log-sum-exp), bitwise repeatable, with their times,
    bounds, the library's backward (``F.rms_norm``'s, SDPA's), each
-   case's plan or variant (K3-bwd: ``mma`` for bf16, ``simt`` for fp32,
-   each launch counted) and ptxas's registers and spills of every
+   case's plan or variant (K3-bwd: ``mma`` for bf16, ``tf32x3`` for fp32,
+   each launch counted; fp32 beside a second bound, that of its 3xTF32
+   work) and ptxas's registers and spills of every
    backward instance; qwen3-4b at full width (bf16, 36 layers,
    remat, weights from seed 0, batch 4 x seq 512): (c) one step at
    ``microbatches=2`` on the fresh state (lr 0 at step 0: the params keep
@@ -176,7 +183,7 @@ result):
    (b)'s first step; (b) ``TrainLoop`` for 6 steps with no checkpoint:
    every leaf's gradient set and finite after step 1, every matrix
    changed after step 2, exact K1 / K3 forward and backward launches a
-   step (K3-bwd: 36 ``mma``, 0 ``simt``), step time, tok/s, MFU (6 x
+   step (K3-bwd: 36 ``mma``, 0 ``tf32x3``), step time, tok/s, MFU (6 x
    matmul params x tokens / step time / 989 TFLOP/s) and peak memory;
    (d) a loss that is NaN on the third call: ``applied`` 0, every tensor
    of the state bitwise kept (checksums), one skipped step; (e) this
@@ -184,12 +191,13 @@ result):
    ``--train-child`` in a fresh process (deterministic algorithms,
    ``CUBLAS_WORKSPACE_CONFIG``): 20 smoke-config steps (fp32) equal 10,
    a checkpoint, a restore and 10 more, bitwise, and the card's step-1
-   state equals the CPU's.
+   state equals the CPU's; every K3-bwd launch there is ``tf32x3``.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
 K3, the backward kernels of K1 and K3 (their launches, and K3-bwd's per
-variant, phase 13b's), one entry per generated K4 program of phase 7 and
+variant, phase 13b's; K3-bwd's per variant in 13e too, as
+``launches_13e``), one entry per generated K4 program of phase 7 and
 one per tuned winner of phase 11), the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -215,6 +223,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core rate
               torch.float32: 67e12}     # fp32 outside the tensor cores
+TF32_FLOPS = 495e12              # dense TF32 tensor-core rate
 ELEMENTWISE_FLOPS = 67e12        # fp32 on the CUDA cores
 
 # Kernel against plain version on the card, |err| <= atol + rtol * |plain|.
@@ -229,6 +238,10 @@ TOLS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 MM_TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 MM_SHAPES = [(800, 2560, 4096), (800, 2560, 9728), (4, 2560, 4096),
              (37, 100, 75)]
+# phase 9's K2 calls: every shape in both dtypes, so that every regime
+# (wgmma and its reduction, mma; skinny and its reduction, tf32x3) runs
+MM_CALLS = [(m, k, n, dt) for dt in (torch.bfloat16, torch.float32)
+            for m, k, n in MM_SHAPES]
 
 # K4 programs (phase 7): kernel, shape.  Fig. 7 sizes
 # (benchmarks/fig7_overhead.py:25-26) and qwen3-4b's shapes.
@@ -1008,10 +1021,24 @@ def eager_auto(fn) -> float:
 
 
 def _mm_variant(m, k, n, dtype) -> str:
-    """The variant phase 6 and 9 hold each K2 case to: the bf16 projection
-    shapes on the tensor cores, the ragged shape and fp32 on the SIMT
-    kernel."""
-    return "wgmma" if dtype == torch.bfloat16 and n % 8 == 0 else "simt"
+    """The regime phases 6 and 9 hold each K2 case to: bf16 rows TMA can
+    describe on wgmma, other bf16 on mma; fp32 up to 16 rows on skinny
+    (split K, CUDA cores), more on tf32x3 (3xTF32 tiles)."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma"
+    return "skinny" if m <= 16 else "tf32x3"
+
+
+def _mm_planned(plans) -> dict:
+    """K2's launches per variant that calls with these plans make: one of
+    the plan's kernel each, and one of its reduction where K is split."""
+    from repro_torch.kernels import matmul as mm
+    want = {v: 0 for v in mm.launches_by_variant}
+    for p in plans:
+        want[p.variant] += 1
+        if p.split > 1:
+            want[mm._REDUCE[p.variant]] += 1
+    return want
 
 
 def _matmul_case(m, k, n, dtype, gen):
@@ -1026,26 +1053,38 @@ def _matmul_case(m, k, n, dtype, gen):
                              f"{p.variant}, want {_mm_variant(m, k, n, dtype)}")
     before = dict(mm.launches_by_variant)
     got, want = mm.matmul(a, b), ref.matmul(a, b)
-    if mm.launches_by_variant[p.variant] != before[p.variant] + 1:
+    planned = _mm_planned([p])
+    if mm.launches_by_variant != {v: c + planned[v]
+                                  for v, c in before.items()}:
         raise AssertionError(f"matmul {(m, k, n)} {dtype}: {p.variant} was "
-                             f"not launched")
+                             f"not launched as planned: "
+                             f"{mm.launches_by_variant}")
     atol, rtol = MM_TOLS[dtype]
     err = (got.float() - want.float()).abs()
     if (err > atol + rtol * want.float().abs()).any():
         raise AssertionError(f"matmul {(m, k, n)} {dtype}: max abs err "
                              f"{err.max().item()} beyond atol {atol} + rtol "
                              f"{rtol}")
+    # against the exact product of the same inputs: what 3xTF32 keeps
+    err64 = (got.double() - a.double() @ b.double()).abs().max().item()
+    plain64 = (want.double() - a.double() @ b.double()).abs().max().item()
     elt = a.element_size()
-    b_ms, b_by = bound((m * k + k * n + m * n) * elt, 2 * m * k * n,
-                       PEAK_FLOPS[dtype])
-    return {"shape": [m, k, n], "dtype": str(dtype).split(".")[-1],
+    nbytes = (m * k + k * n + m * n) * elt
+    b_ms, b_by = bound(nbytes, 2 * m * k * n, PEAK_FLOPS[dtype])
+    case = {"shape": [m, k, n], "dtype": str(dtype).split(".")[-1],
             "variant": p.variant, "block_n": p.block_n, "split": p.split,
             "grid": list(p.grid), "max_abs_err": err.max().item(),
+            "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
             "tol": [atol, rtol], "ms": time_ms(lambda: mm.matmul(a, b)),
             "eager_ms": eager_ms(lambda: mm.matmul(a, b)),
             "plain_ms": time_ms(lambda: ref.matmul(a, b)),
             "library_ms": time_ms(lambda: torch.matmul(a, b)),
             "bound_ms": b_ms, "bound_by": b_by}
+    if p.variant == "tf32x3":
+        # the work it does: three TF32 products a product
+        case["bound_3xtf32_ms"], case["bound_3xtf32_by"] = bound(
+            nbytes, 3 * 2 * m * k * n, TF32_FLOPS)
+    return case
 
 
 def phase_matmul():
@@ -1270,10 +1309,9 @@ def phase_pipeline_main_path():
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(3)
-    mm_in = [(torch.randn((m, k), generator=gen, device="cuda")
-              .to(torch.bfloat16),
-              torch.randn((k, n), generator=gen, device="cuda")
-              .to(torch.bfloat16)) for m, k, n in MM_SHAPES]
+    mm_in = [(torch.randn((m, k), generator=gen, device="cuda").to(dt),
+              torch.randn((k, n), generator=gen, device="cuda").to(dt))
+             for m, k, n, dt in MM_CALLS]
     dpia_in = [(k, sh, _dpia_inputs(k, sh, gen)) for k, sh in DPIA_CASES]
     calls = {"scal": lambda a, sh: ops.scal(*a, impl="dpia-cuda"),
              "asum": lambda a, sh: ops.asum(*a, impl="dpia-cuda"),
@@ -1295,14 +1333,12 @@ def phase_pipeline_main_path():
                 ops.compiled(k, "cuda", **sh).launches for k, sh in DPIA_CASES}
     stages = sum(len(ops.compiled(k, "cuda", **sh).stages)
                  for k, sh in DPIA_CASES)
-    plans = [mm.plan(m, n, k, torch.bfloat16) for m, k, n in MM_SHAPES]
+    plans = [mm.plan(m, n, k, dt) for m, k, n, dt in MM_CALLS]
     want = {"rmsnorm": 0, "matmul": sum(p.launches for p in plans),
             "flash_attention": 0, "dpia_cuda": stages, **NO_BWD}
-    want_variants = {"wgmma": sum(p.variant == "wgmma" for p in plans),
-                     "splitk_reduce": sum(p.split > 1 for p in plans),
-                     "simt": sum(p.variant == "simt" for p in plans)}
-    if [p.variant for p in plans] != [_mm_variant(m, k, n, torch.bfloat16)
-                                      for m, k, n in MM_SHAPES]:
+    want_variants = _mm_planned(plans)
+    if [p.variant for p in plans] != [_mm_variant(m, k, n, dt)
+                                      for m, k, n, dt in MM_CALLS]:
         raise AssertionError(f"pipeline main path: K2 plans {plans}")
     if counts != want or 0 in per_prog.values() \
             or mm_variants != want_variants or 0 in mm_variants.values():
@@ -1312,7 +1348,7 @@ def phase_pipeline_main_path():
     for o in outs:
         if not torch.isfinite(o.float()).all():
             raise AssertionError("pipeline main path: a non-finite output")
-    log(f"[9] pipeline main path: {len(MM_SHAPES)} K2 calls + "
+    log(f"[9] pipeline main path: {len(MM_CALLS)} K2 calls + "
         f"{len(DPIA_CASES)} dpia-cuda ops, launches {counts}, K2 variants "
         f"{mm_variants}, per generated program {per_prog}")
     return counts, mm_variants, per_prog, {
@@ -1528,8 +1564,8 @@ def phase_services(smi, p9, stage_s, build_s):
         mm_outs = [ops.matmul(a, b) for a, b in p9["mm_in"]]
     torch.cuda.synchronize()
     counts, variants = ops.launch_counts(), ops.launch_counts_by_variant()
-    want_mm = sum(mm.plan(m, nn, k, torch.bfloat16).launches
-                  for m, k, nn in MM_SHAPES)
+    want_mm = sum(mm.plan(m, nn, k, dt).launches
+                  for m, k, nn, dt in MM_CALLS)
     if counts != {**zero, "matmul": want_mm} or \
             variants["matmul"] != p9["mm_variants"] or \
             any(not torch.equal(g, w) for g, w in zip(mm_outs, p9["mm_out"])):
@@ -2192,19 +2228,19 @@ def bwd_ptxas() -> dict:
     """Registers and spills of the backward kernels' instances (ptxas's
     ``-v`` report of their sources): K1-bwd's rows kernel by (dtype,
     elements an access, threads a row, accesses a thread), K3-bwd's mma
-    kernels by (kernel, head dim)."""
+    and tf32 kernels by (kernel, head dim)."""
     from repro_torch.kernels import _build
     k1 = _build.ptxas_report(
         _build.target("rmsnorm").with_suffix(".log").read_text(),
         r"rmsnorm_bwd_rowsI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
     k3 = _build.ptxas_report(
         _build.target("flash_attention").with_suffix(".log").read_text(),
-        r"flash_bwd_(dkv|dq)_mmaILi(\d+)E")
+        r"flash_bwd_(dkv|dq)_(mma|tf32)ILi(\d+)E")
     return {"rmsnorm_bwd": {
                 f"{'fp32' if t == 'f' else 'bf16'} N{n} TPR{p} VPT{v}": r
                 for (t, n, p, v), r in sorted(k1.items())},
-            "flash_attention_bwd": {f"{k} D{dd}": r
-                                    for (k, dd), r in sorted(k3.items())}}
+            "flash_attention_bwd": {f"{k}_{v} D{dd}": r
+                                    for (k, v, dd), r in sorted(k3.items())}}
 
 
 def _rmsnorm_bwd_case(rows, d, dtype, gen, ptxas):
@@ -2267,7 +2303,7 @@ def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen, ptxas):
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"{what}: lse max abs err {lse_err} > {LSE_TOL}")
     before = fa.backward.launches
-    variant = fa.variant(dtype)
+    variant = fa.bwd_variant(dtype)
     before_v = fa.backward.launches_by_variant[variant]
 
     def kernel():
@@ -2290,14 +2326,20 @@ def _flash_bwd_case(b, nh, nkv, s, hd, dtype, gen, ptxas):
     # its bytes: q, o, dO read and dQ written; k, v read and dK, dV
     # written; lse read
     nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, 10 * b * nh * hd * pairs, PEAK_FLOPS[dtype])
+    flops = 10 * b * nh * hd * pairs
+    b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
     q4, k4, v4 = (t.detach().view(b, n, s, hd).requires_grad_()
                   for t, n in ((q, nh), (k, nkv), (v, nkv)))
+    extra = {}
+    if variant == "tf32x3":
+        # the work it does: three TF32 products a product
+        extra["bound_3xtf32_ms"], extra["bound_3xtf32_by"] = bound(
+            nbytes, 3 * flops, TF32_FLOPS)
+    kind = "_mma " if variant == "mma" else "_tf32 "
     return {"q": [b * nh, s, hd], "kv": [b * nkv, s, hd], "causal": True,
             "dtype": str(dtype).split(".")[-1], "variant": variant,
-            "ptxas": ({n: r for n, r in ptxas["flash_attention_bwd"].items()
-                       if n.endswith(f" D{hd}")} if variant == "mma"
-                      else None),
+            "ptxas": {n: r for n, r in ptxas["flash_attention_bwd"].items()
+                      if n.endswith(f" D{hd}") and kind in n}, **extra,
             "max_abs_err": max(errs.values()), "errs": errs,
             "lse_max_abs_err": lse_err, "tol": list(BWD_TOLS[dtype]),
             "bitwise_repeat": True,
@@ -2477,7 +2519,7 @@ def phase_train(smi):
     want_step = {"rmsnorm": 2 * per_pass_k1 - 1, "rmsnorm_bwd": per_pass_k1,
                  "flash_attention": 2 * cfg.n_layers,
                  "flash_attention_bwd": cfg.n_layers}
-    want_bwd_variants = {"mma": cfg.n_layers, "simt": 0}
+    want_bwd_variants = {"mma": cfg.n_layers, "tf32x3": 0}
     bad_launch = [(r["launches"], r["flash_attention_bwd_variants"])
                   for r in rows if r["launches"] != want_step or
                   r["flash_attention_bwd_variants"] != want_bwd_variants]
@@ -2613,7 +2655,7 @@ def train_child() -> int:
         saved = mgr.all_steps()
         b = TrainLoop(step, mgr, data, ckpt_every=SMOKE_STEPS // 2).run(
             copy.deepcopy(card0), num_steps=SMOKE_STEPS)
-    counts = ops.launch_counts()
+    counts, by_variant = ops.launch_counts(), ops.launch_counts_by_variant()
     bitwise = all(torch.equal(x, y) for (_, x), (_, y)
                   in zip(adamw.leaves(a), adamw.leaves(b)))
     # one step on each device from the same state and batch
@@ -2630,7 +2672,9 @@ def train_child() -> int:
             bad.append("/".join(map(str, path)))
     print(json.dumps({
         "resume_bitwise": bitwise, "checkpoints": saved,
-        "launches": counts, "deterministic": True,
+        "launches": counts,
+        "flash_attention_bwd_variants": by_variant["flash_attention_bwd"],
+        "deterministic": True,
         "card_vs_cpu_bad_leaves": bad,
         "card_vs_cpu_max_abs_err": worst, "tol": list(STATE_TOL),
         "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
@@ -2656,7 +2700,9 @@ def phase_train_smoke(smi):
     if not rep["resume_bitwise"] or rep["checkpoints"] != [
             SMOKE_STEPS // 2] or rep["card_vs_cpu_bad_leaves"] or \
             rep["launches"]["rmsnorm_bwd"] == 0 or \
-            rep["launches"]["flash_attention_bwd"] == 0:
+            rep["launches"]["flash_attention_bwd"] == 0 or \
+            rep["flash_attention_bwd_variants"] != {
+                "mma": 0, "tf32x3": rep["launches"]["flash_attention_bwd"]}:
         raise AssertionError(f"[13e] {rep}")
     rep["process_s"] = time.perf_counter() - t0
     log("[13e] smoke config, fp32, on the card (torch.use_deterministic_"
@@ -2697,10 +2743,11 @@ VARIANT_SOURCES = {
         "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
     "matmul": {"wgmma": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                "splitk_reduce": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
-               "simt": "src/repro_torch/kernels/csrc/matmul.cu"},
+               **{v: "src/repro_torch/kernels/csrc/matmul.cu"
+                  for v in ("skinny", "skinny_reduce", "tf32x3", "mma")}},
     "flash_attention_bwd": {
         "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+        "tf32x3": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
 K4 = {"route": "cuda", "source": "src/repro_torch/core/dpia/stage3_cuda.py",
       "replaces": "src/repro/core/dpia/stage3_pallas.py:430"}
@@ -2778,6 +2825,10 @@ def _run_phases(tune_cache: str) -> int:
             entry["variants"] = {
                 v: {"source": src, "launches": variants[k["name"]][v]}
                 for v, src in VARIANT_SOURCES[k["name"]].items()}
+        if k["name"] == "flash_attention_bwd":
+            # the fp32 backward runs in 13e's fp32 training, not 13b's
+            for v, n in train["13e"]["flash_attention_bwd_variants"].items():
+                entry["variants"][v]["launches_13e"] = n
         line.append(entry)
     for c in dpia:
         line.append({"name": f"dpia_cuda:{c['program']}", **K4,

@@ -168,9 +168,9 @@ def load_generated(name: str, text: str) -> ctypes.CDLL:
 
 
 def ptxas_report(log: str, kernel_pattern: str) -> Dict[tuple, dict]:
-    """Registers, static shared memory and spill bytes per kernel from a
-    ``-Xptxas -v`` log, keyed by the groups ``kernel_pattern`` captures
-    in the (mangled) kernel name."""
+    """Registers, static shared memory, stack frame and spill bytes per
+    kernel from a ``-Xptxas -v`` log, keyed by the groups
+    ``kernel_pattern`` captures in the (mangled) kernel name."""
     out: Dict[tuple, dict] = {}
     cur = None
     for line in log.splitlines():
@@ -182,10 +182,11 @@ def ptxas_report(log: str, kernel_pattern: str) -> Dict[tuple, dict]:
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            cur["stack_frame"], cur["spill_stores"], cur["spill_loads"] = \
+                map(int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))

@@ -97,13 +97,31 @@
 // gradient's own bf16 rounding (2^-8), so the bf16 tolerances hold as
 // before: 1e-2 x max + 1e-2 |plain| on the card, 2e-2 under emulation.
 //
-// fp32, `flash_bwd_delta` / `flash_bwd_dkv` / `flash_bwd_dq` (SIMT, the
-// first version, unchanged): fp32 FMAs on the CUDA cores (TF32 would break
-// the fp32 checks); 32 x 32 tiles staged in shared memory as fp32 (K and V
-// rows padded by one float, P and dS by one column, so lane j reading row
-// j is free of bank conflicts); lane j scores key j for the rows of its
-// warp; a thread keeps 4-column-strided accumulators of one key (dK, dV)
-// or one query row (dQ).
+// fp32, `flash_bwd_delta_f32` / `flash_bwd_dkv_tf32` / `flash_bwd_dq_tf32`
+// (tensor cores in 3xTF32).  What bounds it: at the train step's shape
+// the five products (3.0e10 FLOP with S and dP recomputed) take 0.45 ms on
+// the fp32 CUDA cores (67 TFLOP/s); plain TF32 would break the fp32 checks
+// (2^-11 relative a product), 3xTF32 keeps about 3 x 2^-22 (tc_sm80.cuh's
+// note; fp32 rounds to 2^-24) at three tensor-core products a product:
+// 9.0e10 FLOP, 0.18 ms at 495 TFLOP/s.  The design is the bf16 kernels'
+// split, order, grids, masks and frontier, in fp32: 64-row tiles staged by
+// 16-byte cp.async copies into rows padded by 4 floats (six tiles, 203 KB
+// at D = 128: one block an SM), mma.m16n8k8 tf32 on fragments read from
+// shared memory and split to hi / lo as they are loaded (`a_frag_tf32`,
+// `b_frag_rows_tf32`).  The products' C fragments hold columns 2t, 2t + 1
+// where an m16n8k8 A fragment wants t, t + 4, so P^T / dS^T (dK / dV) and
+// dS (dQ) become A fragments in a permuted k order (`c_as_a_tf32`: slot t
+// is column 2t, slot t + 4 column 2t + 1), and the B operand of those
+// products -- dO and Q rows (dK / dV), K rows (dQ) -- is read in the same
+// order (`b_frag_cols_tf32`: rows 2t and 2t + 1); the sum over k is the
+// same.  With rows of D + 4 floats every fragment read is free of bank
+// conflicts: A and n-major B reads fall on banks 4g + t, the permuted k-row
+// reads on 8t + g.  dK / dV take 16 queries of S^T at a time and dQ 64
+// keys of S (at D = 128: 128 and 64 fp32 accumulators, 255 and 242
+// registers, no spills).  As in K2's tf32x3, the tensor core truncates
+// each sum it adds into an accumulator to the accumulator's exponent, so
+// dK, dV and dQ, summed over hundreds of products, take each chunk's
+// products in fresh fragments added in fp32 (rounded to nearest).
 //
 // C entry points (bound with ctypes): return cudaGetLastError() after the
 // launches; launch on the given stream; allocate nothing (the wrapper
@@ -537,270 +555,9 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
 }
 
 
-// ---- fp32 backward: SIMT (see the header note) ----------------------------
-
-constexpr int kBR = 32;                        // query rows per tile
-constexpr int kBC = 32;                        // keys per tile: one a lane
-constexpr int kBwdThreads = 128;               // four warps
-constexpr int kPS = kBC + 1;                   // padded P / dS row
-
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  // Q, dO [kBR][D]; K, V [kBC][D + 1]; P, dS [kBR][kBC + 1]; lse, D [kBR]
-  return sizeof(float) *
-         (size_t)(2 * kBR * D + 2 * kBC * (D + 1) + 2 * kBR * kPS + 2 * kBR);
-}
-
-// rows [r0, r0 + n) of a (rows, D) matrix of T into an fp32 tile of row
-// stride S; rows past the edge are zero
-template <typename T, int D, int S>
-__device__ __forceinline__ void stage_f32(float* dst, const T* src, int r0,
-                                          int rows, int n) {
-  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    dst[r * S + c] = r0 + r < rows ? to_f32(src[(size_t)(r0 + r) * D + c])
-                                   : 0.f;
-  }
-}
-
-// D = rowsum(dO * O) in fp32: a row a warp
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, long long rows, int d) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * (kBwdThreads / 32) +
-                        threadIdx.x / 32;
-  if (row >= rows) return;                     // uniform across the warp
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32)
-    s = fmaf(to_f32(o[row * d + c]), to_f32(dout[row * d + c]), s);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
-}
-
-// The P and dS tiles of query rows [q0, q0 + kBR) against keys [k0, k0 +
-// kBC), from the staged Q, dO, K, V, lse and D: lane j takes key j, warp w
-// rows w, w + 4, ...; P = exp(scale * q.k - lse) (0 where masked), dS =
-// P * (dO.v - D).
-template <int D>
-__device__ __forceinline__ void bwd_scores(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* dl_s, float* ps, float* dss, int q0,
-    int k0, int sq, int sk, int causal, float scale) {
-  const int warp = threadIdx.x / 32, j = threadIdx.x % 32;
-  const float* krow = ks + j * (D + 1);
-  const float* vrow = vs + j * (D + 1);
-  const int key = k0 + j;
-#pragma unroll 2
-  for (int i = warp; i < kBR; i += kBwdThreads / 32) {
-    const float* qrow = qs + i * D;
-    const float* dorow = dos + i * D;
-    float s = 0.f, dp = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      s = fmaf(qrow[c], krow[c], s);
-      dp = fmaf(dorow[c], vrow[c], dp);
-    }
-    const int qpos = q0 + i;
-    const bool valid = qpos < sq && key < sk && (!causal || key <= qpos);
-    const float p = valid ? expf(s * scale - lse_s[i]) : 0.f;
-    ps[i * kPS + j] = p;
-    dss[i * kPS + j] = p * (dp - dl_s[i]);
-  }
-}
-
-// dK and dV of one (kv head, kv tile): the group's query heads in order,
-// each over its q tiles from the causal frontier on.  Thread t holds key
-// t / 4, columns t % 4 + 4 m, of both accumulators.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int group, int sq,
-              int sk, float scale, int causal) {
-  constexpr int kCols = D / 4;
-  extern __shared__ float smem[];
-  float* qs = smem;                            // [kBR][D]
-  float* dos = qs + kBR * D;                   // [kBR][D]
-  float* ks = dos + kBR * D;                   // [kBC][D + 1]
-  float* vs = ks + kBC * (D + 1);              // [kBC][D + 1]
-  float* ps = vs + kBC * (D + 1);              // [kBR][kPS]
-  float* dss = ps + kBR * kPS;                 // [kBR][kPS]
-  float* lse_s = dss + kBR * kPS;              // [kBR]
-  float* dl_s = lse_s + kBR;                   // [kBR]
-
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * kBC;
-  const int jt = threadIdx.x / 4, c0 = threadIdx.x % 4;
-  stage_f32<T, D, D + 1>(ks, k + (size_t)kvh * sk * D, k0, sk, kBC);
-  stage_f32<T, D, D + 1>(vs, v + (size_t)kvh * sk * D, k0, sk, kBC);
-  float dka[kCols], dva[kCols];
-#pragma unroll
-  for (int m = 0; m < kCols; ++m) dka[m] = dva[m] = 0.f;
-
-  const int n_qt = (sq + kBR - 1) / kBR;
-  // a query row below k0 sees no key of this tile
-  const int qt0 = causal ? k0 / kBR : 0;
-  for (int h = 0; h < group; ++h) {
-    const int bh = kvh * group + h;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kBR;
-      __syncthreads();   // the previous tile's Q, dO, P and dS are consumed
-      stage_f32<T, D, D>(qs, q + (size_t)bh * sq * D, q0, sq, kBR);
-      stage_f32<T, D, D>(dos, dout + (size_t)bh * sq * D, q0, sq, kBR);
-      for (int i = threadIdx.x; i < kBR; i += blockDim.x) {
-        const bool in = q0 + i < sq;
-        lse_s[i] = in ? lse[(size_t)bh * sq + q0 + i] : 0.f;
-        dl_s[i] = in ? delta[(size_t)bh * sq + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      bwd_scores<D>(qs, dos, ks, vs, lse_s, dl_s, ps, dss, q0, k0, sq, sk,
-                    causal, scale);
-      __syncthreads();
-      for (int i = 0; i < kBR; ++i) {
-        const float p = ps[i * kPS + jt];
-        const float ds = dss[i * kPS + jt];
-        const float* dorow = dos + i * D;
-        const float* qrow = qs + i * D;
-#pragma unroll
-        for (int m = 0; m < kCols; ++m) {
-          dva[m] = fmaf(p, dorow[c0 + 4 * m], dva[m]);
-          dka[m] = fmaf(ds, qrow[c0 + 4 * m], dka[m]);
-        }
-      }
-    }
-  }
-  if (k0 + jt < sk) {
-    T* dkrow = dk + ((size_t)kvh * sk + k0 + jt) * D;
-    T* dvrow = dv + ((size_t)kvh * sk + k0 + jt) * D;
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) {
-      dkrow[c0 + 4 * m] = from_f32<T>(dka[m] * scale);
-      dvrow[c0 + 4 * m] = from_f32<T>(dva[m]);
-    }
-  }
-}
-
-// dQ of one (query head, q tile): its kv tiles up to the causal frontier.
-// Thread t holds row t / 4, columns t % 4 + 4 m.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int group, int sq, int sk, float scale,
-             int causal) {
-  constexpr int kCols = D / 4;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kBR * D;
-  float* ks = dos + kBR * D;
-  float* vs = ks + kBC * (D + 1);
-  float* ps = vs + kBC * (D + 1);
-  float* dss = ps + kBR * kPS;
-  float* lse_s = dss + kBR * kPS;
-  float* dl_s = lse_s + kBR;
-
-  const int bh = blockIdx.y;
-  const int kvh = bh / group;
-  const int q0 = blockIdx.x * kBR;
-  const int it = threadIdx.x / 4, c0 = threadIdx.x % 4;
-  stage_f32<T, D, D>(qs, q + (size_t)bh * sq * D, q0, sq, kBR);
-  stage_f32<T, D, D>(dos, dout + (size_t)bh * sq * D, q0, sq, kBR);
-  for (int i = threadIdx.x; i < kBR; i += blockDim.x) {
-    const bool in = q0 + i < sq;
-    lse_s[i] = in ? lse[(size_t)bh * sq + q0 + i] : 0.f;
-    dl_s[i] = in ? delta[(size_t)bh * sq + q0 + i] : 0.f;
-  }
-  float dqa[kCols];
-#pragma unroll
-  for (int m = 0; m < kCols; ++m) dqa[m] = 0.f;
-
-  const int n_kt = (sk + kBC - 1) / kBC;
-  const int n_live =
-      causal ? min((min(q0 + kBR, sq) - 1) / kBC + 1, n_kt) : n_kt;
-  for (int kt = 0; kt < n_live; ++kt) {
-    const int k0 = kt * kBC;
-    __syncthreads();     // the previous tile's K, V and dS are consumed
-    stage_f32<T, D, D + 1>(ks, k + (size_t)kvh * sk * D, k0, sk, kBC);
-    stage_f32<T, D, D + 1>(vs, v + (size_t)kvh * sk * D, k0, sk, kBC);
-    __syncthreads();
-    bwd_scores<D>(qs, dos, ks, vs, lse_s, dl_s, ps, dss, q0, k0, sq, sk,
-                  causal, scale);
-    __syncthreads();
-    for (int j = 0; j < kBC; ++j) {
-      const float ds = dss[it * kPS + j];
-      const float* krow = ks + j * (D + 1);
-#pragma unroll
-      for (int m = 0; m < kCols; ++m)
-        dqa[m] = fmaf(ds, krow[c0 + 4 * m], dqa[m]);
-    }
-  }
-  if (q0 + it < sq) {
-    T* dqrow = dq + ((size_t)bh * sq + q0 + it) * D;
-#pragma unroll
-    for (int m = 0; m < kCols; ++m) dqrow[c0 + 4 * m] = from_f32<T>(dqa[m] * scale);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* o, const float* lse, const void* dout,
-                       void* dq, void* dk, void* dv, float* delta, int bh,
-                       int bkv, int sq, int sk, float scale, int causal,
-                       cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D>();
-  const int group = bh / bkv;
-  const long long rows = (long long)bh * sq;
-  const int delta_blocks = (int)((rows + kBwdThreads / 32 - 1) /
-                                 (kBwdThreads / 32));
-  flash_bwd_delta<T><<<delta_blocks, kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((sk + kBC - 1) / kBC, bkv);
-  flash_bwd_dkv<T, D><<<grid_kv, kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), group, sq, sk, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((sq + kBR - 1) / kBR, bh);
-  flash_bwd_dq<T, D><<<grid_q, kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), group, sq, sk, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
-                         const void* o, const float* lse, const void* dout,
-                         void* dq, void* dk, void* dv, float* delta, int bh,
-                         int bkv, int sq, int sk, int d, float scale,
-                         int causal, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_bwd<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
-    case 32: return launch_bwd<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
-    case 64: return launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
-    case 128: return launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-
 // ---- bf16 backward: mma.sync + cp.async (see the header note) ------------
 
+constexpr int kBwdThreads = 128;               // four warps
 constexpr int kBwdTile = 64;                   // q rows and keys per tile
 constexpr int kQC = 32;                        // q columns of S^T held at once
 
@@ -1257,6 +1014,501 @@ cudaError_t launch_bwd_mma_d(const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---- fp32 backward: 3xTF32 mma.sync + cp.async (see the header note) ------
+
+constexpr int kQC32 = 16;                      // q columns of S^T held at once
+constexpr int kKC32 = 64;                      // key columns of S held at once
+
+template <int D>
+constexpr size_t bwd_tf32_smem_bytes() {
+  // six fp32 tiles of 64 rows padded by 4 floats (as the bf16 kernels') and
+  // two pairs of 64 floats (lse in the log2 domain, D)
+  return sizeof(float) * (6 * kBwdTile * (D + 4) + 4 * kBwdTile);
+}
+
+// rows [r0, r0 + 64) of a (rows, D) fp32 matrix into a tile of rows padded
+// by 4 floats, by 16-byte cp.async copies; rows past the edge zero-filled
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               int r0, int rows) {
+  constexpr int kChunks = D / 4;               // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kBwdTile * kChunks; c += kWarps * 32) {
+    const int r = c / kChunks, ch = c % kChunks;
+    const bool in = r0 + r < rows;
+    cp_async_16(dst + r * (D + 4) + ch * 4,
+                src + (size_t)(in ? r0 + r : 0) * D + ch * 4, in ? 16 : 0);
+  }
+}
+
+// A fragment (16 x 8) of an fp32 tile of row stride S at rows r0.., columns
+// c0..: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), split to hi / lo
+template <int S>
+__device__ __forceinline__ void a_frag_tf32(const float* tile, int r0, int c0,
+                                            uint32_t h[4], uint32_t l[4]) {
+  const int lane = threadIdx.x % 32;
+  const float* p = tile + (r0 + lane / 4) * S + c0 + lane % 4;
+  split_tf32(p[0], h[0], l[0]);
+  split_tf32(p[8 * S], h[1], l[1]);
+  split_tf32(p[4], h[2], l[2]);
+  split_tf32(p[8 * S + 4], h[3], l[3]);
+}
+
+// B fragment (8 x 8, k down) whose n runs along the tile's rows r0.. and k
+// along its columns c0..: b0 (k t, n g) = tile[r0 + g][c0 + t], b1 (k t +
+// 4), split
+template <int S>
+__device__ __forceinline__ void b_frag_rows_tf32(const float* tile, int r0,
+                                                 int c0, uint32_t h[2],
+                                                 uint32_t l[2]) {
+  const int lane = threadIdx.x % 32;
+  const float* p = tile + (r0 + lane / 4) * S + c0 + lane % 4;
+  split_tf32(p[0], h[0], l[0]);
+  split_tf32(p[4], h[1], l[1]);
+}
+
+// B fragment whose k runs along the tile's rows r0.. in the permuted order
+// (slot t is row 2t, slot t + 4 row 2t + 1) and n along its columns c0..:
+// b0 = tile[r0 + 2t][c0 + g], b1 = tile[r0 + 2t + 1][c0 + g], split
+template <int S>
+__device__ __forceinline__ void b_frag_cols_tf32(const float* tile, int r0,
+                                                 int c0, uint32_t h[2],
+                                                 uint32_t l[2]) {
+  const int lane = threadIdx.x % 32;
+  const float* p = tile + (r0 + 2 * (lane % 4)) * S + c0 + lane / 4;
+  split_tf32(p[0], h[0], l[0]);
+  split_tf32(p[S], h[1], l[1]);
+}
+
+// A C fragment (16 x 8) reused as an A fragment of the next product in the
+// permuted k order: a = {c0, c2, c1, c3}, split
+__device__ __forceinline__ void c_as_a_tf32(const float c[4], uint32_t h[4],
+                                            uint32_t l[4]) {
+  split_tf32(c[0], h[0], l[0]);
+  split_tf32(c[2], h[1], l[1]);
+  split_tf32(c[1], h[2], l[2]);
+  split_tf32(c[3], h[3], l[3]);
+}
+
+// D = rowsum(dO * O) in fp32 over fp32 rows of D elements: D / 4 lanes a
+// row, one 16-byte access of each a lane (its four products in order),
+// then a butterfly over the row's lanes
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta_f32(const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    float* __restrict__ delta, long long rows) {
+  constexpr int kLanes = D / 4;
+  const long long row =
+      ((long long)blockIdx.x * kBwdThreads + threadIdx.x) / kLanes;
+  const int c = (threadIdx.x % kLanes) * 4;
+  float s = 0.f;
+  if (row < rows) {
+    const float4 a = *reinterpret_cast<const float4*>(o + row * D + c);
+    const float4 b = *reinterpret_cast<const float4*>(dout + row * D + c);
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+    s = fmaf(a.z, b.z, s);
+    s = fmaf(a.w, b.w, s);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && c == 0) delta[row] = s;
+}
+
+// dK and dV of one (kv head, 64-key tile), as flash_bwd_dkv_mma in fp32:
+// warp w owns keys 16w..16w+15; Q / dO double-buffered; S^T = K.Q^T and
+// dP^T = V.dO^T by 3xTF32 m16n8k8 (K / V rows the A fragments, Q / dO rows
+// the B fragments' n); P^T and dS^T are the A fragments of dV += P^T.dO
+// and dK += dS^T.Q in the permuted k order, dO / Q rows loaded in the same
+// order (b_frag_cols_tf32).
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_bwd_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int group, int sq, int sk,
+                   float scale, float scale_log2, int causal) {
+  constexpr int kS = D + 4;                    // padded row: banks 4g + t
+  constexpr int kTileElems = kBwdTile * kS;
+  constexpr int kCB = kQC32 / 8;               // n8 blocks of a q chunk
+  constexpr int kDBlocks = D / 8;              // n8 blocks of a dK / dV row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + kTileElems;
+  float* qs = vs + kTileElems;                 // [2][64][kS]
+  float* dos = qs + 2 * kTileElems;            // [2][64][kS]
+  float* lse_s = dos + 2 * kTileElems;         // [2][64]
+  float* dl_s = lse_s + 2 * kBwdTile;          // [2][64]
+
+  const int kvh = blockIdx.x;
+  // the first key tiles see the most q tiles: blockIdx.y 0 of every head
+  // is handed out first
+  const int k0 = blockIdx.y * kBwdTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n_qt = (sq + kBwdTile - 1) / kBwdTile;
+  const int qt0 = causal ? k0 / kBwdTile : 0;
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_it = group * per_head;
+
+  float dka[kDBlocks][4], dva[kDBlocks][4];
+#pragma unroll
+  for (int j = 0; j < kDBlocks; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  auto head_row = [&](int it) {
+    return (size_t)(kvh * group + it / per_head) * sq;
+  };
+  auto q_row0 = [&](int it) { return (qt0 + it % per_head) * kBwdTile; };
+  auto load_q = [&](int it, int b) {
+    const size_t base = head_row(it) * D;
+    stage_rows_f32<D>(qs + b * kTileElems, q + base, q_row0(it), sq);
+    stage_rows_f32<D>(dos + b * kTileElems, dout + base, q_row0(it), sq);
+  };
+  auto fetch_stats = [&](int it) {
+    const int r = q_row0(it) + (tid & 63);
+    if (r >= sq) return 0.f;
+    const size_t i = head_row(it) + r;
+    return tid < 64 ? lse[i] * kLog2e : delta[i];
+  };
+  auto put_stats = [&](int b, float x) {
+    (tid < 64 ? lse_s : dl_s)[b * kBwdTile + (tid & 63)] = x;
+  };
+
+  if (n_it > 0) {
+    const size_t kv_base = (size_t)kvh * sk * D;
+    stage_rows_f32<D>(ks, k + kv_base, k0, sk);
+    stage_rows_f32<D>(vs, v + kv_base, k0, sk);
+    load_q(0, 0);
+    cp_async_commit();
+    put_stats(0, fetch_stats(0));
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int b = it & 1;
+    float next = 0.f;
+    if (it + 1 < n_it) {                       // prefetch item it + 1
+      load_q(it + 1, b ^ 1);
+      cp_async_commit();
+      next = fetch_stats(it + 1);
+      cp_async_wait<1>();                      // item it (and K, V) landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qt = qs + b * kTileElems;
+    const float* dot = dos + b * kTileElems;
+    const float* ls = lse_s + b * kBwdTile;
+    const float* dls = dl_s + b * kBwdTile;
+    const int q0 = q_row0(it);
+    const bool edge = (causal && k0 + kBwdTile - 1 > q0) ||
+                      q0 + kBwdTile > sq;
+
+#pragma unroll 1
+    for (int c = 0; c < kBwdTile / kQC32; ++c) {
+      const int qc0 = c * kQC32;
+      // a chunk whose queries all precede this warp's keys is all masked
+      if (causal && q0 + qc0 + kQC32 - 1 < k0 + warp * 16) continue;
+      float st[kCB][4], dpt[kCB][4];
+#pragma unroll
+      for (int j = 0; j < kCB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x kQC32 queries a warp
+#pragma unroll 4
+      for (int kk = 0; kk < D; kk += 8) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        a_frag_tf32<kS>(ks, warp * 16, kk, kh, kl);
+        a_frag_tf32<kS>(vs, warp * 16, kk, vh, vl);
+#pragma unroll
+        for (int j = 0; j < kCB; ++j) {
+          uint32_t qh[2], ql[2], oh[2], ol[2];
+          b_frag_rows_tf32<kS>(qt, qc0 + j * 8, kk, qh, ql);
+          b_frag_rows_tf32<kS>(dot, qc0 + j * 8, kk, oh, ol);
+          mma_1688_3xtf32(st[j], kh, kl, qh, ql);
+          mma_1688_3xtf32(dpt[j], vh, vl, oh, ol);
+        }
+      }
+      // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < kCB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qc0 + j * 8 + 2 * t4 + (e & 1);
+          float p = exp2f(st[j][e] * scale_log2 - ls[qi]);
+          if (edge) {
+            const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+            if (q0 + qi >= sq || (causal && key > q0 + qi)) p = 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dls[qi]);
+        }
+      }
+      // dV += P^T.dO, dK += dS^T.Q: n8 block j of the chunk is a k8 step;
+      // P^T / dS^T in the permuted order, dO / Q rows likewise.  The
+      // chunk's products go into fresh fragments, added to dK / dV in fp32
+      // (the tensor core truncates what it adds into an accumulator)
+      uint32_t ph[kCB][4], pl[kCB][4], sh[kCB][4], sl[kCB][4];
+#pragma unroll
+      for (int j = 0; j < kCB; ++j) {
+        c_as_a_tf32(st[j], ph[j], pl[j]);
+        c_as_a_tf32(dpt[j], sh[j], sl[j]);
+      }
+#pragma unroll
+      for (int n = 0; n < kDBlocks; ++n) {
+        float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kCB; ++j) {
+          uint32_t oh[2], ol[2], qh[2], ql[2];
+          b_frag_cols_tf32<kS>(dot, qc0 + j * 8, n * 8, oh, ol);
+          b_frag_cols_tf32<kS>(qt, qc0 + j * 8, n * 8, qh, ql);
+          mma_1688_3xtf32(tv, ph[j], pl[j], oh, ol);
+          mma_1688_3xtf32(tk, sh[j], sl[j], qh, ql);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[n][e] += tv[e];
+          dka[n][e] += tk[e];
+        }
+      }
+    }
+    if (it + 1 < n_it) put_stats(b ^ 1, next);
+    __syncthreads();   // item it consumed before it + 2 overwrites its buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key >= sk) continue;
+    const size_t row = ((size_t)kvh * sk + key) * D;
+#pragma unroll
+    for (int j = 0; j < kDBlocks; ++j) {
+      const int col = j * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(dk + row + col) =
+          float2{dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale};
+      *reinterpret_cast<float2*>(dv + row + col) =
+          float2{dva[j][2 * r], dva[j][2 * r + 1]};
+    }
+  }
+}
+
+// dQ of one (query head, 64-row q tile), as flash_bwd_dq_mma in fp32: warp
+// w owns rows 16w..16w+15; K / V tiles double-buffered up to the causal
+// frontier, taken 64 keys at a time; S = Q.K^T, dP = dO.V^T, dS in
+// registers; dQ += dS.K with dS in the permuted k order, K's rows likewise.
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int group, int sq, int sk, float scale, float scale_log2,
+                  int causal) {
+  constexpr int kS = D + 4;
+  constexpr int kTileElems = kBwdTile * kS;
+  constexpr int kSB = kKC32 / 8;               // n8 blocks of a key chunk
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + kTileElems;
+  float* ks = dos + kTileElems;                // [2][64][kS]
+  float* vs = ks + 2 * kTileElems;             // [2][64][kS]
+  float* lse_s = vs + 2 * kTileElems;          // [64]
+  float* dl_s = lse_s + kBwdTile;              // [64]
+
+  const int bh = blockIdx.x;
+  // the last q tiles cross the most kv tiles: hand them out first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const size_t q_base = (size_t)bh * sq;
+  const float* kb = k + (size_t)(bh / group) * sk * D;
+  const float* vb = v + (size_t)(bh / group) * sk * D;
+
+  const int n_kt = (sk + kBwdTile - 1) / kBwdTile;
+  const int n_live = causal
+      ? min((min(q0 + kBwdTile, sq) - 1) / kBwdTile + 1, n_kt) : n_kt;
+
+  stage_rows_f32<D>(qs, q + q_base * D, q0, sq);
+  stage_rows_f32<D>(dos, dout + q_base * D, q0, sq);
+  stage_rows_f32<D>(ks, kb, 0, sk);
+  stage_rows_f32<D>(vs, vb, 0, sk);
+  cp_async_commit();
+  {
+    // rows past Sq: lse and D 0, with zero Q and dO their dS is 0
+    const int r = q0 + (tid & 63);
+    const float x = r >= sq ? 0.f
+                  : tid < 64 ? lse[q_base + r] * kLog2e : delta[q_base + r];
+    (tid < 64 ? lse_s : dl_s)[tid & 63] = x;
+  }
+
+  const int row0 = q0 + warp * 16 + g;         // this thread's rows: +0, +8
+  float dqa[kDBlocks][4];
+#pragma unroll
+  for (int j = 0; j < kDBlocks; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  for (int t = 0; t < n_live; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_live) {                      // prefetch tile t + 1
+      stage_rows_f32<D>(ks + (buf ^ 1) * kTileElems, kb, (t + 1) * kBwdTile,
+                        sk);
+      stage_rows_f32<D>(vs + (buf ^ 1) * kTileElems, vb, (t + 1) * kBwdTile,
+                        sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + buf * kTileElems;
+    const float* vt = vs + buf * kTileElems;
+    const int k0 = t * kBwdTile;
+    const bool edge = k0 + kBwdTile > sk ||
+                      (causal && k0 + kBwdTile - 1 > q0);
+    const float lr[2] = {lse_s[warp * 16 + g], lse_s[warp * 16 + g + 8]};
+    const float dr[2] = {dl_s[warp * 16 + g], dl_s[warp * 16 + g + 8]};
+
+#pragma unroll 1
+    for (int c = 0; c < kBwdTile / kKC32; ++c) {
+      const int kc0 = c * kKC32;
+      // a chunk whose keys all follow this warp's rows is all masked
+      if (causal && k0 + kc0 > q0 + warp * 16 + 15) continue;
+      // S = Q.K^T and dP = dO.V^T: 16 rows x 64 keys a warp
+      float s[kSB][4], dp[kSB][4];
+#pragma unroll
+      for (int j = 0; j < kSB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        a_frag_tf32<kS>(qs, warp * 16, kk, qh, ql);
+        a_frag_tf32<kS>(dos, warp * 16, kk, oh, ol);
+#pragma unroll
+        for (int j = 0; j < kSB; ++j) {
+          uint32_t kh[2], kl[2], vh[2], vl[2];
+          b_frag_rows_tf32<kS>(kt, kc0 + j * 8, kk, kh, kl);
+          b_frag_rows_tf32<kS>(vt, kc0 + j * 8, kk, vh, vl);
+          mma_1688_3xtf32(s[j], qh, ql, kh, kl);
+          mma_1688_3xtf32(dp[j], oh, ol, vh, vl);
+        }
+      }
+      // dS = P (dP - D), P = exp2(S scale log2e - lse log2e)
+#pragma unroll
+      for (int j = 0; j < kSB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[j][e] * scale_log2 - lr[e >> 1]);
+          if (edge) {
+            const int key = k0 + kc0 + j * 8 + 2 * t4 + (e & 1);
+            if (key >= sk || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dr[e >> 1]);
+        }
+      }
+      // dQ += dS.K: n8 block j of the chunk is a k8 step; dS in the
+      // permuted order, K's rows likewise; the chunk's products go into a
+      // fresh fragment, added to dQ in fp32
+      uint32_t sh[kSB][4], sl[kSB][4];
+#pragma unroll
+      for (int j = 0; j < kSB; ++j) c_as_a_tf32(s[j], sh[j], sl[j]);
+#pragma unroll
+      for (int n = 0; n < kDBlocks; ++n) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kSB; ++j) {
+          uint32_t kh[2], kl[2];
+          b_frag_cols_tf32<kS>(kt, kc0 + j * 8, n * 8, kh, kl);
+          mma_1688_3xtf32(t, sh[j], sl[j], kh, kl);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[n][e] += t[e];
+      }
+    }
+    __syncthreads();   // tile t consumed before t + 2 overwrites its buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    float* out = dq + (q_base + row) * D;
+#pragma unroll
+    for (int j = 0; j < kDBlocks; ++j)
+      *reinterpret_cast<float2*>(out + j * 8 + 2 * t4) =
+          float2{dqa[j][2 * r] * scale, dqa[j][2 * r + 1] * scale};
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_tf32(const float* q, const float* k, const float* v,
+                            const float* o, const float* lse,
+                            const float* dout, float* dq, float* dk,
+                            float* dv, float* delta, int bh, int bkv, int sq,
+                            int sk, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr size_t smem = bwd_tf32_smem_bytes<D>();
+  const int group = bh / bkv;
+  const long long rows = (long long)bh * sq;
+  const int delta_blocks = (int)((rows * (D / 4) + kBwdThreads - 1) /
+                                 kBwdThreads);
+  flash_bwd_delta_f32<D><<<delta_blocks, kBwdThreads, 0, stream>>>(
+      o, dout, delta, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_tf32<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tf32<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(bkv, (sk + kBwdTile - 1) / kBwdTile);
+  flash_bwd_dkv_tf32<D><<<grid_kv, kWarps * 32, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, group, sq, sk, scale,
+      scale * kLog2e, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(bh, (sq + kBwdTile - 1) / kBwdTile);
+  flash_bwd_dq_tf32<D><<<grid_q, kWarps * 32, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, group, sq, sk, scale, scale * kLog2e,
+      causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_tf32_d(const void* q, const void* k, const void* v,
+                              const void* o, const float* lse,
+                              const void* dout, void* dq, void* dk, void* dv,
+                              float* delta, int bh, int bkv, int sq, int sk,
+                              int d, float scale, int causal,
+                              cudaStream_t stream) {
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fo = static_cast<const float*>(o);
+  const float* fdo = static_cast<const float*>(dout);
+  float* gq = static_cast<float*>(dq);
+  float* gk = static_cast<float*>(dk);
+  float* gv = static_cast<float*>(dv);
+  switch (d) {
+    case 16: return launch_bwd_tf32<16>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 32: return launch_bwd_tf32<32>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 64: return launch_bwd_tf32<64>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 128: return launch_bwd_tf32<128>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the mma kernel).
@@ -1327,7 +1579,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_bwd_d<float>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
+      err = launch_bwd_tf32_d(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);
       break;
     case 1:
       err = launch_bwd_mma_d(q, k, v, o, l, dout, dq, dk, dv, dl, bh, bkv, sq, sk, d, scale, causal, s);

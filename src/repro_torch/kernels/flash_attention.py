@@ -16,9 +16,11 @@ and how each variant is laid out.
 Both variants can also write each row's fp32 log-sum-exp (``lse``), which
 the backward ``repro_flash_attention_bwd`` (same source; causal or not,
 GQA, ``q_offset`` 0) reads to rebuild the probabilities tile by tile
-without materialising S x S.  Its variant is chosen by dtype as the
-forward's: ``mma`` for bf16 (FA2's backward on the tensor cores, dK / dV
-and dQ in separate kernels, no atomics), ``simt`` for fp32.
+without materialising S x S.  Its variant is chosen by dtype alone
+(:func:`bwd_variant`): FA2's backward on the tensor cores, dK / dV and dQ
+in separate kernels, no atomics -- ``mma`` for bf16 (mma.m16n8k16),
+``tf32x3`` for fp32 (mma.m16n8k8 in 3xTF32: each fp32 operand split into
+two tf32 halves, three products, fp32-level error).
 :class:`_FlashAttentionFn` ties the two together for autograd.
 
 ``flash_attention`` computes the plain version (:func:`ref.flash_attention`,
@@ -51,7 +53,7 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 launches = 0
 launches_by_variant = {"mma": 0, "simt": 0}
 backward = types.SimpleNamespace(launches=0,
-                                 launches_by_variant={"mma": 0, "simt": 0})
+                                 launches_by_variant={"mma": 0, "tf32x3": 0})
 
 
 def variant(dtype) -> str:
@@ -60,6 +62,14 @@ def variant(dtype) -> str:
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention: no kernel for {dtype}")
     return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_variant(dtype) -> str:
+    """The backward kernels a CUDA call of ``dtype`` launches: ``mma``
+    (bf16) or ``tf32x3`` (fp32, 3xTF32), both on the tensor cores."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd: no kernel for {dtype}")
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 @functools.cache
@@ -194,6 +204,11 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} must be contiguous float32 "
                          f"({bh}, {sq}) on {q.device}")
+    # the kernels stage rows by 16-byte copies: an operand that is not
+    # 16-byte aligned (a contiguous view at an odd offset) is copied to a
+    # fresh buffer on the card first
+    q, k, v, o, do = (t.clone() if t.data_ptr() % 16 else t
+                      for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -206,7 +221,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                           delta.data_ptr(), _DTYPE_CODES[q.dtype], bh, bkv,
                           sq, sk, d, scale, int(causal), stream)
-    _build.check(rc, f"flash_attention_bwd ({variant(q.dtype)})")
+    _build.check(rc, f"flash_attention_bwd ({bwd_variant(q.dtype)})")
     backward.launches += 1
-    backward.launches_by_variant[variant(q.dtype)] += 1
+    backward.launches_by_variant[bwd_variant(q.dtype)] += 1
     return dq, dk, dv

@@ -1,26 +1,32 @@
 """K2: matrix product ``C = A @ B`` as hand-written CUDA C++ kernels for
-Hopper, in two variants chosen by :func:`plan` from dtype and shape alone:
+Hopper, in four regimes chosen by :func:`plan` from dtype and shape alone:
 
 - ``wgmma`` (``csrc/matmul_wgmma.cu``): bf16 inputs whose rows TMA can
   describe (K % 8 == 0 and N % 8 == 0), on the tensor cores -- a
   warp-specialised wgmma + TMA ring, split K below one wave of tiles (then a
   second kernel, ``splitk_reduce``, sums the partials in a fixed order);
-- ``simt`` (``csrc/matmul.cu``): everything else, fp32 included (TF32
-  would change the numbers) and ragged rows such as (37, 100, 75); fp32
-  FMAs on the CUDA cores.
+- ``skinny`` (``csrc/matmul.cu``): fp32 with M <= 16, bound by B's bytes:
+  128-column panels of B streamed by 16-byte loads on the CUDA cores, K
+  split until the panels fill a wave, the parts' fp32 partials summed in a
+  fixed order by a second kernel (``skinny_reduce``);
+- ``tf32x3`` (``csrc/matmul.cu``): fp32 with M > 16, bound by operations:
+  128 x 128 or (M <= 64) 64 x 64 tiles on the tensor cores in 3xTF32 (each operand split into two tf32 halves, three products),
+  fp32-level error where plain TF32 would break the fp32 checks;
+- ``mma`` (``csrc/matmul.cu``): bf16 whose rows TMA cannot describe, such
+  as (37, 100, 75): 64 x 64 ``mma.sync`` tiles on masked 2-byte loads.
 
 Replaces the Pallas TPU kernel ``repro.kernels.matmul.matmul``
 (``_matmul_kernel``): A (M, K) and B (K, N), both float32 or both bfloat16;
 products accumulated in fp32; the result cast to ``out_dtype`` (default
 ``a.dtype``, float32 or bfloat16).  Unlike the TPU kernel, ragged M / N / K
 are handled in the kernels rather than asserted to divide the tiles.  The
-sources' header notes say what bounds each on the card and how it is laid
-out.
+sources' header notes say what bounds each regime on the card, what its
+design does about it, and (``matmul.cu``) why 3xTF32 keeps fp32's error.
 
 ``matmul`` computes the plain version (:func:`ref.matmul`) for CPU tensors
 and launches the planned kernel for CUDA tensors; a CUDA call a kernel does
-not take, or a failed build or launch, raises -- no variant stands in for
-another.  ``launches`` counts kernel launches in total (a split-K call
+not take, or a failed build or launch, raises -- no regime stands in for
+another.  ``launches`` counts kernel launches in total (a split call
 launches two), ``launches_by_variant`` per kernel.
 """
 from __future__ import annotations
@@ -34,13 +40,17 @@ import torch
 from . import _build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p])
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
+# csrc/matmul.cu's regime codes
+_VARIANT_CODES = {"skinny": 0, "tf32x3": 1, "mma": 2}
+# the kernel that sums a split's partials, per regime that splits
+_REDUCE = {"wgmma": "splitk_reduce", "skinny": "skinny_reduce"}
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 BLOCK_M, BLOCK_K = 128, 64
-SIMT_TILE = 128            # csrc/matmul.cu's square tile
 MIN_K_TILES_PER_SPLIT = 4  # a split part keeps the ring at least this deep
 # time of a 128 x 256 tile over a 128 x 128 one: twice the work at better
 # operand reuse.  chip_smoke's tile-width check (phase 6) measured the
@@ -48,16 +58,25 @@ MIN_K_TILES_PER_SPLIT = 4  # a split part keeps the ring at least this deep
 # 4096 | 9728); PERF.md has the run.
 WIDE_TILE_COST = 1.5
 
+SKINNY_MAX_M = 16          # fp32 rows the skinny regime takes
+SKINNY_PANEL = 128         # B columns a skinny block
+SKINNY_MIN_ROWS = 64       # K rows a split part keeps at least (8 a warp)
+TF32_SMALL_M = 64          # fp32 rows that take 64 x 64 tf32x3 tiles
+MMA_TILE = 64              # the bf16 mma regime's square tile
+
 launches = 0
-launches_by_variant = {"wgmma": 0, "splitk_reduce": 0, "simt": 0}
+launches_by_variant = {"wgmma": 0, "splitk_reduce": 0, "skinny": 0,
+                       "skinny_reduce": 0, "tf32x3": 0, "mma": 0}
 
 
 class Plan(NamedTuple):
-    variant: str                    # "wgmma" or "simt"
-    grid: Tuple[int, int, int]      # (n tiles, m tiles, split)
-    split: int                      # parts of the k tiles (wgmma)
+    variant: str                    # "wgmma", "skinny", "tf32x3" or "mma"
+    grid: Tuple[int, int, int]      # (n tiles or panels, m tiles or split
+                                    # parts, split)
+    split: int                      # parts of K (wgmma, skinny)
     workspace_bytes: int            # fp32 (split, M, N) partials, or 0
-    block_n: int                    # tile width
+    block_n: int                    # tile (panel) width
+    block_m: int = BLOCK_M          # tile rows (skinny: the most rows)
 
     @property
     def launches(self) -> int:
@@ -75,23 +94,44 @@ def plan(m: int, n: int, k: int, dtype) -> Plan:
     The rule:
 
     - ``wgmma`` iff the inputs are bf16, K >= 1, and K % 8 == N % 8 == 0
-      (TMA needs 16-byte row strides); else ``simt`` on 128 x 128 tiles;
+      (TMA needs 16-byte row strides); other bf16 shapes ``mma`` on 64 x
+      64 tiles; fp32 ``skinny`` if M <= 16, else ``tf32x3``;
     - wgmma tiles are 128 rows by ``block_n`` columns.  When the 128-wide
       grid is below one wave (fewer tiles than the 132 SMs), K is split
       into ``split = max(1, min(132 // tiles, k_tiles // 4))`` parts (at
       least 4 k-tiles of 64 each), with fp32 partials in a
       ``split * M * N * 4``-byte workspace; ``block_n`` stays 128;
-    - otherwise ``split = 1`` and ``block_n`` is 256 when the wide grid's
+      otherwise ``split = 1`` and ``block_n`` is 256 when the wide grid's
       waves, weighted by ``WIDE_TILE_COST``, undercut the narrow grid's
-      (``ceil(t256 / 132) * WIDE_TILE_COST < ceil(t128 / 132)``), else 128.
+      (``ceil(t256 / 132) * WIDE_TILE_COST < ceil(t128 / 132)``), else 128;
+    - skinny blocks take 128-column panels of B; ``split`` starts at 1 and
+      doubles while the blocks fall short of one wave (``panels * split <
+      132``) and twice as many parts would each keep at least 64 rows of
+      K; with ``split > 1`` the fp32 partials take ``split * M * N * 4``
+      bytes;
+    - tf32x3 tiles are 64 x 64 when M <= 64, else 128 x 128.
 
-    The grid is ``(ceil(N / block_n), ceil(M / 128), split)``: tiles times
-    split blocks.
+    The grid is ``(ceil(N / block_n), ceil(M / block_m), split)`` (wgmma:
+    tiles times split blocks; skinny: ``(panels, split, 1)``).
     """
+    if dtype == torch.float32:
+        if m <= SKINNY_MAX_M:
+            panels = _cdiv(n, SKINNY_PANEL)
+            split = 1
+            while panels * split < SMS and \
+                    k // (2 * split) >= SKINNY_MIN_ROWS:
+                split *= 2
+            ws = split * m * n * 4 if split > 1 else 0
+            return Plan("skinny", (panels, split, 1), split, ws,
+                        SKINNY_PANEL, SKINNY_MAX_M)
+        if m <= TF32_SMALL_M:
+            return Plan("tf32x3", (_cdiv(n, 64), 1, 1), 1, 0, 64, 64)
+        return Plan("tf32x3", (_cdiv(n, 128), _cdiv(m, 128), 1), 1, 0, 128,
+                    128)
     if not (dtype == torch.bfloat16 and k >= 1 and k % 8 == 0
             and n % 8 == 0):
-        return Plan("simt", (_cdiv(n, SIMT_TILE), _cdiv(m, SIMT_TILE), 1),
-                    1, 0, SIMT_TILE)
+        return Plan("mma", (_cdiv(n, MMA_TILE), _cdiv(m, MMA_TILE), 1), 1, 0,
+                    MMA_TILE, MMA_TILE)
     m_tiles, k_tiles = _cdiv(m, BLOCK_M), _cdiv(k, BLOCK_K)
     narrow = m_tiles * _cdiv(n, 128)
     if narrow < SMS:
@@ -109,7 +149,8 @@ def plan(m: int, n: int, k: int, dtype) -> Plan:
 
 @functools.cache
 def _entry():
-    """The SIMT kernel's C entry point, built and loaded on first use."""
+    """``csrc/matmul.cu``'s C entry point (skinny, tf32x3, mma), built and
+    loaded on first use."""
     return _build.function("matmul", "repro_matmul", _ARGTYPES)
 
 
@@ -151,23 +192,24 @@ def _launch(a, b, out_dtype):
     p = plan(m, n, k, a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        if p.variant == "simt":
-            rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
-                          k, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype],
-                          stream)
-        else:
+        work = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
+                            device=a.device) if p.split > 1 else None)
+        work_ptr = None if work is None else work.data_ptr()
+        if p.variant == "wgmma":
             if a.data_ptr() % 16 or b.data_ptr() % 16:
                 raise ValueError("matmul: the wgmma kernel reads a and b by "
                                  "TMA, which needs 16-byte aligned data")
-            work = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
-                                device=a.device) if p.split > 1 else None)
             rc = _wgmma_entry()(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                None if work is None else work.data_ptr(), m, n, k,
-                _DTYPE_CODES[out_dtype], p.block_n, p.split, stream)
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), work_ptr, m, n,
+                k, _DTYPE_CODES[out_dtype], p.block_n, p.split, stream)
+        else:
+            rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          work_ptr, m, n, k, _DTYPE_CODES[a.dtype],
+                          _DTYPE_CODES[out_dtype], _VARIANT_CODES[p.variant],
+                          p.block_m, p.block_n, p.split, stream)
     _build.check(rc, f"matmul ({p.variant})")
     launches += p.launches
     launches_by_variant[p.variant] += 1
     if p.split > 1:
-        launches_by_variant["splitk_reduce"] += 1
+        launches_by_variant[_REDUCE[p.variant]] += 1
     return out

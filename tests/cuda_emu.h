@@ -7,12 +7,13 @@
 // into emu_launch(grid, threads, body).  Vector types are plain structs
 // (float4 aligned to 16 bytes, as the kernels' vector loads expect).
 //
-// The warp-level primitives of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
-// cp.async) are emulated here with the PTX ISA's fragment layouts (see the
-// table in that header): each lane posts its operands to a per-warp
-// exchange, the warp meets at a barrier, and each lane computes what the
-// hardware would hand it.  cp.async copies at once, so its commit and wait
-// are no-ops; the kernels' __syncthreads still orders the copies.
+// The warp-level primitives of csrc/tc_sm80.cuh (ldmatrix, mma.sync in bf16
+// and tf32, the tf32 split, cp.async) are emulated here with the PTX ISA's
+// fragment layouts (see the table in that header): each lane posts its
+// operands to a per-warp exchange, the warp meets at a barrier, and each
+// lane computes what the hardware would hand it.  cp.async copies at once,
+// so its commit and wait are no-ops; the kernels' __syncthreads still
+// orders the copies.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -59,7 +60,7 @@ inline const void* g_xp[1024];
 #define __device__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 using std::max;
 using std::min;
@@ -80,6 +81,8 @@ inline float __shfl_sync(unsigned, float v, int src) {
   g_xch[t] = v; b->arrive_and_wait(); float r = g_xch[(t & ~31) | (src & 31)]; b->arrive_and_wait(); return r;
 }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 // One std::thread per CUDA thread for the whole launch: each walks the
 // blocks in order and meets the others at an end-of-block barrier after
 // each, so blocks still run one after another (their statics and g_smem are
@@ -144,8 +147,62 @@ inline void mma_16816_bf16(float d[4], const uint32_t a[4], const uint32_t b[2])
 inline void cp_async_16(void* dst, const void* src, int src_bytes) {
   if (src_bytes) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
 }
+inline void cp_async_4(void* dst, const void* src, int src_bytes) {
+  if (src_bytes) std::memcpy(dst, src, 4); else std::memset(dst, 0, 4);
+}
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return __float2bfloat16(lo).v | (uint32_t)__float2bfloat16(hi).v << 16;
+}
+// cvt.rna.tf32.f32 as the card gives it: to nearest, ties away from zero
+// (half of the dropped 13 bits' weight added to the magnitude), the low 13
+// bits cleared; a NaN has its low 13 bits cleared and no more (0x7fffffff
+// -> 0x7fffe000; a NaN whose payload lies wholly in them becomes Inf)
+inline uint32_t emu_cvt_rna_tf32(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return x != x ? b & 0xffffe000u : (b + 0x1000u) & 0xffffe000u;
+}
+// tc_sm80.cuh's: the same rounding on the bits, for values that are no NaN
+inline uint32_t tf32_rna_no_nan(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = emu_cvt_rna_tf32(x);
+  lo = tf32_rna_no_nan(x - __uint_as_float(hi));
+}
+// mma.m16n8k8 tf32: each product of two tf32 values is exact in fp32 (11 x
+// 11 significant bits); the products are added to d in k order; the low 13
+// bits of an operand are ignored, as the tensor core ignores them.  The
+// adds here round to nearest, as fp32 does; the tensor core truncates what
+// it adds into an accumulator to the accumulator's exponent, so this is
+// more accurate than the card over long sums into one fragment.  The
+// kernels sum each k stage into fresh fragments for that reason, and only
+// the card tests (test_matmul_tf32x3_keeps_fp32_error, chip_smoke phase
+// 6's float64 error) can see the truncation's bias.
+inline void mma_1688_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  int t = threadIdx.x, w = t & ~31, lane = t & 31, g = lane / 4, c = 2 * (lane % 4);
+  auto* bar = g_warp[t / 32];
+  for (int i = 0; i < 4; ++i) g_xu[t][i] = a[i];
+  g_xu[t][4] = b[0]; g_xu[t][5] = b[1];
+  bar->arrive_and_wait();
+  auto A = [&](int row, int k) {           // A (16 x 8), row major
+    return __uint_as_float(g_xu[w + (row % 8) * 4 + k % 4][row / 8 + 2 * (k / 4)] & 0xffffe000u);
+  };
+  auto B = [&](int k, int n) {             // B (8 x 8), k down
+    return __uint_as_float(g_xu[w + n * 4 + k % 4][4 + k / 4] & 0xffffe000u);
+  };
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e / 2), col = c + (e & 1);
+    float s = d[e];
+    for (int k = 0; k < 8; ++k) s += A(row, k) * B(k, col);
+    d[e] = s;
+  }
+  bar->arrive_and_wait();
+}
+inline void mma_1688_3xtf32(float d[4], const uint32_t ah[4], const uint32_t al[4],
+                            const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_1688_tf32(d, al, bh);
+  mma_1688_tf32(d, ah, bl);
+  mma_1688_tf32(d, ah, bh);
 }

@@ -254,27 +254,31 @@ def _mm_inputs(m, k, n, dtype, device, seed=0):
     return a, b
 
 
-# (m, k, n, bf16 variant): the bf16 projection shapes take wgmma, ragged
-# rows the SIMT kernel; fp32 always takes the SIMT kernel
-MM_CASES = [(800, 2560, 4096, "wgmma"), (4, 2560, 9728, "wgmma"),
-            (37, 100, 75, "simt"), (129, 8, 130, "simt"), (1, 1, 1, "simt"),
-            (129, 64, 136, "wgmma"), (300, 72, 520, "wgmma")]
+# (m, k, n, bf16 variant, fp32 variant): the bf16 projection shapes take
+# wgmma, ragged rows mma; fp32 takes skinny up to 16 rows, tf32x3 above
+MM_CASES = [(800, 2560, 4096, "wgmma", "tf32x3"),
+            (4, 2560, 9728, "wgmma", "skinny"),
+            (37, 100, 75, "mma", "tf32x3"), (129, 8, 130, "mma", "tf32x3"),
+            (1, 1, 1, "mma", "skinny"), (129, 64, 136, "wgmma", "tf32x3"),
+            (300, 72, 520, "wgmma", "tf32x3")]
 
 
-@pytest.mark.parametrize("m,k,n,bf16_variant", MM_CASES)
+@pytest.mark.parametrize("m,k,n,bf16_variant,fp32_variant", MM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain(cuda_device, m, k, n, bf16_variant,
-                                     dtype):
+                                     fp32_variant, dtype):
     a, b = _mm_inputs(m, k, n, dtype, cuda_device)
     p = mm_mod.plan(m, n, k, dtype)
-    assert p.variant == (bf16_variant if dtype == torch.bfloat16 else "simt")
+    assert p.variant == (bf16_variant if dtype == torch.bfloat16
+                         else fp32_variant)
     before = mm_mod.launches
     by_variant = dict(mm_mod.launches_by_variant)
     got = ops.matmul(a, b, impl="cuda")
     torch.cuda.synchronize()
     assert mm_mod.launches == before + p.launches and got.dtype == dtype
     by_variant[p.variant] += 1
-    by_variant["splitk_reduce"] += p.split > 1
+    if p.split > 1:
+        by_variant[mm_mod._REDUCE[p.variant]] += 1
     assert mm_mod.launches_by_variant == by_variant
     torch.testing.assert_close(got.float(), ref.matmul(a, b).float(),
                                rtol=MM_TOL[dtype], atol=MM_TOL[dtype])
@@ -322,6 +326,97 @@ def test_matmul_split_k_path(cuda_device, m, k, n):
         assert torch.equal(ops.matmul(a, b, impl="cuda"), first)
 
 
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 4096), (16, 700, 300),
+                                   (3, 1100, 75)])
+def test_matmul_skinny_split_path(cuda_device, m, k, n):
+    """fp32 rows <= 16: K split as the plan says plus the reduction (2
+    launches), 16-byte or one-element loads of B; fixed-order sums, so
+    repeated runs agree bit for bit."""
+    a, b = _mm_inputs(m, k, n, torch.float32, cuda_device)
+    p = mm_mod.plan(m, n, k, torch.float32)
+    assert p.variant == "skinny" and p.split > 1
+    before = (mm_mod.launches, mm_mod.launches_by_variant["skinny_reduce"])
+    first = ops.matmul(a, b, impl="cuda")
+    torch.cuda.synchronize()
+    assert mm_mod.launches == before[0] + 2
+    assert mm_mod.launches_by_variant["skinny_reduce"] == before[1] + 1
+    torch.testing.assert_close(first, ref.matmul(a, b), rtol=1e-4,
+                               atol=1e-4)
+    for _ in range(3):
+        assert torch.equal(ops.matmul(a, b, impl="cuda"), first)
+
+
+@pytest.mark.parametrize("block_n", [64, 128])
+@pytest.mark.parametrize("m,k,n", [(800, 2560, 4096), (150, 37, 203)])
+def test_matmul_tf32x3_keeps_fp32_error(cuda_device, monkeypatch, m, k, n,
+                                        block_n):
+    """Both tf32x3 tiles (64 x 64 and 128 x 128) against a float64
+    product: the error of fp32 sums (1e-4 as for the plain version), where
+    one TF32 product per term (torch.matmul with TF32 allowed) is ~100 x
+    further off.  The only guard of the tensor core's truncating adds,
+    which the CPU emulation rounds to nearest."""
+    a, b = _mm_inputs(m, k, n, torch.float32, cuda_device)
+    p = mm_mod.plan(m, n, k, torch.float32)
+    monkeypatch.setattr(mm_mod, "plan", lambda *args: p._replace(
+        block_m=block_n, block_n=block_n))
+    got = ops.matmul(a, b, impl="cuda")
+    want = a.double() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = (torch.matmul(a, b).double() - want).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert err * 20 < tf32
+
+
+def _card_nan(source, device):
+    """A NaN made on the card by 0/0, or 0x7fffffff (the bits the card's
+    fp32 arithmetic gives it) written directly."""
+    if source == "zero_div":
+        z = torch.zeros((), device=device)
+        return z / z
+    return torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(
+        torch.float32).to(device)
+
+
+@pytest.mark.parametrize("source", ["zero_div", "bits"])
+@pytest.mark.parametrize("m,k,n", [(150, 37, 203), (40, 2560, 4096)])
+def test_matmul_tf32x3_keeps_nan(cuda_device, m, k, n, source):
+    """A NaN in A (row 3) and in B (column 7): tf32x3's output is NaN
+    exactly where the plain version's is, at both tiles; 3xTF32's split
+    turns no NaN into a finite value."""
+    a, b = _mm_inputs(m, k, n, torch.float32, cuda_device)
+    a[3, k // 2] = _card_nan(source, cuda_device)
+    b[k - 1, 7] = _card_nan(source, cuda_device)
+    assert mm_mod.plan(m, n, k, torch.float32).variant == "tf32x3"
+    got, want = ops.matmul(a, b, impl="cuda"), ref.matmul(a, b)
+    assert torch.isnan(want[3]).all() and torch.isnan(want[:, 7]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+@pytest.mark.parametrize("source", ["zero_div", "bits"])
+def test_flash_attention_bwd_fp32_keeps_nan(cuda_device, source):
+    """A NaN in dO reaches D, dP and dS, which the tf32x3 kernels split:
+    dQ, dK and dV are NaN where the plain version's are (non-causal, so
+    that neither skips a masked tile), finite and close elsewhere."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((n, 200, 64), generator=g, device=cuda_device)
+               for n in (8, 2, 2))
+    o, lse = fa_mod._launch(q, k, v, causal=False, scale=None, q_offset=0,
+                            with_lse=True)
+    do = torch.randn((8, 200, 64), generator=g, device=cuda_device)
+    do[5, 70, 9] = _card_nan(source, cuda_device)
+    got = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=False, scale=None)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    for x, w in zip(got, want):
+        assert torch.isnan(w).any()
+        assert torch.equal(torch.isnan(x), torch.isnan(w))
+        fin = ~torch.isnan(w)
+        _close_bwd(x[fin], w[fin], torch.float32)
+
+
 def test_matmul_kernel_launch_failure_raises(cuda_device, monkeypatch):
     """A wgmma launch the kernel refuses (here a tile width it has no
     instance for) raises; nothing is computed in its place."""
@@ -337,7 +432,7 @@ def test_matmul_kernel_launch_failure_raises(cuda_device, monkeypatch):
 
 def test_matmul_wgmma_build_failure_raises(cuda_device, monkeypatch):
     """The wgmma source built without CUTLASS's headers fails to compile,
-    and the call raises; the SIMT kernel does not stand in."""
+    and the call raises; matmul.cu's mma regime does not stand in."""
     from repro_torch.kernels import _build
     monkeypatch.setitem(_build.SOURCE_FLAGS, "matmul_wgmma",
                         ("-I", "/nonexistent"))
@@ -976,7 +1071,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
     got = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=causal, scale=None)
     torch.cuda.synchronize()
     assert fa_mod.backward.launches == before + 1
-    by_variant["mma" if dtype == torch.bfloat16 else "simt"] += 1
+    by_variant["mma" if dtype == torch.bfloat16 else "tf32x3"] += 1
     assert fa_mod.backward.launches_by_variant == by_variant
     want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(got, want):
@@ -984,6 +1079,27 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
     again = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=causal,
                                scale=None)              # no atomics
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_a_misaligned_view(cuda_device, dtype):
+    """The backward stages rows by 16-byte cp.async copies: a contiguous
+    dO taken one element into a flat buffer is copied to an aligned buffer
+    first, and the gradients are those of an aligned dO, bit for bit."""
+    bh, s, d = 2, 16, 64
+    q, k, v = (torch.randn((bh, s, d), device=cuda_device).to(dtype)
+               for _ in range(3))
+    o, lse = fa_mod._launch(q, k, v, causal=True, scale=None, q_offset=0,
+                            with_lse=True)
+    do = torch.randn(bh * s * d + 1, device=cuda_device).to(dtype)[1:]
+    do = do.view(bh, s, d)
+    assert do.is_contiguous() and do.data_ptr() % 16
+    before = fa_mod.backward.launches
+    got = fa_mod._launch_bwd(q, k, v, o, lse, do, causal=True, scale=None)
+    assert fa_mod.backward.launches == before + 1
+    want = fa_mod._launch_bwd(q, k, v, o, lse, do.clone(), causal=True,
+                              scale=None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

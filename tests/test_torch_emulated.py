@@ -1,10 +1,11 @@
 """The port's CUDA sources run on the CPU under an emulation of the CUDA
 subset they use (tests/cuda_emu.h, compiled with the host's g++): K4's
 generated programs against the torch Stage III, K1 (csrc/rmsnorm.cu: every
-variant, in both dtypes and both access widths), K2's SIMT kernel
-(csrc/matmul.cu) and both K3 kernels (csrc/flash_attention.cu: the bf16
-tensor-core path and the fp32 SIMT path) against their plain versions, and
-each emulated tensor-core primitive of csrc/tc_sm80.cuh (ldmatrix, mma.sync,
+variant, in both dtypes and both access widths), K2's skinny, tf32x3 and
+mma regimes (csrc/matmul.cu) and K3 (csrc/flash_attention.cu: the bf16
+tensor-core kernels, the fp32 SIMT forward and the fp32 3xTF32 backward)
+against their plain versions, and each emulated tensor-core primitive of
+csrc/tc_sm80.cuh (ldmatrix, mma.sync in bf16 and tf32, cvt.rna.tf32,
 cp.async) against numpy.
 
 This checks what the generated and hand-written C++ computes (index
@@ -306,32 +307,124 @@ def test_space_candidates_match_torch_stage3(space_libs, rng, kernel):
 
 @pytest.fixture(scope="module")
 def k2(gxx):
+    from repro_torch.kernels import matmul as mm
     lib = gxx("k2_matmul", _emulated((_build.CSRC / "matmul.cu").read_text()))
     fn = lib.repro_matmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    fn.argtypes = mm._ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-@pytest.mark.parametrize("m,k,n", [(37, 100, 75), (130, 20, 129), (4, 64, 200),
-                                   (5, 0, 3)])
+def _k2_run(k2, a, b, out_dtype, tile=None):
+    """One emulated ``repro_matmul`` as ``matmul._launch`` makes it, into an
+    output that starts as NaN: ``(c, plan)``.  A bf16 shape the plan gives
+    to wgmma (not in this source) runs the source's bf16 regime, ``mma``,
+    which takes any bf16 shape; ``tile`` overrides a tf32x3 tile (square:
+    rows and columns)."""
+    from repro_torch.kernels import matmul as mm
+    (m, k), n = a.shape, b.shape[1]
+    p = mm.plan(m, n, k, a.dtype)
+    if p.variant == "wgmma":
+        p = mm.Plan("mma", (-(-n // 64), -(-m // 64), 1), 1, 0, 64, 64)
+    if tile is not None:
+        p = p._replace(block_m=tile, block_n=tile)
+    c = torch.full((m, n), float("nan"), dtype=out_dtype)
+    work = torch.full((max(1, p.workspace_bytes // 4),), float("nan"))
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    assert k2(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+              work.data_ptr() if p.split > 1 else None, m, n, k,
+              codes[a.dtype], codes[out_dtype], mm._VARIANT_CODES[p.variant],
+              p.block_m, p.block_n, p.split, None) == 0
+    return c, p
+
+
+def _k2_inputs(m, k, n, dtype):
+    g = torch.Generator().manual_seed(m * 1000 + n)
+    a = torch.randn((m, k), generator=g).to(dtype)
+    b = torch.randn((k, n), generator=g).to(dtype)
+    return a, b
+
+
+# (m, k, n): the skinny regime with K split (3 x 1100 x 75: 16 parts of 69
+# rows, B read one element at a time; 16 x 700 x 256: 8 parts of 88 rows
+# over chunks of 256, 16 rows, 16-byte loads), tf32x3 (fp32) with ragged
+# edges (130 x 20 x 129: 128 x 128 tiles; 37 x 100 x 75: 64 x 64 tiles, B's
+# rows by 4-byte copies; 40 x 45 x 132: A's), and K = 0
+MM_SOURCE_CASES = [(37, 100, 75), (130, 20, 129), (4, 64, 200), (5, 0, 3),
+                   (3, 1100, 75), (16, 700, 256), (40, 45, 132)]
+# the regime each case takes in fp32 and in bf16
+MM_SOURCE_REGIMES = {
+    (37, 100, 75): ("tf32x3", "mma"), (130, 20, 129): ("tf32x3", "mma"),
+    (4, 64, 200): ("skinny", "mma"), (5, 0, 3): ("skinny", "mma"),
+    (3, 1100, 75): ("skinny", "mma"), (16, 700, 256): ("skinny", "mma"),
+    (40, 45, 132): ("tf32x3", "mma")}
+
+
+@pytest.mark.parametrize("m,k,n", MM_SOURCE_CASES)
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
 def test_matmul_source_matches_plain(k2, m, k, n, dtype, out_dtype):
-    """K2's masked ragged edges, in every dtype pair: fp32 sums in another
-    order (1e-4); a bf16 output may round one ulp apart (2**-8 relative)."""
-    g = torch.Generator().manual_seed(m * 1000 + n)
-    a = torch.randn((m, k), generator=g).to(dtype)
-    b = torch.randn((k, n), generator=g).to(dtype)
-    c = torch.full((m, n), float("nan"), dtype=out_dtype)
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    assert k2(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-              codes[dtype], codes[out_dtype], None) == 0
+    """K2's regimes, masked ragged edges and splits, in every dtype pair:
+    fp32 sums in another order, in 3xTF32 for tf32x3 (1e-4); a bf16
+    output may round one ulp apart (2**-8 relative)."""
+    a, b = _k2_inputs(m, k, n, dtype)
+    c, p = _k2_run(k2, a, b, out_dtype)
+    assert p.variant == MM_SOURCE_REGIMES[(m, k, n)][dtype == torch.bfloat16]
+    if dtype == torch.float32 and (m, k, n) in ((3, 1100, 75),
+                                                (16, 700, 256)):
+        assert p.split == (16 if m == 3 else 8)
     tol = 1e-4 if out_dtype == torch.float32 else 1e-2
     torch.testing.assert_close(c.float(), ref.matmul(a, b, out_dtype=out_dtype)
                                .float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("block_n", [64, 128])
+def test_matmul_tf32x3_source_at_both_tile_widths(k2, block_n):
+    """Both tf32x3 tiles, 64 x 64 (the plan's for M <= 64) and 128 x 128,
+    at one shape ragged in every dimension, against the plain version
+    (1e-4)."""
+    a, b = _k2_inputs(150, 37, 200, torch.float32)
+    c, p = _k2_run(k2, a, b, torch.float32, tile=block_n)
+    assert p.variant == "tf32x3" and (p.block_m, p.block_n) == (block_n,
+                                                                block_n)
+    torch.testing.assert_close(c, ref.matmul(a, b), rtol=1e-4, atol=1e-4)
+
+
+# 0x7fffffff: the NaN the card's fp32 arithmetic makes (0/0, Inf - Inf),
+# whose mantissa a rounding by adding 0x1000 would carry into the sign
+CUDA_NAN = 0x7FFFFFFF
+
+
+def _cuda_nan():
+    return torch.tensor([CUDA_NAN], dtype=torch.int64).to(
+        torch.int32).view(torch.float32)[0]
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 100, 75), (130, 20, 129)])
+def test_matmul_tf32x3_source_keeps_nan(k2, m, k, n):
+    """A NaN in A (row 3) and in B (column 7), both 0x7fffffff: the
+    output's NaNs are the plain version's, row 3 and column 7, at both
+    tiles; 3xTF32 turns no NaN into a finite value."""
+    a, b = _k2_inputs(m, k, n, torch.float32)
+    a[3, k // 2] = _cuda_nan()
+    b[k - 1, 7] = _cuda_nan()
+    c, p = _k2_run(k2, a, b, torch.float32)
+    assert p.variant == "tf32x3"
+    want = ref.matmul(a, b)
+    assert torch.isnan(want[3]).all() and torch.isnan(want[:, 7]).all()
+    assert torch.equal(torch.isnan(c), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    torch.testing.assert_close(c[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+def test_matmul_skinny_source_split_is_bitwise_repeatable(k2):
+    """The skinny regime's partials meet in a fixed order (warps, then
+    parts): two runs give the same bits."""
+    a, b = _k2_inputs(16, 700, 256, torch.float32)
+    (x, p), (y, _) = (_k2_run(k2, a, b, torch.float32) for _ in range(2))
+    assert p.variant == "skinny" and p.split > 1
+    assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +459,22 @@ extern "C" void cpa(const char* src, char* dst, int n, const int* bytes) {
   });
 }
 extern "C" uint32_t pack(float lo, float hi) { return pack_bf16x2(lo, hi); }
+extern "C" void tf32(const float* x, uint32_t* hi, uint32_t* lo, int n) {
+  for (int i = 0; i < n; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+// one warp: d += A.B by mma.m16n8k8 tf32 (threes = 0) or by the 3xTF32
+// triple from fp32 fragments split in the lanes (threes = 1)
+extern "C" void mma8(const uint32_t* a, const uint32_t* b, float* d,
+                     int threes) {
+  emu_launch(dim3(1), 32, [&] {
+    const int l = threadIdx.x;
+    if (!threes) { mma_1688_tf32(d + 4 * l, a + 4 * l, b + 2 * l); return; }
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[4 * l + i]), ah[i], al[i]);
+    for (int i = 0; i < 2; ++i) split_tf32(__uint_as_float(b[2 * l + i]), bh[i], bl[i]);
+    mma_1688_3xtf32(d + 4 * l, ah, al, bh, bl);
+  });
+}
 """
 
 
@@ -450,6 +559,159 @@ def test_emulated_pack_bf16x2_rounds_like_torch(prims, lo, hi):
     bits = torch.tensor([lo, hi]).to(torch.bfloat16).view(torch.int16)
     want = [int(x) & 0xffff for x in bits]
     assert prims.pack(lo, hi) == _pair(want[0], want[1])
+
+
+def _tf32_rna(x: float) -> float:
+    """x rounded to tf32 (11 significant bits), to nearest with ties away
+    from zero, in float64: independent of the bit trick under test."""
+    m, e = np.frexp(np.float64(x))               # |m| in [0.5, 1)
+    scaled = np.ldexp(m, 11)
+    r = np.sign(scaled) * np.floor(np.abs(scaled) + 0.5)
+    return float(np.ldexp(r, int(e) - 11))
+
+
+def _split(prims, x):
+    x = np.ascontiguousarray(x, np.float32)
+    hi = np.zeros(x.shape, np.uint32)
+    lo = np.zeros(x.shape, np.uint32)
+    prims.tf32(_ptr(x), _ptr(hi), _ptr(lo), x.size)
+    return hi, lo
+
+
+def test_emulated_cvt_rna_tf32_rounds_to_nearest_ties_away(prims, rng):
+    """cvt.rna.tf32.f32 bit for bit: the low 13 bits cleared, ties (low
+    bits exactly 0x1000) away from zero for either sign, a carry into the
+    exponent, NaN and Inf kept; random normal values against a float64
+    rounding to 11 significant bits."""
+    cases = {0x3F801000: 0x3F802000, 0xBF801000: 0xBF802000,   # ties
+             0x3F802FFF: 0x3F802000, 0x3F803000: 0x3F804000,   # below; tie
+             0x3F800FFF: 0x3F800000, 0xBF800FFF: 0xBF800000,   # below
+             0x3F801001: 0x3F802000, 0xC0001001: 0xC0002000,   # above
+             0x3FFFFFFF: 0x40000000, 0x7F800000: 0x7F800000,   # carry; Inf
+             0xFF800000: 0xFF800000, 0x00000000: 0x00000000}
+    bits = np.array(list(cases), np.uint32)
+    hi, _ = _split(prims, bits.view(np.float32))
+    assert [hex(h) for h in hi] == [hex(v) for v in cases.values()]
+    nan, _ = _split(prims, np.array([np.nan], np.float32))
+    assert np.isnan(nan.view(np.float32)[0])
+    x = (rng.randn(2000) * np.exp2(rng.randint(-60, 60, 2000))).astype(
+        np.float32)
+    hi, _ = _split(prims, x)
+    assert not (hi & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.view(np.float32).astype(np.float64),
+                                  [_tf32_rna(v) for v in x])
+
+
+def test_emulated_cvt_rna_tf32_of_a_nan_clears_the_low_bits(prims):
+    """hi of a NaN is cvt.rna's (as the card gives it): the NaN with its low
+    13 bits cleared, so 0x7fffffff (the card's 0/0) and the NaNs of the
+    highest mantissas, whose rounding by an add would carry into the sign,
+    stay NaN; only a payload wholly in the low 13 bits becomes Inf.  Inf
+    gives hi = Inf."""
+    nans = np.array([CUDA_NAN, 0xFFFFFFFF, 0x7FFFF000, 0xFFFFF000,
+                     0x7FC00000, 0x7F800001, 0xFF801000], np.uint32)
+    hi, _ = _split(prims, nans.view(np.float32))
+    assert [hex(h) for h in hi] == [hex(v & 0xFFFFE000) for v in nans]
+    assert np.isnan(hi[:5].view(np.float32)).all()
+    inf = np.array([np.inf, -np.inf], np.float32)
+    hi, _ = _split(prims, inf)
+    np.testing.assert_array_equal(hi.view(np.float32), inf)
+
+
+def test_emulated_split_tf32_hi_plus_lo_is_x_to_2_pow_minus_22(prims, rng):
+    """hi + lo recovers x to 2**-22 relative (both halves tf32: low 13
+    bits clear); hi alone only to 2**-11."""
+    x = (rng.randn(5000) * np.exp2(rng.randint(-40, 40, 5000))).astype(
+        np.float32)
+    hi, lo = _split(prims, x)
+    assert not ((hi | lo) & 0x1FFF).any()
+    h = hi.view(np.float32).astype(np.float64)
+    l_ = lo.view(np.float32).astype(np.float64)
+    err = np.abs(x.astype(np.float64) - h - l_) / np.abs(x)
+    assert err.max() <= 2.0 ** -22
+    assert (np.abs(x - h) / np.abs(x)).max() > 2.0 ** -14
+
+
+def _tf32_fragments(A, B, C):
+    """m16n8k8 tf32 fragments of A (16 x 8), B (8 x 8, k down) and C (16 x
+    8) as the PTX ISA lays them out: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+    a3 (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g); C as m16n8k16's."""
+    a = np.zeros((32, 4), np.uint32)
+    b = np.zeros((32, 2), np.uint32)
+    d = np.zeros((32, 4), np.float32)
+    Ab = np.ascontiguousarray(A, np.float32).view(np.uint32)
+    Bb = np.ascontiguousarray(B, np.float32).view(np.uint32)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        a[lane] = [Ab[g, t], Ab[g + 8, t], Ab[g, t + 4], Ab[g + 8, t + 4]]
+        b[lane] = [Bb[t, g], Bb[t + 4, g]]
+        d[lane] = [C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t],
+                   C[g + 8, 2 * t + 1]]
+    return a, b, d
+
+
+def _c_fragment(d):
+    """The 16 x 8 matrix a C / D fragment holds."""
+    out = np.zeros((16, 8), np.float64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        out[g, 2 * t], out[g, 2 * t + 1] = d[lane, 0], d[lane, 1]
+        out[g + 8, 2 * t], out[g + 8, 2 * t + 1] = d[lane, 2], d[lane, 3]
+    return out
+
+
+def test_emulated_mma_1688_tf32_matches_numpy(prims, rng):
+    """mma.m16n8k8 tf32 on fragments laid out as the PTX ISA documents
+    them: D = A.B + C (tf32 inputs: the products are exact in fp32)."""
+    def tf32(*s):
+        return np.vectorize(_tf32_rna)(rng.randn(*s)).astype(np.float32)
+    A, B, C = tf32(16, 8), tf32(8, 8), tf32(16, 8)
+    a, b, d = _tf32_fragments(A, B, C)
+    prims.mma8(_ptr(a), _ptr(b), _ptr(d), 0)
+    np.testing.assert_allclose(_c_fragment(d),
+                               A.astype(np.float64) @ B + C, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_emulated_3xtf32_keeps_fp32_level_error(prims, rng):
+    """fp32 operands through the 3xTF32 triple: within a few 2**-22 of
+    sum |a b| of the float64 product, where one tf32 product is ~1000 x
+    further off."""
+    A = rng.randn(16, 8).astype(np.float32)
+    B = rng.randn(8, 8).astype(np.float32)
+    want = A.astype(np.float64) @ B
+    scale = np.abs(A).astype(np.float64) @ np.abs(B)
+    a, b, d = _tf32_fragments(A, B, np.zeros((16, 8), np.float32))
+    prims.mma8(_ptr(a), _ptr(b), _ptr(d), 1)
+    assert (np.abs(_c_fragment(d) - want) / scale).max() <= 4 * 2.0 ** -22
+    d1 = np.zeros((32, 4), np.float32)
+    prims.mma8(_ptr(a), _ptr(b), _ptr(d1), 0)      # hi bits only: tf32
+    assert (np.abs(_c_fragment(d1) - want) / scale).max() > 2.0 ** -14
+
+
+def test_emulated_c_fragment_is_an_a_fragment_under_permuted_k(prims, rng):
+    """A C fragment of X (16 x 8) reused as an A fragment, a = {c0, c2, c1,
+    c3} (slot t is column 2t, slot t + 4 column 2t + 1), times B loaded
+    in the same order (b0 from row 2t, b1 from row 2t + 1) is X.Y; B in
+    the natural order (rows t, t + 4) is not."""
+    def tf32(*s):
+        return np.vectorize(_tf32_rna)(rng.randn(*s)).astype(np.float32)
+    X, Y = tf32(16, 8), tf32(8, 8)
+    _, _, c = _tf32_fragments(np.zeros((16, 8)), np.zeros((8, 8)), X)
+    cb = c.view(np.uint32)
+    a = np.ascontiguousarray(cb[:, [0, 2, 1, 3]])
+    Yb = Y.view(np.uint32)
+    want = X.astype(np.float64) @ Y
+    for permuted in (True, False):
+        b = np.zeros((32, 2), np.uint32)
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            b[lane] = ([Yb[2 * t, g], Yb[2 * t + 1, g]] if permuted
+                       else [Yb[t, g], Yb[t + 4, g]])
+        d = np.zeros((32, 4), np.float32)
+        prims.mma8(_ptr(a), _ptr(b), _ptr(d), 0)
+        close = np.allclose(_c_fragment(d), want, rtol=1e-6, atol=1e-6)
+        assert close == permuted
 
 
 @pytest.fixture(scope="module")
@@ -537,8 +799,9 @@ def test_flash_attention_source_writes_lse(k3, bh, bkv, sq, sk, d, causal,
 
 
 # K3's backward under emulation against its plain version, from the plain
-# forward's output and lse.  fp32 (the SIMT kernels): the same fp32
-# arithmetic in another order (sums over up to 130 keys and a GQA group).
+# forward's output and lse.  fp32 (the tf32x3 kernels): fp32 sums in
+# another order (over up to 130 keys and a GQA group), each product in
+# 3xTF32 (within about 3 x 2**-22 relative of fp32's).
 # bf16 (the mma kernels): S, dP and every sum in fp32 from the same bf16
 # inputs; P rounded to bf16 before dV's product and dS before dK's and
 # dQ's add at most 2**-9 relative to each term, under the gradients' own
@@ -552,12 +815,18 @@ K3_BWD_CASES = [(2, 1, 37, 16, True), (4, 2, 70, 32, True),
                 (4, 1, 70, 128, True), (2, 1, 100, 16, False)]
 
 
-def _k3_bwd_run(k3_bwd, bh, bkv, s, d, causal, dtype):
+def _k3_bwd_run(k3_bwd, bh, bkv, s, d, causal, dtype, nan_in=None):
     """One emulated ``repro_flash_attention_bwd`` from the plain forward's
-    output and lse, outputs starting as NaN: ``(grads, inputs)``."""
+    output and lse, outputs starting as NaN: ``(grads, inputs)``.
+    ``nan_in`` ("q" or "do") puts 0x7fffffff at one element of that
+    input (q's before the forward)."""
     q, k, v, g = _k3_inputs(bh, bkv, s, s, d, dtype, 3 * s + d)
+    if nan_in == "q":
+        q[1, s // 2, 3] = _cuda_nan()
     o, lse = ref.flash_attention(q, k, v, causal=causal, return_lse=True)
     do = torch.randn((bh, s, d), generator=g).to(dtype)
+    if nan_in == "do":
+        do[0, s // 3, 5] = _cuda_nan()
     outs = [torch.full(t.shape, float("nan"), dtype=dtype) for t in (q, k, v)]
     delta = torch.full((bh, s), float("nan"))
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
@@ -587,6 +856,32 @@ def test_flash_attention_bwd_mma_source_is_bitwise_repeatable(k3_bwd):
     a, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.bfloat16)
     b, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.bfloat16)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_bwd_tf32x3_source_is_bitwise_repeatable(k3_bwd):
+    """The fp32 (3xTF32) kernels likewise: no atomics, every sum in a fixed
+    order, so two runs give the same bits."""
+    a, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.float32)
+    b, _ = _k3_bwd_run(k3_bwd, 4, 2, 150, 32, True, torch.float32)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("nan_in", ["do", "q"])
+def test_flash_attention_bwd_tf32x3_source_keeps_nan(k3_bwd, nan_in):
+    """A NaN (0x7fffffff) in dO or in q reaches D, dP and dS, which the fp32
+    kernels split to 3xTF32 (dS^T as a C fragment reused as an A
+    fragment): dQ, dK and dV are NaN where the plain version's are
+    (non-causal, so that neither skips a masked tile), and agree with it
+    elsewhere."""
+    outs, inputs = _k3_bwd_run(k3_bwd, 2, 1, 70, 32, False, torch.float32,
+                               nan_in=nan_in)
+    want = ref.flash_attention_bwd(*inputs, causal=False)
+    for name, got, w in zip(("dq", "dk", "dv"), outs, want):
+        assert torch.isnan(w).any(), name
+        assert torch.equal(torch.isnan(got), torch.isnan(w)), name
+        fin = ~torch.isnan(w)
+        tol = K3_BWD_TOL[torch.float32]
+        torch.testing.assert_close(got[fin], w[fin], rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------

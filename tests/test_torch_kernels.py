@@ -164,9 +164,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                    "flash_attention_bwd": 0}
     assert ops.launch_counts_by_variant() == {
         "rmsnorm": {"packed": 0, "warp": 0, "block": 0},
-        "matmul": {"wgmma": 0, "splitk_reduce": 0, "simt": 0},
+        "matmul": {"wgmma": 0, "splitk_reduce": 0, "skinny": 0,
+                   "skinny_reduce": 0, "tf32x3": 0, "mma": 0},
         "flash_attention": {"mma": 0, "simt": 0},
-        "flash_attention_bwd": {"mma": 0, "simt": 0}}
+        "flash_attention_bwd": {"mma": 0, "tf32x3": 0}}
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -230,18 +231,87 @@ def test_build_flags_are_per_source_and_keyed(monkeypatch):
     (800, 2560, 4096, torch.bfloat16, "wgmma"),
     (4, 2560, 4096, torch.bfloat16, "wgmma"),
     (1, 64, 8, torch.bfloat16, "wgmma"),
-    (800, 2560, 4096, torch.float32, "simt"),      # no TF32
-    (37, 100, 75, torch.bfloat16, "simt"),         # N % 8: no TMA rows
-    (16, 12, 64, torch.bfloat16, "simt"),          # K % 8
-    (5, 0, 8, torch.bfloat16, "simt"),             # no k tile
+    (800, 2560, 4096, torch.float32, "tf32x3"),    # 3xTF32, not TF32
+    (37, 100, 75, torch.bfloat16, "mma"),          # N % 8: no TMA rows
+    (16, 12, 64, torch.bfloat16, "mma"),           # K % 8
+    (5, 0, 8, torch.bfloat16, "mma"),              # no k tile
 ])
 def test_matmul_plan_variant_by_dtype_and_alignment(m, k, n, dtype, want):
     from repro_torch.kernels import matmul as mm
     p = mm.plan(m, n, k, dtype)
     assert p.variant == want
-    if want == "simt":
+    if want == "mma":
+        assert (p.grid, p.split, p.workspace_bytes, p.block_n) == (
+            (-(-n // 64), -(-m // 64), 1), 1, 0, 64)
+    if want == "tf32x3":
+        assert (p.grid, p.split, p.workspace_bytes, p.block_m) == (
+            (-(-n // p.block_n), -(-m // 128), 1), 1, 0, 128)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,want", [
+    (4, 2560, 4096, torch.float32, "skinny"),      # a decode step's rows
+    (16, 2560, 9728, torch.float32, "skinny"),
+    (17, 2560, 4096, torch.float32, "tf32x3"),
+    (37, 100, 75, torch.float32, "tf32x3"),
+    (1, 1, 1, torch.float32, "skinny"),
+    (4, 2560, 4096, torch.bfloat16, "wgmma"),      # bf16 rows stay wgmma
+    (37, 100, 75, torch.bfloat16, "mma"),
+])
+def test_matmul_plan_regime_by_dtype_and_rows(m, k, n, dtype, want):
+    """fp32 takes skinny up to 16 rows and tf32x3 above; bf16 takes wgmma
+    where TMA can describe the rows and mma elsewhere, whatever M."""
+    from repro_torch.kernels import matmul as mm
+    assert mm.plan(m, n, k, dtype).variant == want
+
+
+def test_matmul_plan_skinny_splits_k_to_a_wave_at_the_decode_shape():
+    """(4, 2560) x (2560, 4096) fp32: 32 panels of 128 columns, K split 8
+    ways (320 rows a part) so that 256 blocks cover the 132 SMs; the
+    partials take an fp32 (8, 4, 4096) workspace and a second launch."""
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(4, 4096, 2560, torch.float32)
+    assert (p.variant, p.block_n, p.split) == ("skinny", 128, 8)
+    assert p.grid == (32, 8, 1)
+    assert p.grid[0] * p.grid[1] >= mm.SMS > p.grid[0] * p.grid[1] // 2
+    assert p.workspace_bytes == 8 * 4 * 4096 * 4
+    assert p.launches == 2
+    # too few rows of K to split: one part, no workspace, one launch
+    p = mm.plan(4, 200, 64, torch.float32)
+    assert (p.grid, p.split, p.workspace_bytes, p.launches) == (
+        (2, 1, 1), 1, 0, 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2560, 4096), (4, 2560, 9728),
+                                   (16, 9728, 2560), (3, 1100, 75),
+                                   (8, 100, 100000), (2, 64, 8)])
+def test_matmul_plan_skinny_grid_is_panels_times_split(m, k, n):
+    """The skinny grid: panels x split blocks; split a power of two that
+    stops doubling at one wave or at 64 rows of K a part; workspace
+    split x M x N fp32 when split > 1."""
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(m, n, k, torch.float32)
+    panels = -(-n // 128)
+    assert p.variant == "skinny" and p.grid == (panels, p.split, 1)
+    assert p.split & (p.split - 1) == 0
+    assert p.split == 1 or k // p.split >= mm.SKINNY_MIN_ROWS
+    assert panels * p.split >= mm.SMS or k // (2 * p.split) < \
+        mm.SKINNY_MIN_ROWS
+    assert p.workspace_bytes == (p.split * m * n * 4 if p.split > 1 else 0)
+
+
+def test_matmul_plan_tf32x3_tile_by_rows():
+    """tf32x3 tiles by M alone: 64 x 64 up to 64 rows, 128 x 128 above
+    (the prefill projections among them), split 1, no workspace."""
+    from repro_torch.kernels import matmul as mm
+    for m, n in [(800, 4096), (800, 9728), (200, 2560), (4096, 4096),
+                 (130, 129), (65, 8000)]:
+        p = mm.plan(m, n, 2560, torch.float32)
+        assert (p.variant, p.block_m, p.block_n) == ("tf32x3", 128, 128)
         assert (p.grid, p.split, p.workspace_bytes) == (
             (-(-n // 128), -(-m // 128), 1), 1, 0)
+    for m, n in [(37, 75), (17, 4096), (64, 9728)]:
+        p = mm.plan(m, n, 100, torch.float32)
+        assert (p.block_m, p.block_n, p.grid) == (64, 64, (-(-n // 64), 1, 1))
 
 
 def test_matmul_plan_splits_k_at_the_decode_shape():
@@ -432,6 +502,17 @@ def test_flash_attention_variant_by_dtype():
     assert fa.variant(torch.float32) == "simt"
     with pytest.raises(ValueError, match="no kernel"):
         fa.variant(torch.float16)
+
+
+def test_flash_attention_bwd_variant_by_dtype():
+    """The backward's own variant: bf16 on mma.m16n8k16, fp32 in 3xTF32
+    (the forward's fp32 stays simt)."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.bwd_variant(torch.bfloat16) == "mma"
+    assert fa.bwd_variant(torch.float32) == "tf32x3"
+    assert set(fa.backward.launches_by_variant) == {"mma", "tf32x3"}
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.bwd_variant(torch.float16)
 
 
 # ---------------------------------------------------------------------------
