@@ -28,7 +28,11 @@ result):
    ``block`` from ``rmsnorm.plan``, at the six main-path shapes in bf16,
    phase 4b's prefill rows (one request at each bucket) and phase 5's
    shapes in fp32; K3: ``mma`` for bf16, at phase 4's shapes and at phase
-   4b's first prefill chunks, ``simt`` for fp32; K2: ``wgmma``, with split
+   4b's first prefill chunks, ``tf32x3`` for fp32, at the prefill shape,
+   at phase 4b's first chunks (the shapes phase 5's fp32 engines give it)
+   and at a batch-1 chunk with ``q_offset``, each fp32 case beside its
+   max abs error against a float64 attention and the plain version's,
+   and a second bound, that of its 3xTF32 work; K2: ``wgmma``, with split
    K below one wave, or ``mma`` for bf16, ``skinny`` or ``tf32x3`` for
    fp32); and decode attention (plain PyTorch) at
    a decode step's shape, the card's bf16-read form against the upcast
@@ -61,11 +65,12 @@ result):
 5. full width against the CPU: 2 layers at full width in float32 (TF32 off
    for matmuls and cuDNN), the same weights on the card (kernels) and on
    the CPU (plain versions): last-position logits within a stated
-   tolerance and identical greedy tokens, every K3 launch on ``simt``
+   tolerance and identical greedy tokens, every K3 launch on ``tf32x3``
    and no K1 launch on ``packed`` (fp32 rows of 128 are 32 vectors); and
    at all 36 layers in float32 on the card, the continuous engine (dense
    and paged, graphs) against the static engine on phase 4b's traffic:
-   equal tokens, the sampled request included;
+   equal tokens, the sampled request included, its K3 launches (all
+   ``tf32x3``) printed apart from the 2-layer part's;
 6. K2, the hand-written matmul, against its plain version at qwen3-4b's
    projection shapes and one ragged shape, in bf16 and fp32 (times as in
    phase 3, the library call being ``torch.matmul``), the regime of each
@@ -191,13 +196,15 @@ result):
    ``--train-child`` in a fresh process (deterministic algorithms,
    ``CUBLAS_WORKSPACE_CONFIG``): 20 smoke-config steps (fp32) equal 10,
    a checkpoint, a restore and 10 more, bitwise, and the card's step-1
-   state equals the CPU's; every K3-bwd launch there is ``tf32x3``.
+   state equals the CPU's; every K3 and K3-bwd launch there is
+   ``tf32x3``.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
 K3, the backward kernels of K1 and K3 (their launches, and K3-bwd's per
 variant, phase 13b's; K3-bwd's per variant in 13e too, as
-``launches_13e``), one entry per generated K4 program of phase 7 and
+``launches_13e``, and K3's fp32 variant's in phases 5 and 13e, as
+``launches_phase5`` and ``launches_13e``), one entry per generated K4 program of phase 7 and
 one per tuned winner of phase 11), the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -405,12 +412,15 @@ def phase_build():
     import ctypes
     fa_lib = _build.library("flash_attention")
     fa_smem = fa_lib.repro_flash_attention_mma_smem
+    fa_tf32_smem = fa_lib.repro_flash_attention_tf32_smem
     fa_bwd_smem = fa_lib.repro_flash_attention_bwd_mma_smem
     mm_smem = _build.library("matmul_wgmma").repro_matmul_wgmma_smem
-    fa_smem.argtypes = fa_bwd_smem.argtypes = mm_smem.argtypes = [
-        ctypes.c_int]
+    for fn in (fa_smem, fa_tf32_smem, fa_bwd_smem, mm_smem):
+        fn.argtypes = [ctypes.c_int]
     log(f"[2] dynamic shared memory: flash_fwd_mma "
         f"{ {d: fa_smem(d) for d in (16, 32, 64, 128)} } B by head dim; "
+        f"flash_fwd_tf32 "
+        f"{ {d: fa_tf32_smem(d) for d in (16, 32, 64, 128)} } B; "
         f"flash_bwd_dkv_mma and flash_bwd_dq_mma "
         f"{ {d: fa_bwd_smem(d) for d in (16, 32, 64, 128)} } B each; "
         f"gemm_wgmma { {bn: mm_smem(bn) for bn in (128, 256)} } B by tile "
@@ -479,8 +489,26 @@ def _rmsnorm_case(rows, d, dtype, gen, k1):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def attention_f64(q, k, v, causal, q_offset):
+    """Attention of ``q`` (BH, Sq, D), ``k`` / ``v`` (BKV, Sk, D) in float64,
+    causal on absolute positions ``q_offset + row``: what a fp32 kernel's
+    and the plain version's errors are measured against."""
+    group = q.shape[0] // k.shape[0]
+    q64 = q.double()
+    k64 = k.double().repeat_interleave(group, dim=0)
+    v64 = v.double().repeat_interleave(group, dim=0)
+    s = q64 @ k64.transpose(1, 2) / math.sqrt(q.shape[-1])
+    if causal:
+        rows = torch.arange(q.shape[1], device=q.device)[:, None]
+        keys = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(keys > q_offset + rows, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v64
+
+
 def _flash_case(sq, sk, causal, q_offset, gen, b=4, nh=32, nkv=8, hd=128,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, f64_check=False):
+    """One K3 case on the card; ``f64_check`` (fp32): fail if the kernel's
+    error against float64 is above 2 x the plain version's."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -491,32 +519,59 @@ def _flash_case(sq, sk, causal, q_offset, gen, b=4, nh=32, nkv=8, hd=128,
     v = torch.randn((b * nkv, sk, hd), generator=gen,
                     device="cuda").to(dtype)
     kw = dict(causal=causal, q_offset=q_offset)
-    err = check_close(ops.flash_attention(q, k, v, **kw),
-                      ref.flash_attention(q, k, v, **kw), dtype,
+    variant = fa.variant(dtype)
+    before = fa.launches_by_variant[variant]
+    got, want = ops.flash_attention(q, k, v, **kw), ref.flash_attention(
+        q, k, v, **kw)
+    if fa.launches_by_variant[variant] != before + 1:
+        raise AssertionError(f"flash_attention sq={sq} sk={sk} {kw}: "
+                             f"{variant} was not launched")
+    err = check_close(got, want, dtype,
                       f"flash_attention sq={sq} sk={sk} {kw}")
     # the library call: same function in (b, heads, s, hd) layout; causal
-    # with q_offset = sk - sq is top-left aligned only when sq == sk, and a
-    # single last-position query attends to every key
-    lib_causal = causal and sq == sk
-    if causal and not (sq == sk or (sq == 1 and q_offset == sk - 1)):
-        raise ValueError("no library form for this causal offset")
+    # SDPA is top-left aligned, right for q_offset 0 with sq == sk; a single
+    # last-position query attends to every key; any other causal offset
+    # takes an explicit mask
+    lib_causal = causal and sq == sk and q_offset == 0
+    mask = None
+    if causal and not lib_causal and not (sq == 1 and q_offset == sk - 1):
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device="cuda").tril(q_offset)
     q4 = q.view(b, nh, sq, hd)
     k4, v4 = k.view(b, nkv, sk, hd), v.view(b, nkv, sk, hd)
     pairs = (sum(min(q_offset + r + 1, sk) for r in range(sq)) if causal
              else sq * sk)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    b_ms, b_by = bound(nbytes, 4 * b * nh * hd * pairs, PEAK_FLOPS[dtype])
-    return {"q": [b * nh, sq, hd], "kv": [b * nkv, sk, hd],
-            "causal": causal, "q_offset": q_offset,
-            "variant": fa.variant(dtype),
+    flops = 4 * b * nh * hd * pairs
+    b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    case = {"q": [b * nh, sq, hd], "kv": [b * nkv, sk, hd],
+            "causal": causal, "q_offset": q_offset, "variant": variant,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
             "tol": list(TOLS[dtype]),
             "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             "eager_ms": eager_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, **kw)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=lib_causal, enable_gqa=True)),
+                q4, k4, v4, attn_mask=mask, is_causal=lib_causal,
+                enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by}
+    if variant == "tf32x3":
+        # what 3xTF32 keeps: the error against float64, beside the plain
+        # fp32 version's; and the bound of the work it does (three TF32
+        # products a product)
+        exact = attention_f64(q, k, v, causal, q_offset)
+        case["max_abs_err_f64"] = (got.double() - exact).abs().max().item()
+        case["plain_max_abs_err_f64"] = (want.double() - exact).abs(
+            ).max().item()
+        if f64_check and \
+                case["max_abs_err_f64"] > 2 * case["plain_max_abs_err_f64"]:
+            raise AssertionError(f"flash_attention sq={sq} sk={sk} {kw}: "
+                                 f"float64 error {case['max_abs_err_f64']} "
+                                 f"above 2 x the plain version's "
+                                 f"{case['plain_max_abs_err_f64']}")
+        case["bound_3xtf32_ms"], case["bound_3xtf32_by"] = bound(
+            nbytes, 3 * flops, TF32_FLOPS)
+    return case
 
 
 def rms_shapes(b: int, s: int):
@@ -555,8 +610,15 @@ def phase_kernels(k1):
     fa.append(_flash_case(1, s_main, True, s_main - 1, gen))
     # phase 4b's first prefill chunks: one request at each bucket
     fa += [_flash_case(s, s, True, 0, gen, b=1) for s in first]
-    # the fp32 (simt) variant at the prefill shape: not redesigned, timed
-    fa.append(_flash_case(s_main, s_main, True, 0, gen, dtype=torch.float32))
+    # the fp32 variant (tf32x3) at the prefill shape, at phase 4b's first
+    # chunks (the shapes of phase 5's 36-layer fp32 engines) and at a
+    # batch-1 chunk with q_offset: the last 72 of a 200-token prompt
+    f32 = torch.float32
+    fa.append(_flash_case(s_main, s_main, True, 0, gen, dtype=f32,
+                          f64_check=True))
+    fa += [_flash_case(s, s, True, 0, gen, b=1, dtype=f32) for s in first]
+    fa.append(_flash_case(s_main - PREFILL_CHUNK, s_main, True,
+                          PREFILL_CHUNK, gen, b=1, dtype=f32))
     for name, cases in (("rmsnorm", rms), ("flash_attention", fa)):
         for c in cases:
             log(f"[3] {name} " + json.dumps(c))
@@ -619,7 +681,7 @@ def device_checked(run, what: str):
         out = run()
         torch.cuda.synchronize()
         time.sleep(0.2)     # the last kernels' records land in the window
-    dev = {"rmsnorm": 0, "flash_attention": {"mma": 0, "simt": 0}}
+    dev = {"rmsnorm": 0, "flash_attention": {"mma": 0, "tf32x3": 0}}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -627,14 +689,14 @@ def device_checked(run, what: str):
             dev["rmsnorm"] += e.count
         elif "flash_fwd_mma" in e.key:
             dev["flash_attention"]["mma"] += e.count
-        elif "flash_fwd" in e.key:
-            dev["flash_attention"]["simt"] += e.count
+        elif "flash_fwd_tf32" in e.key:
+            dev["flash_attention"]["tf32x3"] += e.count
     host = {"rmsnorm": ops.launch_counts()["rmsnorm"],
             "flash_attention": ops.launch_counts_by_variant()[
                 "flash_attention"]}
     pairs = [(dev["rmsnorm"], host["rmsnorm"])] + [
         (dev["flash_attention"][v], host["flash_attention"][v])
-        for v in ("mma", "simt")]
+        for v in ("mma", "tf32x3")]
     if dev["rmsnorm"] == 0 or any(
             not 0 <= h - d <= PROFILER_LOSS * h + 1 for d, h in pairs):
         raise AssertionError(f"{what}: kernels on the card (torch.profiler) "
@@ -695,7 +757,7 @@ def phase_main_path(smi: str):
         raise AssertionError(f"K1 variants {variants['rmsnorm']} != "
                              f"{want_k1}")
     if variants["flash_attention"] != {"mma": cfg.n_layers * prefills,
-                                       "simt": 0}:
+                                       "tf32x3": 0}:
         raise AssertionError(f"K3 variants {variants['flash_attention']}: "
                              f"every bf16 prefill launch must take mma")
     if outs != warm:
@@ -795,7 +857,7 @@ def _continuous_run(engine, reqs, cfg):
             2 * cfg.n_layers + 1
     if counts != want or variants["rmsnorm"] != want_k1 or \
             variants["flash_attention"] != {"mma": cfg.n_layers * admits,
-                                            "simt": 0}:
+                                            "tf32x3": 0}:
         raise AssertionError(f"{engine.kv_layout}: launches {counts} != "
                              f"{want}, K1 {variants['rmsnorm']} != {want_k1}, "
                              f"K3 {variants['flash_attention']}")
@@ -942,13 +1004,17 @@ def phase_against_cpu():
         raise AssertionError(f"greedy tokens differ: card {toks['cuda']} "
                              f"cpu {toks['cpu']}")
     del p_gpu
+    two_layer = ops.launch_counts_by_variant()["flash_attention"]
     t_full = time.perf_counter()
     full_cfg = continuous_against_static()
     t_full = time.perf_counter() - t_full
     fa_variants = ops.launch_counts_by_variant()["flash_attention"]
-    if fa_variants["mma"] != 0 or fa_variants["simt"] == 0:
-        raise AssertionError(f"K3 variants {fa_variants}: every fp32 launch "
-                             f"must take simt")
+    full_k3 = {v: n - two_layer[v] for v, n in fa_variants.items()}
+    if fa_variants["mma"] != 0 or two_layer["tf32x3"] == 0 or \
+            full_k3["tf32x3"] == 0:
+        raise AssertionError(f"K3 variants {two_layer} (2 layers), "
+                             f"{full_k3} (36 layers): every fp32 launch "
+                             f"must take tf32x3")
     k1_variants = ops.launch_counts_by_variant()["rmsnorm"]
     if k1_variants["packed"] or not (k1_variants["warp"]
                                      and k1_variants["block"]):
@@ -961,8 +1027,10 @@ def phase_against_cpu():
         f"{logits['cpu'].abs().max().item():.2f}); greedy tokens equal "
         f"{toks['cuda']}; at all {full_cfg.n_layers} layers in float32, "
         f"continuous (dense, paged; graphs) = static on phase 4b's traffic "
-        f"({t_full:.1f} s); K3 variants {fa_variants}; K1 variants "
-        f"{k1_variants}; {time.perf_counter() - t0:.1f} s")
+        f"({t_full:.1f} s); K3 variants {two_layer} in the {CPU_LAYERS}-"
+        f"layer part, {full_k3} in the {full_cfg.n_layers}-layer runs; K1 "
+        f"variants {k1_variants}; {time.perf_counter() - t0:.1f} s")
+    return fa_variants
 
 
 def continuous_against_static():
@@ -2674,6 +2742,7 @@ def train_child() -> int:
         "resume_bitwise": bitwise, "checkpoints": saved,
         "launches": counts,
         "flash_attention_bwd_variants": by_variant["flash_attention_bwd"],
+        "flash_attention_variants": by_variant["flash_attention"],
         "deterministic": True,
         "card_vs_cpu_bad_leaves": bad,
         "card_vs_cpu_max_abs_err": worst, "tol": list(STATE_TOL),
@@ -2702,7 +2771,10 @@ def phase_train_smoke(smi):
             rep["launches"]["rmsnorm_bwd"] == 0 or \
             rep["launches"]["flash_attention_bwd"] == 0 or \
             rep["flash_attention_bwd_variants"] != {
-                "mma": 0, "tf32x3": rep["launches"]["flash_attention_bwd"]}:
+                "mma": 0, "tf32x3": rep["launches"]["flash_attention_bwd"]} \
+            or rep["launches"]["flash_attention"] == 0 or \
+            rep["flash_attention_variants"] != {
+                "mma": 0, "tf32x3": rep["launches"]["flash_attention"]}:
         raise AssertionError(f"[13e] {rep}")
     rep["process_s"] = time.perf_counter() - t0
     log("[13e] smoke config, fp32, on the card (torch.use_deterministic_"
@@ -2740,7 +2812,7 @@ VARIANT_SOURCES = {
                 for v in ("packed", "warp", "block")},
     "flash_attention": {
         "mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+        "tf32x3": "src/repro_torch/kernels/csrc/flash_attention.cu"},
     "matmul": {"wgmma": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                "splitk_reduce": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                **{v: "src/repro_torch/kernels/csrc/matmul.cu"
@@ -2796,7 +2868,7 @@ def _run_phases(tune_cache: str) -> int:
     cases.update(phase_train_kernels())
     train, train_counts, variants["flash_attention_bwd"] = phase_train(smi)
     train["13e"] = phase_train_smoke(smi)
-    phase_against_cpu()
+    fp32_k3 = phase_against_cpu()
     cases["matmul"] = phase_matmul()
     dpia = phase_dpia(build_s)
     p_counts, mm_variants, per_prog, p9 = phase_pipeline_main_path()
@@ -2828,6 +2900,12 @@ def _run_phases(tune_cache: str) -> int:
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():
+                entry["variants"][v]["launches_13e"] = n
+        if k["name"] == "flash_attention":
+            # the fp32 forward runs in phase 5 and in 13e, not in phase 4
+            for v, n in fp32_k3.items():
+                entry["variants"][v]["launches_phase5"] = n
+            for v, n in train["13e"]["flash_attention_variants"].items():
                 entry["variants"][v]["launches_13e"] = n
         line.append(entry)
     for c in dpia:

@@ -37,14 +37,35 @@
 // combination of V rows, below the output's own bf16 rounding (2^-8), so
 // the bf16 tolerance 1e-2 + 1e-2 |ref| holds as before.
 //
-// fp32, `flash_fwd` (SIMT, the first version, unchanged).  Its products
-// run on the CUDA cores in fp32: TF32 would break the fp32 checks.  One
-// block of four warps per (bh, 64-row query tile); the scaled query tile
-// staged once in shared memory; each 32-key K/V tile staged in shared
-// memory as fp32 (K rows padded by one float so that lane j reading row j
-// is free of bank conflicts); lane j scores key j of the tile for one query
-// row at a time, warp shuffles give the row max and sum, and each lane
-// keeps D/32 output columns of each of its warp's 16 rows in registers.
+// fp32, `flash_fwd_tf32` (tensor cores in 3xTF32, the backward's tf32x3
+// pieces).  What bounds it: at the serving prefill (BH 128, BKV 32, S 200,
+// D 128, causal) the fp32 bound is 0.0197 ms (1.3 GFLOP on the CUDA
+// cores), the 3xTF32 work's 0.0098 ms (bytes: q, k, v, o in fp32, 32.8
+// MB; its 3.9 GFLOP take 0.0080 ms at 495 TFLOP/s); plain TF32 would break
+// the fp32 checks.  The design is flash_fwd_mma's in fp32, after
+// flash_bwd_dq_tf32: one block of 4 warps per (bh, 64-row query tile),
+// warp w owning 16 rows; Q staged once and K / V tiles by 16-byte cp.async
+// copies into rows padded by 4 floats (fragment reads free of bank
+// conflicts, as in the backward); S = Q.K^T by mma.m16n8k8 in 3xTF32 on
+// fragments split to hi / lo as they are read from shared memory; the
+// online softmax on the C fragments in the log2 domain (a row in a quad:
+// two xor-shuffles); P, a C fragment, is P.V's A fragment in the permuted
+// k order (`c_as_a_tf32`) and V's rows are read in that order
+// (`b_frag_cols_tf32`).  The tensor core truncates what it adds into an
+// accumulator (tc_sm80.cuh's note), so O never accumulates across tiles
+// inside the mma: each tile's P.V takes each n8 block of D in fresh
+// fragments, then acc = acc alpha + that in fp32; and both products keep
+// the small terms of 3xTF32 (Alo.Bhi + Ahi.Blo) in fragments of their
+// own, so that only the big terms' adds truncate at S's or O's scale.
+// The K / V tiling (keys a tile, tiles in flight) was timed on an H100
+// 80GB HBM3 at 700 W (tools/flash_against_parent.py --layouts): (64, 2),
+// 169 KB at D = 128, one block an SM, and (64, 1), 101 KB, need 255
+// registers and spill at D = 128, and took 0.126 / 0.105 ms at the
+// serving prefill; (32, 2), 101 KB, two blocks an SM, 0.109 ms; (32, 1),
+// 68 KB and 167 registers, three blocks an SM, 0.101 ms, and as fast as
+// (32, 2) on batch-1 prompts of 16-128 tokens (0.010-0.028 ms).  So a
+// block loads its next 32-key tile after computing this one, and the
+// other blocks on its SM hide the load: kF32BK 32, kF32Stages 1.
 //
 // Both forward kernels write each row's fp32 log-sum-exp of the scaled
 // scores when given an `lse` buffer (training; serving passes null).
@@ -134,178 +155,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;                        // query rows per block
-constexpr int kBK = 32;                        // keys per tile: one per lane
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kBQ / kWarps;     // 16
 constexpr float kNegInf = -1e30f;              // NEG_INF of the TPU kernel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // query tile [kBQ][D] + K tile [kBK][D + 1] + V tile [kBK][D], all fp32
-  return sizeof(float) * (size_t)(kBQ * D + kBK * (D + 1) + kBK * D);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
-          float* __restrict__ lse, int group, int sq, int sk, float scale,
-          int causal, int q_offset) {
-  constexpr int kCols = (D + 31) / 32;         // output columns per lane
-  constexpr int kKStride = D + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                            // [kBQ][D], scaled
-  float* ks = qs + kBQ * D;                    // [kBK][D + 1]
-  float* vs = ks + kBK * kKStride;             // [kBK][D]
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const T* qb = q + ((size_t)bh * sq + q0) * D;
-  const T* kb = k + (size_t)(bh / group) * sk * D;
-  const T* vb = v + (size_t)(bh / group) * sk * D;
-
-  // rows past Sq are zero and never written back
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x)
-    qs[i] = (q0 + i / D < sq) ? to_f32(qb[i]) * scale : 0.f;
-
-  const int n_tiles = (sk + kBK - 1) / kBK;
-  int n_live = n_tiles;
-  if (causal) {
-    // skip kv tiles strictly above the causal frontier of this query tile
-    const int hi_pos = q_offset + min(q0 + kBQ, sq) - 1;
-    n_live = min(hi_pos / kBK + 1, n_tiles);
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_live; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();   // the previous tile is consumed (and qs is written)
-    for (int i = threadIdx.x; i < kBK * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < sk;
-      ks[r * kKStride + c] = in ? to_f32(kb[(size_t)k0 * D + i]) : 0.f;
-      vs[i] = in ? to_f32(vb[(size_t)k0 * D + i]) : 0.f;
-    }
-    __syncthreads();
-
-    const int key = k0 + lane;
-    const float* krow = ks + lane * kKStride;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int qpos = q0 + row;
-      if (qpos >= sq) continue;                // uniform across the warp
-      const float* qrow = qs + row * D;
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) s = fmaf(qrow[c], krow[c], s);
-      const bool valid = key < sk && (!causal || key <= q_offset + qpos);
-      s = valid ? s : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-#pragma unroll 4
-      for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-        const float* vrow = vs + j * D;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int col = lane + 32 * c;
-          if (col < D) acc[r][c] = fmaf(pj, vrow[col], acc[r][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qpos = q0 + warp * kRowsPerWarp + r;
-    if (qpos >= sq) continue;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    if (lse != nullptr && lane == 0)
-      lse[(size_t)bh * sq + qpos] = m[r] + logf(l_safe);
-    T* orow = o + ((size_t)bh * sq + qpos) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) orow[col] = from_f32<T>(acc[r][c] / l_safe);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int bkv, int sq, int sk, float scale,
-                   int causal, int q_offset, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, bh / bkv, sq, sk,
-      scale, causal, q_offset);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int bh, int bkv, int sq, int sk, int d,
-                     float scale, int causal, int q_offset,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 
 // ---- bf16: mma.sync + cp.async (see the header note) ----------------------
@@ -464,7 +315,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kSBlocks; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // a masked score contributes exactly 0, as in the SIMT kernel
+        // a masked score contributes exactly 0
         const float p = s[j][e] == kNegInf ? 0.f
                                            : exp2f(s[j][e] - m[e >> 1]);
         s[j][e] = p;
@@ -1015,25 +866,16 @@ cudaError_t launch_bwd_mma_d(const void* q, const void* k, const void* v,
 }
 
 
-// ---- fp32 backward: 3xTF32 mma.sync + cp.async (see the header note) ------
+// ---- fp32: 3xTF32 mma.sync + cp.async, the pieces of the forward and the
+// backward (see the header note) ---------------------------------------------
 
-constexpr int kQC32 = 16;                      // q columns of S^T held at once
-constexpr int kKC32 = 64;                      // key columns of S held at once
-
-template <int D>
-constexpr size_t bwd_tf32_smem_bytes() {
-  // six fp32 tiles of 64 rows padded by 4 floats (as the bf16 kernels') and
-  // two pairs of 64 floats (lse in the log2 domain, D)
-  return sizeof(float) * (6 * kBwdTile * (D + 4) + 4 * kBwdTile);
-}
-
-// rows [r0, r0 + 64) of a (rows, D) fp32 matrix into a tile of rows padded
+// rows [r0, r0 + R) of a (rows, D) fp32 matrix into a tile of rows padded
 // by 4 floats, by 16-byte cp.async copies; rows past the edge zero-filled
-template <int D>
+template <int D, int R = kBwdTile>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
                                                int r0, int rows) {
   constexpr int kChunks = D / 4;               // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBwdTile * kChunks; c += kWarps * 32) {
+  for (int c = threadIdx.x; c < R * kChunks; c += kWarps * 32) {
     const int r = c / kChunks, ch = c % kChunks;
     const bool in = r0 + r < rows;
     cp_async_16(dst + r * (D + 4) + ch * 4,
@@ -1088,6 +930,258 @@ __device__ __forceinline__ void c_as_a_tf32(const float c[4], uint32_t h[4],
   split_tf32(c[2], h[1], l[1]);
   split_tf32(c[1], h[2], l[2]);
   split_tf32(c[3], h[3], l[3]);
+}
+
+// ---- fp32 forward: flash_fwd_tf32 (see the header note) -------------------
+
+// the tiling kept (the header note); the kernel builds at (64 | 32, 2 | 1),
+// which tools/flash_against_parent.py --layouts times
+constexpr int kF32BK = 32;                     // keys per K / V tile
+constexpr int kF32Stages = 1;                  // K / V tiles in flight
+
+template <int D>
+constexpr size_t fwd_tf32_smem_bytes() {
+  // Q tile + kF32Stages K and V tiles, fp32 rows padded by 4 floats
+  return sizeof(float) * (size_t)(kMmaBQ + 2 * kF32Stages * kF32BK) * (D + 4);
+}
+
+// 3xTF32 with the small terms in a fragment of their own: big += Ahi.Bhi,
+// small += Alo.Bhi + Ahi.Blo.  The tensor core truncates each sum it adds
+// into an accumulator to the accumulator's exponent; the small terms are
+// about 2^-11 of the big ones, so their truncations cost nothing and only
+// the big terms' one a k8 step remains (a third of mma_1688_3xtf32's)
+__device__ __forceinline__ void mma_1688_3xtf32_split(
+    float big[4], float small[4], const uint32_t ah[4], const uint32_t al[4],
+    const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_1688_tf32(small, al, bh);
+  mma_1688_tf32(small, ah, bl);
+  mma_1688_tf32(big, ah, bh);
+}
+
+// One (query head, 64-row q tile), as flash_fwd_mma in fp32: warp w owns
+// rows 16w..16w+15; Q staged once, K / V tiles of kF32BK keys in a ring of
+// kF32Stages up to the causal frontier.  S = Q.K^T by 3xTF32 m16n8k8 (Q
+// rows the A fragments, K rows the B fragments' n), the online softmax on
+// the C fragments in the log2 domain, then O = O alpha + P.V with P in
+// the permuted k order (c_as_a_tf32) and V's rows likewise
+// (b_frag_cols_tf32), each n8 block of the tile's P.V in fresh fragments.
+// Both products keep their small terms apart (mma_1688_3xtf32_split).
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int group, int sq, int sk,
+               float scale_log2, int causal, int q_offset) {
+  constexpr int kS = D + 4;                    // padded row: banks 4g + t
+  constexpr int kTileElems = kF32BK * kS;
+  constexpr int kSB = kF32BK / 8;              // n8 blocks of a score row
+  constexpr int kOBlocks = D / 8;              // n8 blocks of an output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + kMmaBQ * kS;                // [kF32Stages][kF32BK][kS]
+  float* vs = ks + kF32Stages * kTileElems;    // [kF32Stages][kF32BK][kS]
+
+  const int bh = blockIdx.y;
+  // the last query tiles cross the most causal kv tiles: run them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t4 = lane % 4;                     // fragment column pair
+  const float* kb = k + (size_t)(bh / group) * sk * D;
+  const float* vb = v + (size_t)(bh / group) * sk * D;
+
+  const int n_tiles = (sk + kF32BK - 1) / kF32BK;
+  int n_live = n_tiles;
+  if (causal) {
+    // skip kv tiles strictly above the causal frontier of this query tile
+    const int hi_pos = q_offset + min(q0 + kMmaBQ, sq) - 1;
+    n_live = min(hi_pos / kF32BK + 1, n_tiles);
+  }
+
+  stage_rows_f32<D, kMmaBQ>(qs, q + (size_t)bh * sq * D, q0, sq);
+  stage_rows_f32<D, kF32BK>(ks, kb, 0, sk);
+  stage_rows_f32<D, kF32BK>(vs, vb, 0, sk);
+  cp_async_commit();
+
+  // this thread's two query rows (fragment rows g and g + 8)
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int qpos[2] = {q_offset + row0, q_offset + row0 + 8};
+  float acc[kOBlocks][4];
+#pragma unroll
+  for (int j = 0; j < kOBlocks; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                     // this lane's partial sums
+
+  for (int t = 0; t < n_live; ++t) {
+    const int buf = t % kF32Stages;
+    if (kF32Stages > 1 && t + 1 < n_live) {    // prefetch tile t + 1
+      const int nb = (t + 1) % kF32Stages;
+      stage_rows_f32<D, kF32BK>(ks + nb * kTileElems, kb, (t + 1) * kF32BK,
+                                sk);
+      stage_rows_f32<D, kF32BK>(vs + nb * kTileElems, vb, (t + 1) * kF32BK,
+                                sk);
+      cp_async_commit();
+      cp_async_wait<1>();                      // tile t (and Q) landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + buf * kTileElems;
+    const float* vt = vs + buf * kTileElems;
+
+    // S = Q.K^T: 16 rows x kF32BK keys a warp, over D, the small terms
+    // apart (sm) and added in fp32
+    float s[kSB][4], sm[kSB][4];
+#pragma unroll
+    for (int j = 0; j < kSB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sm[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t qh[4], ql[4];
+      a_frag_tf32<kS>(qs, warp * 16, kk, qh, ql);
+#pragma unroll
+      for (int j = 0; j < kSB; ++j) {
+        uint32_t kh[2], kl[2];
+        b_frag_rows_tf32<kS>(kt, j * 8, kk, kh, kl);
+        mma_1688_3xtf32_split(s[j], sm[j], qh, ql, kh, kl);
+      }
+    }
+
+    // scale into the log2 domain; mask only a tile that crosses the causal
+    // diagonal of this query tile or the ragged Sk edge
+    const int k0 = t * kF32BK;
+    const bool edge = k0 + kF32BK > sk ||
+                      (causal && k0 + kF32BK - 1 > q_offset + q0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kSB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (s[j][e] + sm[j][e]) * scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (key >= sk || (causal && key > qpos[e >> 1])) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    // P, split to hi / lo as an A fragment in the permuted k order
+    uint32_t ph[kSB][4], pl[kSB][4];
+#pragma unroll
+    for (int j = 0; j < kSB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked score contributes exactly 0
+        const float p = s[j][e] == kNegInf ? 0.f
+                                           : exp2f(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+      c_as_a_tf32(s[j], ph[j], pl[j]);
+    }
+
+    // O = O alpha + P.V: n8 block j of the tile's keys is a k8 step; each
+    // output block's products go into fresh fragments (big and small
+    // terms), added in fp32: O never accumulates inside the mma
+#pragma unroll
+    for (int n = 0; n < kOBlocks; ++n) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f}, pvs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kSB; ++j) {
+        uint32_t vh[2], vl[2];
+        b_frag_cols_tf32<kS>(vt, j * 8, n * 8, vh, vl);
+        mma_1688_3xtf32_split(pv, pvs, ph[j], pl[j], vh, vl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * alpha[e >> 1] + (pv[e] + pvs[e]);
+    }
+    __syncthreads();   // tile t consumed before its buffer is refilled
+    if (kF32Stages == 1 && t + 1 < n_live) {   // load tile t + 1
+      stage_rows_f32<D, kF32BK>(ks, kb, (t + 1) * kF32BK, sk);
+      stage_rows_f32<D, kF32BK>(vs, vb, (t + 1) * kF32BK, sk);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    // m and l are in the log2 domain: lse = ln(2^m * l)
+    if (lse != nullptr && t4 == 0)
+      lse[(size_t)bh * sq + row] = (m[r] + log2f(l_safe)) * kLn2;
+    float* orow = o + ((size_t)bh * sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < kOBlocks; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
+          float2{acc[j][2 * r] / l_safe, acc[j][2 * r + 1] / l_safe};
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int bh, int bkv, int sq,
+                            int sk, float scale, int causal, int q_offset,
+                            cudaStream_t stream) {
+  constexpr size_t smem = fwd_tf32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, bh);
+  flash_fwd_tf32<D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, bh / bkv,
+      sq, sk, scale * kLog2e, causal, q_offset);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_tf32_d(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int bh, int bkv, int sq,
+                              int sk, int d, float scale, int causal,
+                              int q_offset, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_fwd_tf32<16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 32: return launch_fwd_tf32<32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 64: return launch_fwd_tf32<64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 128: return launch_fwd_tf32<128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---- fp32 backward: 3xTF32 mma.sync + cp.async (see the header note) ------
+
+constexpr int kQC32 = 16;                      // q columns of S^T held at once
+constexpr int kKC32 = 64;                      // key columns of S held at once
+
+template <int D>
+constexpr size_t bwd_tf32_smem_bytes() {
+  // six fp32 tiles of 64 rows padded by 4 floats (as the bf16 kernels') and
+  // two pairs of 64 floats (lse in the log2 domain, D)
+  return sizeof(float) * (6 * kBwdTile * (D + 4) + 4 * kBwdTile);
 }
 
 // D = rowsum(dO * O) in fp32 over fp32 rows of D elements: D / 4 lanes a
@@ -1511,7 +1605,7 @@ cudaError_t launch_bwd_tf32_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the mma kernel).
+// dtype: 0 = float32 (the tf32x3 kernel), 1 = bfloat16 (the mma kernel).
 // q, k, v, o contiguous on the device.  lse: null, or fp32 (bh, sq) that
 // receives each row's log-sum-exp of the scaled scores (what the backward
 // needs); the serving path passes null.
@@ -1525,7 +1619,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_d<float>(q, k, v, o, l, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
+      err = launch_fwd_tf32_d(q, k, v, o, l, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
       break;
     case 1:
       err = launch_mma_d(q, k, v, o, l, bh, bkv, sq, sk, d, scale, causal, q_offset, s);
@@ -1543,6 +1637,17 @@ extern "C" int repro_flash_attention_mma_smem(int d) {
     case 32: return (int)mma_smem_bytes<32>();
     case 64: return (int)mma_smem_bytes<64>();
     case 128: return (int)mma_smem_bytes<128>();
+    default: return -1;
+  }
+}
+
+// dynamic shared memory of the fp32 (tf32x3) forward at head dim d, in bytes
+extern "C" int repro_flash_attention_tf32_smem(int d) {
+  switch (d) {
+    case 16: return (int)fwd_tf32_smem_bytes<16>();
+    case 32: return (int)fwd_tf32_smem_bytes<32>();
+    case 64: return (int)fwd_tf32_smem_bytes<64>();
+    case 128: return (int)fwd_tf32_smem_bytes<128>();
     default: return -1;
   }
 }

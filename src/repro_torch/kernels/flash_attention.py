@@ -4,8 +4,9 @@ by dtype alone (:func:`variant`):
 
 - ``mma`` for bf16: FA2-style on the tensor cores (mma.sync, ldmatrix,
   cp.async double buffering; ``csrc/tc_sm80.cuh``);
-- ``simt`` for fp32: fp32 FMAs on the CUDA cores (TF32 would change the
-  numbers the fp32 checks hold).
+- ``tf32x3`` for fp32: the same design on mma.m16n8k8 in 3xTF32 (each
+  fp32 operand split into two tf32 halves, three products, fp32-level
+  error; plain TF32 would change the numbers the fp32 checks hold).
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention._fa_kernel``.
 Layout as there: q (BH, Sq, D), k/v (BKV, Sk, D), BH % BKV == 0.  Unlike the
@@ -51,17 +52,17 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 launches = 0
-launches_by_variant = {"mma": 0, "simt": 0}
+launches_by_variant = {"mma": 0, "tf32x3": 0}
 backward = types.SimpleNamespace(launches=0,
                                  launches_by_variant={"mma": 0, "tf32x3": 0})
 
 
 def variant(dtype) -> str:
-    """The kernel a CUDA call of ``dtype`` launches: ``mma`` (bf16, tensor
-    cores) or ``simt`` (fp32, CUDA cores)."""
+    """The kernel a CUDA call of ``dtype`` launches: ``mma`` (bf16) or
+    ``tf32x3`` (fp32, 3xTF32), both on the tensor cores."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention: no kernel for {dtype}")
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def bwd_variant(dtype) -> str:
@@ -157,6 +158,13 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
+def _aligned(*ts):
+    """The kernels stage rows by 16-byte cp.async copies: an operand that
+    is not 16-byte aligned (a contiguous view at an odd offset) is copied
+    to a fresh buffer on the card first."""
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in ts)
+
+
 def _launch(q, k, v, *, causal, scale, q_offset, with_lse=False):
     """K3's output, and with ``with_lse`` its fp32 row log-sum-exp (bh,
     sq) too."""
@@ -166,6 +174,7 @@ def _launch(q, k, v, *, causal, scale, q_offset, with_lse=False):
     bkv, sk, _ = k.shape
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -204,11 +213,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} must be contiguous float32 "
                          f"({bh}, {sq}) on {q.device}")
-    # the kernels stage rows by 16-byte copies: an operand that is not
-    # 16-byte aligned (a contiguous view at an odd offset) is copied to a
-    # fresh buffer on the card first
-    q, k, v, o, do = (t.clone() if t.data_ptr() % 16 else t
-                      for t in (q, k, v, o, do))
+    q, k, v, o, do = _aligned(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

@@ -333,7 +333,7 @@ def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
     """Launches since the last reset per variant of the kernels that have
     several: K1 ``rmsnorm`` (packed, warp, block), K2 ``matmul`` (wgmma,
     splitk_reduce, skinny, skinny_reduce, tf32x3, mma), K3
-    ``flash_attention`` (mma, simt) and its backward
+    ``flash_attention`` (mma, tf32x3) and its backward
     ``flash_attention_bwd`` (mma, tf32x3)."""
     return {name: dict(mod.launches_by_variant)
             for name, mod in _KERNEL_MODULES.items()

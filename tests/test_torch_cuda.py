@@ -155,13 +155,94 @@ def test_flash_kernel_matches_plain(cuda_device, bh, bkv, sq, sk, d, causal,
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa_mod.launches == before + 1
-    want_variant = "mma" if dtype == torch.bfloat16 else "simt"
+    want_variant = "mma" if dtype == torch.bfloat16 else "tf32x3"
     assert fa_mod.variant(dtype) == want_variant
     by_variant[want_variant] += 1
     assert fa_mod.launches_by_variant == by_variant
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+def _attention_f64(q, k, v, causal, q_offset):
+    """Attention in float64 (GQA, causal on absolute positions)."""
+    group = q.shape[0] // k.shape[0]
+    k64 = k.double().repeat_interleave(group, dim=0)
+    v64 = v.double().repeat_interleave(group, dim=0)
+    s = q.double() @ k64.transpose(1, 2) / q.shape[-1] ** 0.5
+    if causal:
+        rows = torch.arange(q.shape[1], device=q.device)[:, None]
+        keys = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(keys > q_offset + rows, float("-inf"))
+    return torch.softmax(s, dim=-1) @ v64
+
+
+@pytest.mark.parametrize("bh,bkv,sq,sk,q_offset", [
+    (128, 32, 200, 200, 0),       # the serving prefill
+    (32, 8, 72, 200, 128),        # a batch-1 chunk: the last 72 of 200
+])
+def test_flash_fp32_keeps_fp32_error(cuda_device, bh, bkv, sq, sk, q_offset):
+    """The fp32 forward (tf32x3) against a float64 attention: within 2 x
+    the plain fp32 version's error.  The guard of the tensor core's
+    truncating adds, which the CPU emulation rounds to nearest."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = 0.5 * torch.randn((bh, sq, 128), generator=g, device=cuda_device)
+    k = 0.5 * torch.randn((bkv, sk, 128), generator=g, device=cuda_device)
+    v = torch.randn((bkv, sk, 128), generator=g, device=cuda_device)
+    before = fa_mod.launches_by_variant["tf32x3"]
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    assert fa_mod.launches_by_variant["tf32x3"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    exact = _attention_f64(q, k, v, True, q_offset)
+    err = (got.double() - exact).abs().max().item()
+    plain = (want.double() - exact).abs().max().item()
+    assert err <= 2 * plain, (err, plain)
+
+
+@pytest.mark.parametrize("source", ["zero_div", "bits"])
+def test_flash_fp32_keeps_nan(cuda_device, source):
+    """A NaN in q (one row's scores) and in v (one column of every row's
+    P.V), both split to 3xTF32: the output is NaN where the plain
+    version's is (non-causal, so that neither skips a masked tile), and
+    close elsewhere."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn((n, 200, 64), generator=g, device=cuda_device)
+               for n in (8, 2, 2))
+    q[3, 17, 5] = _card_nan(source, cuda_device)
+    v[1, 90, 9] = _card_nan(source, cuda_device)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention(q, k, v, causal=False)
+    assert torch.isnan(want[3, 17]).all() and torch.isnan(want[4:, :, 9]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_misaligned_views(cuda_device, dtype):
+    """The forward stages rows by 16-byte cp.async copies: contiguous q, k
+    and v taken one element into flat buffers are copied to aligned
+    buffers first, and the output and lse are those of aligned operands,
+    bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+
+    def misaligned(*shape):
+        n = 1
+        for s in shape:
+            n *= s
+        flat = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+        return flat[1:].view(shape)
+    q, k, v = misaligned(8, 70, 64), misaligned(2, 70, 64), misaligned(
+        2, 70, 64)
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v))
+    before = fa_mod.launches
+    got = fa_mod._launch(q, k, v, causal=True, scale=None, q_offset=0,
+                         with_lse=True)
+    assert fa_mod.launches == before + 1
+    want = fa_mod._launch(q.clone(), k.clone(), v.clone(), causal=True,
+                          scale=None, q_offset=0, with_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("args", [

@@ -3,7 +3,7 @@ subset they use (tests/cuda_emu.h, compiled with the host's g++): K4's
 generated programs against the torch Stage III, K1 (csrc/rmsnorm.cu: every
 variant, in both dtypes and both access widths), K2's skinny, tf32x3 and
 mma regimes (csrc/matmul.cu) and K3 (csrc/flash_attention.cu: the bf16
-tensor-core kernels, the fp32 SIMT forward and the fp32 3xTF32 backward)
+tensor-core kernels and the fp32 3xTF32 forward and backward)
 against their plain versions, and each emulated tensor-core primitive of
 csrc/tc_sm80.cuh (ldmatrix, mma.sync in bf16 and tf32, cvt.rna.tf32,
 cp.async) against numpy.
@@ -738,14 +738,20 @@ def k3_bwd(k3_lib):
     return fn
 
 
-# K3 under emulation against its plain version.  fp32 (the SIMT kernel):
-# the same fp32 arithmetic in another order.  bf16 (the mma kernel): P
-# rounded to bf16 before P.V adds at most 2**-9 relative per term, under
-# the output's own bf16 rounding (2**-8).
+# K3 under emulation against its plain version.  fp32 (the tf32x3
+# kernel): fp32 sums in another order, each product in 3xTF32 (within
+# about 3 x 2**-22 relative of fp32's).  bf16 (the mma kernel): P rounded
+# to bf16 before P.V adds at most 2**-9 relative per term, under the
+# output's own bf16 rounding (2**-8).
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# one key tile and several (bf16 takes 64 keys a tile, fp32 32), D 16 /
+# 64, causal or not; a q_offset chunk; Sk below Sq; D 128; a q_offset
+# chunk at D 128 whose ragged Sk (130) ends two keys past the last full tile
+# of either variant
 K3_CASES = ([(2, 1, s, s, d, causal, 0) for s in (1, 37, 70)
              for d in (16, 64) for causal in (True, False)]
-            + [(4, 2, 5, 70, 64, True, 65), (2, 2, 66, 3, 32, False, 0)])
+            + [(4, 2, 5, 70, 64, True, 65), (2, 2, 66, 3, 32, False, 0),
+               (2, 1, 70, 70, 128, True, 0), (4, 2, 5, 130, 128, True, 125)])
 
 
 @pytest.mark.parametrize("bh,bkv,sq,sk,d,causal,q_offset", K3_CASES)
@@ -796,6 +802,49 @@ def test_flash_attention_source_writes_lse(k3, bh, bkv, sq, sk, d, causal,
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     tol = K3_TOL[dtype]
     torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+
+
+def _k3_run(k3, q, k, v, causal):
+    """One emulated ``repro_flash_attention`` with ``lse``, outputs starting
+    as NaN: ``(o, lse)``."""
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    o = torch.full(q.shape, float("nan"), dtype=q.dtype)
+    lse = torch.full((bh, sq), float("nan"))
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    assert k3(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), code, bh, bkv, sq, sk, d, 1.0 / d ** 0.5,
+              int(causal), 0, None) == 0
+    return o, lse
+
+
+def test_flash_attention_tf32x3_source_is_bitwise_repeatable(k3):
+    """The fp32 forward sums in a fixed order: two runs (five key tiles,
+    a ragged edge, a GQA group of 2) give the same output and lse bits."""
+    q, k, v, _ = _k3_inputs(4, 2, 150, 150, 32, torch.float32, 7)
+    a = _k3_run(k3, q, k, v, True)
+    b = _k3_run(k3, q, k, v, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("nan_in", ["q", "v"])
+def test_flash_attention_tf32x3_source_keeps_nan(k3, nan_in):
+    """A NaN (0x7fffffff) in q reaches one row's scores, in v one column of
+    every row's P.V, both split to 3xTF32: the output is NaN where the
+    plain version's is (non-causal, so that neither skips a masked tile),
+    and agrees with it elsewhere."""
+    q, k, v, _ = _k3_inputs(4, 2, 70, 70, 32, torch.float32, 11)
+    if nan_in == "q":
+        q[1, 40, 3] = _cuda_nan()
+    else:
+        v[0, 20, 5] = _cuda_nan()
+    o, _ = _k3_run(k3, q, k, v, False)
+    want = ref.flash_attention(q, k, v, causal=False)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(o), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    tol = K3_TOL[torch.float32]
+    torch.testing.assert_close(o[fin], want[fin], rtol=tol, atol=tol)
 
 
 # K3's backward under emulation against its plain version, from the plain

@@ -166,7 +166,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
         "rmsnorm": {"packed": 0, "warp": 0, "block": 0},
         "matmul": {"wgmma": 0, "splitk_reduce": 0, "skinny": 0,
                    "skinny_reduce": 0, "tf32x3": 0, "mma": 0},
-        "flash_attention": {"mma": 0, "simt": 0},
+        "flash_attention": {"mma": 0, "tf32x3": 0},
         "flash_attention_bwd": {"mma": 0, "tf32x3": 0}}
 
 
@@ -499,14 +499,14 @@ def test_rmsnorm_bwd_plan_refuses_rows_past_its_registers():
 def test_flash_attention_variant_by_dtype():
     from repro_torch.kernels import flash_attention as fa
     assert fa.variant(torch.bfloat16) == "mma"
-    assert fa.variant(torch.float32) == "simt"
+    assert fa.variant(torch.float32) == "tf32x3"
     with pytest.raises(ValueError, match="no kernel"):
         fa.variant(torch.float16)
 
 
 def test_flash_attention_bwd_variant_by_dtype():
     """The backward's own variant: bf16 on mma.m16n8k16, fp32 in 3xTF32
-    (the forward's fp32 stays simt)."""
+    (as the forward's)."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.bwd_variant(torch.bfloat16) == "mma"
     assert fa.bwd_variant(torch.float32) == "tf32x3"
