@@ -198,6 +198,27 @@ result):
    a checkpoint, a restore and 10 more, bitwise, and the card's step-1
    state equals the CPU's; every K3 and K3-bwd launch there is
    ``tf32x3``.
+14. the pipeline on a mesh, after phase 11, in ranks spawned by
+   ``repro_torch.testing.ranks`` (a failed rank fails the run): (a) one
+   NCCL rank (``data=1``): phase 7's programs but gemv as mesh terms
+   (default placement) through ``Program.compile("shardmap", mesh=...,
+   inner="cuda")``, each shard's body a K4 program built in phase 2, one
+   launch a stage and one ``all_reduce`` for dot / asum a call, held to
+   the plain version within phase 7's tolerance; (b) two ranks sharing
+   the card over gloo (NCCL refuses two ranks on one GPU; gloo takes CUDA
+   tensors for ``all_reduce``): the same ops through
+   ``compiler.options(backend="dpia-shardmap", mesh=...)``, counts zeroed
+   just before and read just after, each rank's ``to_local()`` against its
+   slice of the plain version computed whole on the rank, one
+   ``all_reduce`` for dot / asum and none for the maps (``torch.profiler``),
+   executor keys with ``|shardmap|data=2|`` that ``save_aot`` skips, and
+   ``tune("dot", n=2**22, backend="shardmap", mesh=..., measure=True)``
+   measured with the same pick on both ranks.  Times: each shard's K4
+   device time (graph replays of its launches; in 14b each rank's while
+   the other waits), the plain version's and the library call's on the
+   shard's inputs, the shard's bound, each op call's time (14b: both
+   ranks calling, "two processes sharing one card") and phase 7's
+   single-device K4 time beside them.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -205,7 +226,8 @@ K3, the backward kernels of K1 and K3 (their launches, and K3-bwd's per
 variant, phase 13b's; K3-bwd's per variant in 13e too, as
 ``launches_13e``, and K3's fp32 variant's in phases 5 and 13e, as
 ``launches_phase5`` and ``launches_13e``), one entry per generated K4 program of phase 7 and
-one per tuned winner of phase 11), the card's name and power limit,
+one per tuned winner of phase 11, one ``dpia_cuda:mesh_<op>`` per mesh op
+of phase 14), the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
 """
@@ -382,12 +404,15 @@ def phase_build():
     progs = {ops.program_name(k, **sh): ops.compiled(k, "cuda", **sh)._fn
              for k, sh in DPIA_CASES}
     stage_s = time.perf_counter() - t0
+    # phase 14's K4 shards: built here, found by its ranks
+    mesh_progs = mesh_shard_programs()
     plain = [n for n in _build.sources() if n not in _build.SOURCE_FLAGS]
     cute = sorted(_build.SOURCE_FLAGS)
     with ThreadPoolExecutor(3) as pool:      # every nvcc starts at once
         csrc = pool.submit(_build.build, plain)
         cute_f = pool.submit(_build.build, cute)
-        gen = pool.submit(stage3_cuda.build_all, list(progs.values()))
+        gen = pool.submit(stage3_cuda.build_all,
+                          list(progs.values()) + mesh_progs)
         secs, cute_secs, gen_secs = (csrc.result(), cute_f.result(),
                                      gen.result())
     log(f"[2] staged {len(progs)} DPIA programs (Stage I/II, SCIR check, "
@@ -396,8 +421,8 @@ def phase_build():
         f"{cute} in {cute_secs:.2f} s (flags beyond the common ones: "
         f"{ {n: ' '.join(_build.SOURCE_FLAGS[n]) for n in cute} }; CUTLASS "
         f"include path {_build.CUTLASS_INCLUDE}) and {len(progs)} generated "
-        f"DPIA programs in {gen_secs:.2f} s, in parallel (0 means already "
-        f"built)")
+        f"DPIA programs with phase 14's {len(mesh_progs)} K4 shard programs "
+        f"in {gen_secs:.2f} s, in parallel (0 means already built)")
     for src in _build.sources():
         if src == "rmsnorm":
             continue
@@ -2786,6 +2811,325 @@ def phase_train_smoke(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the pipeline on a mesh
+# ---------------------------------------------------------------------------
+
+# phase 7's programs but gemv (no mesh strategy), sharded over "data"
+MESH_CASES = [(k, sh) for k, sh in DPIA_CASES if k != "gemv"]
+MESH_TUNE_N = 1 << 22
+MESH_TUNE_TOP_K = 2
+MESH_RANKS = 2            # 14b: processes sharing the one card over gloo
+MESH_TIMED_CALLS = 5      # 14b: op calls timed on every rank (a collective
+                          # each for dot / asum, so every rank makes them)
+
+
+def _mesh_shape(shape):
+    """The tuner's / executor key's shape: no eps."""
+    return {k: v for k, v in shape.items() if k != "eps"}
+
+
+def _mesh_name(kernel, shape):
+    """The name of the default placement's program (14a names its program
+    as the op table names 14b's executor)."""
+    from repro_torch import mesh as mesh_mod
+    from repro_torch.kernels import ops
+    sh = _mesh_shape(shape)
+    return ops.mesh_program_name(kernel, mesh_mod.default_mesh_params(
+        kernel, {"data": MESH_RANKS}, **sh), **sh)
+
+
+def mesh_shard_programs():
+    """The K4 shard programs phase 14 runs, generated here so that phase 2
+    builds them in its batch: each case's default placement on 1 and on
+    ``MESH_RANKS`` shards, and every candidate of 14b's tune."""
+    from repro_torch import mesh as mesh_mod
+    from repro_torch.core.dpia import stage3_shardmap as S
+    progs = []
+    for shards in (1, MESH_RANKS):
+        for k, sh in MESH_CASES:
+            build, _ = mesh_mod.MESH_KERNELS[k]
+            progs.append(S.shard_program(*build("data", shards, **sh),
+                                         shards, inner="cuda",
+                                         name=_mesh_name(k, sh))[0])
+    for cand in mesh_mod.mesh_space("dot", {"data": MESH_RANKS},
+                                    n=MESH_TUNE_N):
+        prog = cand.program()
+        progs.append(S.shard_program(prog.expr, prog.arg_vars, MESH_RANKS,
+                                     inner="cuda", name=prog.name)[0])
+    return progs
+
+
+def _mesh_inputs(i, kernel, shape):
+    """Case ``i``'s global inputs, the same on every rank (one seed)."""
+    gen = torch.Generator(device="cuda").manual_seed(140 + i)
+    return _dpia_inputs(kernel, shape, gen)
+
+
+def _mesh_plain(kernel, args, shape):
+    """The plain PyTorch version on whole tensors."""
+    from repro_torch.kernels import ref
+    if kernel == "rmsnorm":
+        return ref.rmsnorm(*args, eps=shape["eps"])
+    if kernel == "softmax":
+        return ref.softmax(args[0], dim=-1)
+    return {"scal": ref.scal, "asum": ref.asum, "dot": ref.dot,
+            "matmul": ref.matmul}[kernel](*args)
+
+
+def _shard_of(kernel, args, shape, index, shards):
+    """(shard's inputs, shard's shape): what one shard's function reads."""
+    if kernel in ("scal", "asum", "dot"):
+        c = shape["n"] // shards
+        pick = [a if a.dim() == 0 else a[index * c:(index + 1) * c]
+                for a in args]
+        return pick, {**shape, "n": c}
+    ext = "m" if kernel == "matmul" else "rows"
+    c = shape[ext] // shards
+    return ([args[0][index * c:(index + 1) * c]] + list(args[1:]),
+            {**shape, ext: c})
+
+
+def _mesh_check(kernel, shape, got_local, args, index, shards, what):
+    """This rank's output against its slice of the plain version (the whole
+    value for a mesh reduce), within phase 7's tolerance."""
+    want = _mesh_plain(kernel, args, shape)
+    if kernel not in ("asum", "dot"):
+        c = want.shape[0] // shards
+        want = want[index * c:(index + 1) * c]
+    atol, rtol = _dpia_tol(kernel, args, want)
+    err = (got_local - want).abs()
+    if not torch.isfinite(got_local).all() or \
+            (err > atol + rtol * want.abs()).any():
+        raise AssertionError(f"{what}: shard {index} of {shards} against "
+                             f"the plain version: max abs err "
+                             f"{err.max().item()} beyond atol {atol} + rtol "
+                             f"{rtol}")
+    return err.max().item(), [atol, rtol]
+
+
+def _shard_times(fn, args, kernel, shape, index, shards):
+    """Device ms of this rank's K4 shard (graph replays of its launches),
+    of the plain version and of the library call on the shard's inputs, and
+    the shard's bound."""
+    launchers, _ = fn.shard.bind(*fn.shard_args(*args))
+
+    def shard():
+        for launch in launchers:
+            launch()
+    s_args, s_shape = _shard_of(kernel, args, shape, index, shards)
+    nbytes, flops = _dpia_work(kernel, s_shape)
+    b_ms, b_by = bound(nbytes, flops, ELEMENTWISE_FLOPS)
+    return {"ms": time_auto(shard),
+            "plain_ms": time_auto(
+                lambda: _mesh_plain(kernel, s_args, s_shape)),
+            "library_ms": time_auto(_dpia_library(kernel, s_args, s_shape)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "stages": [list(s.grid) for s in fn.shard.stages]}
+
+
+def _count_allreduce(prof) -> int:
+    return sum(e.name == "c10d::allreduce_" for e in prof.events())
+
+
+def mesh_rank_one(rank, world):
+    """[14a] one NCCL rank on the card: each case's default placement on a
+    ``data=1`` mesh, through ``Program.compile("shardmap", inner="cuda")``
+    (the op table would run its single-device row: an axis of size 1
+    shards nothing)."""
+    from repro_torch import compiler
+    from repro_torch import mesh as mesh_mod
+    from repro_torch.core.dpia import stage3_shardmap as S
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh((1,), ("data",))
+    out = []
+    for i, (k, sh) in enumerate(MESH_CASES):
+        args = _mesh_inputs(i, k, sh)
+        build, _ = mesh_mod.MESH_KERNELS[k]
+        expr, argv = build("data", 1, **sh)
+        fn = compiler.Program(expr, argv, name=_mesh_name(k, sh)).compile(
+            "shardmap", mesh=m, inner="cuda")
+        before, c0 = fn.launches, S.collectives
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches, coll = fn.launches - before, S.collectives - c0
+        if launches != len(fn.shard.stages) or \
+                coll != (1 if k in ("asum", "dot") else 0):
+            raise AssertionError(f"[14a] {k} {sh}: {launches} launches, "
+                                 f"{coll} all-reduces a call")
+        err, tol = _mesh_check(k, sh, got.to_local(), args, 0, 1, "[14a]")
+        out.append({"kernel": k, "shape": sh, "program": fn.shard.name,
+                    "launches": launches, "all_reduce": coll,
+                    "max_abs_err": err, "tol": tol,
+                    "eager_ms": eager_auto(lambda: fn(*args)),
+                    **_shard_times(fn, args, k, sh, 0, 1)})
+    return out
+
+
+def _op_call(kernel, args, shape):
+    from repro_torch.kernels import ops
+    if kernel == "rmsnorm":
+        return ops.rmsnorm(*args, eps=shape["eps"])
+    return getattr(ops, kernel)(*args)
+
+
+def _timed_calls(call, n) -> float:
+    """Median ms of ``n`` calls (CUDA events, after one warm-up): the same
+    number of calls on every rank."""
+    call()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def mesh_rank_two(rank, world, tune_cache):
+    """[14b] ``world`` ranks sharing the card over gloo: the six ops through
+    ``options(backend="dpia-shardmap", mesh=...)``, K4 per shard; counts
+    zeroed just before and read just after; then a measured mesh tune."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import autotune, compiler
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh((world,), ("data",))
+    index = m.get_local_rank("data")
+    inputs = [_mesh_inputs(i, k, sh) for i, (k, sh) in enumerate(MESH_CASES)]
+    opts = compiler.CompileOptions(backend="dpia-shardmap", mesh=m)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs, seen = [], []
+    with compiler.options(opts):
+        for (k, sh), args in zip(MESH_CASES, inputs):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                outs.append(_op_call(k, args, sh))
+            seen.append(_count_allreduce(prof))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    fns = [ops.mesh_compiled(k, opts, m, "cuda", **sh)
+           for k, sh in MESH_CASES]
+    cases = []
+    for (k, sh), args, got, n_ar, fn in zip(MESH_CASES, inputs, outs, seen,
+                                            fns):
+        if n_ar != (1 if k in ("asum", "dot") else 0):
+            raise AssertionError(f"[14b] {k} {sh}: {n_ar} all_reduce calls "
+                                 f"in the profile of one op call")
+        err, tol = _mesh_check(k, sh, got.to_local(), args, index, world,
+                               "[14b]")
+        cases.append({"kernel": k, "shape": sh, "program": fn.shard.name,
+                      "launches": fn.launches, "all_reduce": n_ar,
+                      "max_abs_err": err, "tol": tol})
+    if counts["dpia_cuda"] != sum(c["launches"] for c in cases) or \
+            0 in [c["launches"] for c in cases]:
+        raise AssertionError(f"[14b] launch counts {counts}, per program "
+                             f"{[c['launches'] for c in cases]}")
+    keys = [k for k in compiler.executor_cache().keys()
+            if f"|shardmap|data={world}|" in k]
+    aot = tempfile.mkdtemp(prefix="chip_smoke_mesh_aot_")
+    try:
+        written = compiler.executor_cache().save_aot(aot)
+    finally:
+        shutil.rmtree(aot, ignore_errors=True)
+    if len(keys) != len(MESH_CASES) or written != 0:
+        raise AssertionError(f"[14b] mesh executor keys {keys}, save_aot "
+                             f"wrote {written}")
+    # each op's call on every rank (the same count), then each rank's
+    # shard alone while the other waits
+    with compiler.options(opts):
+        for c, (k, sh), args in zip(cases, MESH_CASES, inputs):
+            c["op_ms"] = _timed_calls(lambda: _op_call(k, args, sh),
+                                      MESH_TIMED_CALLS)
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            for c, fn, (k, sh), args in zip(cases, fns, MESH_CASES, inputs):
+                c.update(_shard_times(fn, args, k, sh, index, world))
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = autotune.tune("dot", n=MESH_TUNE_N, backend="shardmap", mesh=m,
+                        measure=True, top_k=MESH_TUNE_TOP_K,
+                        cache=tune_cache)
+    tune = {"source": res.source, "params": res.params, "key": res.key,
+            "timings_us": res.timings, "s": time.perf_counter() - t0}
+    return {"rank": rank, "index": index, "cases": cases, "counts": counts,
+            "keys": keys, "aot_written": written, "tune": tune}
+
+
+def phase_mesh(smi, dpia):
+    """[14] the pipeline on a mesh, in spawned ranks (``testing.ranks``):
+    (a) one NCCL rank, (b) two gloo ranks sharing the card.  A failed rank
+    fails the run."""
+    from repro_torch.testing import ranks
+    t0 = time.perf_counter()
+    one = ranks.spawn(mesh_rank_one, 1, backend="nccl", device="cuda",
+                      timeout=300)[0]
+    t_one = time.perf_counter() - t0
+    k4 = {(c["kernel"], json.dumps(c["shape"], sort_keys=True)): c["ms"]
+          for c in dpia}
+    for c in one:
+        c["phase7_k4_ms"] = k4[(c["kernel"],
+                                json.dumps(c["shape"], sort_keys=True))]
+        log("[14a] data=1 (one NCCL rank) " + json.dumps(c))
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_tune_")
+    try:
+        t0 = time.perf_counter()
+        two = ranks.spawn(mesh_rank_two, MESH_RANKS, backend="gloo",
+                          device="cuda", timeout=400,
+                          args=(os.path.join(tune_dir, "mesh.json"),))
+        t_two = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    picks = [(r["tune"]["source"], r["tune"]["params"]) for r in two]
+    if picks[0][0] != "measured" or any(p != picks[0] for p in picks):
+        raise AssertionError(f"[14b] the measured mesh tune's picks by rank: "
+                             f"{picks}")
+    for r in two:
+        for c in r["cases"]:
+            c["phase7_k4_ms"] = k4[(c["kernel"],
+                                    json.dumps(c["shape"], sort_keys=True))]
+            log(f"[14b] data={MESH_RANKS}, rank {r['rank']} (two processes "
+                f"sharing one card over gloo) " + json.dumps(c))
+        log(f"[14b] rank {r['rank']}: launches {r['counts']}, executor keys "
+            f"{r['keys']}, save_aot wrote {r['aot_written']}, tune "
+            + json.dumps(r["tune"]))
+    log(f"[14] summary: 14a {t_one:.1f} s, 14b {t_two:.1f} s (processes "
+        f"included); per-shard K4 ms beside phase 7's single-device K4 ms "
+        + json.dumps({c["program"]: [c["ms"], c["phase7_k4_ms"]]
+                      for c in one + two[0]["cases"]}) + f"; card {smi}")
+    return one, two
+
+
+def mesh_kernel_entries(smi, one, two):
+    """One kernels-line entry per mesh op (phase 14).  The head is 14b's
+    first case on rank 0: the per-shard K4 time of two processes sharing
+    the card, ``eager_ms`` its op call's time; launches are rank 0's in
+    14b's main path, each rank's in ``launches_by_rank``; 14a's cases are
+    listed too."""
+    out = []
+    for op in dict(MESH_CASES):
+        by_rank = [[c for c in r["cases"] if c["kernel"] == op] for r in two]
+        cs = by_rank[0]
+        out.append({"name": f"dpia_cuda:mesh_{op}", **K4,
+                    "launches": sum(c["launches"] for c in cs),
+                    "launches_by_rank": [sum(c["launches"] for c in r)
+                                         for r in by_rank],
+                    "max_abs_err": max(c["max_abs_err"] for r in by_rank
+                                       for c in r),
+                    **{key: cs[0][key] for key in _HEAD_KEYS
+                       if key != "eager_ms"},
+                    "eager_ms": cs[0]["op_ms"], "card": smi,
+                    "cases": [c for r in by_rank for c in r]
+                    + [c for c in one if c["kernel"] == op]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
@@ -2876,6 +3220,7 @@ def _run_phases(tune_cache: str) -> int:
     phase_default_options(p9)
     phase_services(smi, p9, stage_s, build_s)
     tuned = phase_tune(smi, tune_cache)
+    mesh_one, mesh_two = phase_mesh(smi, dpia)
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -2921,6 +3266,7 @@ def _run_phases(tune_cache: str) -> int:
                      "max_abs_err": c["max_abs_err"],
                      **{key: c[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": [c]})
+    line += mesh_kernel_entries(smi, mesh_one, mesh_two)
     log("[12] summary: " + json.dumps(faults))
     log("[13] summary: " + json.dumps({
         k: train[k] for k in ("median_step_s", "median_tok_s", "median_mfu",

@@ -2,7 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 layout (``kernels``, ``models``, ``configs``, ``serve``, ``launch``,
-``core.dpia``, ``compiler``, ``obs``, ``ft``, ``testing``) and is held
+``core.dpia``, ``compiler``, ``mesh``, ``sharding``, ``obs``, ``ft``,
+``testing``) and is held
 against it by the ``tests/test_torch_*.py`` parity tests.  It imports
 neither JAX nor anything of ``repro``.
 

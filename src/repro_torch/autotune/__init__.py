@@ -22,8 +22,9 @@ them automatically.  The port's copy of ``repro.autotune``:
   api      ``tune(...)`` / ``get_tuned(...)`` / ``get_measured(...)`` /
            ``@autotuned`` / ``pick_kv_layout`` / warm-up entry points
 
-Not ported: the mesh-placement space and ``backend="shardmap"`` (ROADMAP.md
-queue 1 item 7) and ``xla_cost``'s HLO refinement (item 8), which raise.
+With ``backend="shardmap"`` the space is the mesh-placement space of
+``repro_torch.mesh.space``, keyed by the mesh descriptor.  Not ported:
+``xla_cost``'s HLO refinement (ROADMAP.md queue 1 item 8), which raises.
 """
 from . import api, cache, cost, measure, space  # noqa: F401
 from .api import (  # noqa: F401

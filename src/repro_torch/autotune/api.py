@@ -23,10 +23,13 @@ and keep the fastest.  The winner is written to the persistent cache
 The port's copy of ``repro.autotune.api``.  Backends are the port's Stage
 III names: ``"torch"`` (the counterpart of the reference's ``"jnp"``, and
 the default) and ``"cuda"`` (K4: every measured candidate is generated
-CUDA, launched and timed on the card).  Measuring runs on the card unless
-``device="cpu"`` is passed.  The mesh descriptor is always ``"single"``:
-a mesh and ``backend="shardmap"`` raise until the mesh slice (ROADMAP.md
-queue 1 item 7).
+CUDA, launched and timed on the card) and ``"shardmap"`` (the mesh
+placement space of ``repro_torch.mesh.space``, ranked by the collective-aware
+cost model; measured against a concrete ``DeviceMesh`` whose descriptor
+matches the key, every rank timing its own shard, the timings reduced with
+MAX over the mesh's axis groups before the pick so that every rank picks,
+and writes, the same record).  Measuring runs on the card unless
+``device="cpu"`` is passed (``"shardmap"``: on the mesh's device).
 """
 from __future__ import annotations
 
@@ -43,9 +46,6 @@ from . import space as space_mod
 from .cache import TuningCache, default_cache, make_key
 
 Spec = Union[str, P.Phrase, Program]
-
-_NEEDS_MESH = ("mesh and sharded serving are not ported yet (ROADMAP.md "
-               "queue 1 item 7, mesh)")
 
 
 @dataclass
@@ -72,14 +72,35 @@ def _resolve_cache(cache) -> TuningCache:
     return TuningCache(str(cache))
 
 
-def _mesh_descriptor(mesh, backend: str) -> str:
-    """The mesh component of a tuning key: ``"single"``, the only mesh the
-    port has."""
-    if backend == "shardmap":
-        raise NotImplementedError(f"backend='shardmap': {_NEEDS_MESH}")
-    if mesh is not None and mesh != "single":
-        raise NotImplementedError(f"mesh={mesh!r}: {_NEEDS_MESH}")
-    return "single"
+def _mesh_descriptor(mesh) -> str:
+    """The mesh component of a tuning key: the descriptor of ``mesh`` (a
+    ``DeviceMesh`` or a descriptor string), or, for None, of the *active*
+    mesh (``compiler.options(mesh=...)``, else the process mesh context)
+    rather than a silent ``"single"``."""
+    from repro_torch import mesh as mesh_mod
+    return (mesh_mod.descriptor(mesh) if mesh is not None
+            else mesh_mod.current_descriptor())
+
+
+def _decision_kind(backend: str) -> str:
+    return "mesh" if backend == "shardmap" else "kernel"
+
+
+def _agree(timings: Dict[str, float], keys: List[str], mesh_obj
+           ) -> Dict[str, float]:
+    """The timings every rank of ``mesh_obj`` agrees on: each candidate's
+    time reduced with MAX over every axis group of the mesh (a candidate
+    dropped on any rank is dropped on all), so every rank picks the same
+    placement."""
+    import torch
+    import torch.distributed as dist
+    vals = torch.tensor([timings.get(k, float("inf")) for k in keys],
+                        dtype=torch.float64, device=mesh_obj.device_type)
+    for ax in mesh_obj.mesh_dim_names:
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX,
+                        group=mesh_obj.get_group(ax))
+    return {k: float(v) for k, v in zip(keys, vals.tolist())
+            if v != float("inf")}
 
 
 def _roofline_terms(cand) -> Dict[str, float]:
@@ -99,7 +120,7 @@ def _record_decision(kernel: str, key: str, params: Dict[str, object],
                      cost_s=None, terms=None, measured_us=None,
                      n_candidates: int = 0, note: str = "",
                      strategy_trace: Optional[dict] = None) -> None:
-    obs.record("kernel", kernel, key, params, origin,
+    obs.record(_decision_kind(backend), kernel, key, params, origin,
                shape=dict(shape), dtype=dtype, backend=backend, mesh=mesh,
                layout=layout, cost_s=cost_s, terms=dict(terms or {}),
                measured_us=measured_us, n_candidates=n_candidates, note=note,
@@ -156,9 +177,18 @@ def tune(spec: Spec, *, backend: str = "torch", dtype: str = "float32",
     present, else its expression + arg Vars).
 
     ``backend`` is the Stage III backend the candidates are compiled and
-    measured with: ``"torch"`` or ``"cuda"`` (K4).  ``mesh`` is None or
-    ``"single"``; the resolved descriptor is part of the cache key, as in
-    the reference.
+    measured with: ``"torch"``, ``"cuda"`` (K4) or ``"shardmap"``.
+
+    ``mesh`` is a ``DeviceMesh``, a canonical descriptor string
+    (``"single"`` / ``"data=8"``; see ``repro_torch.mesh.descriptor``), or
+    None, which resolves the *active* mesh (``compiler.options(mesh=...)``
+    scope, else the process mesh context).  The resolved descriptor is part
+    of the cache key, so tuning decisions never leak across meshes.  With
+    ``backend="shardmap"`` the search space is the mesh-placement space
+    (which axis, per-shard chunk factor).  Its candidates are measured only
+    against a concrete mesh whose descriptor matches the key, each shard
+    through K4 on the card (``inner="cuda"``) or the torch Stage III on the
+    CPU; with only a descriptor the search is analytic.
 
     ``layout`` is the serving KV-layout strategy the caller is tuning under
     (``"dense"`` | ``"paged"``, from ``CompileOptions.kv_layout``): a cache
@@ -183,8 +213,23 @@ def tune(spec: Spec, *, backend: str = "torch", dtype: str = "float32",
     explicit strategies) serialises the winner's ``StrategyTrace`` into the
     cache record and the provenance log.
     """
+    from repro_torch import mesh as mesh_mod
     c = _resolve_cache(cache)
-    mesh_desc = _mesh_descriptor(mesh, backend)
+    mesh_desc = _mesh_descriptor(mesh)
+
+    # mesh candidates can only be *measured* against a concrete mesh whose
+    # descriptor matches the key; with only a descriptor (offline tuning)
+    # the search is analytic-only: decided HERE, before the cache check, so
+    # an analytic record is a stable answer, not a retry loop
+    mesh_obj = None
+    if backend == "shardmap" and measure:
+        mobj = (mesh if (mesh is not None and not isinstance(mesh, str))
+                else mesh_mod.resolve_mesh(None))
+        if mobj is not None and mesh_mod.descriptor(mobj) == mesh_desc:
+            mesh_obj = mobj
+            device = device or mobj.device_type
+        else:
+            measure = False
 
     if isinstance(spec, Program):
         if spec.kernel is not None:
@@ -248,13 +293,25 @@ def tune(spec: Spec, *, backend: str = "torch", dtype: str = "float32",
                     kernel, strategies, expr=spec, arg_vars=arg_vars)
             default = cands[0] if cands else None  # the identity program
         elif isinstance(spec, str):
-            cands = space_mod.enumerate_space(kernel, **shape)
-            try:
-                default = space_mod.candidate_from_params(
-                    kernel, space_mod.default_params(kernel, **shape),
-                    **shape)
-            except ValueError:
-                default = None
+            if backend == "shardmap":
+                # mesh-placement space, enumerated from the descriptor alone
+                axes = mesh_mod.parse_descriptor(mesh_desc)
+                cands = mesh_mod.mesh_space(kernel, axes, **shape)
+                try:
+                    default = mesh_mod.mesh_candidate_from_params(
+                        kernel, mesh_mod.default_mesh_params(kernel, axes,
+                                                             **shape),
+                        axes, **shape)
+                except ValueError:
+                    default = None
+            else:
+                cands = space_mod.enumerate_space(kernel, **shape)
+                try:
+                    default = space_mod.candidate_from_params(
+                        kernel, space_mod.default_params(kernel, **shape),
+                        **shape)
+                except ValueError:
+                    default = None
         else:
             cands = space_mod.rewrite_candidates(spec, arg_vars)
             default = cands[0]  # the identity rewrite
@@ -262,7 +319,8 @@ def tune(spec: Spec, *, backend: str = "torch", dtype: str = "float32",
         if not cands:
             raise ValueError(
                 f"tune: empty strategy space for {kernel!r} at shape "
-                f"{shape!r} (no block size divides the extents?)")
+                f"{shape!r} on mesh {mesh_desc!r} (no block size / mesh "
+                f"axis divides the extents?)")
 
         ranked = measure_mod.rank_by_cost(cands)
     chosen, chosen_cost = ranked[0]
@@ -277,7 +335,10 @@ def tune(spec: Spec, *, backend: str = "torch", dtype: str = "float32",
             timings = measure_mod.measure_candidates(
                 pick, backend=backend, iters=iters,
                 verify_against=default if verify else None,
-                device=device, dropped=dropped)
+                device=device, dropped=dropped, mesh=mesh_obj)
+            if mesh_obj is not None:
+                timings = _agree(timings, [p.params_key() for p in pick],
+                                 mesh_obj)
         if timings:
             by_key = {cand.params_key(): cand for cand in pick}
             best_key = min(timings, key=lambda k2: (timings[k2], k2))
@@ -363,8 +424,8 @@ def get_measured(kernel: str, *, backend: str = "torch",
     has no preset measured on the card.  A hit records its decision in
     provenance as ``cache(measured)``."""
     c = _resolve_cache(cache)
-    key = make_key(kernel, shape, dtype, backend,
-                   _mesh_descriptor(mesh, backend), layout=layout)
+    key = make_key(kernel, shape, dtype, backend, _mesh_descriptor(mesh),
+                   layout=layout)
     record = c.get(key)
     if record is None or record.get("source") != "measured":
         return None

@@ -4,8 +4,10 @@ The analytic model (cost.py) ranks the whole space for free; this module
 takes the top-k and pushes each through the formal pipeline,
 ``Program.check().lower().compile(backend)``: with ``backend="cuda"`` that
 is K4, the generated CUDA kernels (``core/dpia/stage3_cuda.py``), launched
-on the card; with ``"torch"`` the torch Stage III, the plain version.
-Inputs are drawn from ``numpy.random.RandomState(seed)`` as the reference
+on the card; with ``"torch"`` the torch Stage III, the plain version;
+with ``"shardmap"`` the mesh term through ``Program.compile("shardmap",
+mesh=...)``, each rank running its shard (K4 on the card).  Inputs are
+drawn from ``numpy.random.RandomState(seed)`` as the reference
 draws them and moved to the measuring device: the card unless the caller
 asks for the CPU, as the tests do.
 
@@ -16,7 +18,9 @@ replay, as ``serve/graph.py`` counts them.  The reference times with the
 host clock around ``block_until_ready``.  On the H100 a K4 call costs
 0.04-0.10 ms of host time (allocations and one ctypes launch a stage),
 more than the device time of most candidates (0.005-0.056 ms), so a host
-clock would rank launch overhead, not strategies.  On CPU tensors the host
+clock would rank launch overhead, not strategies.  A sharded program
+(``backend="shardmap"``) is timed by CUDA events around eager calls, its
+all-reduce included.  On CPU tensors the host
 clock is the only clock: the median of ``iters`` calls.
 
 Before timing, every candidate's generated source is built in one parallel
@@ -78,15 +82,27 @@ def args_for(arg_vars: Sequence[P.Var], seed: int = 0,
 
 
 def compile_candidate(cand: Candidate, backend: str = "torch",
-                      device=None):
+                      device=None, mesh=None):
     """(compiled callable, concrete args) for a candidate, via the staged
     pipeline: the candidate becomes a ``repro_torch.compiler.Program`` and
     runs ``check() -> lower() -> compile(backend)``.  Codegen only: a
     generated source is built at its first CUDA call or by
-    :func:`build_candidates`."""
+    :func:`build_candidates`.
+
+    ``backend="shardmap"`` compiles for ``mesh`` (else the options' or
+    the process mesh) straight from the functional term (the per-shard
+    bodies are checked by the inner backend): K4 shards on the card, the
+    torch Stage III's on the CPU.  Every rank draws the same global
+    inputs; each runs its own shard."""
     prog = cand.program()
-    fn = prog.check().lower().compile(backend)
-    return fn, args_for(prog.arg_vars, device=device)
+    dev = resolve_device(device)
+    if backend == "shardmap":
+        kw = {} if mesh is None else {"mesh": mesh}
+        fn = prog.compile("shardmap", inner="cuda" if dev.type == "cuda"
+                          else "torch", **kw)
+    else:
+        fn = prog.check().lower().compile(backend)
+    return fn, args_for(prog.arg_vars, device=dev)
 
 
 def build_candidates(fns) -> float:
@@ -95,6 +111,8 @@ def build_candidates(fns) -> float:
     seconds it took (0 when every source was built)."""
     from repro_torch.core.dpia import stage3_cuda
     progs = [getattr(fn, "_fn", fn) for fn in fns]
+    # a sharded program's generated part is its per-shard body
+    progs = [getattr(p, "shard", p) for p in progs]
     progs = [p for p in progs if isinstance(p, stage3_cuda.GeneratedProgram)]
     return stage3_cuda.build_all(progs) if progs else 0.0
 
@@ -184,7 +202,8 @@ def time_callable(fn, args, iters: int = 5, warmup: int = 1) -> float:
 def _flat(out) -> List[torch.Tensor]:
     if isinstance(out, (tuple, list)):
         return [t for o in out for t in _flat(o)]
-    return [out]
+    to_local = getattr(out, "to_local", None)     # a DTensor: this shard
+    return [to_local() if to_local is not None else out]
 
 
 def _matches(got, want) -> bool:
@@ -206,19 +225,22 @@ def _drop(dropped: Optional[dict], cand: Candidate, backend: str,
 def measure_candidates(cands: Sequence[Candidate], *, backend: str = "torch",
                        iters: int = 5, seed: int = 0,
                        verify_against: Optional[Candidate] = None,
-                       device=None, dropped: Optional[dict] = None
-                       ) -> Dict[str, float]:
+                       device=None, dropped: Optional[dict] = None,
+                       mesh=None) -> Dict[str, float]:
     """Time each candidate; returns ``{params_key: us}``.
 
     Only the two failures of the module docstring drop a candidate; any
     other exception propagates.  When ``verify_against`` is given, every
     candidate's output is checked against that candidate's output
     (strategy preservation as a runtime assertion).  ``dropped``, when
-    given, is filled with ``{params_key: reason}``."""
+    given, is filled with ``{params_key: reason}``.  ``mesh`` is the
+    ``DeviceMesh`` of ``backend="shardmap"``: each rank times its own
+    shard (the caller agrees the ranks' timings)."""
     compiled = []
     for c in cands:
         try:
-            fn, args = compile_candidate(c, backend, device=device)
+            fn, args = compile_candidate(c, backend, device=device,
+                                         mesh=mesh)
         except NotImplementedError as e:
             _drop(dropped, c, backend, "unsupported", str(e))
             continue
@@ -233,7 +255,7 @@ def measure_candidates(cands: Sequence[Candidate], *, backend: str = "torch",
         if ref is None:
             try:
                 ref = compile_candidate(verify_against, backend,
-                                        device=device)
+                                        device=device, mesh=mesh)
             except NotImplementedError as e:
                 _drop(dropped, verify_against, backend, "unsupported",
                       str(e))

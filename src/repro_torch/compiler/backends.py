@@ -3,7 +3,8 @@
 A :class:`Backend` wraps one Stage III code generator (functional/imperative
 DPIA -> executable callable).  The port's generators in
 ``repro_torch.core.dpia.stage3_*`` self-register on import: ``"torch"``
-(alias ``"dpia-torch"``) and ``"cuda"`` (alias ``"dpia-cuda"``).
+(alias ``"dpia-torch"``), ``"cuda"`` (alias ``"dpia-cuda"``) and
+``"shardmap"`` (alias ``"dpia-shardmap"``), which requires a mesh.
 
 The port's copy of ``repro.compiler.backends``.  Like it, this module imports
 nothing from ``core.dpia`` at module level (the stage3 modules import *us*
@@ -27,10 +28,13 @@ class Backend:
     ``compile(expr, arg_vars, **kw) -> callable`` produces the executable.
     ``accepts`` names the keyword arguments the generator understands
     (``"check"``, ``"lowered"``): ``Program.compile`` passes them only when
-    accepted."""
+    accepted.  ``requires`` names keywords the caller *must* supply
+    (``"mesh"`` for the shardmap backend); ``Program.compile`` fills a
+    ``mesh`` requirement from the options or the process mesh context."""
     name: str
     compile: Callable[..., Callable]
     accepts: Tuple[str, ...] = ()
+    requires: Tuple[str, ...] = ()
     description: str = ""
 
 
@@ -94,7 +98,11 @@ def ops_impls() -> Tuple[str, ...]:
     """Valid kernel-layer impl names for ``repro_torch.kernels.ops``
     dispatch: the two native rows (``plain``, and ``cuda`` for the ops
     with a hand-written kernel) plus one ``dpia-<backend>`` per registered
-    backend.  The reference's ``ops_impls`` (``xla``, ``pallas``,
-    ``dpia-*``) excludes backends with compile-time requirements; the
-    port's backends have none."""
-    return ("plain", "cuda") + tuple(f"dpia-{b}" for b in backend_names())
+    backend whose requirements the op layer can satisfy: none, or only a
+    ``mesh`` (resolved from ``CompileOptions.mesh`` / the process mesh
+    context, so ``dpia-shardmap`` is an op-layer row), as the reference's
+    ``ops_impls`` keeps them.  Backends requiring anything else cannot be
+    driven from the op layer and are left out."""
+    return ("plain", "cuda") + tuple(
+        f"dpia-{b}" for b in backend_names()
+        if not set(get_backend(b).requires) - {"mesh"})

@@ -137,7 +137,11 @@ class ExecutorCache:
 
         ``keys`` restricts the export to those cache keys.  Files already
         present are left alone (the export is content-addressed by key).
-        Returns the number of programs written."""
+        Executors of a backend with compile-time requirements (shardmap's
+        mesh) are skipped: a later process cannot rebuild them from a
+        document, so they re-stage on restart.  Returns the number of
+        programs written."""
+        from .backends import get_backend
         from .program import CompiledKernel
         os.makedirs(directory, exist_ok=True)
         keyset = None if keys is None else set(keys)
@@ -147,6 +151,11 @@ class ExecutorCache:
                 continue
             if keyset is not None and key not in keyset:
                 continue
+            try:
+                if get_backend(fn.backend).requires:
+                    continue
+            except ValueError:
+                continue                  # backend no longer registered
             path = self._aot_path(directory, key)
             if os.path.exists(path):
                 continue

@@ -25,9 +25,9 @@ Where the port differs from the reference:
   it is ``"0"``); it changes the parameters of the DPIA rows only
   (``dpia-*``), never an op's kernel or its device.  The ``dpia-cuda``
   row takes only params measured on the card (``kernels.ops``).
-* ``mesh`` takes only ``None`` (mesh and sharded serving are not ported
-  yet: ROADMAP.md queue 1 item 7, mesh);
-  :meth:`CompileOptions.mesh_descriptor` is ``"single"``.
+* ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with named dims, or
+  None (the process mesh context, ``repro_torch.sharding.ctx``, else
+  single-device); the reference takes a ``jax.sharding.Mesh``.
 * the reference's ``interpret`` (Pallas interpret mode) and ``jit``
   (``jax.jit`` around compiled programs) have no counterpart here and are
   left out, as is ``default_interpret``.
@@ -61,7 +61,9 @@ class CompileOptions:
                   params (default: the REPRO_AUTOTUNE env var, on unless
                   it is "0")
     tuning_cache  None (process default cache), a path, or a TuningCache
-    mesh          must be None until the mesh slice is ported
+    mesh          the DeviceMesh the 'dpia-shardmap' row and
+                  Program.compile("shardmap") run on; None: the process
+                  mesh context (sharding.ctx), else single-device
     kv_layout     the serving KV-memory strategy this compilation scope
                   belongs to ('dense' | 'paged'); an executor-cache key
                   dimension, so artefacts staged for one memory layout
@@ -79,9 +81,10 @@ class CompileOptions:
                 f"unknown backend {self.backend!r}; valid backends: "
                 f"{list(ops_impls())} (or None: each op's default)")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh=: mesh and sharded serving are not ported yet "
-                "(ROADMAP.md queue 1 item 7, mesh)")
+            from repro_torch.mesh.strategy import is_device_mesh
+            if not is_device_mesh(self.mesh):
+                raise TypeError(f"mesh= takes a torch DeviceMesh or None, "
+                                f"got {type(self.mesh).__name__}")
         if self.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{self.kv_layout!r}")
@@ -100,13 +103,20 @@ class CompileOptions:
         return "torch"
 
     def resolved_mesh(self):
-        """The mesh compilation runs against: always None (single
-        device) until the mesh slice."""
-        return None
+        """The DeviceMesh mesh-level compilation runs against: the explicit
+        ``mesh`` field, else the process mesh context
+        (``repro_torch.sharding.ctx``).  None means single-device."""
+        if self.mesh is not None:
+            return self.mesh
+        from repro_torch.sharding import ctx
+        return ctx.get_mesh()
 
     def mesh_descriptor(self) -> str:
-        """The mesh component of every executor-cache key."""
-        return "single"
+        """Canonical descriptor of :meth:`resolved_mesh`: the mesh
+        component every tuning / executor cache key carries (``"single"``
+        when no mesh is in scope)."""
+        from repro_torch.mesh.strategy import descriptor
+        return descriptor(self.resolved_mesh())
 
 
 class _Scope(threading.local):

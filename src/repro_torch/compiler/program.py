@@ -254,9 +254,28 @@ class Program:
         None takes the one the options imply (``options`` or the scope's:
         ``CompileOptions.dpia_backend``, ``torch`` unless a ``dpia-*``
         backend is set).  Extra keyword arguments go to the backend's code
-        generator."""
+        generator.  A backend's required keywords must be given, except a
+        ``mesh``, which the options or the process mesh context supply
+        (``"shardmap"``: ``compile("shardmap", mesh=..., inner="cuda")``
+        consumes the functional term, so a mesh term is compiled without
+        ``check().lower()``; its per-shard bodies are checked by the inner
+        backend)."""
         opts = options or current_options()
         b = get_backend(backend if backend is not None else opts.dpia_backend)
+        missing = [r for r in b.requires if r not in backend_kw]
+        if "mesh" in missing:
+            # a mesh requirement is satisfiable from the options / the
+            # process mesh context; an explicit mesh= still wins
+            mesh = opts.resolved_mesh()
+            if mesh is not None:
+                backend_kw["mesh"] = mesh
+                missing.remove("mesh")
+        if missing:
+            raise TypeError(f"backend {b.name!r} requires keyword "
+                            f"argument(s) {missing} (e.g. the mesh for "
+                            f"shard_map — pass mesh=, set "
+                            f"compiler.options(mesh=...), or "
+                            f"sharding.ctx.set_mesh)")
         if self.expr is None and "lowered" not in b.accepts:
             raise ValueError(
                 f"backend {b.name!r} consumes functional terms only and "

@@ -10,13 +10,19 @@ targets:
   stage3_cuda  — grid-level imperative DPIA -> generated CUDA C++ kernels,
                  one CUDA grid per grid-level ``parfor`` (backend
                  ``"cuda"``, alias ``"dpia-cuda"``)
+  stage3_shardmap — mesh-level terms -> one shard a rank of a
+                 ``torch.distributed`` ``DeviceMesh`` axis, each shard's
+                 body through ``cuda`` or ``torch``, a mesh reduce as one
+                 ``all_reduce`` (backend ``"shardmap"``, alias
+                 ``"dpia-shardmap"``; requires ``mesh=``)
 
 Drive the pipeline through ``repro_torch.compiler.Program(expr, args)
 .check().lower().compile(backend)``.  Importing this package imports no
-CUDA toolkit and builds nothing.
+CUDA toolkit, starts no process group and builds nothing.
 """
 from . import (check, hoist, interp, phrases, pretty, stage1, stage2,
-               stage3_cuda, stage3_torch, strategies, types)  # noqa: F401
+               stage3_cuda, stage3_shardmap, stage3_torch, strategies,
+               types)  # noqa: F401
 from .phrases import (  # noqa: F401
     GRID, HBM, LANES, MESH, PAR, REG, SEQ, VMEM, Par,
     add, div, fmax, lit, map_grid, map_lanes, map_mesh, map_par, map_seq, mul,

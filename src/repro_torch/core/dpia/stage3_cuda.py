@@ -65,7 +65,9 @@ Inside a kernel (PERF.md has what each stage costs on the card):
     than the one it writes is staged through a temporary.
 
 Only ``float32`` data is emitted; other dtypes and ``MESH`` levels raise
-``NotImplementedError``.  Scalars such as ``alpha`` are passed as 1-element
+``NotImplementedError`` (a mesh term goes to the ``shardmap`` backend,
+``core.dpia.stage3_shardmap``, whose ``inner="cuda"`` compiles each
+shard's body here).  Scalars such as ``alpha`` are passed as 1-element
 device tensors, as the Pallas path reshapes them to ``(1,)``.
 
 Dispatch follows the tensors: on CUDA tensors the compiled program launches
@@ -106,9 +108,10 @@ FST, SND = "f", "s"
 
 launches = 0                        # kernel launches, all generated programs
 
-_MESH_MSG = ("MESH levels are not emitted by the CUDA generator; mesh "
-             "strategies come with the port's mesh slice (ROADMAP.md, queue "
-             "1: mesh and sharded serving)")
+_MESH_MSG = ("MESH levels are not emitted by the CUDA generator: compile a "
+             "mesh term with Program(...).compile(\"shardmap\", mesh=..., "
+             "inner=\"cuda\"), which runs each shard's body through this "
+             "generator")
 
 
 # ---------------------------------------------------------------------------

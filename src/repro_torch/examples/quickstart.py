@@ -71,7 +71,7 @@ def main(argv=None) -> dict:
     print("== imperative DPIA (stage II) ==")
     print(prog.show()[:800], "...\n")
 
-    # -- 4. every registered backend against the oracle ----------------------
+    # -- 4. every registered single-host backend against the oracle ----------
     rng = np.random.RandomState(0)
     hx = torch.from_numpy(rng.randn(N).astype(np.float32))
     hy = torch.from_numpy(rng.randn(N).astype(np.float32))
@@ -79,6 +79,8 @@ def main(argv=None) -> dict:
     ax, ay = hx.to(device), hy.to(device)
     got = {}
     for backend in compiler.backend_names():
+        if compiler.get_backend(backend).requires:
+            continue                 # e.g. shardmap needs a mesh
         fn = prog.check().lower().compile(backend)
         got[backend] = float(fn(ax, ay))
         np.testing.assert_allclose(got[backend], oracle, rtol=RTOL)

@@ -12,7 +12,7 @@ The port's copy of ``repro.ft.resilience``:
                          exceptions, skipped (non-finite) steps counted.
 
 ``elastic_remesh`` (rebuild a mesh from the devices that are left) comes
-with mesh and sharded serving (ROADMAP.md queue 1 item 7) and raises
+with sharded serving and training (ROADMAP.md queue 1 item 7b) and raises
 ``NotImplementedError`` until then.
 """
 from __future__ import annotations
@@ -107,8 +107,8 @@ def elastic_remesh(preferred, axis_names=None):
     """The largest mesh the devices that are left support: not ported
     yet."""
     raise NotImplementedError(
-        "elastic_remesh comes with mesh and sharded serving (ROADMAP.md "
-        "queue 1 item 7)")
+        "elastic_remesh comes with sharded serving and training "
+        "(ROADMAP.md queue 1 item 7b)")
 
 
 class TrainLoop:

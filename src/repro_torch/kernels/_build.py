@@ -21,7 +21,9 @@ when that is not 0.
 Generated sources (the DPIA CUDA generator's programs) go through the same
 flags into ``build/dpia/<name>-<hash of text and flags>.so``, the text
 written beside it as ``.cu``; :func:`build_generated` compiles a batch of
-them in parallel.
+them in parallel.  Every file is written under a per-process temporary
+name and renamed into place, so processes that build the same program at
+once (the ranks of a mesh) never see half a file.
 
 Nothing here runs at import time: this module imports on hosts without
 ``nvcc``.
@@ -107,7 +109,9 @@ def _compile(jobs) -> None:
     failed = []
     for label, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         if proc.returncode != 0:
             failed.append(f"{label}:\n{log}")
             tmp.unlink(missing_ok=True)
@@ -150,7 +154,11 @@ def build_generated(items: Sequence[Tuple[str, str]]) -> float:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         src = out.with_suffix(".cu")
-        src.write_text(text)
+        # atomic as the library is: ranks building the same program at
+        # once never truncate a source another rank's nvcc is reading
+        tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, src)
         jobs[out] = (name, src, out, NVCC_FLAGS)
     _compile(list(jobs.values()))
     return time.perf_counter() - t0

@@ -5,8 +5,10 @@ through the formal pipeline (Stage I -> II -> III).
 The port's copy of ``repro.kernels.dpia_blas``: the same terms, so the two
 packages' Stage II texts agree.  The strategies are the reference's,
 shaped for the TPU; on Hopper each grid-level map becomes one CUDA grid of
-the generated kernel (``core.dpia.stage3_cuda``).  ``mesh_dot`` waits for
-the port's mesh slice.
+the generated kernel (``core.dpia.stage3_cuda``).  ``mesh_dot`` is the
+distributed dot, compiled by the ``shardmap`` backend over a
+``torch.distributed`` ``DeviceMesh`` (``core.dpia.stage3_shardmap``; the
+tuned mesh builders are in ``repro_torch.mesh.kernels``).
 
 Each op comes in two forms:
   * ``naive_*``    — the high-level specification (paper eq. (1) style);
@@ -87,6 +89,21 @@ def strategy_dot(n: int, block: int = 2048) -> Tuple[Expr, List[P.Var]]:
         lambda blk: P.FullReduce("add", P.mul(P.Fst(blk), P.Snd(blk))),
         P.Split(block, P.Zip(xs, ys)), level=P.GRID(0))
     e = P.Reduce(lambda x, a: P.add(a, x), P.lit(0.0), partials, level=P.SEQ)
+    return e, [xs, ys]
+
+
+def mesh_dot(n: int, axis: str, nshards: int, block: int = 2048
+             ) -> Tuple[Expr, List[P.Var]]:
+    """Distributed dot: mesh-map partial dots + mesh-reduce (one all-reduce)."""
+    xs = P.var_exp("xs", Arr(n, Num()))
+    ys = P.var_exp("ys", Arr(n, Num()))
+    chunk = n // nshards
+    e = P.Reduce(
+        lambda x, a: P.add(a, x), P.lit(0.0),
+        P.Map(lambda blk: P.FullReduce(
+            "add", P.mul(P.Fst(blk), P.Snd(blk))),
+            P.Split(chunk, P.Zip(xs, ys)), level=P.MESH(axis)),
+        level=P.MESH(axis))
     return e, [xs, ys]
 
 

@@ -13,6 +13,13 @@ name, an ``impl=`` naming one row of its table and an ``options=``
                  ``Program.check().lower().compile("torch")``
   'dpia-cuda'  — the same strategy through the CUDA generator (K4):
                  one generated kernel per grid-level parfor
+  'dpia-shardmap' — the op's mesh-level strategy (``repro_torch.mesh``)
+                 through ``Program.compile("shardmap")`` on the mesh of
+                 ``options(mesh=...)`` or the process mesh context: every
+                 rank runs its shard (K4 on a CUDA tensor, the torch Stage
+                 III on a CPU one) and a dot / asum issues one all_reduce
+                 on the axis group; outputs are DTensors.  gemv has no mesh
+                 strategy and takes its single-device DPIA row
 
 A row is chosen per call (``impl=``), per scope (``with
 repro_torch.compiler.options(backend=...):``, thread-local) or per explicit
@@ -26,7 +33,13 @@ Dispatch follows the tensor.  On a CPU tensor every row computes through its
 plain counterpart (a kernel row: its plain version; a DPIA row: the torch
 Stage III).  On a CUDA tensor a kernel row ('cuda', 'dpia-cuda') launches its
 kernel or raises; no row substitutes another on failure (the reference's
-degradation ladder is not ported).  Compiled DPIA programs live in the
+degradation ladder is not ported).  The 'dpia-shardmap' row keeps only
+the reference's two placement decisions: with no mesh in scope, or no
+mesh axis dividing the sharded extent, it runs the single-device DPIA row
+of the tensor's device ('dpia-cuda' on a CUDA tensor, 'dpia-torch' on a
+CPU one), warning once (``kernels.fallbacks``); any other failure raises
+(the reference's catch-all fallback is not ported).  Compiled DPIA
+programs live in the
 process-wide executor cache (``repro_torch.compiler.executor_cache()``)
 under ``executors.make_key``, so a program staged once, or loaded from
 the AOT store, is found by every later call; each decision is recorded
@@ -202,8 +215,8 @@ def _cache_token(cache) -> str:
     return str(path) if path is not None else str(cache)
 
 
-def _tuned(kernel: str, backend: str, opts: CompileOptions,
-           **shape) -> Optional[dict]:
+def _tuned(kernel: str, backend: str, opts: CompileOptions, *,
+           measured_only: Optional[bool] = None, **shape) -> Optional[dict]:
     """Tuned params for the kernel at this shape, or None (use defaults).
 
     Steady state is one dict lookup (a per-process memo); a cold shape
@@ -213,17 +226,21 @@ def _tuned(kernel: str, backend: str, opts: CompileOptions,
     (``autotune.get_measured``; None without one): the cost model has no
     preset measured on the card.  A failing lookup falls back to the
     default params and warns once per kernel / backend: the fallback
-    changes parameters, never the kernel or the device."""
+    changes parameters, never the kernel or the device.
+    ``measured_only`` (default: ``backend == "cuda"``) takes only a
+    measured record; the shardmap row sets it when its shards run K4."""
     if not opts.autotune:
         return None
-    memo_key = (kernel, backend, opts.mesh_descriptor(), opts.kv_layout,
-                _cache_token(opts.tuning_cache),
+    if measured_only is None:
+        measured_only = backend == "cuda"
+    memo_key = (kernel, backend, measured_only, opts.mesh_descriptor(),
+                opts.kv_layout, _cache_token(opts.tuning_cache),
                 tuple(sorted(shape.items())))
     if memo_key in _tuned_memo:
         return _tuned_memo[memo_key]
     from repro_torch import autotune
     try:
-        lookup = (autotune.get_measured if backend == "cuda"
+        lookup = (autotune.get_measured if measured_only
                   else autotune.get_tuned)
         params = lookup(kernel, backend=backend,
                         mesh=opts.mesh_descriptor(),
@@ -253,6 +270,123 @@ def _tuned_or_default(kernel: str, backend: str, opts: CompileOptions,
     return compiled(kernel, backend, options=opts, params=params, **shape)
 
 
+# ---------------------------------------------------------------------------
+# mesh-level dispatch (the 'dpia-shardmap' row; see repro_torch.mesh)
+# ---------------------------------------------------------------------------
+
+MESH_OPS = ("dot", "asum", "scal", "matmul", "rmsnorm", "softmax")
+
+
+def _shardable(kernel: str, mesh_obj, shape: Dict[str, object]) -> bool:
+    """Whether a mesh axis (of size > 1) divides the kernel's sharded
+    extent: the reference's placement decision."""
+    from repro_torch import mesh as mesh_mod
+    return bool(mesh_mod.space._eligible_axes(
+        kernel, mesh_mod.axis_sizes(mesh_obj), shape))
+
+
+def mesh_compiled(kernel: str, opts: CompileOptions, mesh_obj, inner: str,
+                  **shape):
+    """The executor of ``kernel``'s mesh placement on ``mesh_obj``, shards
+    compiled by ``inner`` (``"cuda"``: K4; ``"torch"``).
+
+    Placement params come from the tuner's mesh space, keyed by the mesh
+    descriptor (with ``inner="cuda"`` only a measured record, as the
+    ``dpia-cuda`` row), else the default placement.  The executor key
+    carries the descriptor and ``inner``, so meshes and devices never share
+    an executor, and an executor serves only the mesh object it was built
+    on (a ``DeviceMesh`` holds its process groups).  Mesh programs skip
+    ``check().lower()``: the shardmap backend consumes the functional
+    term, the inner backend checks each shard's body."""
+    from repro_torch import mesh as mesh_mod
+    desc = mesh_mod.descriptor(mesh_obj)
+    axes = mesh_mod.parse_descriptor(desc)
+    tune_shape = {k: v for k, v in shape.items() if k != "eps"}
+    params = _tuned(kernel, "shardmap", opts,
+                    measured_only=inner == "cuda", **tune_shape)
+    origin = "tuned"
+    if params is None or params.get("mesh_axis") is None:
+        params = mesh_mod.default_mesh_params(kernel, axes, **tune_shape)
+        origin = "default"
+    key_params = dict(params, inner=inner,
+                      **({"eps": shape["eps"]} if "eps" in shape else {}))
+    key = _executors.make_key(kernel, tune_shape, "shardmap",
+                              params=key_params, mesh=desc,
+                              layout=opts.kv_layout)
+    name = mesh_program_name(kernel, params, **tune_shape)
+
+    def build():
+        cand = mesh_mod.mesh_candidate_from_params(kernel, params, axes,
+                                                   **shape)
+        prog = Program.from_builder(cand.build, name=name, kernel=kernel,
+                                    shape=tune_shape)
+        fn = prog.compile("shardmap", options=opts, mesh=mesh_obj,
+                          inner=inner)
+        if origin == "default":
+            obs.record("mesh", kernel, key, params, "default",
+                       shape=dict(tune_shape), backend="shardmap", mesh=desc,
+                       layout=opts.kv_layout,
+                       note=("autotune disabled in options"
+                             if not opts.autotune else
+                             "no measured record (K4 shards take no "
+                             "analytic pick)" if inner == "cuda" else
+                             "no tuned mesh entry"))
+        return fn
+
+    cache = compiler.executor_cache()
+    fn = cache.get_or_compile(key, build)
+    if fn.mesh is not mesh_obj:
+        # the key names the mesh's axes and sizes, not its ranks or process
+        # groups: another mesh of the same descriptor (other ranks, or
+        # groups re-created after a destroy) gets an executor of its own
+        fn = build()
+        cache.put(key, fn)
+    return fn
+
+
+def mesh_program_name(kernel: str, params: Dict[str, object],
+                      **shape) -> str:
+    """The name of ``kernel``'s mesh program at the placement ``params``
+    (its K4 shards build as ``build/dpia/<name>.shard_<axis><shards>-
+    <hash>.so``)."""
+    return "mesh_" + program_name(kernel, params, **shape)
+
+
+def _local_of(x):
+    """The tensor a DTensor holds on this rank (a plain tensor as is)."""
+    to_local = getattr(x, "to_local", None)
+    return to_local() if to_local is not None else x
+
+
+def _single_row(x) -> str:
+    """The single-device DPIA row of ``x``'s device."""
+    return "dpia-cuda" if _local_of(x).is_cuda else "dpia-torch"
+
+
+def _mesh_or_none(kernel: str, opts: CompileOptions, x, shape):
+    """The 'dpia-shardmap' executor for ``kernel`` at ``shape``, its shards
+    compiled for ``x``'s device, or None on the reference's two placement
+    decisions (no mesh in scope; no mesh axis divides the extent), where
+    the op runs its single-device row, warning once.  Any other failure
+    raises."""
+    mesh_obj = opts.resolved_mesh()
+    row = _single_row(x)
+    if mesh_obj is None:
+        _warn_once(("mesh", kernel, "nomesh"),
+                   f"{kernel}: impl 'dpia-shardmap' selected but no mesh is "
+                   f"in scope (options(mesh=...) / sharding.ctx.set_mesh); "
+                   f"using the single-device {row} row")
+        return None
+    if not _shardable(kernel, mesh_obj, shape):
+        _warn_once(("mesh", kernel, "indivisible"),
+                   f"{kernel}: no axis of mesh {mesh_obj.mesh_dim_names} "
+                   f"{tuple(mesh_obj.shape)} divides its extent at {shape}; "
+                   f"using the single-device {row} row")
+        return None
+    return mesh_compiled(kernel, opts, mesh_obj,
+                         "cuda" if row == "dpia-cuda" else "torch", **shape)
+
+
 def warm_kernel(kernel: str, *, backend: Optional[str] = None,
                 options: Optional[CompileOptions] = None, **shape):
     """Stage (and, for ``cuda``, generate the source of) the executor the
@@ -264,8 +398,19 @@ def warm_kernel(kernel: str, *, backend: Optional[str] = None,
     opts = options if options is not None else current_options()
     if kernel == "rmsnorm":
         shape["eps"] = float(shape.get("eps", 1e-6))
-    return _tuned_or_default(kernel, backend or opts.dpia_backend, opts,
-                             **shape)
+    b = backend or opts.dpia_backend
+    if b == "shardmap":
+        # the mesh's device decides the shards' inner backend, as a
+        # tensor's device does at a call; an unshardable shape (or no
+        # mesh) warms the single-device row the call would take
+        mesh_obj = opts.resolved_mesh()
+        inner = ("cuda" if mesh_obj is not None
+                 and mesh_obj.device_type == "cuda" else "torch")
+        if mesh_obj is not None and kernel in MESH_OPS and _shardable(
+                kernel, mesh_obj, shape):
+            return mesh_compiled(kernel, opts, mesh_obj, inner, **shape)
+        b = inner
+    return _tuned_or_default(kernel, b, opts, **shape)
 
 
 def clear_caches() -> None:
@@ -374,7 +519,7 @@ def reset_launch_counts() -> None:
         for key in getattr(mod, "launches_by_variant", ()):
             mod.launches_by_variant[key] = 0
     for fn in compiler.executor_cache().values():
-        if fn.backend == "cuda":
+        if fn.backend in ("cuda", "shardmap"):
             fn._fn.launches = 0
 
 
@@ -396,6 +541,15 @@ def _scal_dpia(impl, opts, alpha, x):
     return fn(torch.as_tensor(alpha, dtype=x.dtype, device=x.device), x)
 
 
+@_impl_handler("scal", "dpia-shardmap")
+def _scal_mesh(impl, opts, alpha, x):
+    fn = _mesh_or_none("scal", opts, x, dict(n=x.shape[0]))
+    if fn is None:
+        return _scal_dpia(_single_row(x), opts, alpha, x)
+    loc = _local_of(x)
+    return fn(torch.as_tensor(alpha, dtype=loc.dtype, device=loc.device), x)
+
+
 def asum(x, impl: str | None = None, options: CompileOptions | None = None):
     return _dispatch("asum", impl, options, x)
 
@@ -408,6 +562,12 @@ def _asum_ref(impl, opts, x):
 @_impl_handler("asum", "dpia-torch", "dpia-cuda")
 def _asum_dpia(impl, opts, x):
     return _tuned_or_default("asum", _backend(impl), opts, n=x.shape[0])(x)
+
+
+@_impl_handler("asum", "dpia-shardmap")
+def _asum_mesh(impl, opts, x):
+    fn = _mesh_or_none("asum", opts, x, dict(n=x.shape[0]))
+    return fn(x) if fn is not None else _asum_dpia(_single_row(x), opts, x)
 
 
 def dot(x, y, impl: str | None = None, options: CompileOptions | None = None):
@@ -425,6 +585,13 @@ def _dot_dpia(impl, opts, x, y):
     return fn(x, y)
 
 
+@_impl_handler("dot", "dpia-shardmap")
+def _dot_mesh(impl, opts, x, y):
+    fn = _mesh_or_none("dot", opts, x, dict(n=x.shape[0]))
+    return fn(x, y) if fn is not None else _dot_dpia(_single_row(x), opts,
+                                                     x, y)
+
+
 def gemv(a, x, impl: str | None = None, options: CompileOptions | None = None):
     return _dispatch("gemv", impl, options, a, x)
 
@@ -438,6 +605,12 @@ def _gemv_ref(impl, opts, a, x):
 def _gemv_dpia(impl, opts, a, x):
     m, n = a.shape
     return _tuned_or_default("gemv", _backend(impl), opts, m=m, n=n)(a, x)
+
+
+@_impl_handler("gemv", "dpia-shardmap")
+def _gemv_mesh(impl, opts, a, x):
+    # gemv has no mesh strategy (as in the reference): its single-device row
+    return _gemv_dpia(_single_row(a), opts, a, x)
 
 
 # ---- transformer ops ---------------------------------------------------------
@@ -461,6 +634,15 @@ def _matmul_kernel(impl, opts, a, b, out_dtype=None):
 def _matmul_dpia(impl, opts, a, b, out_dtype=None):
     (m, k), n = a.shape, b.shape[1]
     fn = _tuned_or_default("matmul", _backend(impl), opts, m=m, k=k, n=n)
+    return fn(a.float(), b.float()).to(out_dtype or a.dtype)
+
+
+@_impl_handler("matmul", "dpia-shardmap")
+def _matmul_mesh(impl, opts, a, b, out_dtype=None):
+    (m, k), n = a.shape, b.shape[1]
+    fn = _mesh_or_none("matmul", opts, a, dict(m=m, k=k, n=n))
+    if fn is None:
+        return _matmul_dpia(_single_row(a), opts, a, b, out_dtype=out_dtype)
     return fn(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
@@ -488,6 +670,18 @@ def _rmsnorm_dpia(impl, opts, x, w, eps=1e-6):
     return fn(x2.float().contiguous(), w.float()).reshape(x.shape).to(x.dtype)
 
 
+@_impl_handler("rmsnorm", "dpia-shardmap")
+def _rmsnorm_mesh(impl, opts, x, w, eps=1e-6):
+    d = x.shape[-1]
+    x2 = x if x.ndim == 2 else x.reshape(-1, d)
+    fn = _mesh_or_none("rmsnorm", opts, x,
+                       dict(rows=x2.shape[0], d=d, eps=float(eps)))
+    if fn is None:
+        return _rmsnorm_dpia(_single_row(x), opts, x, w, eps=eps)
+    out = fn(x2.float().contiguous(), w.float())
+    return (out if x.ndim == 2 else out.reshape(x.shape)).to(x.dtype)
+
+
 def softmax(x, axis: int = -1, impl: str | None = None,
             options: CompileOptions | None = None):
     return _dispatch("softmax", impl, options, x, axis=axis)
@@ -513,6 +707,19 @@ def _softmax_dpia(impl, opts, x, axis=-1):
     return fn(x2.float().contiguous()).reshape(x.shape).to(x.dtype)
 
 
+@_impl_handler("softmax", "dpia-shardmap")
+def _softmax_mesh(impl, opts, x, axis=-1):
+    if x.ndim < 2 or axis not in (-1, x.ndim - 1):
+        return _softmax_dpia(_single_row(x), opts, x, axis=axis)
+    d = x.shape[-1]
+    x2 = x if x.ndim == 2 else x.reshape(-1, d)
+    fn = _mesh_or_none("softmax", opts, x, dict(rows=x2.shape[0], d=d))
+    if fn is None:
+        return _softmax_dpia(_single_row(x), opts, x, axis=axis)
+    out = fn(x2.float().contiguous())
+    return (out if x.ndim == 2 else out.reshape(x.shape)).to(x.dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     q_offset: int = 0, impl: str | None = None,
                     options: CompileOptions | None = None):
@@ -529,7 +736,8 @@ def _fa_ref(impl, opts, q, k, v, *, causal=True, scale=None, q_offset=0):
                                q_offset=q_offset)
 
 
-@_impl_handler("flash_attention", "cuda", "dpia-torch", "dpia-cuda")
+@_impl_handler("flash_attention", "cuda", "dpia-torch", "dpia-cuda",
+               "dpia-shardmap")
 def _fa_kernel(impl, opts, q, k, v, *, causal=True, scale=None, q_offset=0):
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                q_offset=q_offset)

@@ -22,8 +22,8 @@ composition, or how many times decoding restarted.  A replayed request
 re-decodes from its prompt and reproduces its tokens bit for bit.
 
 :class:`FailureDomains`, :class:`HostEvent` and :func:`retune_for_mesh`
-(host loss and straggler survival for the sharded engine) come with mesh
-and sharded serving, ROADMAP.md queue 1 item 7, and raise
+(host loss and straggler survival for the sharded engine) come with
+sharded serving and training, ROADMAP.md queue 1 item 7b, and raise
 ``NotImplementedError`` until then.
 """
 from __future__ import annotations
@@ -37,7 +37,8 @@ from repro_torch.ft import artefacts
 __all__ = ["FailureDomains", "HostEvent", "SchedulerJournal", "JournalState",
            "replay", "retune_for_mesh", "JOURNAL_KINDS"]
 
-_MESH = "comes with mesh and sharded serving (ROADMAP.md queue 1 item 7)"
+_MESH = ("comes with sharded serving and training (ROADMAP.md queue 1 "
+         "item 7b)")
 
 
 class HostEvent:

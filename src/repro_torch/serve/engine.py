@@ -100,7 +100,8 @@ A continuous engine given ``journal=`` (a path or a
 submission, each boundary's emitted tokens and every terminal state, so a
 killed engine's surviving requests ``domains.replay`` to token identity.
 
-Not ported yet: :class:`ShardedEngine` (ROADMAP.md queue 1 item 7, mesh)
+Not ported yet: :class:`ShardedEngine` (ROADMAP.md queue 1 item 7b, sharded
+serving)
 raises ``NotImplementedError``; the reference's AOT executables of the
 model come with it."""
 from __future__ import annotations
@@ -1217,5 +1218,5 @@ class ShardedEngine(ContinuousEngine):
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "ShardedEngine comes with mesh and sharded serving (ROADMAP.md "
-            "queue 1 item 7)")
+            "ShardedEngine comes with sharded serving and training "
+            "(ROADMAP.md queue 1 item 7b)")

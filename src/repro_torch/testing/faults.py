@@ -52,8 +52,8 @@ Sites wired into the port:
                         (``ft.artefacts.load_json``)
 
 The reference's mesh sites (``mesh.host_lost``, ``mesh.host_slow``,
-``collective.timeout``) come with the port's mesh slice (ROADMAP.md queue
-1 item 7).  A plan naming them parses and never fires.
+``collective.timeout``) come with the port's sharded serving (ROADMAP.md
+queue 1 item 7b).  A plan naming them parses and never fires.
 
 When no plan is active (no ``inject`` scope, no ``REPRO_FAULTS``),
 ``should_fire`` is two dict lookups — the sites cost nothing in

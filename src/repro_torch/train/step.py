@@ -20,7 +20,8 @@ written; the step re-raises it as ``PartialUpdateError``, which
 
 Remat is the model's (``cfg.remat``: each block under
 ``torch.utils.checkpoint``).  Sharding (``state_specs``, a mesh of more
-than one device) waits for the mesh slice (ROADMAP.md queue 1 item 7)."""
+than one device) waits for sharded serving and training (ROADMAP.md queue 1
+item 7b)."""
 from __future__ import annotations
 
 import math
@@ -34,8 +35,8 @@ from repro_torch.ft.resilience import PartialUpdateError
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 
-_MESH_ITEM = ("sharded training comes with mesh and sharded serving "
-              "(ROADMAP.md queue 1 item 7, mesh)")
+_MESH_ITEM = ("sharded training comes with sharded serving and training "
+              "(ROADMAP.md queue 1 item 7b)")
 
 
 def make_train_state(model: Model, generator: torch.Generator, *,

@@ -207,10 +207,24 @@ def test_args_for_draws_the_references_inputs():
 
 @pytest.mark.parametrize("mesh,backend", [("data=8", "torch"),
                                           (None, "shardmap")])
-def test_mesh_tuning_raises_naming_item_6(mesh, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        autotune.tune("dot", n=1024, mesh=mesh, backend=backend,
-                      measure=False)
+def test_mesh_tuning_raises_naming_item_6(tmp_path, mesh, backend):
+    """Mesh tuning (ported with the mesh slice) as the reference's: the
+    same ``tune`` call gives the same key and params in both packages, or
+    the same error (``mesh=None`` with ``backend="shardmap"`` resolves the
+    single-device descriptor, whose mesh space is empty)."""
+    def run(tuner, path):
+        try:
+            r = tuner.tune("dot", n=1024, mesh=mesh, backend=backend,
+                           measure=False, cache=str(path))
+            return r.key, r.params
+        except ValueError as e:
+            return "ValueError", str(e)
+    got = run(autotune, tmp_path / "t.json")
+    assert got == run(jautotune, tmp_path / "j.json")
+    if backend == "shardmap":
+        assert got[0] == "ValueError" and "on mesh 'single'" in got[1]
+    else:
+        assert got[0].endswith("|data=8")
 
 
 @pytest.mark.parametrize("cfg_fn,jcfg_fn,slots,max_seq", [

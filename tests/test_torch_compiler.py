@@ -99,8 +99,9 @@ def _spans(name):
 # ---------------------------------------------------------------------------
 
 def test_builtins_and_aliases():
-    assert set(compiler.backend_names()) == {"torch", "cuda"}
+    assert set(compiler.backend_names()) == {"torch", "cuda", "shardmap"}
     assert compiler.get_backend("dpia-cuda").name == "cuda"
+    assert compiler.get_backend("dpia-shardmap").requires == ("mesh",)
     b = compiler.get_backend("torch")
     assert compiler.get_backend(b) is b
     with pytest.raises(ValueError, match="torch"):
@@ -108,8 +109,9 @@ def test_builtins_and_aliases():
 
 
 def test_ops_impls_derived_from_registry():
+    # shardmap requires only a mesh, which the op layer resolves: a row
     assert compiler.ops_impls() == ("plain", "cuda", "dpia-cuda",
-                                    "dpia-torch")
+                                    "dpia-shardmap", "dpia-torch")
 
 
 def test_registered_backend_drives_ops_and_unregisters(rng):
@@ -175,12 +177,33 @@ def test_option_validation():
 
 
 @pytest.mark.parametrize("field,value,item", [("mesh", object(), "mesh")])
-def test_unported_option_fields_raise_naming_their_item(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+def test_unported_option_fields_raise_naming_their_item(tmp_path, field,
+                                                        value, item):
+    """``mesh=`` (ported with the mesh slice) takes a ``DeviceMesh`` or
+    None; anything else raises ``TypeError`` naming ``DeviceMesh``, as an
+    options scope does."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         compiler.CompileOptions(**{field: value})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         with compiler.options(**{field: value}):
             pass  # pragma: no cover
+    assert compiler.CompileOptions(**{field: None}).mesh_descriptor() == \
+        "single"
+    # a one-rank gloo group in this process, torn down before returning
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        m = make_mesh((1,), ("data",), "cpu")
+        opts = compiler.CompileOptions(**{field: m})
+        assert opts.resolved_mesh() is m
+        assert opts.mesh_descriptor() == "data=1"
+        with compiler.options(backend="dpia-shardmap", **{item: m}):
+            assert compiler.current_options().mesh_descriptor() == "data=1"
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("field,value", [("autotune", False),

@@ -1295,6 +1295,45 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
                         + 1e-4 * b.abs()).all(), path
 
 
+def _mesh_one_rank(rank, world, n, rows, d):
+    """One NCCL rank: mesh_dot and mesh_rmsnorm on a ``data=1`` mesh, each
+    shard's body through K4, against the plain versions."""
+    from repro_torch import mesh
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh((1,), ("data",))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, generator=g, device="cuda")
+    y = torch.randn(n, generator=g, device="cuda")
+    xr = torch.randn(rows, d, generator=g, device="cuda")
+    w = 1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    out = {}
+    for name, term, args, want in [
+            ("dot", mesh.mesh_dot(n, "data", 1), (x, y), ref.dot(x, y)),
+            ("rmsnorm", mesh.mesh_rmsnorm(rows, d, axis="data", shards=1),
+             (xr, w), ref.rmsnorm(xr, w))]:
+        fn = Program(*term).compile("shardmap", mesh=m, inner="cuda")
+        before = fn.launches
+        got = fn(*args).to_local()
+        torch.cuda.synchronize()
+        out[name] = (fn.launches - before, len(fn.shard.stages),
+                     float((got - want).abs().max()))
+    out["dot_scale"] = float((x * y).abs().sum())
+    return out
+
+
+def test_mesh_programs_on_one_nccl_rank(cuda_device):
+    """The shardmap backend over NCCL (one rank: NCCL refuses two ranks on
+    one card), each shard's body generated CUDA."""
+    from repro_torch.testing import ranks
+    res = ranks.spawn(_mesh_one_rank, 1, args=(1 << 20, 800, 2560),
+                      backend="nccl", device="cuda", timeout=300)[0]
+    for name in ("dot", "rmsnorm"):
+        launches, stages, _ = res[name]
+        assert launches == stages >= 1, (name, res[name])
+    assert res["dot"][2] <= 1e-5 * res["dot_scale"]
+    assert res["rmsnorm"][2] <= 2 * TOL[torch.float32]
+
+
 def test_capture_failure_raises(cuda_device, monkeypatch):
     """A chunk that cannot be captured (here: a host sync inside it) raises
     from the engine; it never quietly runs eagerly."""

@@ -493,7 +493,7 @@ def test_program_lower_with_rewrite_matches_spec(rng):
 
 
 def test_unknown_backend_names_the_registered_ones():
-    assert tcompiler.backend_names() == ("cuda", "torch")
+    assert tcompiler.backend_names() == ("cuda", "shardmap", "torch")
     with pytest.raises(ValueError, match="registered backends"):
         tcompiler.get_backend("pallas")
 

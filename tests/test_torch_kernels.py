@@ -556,7 +556,7 @@ def test_matmul_ragged_matches_reference(rng, m, k, n, out_dtype):
 # ---------------------------------------------------------------------------
 
 ROWS = {"plain": "xla", "cuda": "pallas", "dpia-torch": "dpia-jnp",
-        "dpia-cuda": "dpia-pallas"}
+        "dpia-cuda": "dpia-pallas", "dpia-shardmap": "dpia-shardmap"}
 
 # op -> (argument shapes, keyword arguments); small shapes, so the
 # reference's interpret-mode Pallas rows stay quick
@@ -597,9 +597,10 @@ def test_op_rows_match_reference_rows(rng, op, impl):
 
 def test_op_table_rows():
     """Kernel rows exist where a hand-written kernel does; DPIA rows for
-    every op (flash_attention's take its 'cuda' row)."""
+    every op (flash_attention's take its 'cuda' row; gemv's mesh row its
+    single-device DPIA row)."""
     for op in OP_CASES:
-        want = {"plain", "dpia-torch", "dpia-cuda"}
+        want = {"plain", "dpia-torch", "dpia-cuda", "dpia-shardmap"}
         if op in ("matmul", "rmsnorm", "flash_attention"):
             want.add("cuda")
         assert set(ops.impls(op)) == want, op
