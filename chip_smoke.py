@@ -218,7 +218,26 @@ result):
    the other waits), the plain version's and the library call's on the
    shard's inputs, the shard's bound, each op call's time (14b: both
    ranks calling, "two processes sharing one card") and phase 7's
-   single-device K4 time beside them.
+   single-device K4 time beside them;
+15. sharded serving (``ShardedEngine``), after phase 14, qwen3-4b at full
+   width and depth on phase 4b's traffic and engine shape, in spawned
+   ranks (a failed rank fails the run): (a) one NCCL rank (``data=1``),
+   bf16, dense and paged: tokens bitwise phase 4b's dense graph run, 4b's
+   exact K1 / K3 counts, one ``all_gather`` a boundary, 0 re-captures
+   after warm-up, tok/s beside 4b's; then one process in fp32 (TF32 off)
+   on the same traffic and slots, its tokens and tok/s taken and its
+   weights freed; (b) two gloo ranks sharing the card, fp32, 2 slots a
+   rank, dense and paged: tokens equal to that process's, each rank's
+   K1 / K3 launches exact against its own prefill calls, admissions and
+   decode steps (every K3 launch ``tf32x3``), one ``all_gather`` a
+   boundary, 0 re-captures after warm-up, per-rank (its own slots'
+   tokens) and combined tok/s; (c) a fresh engine on (b)'s ranks, dense
+   then paged (the re-placement sends the live slots' pages), with
+   ``hosts=2`` and a journal under ``mesh.host_lost(host=1, after=2)``:
+   rank 1 leaves, rank 0 serves every request on ``data=1``
+   to (b)'s tokens, one host loss, the chunk captured anew at 4 lanes (each
+   key once), one ``host_lost`` flight dump, the ``degraded(mesh(data=2)
+   ->mesh(data=1))`` origin, a clean journal with one shrink record.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -227,7 +246,8 @@ variant, phase 13b's; K3-bwd's per variant in 13e too, as
 ``launches_13e``, and K3's fp32 variant's in phases 5 and 13e, as
 ``launches_phase5`` and ``launches_13e``), one entry per generated K4 program of phase 7 and
 one per tuned winner of phase 11, one ``dpia_cuda:mesh_<op>`` per mesh op
-of phase 14), the card's name and power limit,
+of phase 14; K1's and K3's ``launches_phase15`` by run and rank), the
+card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
 """
@@ -3131,6 +3151,284 @@ def mesh_kernel_entries(smi, one, two):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded serving
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2         # 15b / 15c: processes sharing the one card over gloo
+SHARD_LOST_AFTER = 2    # 15c: host 1 is lost at the third boundary
+
+
+def sharded_engine(model, params, mesh, layout: str, **kw):
+    """Phase 4b's engine shape as a ``ShardedEngine`` on ``mesh``."""
+    from repro_torch.serve.engine import ShardedEngine
+    return ShardedEngine(model, params, max_seq=continuous_max_seq(),
+                         slots=SLOTS, chunk=CHUNK, kv_layout=layout,
+                         block_size=BLOCK, prefill_chunk=PREFILL_CHUNK,
+                         mesh=mesh, **kw)
+
+
+def _sharded_run(engine, reqs, cfg, k3_variant: str):
+    """One timed run of ``reqs`` on this rank (None tokens where its host
+    was lost): K1 / K3 launches checked exactly against this rank's own
+    prefill calls and admissions and its chunk's decode steps, every K3
+    launch on ``k3_variant``, and the boundary ``all_gather`` calls
+    counted against the boundaries."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    owned, calls = {}, {"boundaries": 0, "all_gather": 0}
+    admissions, step, gather = (engine.sched.admissions, engine.step_chunk,
+                                dist.all_gather)
+
+    def admit():
+        out = admissions()
+        owned.update({rid: engine._lane(slot) is not None
+                      for slot, rid in out})
+        return out
+
+    def counted_step():
+        calls["boundaries"] += 1
+        return step()
+
+    def counted_gather(*a, **kw):
+        calls["all_gather"] += 1
+        return gather(*a, **kw)
+    engine.sched.admissions, engine.step_chunk = admit, counted_step
+    dist.all_gather = counted_gather
+    try:
+        torch.cuda.synchronize()
+        before = engine.stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = engine.run_results(reqs, seed=5)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        del engine.sched.admissions, engine.step_chunk
+        dist.all_gather = gather
+    counts, variants = ops.launch_counts(), ops.launch_counts_by_variant()
+    after = engine.stats()
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    own = sum(owned.values())
+    want = {"flash_attention": cfg.n_layers * own,
+            "rmsnorm": (4 * cfg.n_layers + 1) * (prefills + steps),
+            "matmul": 0, "dpia_cuda": 0, **NO_BWD}
+    if counts != want or variants["flash_attention"][k3_variant] != \
+            counts["flash_attention"]:
+        raise AssertionError(f"[15] launches {counts} != {want} for "
+                             f"{prefills} prefill calls, {own} admissions, "
+                             f"{steps} decode steps; K3 "
+                             f"{variants['flash_attention']}")
+    toks = None if results is None else [list(r.tokens) for r in results]
+    own_tokens = (None if results is None else
+                  sum(len(r.tokens) for r in results if owned[r.req_id]))
+    return {"tokens": toks, "s": dt, "own_tokens": own_tokens,
+            "tok_s": None if toks is None else sum(map(len, toks)) / dt,
+            "own_tok_s": None if toks is None else own_tokens / dt,
+            "prefills": prefills, "admissions": own, "steps": steps,
+            "launches": counts, "k1_variants": variants["rmsnorm"],
+            "boundaries": calls["boundaries"],
+            "all_gather": calls["all_gather"],
+            "gather_s": after["mesh"]["gather_s"]
+            - before["mesh"]["gather_s"],
+            "recaptures_after_warm": after.get("recaptures_after_warm", 0),
+            "graph_keys": [list(k) for k in after.get("graph_keys", ())],
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def sharded_rank_one(rank, world):
+    """[15a] one NCCL rank (``data=1``), bf16, phase 4's weights: phase
+    4b's traffic through ``ShardedEngine``, dense and paged, a warm run
+    then a timed one with phase 4b's exact K1 / K3 counts."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    cfg, model, params = serve.build(ARCH, seed=0)
+    mesh = make_mesh((1,), ("data",))
+    reqs = continuous_requests(cfg.vocab)
+    out = {}
+    for layout in ("dense", "paged"):
+        engine = sharded_engine(model, params, mesh, layout)
+        engine.run(reqs, seed=5)                 # warm-up: captures
+        toks, rep = _continuous_run(engine, reqs, cfg)
+        run = _sharded_run(engine, reqs, cfg, "mma")
+        if run["tokens"] != toks or run["all_gather"] != run["boundaries"] \
+                or run["recaptures_after_warm"]:
+            raise AssertionError(f"[15a] {layout}: two runs' tokens differ, "
+                                 f"or {run['all_gather']} gathers for "
+                                 f"{run['boundaries']} boundaries, or "
+                                 f"{run['recaptures_after_warm']} "
+                                 f"re-captures after warm-up")
+        out[layout] = {**run, "continuous_run": rep,
+                       "tok_s": [rep["tok_s"], run["tok_s"]]}
+        del engine
+    return out
+
+
+def sharded_rank_two(rank, world, want, journal):
+    """[15b] ``world`` ranks sharing the card over gloo, fp32 (TF32 off),
+    2 slots a rank: dense and paged, a warm run then a timed one, tokens
+    equal to the single process's; [15c] a fresh engine, dense then paged,
+    with ``hosts=world`` and a journal under ``mesh.host_lost(host=1)``:
+    rank 1 leaves, rank 0 serves every request on ``data=1``."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.domains import SchedulerJournal
+    from repro_torch.testing import faults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32")
+    mesh = make_mesh((world,), ("data",))
+    reqs = continuous_requests(cfg.vocab)
+    out = {"rank": rank}
+    for layout in ("dense", "paged"):
+        engine = sharded_engine(model, params, mesh, layout)
+        engine.run(reqs, seed=5)                 # warm-up: captures
+        run = _sharded_run(engine, reqs, cfg, "tf32x3")
+        if run["tokens"] != want or run["all_gather"] != run["boundaries"] \
+                or run["recaptures_after_warm"]:
+            raise AssertionError(
+                f"[15b] {layout}, rank {rank}: tokens equal to the single "
+                f"process's: {run['tokens'] == want}; {run['all_gather']} "
+                f"gathers for {run['boundaries']} boundaries; "
+                f"{run['recaptures_after_warm']} re-captures after warm-up")
+        out[layout] = run
+        del engine
+    for layout in ("dense", "paged"):
+        obs.flight_clear()
+        obs.clear_decisions()
+        path = f"{journal}.{layout}"
+        engine = sharded_engine(model, params, mesh, layout, hosts=world,
+                                journal=path)
+        with faults.inject(f"mesh.host_lost(host=1, after="
+                           f"{SHARD_LOST_AFTER})") as plan:
+            run = _sharded_run(engine, reqs, cfg, "tf32x3")
+        st = engine.stats()
+        run.update(
+            fired=plan[0].fired, left=engine.left,
+            descriptor=st["mesh"]["descriptor"],
+            host_losses=st["resilience"]["host_losses"],
+            evacuations=st["scheduler"]["evacuations"],
+            captures_since_shrink=st["mesh"].get("captures_since_shrink"),
+            dumps=[d["reason"] for d in obs.flight_dumps()],
+            origin="degraded(mesh(data=2)->mesh(data=1))" in obs.explain())
+        if rank == 0:
+            state = SchedulerJournal.load(f"{path}.rank0")
+            run["journal"] = {"clean": state.clean,
+                              "shrinks": state.shrinks,
+                              "evacuations": state.evacuations,
+                              "terminals": len(state.terminals)}
+        out[f"15c_{layout}"] = run
+        del engine
+    return out
+
+
+def phase_sharded(smi, want_bf16, tok_s_4b):
+    """[15] sharded serving in spawned ranks (a failed rank fails the run):
+    (a) one NCCL rank, bf16, tokens bitwise phase 4b's; (b) two gloo ranks
+    sharing the card, fp32, tokens equal to one process's; (c) the
+    host-loss drill on (b)'s ranks, dense and paged."""
+    from repro_torch.launch import serve
+    from repro_torch.testing import ranks
+    t_start = time.perf_counter()
+    one = ranks.spawn(sharded_rank_one, 1, backend="nccl", device="cuda",
+                      timeout=300)[0]
+    t_one = time.perf_counter() - t_start
+    for layout in ("dense", "paged"):
+        r = one[layout]
+        if r["tokens"] != want_bf16:
+            raise AssertionError(f"[15a] {layout}: tokens differ from phase "
+                                 f"4b's dense graph run")
+        log(f"[15a] data=1 (one NCCL rank), bf16, {layout}: tokens bitwise "
+            f"phase 4b's; tok/s {r['tok_s']} beside phase 4b's dense graph "
+            f"median {tok_s_4b:.1f}; launches {r['launches']} (K1 variants "
+            f"{r['k1_variants']}); {r['boundaries']} boundaries, "
+            f"{r['all_gather']} all_gather, {r['gather_s'] * 1e3:.3f} ms in "
+            f"them; re-captures after warm-up {r['recaptures_after_warm']}; "
+            f"graph keys {r['graph_keys']}; card {smi}")
+    # the single-process fp32 engine on the same traffic and slots, freed
+    # before the ranks start (two fp32 ranks hold 2 x 17.6 GB of weights)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32")
+    reqs = continuous_requests(cfg.vocab)
+    single = continuous_engine(model, params, "dense", graph=True)
+    single.run(reqs, seed=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = single.run(reqs, seed=5)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_tok_s = sum(map(len, want)) / single_s
+    del single, model, params
+    torch.cuda.empty_cache()
+    jdir = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        t0 = time.perf_counter()
+        two = ranks.spawn(sharded_rank_two, SHARD_RANKS, backend="gloo",
+                          device="cuda", timeout=600,
+                          args=(want, os.path.join(jdir, "15c.jsonl")))
+        t_two = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    out = {"15a": {l: one[l]["launches"] for l in ("dense", "paged")}}
+    for layout in ("dense", "paged"):
+        rs = [r[layout] for r in two]
+        combined = sum(map(len, want)) / max(r["s"] for r in rs)
+        log(f"[15b] data={SHARD_RANKS} (gloo ranks sharing one card), fp32, "
+            f"{layout}: tokens equal to one process's; tok/s combined "
+            f"{combined:.1f}, per rank (its own slots' tokens) "
+            f"{[round(r['own_tok_s'], 1) for r in rs]}, one process "
+            f"{single_tok_s:.1f}; K1 / K3 launches per rank "
+            f"{[(r['launches']['rmsnorm'], r['launches']['flash_attention']) for r in rs]}"
+            f"; admissions per rank {[r['admissions'] for r in rs]}; "
+            f"all_gather per rank {[r['all_gather'] for r in rs]} for "
+            f"{rs[0]['boundaries']} boundaries, "
+            f"{[round(r['gather_s'] * 1e3, 3) for r in rs]} ms in them; "
+            f"re-captures after warm-up {[r['recaptures_after_warm'] for r in rs]}; "
+            f"max memory GiB {[round(r['max_memory_gib'], 2) for r in rs]}; "
+            f"card {smi}")
+        out[f"15b_{layout}"] = [r["launches"] for r in rs]
+    for layout in ("dense", "paged"):
+        c0, c1 = two[0][f"15c_{layout}"], two[1][f"15c_{layout}"]
+        keys = c0["graph_keys"]
+        shrunk = keys[len(keys) - (c0["captures_since_shrink"] or 0):]
+        if c0["tokens"] != want or c0["left"] \
+                or c0["descriptor"] != "data=1" \
+                or c0["host_losses"] != 1 or c0["dumps"] != ["host_lost"] \
+                or not c0["origin"] or c0["fired"] != 1 \
+                or not c0["captures_since_shrink"] \
+                or any(k[0] != SLOTS for k in shrunk) \
+                or len(set(map(tuple, shrunk))) != len(shrunk) \
+                or c0["journal"]["clean"] is not True \
+                or len(c0["journal"]["shrinks"]) != 1 \
+                or c0["journal"]["terminals"] != len(want) \
+                or c1["tokens"] is not None or not c1["left"]:
+            raise AssertionError(
+                f"[15c] {layout} host-loss drill: rank 0 "
+                f"{ {k: v for k, v in c0.items() if k != 'tokens'} }, "
+                f"tokens equal {c0['tokens'] == want}; rank 1 left "
+                f"{c1['left']}")
+        log(f"[15c] mesh.host_lost(host=1, after={SHARD_LOST_AFTER}) on "
+            f"data={SHARD_RANKS}, hosts={SHARD_RANKS}, fp32, {layout}: rank "
+            f"1 left, rank 0 served every request on {c0['descriptor']} to "
+            f"15b's tokens; host_losses {c0['host_losses']}, evacuations "
+            f"{c0['evacuations']}, captures after the shrink "
+            f"{c0['captures_since_shrink']} {shrunk} (graph keys {keys}), "
+            f"flight dumps {c0['dumps']}, journal {c0['journal']}; K1 / K3 "
+            f"launches rank 0 {(c0['launches']['rmsnorm'], c0['launches']['flash_attention'])}"
+            f", rank 1 {(c1['launches']['rmsnorm'], c1['launches']['flash_attention'])}"
+            f" (until it left); {c0['boundaries']} boundaries, all_gather "
+            f"rank 0 {c0['all_gather']} (one re-placement included), rank 1 "
+            f"{c1['all_gather']}; {c0['s']:.2f} s; card {smi}")
+        out[f"15c_{layout}"] = [c0["launches"], c1["launches"]]
+    log(f"[15] summary: 15a {t_one:.1f} s, 15b + 15c {t_two:.1f} s "
+        f"(processes included), phase 15 "
+        f"{time.perf_counter() - t_start:.1f} s; card {smi}")
+    return out
+
+
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3221,6 +3519,7 @@ def _run_phases(tune_cache: str) -> int:
     phase_services(smi, p9, stage_s, build_s)
     tuned = phase_tune(smi, tune_cache)
     mesh_one, mesh_two = phase_mesh(smi, dpia)
+    sharded = phase_sharded(smi, want, report["dense graph"]["tok_s_median"])
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -3242,6 +3541,13 @@ def _run_phases(tune_cache: str) -> int:
             entry["variants"] = {
                 v: {"source": src, "launches": variants[k["name"]][v]}
                 for v, src in VARIANT_SOURCES[k["name"]].items()}
+        if k["name"] in ("rmsnorm", "flash_attention"):
+            # phase 15's sharded runs: 15a's one rank by layout, 15b's and
+            # 15c's ranks
+            entry["launches_phase15"] = {
+                key: ([c[k["name"]] for c in v] if isinstance(v, list)
+                      else {lay: c[k["name"]] for lay, c in v.items()})
+                for key, v in sharded.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

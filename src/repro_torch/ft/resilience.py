@@ -1,5 +1,6 @@
 """Fault tolerance: the step watchdog (straggler detection), the NaN
-guard of a train step, and the checkpointed, auto-resuming train loop.
+guard of a train step, the checkpointed, auto-resuming train loop and
+elastic re-meshing.
 
 The port's copy of ``repro.ft.resilience``:
 
@@ -9,11 +10,10 @@ The port's copy of ``repro.ft.resilience``:
   * :func:`guard_update` reject non-finite losses / grad-norms;
   * :class:`TrainLoop`   checkpoint every N steps (async), restore-latest
                          on entry, bounded retry with restore on
-                         exceptions, skipped (non-finite) steps counted.
-
-``elastic_remesh`` (rebuild a mesh from the devices that are left) comes
-with sharded serving and training (ROADMAP.md queue 1 item 7b) and raises
-``NotImplementedError`` until then.
+                         exceptions, skipped (non-finite) steps counted;
+  * :func:`elastic_remesh` the largest ``DeviceMesh`` the ranks of the
+                         process group support, shrinking the leading axis
+                         first (elastic scale-down after a node loss).
 """
 from __future__ import annotations
 
@@ -103,12 +103,48 @@ def guard_update(metrics: Dict) -> bool:
     return math.isfinite(loss) and math.isfinite(gn)
 
 
-def elastic_remesh(preferred, axis_names=None):
-    """The largest mesh the devices that are left support: not ported
-    yet."""
-    raise NotImplementedError(
-        "elastic_remesh comes with sharded serving and training "
-        "(ROADMAP.md queue 1 item 7b)")
+def elastic_remesh(preferred, axis_names=None, *, device_type=None):
+    """Build the largest mesh the ranks of the process group support,
+    shrinking the leading (data) axis first: elastic scale-down after a
+    node loss.
+
+    ``preferred`` is a canonical mesh descriptor string (``"data=8"`` /
+    ``"data=8,model=2"``, ``repro_torch.mesh.strategy``) or a shape tuple
+    paired with ``axis_names``.  The shrink itself is
+    :func:`repro_torch.mesh.strategy.shrink_descriptor` against the world
+    size of the default process group (which the caller initialises), so
+    the mesh's shape round-trips through ``parse_descriptor`` and is what
+    the tuning and executor cache keys carry for it.  The mesh holds ranks
+    ``0 .. size - 1``; it is on the card unless ``device_type="cpu"``."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from repro_torch.device import resolve_device
+    from repro_torch.mesh import strategy as ms
+    if isinstance(preferred, str):
+        if axis_names is not None:
+            raise TypeError("axis_names only applies to shape-tuple form; "
+                            "a descriptor string already names its axes")
+        desc = preferred
+    else:
+        if axis_names is None:
+            raise TypeError("shape-tuple form needs axis_names")
+        desc = ",".join(f"{a}={int(s)}"
+                        for a, s in zip(axis_names, preferred))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    axes = ms.parse_descriptor(ms.shrink_descriptor(desc, world))
+    if not axes:
+        raise ValueError(f"elastic_remesh needs at least one axis, got "
+                         f"{preferred!r}")
+    dev = resolve_device(device_type).type
+    shape, names = tuple(axes.values()), tuple(axes)
+    if math.prod(shape) == world:
+        return init_device_mesh(dev, shape, mesh_dim_names=names)
+    return DeviceMesh(dev, torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=names)
 
 
 class TrainLoop:

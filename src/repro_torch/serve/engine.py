@@ -16,7 +16,7 @@ Nothing inside the chunk may sync the host: no ``.item()``, ``.tolist()``,
 The chunk's knobs (temperatures, top-k, positions, block tables, each
 slot's generator) are device state written at admission and parking.
 
-Two engines share that chunk:
+Three engines share that chunk:
 
   * :class:`BatchedEngine`: static batch; prefill all requests together,
     decode lock-step until every request has its tokens (the oracle the
@@ -28,7 +28,9 @@ Two engines share that chunk:
     ``slots`` wide.  KV memory is a strategy dimension
     (``kv_layout="dense"|"paged"``, :mod:`repro_torch.serve.paged`), and
     prompts longer than ``prefill_chunk`` prefill in chunks across
-    boundaries.
+    boundaries;
+  * :class:`ShardedEngine`: the continuous engine over a mesh axis, each
+    rank decoding its own share of the slots.
 
 Sampling determinism: request ``i`` of a run with seed ``seed`` draws from
 its own stream, seeded from ``(seed, i)`` into the ``torch.Generator`` of
@@ -100,10 +102,12 @@ A continuous engine given ``journal=`` (a path or a
 submission, each boundary's emitted tokens and every terminal state, so a
 killed engine's surviving requests ``domains.replay`` to token identity.
 
-Not ported yet: :class:`ShardedEngine` (ROADMAP.md queue 1 item 7b, sharded
-serving)
-raises ``NotImplementedError``; the reference's AOT executables of the
-model come with it."""
+:class:`ShardedEngine` is the continuous engine with its slots sharded over
+a ``torch.distributed`` mesh axis: one process a position, the weights
+replicated, one ``all_gather`` a chunk boundary, and failure domains that
+survive a lost host by evacuating its slots and shrinking the mesh.  The
+reference's AOT executables of the model are not ported: the port's model
+path dispatches through no DPIA row."""
 from __future__ import annotations
 
 import contextlib
@@ -111,6 +115,7 @@ import dataclasses
 import functools
 import hashlib
 import logging
+import math
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -392,10 +397,9 @@ class _EngineBase:
         st.tokens.copy_(tok)
         st.pos.copy_(pos)
 
-    def _decode_chunk(self, st: _DecodeState, sampled: bool):
-        """Run one chunk (a graph replay on the card unless ``graph=False``)
-        and return its (b, chunk) tokens and each lane's NaN flag: the
-        chunk's one host sync reads both."""
+    def _run_chunk(self, st: _DecodeState, sampled: bool) -> None:
+        """Enqueue one chunk: a graph replay on the card unless
+        ``graph=False``."""
         if self._graphs is None:
             self._chunk_fn(st, sampled)
         else:
@@ -405,6 +409,11 @@ class _EngineBase:
             self._check_recaptures()
         self.n_decode_steps += self.chunk
         self.n_chunks += 1
+
+    def _decode_chunk(self, st: _DecodeState, sampled: bool):
+        """Run one chunk and return its (b, chunk) tokens and each lane's
+        NaN flag: the chunk's one host sync reads both."""
+        self._run_chunk(st, sampled)
         out = st.out.tolist()
         return ([row[:self.chunk] for row in out],
                 [bool(row[self.chunk]) for row in out])
@@ -733,13 +742,24 @@ class ContinuousEngine(_EngineBase):
 
     # -- device state --------------------------------------------------------
 
+    @property
+    def _lanes(self) -> int:
+        """Decode lanes this engine's buffers hold: one a slot (the sharded
+        engine holds its own slots' lanes only)."""
+        return self.slots
+
+    def _lane(self, slot: int) -> Optional[int]:
+        """The lane of ``slot`` in this engine's buffers (None: another
+        rank's slot)."""
+        return slot
+
     def _init_device_state(self) -> None:
         """Build the chunk's buffers for the current ``kv_layout``, every
         lane parked.  A captured graph reads the buffers it was captured on,
         so only construction and the paged -> dense degradation (which
         drops the graphs) may call this; the chunk-failure rebuild works in
         place (:meth:`_rebuild_in_place`)."""
-        b, dev = self.slots, self.device
+        b, dev = self._lanes, self.device
         if self.kv_layout == "paged":
             cache = self.model.init_paged_cache(
                 b, self.max_seq, n_blocks=self.kv_blocks,
@@ -756,6 +776,9 @@ class ContinuousEngine(_EngineBase):
         self.st.pos.fill_(self.max_seq)       # every lane parked
         self._staging: Dict[int, KVCache] = {}
         self._admit_logits: Dict[int, torch.Tensor] = {}
+        # slots the prompt poison drill hit (read by the sharded engine,
+        # which clears it every boundary)
+        self._nan_prefill: set = set()
 
     def _reset_state(self) -> None:
         self._init_device_state()
@@ -784,6 +807,7 @@ class ContinuousEngine(_EngineBase):
             self.sched.pool = self.pool
         self._staging.clear()
         self._admit_logits.clear()
+        self._nan_prefill.clear()
 
     # -- API -----------------------------------------------------------------
 
@@ -918,9 +942,17 @@ class ContinuousEngine(_EngineBase):
             if state_reason is not None:
                 self.journal.record_terminal(rid, *state_reason)
 
-    def _step_chunk(self) -> List[int]:
+    def _expired(self):
+        """The deadline sweep: ``(freed slot or None, req_id)`` per
+        expiry."""
+        return self.sched.check_deadlines()
+
+    def _boundary_prelude(self) -> List[int]:
+        """A boundary's work before its prompt prefills: the deadline
+        sweep, the block pool's check, admissions.  Returns the request ids
+        that ended."""
         finished: List[int] = []
-        for slot, rid in self.sched.check_deadlines():
+        for slot, rid in self._expired():
             if slot is not None:
                 self._evict_slot(slot)
             finished.append(rid)
@@ -937,19 +969,44 @@ class ContinuousEngine(_EngineBase):
         if self.pool is not None:
             obs.gauge("serve.kv_pool.used_blocks").set(self.pool.used_blocks)
             obs.gauge("serve.kv_pool.free_blocks").set(self.pool.free_blocks)
+        return finished
+
+    def _release(self, finished: List[int]) -> None:
+        """Drop the prompts and stream seeds of requests that ended."""
+        for rid in finished:
+            self._requests.pop(rid, None)
+            self._stream_seeds.pop(rid, None)
+
+    def _ending(self) -> set:
+        """Slots whose request ends at this boundary's first token but is
+        still to be recorded: none here (:meth:`_finish_admit` records it;
+        the sharded engine records it after its gather)."""
+        return set()
+
+    def _after_chunk(self) -> List[int]:
+        """Records due once the boundary's chunk has run, before its tokens
+        are: none here (the sharded engine records its admissions' first
+        tokens from its gather).  Returns the request ids that ended."""
+        return []
+
+    def _step_chunk(self) -> List[int]:
+        finished = self._boundary_prelude()
         for slot, rid in self.sched.prefilling():
             if self._prefill_advance(slot, rid):      # one chunk per boundary
                 if self._finish_admit(slot, rid):
                     finished.append(rid)
-        busy = self.sched.busy_slots()
+        ending = self._ending()
+        busy = [i for i in self.sched.busy_slots() if i not in ending]
+        failure = None
         if busy:
             rids = [self.sched.slots[i].req_id for i in busy]
             # the graph key's ``sampled``, from host values: no device sync
             sampled = any(self._requests[rid].temperature > 0.0
                           for rid in rids)
             slot_of = dict(zip(rids, busy))
-            req_ids = ",".join(str(s.req_id) for s in self.sched.slots
-                               if not s.free)
+            req_ids = ",".join(str(s.req_id)
+                               for i, s in enumerate(self.sched.slots)
+                               if not s.free and i not in ending)
             t0 = time.perf_counter()
             try:
                 # ends after the chunk's one host sync (the tokens' read):
@@ -962,21 +1019,22 @@ class ContinuousEngine(_EngineBase):
                 # retries): the buffers are as the last chunk left them
                 if not self.resilience.quarantine_on_chunk_failure:
                     raise
-                finished.extend(self._quarantine_chunk_failure(e))
-            else:
-                dt = time.perf_counter() - t0
-                obs.histogram("serve.chunk_s").observe(dt)
-                obs.drift_observe(f"serve|decode_chunk|slots={self.slots}"
-                                  f"|chunk={self.chunk}", dt)
-                if self.resilience.nan_guard and any(bad):
-                    finished.extend(self._quarantine_nan_rows(bad))
-                retired = self.sched.record_chunk(rows)
-                for rid in retired:
-                    self._park_lane(slot_of[rid])
-                finished.extend(retired)
-        for rid in finished:                  # release prompts at retire
-            self._requests.pop(rid, None)
-            self._stream_seeds.pop(rid, None)
+                failure = e
+        finished.extend(self._after_chunk())
+        if failure is not None:
+            finished.extend(self._quarantine_chunk_failure(failure))
+        elif busy:
+            dt = time.perf_counter() - t0
+            obs.histogram("serve.chunk_s").observe(dt)
+            obs.drift_observe(f"serve|decode_chunk|slots={self.slots}"
+                              f"|chunk={self.chunk}", dt)
+            if self.resilience.nan_guard and any(bad):
+                finished.extend(self._quarantine_nan_rows(bad))
+            retired = self.sched.record_chunk(rows)
+            for rid in retired:
+                self._park_lane(slot_of[rid])
+            finished.extend(retired)
+        self._release(finished)               # release prompts at retire
         return finished
 
     # -- quarantine and degradation ------------------------------------------
@@ -1090,6 +1148,9 @@ class ContinuousEngine(_EngineBase):
         """Deterministic damage for the ``serve.nan_decode`` drill: fill the
         slot's cached KV with NaN (paged: its pages) so its next decode
         chunk trips the NaN guard, the flaky-HBM poison model."""
+        lane = self._lane(slot)
+        if lane is None:
+            return
         k, v = self.st.cache
         if self.kv_layout == "paged":
             blocks = self.pool.owned(slot)
@@ -1098,14 +1159,16 @@ class ContinuousEngine(_EngineBase):
                 k.index_fill_(1, idx, float("nan"))
                 v.index_fill_(1, idx, float("nan"))
             return
-        k[:, slot].fill_(float("nan"))
-        v[:, slot].fill_(float("nan"))
+        k[:, lane].fill_(float("nan"))
+        v[:, lane].fill_(float("nan"))
 
     def _park_lane(self, slot: int) -> None:
         """Neutralise a freed lane: position past max_seq, so its decode
         writes drop.  Load-bearing for the paged layout: the slot's pages go
         back to the pool at retirement and may be re-issued."""
-        self.st.pos[slot].fill_(self.max_seq)
+        lane = self._lane(slot)
+        if lane is not None:
+            self.st.pos[lane].fill_(self.max_seq)
 
     def _evict_slot(self, slot: int) -> None:
         """Neutralise a lane whose request terminated outside the normal
@@ -1134,60 +1197,95 @@ class ContinuousEngine(_EngineBase):
             self._prefill_chunk(slot, r, start, take, bucket)
         return start + take >= plen
 
-    def _prefill_chunk(self, slot: int, r: Request, start: int, take: int,
-                       bucket: int) -> None:
+    def _prefill_logits(self, slot: int, lane: int, r: Request, start: int,
+                        take: int, bucket: int) -> torch.Tensor:
+        """Prefill ``take`` prompt tokens from ``start`` into ``slot``'s
+        lane (paged: its pages; dense: its staging cache) and return their
+        last-position logits."""
         tokens = _prompt_tensor(r.prompt[start:start + take], bucket,
                                 self.device)
         lengths = _to_device(torch.tensor([take]), self.device)
+        self.n_prefills += 1
         if self.kv_layout == "paged":
             logits, _, _ = self.model.prefill_paged(
                 self.params, tokens, self.st.cache,
-                self.st.block_tables[slot], None, start, lengths,
+                self.st.block_tables[lane], None, start, lengths,
                 first=start == 0)
+            return logits
+        if start == 0:                        # a fresh zero staging cache
+            staging = self.model.init_cache(1, self.max_seq,
+                                            device=self.device)
         else:
-            if start == 0:                    # a fresh zero staging cache
-                staging = self.model.init_cache(1, self.max_seq,
-                                                device=self.device)
-            else:
-                staging = self._staging[slot]
-            logits, self._staging[slot] = self.model.prefill(
-                self.params, tokens, staging, start=start, lengths=lengths,
-                attend_cache=start > 0)
-        self.n_prefills += 1
+            staging = self._staging[slot]
+        logits, self._staging[slot] = self.model.prefill(
+            self.params, tokens, staging, start=start, lengths=lengths,
+            attend_cache=start > 0)
+        return logits
+
+    def _prefill_chunk(self, slot: int, r: Request, start: int, take: int,
+                       bucket: int) -> None:
+        """Prefill one prompt chunk on the slot's owner (every lane is this
+        engine's; a sharded engine's other ranks only advance the
+        schedule) and keep the last chunk's logits for admission."""
+        lane = self._lane(slot)
+        logits = None
+        if lane is not None:
+            logits = self._prefill_logits(slot, lane, r, start, take, bucket)
         rid = self.sched.slots[slot].req_id
+        # every rank of a sharded engine polls the site: one plan, one
+        # schedule
         if (start + take >= len(r.prompt)
                 and faults.should_fire("serve.nan_prefill",
                                        req_id=rid) is not None):
             # poison drill: the request's admission logits read as NaN
-            logits = torch.full_like(logits, float("nan"))
-        self._admit_logits[slot] = logits
+            self._nan_prefill.add(slot)
+            if logits is not None:
+                logits = torch.full_like(logits, float("nan"))
+        if logits is not None:
+            self._admit_logits[slot] = logits
         self.sched.prefill_advance(slot, take)
 
     def _begin_admit(self, slot: int) -> None:
         """Set up the slot for its (possibly multi-chunk) prompt prefill."""
-        if self.kv_layout == "paged":
+        lane = self._lane(slot)
+        if self.kv_layout == "paged" and lane is not None:
             row = table_row(self.pool.owned(slot), self.max_blocks,
                             self.kv_blocks)
-            self.st.block_tables[slot].copy_(
+            self.st.block_tables[lane].copy_(
                 _to_device(torch.tensor(row, dtype=torch.long), self.device))
         self._park_lane(slot)  # mid-prefill decode writes must drop
 
-    def _finish_admit(self, slot: int, rid: int) -> bool:
-        """The prompt is fully cached: install the slot's decode state and
-        sample the first token; True if it retired immediately."""
+    def _install_lane(self, slot: int, lane: int, rid: int):
+        """Install ``slot``'s decode state in ``lane`` (its staged cache,
+        its stream's generator, temperature and top-k) and sample its
+        first token, no host sync: returns the token (a 1-element device
+        tensor) and the prompt's logits."""
         r = self._requests[rid]
         st = self.st
         logits = self._admit_logits.pop(slot)
         staging = self._staging.pop(slot, None)
         if staging is not None:
-            _insert_slot(st.cache, staging, slot)
-        gen = st.generators[slot]
+            _insert_slot(st.cache, staging, lane)
+        gen = st.generators[lane]
         gen.manual_seed(self._stream_seeds[rid])   # the request's stream
-        st.temps[slot].fill_(float(r.temperature))
-        st.top_ks[slot].fill_(int(r.top_k or 0))
-        first = sample_tokens(logits, [gen], st.temps[slot:slot + 1],
-                              st.top_ks[slot:slot + 1],
+        st.temps[lane].fill_(float(r.temperature))
+        st.top_ks[lane].fill_(int(r.top_k or 0))
+        first = sample_tokens(logits, [gen], st.temps[lane:lane + 1],
+                              st.top_ks[lane:lane + 1],
                               sampled=r.temperature > 0.0)
+        st.tokens[lane:lane + 1].copy_(first)
+        return first, logits
+
+    def _nan_decode_drill(self, slot: int, rid: int) -> None:
+        """Poison drill: NaN the slot's cached KV (on its owner) so its
+        next decode chunk trips the in-chunk NaN guard for the lane."""
+        if faults.should_fire("serve.nan_decode", req_id=rid) is not None:
+            self._poison_slot_cache(slot)
+
+    def _finish_admit(self, slot: int, rid: int) -> bool:
+        """The prompt is fully cached: install the slot's decode state and
+        sample the first token; True if it retired immediately."""
+        first, logits = self._install_lane(slot, slot, rid)
         # one host sync per ADMISSION (not per token): the first token and,
         # with the guard, whether the prompt's logits are finite
         if self.resilience.nan_guard:
@@ -1200,23 +1298,654 @@ class ContinuousEngine(_EngineBase):
                 return True
         else:
             token = int(first[0])
-        st.tokens[slot:slot + 1].copy_(first)
-        st.pos[slot].fill_(len(r.prompt))
+        self.st.pos[slot].fill_(len(self._requests[rid].prompt))
         done = self.sched.record_first(slot, token)
         if done:
             self._park_lane(slot)
-        elif faults.should_fire("serve.nan_decode", req_id=rid) is not None:
-            # poison drill: NaN the slot's cached KV so the next decode
-            # chunk trips the in-chunk NaN guard for this lane
-            self._poison_slot_cache(slot)
+        else:
+            self._nan_decode_drill(slot, rid)
         return done
 
 
-class ShardedEngine(ContinuousEngine):
-    """The continuous engine with its slots sharded over a mesh: not
-    ported yet."""
+# ---------------------------------------------------------------------------
+# sharded continuous batching (data-parallel slots over a mesh axis)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedEngine comes with sharded serving and training "
-            "(ROADMAP.md queue 1 item 7b)")
+def _leaves(node) -> List[torch.Tensor]:
+    """The tensors of a params tree, in a fixed order."""
+    if isinstance(node, torch.Tensor):
+        return [node]
+    if isinstance(node, dict):
+        return [t for k in sorted(node) for t in _leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [t for x in node for t in _leaves(x)]
+    return []
+
+
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of a tensor's bit patterns as int64 (a checksum of its
+    bits), in pieces of 16 M elements to bound the temporary."""
+    v = t.detach().reshape(-1).view(_INT_OF_SIZE[t.element_size()])
+    out = torch.zeros((), dtype=torch.int64, device=t.device)
+    for piece in v.split(1 << 24):
+        out += piece.to(torch.int64).sum()
+    return out
+
+
+class _Reader:
+    """Reads typed tensors back out of a flat uint8 buffer."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf, self.at = buf, 0
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        # a copy: a view would need the offset aligned to the dtype
+        out = self.buf[self.at:self.at + n].clone().view(dtype).reshape(shape)
+        self.at += n
+        return out
+
+
+class ShardedEngine(ContinuousEngine):
+    """Continuous batching with the slot axis sharded over a named mesh
+    axis (``data`` by default), SPMD over ``torch.distributed``: one
+    process a position of the axis, every rank holding the whole model.
+
+    Rank ``r`` of the axis (its coordinate) holds the decode state of slots
+    ``[r*per, (r+1)*per)``, ``per = slots / n``: its KV cache rows (dense)
+    or its lanes' block tables (paged), tokens, positions, temperatures,
+    top-k and one generator a lane.  Its decode chunk is its own, at batch
+    ``per`` (a CUDA graph on the card), and runs no collective.  The weights
+    are replicated: at build time one ``all_gather`` of a checksum of each
+    leaf's bits proves every rank holds the same, or raises.
+
+    Every rank runs the same :class:`Scheduler` over all ``slots``; requests
+    are submitted on every rank in the same order (and cancelled on every
+    rank alike), so admission, deferral, retirement and evacuation are
+    decided the same everywhere.  A slot's prompt prefills on its owner
+    only, at batch 1.  At each chunk boundary one ``all_gather`` over the
+    axis group exchanges each rank's chunk buffer: its lanes' tokens and
+    NaN flags (the chunk's one host sync), the first token and prompt-NaN
+    flag of every lane admitted at the boundary, and the rank's clock.  It
+    is the boundary's one collective (``stats()["mesh"]
+    ["boundary_gathers"]``); there is none between boundaries.  So a
+    request admitted at a boundary has its first token recorded, or is
+    quarantined for non-finite prompt logits, after that boundary's chunk
+    rather than before it; its lane decodes in the chunk all the same, and
+    its tokens are the unsharded engine's.  Fault sites are polled by every
+    rank at the same points (``repro_torch.testing.faults``).
+
+    Paged: every rank holds the whole page pool and the replicated
+    scheduler's block allocator; a rank writes only its own lanes' pages,
+    so the tables agree across ranks.
+
+    Deadlines run on the mesh clock: each gather carries each rank's time
+    since the build, the clock is their largest, and a request is timed
+    from the first boundary after its submission (a deadline can expire up
+    to a boundary late, never early), so every rank expires the same
+    requests at the same boundary.
+
+    ``hosts`` turns on failure domains
+    (:class:`repro_torch.serve.domains.FailureDomains`): at every boundary
+    the engine polls for a lost or straggling host (the ``mesh.host_lost``
+    / ``mesh.host_slow`` / ``collective.timeout`` fault sites stand in for
+    heartbeats in drills).  On a loss the dead host's slots are evacuated
+    to the queue front in ascending slot order; the survivors make a mesh
+    of their own and re-place the state under its mapping (``per`` grows,
+    so surviving rows move between ranks: one ``all_gather`` of the rows,
+    paged of the live slots' pages, over the survivors' group, on the card
+    under NCCL), the lost rows zeroed; the chunk graph is
+    captured anew at the new ``per`` and the warm baseline reset, so that
+    capture is not counted as drift; the tuner re-ranks mesh candidates
+    for the new descriptor, and the shrink is recorded as provenance origin
+    ``degraded(mesh(data=4)->mesh(data=2))``, one ``host_lost`` flight dump
+    and the journal's evacuate and shrink records.  A rank whose host is
+    lost leaves: ``left`` turns true, ``run`` returns None there and
+    ``step_chunk`` raises; it writes nothing more.  Survivors keep their
+    tokens; evacuees re-decode from their prompts to the same tokens.
+
+    ``journal`` given as a path: every rank journals its replicated
+    scheduler to a file of its own, ``<path>.rank<global rank>`` (one file
+    written by several processes would need them ordered at every
+    boundary, a second collective); any survivor's file replays the run.
+    """
+
+    def __init__(self, model: Model, params, max_seq: int = 512,
+                 slots: int = 8, chunk: int = 8, min_bucket: int = 16, *,
+                 tuning_cache=None, mesh=None, mesh_axis: str = "data",
+                 kv_layout: str = "dense", block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 resilience: Optional[ResilienceConfig] = None,
+                 journal=None, hosts=None, host_slow_threshold: int = 3,
+                 graph: bool = True):
+        from repro_torch.mesh.strategy import axis_sizes
+        from repro_torch.sharding import ctx
+        mesh = mesh if mesh is not None else ctx.get_mesh()
+        if mesh is None:
+            raise ValueError(
+                "ShardedEngine needs a mesh: pass mesh=... or set the "
+                "process mesh context (repro_torch.sharding.ctx.set_mesh)")
+        sizes = axis_sizes(mesh)
+        if mesh_axis not in sizes:
+            raise ValueError(f"mesh axis {mesh_axis!r} not in mesh axes "
+                             f"{list(sizes)}")
+        n_shards = int(sizes[mesh_axis])
+        if slots % n_shards != 0:
+            raise ValueError(f"slots ({slots}) must be divisible by mesh "
+                             f"axis {mesh_axis!r} of size {n_shards}")
+        self.mesh_axis = mesh_axis
+        self._place(mesh)
+        self.domains = None
+        if hosts is not None:
+            from repro_torch.serve.domains import FailureDomains
+            self.domains = FailureDomains(mesh, axis=mesh_axis, hosts=hosts,
+                                          slow_threshold=host_slow_threshold)
+        if journal is not None and not isinstance(journal,
+                                                  SchedulerJournal):
+            import torch.distributed as dist
+            journal = f"{journal}.rank{dist.get_rank()}"
+        self.left = False
+        self._n_host_losses = 0
+        self._n_gathers = 0
+        self._gather_s = 0.0
+        self._captures_at_shrink: Optional[int] = None
+        self._pending_first: List[tuple] = []
+        self._table: Optional[List[List[int]]] = None
+        self._mesh_now = 0.0
+        self._stamped: Dict[int, float] = {}
+        self._unstamped: List[int] = []
+        super().__init__(model, params, max_seq=max_seq, slots=slots,
+                         chunk=chunk, min_bucket=min_bucket,
+                         kv_layout=kv_layout, block_size=block_size,
+                         kv_blocks=kv_blocks, prefill_chunk=prefill_chunk,
+                         graph=graph, tuning_cache=tuning_cache,
+                         resilience=resilience, journal=journal)
+        self._check_replicas()
+        self._epoch = time.perf_counter()
+
+    # -- placement -----------------------------------------------------------
+
+    def _place(self, mesh) -> None:
+        """Take ``mesh``'s axis group, size and this rank's coordinate; the
+        order of the group's ranks along the axis (a gather's output is in
+        group-rank order)."""
+        import numpy as np
+        import torch.distributed as dist
+        from repro_torch.mesh.strategy import axis_sizes
+        self.mesh = mesh
+        self._group = mesh.get_group(self.mesh_axis)
+        self._n = axis_sizes(mesh)[self.mesh_axis]
+        self._index = mesh.get_local_rank(self.mesh_axis)
+        dim = list(mesh.mesh_dim_names).index(self.mesh_axis)
+        coord = {int(r): idx[dim]
+                 for idx, r in np.ndenumerate(mesh.mesh.cpu().numpy())}
+        order = [coord[r] for r in dist.get_process_group_ranks(self._group)]
+        self._by_index = [order.index(i) for i in range(self._n)]
+        self._host_exchange = dist.get_backend(self._group) != "nccl"
+
+    @property
+    def _lanes(self) -> int:
+        return self.slots // self._n
+
+    def _lane(self, slot: int) -> Optional[int]:
+        lane = slot - self._index * self.per
+        return lane if 0 <= lane < self.per else None
+
+    def _init_device_state(self) -> None:
+        self.per = self._lanes
+        super()._init_device_state()
+        # the chunk writes its tokens and NaN flags into the first columns
+        # (st.out is a view); admission adds a lane's first token and its
+        # prompt-NaN flag: the buffer one boundary gather exchanges
+        self._xbuf = torch.zeros((self.per, self.chunk + 3),
+                                 dtype=torch.long, device=self.device)
+        self.st.out = self._xbuf[:, :self.chunk + 1]
+
+    @property
+    def _xdev(self) -> torch.device:
+        """Where the axis group's backend exchanges tensors: the host for
+        gloo, this engine's card for NCCL (which takes no host tensor)."""
+        return torch.device("cpu") if self._host_exchange else self.device
+
+    def _all_gather(self, t: torch.Tensor):
+        """``t`` from every rank of the axis group, moved to :attr:`_xdev`
+        first, as a list in axis order on that device, and the seconds the
+        gather took: CUDA events around a gather of card tensors (its
+        device time), else the host clock around the call (waiting for the
+        slowest rank included)."""
+        import torch.distributed as dist
+        t = t.to(self._xdev)
+        out = [torch.empty_like(t) for _ in range(self._n)]
+        if t.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist.all_gather(out, t, group=self._group)
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            dist.all_gather(out, t, group=self._group)
+            dt = time.perf_counter() - t0
+        return [out[g] for g in self._by_index], dt
+
+    def _check_replicas(self) -> None:
+        """One ``all_gather`` of a checksum of each weight leaf's bits:
+        every rank must hold the same weights."""
+        sums = torch.stack([_bits_sum(t) for t in _leaves(self.params)])
+        table, _ = self._all_gather(sums)
+        differ = [i for i in range(self._n)
+                  if not torch.equal(table[i], table[self._index])]
+        if differ:
+            raise ValueError(
+                f"ShardedEngine: the weights differ across mesh axis "
+                f"{self.mesh_axis!r}: positions {differ} hold other bits "
+                f"than position {self._index} (a checksum a leaf)")
+
+    # -- API -----------------------------------------------------------------
+
+    def submit(self, request: Request, stream: Optional[int] = None) -> int:
+        rid = super().submit(request, stream)
+        self._unstamped.append(rid)        # timed from the next boundary
+        return rid
+
+    def run_results(self, requests: List[Request],
+                    seed: int = 0) -> Optional[List[RequestResult]]:
+        """:meth:`ContinuousEngine.run_results`; None on a rank whose host
+        was lost during the run (it left the mesh)."""
+        def run():
+            self._run_seed = seed
+            rids = [self.submit(r, stream=i) for i, r in enumerate(requests)]
+            while not self.sched.idle and not self.left:
+                self.step_chunk()
+            if self.left:
+                return None
+            return [self.take_result(rid) for rid in rids]
+        return self._warm_run(run, slots=self.slots)
+
+    def run(self, requests: List[Request],
+            seed: int = 0) -> Optional[List[List[int]]]:
+        results = self.run_results(requests, seed)
+        return (None if results is None
+                else [list(r.tokens) for r in results])
+
+    def step_chunk(self) -> List[int]:
+        if self.left:
+            raise RuntimeError("this rank's host was lost: it left the "
+                               "sharded engine's mesh")
+        return super().step_chunk()
+
+    def stats(self) -> dict:
+        from repro_torch.mesh.strategy import descriptor
+        out = super().stats()
+        out["mesh"] = {"axis": self.mesh_axis, "shards": self._n,
+                       "devices": int(self.mesh.mesh.numel()),
+                       "descriptor": descriptor(self.mesh),
+                       "index": self._index, "lanes": self.per,
+                       "boundary_gathers": self._n_gathers,
+                       "gather_s": self._gather_s}
+        if self._captures_at_shrink is not None and self._graphs is not None:
+            out["mesh"]["captures_since_shrink"] = (
+                self._graphs.captures - self._captures_at_shrink)
+        if self.domains is not None:
+            out["mesh"]["hosts"] = self.domains.describe()
+        out["resilience"]["host_losses"] = self._n_host_losses
+        return out
+
+    # -- the chunk-boundary loop ---------------------------------------------
+
+    def _expired(self):
+        return self.sched.check_deadlines(now=self._mesh_now,
+                                          since=self._stamped)
+
+    def _release(self, finished: List[int]) -> None:
+        super()._release(finished)
+        for rid in finished:
+            self._stamped.pop(rid, None)
+
+    def _step_chunk(self) -> List[int]:
+        self._domain_sweep()
+        if self.left:
+            return []
+        self._pending_first, self._table = [], None
+        self._nan_prefill.clear()
+        return super()._step_chunk()
+
+    def _ending(self) -> set:
+        return {slot for slot, _, ends in self._pending_first if ends}
+
+    def _decode_chunk(self, st: _DecodeState, sampled: bool):
+        """Run this rank's chunk, then the boundary's gather (its host
+        sync): every slot's tokens and NaN flag."""
+        self._run_chunk(st, sampled)
+        self._table = self._exchange()
+        return ([row[:self.chunk] for row in self._table],
+                [bool(row[self.chunk]) for row in self._table])
+
+    def _after_chunk(self) -> List[int]:
+        """The boundary's gather when no chunk ran (every rank takes part
+        in it), then the first tokens of the slots admitted at it."""
+        if self._table is None:
+            self._table = self._exchange()
+        return self._record_firsts(self._table)
+
+    def _exchange(self) -> List[List[int]]:
+        """The boundary's one collective: every rank's exchange buffer and
+        clock, gathered over the axis.  Returns one row a slot (tokens, NaN
+        flag, first token, prompt-NaN flag); advances the mesh clock and
+        stamps the requests submitted since the last boundary."""
+        clock = torch.tensor([int((time.perf_counter() - self._epoch)
+                                  * 1e6)])
+        # gloo: the copy to the host is the chunk's host sync
+        payload = torch.cat([self._xbuf.reshape(-1).to(self._xdev),
+                             _to_device(clock, self._xdev)])
+        rows, dt = self._all_gather(payload)
+        table = torch.stack(rows).cpu()
+        self._gather_s += dt
+        self._n_gathers += 1
+        obs.histogram("serve.mesh_gather_s").observe(dt)
+        self._mesh_now = int(table[:, -1].max()) / 1e6
+        for rid in self._unstamped:
+            self._stamped[rid] = self._mesh_now
+        self._unstamped = []
+        return table[:, :-1].reshape(self.slots, self.chunk + 3).tolist()
+
+    # -- admission: prefill on the owner, records after the gather ----------
+
+    def _finish_admit(self, slot: int, rid: int) -> bool:
+        """The prompt is fully cached.  The owner installs the lane's
+        decode state and samples the first token into the exchange buffer
+        (no host sync); every rank notes the admission, to be recorded
+        after the boundary's gather (:meth:`_record_firsts`), so none ends
+        here.  A lane whose request ends at its first token
+        (``max_new_tokens <= 1``, or a poisoned prompt under the NaN guard)
+        is parked now, and so is one whose prompt logits are not finite."""
+        guard = self.resilience.nan_guard
+        ends = (self.sched.slots[slot].remaining <= 1
+                or (guard and slot in self._nan_prefill))
+        lane = self._lane(slot)
+        if lane is not None:
+            first, logits = self._install_lane(slot, lane, rid)
+            st = self.st
+            admit = self._xbuf[lane, self.chunk + 1:]
+            admit[0].copy_(first[0])
+            admit[1].copy_(~torch.isfinite(logits).all())
+            plen = len(self._requests[rid].prompt)
+            if ends:
+                st.pos[lane].fill_(self.max_seq)
+            elif guard:                # a non-finite prompt stays parked
+                st.pos[lane:lane + 1].copy_(
+                    admit[1:2] * (self.max_seq - plen) + plen)
+            else:
+                st.pos[lane].fill_(plen)
+        self._pending_first.append((slot, rid, ends))
+        if not ends:
+            self._nan_decode_drill(slot, rid)
+        return False
+
+    def _record_firsts(self, table: List[List[int]]) -> List[int]:
+        """Record the first token of every slot admitted at this boundary,
+        from the gather; quarantine those whose prompt logits were not
+        finite.  Returns the request ids that ended."""
+        out: List[int] = []
+        for slot, rid, _ in self._pending_first:
+            row = table[slot]
+            if self.resilience.nan_guard and row[self.chunk + 2]:
+                self._quarantine_nan(slot, rid, "non-finite prefill logits",
+                                     where="prefill")
+                out.append(rid)
+            elif self.sched.record_first(slot, row[self.chunk + 1]):
+                self._park_lane(slot)
+                out.append(rid)
+        self._pending_first = []
+        return out
+
+    # -- failure domains: detection -> evacuation -> shrink ------------------
+
+    def _domain_sweep(self) -> None:
+        if self.domains is None:
+            return
+        ev = self.domains.poll()
+        if ev is None:
+            return
+        if ev.kind == "slow":
+            obs.counter("serve.host_slow").inc()
+            obs.event("serve.host_slow", host=ev.host,
+                      strikes=self.domains.slow_count(ev.host),
+                      cause=ev.cause)
+            log.warning("%s", ev.cause)
+            if ev.delay_s:
+                time.sleep(ev.delay_s)   # the drill's injected stall
+            return
+        self._handle_host_loss(ev.host, ev.cause)
+
+    def _handle_host_loss(self, host: int, cause: str) -> None:
+        """Survive the loss of ``host``: evacuate its slots to the queue
+        front, shrink the mesh onto the survivors, re-place the state,
+        re-tune for the new descriptor, and record the shrink as a
+        degradation (one provenance origin and one ``host_lost`` flight
+        dump per event).  A rank of a lost host leaves."""
+        import torch.distributed as dist
+        from repro_torch.mesh.strategy import descriptor
+        dom = self.domains
+        frm = descriptor(self.mesh)
+        lost_slots = set(dom.slots_of_host(host, self.slots))
+        # the slot axis must divide the surviving positions; when it would
+        # not (uneven host sizes), drop further hosts from the tail until
+        # it does: a smaller servable mesh beats an unshardable one
+        drop = [host]
+
+        def _size_after() -> int:
+            return sum(len(g) for h, g in enumerate(dom.groups)
+                       if dom.alive[h] and h not in drop)
+
+        while _size_after() and self.slots % _size_after() != 0:
+            extra = max(h for h in dom.alive_hosts() if h not in drop)
+            drop.append(extra)
+            lost_slots |= set(dom.slots_of_host(extra, self.slots))
+        survivors = [dom.ranks[p] for h, g in enumerate(dom.groups)
+                     if dom.alive[h] and h not in drop for p in g]
+        me_lost = dist.get_rank() not in survivors
+        if me_lost:
+            self.journal = None         # a lost host writes nothing more
+        self._n_host_losses += 1
+        obs.counter("serve.host_losses").inc()
+        log.warning("host %d lost (%s): evacuating slots %s and shrinking "
+                    "the mesh", host, cause, sorted(lost_slots))
+        evacuated: List[int] = []
+        # descending slot order + appendleft => evacuees rejoin the queue
+        # front in ascending slot order (FIFO among themselves, ahead of
+        # never-admitted requests)
+        for slot in sorted(lost_slots, reverse=True):
+            rid = self.sched.evacuate(slot, reason=cause)
+            if rid is None:
+                continue
+            self._evict_slot(slot)
+            evacuated.append(rid)
+            if self.journal is not None:
+                self.journal.record_evacuate(rid, host)
+        for h in drop:
+            dom.mark_lost(h)    # raises when no host survives: unservable
+        to = f"{self.mesh_axis}={dom.axis_size()}"
+        new_mesh = dom.shrunk_mesh()
+        if me_lost:
+            self._leave()
+            return
+        obs.event("serve.host_lost", host=host, cause=cause, frm=frm,
+                  to=to, evacuated=",".join(str(r) for r in evacuated),
+                  dropped_hosts=",".join(str(h) for h in drop))
+        self._remesh(new_mesh, sorted(lost_slots))
+        record_degradation(
+            "mesh", "serve.engine",
+            key=f"serve|mesh|slots={self.slots}|axis={self.mesh_axis}",
+            frm=f"mesh({frm})", to=f"mesh({to})", note=cause,
+            params={"mesh_axis": self.mesh_axis, "hosts": dom.n_hosts,
+                    "alive": len(dom.alive_hosts())},
+            dump=False)
+        # exactly ONE flight dump per host-loss event, reason host_lost
+        # (record_degradation's generic dump is suppressed above)
+        obs.flight_dump("host_lost", host=host, cause=cause, frm=frm,
+                        to=to, evacuated=",".join(str(r) for r in evacuated))
+        if self.journal is not None:
+            self.journal.record_shrink(frm, to, host, cause)
+        self._retune_mesh(to)
+
+    def _leave(self) -> None:
+        """This rank's host was lost: stop serving and free the decode
+        state (in a drill the process lives on; a dead host's would not)."""
+        self.left = True
+        self.st = None
+        self._staging, self._admit_logits = {}, {}
+        if self._graphs is not None:
+            self._graphs.reset()
+        log.warning("this rank's host was lost: leaving the mesh")
+
+    def _live_pages(self, index: int, per: int) -> List[tuple]:
+        """``(slot, pages)`` of every live slot of axis position ``index``
+        when each holds ``per`` slots, in slot order: the pages it owns
+        (paged), which every rank reads alike off the replicated
+        allocator."""
+        return [(slot, self.pool.owned(slot))
+                for slot in range(index * per, (index + 1) * per)
+                if not self.sched.slots[slot].free]
+
+    def _pack_lanes(self, width: int) -> torch.Tensor:
+        """This rank's lanes' state as one uint8 buffer on :attr:`_xdev`:
+        its axis index, then, dense, per lane its cache row (a prompt
+        still prefilling sends its staging cache) and which lanes were
+        staged, or, paged, the pages its live slots own
+        (:meth:`_live_pages`), zero-padded to ``width`` pages (the most
+        any position owns) so every rank sends as many bytes; then per lane its token,
+        position, temperature, top-k and generator state."""
+        st, dev = self.st, self._xdev
+
+        def as_bytes(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().contiguous().reshape(-1).view(
+                torch.uint8).to(dev)
+        parts = [as_bytes(torch.tensor([self._index]))]
+        if self.kv_layout == "paged":
+            pages = [b for _, owned in self._live_pages(self._index,
+                                                        self.per)
+                     for b in owned]
+            idx = torch.tensor(pages, dtype=torch.long,
+                               device=st.cache.k.device)
+            for pool in st.cache:
+                live = pool.index_select(1, idx)
+                pad = live.new_zeros((live.shape[0], width - len(pages))
+                                     + live.shape[2:])
+                parts.append(as_bytes(torch.cat([live, pad], dim=1)))
+        else:
+            staged = []
+            for lane in range(self.per):
+                src = self._staging.get(self._index * self.per + lane)
+                staged.append(src is not None)
+                k, v = ((src.k[:, 0], src.v[:, 0]) if src is not None
+                        else (st.cache.k[:, lane], st.cache.v[:, lane]))
+                parts += [as_bytes(k), as_bytes(v)]
+            parts.append(as_bytes(torch.tensor(staged, dtype=torch.uint8)))
+        parts += [as_bytes(t) for t in (st.tokens, st.pos, st.temps,
+                                        st.top_ks)]
+        parts += [as_bytes(g.get_state()) for g in st.generators]
+        return torch.cat(parts)
+
+    def _remesh(self, new_mesh, lost_slots: List[int]) -> None:
+        """Re-place the decode state under the survivors' mapping with one
+        ``all_gather`` of every survivor's lanes (:meth:`_pack_lanes`) over
+        their group: each rank takes the rows (dense) or pages (paged) of
+        its new slots, the lost ones zeroed (the dead host's memory is
+        gone: nothing may depend on it, and survivors provably do not:
+        their rows arrive bit for bit)."""
+        from repro_torch.mesh.strategy import axis_sizes
+        old_per, old_n, lost = self.per, self._n, set(lost_slots)
+        cfg = self.model.cfg
+        with obs.span("serve.remesh", frm=str(axis_sizes(self.mesh)),
+                      to=str(axis_sizes(new_mesh))):
+            width = (max(sum(len(b) for _, b in self._live_pages(q, old_per))
+                         for q in range(old_n))
+                     if self.kv_layout == "paged" else 0)
+            payload = self._pack_lanes(width)
+            pool = self.pool
+            if self._graphs is not None:
+                self._graphs.reset()        # their buffers go
+                self._captures_at_shrink = self._graphs.captures
+            self.st = None
+            self._place(new_mesh)
+            parts = {}
+            for buf in self._all_gather(payload)[0]:
+                rd = _Reader(buf)
+                parts[int(rd.take((1,), torch.long))] = rd
+            self._init_device_state()
+            self.pool = pool                # the replicated allocator
+            st, dev = self.st, self.device
+            dt = cfg.torch_dtype
+            row = (cfg.n_layers, self.max_seq, cfg.n_kv_heads, cfg.hd)
+            page = (cfg.n_layers, width) + tuple(st.cache.k.shape[2:])
+            gen_bytes = st.generators[0].get_state().numel()
+            fields = {}
+            for q, rd in parts.items():
+                if self.kv_layout == "paged":
+                    kv, staged = [rd.take(page, dt) for _ in range(2)], None
+                else:
+                    kv = [[rd.take(row, dt), rd.take(row, dt)]
+                          for _ in range(old_per)]
+                    staged = rd.take((old_per,), torch.uint8).tolist()
+                lanes = [rd.take((old_per,), d) for d in
+                         (torch.long, torch.long, torch.float32, torch.long)]
+                gens = [rd.take((gen_bytes,), torch.uint8)
+                        for _ in range(old_per)]
+                fields[q] = (kv, staged, lanes, gens)
+            for lane in range(self.per):
+                slot = self._index * self.per + lane
+                s = self.sched.slots[slot]
+                if s.free or slot in lost:
+                    continue                # zero and parked
+                q, old = divmod(slot, old_per)
+                kv, staged, lanes, gens = fields[q]
+                if self.kv_layout == "paged":
+                    # the slot's pages sit in q's buffer after those of q's
+                    # earlier live slots
+                    at = 0
+                    for other, blocks in self._live_pages(q, old_per):
+                        if other == slot:
+                            break
+                        at += len(blocks)
+                    blocks = pool.owned(slot)
+                    idx = torch.tensor(blocks, dtype=torch.long, device=dev)
+                    for mine, theirs in zip(st.cache, kv):
+                        mine.index_copy_(1, idx, theirs[:, at:at + len(
+                            blocks)].to(dev))
+                    st.block_tables[lane].copy_(torch.tensor(
+                        table_row(blocks, self.max_blocks,
+                                  self.kv_blocks)).to(dev))
+                elif staged[old]:
+                    self._staging[slot] = KVCache(
+                        *(t[:, None].to(dev).clone() for t in kv[old]))
+                else:
+                    st.cache.k[:, lane].copy_(kv[old][0])
+                    st.cache.v[:, lane].copy_(kv[old][1])
+                for mine, theirs in zip((st.tokens, st.pos, st.temps,
+                                         st.top_ks), lanes):
+                    mine[lane].copy_(theirs[old])
+                st.generators[lane].set_state(gens[old].cpu())
+        # the chunk is captured anew at the new per: reset the warm
+        # baseline so that capture is not counted as a re-capture
+        self._warm_captures = None
+
+    def _retune_mesh(self, desc: str) -> None:
+        """Re-rank mesh-axis candidates for the shrunk descriptor (cache
+        keys carry it, so this fills the cold rows the new mesh would
+        otherwise tune one by one at dispatch)."""
+        if self.tuning_cache is None:
+            return
+        from repro_torch.serve.domains import retune_for_mesh
+        try:
+            retune_for_mesh(self.model.cfg, desc, max_seq=self.max_seq,
+                            batch_sizes=(1, self.slots),
+                            cache=self.tuning_cache)
+        except Exception:
+            log.debug("mesh retune for %s skipped", desc, exc_info=True)

@@ -55,6 +55,13 @@ class ChunkGraphs:
     def captures(self) -> int:
         return len(self.keys)
 
+    def reset(self) -> None:
+        """Drop every graph and the memory pool (their buffers are gone);
+        the keys captured so far stay counted, and a key met again is
+        captured anew."""
+        self._graphs.clear()
+        self._pool = None
+
     def run(self, key: Hashable, chunk_fn: Callable[[], None],
             generators: Sequence[torch.Generator]) -> None:
         """Run one chunk: replay ``key``'s graph, or, the first time, run

@@ -372,7 +372,8 @@ class Scheduler:
                   reason=reason)
         return rid
 
-    def check_deadlines(self, now: Optional[float] = None
+    def check_deadlines(self, now: Optional[float] = None,
+                        since: Optional[Dict[int, float]] = None
                         ) -> List[Tuple[Optional[int], int]]:
         """Expire requests past their deadlines; returns
         ``(freed slot or None, req_id)`` per expiry.
@@ -380,13 +381,23 @@ class Scheduler:
         Two clocks per request, both from ``t_submit``: ``ttft_deadline_s``
         applies until the first token lands (``t_first``), ``deadline_s``
         applies end-to-end.  Swept at chunk boundaries: a deadline is
-        enforced at the first boundary at or after its expiry."""
+        enforced at the first boundary at or after its expiry.
+
+        ``since`` (with ``now``) measures each request from its time in
+        ``since`` instead of ``t_submit``, on ``now``'s clock; a request
+        missing from it is not swept (the sharded engine's mesh clock,
+        ``repro_torch.serve.engine.ShardedEngine``)."""
         now = time.perf_counter() if now is None else now
         expired: List[Tuple[str, int]] = []
         for rid, meta in self.meta.items():
             if rid in self.done:
                 continue
-            waited = now - meta["t_submit"]
+            if since is None:
+                waited = now - meta["t_submit"]
+            elif rid in since:
+                waited = now - since[rid]
+            else:
+                continue
             dl = meta.get("deadline_s")
             ttft = meta.get("ttft_deadline_s")
             if dl is not None and waited >= dl:

@@ -6,8 +6,10 @@ The port's copy of the mesh context of ``repro.sharding.ctx``
 ``torch.distributed`` ``DeviceMesh`` with named dims.  ``constraint(x,
 *axes)`` is the identity with no mesh set, as in the reference, so
 single-device code and CPU smoke runs are unaffected; with a mesh set it
-raises until sharded serving and training bring the sharding rules
-(ROADMAP.md queue 1 item 7b).
+raises until training on a mesh brings the sharding rules (ROADMAP.md
+queue 1 item 7c).  The sharded serving engine reads the mesh from here
+(``repro_torch.serve.engine.ShardedEngine``) and needs no rule: it
+replicates the weights and shards only its slots.
 """
 from __future__ import annotations
 
@@ -63,4 +65,4 @@ def constraint(x, *axes):
         return x
     raise NotImplementedError(
         "sharding.ctx.constraint with a mesh set: the sharding rules come "
-        "with sharded serving and training (ROADMAP.md queue 1 item 7b)")
+        "with training on a mesh (ROADMAP.md queue 1 item 7c)")

@@ -50,10 +50,22 @@ Sites wired into the port:
                         (``compiler.executors.ExecutorCache``)
     artefact.corrupt    ctx what, path: a JSON artefact reads as corrupt
                         (``ft.artefacts.load_json``)
+    mesh.host_lost      ctx host, axis: host ``host`` of the sharded
+                        engine's mesh axis is lost at this chunk boundary
+    mesh.host_slow      ctx host, axis: host ``host`` straggles this
+                        boundary (``value``: the stall in seconds); past
+                        the engine's threshold of strikes it is lost
+    collective.timeout  ctx axis: the boundary's collective timed out;
+                        ``value`` names the presumed-dead host (default:
+                        the last alive one)
 
-The reference's mesh sites (``mesh.host_lost``, ``mesh.host_slow``,
-``collective.timeout``) come with the port's sharded serving (ROADMAP.md
-queue 1 item 7b).  A plan naming them parses and never fires.
+The three mesh sites are polled by
+``repro_torch.serve.domains.FailureDomains.poll`` once at every chunk
+boundary of a ``ShardedEngine``.  A plan is each process's own: the ranks
+of a sharded engine each hold one (given the same spec, by ``inject`` or
+``REPRO_FAULTS``) and poll every site at the same points with the same
+context, so every rank sees the same firing at the same boundary, and
+their replicated schedulers take the same decision.
 
 When no plan is active (no ``inject`` scope, no ``REPRO_FAULTS``),
 ``should_fire`` is two dict lookups — the sites cost nothing in

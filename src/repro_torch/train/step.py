@@ -20,8 +20,8 @@ written; the step re-raises it as ``PartialUpdateError``, which
 
 Remat is the model's (``cfg.remat``: each block under
 ``torch.utils.checkpoint``).  Sharding (``state_specs``, a mesh of more
-than one device) waits for sharded serving and training (ROADMAP.md queue 1
-item 7b)."""
+than one device) waits for training on a mesh (ROADMAP.md queue 1 item
+7c)."""
 from __future__ import annotations
 
 import math
@@ -35,8 +35,8 @@ from repro_torch.ft.resilience import PartialUpdateError
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 
-_MESH_ITEM = ("sharded training comes with sharded serving and training "
-              "(ROADMAP.md queue 1 item 7b)")
+_MESH_ITEM = ("sharded training comes with training on a mesh "
+              "(ROADMAP.md queue 1 item 7c)")
 
 
 def make_train_state(model: Model, generator: torch.Generator, *,

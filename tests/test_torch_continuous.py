@@ -272,14 +272,20 @@ def test_request_checks_and_unported_options_raise(setup, tmp_path):
     with pytest.raises(ValueError, match="kv_layout"):
         ContinuousEngine(model, params, kv_layout="sparse")
     # resilience= and journal= are ported (tests/test_torch_resilience.py,
-    # tests/test_torch_journal.py); the sharded engine is not
+    # tests/test_torch_journal.py); so is the sharded engine, whose
+    # construction checks come before it touches a process group (its runs:
+    # tests/test_torch_sharded.py)
     engine = ContinuousEngine(model, params,
                               resilience=ResilienceConfig(nan_guard=False),
                               journal=tmp_path / "j.jsonl")
     assert not engine.resilience.nan_guard
     assert isinstance(engine.journal, SchedulerJournal)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         ShardedEngine(model, params)
+    with pytest.raises(ValueError, match="axis 'data' not in mesh axes"):
+        ShardedEngine(model, params, mesh={"model": 2})
+    with pytest.raises(ValueError, match="divisible by mesh axis 'data'"):
+        ShardedEngine(model, params, slots=8, mesh={"data": 3})
 
 
 def test_kv_layout_auto_and_tuning_cache(setup, tmp_path, monkeypatch):

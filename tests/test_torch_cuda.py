@@ -1349,3 +1349,134 @@ def test_capture_failure_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         engine.run(_traffic(2), seed=0)
     assert engine.stats()["captures"] == 0
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _greedy_traffic():
+    return [Request(prompt=[(5 * i + 2 * j) % 256 for j in range(n)],
+                    max_new_tokens=6) for i, n in enumerate((9, 21, 4, 13))]
+
+
+LOSS = "mesh.host_lost(host=1, after=1)"
+# (run, kv layout, fault plan, route): the groups' own backend, or, "as
+# nccl", the groups taken for NCCL's while the gathers run over gloo
+SHARDED_RUNS = (("clean", "dense", [], "own"),
+                ("loss", "dense", [LOSS], "own"),
+                ("loss_paged", "paged", [LOSS], "own"),
+                ("as_nccl", "dense", [LOSS], "as_nccl"),
+                ("as_nccl_paged", "paged", [LOSS], "as_nccl"))
+
+
+def _sharded_card_rank(rank, world, runs):
+    """Smoke qwen3-4b in float32 through ``ShardedEngine`` on a ``data=2``
+    mesh with ``hosts=2``, the weights made on the CPU from seed 0: each
+    of ``runs`` (:data:`SHARDED_RUNS`) on a fresh engine, recording its
+    tokens, launches, descriptor and, taken as NCCL's, every gather's
+    devices (``tests/_sharded_ranks.exchange_as_nccl``)."""
+    import contextlib
+
+    from _sharded_ranks import exchange_as_nccl
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import ShardedEngine
+    from repro_torch.testing import faults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(smoke_config("qwen3_4b", use_flash=True))
+    params = _to(model.init_params(torch.Generator().manual_seed(0), "cpu"),
+                 "cuda")
+    mesh = make_mesh((world,), ("data",))
+    out = {}
+    for name, layout, plan, route in runs:
+        seen = []
+        with (exchange_as_nccl(seen) if route == "as_nccl"
+              else contextlib.nullcontext()):
+            eng = ShardedEngine(model, params, max_seq=64, slots=4, chunk=4,
+                                min_bucket=8, prefill_chunk=16, mesh=mesh,
+                                hosts=2, kv_layout=layout)
+            ops.reset_launch_counts()
+            with faults.inject(*plan):
+                toks = eng.run(_greedy_traffic(), seed=3)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[name] = {"tokens": toks, "launches": ops.launch_counts(),
+                     "descriptor": st["mesh"]["descriptor"],
+                     "left": eng.left, "gathers": seen,
+                     "host_losses": st["resilience"]["host_losses"]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def sharded_want():
+    """The single-process engine's greedy tokens on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model = Model(smoke_config("qwen3_4b", use_flash=True))
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    return ContinuousEngine(model, p_cpu, max_seq=64, slots=4, chunk=4,
+                            min_bucket=8, prefill_chunk=16).run(
+        _greedy_traffic(), seed=3)
+
+
+@pytest.fixture(scope="module")
+def sharded_on_card(sharded_want):
+    """Every run of :data:`SHARDED_RUNS` on two gloo ranks sharing the
+    card (NCCL refuses two ranks on one GPU)."""
+    from repro_torch.testing import ranks
+    return ranks.spawn(_sharded_card_rank, 2, backend="gloo",
+                       device="cuda", timeout=300, args=(SHARDED_RUNS,))
+
+
+def _check_loss(res, name, want):
+    """Host 1 lost at the second boundary: rank 0 serves every request on
+    ``data=1`` to the fault-free tokens, rank 1 leaves."""
+    assert res[0][name]["tokens"] == want
+    assert res[0][name]["descriptor"] == "data=1"
+    assert res[0][name]["host_losses"] == 1
+    assert res[1][name]["tokens"] is None and res[1][name]["left"]
+
+
+def test_sharded_engine_on_two_gloo_ranks_matches_cpu(sharded_on_card,
+                                                      sharded_want):
+    """Two ranks share the card over gloo: each launches K1 and K3 for its
+    own slots, and the greedy tokens equal the single-process engine's on
+    the CPU; after host 1 is lost, rank 0 serves every request on
+    ``data=1`` to the same tokens, dense and paged."""
+    for r in sharded_on_card:
+        assert r["clean"]["tokens"] == sharded_want
+        assert r["clean"]["descriptor"] == "data=2"
+        counts = r["clean"]["launches"]
+        assert counts["rmsnorm"] > 0 and counts["flash_attention"] > 0
+    for name in ("loss", "loss_paged"):
+        _check_loss(sharded_on_card, name, sharded_want)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_sharded_engine_hands_an_nccl_group_card_tensors(sharded_on_card,
+                                                         sharded_want,
+                                                         layout):
+    """With the groups taken for NCCL's (which takes no host tensor),
+    every gather, the host-loss re-placement's included, gets its input
+    and outputs on the card, and the loss ends token-identical."""
+    name = "as_nccl" if layout == "dense" else "as_nccl_paged"
+    for r in sharded_on_card:
+        assert r[name]["gathers"]
+        for device, outs, _, _ in r[name]["gathers"]:
+            assert (device, outs) == ("cuda", ["cuda"])
+    _check_loss(sharded_on_card, name, sharded_want)
+
+
+def test_sharded_engine_over_nccl_survives_a_host_loss(sharded_want):
+    """Two ranks on two cards over NCCL: the clean run and the host-loss
+    drill, dense and paged, end with the CPU's tokens."""
+    from repro_torch.testing import ranks
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (NCCL takes one rank a GPU)")
+    runs = [r for r in SHARDED_RUNS if r[3] == "own"]
+    res = ranks.spawn(_sharded_card_rank, 2, backend="nccl", device="cuda",
+                      timeout=300, args=(runs,))
+    for r in res:
+        assert r["clean"]["tokens"] == sharded_want
+    for name in ("loss", "loss_paged"):
+        _check_loss(res, name, sharded_want)

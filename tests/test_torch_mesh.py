@@ -471,7 +471,7 @@ def test_process_mesh_context(port, oracle, desc):
         assert math.isclose(got, want, rel_tol=TOL, abs_tol=TOL)
         assert dp == ("data",)
         assert kept == (("model",) if desc != "data=4" else None)
-        assert "item 7b" in res["ctx_constraint"]
+        assert "item 7c" in res["ctx_constraint"]
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,11 @@ import pytest
 import torch
 
 from repro import obs as jobs
+from repro.ft.resilience import elastic_remesh as jelastic_remesh
 from repro.ft.resilience import guard_update as jguard_update
 from repro.models.common import ModelConfig as JaxConfig
 from repro.models.transformer import Model as JaxModel
+from repro.serve import domains as jdomains
 from repro.serve.engine import BatchedEngine as JaxBatched
 from repro.serve.engine import ContinuousEngine as JaxContinuous
 from repro.serve.engine import Request as JaxRequest
@@ -431,16 +433,34 @@ def test_guard_update_equals_the_reference(metrics):
     assert ft.guard_update(metrics) == jguard_update(metrics)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: ft.elastic_remesh("data=8"), "item 7"),
-    (lambda: domains.FailureDomains(None, hosts=2), "item 7"),
-    (lambda: domains.HostEvent("lost", 1), "item 7"),
-    (lambda: domains.retune_for_mesh(None, "data=4", max_seq=64,
-                                     batch_sizes=(1,), cache=None), "item 7"),
+def _outcome(fn):
+    """A call's value, or its error's type and message."""
+    try:
+        return ("ok", fn())
+    except Exception as e:               # noqa: BLE001
+        return (type(e).__name__, str(e))
+
+
+_JFD, _TFD = jdomains.FailureDomains, domains.FailureDomains
+
+
+@pytest.mark.parametrize("call,ref", [
+    (lambda: ft.elastic_remesh("data=8", ("data",)),
+     lambda: jelastic_remesh("data=8", ("data",))),
+    (lambda: ft.elastic_remesh((4, 1)), lambda: jelastic_remesh((4, 1))),
+    (lambda: ft.elastic_remesh("single"), lambda: jelastic_remesh("single")),
+    (lambda: _TFD.partition(8, 3), lambda: _JFD.partition(8, 3)),
+    (lambda: _TFD({"data": 8}, hosts=4).slots_of_host(2, 16),
+     lambda: _JFD.slots_for(_JFD.partition(8, 4), [True] * 4, 2, 16)),
+    (lambda: dataclasses.asdict(domains.HostEvent("lost", 1, "why")),
+     lambda: dataclasses.asdict(jdomains.HostEvent("lost", 1, "why"))),
 ])
-def test_unported_pieces_raise_naming_their_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        call()
+def test_mesh_pieces_equal_the_reference(call, ref):
+    """The pieces of sharded serving this module's drills lean on, in
+    process (their runs on 4 ranks: tests/test_torch_sharded.py):
+    ``elastic_remesh``'s errors, the host partition and slot attribution
+    of ``FailureDomains``, ``HostEvent``'s fields."""
+    assert _outcome(call) == _outcome(ref)
 
 
 # ---------------------------------------------------------------------------

@@ -456,12 +456,12 @@ def test_make_train_state_and_unported_mesh():
     assert int(st["step"]) == 0 and st["step"].dtype == torch.int32
     assert all(m.dtype == torch.float32 and not m.any()
                for _, m in adamw.leaves(st["opt"]["m"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7c"):
         tstep.state_specs(st, None, cfg)
 
     class TwoDevices:
         size = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7c"):
         tstep.make_train_step(model, TwoDevices())
 
 
