@@ -237,7 +237,23 @@ result):
    rank 1 leaves, rank 0 serves every request on ``data=1``
    to (b)'s tokens, one host loss, the chunk captured anew at 4 lanes (each
    key once), one ``host_lost`` flight dump, the ``degraded(mesh(data=2)
-   ->mesh(data=1))`` origin, a clean journal with one shrink record.
+   ->mesh(data=1))`` origin, a clean journal with one shrink record;
+16. training on the data axes (``train.step`` on a mesh), after phase 15,
+   in spawned ranks (a failed rank fails the run), K1 / K3 forward and
+   backward launches zeroed before each step and checked exactly after it
+   on every rank: (a) one NCCL rank (``data=1``), qwen3-4b at full width
+   and depth, bf16, remat, 13b's batch, lr and warm-up, deterministic
+   algorithms: 3 one-device steps, then 3 mesh steps from the same seed-0
+   weights, their loss, grad norm and every tensor's bits (checksums)
+   equal, step time and peak memory beside 13b's; (b) DP, qwen3-4b cut
+   to 4 layers (two fp32 states share the card), and (c) FSDP, yi-9b
+   (``fsdp=True``) cut to 4 layers, fp32 with TF32 off, on two gloo ranks
+   sharing the card: rank 0 first runs the one-device step on the same
+   global batches (the other waits) and keeps its state on the host; then
+   both run 2 mesh steps, each rank's loss, grad norm and lr and every
+   leaf (gathered whole) held to it, (c)'s per-rank state bytes to
+   ``launch.dryrun.reckon``'s, each rank's collectives, state bytes,
+   peak memory and step times printed.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -246,7 +262,9 @@ variant, phase 13b's; K3-bwd's per variant in 13e too, as
 ``launches_13e``, and K3's fp32 variant's in phases 5 and 13e, as
 ``launches_phase5`` and ``launches_13e``), one entry per generated K4 program of phase 7 and
 one per tuned winner of phase 11, one ``dpia_cuda:mesh_<op>`` per mesh op
-of phase 14; K1's and K3's ``launches_phase15`` by run and rank), the
+of phase 14; K1's and K3's ``launches_phase15`` by run and rank; K1's, K3's
+and their backward kernels' ``launches_phase16``, a step, by part and
+rank), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -3429,6 +3447,325 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training on the data axes
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN_STEPS_ONE = 3   # 16a: one-device steps, then mesh steps
+SHARDED_TRAIN_STEPS = 2       # 16b / 16c
+SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
+# 16b / 16c: depth cut.  Two fp32 states with gradients (16 bytes a param:
+# qwen3-4b 0.101 B a layer + 0.778 B embed and head; yi-9b 0.173 B a layer
+# + 0.524 B) would share the card at 8 layers; 4 halves the layers' bytes
+# that gloo moves through the host (~0.8 GB/s between the two processes),
+# which set the phase's time: qwen3-4b ~19 GB a rank, yi-9b ~19 GB whole,
+# ~10 GB a rank under FSDP
+SHARDED_TRAIN_LAYERS = 4
+# 16b / 16c against the one-device step: 13e's card-vs-CPU tolerance (fp32,
+# TF32 off; sums in other orders), loss and gradient norm 1e-5 relative;
+# params also get 2 % of the one-device step's largest update of the leaf
+# (AdamW's update lr * m / sqrt(v) is O(lr) however small the gradient, so
+# where a gradient is near its sums' rounding the update's own error is
+# of the update's order; the CPU tests' 8-bit bound has the same form)
+SHARDED_STATE_TOL = STATE_TOL
+SHARDED_UPDATE_TOL = 2e-2
+SHARDED_METRIC_RTOL = 1e-5
+
+
+def _train_launches_a_step(cfg) -> dict:
+    """K1 / K3 forward and backward launches of one remat train step."""
+    per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    return {"rmsnorm": 2 * per_pass - 1, "rmsnorm_bwd": per_pass,
+            "flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def _sharded_steps(step, state, batches, cfg, variant, group=None):
+    """Run ``batches`` through ``step``, counts zeroed just before each
+    step and read just after: per step its metrics, seconds, K1 / K3
+    launches (checked exactly, every K3 launch on ``variant``) and, with a
+    data ``group``, its collectives."""
+    from repro_torch.kernels import ops
+    want = _train_launches_a_step(cfg)
+    rows = []
+    for batch in batches:
+        before = dict(group.counts) if group is not None else {}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if k in want}
+        by_v = ops.launch_counts_by_variant()
+        if counts != want or any(
+                by_v[k][variant] != want[k]
+                for k in ("flash_attention", "flash_attention_bwd")):
+            raise AssertionError(f"[16] launches {counts} (K3 {by_v}) != "
+                                 f"{want} a step, K3 all {variant}")
+        rows.append({**m, "s": dt, "launches": counts, "collectives": {
+            k: v - before.get(k, 0) for k, v in (
+                group.counts.items() if group is not None else ())}})
+    return state, rows
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.optim import adamw
+    return sum(t.numel() * t.element_size()
+               for _, leaf in adamw.leaves(state)
+               for t in (leaf if isinstance(leaf, adamw.QTensor) else (leaf,)))
+
+
+def sharded_train_one(rank, world):
+    """[16a] one NCCL rank (``data=1``), qwen3-4b at full width and depth,
+    bf16, remat, 13b's batch, lr and warm-up: 3 one-device steps, then 3
+    mesh steps from the same seed-0 weights; loss, grad norm and every
+    tensor's bits (checksums) compared."""
+    import gc
+    # deterministic algorithms (the embedding's gradient without atomics)
+    # want this set before cuBLAS starts, which it has not in this process
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = config(ARCH)
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    batches = [data.global_batch_at(i)
+               for i in range(SHARDED_TRAIN_STEPS_ONE)]
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    out = {}
+    for label, mesh in (("one_device", None),
+                        ("mesh", make_mesh((1, 1), ("data", "model")))):
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+        step = make_train_step(model, mesh, **kw)
+        state, rows = _sharded_steps(step, state, batches, cfg, "mma")
+        out[label] = {"steps": rows, "checksums": checksums(state),
+                      "state_bytes": _state_bytes(state),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    ctx.set_mesh(None)
+    return out
+
+
+def sharded_train_two(rank, world, arch):
+    """[16b] (qwen3-4b: DP) / [16c] (yi-9b: FSDP) on ``world`` gloo ranks
+    sharing the card, fp32 (TF32 off), cut to SHARDED_TRAIN_LAYERS layers:
+    rank 0 first runs the one-device step on the global batches (the
+    other waits) and keeps the final state on the host; then every rank
+    runs the mesh step from the same seed-0 weights, and each leaf,
+    gathered whole, is held to that state on rank 0."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import (make_train_state, make_train_step,
+                                        state_specs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    batches = [data.global_batch_at(i) for i in range(SHARDED_TRAIN_STEPS)]
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    out = {"rank": rank, "fsdp": cfg.fsdp}
+    oracle = start = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        start = {p: t.detach().to("cpu")
+                 for p, t in adamw.leaves(state["params"])}
+        state, rows = _sharded_steps(make_train_step(model, **kw), state,
+                                     batches, cfg, "tf32x3")
+        oracle = {p: t.detach().to("cpu") for p, t in adamw.leaves(state)}
+        out["one_device"] = {
+            "steps": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "s": time.perf_counter() - t0}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh((world, 1), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    out["init_s"] = time.perf_counter() - t0
+    out["state_bytes"] = _state_bytes(state)
+    step = make_train_step(model, mesh, **kw)
+    group = step.placement.group
+    state, out["steps"] = _sharded_steps(step, state, batches, cfg, "tf32x3",
+                                         group)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # every leaf whole (gathered one at a time) against the one-device step
+    specs = state_specs(make_train_state(model, torch.Generator(),
+                                         device="meta"), mesh, cfg)
+    worst, bad = {}, []
+    for path, t in adamw.leaves(state):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        d = group.split_dim(spec)
+        whole = t.detach() if d is None else group.all_gather(t.detach(), d)
+        if rank == 0 and not whole.is_floating_point():
+            if not torch.equal(whole.cpu(), oracle[path]):
+                bad.append("/".join(map(str, path)))
+        elif rank == 0:
+            want = oracle[path].to(whole.device)
+            err = (whole - want).abs()
+            part = path[0] if path[0] != "opt" else path[1]
+            worst[part] = max(worst.get(part, 0.0), (
+                err.max() / want.abs().max().clamp(min=1e-30)).item())
+            tol = SHARDED_STATE_TOL[0] * want.abs().max() + \
+                SHARDED_STATE_TOL[1] * want.abs()
+            if part == "params":
+                update = (want - start[path[1:]].to(whole.device)).abs().max()
+                worst["params_over_update"] = max(
+                    worst.get("params_over_update", 0.0),
+                    (err.max() / update.clamp(min=1e-30)).item())
+                tol = tol + SHARDED_UPDATE_TOL * update
+            if bool((err > tol).any()):
+                bad.append("/".join(map(str, path)))
+        del whole
+    out["worst_rel_to_leaf_max"], out["bad_leaves"] = worst, bad
+    del state, step, oracle, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx.set_mesh(None)
+    return out
+
+
+def phase_sharded_train(smi, train13):
+    """[16] training on the data axes, in spawned ranks (a failed rank
+    fails the run): (a) one NCCL rank, bitwise the one-device step; (b)
+    DP and (c) FSDP on two gloo ranks sharing the card, each held to the
+    one-device step, (c)'s per-rank state bytes to the dry run's."""
+    import gc
+
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    # 13b's numbers to print beside 16a's (none when run alone)
+    train13 = train13 or {"median_step_s": math.nan, "peak_gib": math.nan,
+                          "launches_a_step": None}
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[16] start: main process {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+    one = ranks.spawn(sharded_train_one, 1, backend="nccl", device="cuda",
+                      timeout=400)[0]
+    t_one = time.perf_counter() - t_start
+    a, b = one["one_device"], one["mesh"]
+    for x, y in zip(a["steps"], b["steps"]):
+        if (x["loss"], x["grad_norm"], x["applied"]) != (
+                y["loss"], y["grad_norm"], y["applied"]) or x["applied"] != 1:
+            raise AssertionError(f"[16a] one-device {x} != mesh {y}")
+    if a["checksums"] != b["checksums"] or \
+            a["state_bytes"] != b["state_bytes"]:
+        raise AssertionError("[16a] the mesh step's state differs from the "
+                             "one-device step's")
+    med = statistics.median(r["s"] for r in b["steps"][1:])
+    launches16 = {"16a": b["steps"][0]["launches"]}
+    log(f"[16a] data=1 (one NCCL rank), qwen3-4b full width and depth, bf16, "
+        f"remat, batch {TRAIN_BATCH} x {TRAIN_SEQ}, deterministic algorithms: "
+        f"{SHARDED_TRAIN_STEPS_ONE} one-device steps then "
+        f"{SHARDED_TRAIN_STEPS_ONE} mesh steps from seed 0, loss, grad norm "
+        f"and every tensor bitwise equal (checksums of "
+        f"{len(a['checksums']) // 2} tensors); losses "
+        f"{[r['loss'] for r in b['steps']]}; step s one-device "
+        f"{[round(r['s'], 4) for r in a['steps']]}, mesh "
+        f"{[round(r['s'], 4) for r in b['steps']]} (median after the first "
+        f"{med:.4f}) beside 13b's {train13['median_step_s']:.4f}; peak GiB "
+        f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} beside 13b's "
+        f"{train13['peak_gib']:.2f}; K1 / K3 launches a step "
+        f"{b['steps'][0]['launches']} beside 13b's "
+        f"{train13['launches_a_step']}; card {smi}")
+    cells = {"16b": "qwen3_4b", "16c": "yi_9b"}
+    times = {}
+    for label, arch in cells.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = ranks.spawn(sharded_train_two, SHARDED_TRAIN_RANKS,
+                          backend="gloo", device="cuda", timeout=600,
+                          args=(arch,))
+        times[label] = time.perf_counter() - t0
+        ref = two[0]["one_device"]
+        cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+        reckoned = dryrun.reckon(
+            cfg, {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "kind": "train"},
+            {"data": SHARDED_TRAIN_RANKS, "model": 1})["memory"]
+        for r in two:
+            for x, y in zip(r["steps"], ref["steps"]):
+                for key in ("loss", "grad_norm"):
+                    if not math.isclose(x[key], y[key],
+                                        rel_tol=SHARDED_METRIC_RTOL):
+                        raise AssertionError(
+                            f"[{label}] rank {r['rank']} {key} {x[key]} vs "
+                            f"the one-device step's {y[key]}")
+                if x["applied"] != 1 or x["lr"] != y["lr"]:
+                    raise AssertionError(f"[{label}] rank {r['rank']}: {x}")
+            if label == "16c" and r["state_bytes"] != reckoned["state_bytes"]:
+                raise AssertionError(
+                    f"[16c] rank {r['rank']} holds {r['state_bytes']} bytes "
+                    f"of state, the dry run reckons "
+                    f"{reckoned['state_bytes']}")
+        if two[0]["bad_leaves"]:
+            raise AssertionError(f"[{label}] leaves beyond the tolerance "
+                                 f"{SHARDED_STATE_TOL} (params + "
+                                 f"{SHARDED_UPDATE_TOL} x update): "
+                                 f"{two[0]['bad_leaves']} (worst "
+                                 f"{two[0]['worst_rel_to_leaf_max']})")
+        launches16[label] = [r["steps"][0]["launches"] for r in two]
+        mode = "FSDP" if two[0]["fsdp"] else "DP"
+        log(f"[{label}] {mode}, {arch} at full width cut to "
+            f"{SHARDED_TRAIN_LAYERS} layers (two fp32 states share the one "
+            f"card), fp32 (TF32 off), data={SHARDED_TRAIN_RANKS} (gloo ranks "
+            f"sharing one card), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"{SHARDED_TRAIN_STEPS} steps: loss, grad norm, lr and every leaf "
+            f"against the one-device step (tolerance {SHARDED_STATE_TOL}, "
+            f"params + {SHARDED_UPDATE_TOL} x the leaf's largest update, "
+            f"metrics {SHARDED_METRIC_RTOL} relative): worst error over the "
+            f"leaf's largest magnitude (params: and over its largest update) "
+            f"{two[0]['worst_rel_to_leaf_max']}; "
+            + json.dumps({
+                "one_device": {k: ref[k] for k in ("state_bytes", "peak_gib",
+                                                   "s")},
+                "one_device_steps": [{k: s[k] for k in ("loss", "grad_norm",
+                                                        "s")}
+                                     for s in ref["steps"]],
+                "dryrun_memory": reckoned,
+                "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
+                           "peak_gib": r["peak_gib"], "init_s": r["init_s"],
+                           "steps": r["steps"]} for r in two]})
+            + f"; {times[label]:.1f} s with the processes; card {smi}")
+    log(f"[16] summary: 16a {t_one:.1f} s, 16b {times['16b']:.1f} s, 16c "
+        f"{times['16c']:.1f} s (processes included), phase 16 "
+        f"{time.perf_counter() - t_start:.1f} s; card {smi}")
+    return launches16
+
+
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3520,6 +3857,7 @@ def _run_phases(tune_cache: str) -> int:
     tuned = phase_tune(smi, tune_cache)
     mesh_one, mesh_two = phase_mesh(smi, dpia)
     sharded = phase_sharded(smi, want, report["dense graph"]["tok_s_median"])
+    sharded_train = phase_sharded_train(smi, train)
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -3548,6 +3886,14 @@ def _run_phases(tune_cache: str) -> int:
                 key: ([c[k["name"]] for c in v] if isinstance(v, list)
                       else {lay: c[k["name"]] for lay, c in v.items()})
                 for key, v in sharded.items()}
+        if k["name"] in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                         "flash_attention_bwd"):
+            # phase 16's sharded training, a step: 16a's one rank, 16b's and
+            # 16c's ranks
+            entry["launches_phase16"] = {
+                key: ([c[k["name"]] for c in v] if isinstance(v, list)
+                      else v[k["name"]])
+                for key, v in sharded_train.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

@@ -11,6 +11,14 @@ on restore, onto the template's device.  Writes go to a temp dir and an
 atomic rename; the async mode copies to the host on the train thread and
 writes on a worker thread, so the loop overlaps I/O with compute.
 
+On a mesh (``CheckpointManager(..., mesh=, specs=)``, ``specs`` the train
+state's ``train.step.state_specs``), a checkpoint still holds the global
+state, as the reference's do (``device_get`` of global arrays): ``save``
+all-gathers the leaves one at a time over the data group (every rank
+calls it) and the group's index 0 writes them; ``restore`` has index 0
+pick the step and every rank cut its own shard of each leaf.  So one
+checkpoint moves between meshes of any data size and one process.
+
 Manifests go through the checksummed atomic store of
 ``repro_torch.ft.artefacts``.  A corrupt manifest is quarantined
 (``manifest.json.quarantine/``) and its step vanishes from
@@ -43,38 +51,69 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _flatten(state) -> Dict[str, np.ndarray]:
-    """Every leaf of ``state`` as a host array under its path."""
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _parts(key: str, leaf, spec):
+    """``(key, tensor, spec)`` of each tensor of a leaf (a QTensor's
+    payload and scale under ``.../q`` and ``.../scale``)."""
+    if isinstance(leaf, QTensor):
+        specs = spec if spec is not None else (None, None)
+        return [(f"{key}/q", leaf.q, specs[0]),
+                (f"{key}/scale", leaf.scale, specs[1])]
+    return [(key, leaf, spec)]
+
+
+def _flatten(state, group=None, specs=None) -> Dict[str, np.ndarray]:
+    """Every leaf of ``state`` as a host array under its path; on a mesh
+    (``group``, a ``DataGroup``, and the state's ``specs``) each leaf
+    gathered whole first, and only the group's index 0 keeps it."""
     flat = {}
     for path, leaf in leaves(state):
         key = "/".join(str(k) for k in path)
-        if isinstance(leaf, QTensor):
-            flat[f"{key}/q"] = _host(leaf.q)
-            flat[f"{key}/scale"] = _host(leaf.scale)
-        else:
-            flat[key] = _host(leaf)
+        spec = _at(specs, path) if specs is not None else None
+        for name, t, sp in _parts(key, leaf, spec):
+            if group is not None:
+                d = group.split_dim(sp)
+                if d is not None:
+                    t = group.all_gather(t.detach(), d)
+                if group.index != 0:
+                    continue
+            flat[name] = _host(t)
     return flat
 
 
-def _unflatten_into(template, flat: Dict[str, np.ndarray], path=()):
+def _unflatten_into(template, flat: Dict[str, np.ndarray], path=(),
+                    cut=None, spec=None):
     """A new state shaped like ``template`` from ``flat``, each leaf in the
-    template's dtype, on its device, requiring grad where it does."""
+    template's dtype, on its device, requiring grad where it does; on a
+    mesh ``cut(array, spec)`` takes the rank's piece of each array, the
+    spec read from ``spec`` (the state's spec tree) along the way."""
     if template is None:
         return None
+
+    def sub(k):
+        return None if spec is None else spec[k]
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, path + (k,))
+        return {k: _unflatten_into(v, flat, path + (k,), cut, sub(k))
                 for k, v in template.items()}
     if isinstance(template, list):
-        return [_unflatten_into(v, flat, path + (i,))
+        return [_unflatten_into(v, flat, path + (i,), cut, sub(i))
                 for i, v in enumerate(template)]
     if isinstance(template, QTensor):
-        return QTensor(_unflatten_into(template.q, flat, path + ("q",)),
+        return QTensor(_unflatten_into(template.q, flat, path + ("q",), cut,
+                                       sub(0)),
                        _unflatten_into(template.scale, flat,
-                                       path + ("scale",)))
+                                       path + ("scale",), cut, sub(1)))
     key = "/".join(str(k) for k in path)
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key!r}")
     arr = flat[key]
+    if cut is not None:
+        arr = cut(arr, spec)
     if tuple(arr.shape) != tuple(template.shape):
         raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                          f"vs template {tuple(template.shape)}")
@@ -85,16 +124,28 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], path=()):
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, mesh=None,
+                 specs: Optional[Dict] = None):
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self.specs = specs
+        self.group = None
+        if mesh is not None:
+            if specs is None:
+                raise ValueError("a checkpoint on a mesh needs the state's "
+                                 "specs (train.step.state_specs)")
+            from repro_torch.sharding.collectives import DataGroup
+            self.group = DataGroup(mesh)
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state, *, extra: Optional[Dict] = None) -> None:
-        flat = _flatten(state)   # the host copy, on the train thread
+        # the host copy, on the train thread (on a mesh, every rank gathers)
+        flat = _flatten(state, self.group, self.specs)
+        if self.group is not None and self.group.index != 0:
+            return
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -158,14 +209,38 @@ class CheckpointManager:
                 f"(quarantined; see artefact.load_failed events)")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        state = _unflatten_into(template, flat)
+        cut = None
+        if self.group is not None:
+            from repro_torch.sharding import rules
+
+            def cut(arr, spec):
+                return rules.local_shard(torch.from_numpy(np.array(arr)),
+                                         self.group.mesh, spec,
+                                         self.group.coordinate)
+        state = _unflatten_into(template, flat, cut=cut, spec=self.specs)
         return state, manifest.get("extra", {})
 
     def restore_latest(self, template) -> Optional[Tuple[int, Any, Dict]]:
         """Restore the newest checkpoint that VERIFIES: a corrupt manifest
         or damaged arrays skips back to the next older step instead of
         killing the resume (losing a few steps of progress beats losing
-        the run)."""
+        the run).  On a mesh the group's index 0 picks the step and every
+        rank restores that one."""
+        if self.group is not None and self.group.size > 1:
+            found = None
+            if self.group.index == 0:
+                found = self._restore_latest(template)
+            step = self.group.broadcast_object(
+                None if found is None else found[0])
+            if step is None:
+                return None
+            if found is not None:
+                return found
+            state, extra = self.restore(step, template)
+            return step, state, extra
+        return self._restore_latest(template)
+
+    def _restore_latest(self, template):
         for step in reversed(self.all_steps()):
             try:
                 state, extra = self.restore(step, template)

@@ -7,10 +7,10 @@ the port runs are here; the rest arrive with their slices (ROADMAP.md).
 import dataclasses
 from importlib import import_module
 
-ARCH_IDS = ["qwen3_4b"]
+ARCH_IDS = ["qwen3_4b", "yi_9b"]
 
 # public names with dashes/dots as given in the assignment
-ALIASES = {"qwen3-4b": "qwen3_4b"}
+ALIASES = {"qwen3-4b": "qwen3_4b", "yi-9b": "yi_9b"}
 
 
 def get(arch: str):

@@ -29,3 +29,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def resolve_or_meta(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device`, or the ``meta`` device when it is asked for
+    by name: tensors with a shape and a dtype and no data, for what only
+    reckons with shapes (the dry run, ``repro_torch.launch.specs``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

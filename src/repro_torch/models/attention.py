@@ -32,17 +32,17 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_attn(generator: torch.Generator, cfg: ModelConfig
+def init_attn(generator: torch.Generator, cfg: ModelConfig, device=None
               ) -> Dict[str, Optional[torch.Tensor]]:
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt, dev = cfg.torch_dtype, generator.device
+    dt, dev = cfg.torch_dtype, device or generator.device
     zeros = lambda n: torch.zeros((n,), dtype=dt, device=dev)  # noqa: E731
     ones = lambda n: torch.ones((n,), dtype=dt, device=dev)    # noqa: E731
     return {
-        "wq": init_dense(generator, d, nh * hd, dt),
-        "wk": init_dense(generator, d, nkv * hd, dt),
-        "wv": init_dense(generator, d, nkv * hd, dt),
-        "wo": init_dense(generator, nh * hd, d, dt),
+        "wq": init_dense(generator, d, nh * hd, dt, device=dev),
+        "wk": init_dense(generator, d, nkv * hd, dt, device=dev),
+        "wv": init_dense(generator, d, nkv * hd, dt, device=dev),
+        "wo": init_dense(generator, nh * hd, d, dt, device=dev),
         "bq": zeros(nh * hd) if cfg.qkv_bias else None,
         "bk": zeros(nkv * hd) if cfg.qkv_bias else None,
         "bv": zeros(nkv * hd) if cfg.qkv_bias else None,

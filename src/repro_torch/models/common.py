@@ -55,14 +55,45 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once), the
+        reference's formula for the dense and MoE families (the others
+        arrive with their slices)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
+        if self.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet (ROADMAP.md "
+                f"queue 1 item 8)")
+        attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        ffn = 3 * d * f  # SwiGLU
+        if self.n_experts:
+            ffn = self.n_experts * 3 * d * f + d * self.n_experts  # + router
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + v * d + v * d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_moe = self.n_experts * 3 * d * f
+        active_moe = self.top_k * 3 * d * f
+        return self.param_count() - self.n_layers * (dense_moe - active_moe)
+
 
 def init_dense(generator: torch.Generator, d_in: int, d_out: int, dtype,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale: Optional[float] = None, device=None) -> torch.Tensor:
     """N(0, 1) * scale (default 1/sqrt(d_in)) drawn in fp32 on the
-    generator's device, then cast: the reference's distribution."""
+    generator's device (or on ``device``: ``meta`` gives the shape alone),
+    then cast: the reference's distribution."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=generator,
-                    device=generator.device, dtype=torch.float32)
+                    device=device or generator.device, dtype=torch.float32)
     return w.mul_(scale).to(dtype)
 
 

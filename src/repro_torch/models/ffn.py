@@ -12,12 +12,13 @@ from .common import ModelConfig, init_dense
 
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig,
-             d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+             d_ff: Optional[int] = None, device=None
+             ) -> Dict[str, torch.Tensor]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_dtype
-    return {"w_gate": init_dense(generator, d, f, dt),     # (d, f)
-            "w_up": init_dense(generator, d, f, dt),       # (d, f)
-            "w_down": init_dense(generator, f, d, dt)}     # (f, d)
+    return {"w_gate": init_dense(generator, d, f, dt, device=device),  # (d, f)
+            "w_up": init_dense(generator, d, f, dt, device=device),    # (d, f)
+            "w_down": init_dense(generator, f, d, dt, device=device)}  # (f, d)
 
 
 def mlp(p: Dict[str, torch.Tensor], x):

@@ -25,7 +25,8 @@ from typing import Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, resolve_or_meta
+from repro_torch.sharding import ctx
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from .attention import KVCache
@@ -33,8 +34,15 @@ from .common import ModelConfig, cross_entropy, init_dense, rmsnorm
 
 
 def _block_fwd(p, cfg: ModelConfig, x, positions):
+    # FSDP: the layer's whole weights, gathered here so that remat gathers
+    # them again in its recompute (the identity outside a sharded step)
+    p = ctx.gathered(p, "blocks")
+    # the reference's sequence-parallel boundaries: the identity with no
+    # mesh or a mesh whose model axis has size 1 (ctx.constraint)
+    x = ctx.constraint(x, ctx.dp_axes(), "model", None)
     h = x + attn_mod.attention(p["attn"], cfg,
                                rmsnorm(x, p["ln1"], cfg.norm_eps), positions)
+    h = ctx.constraint(h, ctx.dp_axes(), "model", None)
     return h + ffn_mod.mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
 
 
@@ -51,27 +59,32 @@ class Model:
                     device: DeviceLike = None) -> Dict:
         """Random params drawn from ``generator`` on ``device`` (the CUDA
         device unless ``"cpu"`` is given; the generator must live there):
-        the reference's distributions, torch's random bits."""
+        the reference's distributions, torch's random bits.  ``"meta"``
+        gives the shapes and dtypes alone (any generator)."""
         cfg = self.cfg
-        device = resolve_device(device)
-        if generator.device.type != device.type:
+        device = resolve_or_meta(device)
+        if device.type != "meta" and generator.device.type != device.type:
             raise ValueError(f"generator on {generator.device} cannot draw "
                              f"params for {device}")
         dt = cfg.torch_dtype
         ones = lambda: torch.ones((cfg.d_model,), dtype=dt,  # noqa: E731
                                   device=device)
-        embed = init_dense(generator, cfg.vocab, cfg.d_model, dt, scale=0.02)
-        blocks = [{"ln1": ones(), "attn": attn_mod.init_attn(generator, cfg),
-                   "ln2": ones(), "mlp": ffn_mod.init_mlp(generator, cfg)}
+        embed = init_dense(generator, cfg.vocab, cfg.d_model, dt, scale=0.02,
+                           device=device)
+        blocks = [{"ln1": ones(),
+                   "attn": attn_mod.init_attn(generator, cfg, device),
+                   "ln2": ones(),
+                   "mlp": ffn_mod.init_mlp(generator, cfg, device=device)}
                   for _ in range(cfg.n_layers)]
         return {"embed": embed, "blocks": blocks, "ln_f": ones(),
-                "head": init_dense(generator, cfg.d_model, cfg.vocab, dt)}
+                "head": init_dense(generator, cfg.d_model, cfg.vocab, dt,
+                                   device=device)}
 
     # -- forward (scoring) ---------------------------------------------------
     def forward(self, params, tokens):
         """tokens (b, s) -> logits (b, s, vocab)."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = ctx.gathered(params["embed"], "embed")[tokens]
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -82,8 +95,8 @@ class Model:
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = _block_fwd(layer, cfg, x, positions)
-        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        return x @ params["head"]
+        x = rmsnorm(x, ctx.gathered(params["ln_f"], "ln_f"), cfg.norm_eps)
+        return x @ ctx.gathered(params["head"], "head")
 
     def loss(self, params, batch):
         """Mean next-token cross entropy (fp32, z-loss 1e-4, labels -100
@@ -99,10 +112,11 @@ class Model:
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
                    device: DeviceLike = None) -> KVCache:
-        """Zero KV cache, layer-stacked: k/v (L, batch, max_seq, nkv, hd)."""
+        """Zero KV cache, layer-stacked: k/v (L, batch, max_seq, nkv, hd)
+        (``"meta"``: the shapes alone)."""
         cfg = self.cfg
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        kw = dict(dtype=cfg.torch_dtype, device=resolve_device(device))
+        kw = dict(dtype=cfg.torch_dtype, device=resolve_or_meta(device))
         return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
 
     # -- paged serving cache -------------------------------------------------

@@ -29,8 +29,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["QTensor", "init", "cosine_schedule", "global_norm", "update",
-           "leaves", "groups", "tree_map", "unflatten", "decays"]
+__all__ = ["QTensor", "init", "cosine_schedule", "global_norm",
+           "sum_squares", "update", "leaves", "groups", "tree_map",
+           "unflatten", "decays"]
 
 
 class QTensor(NamedTuple):
@@ -161,28 +162,47 @@ def _f32(g: torch.Tensor, div: float) -> torch.Tensor:
     return g if div == 1 else g / div
 
 
-def global_norm(grads, *, div: float = 1) -> torch.Tensor:
-    """sqrt of the sum over leaves of the fp32 sum of squares (leaves in
-    :func:`leaves` order), of each leaf divided by ``div``."""
+def sum_squares(grads, *, div: float = 1,
+                keep: Optional[Callable] = None) -> torch.Tensor:
+    """The sum over leaves (in :func:`leaves` order; only those whose path
+    ``keep(path)`` accepts, when given) of the fp32 sum of squares of each
+    leaf divided by ``div``; an fp32 zero when none is kept."""
     total = None
-    for _, g in leaves(grads):
+    for path, g in leaves(grads):
+        if keep is not None and not keep(path):
+            continue
         f = _f32(g, div)
         s = torch.sum(f * f)
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    if total is None:
+        return torch.zeros((), dtype=torch.float32,
+                           device=leaves(grads)[0][1].device)
+    return total
+
+
+def global_norm(grads, *, div: float = 1) -> torch.Tensor:
+    """sqrt of the sum over leaves of the fp32 sum of squares (leaves in
+    :func:`leaves` order), of each leaf divided by ``div``."""
+    return torch.sqrt(sum_squares(grads, div=div))
 
 
 def update(params, grads, state: Dict, *, lr, b1: float = 0.9,
            b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
            clip_norm: Optional[float] = 1.0, use_8bit: bool = False,
-           grad_div: float = 1, grad_norm: Optional[torch.Tensor] = None
-           ) -> Dict:
+           grad_div: float = 1, grad_norm: Optional[torch.Tensor] = None,
+           reduce_amax: Optional[Callable] = None) -> Dict:
     """One AdamW step, in place on ``params`` and ``state`` (``m``, ``v``,
     ``step``); returns ``{"grad_norm": ...}``.
 
     ``grads`` is shaped like ``params``; each leaf is taken in fp32 and
     divided by ``grad_div`` first.  ``grad_norm`` may pass the global
-    norm already computed (the train step's NaN guard reads it first)."""
+    norm already computed (the train step's NaN guard reads it first).
+
+    8-bit moments are updated in two passes over every group: the new
+    moments' amax of each group first, then the params and the quantized
+    moments.  Between them ``reduce_amax``, when given, takes the list of
+    every group's ``(amax_m, amax_v)`` and returns it reduced (the sharded
+    step's one ``all_reduce(MAX)`` over ranks that hold shards)."""
     gnorm = global_norm(grads, div=grad_div) if grad_norm is None \
         else grad_norm
     if clip_norm is not None:
@@ -196,6 +216,7 @@ def update(params, grads, state: Dict, *, lr, b1: float = 0.9,
     bc2 = 1 - torch.pow(b2, step_f)
     ctx = dict(lr=lr, b1=b1, b2=b2, eps=eps, scale=scale, div=grad_div,
                bc1=bc1, bc2=bc2)
+    quantized = []
     with torch.no_grad():
         for path, stacked in groups(params):
             ps = _members(params, path, stacked)
@@ -204,11 +225,18 @@ def update(params, grads, state: Dict, *, lr, b1: float = 0.9,
             vs = _members(state["v"], path, stacked)
             wd = weight_decay if decays(path, ps[0], stacked) else 0.0
             if use_8bit:
-                _update_group_8bit(ps, gs, ms, vs, wd=wd, **ctx)
+                quantized.append((ps, gs, ms, vs, wd))
             else:
                 for p, g, m, v in zip(ps, gs, ms, vs):
                     _moments(g, m, v, **ctx)
                     _apply(p, m, v, wd=wd, **ctx)
+        if quantized:
+            amaxes = [_amax_8bit(gs, ms, vs, **ctx)
+                      for _, gs, ms, vs, _ in quantized]
+            if reduce_amax is not None:
+                amaxes = reduce_amax(amaxes)
+            for (ps, gs, ms, vs, wd), amax in zip(quantized, amaxes):
+                _apply_8bit(ps, gs, ms, vs, amax, wd=wd, **ctx)
     return {"grad_norm": gnorm}
 
 
@@ -238,26 +266,33 @@ def _apply(p, m, v, *, lr, eps, bc1, bc2, wd, **_):
         p.copy_(p32.sub_(delta))
 
 
-def _update_group_8bit(ps, gs, ms, vs, *, b1, b2, wd, **ctx):
-    """The 8-bit update of one stacked leaf: its new moments' amax over
-    every layer first (pass 1 computes and drops them), then each layer's
-    moments again, quantized with that one scale (pass 2, which also
-    updates the params from the unquantized moments)."""
-    def new_moments(g, m, v):
-        g = _scaled(g, **ctx)
-        m_new = _dequantize(m).mul_(b1).add_(g * (1 - b1))
-        v_new = _dequantize(v).mul_(b2).add_(g.square_().mul_(1 - b2))
-        return m_new, v_new
+def _new_moments_8bit(g, m, v, *, b1, b2, **ctx):
+    g = _scaled(g, **ctx)
+    m_new = _dequantize(m).mul_(b1).add_(g * (1 - b1))
+    v_new = _dequantize(v).mul_(b2).add_(g.square_().mul_(1 - b2))
+    return m_new, v_new
+
+
+def _amax_8bit(gs, ms, vs, **ctx):
+    """Pass 1 of a stacked leaf's 8-bit update: its new moments' amax
+    over every layer (computed and dropped)."""
     amax_m = amax_v = None
     for g, m, v in zip(gs, ms, vs):
-        m_new, v_new = new_moments(g, m, v)
+        m_new, v_new = _new_moments_8bit(g, m, v, **ctx)
         a_m, a_v = m_new.abs().max(), v_new.abs().max()
         amax_m = a_m if amax_m is None else torch.maximum(amax_m, a_m)
         amax_v = a_v if amax_v is None else torch.maximum(amax_v, a_v)
+    return amax_m, amax_v
+
+
+def _apply_8bit(ps, gs, ms, vs, amax, *, wd, **ctx):
+    """Pass 2: each layer's moments again, quantized with the leaf's one
+    scale, and the params updated from the unquantized moments."""
+    amax_m, amax_v = amax
     for p, g, m, v in zip(ps, gs, ms, vs):
-        m_new, v_new = new_moments(g, m, v)
+        m_new, v_new = _new_moments_8bit(g, m, v, **ctx)
         _apply(p, m_new, v_new, wd=wd, **ctx)
-        for t, new, amax in ((m, m_new, amax_m), (v, v_new, amax_v)):
-            qt = _quantize(new, amax)
+        for t, new, a in ((m, m_new, amax_m), (v, v_new, amax_v)):
+            qt = _quantize(new, a)
             t.q.copy_(qt.q)
             t.scale.copy_(qt.scale)

@@ -1,7 +1,6 @@
-"""repro_torch.sharding: the process mesh context (``ctx``).
+"""repro_torch.sharding: the process mesh context (``ctx``), the sharding
+rules (``rules``, the reference's ``repro.sharding.rules``) and the
+collectives of training on the data axes (``collectives``)."""
+from . import ctx, rules  # noqa: F401
 
-The reference's sharding rules (``repro.sharding.rules``) come with
-training on a mesh (ROADMAP.md queue 1 item 7c)."""
-from . import ctx  # noqa: F401
-
-__all__ = ["ctx"]
+__all__ = ["ctx", "rules"]

@@ -1,6 +1,7 @@
 """The train step: microbatch gradient accumulation (optionally in bf16),
-AdamW leaf by leaf in place, and the NaN guard; the port of
-``repro.train.step`` on one device.
+AdamW leaf by leaf in place, and the NaN guard; on one device, or SPMD on
+a mesh's data axes over ``torch.distributed``.  The port of
+``repro.train.step``.
 
 ``make_train_step`` returns ``step(state, batch) -> (state, metrics)``.
 The state (``make_train_state``) is ``{"params", "opt": {"m", "v",
@@ -19,50 +20,138 @@ written; the step re-raises it as ``PartialUpdateError``, which
 ``TrainLoop`` does not retry without a checkpoint to restore.
 
 Remat is the model's (``cfg.remat``: each block under
-``torch.utils.checkpoint``).  Sharding (``state_specs``, a mesh of more
-than one device) waits for training on a mesh (ROADMAP.md queue 1 item
-7c)."""
+``torch.utils.checkpoint``).
+
+**On a mesh** (``make_train_step(model, mesh)``, one process a rank, the
+mesh a named ``DeviceMesh``): the data-parallel axes are ``pod`` and
+``data`` (``sharding.rules.dp_axes``); every other dim must have size 1
+(the model axis is ROADMAP.md queue 1 item 7d and raises).  The step sets
+``sharding.ctx``'s mesh, as the reference's does.  Every rank is given the
+same global batch and the same call sequence; what it does:
+
+  * **batch**: the rank at data index ``r`` of W takes its rows as
+    ``sharding.rules.batch_specs`` places them: ``[r B / W, (r + 1) B /
+    W)``; with ``microbatches`` mb, microbatch ``i`` is the reference's
+    global rows ``[i B / mb, (i + 1) B / mb)`` and the rank holds its 1 / W
+    of them.  A batch that W x mb does not divide raises ``ValueError``;
+  * **loss**: the reference's, the mean over the global batch's (or
+    microbatch's) unmasked tokens: each rank's mean is scaled by its share
+    of the global count.  Every rank holds the global batch, so the counts
+    need no collective;
+  * **DP** (``cfg.fsdp`` false): the state is replicated and each gradient
+    leaf is all-reduced over the data group in its own dtype (bf16 for a
+    bf16 model, or a bf16 microbatch sum);
+  * **FSDP** (``cfg.fsdp``): params and moments live as this rank's shards
+    (``make_train_state(..., mesh=)`` or :func:`shard_state`); the model
+    gathers each leaf where it is used (``sharding.ctx.gathered``, inside
+    the block remat wraps) and its gradient comes back reduce-scattered
+    (``sharding.collectives``); leaves the rules leave whole are
+    all-reduced as under DP;
+  * **AdamW** updates the local shards with the reference's arithmetic:
+    the global norm sums the shards' squares over ranks in one
+    ``all_reduce`` (together with the loss), whole leaves counted once; an
+    8-bit moment's scale is the amax over all layers and ranks (one
+    ``all_reduce(MAX)``);
+  * **the NaN guard** reads the all-reduced loss and norm, so every rank
+    decides the same, before any write.
+
+A rank that raises fails the run: no rank may retry alone (its peers
+would wait in a collective), so a caller on a mesh does not retry steps
+(``launch.train`` runs ``TrainLoop`` with no retries there).  At W = 1 the
+step does the one-device step's arithmetic, no collective and no scaling:
+its bits are the one-device step's.
+
+``state_specs`` gives the rules' placement of a (global) state;
+``shard_state`` cuts a global state into a rank's shards and
+``gather_state`` is its inverse."""
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_or_meta
 from repro_torch.ft.resilience import PartialUpdateError
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
-
-_MESH_ITEM = ("sharded training comes with training on a mesh "
-              "(ROADMAP.md queue 1 item 7c)")
+from repro_torch.sharding import rules
 
 
 def make_train_state(model: Model, generator: torch.Generator, *,
-                     use_8bit: bool = False, device: DeviceLike = None
-                     ) -> Dict:
+                     use_8bit: bool = False, device: DeviceLike = None,
+                     mesh=None) -> Dict:
     """Params drawn from ``generator`` on ``device`` (the card unless
-    ``"cpu"``), marked to require grad, zero AdamW moments and counters."""
-    device = resolve_device(device)
+    ``"cpu"``; ``"meta"``: shapes only), marked to require grad, zero
+    AdamW moments and counters.  With ``mesh``, this rank's shards of that
+    state (the global params are drawn, then cut leaf by leaf)."""
+    device = resolve_or_meta(device)
     params = model.init_params(generator, device)
+    if mesh is not None:
+        specs = rules.params_specs(params, mesh, model.cfg)
+        coord = _coordinate(mesh)
+        params = rules.tree_map_specs(
+            lambda spec, t: rules.local_shard(t, mesh, spec, coord).clone(),
+            specs, params)
     for _, p in adamw.leaves(params):
         p.requires_grad_(True)
     return {"params": params, "opt": adamw.init(params, use_8bit=use_8bit),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def state_specs(*args, **kwargs):
-    """Shardings of the train state: not ported yet."""
-    raise NotImplementedError(_MESH_ITEM)
+def state_specs(state: Dict, mesh, cfg) -> Dict:
+    """The rules' PartitionSpecs of a train state (global shapes; the
+    port's layout): params by ``rules.params_specs``, ``m`` and ``v``
+    mirroring them (an 8-bit moment as ``QTensor(spec, PS())``), both step
+    counters ``PS()``."""
+    pspec = rules.params_specs(state["params"], mesh, cfg)
+
+    def mirror(spec, leaf):
+        if isinstance(leaf, adamw.QTensor):
+            return adamw.QTensor(spec, rules.PS())
+        return spec
+    return {"params": pspec,
+            "opt": {"m": rules.tree_map_specs(mirror, pspec,
+                                              state["opt"]["m"]),
+                    "v": rules.tree_map_specs(mirror, pspec,
+                                              state["opt"]["v"]),
+                    "step": rules.PS()},
+            "step": rules.PS()}
 
 
-def _one_device(mesh) -> None:
-    if mesh is None:
-        return
-    size = getattr(mesh, "size", None)
-    if size != 1:
-        raise NotImplementedError(f"a mesh of {size} devices: {_MESH_ITEM}")
+def _coordinate(mesh) -> Dict[str, int]:
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not on the mesh")
+    return dict(zip(rules.mesh_shape(mesh), coord))
+
+
+def shard_state(state: Dict, mesh, specs: Dict) -> Dict:
+    """This rank's pieces of a global ``state`` under ``specs``
+    (``state_specs``): fresh tensors, grad flags kept."""
+    coord = _coordinate(mesh)
+
+    def cut(spec, t):
+        out = rules.local_shard(t.detach(), mesh, spec, coord).clone()
+        return out.requires_grad_(t.requires_grad)
+    return rules.tree_map_specs(cut, specs, state)
+
+
+def gather_state(state: Dict, mesh, specs: Dict) -> Dict:
+    """The global state of every rank's shards (each leaf all-gathered over
+    the data group; a collective every rank calls): the inverse of
+    :func:`shard_state`."""
+    from repro_torch.sharding.collectives import DataGroup
+    group = DataGroup(mesh)
+
+    def whole(spec, t):
+        d = group.split_dim(spec)
+        out = t.detach().clone() if d is None else \
+            group.all_gather(t.detach(), d)
+        return out.requires_grad_(t.requires_grad)
+    return rules.tree_map_specs(whole, specs, state)
 
 
 def _to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -71,8 +160,17 @@ def _to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _scaled(loss, scales, i):
+    """Microbatch ``i``'s loss times its share of the global token count
+    (a share of 1, and no scales, leave it as it is)."""
+    if scales is None or scales[i] == 1.0:
+        return loss
+    return loss * scales[i]
+
+
 def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
-              microbatches: int = 1, grad_bf16: bool = True):
+              microbatches: int = 1, grad_bf16: bool = True,
+              scales: Optional[List[float]] = None):
     """``(loss, grads, div)``: the loss (detached) and the gradient of
     every leaf of ``params`` (in :func:`adamw.leaves` order) on ``batch``.
 
@@ -80,10 +178,12 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     microbatch's gradients are cast to bf16 (``grad_bf16``, else fp32) and
     summed in that dtype in microbatch order; ``div`` is the count the
     sum is to be divided by (in fp32, by the optimizer), the loss the mean
-    of the microbatches'."""
+    of the microbatches'.  ``scales`` multiplies microbatch ``i``'s loss
+    by ``scales[i]`` before its gradient (the sharded step's share of the
+    global token count)."""
     flat = [t for _, t in adamw.leaves(params)]
     if microbatches == 1:
-        loss = model.loss(params, batch)
+        loss = _scaled(model.loss(params, batch), scales, 0)
         return loss.detach(), list(torch.autograd.grad(loss, flat)), 1
     b = batch["tokens"].shape[0]
     if b % microbatches:
@@ -94,7 +194,7 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     acc, losses = None, []
     for i in range(microbatches):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        loss = model.loss(params, mb)
+        loss = _scaled(model.loss(params, mb), scales, i)
         g = torch.autograd.grad(loss, flat)
         losses.append(loss.detach())
         if acc is None:
@@ -106,25 +206,136 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     return torch.stack(losses).mean(), acc, microbatches
 
 
+class _Placement:
+    """What the sharded step needs of a mesh: the data group, the split
+    dim of each param leaf (by path; one layer's for ``blocks``), the
+    FSDP gather, and the rank's rows of a global batch."""
+
+    def __init__(self, model: Model, mesh):
+        from repro_torch.sharding.collectives import DataGroup
+        self.group = DataGroup(mesh)
+        meta = model.init_params(torch.Generator(), "meta")
+        specs = rules.params_specs(meta, mesh, model.cfg)
+        self.dims = {}
+        for path, _ in adamw.leaves(meta):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            self.dims[self._key(path)] = self.group.split_dim(spec)
+        self.any_split = any(d is not None for d in self.dims.values())
+
+    @staticmethod
+    def _key(path) -> tuple:
+        return tuple(k for k in path if not isinstance(k, int))
+
+    def split(self, path) -> Optional[int]:
+        return self.dims[self._key(path)]
+
+    def gather(self, tree, name: str):
+        """``sharding.ctx.gathered``'s FSDP form: each leaf that the rules
+        split, all-gathered (differentiably) to the whole tensor."""
+        from repro_torch.sharding.collectives import gather_param
+
+        def one(path, t):
+            if t is None:
+                return None
+            return gather_param(t, self.group, self.split(path))
+        if name != "blocks":
+            return one((name,), tree)
+        return {k: ({kk: one(("blocks", k, kk), vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else one(("blocks", k), v))
+                for k, v in tree.items()}
+
+    def rows(self, batch: Dict, microbatches: int):
+        """(this rank's rows of the global ``batch``, each microbatch's
+        loss scale: local over global unmasked tokens, or None at W =
+        1)."""
+        w, r = self.group.size, self.group.index
+        first = batch["tokens"]
+        b = first.shape[0]
+        if b % (w * microbatches):
+            raise ValueError(f"a global batch of {b} rows does not split "
+                             f"over {w} data ranks x {microbatches} "
+                             f"microbatches")
+        if w == 1:
+            return batch, None
+        per, mb_rows = b // (w * microbatches), b // microbatches
+        ids = np.concatenate([np.arange(i * mb_rows + r * per,
+                                        i * mb_rows + (r + 1) * per)
+                              for i in range(microbatches)])
+        local = {k: (v[torch.as_tensor(ids, device=v.device)]
+                     if torch.is_tensor(v) else np.asarray(v)[ids])
+                 for k, v in batch.items()}
+        labels = batch["labels"]
+        labels = (labels.detach().cpu().numpy() if torch.is_tensor(labels)
+                  else np.asarray(labels))
+        scales = []
+        for i in range(microbatches):
+            n_all = int((labels[i * mb_rows:(i + 1) * mb_rows] >= 0).sum())
+            n_own = int((labels[ids[i * per:(i + 1) * per]] >= 0).sum())
+            scales.append(n_own / max(n_all, 1))
+        return local, scales
+
+
 def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
                     base_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, grad_bf16: bool = True):
-    """The train step of ``model`` (see the module docstring); its
-    gradients are :func:`gradients`'."""
-    _one_device(mesh)
+    """The train step of ``model`` (see the module docstring), on one
+    device or, with ``mesh``, on the mesh's data axes; its gradients are
+    :func:`gradients`'."""
     cfg = model.cfg
+    place = None
+    if mesh is not None:
+        from repro_torch.sharding import ctx
+        place = _Placement(model, mesh)
+        ctx.set_mesh(mesh)
 
     def step(state: Dict, batch: Dict):
         params = state["params"]
-        batch = _to_tensors(batch, adamw.leaves(params)[0][1].device)
-        loss, grads_flat, div = gradients(model, params, batch,
-                                          microbatches=microbatches,
-                                          grad_bf16=grad_bf16)
-        grads = adamw.unflatten(params, grads_flat)
-        del grads_flat
+        device = adamw.leaves(params)[0][1].device
+        scales = None
+        if place is not None:
+            batch, scales = place.rows(batch, microbatches)
+        batch = _to_tensors(batch, device)
+        gather = contextlib.nullcontext()
+        if place is not None and place.any_split and place.group.size > 1:
+            from repro_torch.sharding import ctx
+            gather = ctx.param_gather(place.gather)
+        with gather:
+            loss, grads_flat, div = gradients(model, params, batch,
+                                              microbatches=microbatches,
+                                              grad_bf16=grad_bf16,
+                                              scales=scales)
         lr = adamw.cosine_schedule(state["step"], base_lr=base_lr,
                                    warmup=warmup, total=total_steps)
-        gnorm = adamw.global_norm(grads, div=div)
+        reduce_amax = None
+        if place is None or place.group.size == 1:
+            grads = adamw.unflatten(params, grads_flat)
+            del grads_flat
+            gnorm = adamw.global_norm(grads, div=div)
+        else:
+            group = place.group
+            paths = [p for p, _ in adamw.leaves(params)]
+            for path, g in zip(paths, grads_flat):
+                if place.split(path) is None:
+                    group.all_reduce_(g)
+            grads = adamw.unflatten(params, grads_flat)
+            del grads_flat
+
+            def sharded(path):
+                return place.split(path) is not None
+            # the loss's partial sums and the shards' squares: one all_reduce
+            red = torch.stack([loss.float(), adamw.sum_squares(
+                grads, div=div, keep=sharded)])
+            group.all_reduce_(red)
+            loss = red[0]
+            gnorm = torch.sqrt(red[1] + adamw.sum_squares(
+                grads, div=div, keep=lambda p: not sharded(p)))
+            if cfg.opt_8bit and place.any_split:
+                def reduce_amax(amaxes):
+                    flat = torch.stack([a for pair in amaxes for a in pair])
+                    group.all_reduce_(flat, op="max")
+                    return list(zip(flat[0::2], flat[1::2]))
         loss_v, gnorm_v, lr_v = torch.stack(
             [loss.float(), gnorm, lr]).tolist()       # the step's host sync
         good = math.isfinite(loss_v) and math.isfinite(gnorm_v)
@@ -132,7 +343,7 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
             try:
                 adamw.update(params, grads, state["opt"], lr=lr,
                              use_8bit=cfg.opt_8bit, grad_div=div,
-                             grad_norm=gnorm)
+                             grad_norm=gnorm, reduce_amax=reduce_amax)
                 state["step"] += 1
             except Exception as exc:
                 raise PartialUpdateError(
@@ -141,4 +352,5 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
         return state, {"loss": loss_v, "grad_norm": gnorm_v, "lr": lr_v,
                        "applied": int(good)}
 
+    step.placement = place
     return step

@@ -1480,3 +1480,205 @@ def test_sharded_engine_over_nccl_survives_a_host_loss(sharded_want):
         assert r["clean"]["tokens"] == sharded_want
     for name in ("loss", "loss_paged"):
         _check_loss(res, name, sharded_want)
+
+
+# ---- training on the data axes ---------------------------------------------
+
+TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=10)
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+               "reduce_scatter_tensor", "reduce_scatter_single")
+
+
+def _launches_a_step(cfg):
+    per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    return {"rmsnorm": 2 * per_pass - 1, "rmsnorm_bwd": per_pass,
+            "flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def _state_bytes(state):
+    from repro_torch.optim import adamw
+    return sum(t.numel() * t.element_size()
+               for _, leaf in adamw.leaves(state)
+               for t in (leaf if isinstance(leaf, adamw.QTensor) else (leaf,)))
+
+
+def _sharded_train_card_rank(rank, world):
+    """Smoke qwen3-4b (DP) and smoke yi-9b made FSDP (head dim 16), fp32,
+    on ``world`` gloo ranks sharing the card, with the groups taken for NCCL's
+    (``dist.get_backend`` reads ``"nccl"``): 2 steps each, every step's K1
+    / K3 launches on this rank, every tensor handed to a collective
+    (device type, by collective), and a checkpoint saved and restored on
+    the mesh."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import (make_train_state, make_train_step,
+                                        state_specs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = []
+    saved = {n: getattr(dist, n) for n in COLLECTIVES + ("get_backend",)
+             if hasattr(dist, n)}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            seen.append((name, sorted({a.device.type for a in args
+                                       if torch.is_tensor(a)})))
+            return fn(*args, **kw)
+        return call
+    for n, fn in saved.items():
+        if n != "get_backend":
+            setattr(dist, n, wrap(n, fn))
+    dist.get_backend = lambda group=None: "nccl"
+    out = {}
+    try:
+        mesh = make_mesh((world, 1), ("data", "model"))
+        for name, cfg in (
+                ("dp", smoke_config("qwen3_4b")),
+                # K3 takes head dims 16-128: the smoke config's 8 -> 16
+                ("fsdp", smoke_config("yi_9b", fsdp=True, head_dim=16))):
+            model = Model(cfg)
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          global_batch=4))
+            state = make_train_state(
+                model, torch.Generator(device="cuda").manual_seed(0),
+                mesh=mesh)
+            step = make_train_step(model, mesh, **TRAIN_KW)
+            rows = []
+            for i in range(2):
+                ops.reset_launch_counts()
+                state, m = step(state, data.global_batch_at(i))
+                torch.cuda.synchronize()
+                rows.append((m, ops.launch_counts(),
+                             ops.launch_counts_by_variant()))
+            specs = state_specs(make_train_state(
+                model, torch.Generator(), device="meta"), mesh, cfg)
+            with tempfile.TemporaryDirectory() as d:
+                d = os.path.join(d, "ckpt")  # every rank's own temp dir
+                mgr = CheckpointManager(d, mesh=mesh, specs=specs,
+                                        async_save=False)
+                mgr.save(2, state)
+                dist.barrier()
+            out[name] = {"rows": rows, "state_bytes": _state_bytes(state),
+                         "collectives": dict(step.placement.group.counts)}
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+        ctx.set_mesh(None)
+    out["seen"] = seen
+    return out
+
+
+@pytest.fixture(scope="module")
+def sharded_train_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.testing import ranks
+    return ranks.spawn(_sharded_train_card_rank, 2, backend="gloo",
+                       device="cuda", timeout=300)
+
+
+@pytest.mark.parametrize("mode", ["dp", "fsdp"])
+def test_sharded_train_launches_k1_k3_on_every_rank(sharded_train_on_card,
+                                                    mode):
+    """Each rank runs K1 and K3, forward and backward, on its shard of the
+    batch: the exact count of a remat step, K3 all ``tf32x3`` (fp32), and
+    every rank reports the same loss and norm."""
+    cfg = smoke_config("qwen3_4b" if mode == "dp" else "yi_9b")
+    want = _launches_a_step(cfg)        # counts depend on layers, qk_norm
+    metrics = []
+    for r in sharded_train_on_card:
+        for m, counts, by_variant in r[mode]["rows"]:
+            assert m["applied"] == 1
+            assert {k: counts[k] for k in want} == want
+            assert by_variant["flash_attention"]["tf32x3"] == \
+                want["flash_attention"]
+            assert by_variant["flash_attention_bwd"]["tf32x3"] == \
+                want["flash_attention_bwd"]
+        metrics.append([(m["loss"], m["grad_norm"])
+                        for m, _, _ in r[mode]["rows"]])
+    assert metrics[0] == metrics[1]
+    counts = sharded_train_on_card[0][mode]["collectives"]
+    assert counts["all_reduce"] > 0
+    assert (counts.get("all_gather", 0) > 0) == (mode == "fsdp")
+
+
+def test_sharded_train_hands_an_nccl_group_card_tensors(
+        sharded_train_on_card):
+    """With the groups taken for NCCL's (which takes no host tensor), every
+    tensor the step, its FSDP gathers and the mesh checkpoint hand to a
+    collective is on the card."""
+    for r in sharded_train_on_card:
+        kinds = {name for name, _ in r["seen"]}
+        assert "all_reduce" in kinds and len(kinds) >= 3, kinds
+        for name, devices in r["seen"]:
+            assert devices == ["cuda"], (name, devices)
+
+
+def _fsdp_full_rank(rank, world, steps, batch):
+    """yi-9b at full width and depth, bf16, remat, FSDP over every card:
+    ``steps`` steps of ``batch`` x 512; per rank its metrics, state bytes,
+    peak memory and step times."""
+    import time as _time
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = config("yi_9b")
+    model = Model(cfg)
+    mesh = make_mesh((world, 1), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             mesh=mesh)
+    step = make_train_step(model, mesh, **TRAIN_KW)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                  global_batch=batch))
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        state, m = step(state, data.global_batch_at(i))
+        torch.cuda.synchronize()
+        rows.append({**m, "s": _time.perf_counter() - t0})
+    ctx.set_mesh(None)
+    return {"rows": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": dict(step.placement.group.counts)}
+
+
+def test_fsdp_yi_9b_full_width_and_depth_over_nccl():
+    """FSDP over every card present (NCCL, one rank a card): yi-9b at full
+    width and depth (8.83 B params: 88 GB of bf16 params and fp32 moments,
+    more than one card holds), bf16, remat, 2 steps.  Every rank reports
+    the same loss and norm and applies both steps; each rank's state
+    bytes are the dry run's."""
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (NCCL takes one rank a GPU)")
+    world = torch.cuda.device_count()
+    batch = 2 * world
+    res = ranks.spawn(_fsdp_full_rank, world, backend="nccl", device="cuda",
+                      timeout=900, args=(2, batch))
+    want = dryrun.reckon(config("yi_9b"), {"seq": 512, "batch": batch,
+                                          "kind": "train"},
+                         {"data": world, "model": 1})["memory"]["state_bytes"]
+    for r in res:
+        assert [m["applied"] for m in r["rows"]] == [1, 1]
+        assert [(m["loss"], m["grad_norm"]) for m in r["rows"]] == \
+            [(m["loss"], m["grad_norm"]) for m in res[0]["rows"]]
+        assert r["state_bytes"] == want
+    print(f"yi-9b FSDP over {world} H100s (NCCL), batch {batch} x 512: "
+          f"per rank peak GiB {[round(r['peak_gib'], 2) for r in res]}, "
+          f"step s {[[round(m['s'], 3) for m in r['rows']] for r in res]}, "
+          f"state bytes {want}, collectives a run {res[0]['collectives']}")

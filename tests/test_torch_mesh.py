@@ -292,10 +292,17 @@ def _rank_work(rank, world, tmp):
             fn = compiler.Program(expr, argv).compile("shardmap")
             res["ctx"][desc] = (float(fn(*ins["dot"]).to_local()),
                                 ctx.dp_axes(), ctx._filter(("model", "x")))
+            # a batch split over the data axis is what the train step
+            # placed: the identity; a split over a model axis of size > 1
+            # (sequence parallelism) raises
+            x = torch.ones(4, 8)
             try:
-                ctx.constraint(torch.ones(4), "data")
+                ctx.constraint(x, "data", "model")
+                raised = None
             except NotImplementedError as e:
-                res["ctx_constraint"] = str(e)
+                raised = str(e)
+            res.setdefault("ctx_constraint", {})[desc] = (
+                ctx.constraint(x, "data") is x, raised)
         finally:
             ctx.set_mesh(None)
         # measured tuning: every rank times its shard, all pick the same
@@ -471,7 +478,12 @@ def test_process_mesh_context(port, oracle, desc):
         assert math.isclose(got, want, rel_tol=TOL, abs_tol=TOL)
         assert dp == ("data",)
         assert kept == (("model",) if desc != "data=4" else None)
-        assert "item 7c" in res["ctx_constraint"]
+        same, raised = res["ctx_constraint"][desc]
+        assert same
+        if "model" in desc:
+            assert "item 7d" in raised
+        else:
+            assert raised is None
 
 
 # ---------------------------------------------------------------------------

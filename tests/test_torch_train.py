@@ -29,6 +29,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,17 @@ def data(batch=4, seq=16, **kw):
     return pipe.SyntheticLM(pipe.DataConfig(vocab=64, seq_len=seq,
                                             global_batch=batch, **kw))
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_mesh_context():
+    """The reference's ``make_train_step`` sets its process mesh context
+    (``repro.sharding.ctx``); put it back when this module is done, so a
+    later module in the same worker starts without one."""
+    from repro.sharding import ctx as jctx
+    prev = jctx.get_mesh()
+    yield
+    jctx.set_mesh(prev)
 
 _REF_STEPS = {}
 
@@ -456,13 +468,19 @@ def test_make_train_state_and_unported_mesh():
     assert int(st["step"]) == 0 and st["step"].dtype == torch.int32
     assert all(m.dtype == torch.float32 and not m.any()
                for _, m in adamw.leaves(st["opt"]["m"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7c"):
-        tstep.state_specs(st, None, cfg)
+    # the rules' placement of the state (training on the data axes):
+    # every leaf a spec; a mesh whose model axis has size > 1 is tensor /
+    # sequence parallelism, which waits for item 7d
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1})
+    specs = tstep.state_specs(st, mesh, cfg)
+    assert specs["step"] == () and specs["opt"]["step"] == ()
+    assert specs["params"]["blocks"][0]["attn"]["wq"] == (None, "model")
+    assert specs["opt"]["m"] == specs["params"] == specs["opt"]["v"]
 
-    class TwoDevices:
-        size = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7c"):
-        tstep.make_train_step(model, TwoDevices())
+    class ModelAxis:
+        shape = {"data": 1, "model": 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7d"):
+        tstep.make_train_step(model, ModelAxis())
 
 
 @pytest.mark.parametrize("step", [0, 1, 4, 5, 6, 13, 19, 20, 31])
