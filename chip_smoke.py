@@ -246,14 +246,32 @@ result):
    algorithms: 3 one-device steps, then 3 mesh steps from the same seed-0
    weights, their loss, grad norm and every tensor's bits (checksums)
    equal, step time and peak memory beside 13b's; (b) DP, qwen3-4b cut
-   to 4 layers (two fp32 states share the card), and (c) FSDP, yi-9b
-   (``fsdp=True``) cut to 4 layers, fp32 with TF32 off, on two gloo ranks
+   to 2 layers (two fp32 states share the card; 4 until phase 17 came),
+   and (c) FSDP, yi-9b (``fsdp=True``) cut to 2 layers, fp32 with TF32
+   off, on two gloo ranks
    sharing the card: rank 0 first runs the one-device step on the same
    global batches (the other waits) and keeps its state on the host; then
    both run 2 mesh steps, each rank's loss, grad norm and lr and every
    leaf (gathered whole) held to it, (c)'s per-rank state bytes to
    ``launch.dryrun.reckon``'s, each rank's collectives, state bytes,
-   peak memory and step times printed.
+   peak memory and step times printed;
+17. training on the model axis (tensor and sequence parallelism), after
+   phase 16: (k) K1, K3 and their backward kernels against their plain
+   versions at a tensor-parallel rank's shapes in 17a (K1 on the rank's
+   sequence rows and its 16 query / 4 kv heads' rows, K3 on those heads at
+   S 512; fp32, and K3 in bf16 too), timed as in phases 3 and 13a; then in
+   spawned ranks (a failed rank fails the run), fp32 with TF32 off, each
+   cut to 4 layers, on gloo ranks sharing the card: (a) TP + SP, qwen3-4b
+   on ``model=2``, and (b) FSDP + TP, yi-9b (``fsdp=True``) on ``data=2,
+   model=2``: rank 0 first runs the one-device step on the same global
+   batches (the others wait) and keeps its state on the host; then every
+   rank runs 2 mesh steps with K1 / K3 forward and backward launches
+   checked exactly a step (the one-device step's), its loss, grad norm and
+   lr held to the one-device step's, every leaf gathered whole over both
+   axes held to it on rank 0 (16b / 16c's tolerances) and summed alike on
+   every rank, its state bytes to ``launch.dryrun.reckon``'s; each rank's
+   collectives by group (data, model, world) with their bytes, state
+   bytes, peak memory and step times printed.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -263,8 +281,8 @@ variant, phase 13b's; K3-bwd's per variant in 13e too, as
 ``launches_phase5`` and ``launches_13e``), one entry per generated K4 program of phase 7 and
 one per tuned winner of phase 11, one ``dpia_cuda:mesh_<op>`` per mesh op
 of phase 14; K1's and K3's ``launches_phase15`` by run and rank; K1's, K3's
-and their backward kernels' ``launches_phase16``, a step, by part and
-rank), the
+and their backward kernels' ``launches_phase16`` and ``launches_phase17``,
+a step, by part and rank; phase 17k's cases among their ``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -3454,13 +3472,17 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
 SHARDED_TRAIN_STEPS_ONE = 3   # 16a: one-device steps, then mesh steps
 SHARDED_TRAIN_STEPS = 2       # 16b / 16c
 SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
-# 16b / 16c: depth cut.  Two fp32 states with gradients (16 bytes a param:
-# qwen3-4b 0.101 B a layer + 0.778 B embed and head; yi-9b 0.173 B a layer
-# + 0.524 B) would share the card at 8 layers; 4 halves the layers' bytes
-# that gloo moves through the host (~0.8 GB/s between the two processes),
-# which set the phase's time: qwen3-4b ~19 GB a rank, yi-9b ~19 GB whole,
-# ~10 GB a rank under FSDP
+# 16b / 16c / 17a / 17b: depth cut.  Two fp32 states with gradients (16
+# bytes a param: qwen3-4b 0.101 B a layer + 0.778 B embed and head; yi-9b
+# 0.173 B a layer + 0.524 B) would share the card at 8 layers; 4 halves the
+# layers' bytes that gloo moves through the host (~0.8 GB/s between the
+# processes), which set the phases' time: qwen3-4b ~19 GB a rank, yi-9b
+# ~19 GB whole, ~10 GB a rank under FSDP
 SHARDED_TRAIN_LAYERS = 4
+# 16b / 16c went to 2 layers when phase 17 (TP, its four-rank 17b the
+# longest part) added 3.4 minutes to the script: the cut keeps phases
+# 16 + 17 near phase 16's earlier time
+DATA_AXIS_LAYERS = 2
 # 16b / 16c against the one-device step: 13e's card-vs-CPU tolerance (fp32,
 # TF32 off; sums in other orders), loss and gradient norm 1e-5 relative;
 # params also get 2 % of the one-device step's largest update of the leaf
@@ -3480,16 +3502,18 @@ def _train_launches_a_step(cfg) -> dict:
             "flash_attention_bwd": cfg.n_layers}
 
 
-def _sharded_steps(step, state, batches, cfg, variant, group=None):
+def _sharded_steps(step, state, batches, cfg, variant, groups=None,
+                   phase="16"):
     """Run ``batches`` through ``step``, counts zeroed just before each
     step and read just after: per step its metrics, seconds, K1 / K3
-    launches (checked exactly, every K3 launch on ``variant``) and, with a
-    data ``group``, its collectives."""
+    launches (checked exactly, every K3 launch on ``variant``) and, with
+    ``groups`` (name -> a collectives group), each group's collectives."""
     from repro_torch.kernels import ops
     want = _train_launches_a_step(cfg)
+    groups = groups or {}
     rows = []
     for batch in batches:
-        before = dict(group.counts) if group is not None else {}
+        before = {n: dict(g.counts) for n, g in groups.items()}
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3501,11 +3525,11 @@ def _sharded_steps(step, state, batches, cfg, variant, group=None):
         if counts != want or any(
                 by_v[k][variant] != want[k]
                 for k in ("flash_attention", "flash_attention_bwd")):
-            raise AssertionError(f"[16] launches {counts} (K3 {by_v}) != "
-                                 f"{want} a step, K3 all {variant}")
+            raise AssertionError(f"[{phase}] launches {counts} (K3 {by_v}) "
+                                 f"!= {want} a step, K3 all {variant}")
         rows.append({**m, "s": dt, "launches": counts, "collectives": {
-            k: v - before.get(k, 0) for k, v in (
-                group.counts.items() if group is not None else ())}})
+            n: {k: v - before[n].get(k, 0) for k, v in g.counts.items()}
+            for n, g in groups.items()}})
     return state, rows
 
 
@@ -3557,9 +3581,50 @@ def sharded_train_one(rank, world):
     return out
 
 
+def _held_to_oracle(state, specs, place, oracle, start):
+    """Every leaf of a mesh ``state``, gathered whole over the data and
+    model groups of the step's placement ``place`` one at a time (a
+    collective on every rank), against the one-device step's
+    final state ``oracle`` (host tensors by path, on the group's first
+    rank; None elsewhere) from ``start`` (its params at the start):
+    ``(worst error over the leaf's largest magnitude by part, params also
+    over the largest update; the leaves beyond the tolerance; a float64
+    sum of each gathered leaf)``."""
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.collectives import gather_whole
+    worst, bad, sums = {}, [], []
+    for path, t in adamw.leaves(state):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        whole = gather_whole(t.detach(), spec, place.group, place.model)
+        sums.append(whole.double().sum().item())
+        if oracle is not None and not whole.is_floating_point():
+            if not torch.equal(whole.cpu(), oracle[path]):
+                bad.append("/".join(map(str, path)))
+        elif oracle is not None:
+            want = oracle[path].to(whole.device)
+            err = (whole - want).abs()
+            part = path[0] if path[0] != "opt" else path[1]
+            worst[part] = max(worst.get(part, 0.0), (
+                err.max() / want.abs().max().clamp(min=1e-30)).item())
+            tol = SHARDED_STATE_TOL[0] * want.abs().max() + \
+                SHARDED_STATE_TOL[1] * want.abs()
+            if part == "params":
+                update = (want - start[path[1:]].to(whole.device)).abs().max()
+                worst["params_over_update"] = max(
+                    worst.get("params_over_update", 0.0),
+                    (err.max() / update.clamp(min=1e-30)).item())
+                tol = tol + SHARDED_UPDATE_TOL * update
+            if bool((err > tol).any()):
+                bad.append("/".join(map(str, path)))
+        del whole
+    return worst, bad, sums
+
+
 def sharded_train_two(rank, world, arch):
     """[16b] (qwen3-4b: DP) / [16c] (yi-9b: FSDP) on ``world`` gloo ranks
-    sharing the card, fp32 (TF32 off), cut to SHARDED_TRAIN_LAYERS layers:
+    sharing the card, fp32 (TF32 off), cut to DATA_AXIS_LAYERS layers:
     rank 0 first runs the one-device step on the global batches (the
     other waits) and keeps the final state on the host; then every rank
     runs the mesh step from the same seed-0 weights, and each leaf,
@@ -3578,7 +3643,7 @@ def sharded_train_two(rank, world, arch):
                                         state_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    cfg = config(arch, n_layers=DATA_AXIS_LAYERS, dtype="float32")
     model = Model(cfg)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH))
@@ -3614,38 +3679,13 @@ def sharded_train_two(rank, world, arch):
     step = make_train_step(model, mesh, **kw)
     group = step.placement.group
     state, out["steps"] = _sharded_steps(step, state, batches, cfg, "tf32x3",
-                                         group)
+                                         {"data": group})
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # every leaf whole (gathered one at a time) against the one-device step
     specs = state_specs(make_train_state(model, torch.Generator(),
                                          device="meta"), mesh, cfg)
-    worst, bad = {}, []
-    for path, t in adamw.leaves(state):
-        spec = specs
-        for k in path:
-            spec = spec[k]
-        d = group.split_dim(spec)
-        whole = t.detach() if d is None else group.all_gather(t.detach(), d)
-        if rank == 0 and not whole.is_floating_point():
-            if not torch.equal(whole.cpu(), oracle[path]):
-                bad.append("/".join(map(str, path)))
-        elif rank == 0:
-            want = oracle[path].to(whole.device)
-            err = (whole - want).abs()
-            part = path[0] if path[0] != "opt" else path[1]
-            worst[part] = max(worst.get(part, 0.0), (
-                err.max() / want.abs().max().clamp(min=1e-30)).item())
-            tol = SHARDED_STATE_TOL[0] * want.abs().max() + \
-                SHARDED_STATE_TOL[1] * want.abs()
-            if part == "params":
-                update = (want - start[path[1:]].to(whole.device)).abs().max()
-                worst["params_over_update"] = max(
-                    worst.get("params_over_update", 0.0),
-                    (err.max() / update.clamp(min=1e-30)).item())
-                tol = tol + SHARDED_UPDATE_TOL * update
-            if bool((err > tol).any()):
-                bad.append("/".join(map(str, path)))
-        del whole
+    worst, bad, _ = _held_to_oracle(state, specs, step.placement, oracle,
+                                    start)
     out["worst_rel_to_leaf_max"], out["bad_leaves"] = worst, bad
     del state, step, oracle, start
     gc.collect()
@@ -3712,7 +3752,7 @@ def phase_sharded_train(smi, train13):
                           args=(arch,))
         times[label] = time.perf_counter() - t0
         ref = two[0]["one_device"]
-        cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+        cfg = config(arch, n_layers=DATA_AXIS_LAYERS, dtype="float32")
         reckoned = dryrun.reckon(
             cfg, {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "kind": "train"},
             {"data": SHARDED_TRAIN_RANKS, "model": 1})["memory"]
@@ -3740,7 +3780,7 @@ def phase_sharded_train(smi, train13):
         launches16[label] = [r["steps"][0]["launches"] for r in two]
         mode = "FSDP" if two[0]["fsdp"] else "DP"
         log(f"[{label}] {mode}, {arch} at full width cut to "
-            f"{SHARDED_TRAIN_LAYERS} layers (two fp32 states share the one "
+            f"{DATA_AXIS_LAYERS} layers (two fp32 states share the one "
             f"card), fp32 (TF32 off), data={SHARDED_TRAIN_RANKS} (gloo ranks "
             f"sharing one card), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
             f"{SHARDED_TRAIN_STEPS} steps: loss, grad norm, lr and every leaf "
@@ -3764,6 +3804,216 @@ def phase_sharded_train(smi, train13):
         f"{times['16c']:.1f} s (processes included), phase 16 "
         f"{time.perf_counter() - t_start:.1f} s; card {smi}")
     return launches16
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the model axis in training
+# ---------------------------------------------------------------------------
+
+# 17a: TP + SP; 17b: FSDP + TP.  Both at full width cut to
+# SHARDED_TRAIN_LAYERS layers, fp32, 13b's batch; their ranks share the one
+# card over gloo (NCCL refuses two ranks on one card)
+TP_TRAIN_CELLS = {"17a": ("qwen3_4b", (1, 2)), "17b": ("yi_9b", (2, 2))}
+
+
+def phase_tp_kernels(k1):
+    """[17k] K1, K3 and their backward kernels against their plain
+    versions at a tensor-parallel rank's shapes in 17a (qwen3-4b on
+    ``model=2``, batch 4 x 512): K1 on the rank's sequence rows (4 x 256,
+    d_model) and on its 16 query / 4 kv heads' rows (q_norm, k_norm); K3
+    on its 16 / 4 heads at S 512, fp32 (what phase 17 runs) and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ptxas = bwd_ptxas()
+    rows, t = TRAIN_BATCH * TRAIN_SEQ // 2, TRAIN_BATCH * TRAIN_SEQ
+    shapes = ((rows, 2560), (t * 16, 128), (t * 4, 128))
+    out = {
+        "rmsnorm": [_rmsnorm_case(r, d, torch.float32, gen, k1)
+                    for r, d in shapes],
+        "rmsnorm_bwd": [_rmsnorm_bwd_case(r, d, torch.float32, gen, ptxas)
+                        for r, d in shapes],
+        "flash_attention": [_flash_case(TRAIN_SEQ, TRAIN_SEQ, True, 0, gen,
+                                        b=TRAIN_BATCH, nh=16, nkv=4, dtype=dt)
+                            for dt in (torch.float32, torch.bfloat16)],
+        "flash_attention_bwd": [_flash_bwd_case(TRAIN_BATCH, 16, 4, TRAIN_SEQ,
+                                                128, dt, gen, ptxas)
+                                for dt in (torch.float32, torch.bfloat16)]}
+    for name, cs in out.items():
+        for c in cs:
+            log(f"[17k] {name} " + json.dumps(c))
+    return out
+
+
+def tp_train_rank(rank, world, arch, shape):
+    """[17a] / [17b] on ``world`` gloo ranks sharing the card, the mesh
+    ``(data, model) = shape``, fp32 (TF32 off), cut to
+    SHARDED_TRAIN_LAYERS layers: rank 0 first runs the one-device step on
+    the global batches (the others wait) and keeps the final state on the
+    host; then every rank runs SHARDED_TRAIN_STEPS mesh steps from the
+    same seed-0 weights, K1 / K3 counted exactly a step on every rank;
+    every leaf, gathered whole over both axes, is held to that state on
+    rank 0 and summed on every rank (the ranks' sums must agree)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import (make_train_state, make_train_step,
+                                        state_specs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    batches = [data.global_batch_at(i) for i in range(SHARDED_TRAIN_STEPS)]
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    out = {"rank": rank, "fsdp": cfg.fsdp}
+    oracle = start = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        start = {p: t.detach().to("cpu")
+                 for p, t in adamw.leaves(state["params"])}
+        state, rows = _sharded_steps(make_train_step(model, **kw), state,
+                                     batches, cfg, "tf32x3", phase="17")
+        oracle = {p: t.detach().to("cpu") for p, t in adamw.leaves(state)}
+        out["one_device"] = {
+            "steps": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "s": time.perf_counter() - t0}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(shape, ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    out["init_s"] = time.perf_counter() - t0
+    out["state_bytes"] = _state_bytes(state)
+    # the init draws the global params on every rank before cutting them
+    out["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, mesh, **kw)
+    place = step.placement
+    out["sp"] = place.tensor_parallel(TRAIN_SEQ).sp
+    state, out["steps"] = _sharded_steps(
+        step, state, batches, cfg, "tf32x3",
+        {"data": place.group, "model": place.model, "world": place.world},
+        phase="17")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    specs = state_specs(make_train_state(model, torch.Generator(),
+                                         device="meta"), mesh, cfg)
+    out["worst_rel_to_leaf_max"], out["bad_leaves"], out["sums"] = \
+        _held_to_oracle(state, specs, place, oracle, start)
+    del state, step, oracle, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx.set_mesh(None)
+    return out
+
+
+def tp_cell(smi, label, arch, shape, backend="gloo"):
+    """Run one phase-17 cell (``tp_train_rank`` on a ``shape`` mesh, its
+    ranks over ``backend``: gloo ranks share the card, NCCL takes one card
+    a rank), check it (every rank's metrics against the one-device step's,
+    its state bytes against ``launch.dryrun.reckon``'s, its gathered
+    leaves the same as rank 0's, SP on; rank 0's leaves within 16b /
+    16c's tolerances) and log it; returns each rank's K1 / K3 launches a
+    step."""
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    t0 = time.perf_counter()
+    world = shape[0] * shape[1]
+    res = ranks.spawn(tp_train_rank, world, backend=backend, device="cuda",
+                      timeout=900, args=(arch, shape))
+    took = time.perf_counter() - t0
+    ref = res[0]["one_device"]
+    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    mesh = {"data": shape[0], "model": shape[1]}
+    reckoned = dryrun.reckon(
+        cfg, {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "kind": "train"},
+        mesh)["memory"]
+    for r in res:
+        for x, y in zip(r["steps"], ref["steps"]):
+            for key in ("loss", "grad_norm"):
+                if not math.isclose(x[key], y[key],
+                                    rel_tol=SHARDED_METRIC_RTOL):
+                    raise AssertionError(
+                        f"[{label}] rank {r['rank']} {key} {x[key]} vs "
+                        f"the one-device step's {y[key]}")
+            if x["applied"] != 1 or x["lr"] != y["lr"]:
+                raise AssertionError(f"[{label}] rank {r['rank']}: {x}")
+        if r["state_bytes"] != reckoned["state_bytes"]:
+            raise AssertionError(
+                f"[{label}] rank {r['rank']} holds {r['state_bytes']} "
+                f"bytes of state, the dry run reckons "
+                f"{reckoned['state_bytes']}")
+        if r["sums"] != res[0]["sums"]:
+            raise AssertionError(f"[{label}] rank {r['rank']}'s gathered "
+                                 f"leaves differ from rank 0's")
+        if not r["sp"]:
+            raise AssertionError(f"[{label}] SP is off at seq {TRAIN_SEQ}")
+    if res[0]["bad_leaves"]:
+        raise AssertionError(f"[{label}] leaves beyond the tolerance "
+                             f"{SHARDED_STATE_TOL} (params + "
+                             f"{SHARDED_UPDATE_TOL} x update): "
+                             f"{res[0]['bad_leaves']} (worst "
+                             f"{res[0]['worst_rel_to_leaf_max']})")
+    mode = "FSDP + TP" if res[0]["fsdp"] else "TP + SP"
+    where = (f"{world} gloo ranks sharing one card" if backend == "gloo"
+             else f"{world} {backend} ranks, a card each")
+    log(f"[{label}] {mode}, {arch} at full width cut to "
+        f"{SHARDED_TRAIN_LAYERS} layers, fp32 (TF32 off), {mesh} ({where}), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} (SP on), {SHARDED_TRAIN_STEPS} "
+        f"steps: loss, grad norm, lr and every leaf against the one-device "
+        f"step (tolerance {SHARDED_STATE_TOL}, params + {SHARDED_UPDATE_TOL} "
+        f"x the leaf's largest update, metrics {SHARDED_METRIC_RTOL} "
+        f"relative; every rank's gathered leaves the same): worst error "
+        f"over the leaf's largest magnitude (params: and over its largest "
+        f"update) {res[0]['worst_rel_to_leaf_max']}; "
+        + json.dumps({
+            "one_device": {k: ref[k] for k in ("state_bytes", "peak_gib",
+                                               "s")},
+            "one_device_steps": [{k: s[k] for k in ("loss", "grad_norm", "s")}
+                                 for s in ref["steps"]],
+            "dryrun_memory": reckoned,
+            "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
+                       "peak_gib": r["peak_gib"],
+                       "init_peak_gib": r["init_peak_gib"],
+                       "init_s": r["init_s"], "steps": r["steps"]}
+                      for r in res]})
+        + f"; {took:.1f} s with the processes; card {smi}")
+    return [r["steps"][0]["launches"] for r in res], took
+
+
+def phase_tp_train(smi):
+    """[17] the model axis in training, in spawned gloo ranks sharing the
+    card (a failed rank fails the run): (a) TP + SP, qwen3-4b on
+    ``model=2``; (b) FSDP + TP, yi-9b on ``data=2, model=2``
+    (:func:`tp_cell`)."""
+    import gc
+    t_start = time.perf_counter()
+    launches, times = {}, {}
+    for label, (arch, shape) in TP_TRAIN_CELLS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[label], times[label] = tp_cell(smi, label, arch, shape)
+    log(f"[17] summary: 17a {times['17a']:.1f} s, 17b {times['17b']:.1f} s "
+        f"(processes included), phase 17 "
+        f"{time.perf_counter() - t_start:.1f} s; card {smi}")
+    return launches
 
 
 KERNELS = [
@@ -3858,6 +4108,9 @@ def _run_phases(tune_cache: str) -> int:
     mesh_one, mesh_two = phase_mesh(smi, dpia)
     sharded = phase_sharded(smi, want, report["dense graph"]["tok_s_median"])
     sharded_train = phase_sharded_train(smi, train)
+    for name, cs in phase_tp_kernels(k1).items():
+        cases[name] += cs
+    tp_train = phase_tp_train(smi)
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -3894,6 +4147,10 @@ def _run_phases(tune_cache: str) -> int:
                 key: ([c[k["name"]] for c in v] if isinstance(v, list)
                       else v[k["name"]])
                 for key, v in sharded_train.items()}
+            # phase 17's model axis, a step: 17a's and 17b's ranks
+            entry["launches_phase17"] = {
+                key: [c[k["name"]] for c in v]
+                for key, v in tp_train.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

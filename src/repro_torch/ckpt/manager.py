@@ -14,10 +14,11 @@ writes on a worker thread, so the loop overlaps I/O with compute.
 On a mesh (``CheckpointManager(..., mesh=, specs=)``, ``specs`` the train
 state's ``train.step.state_specs``), a checkpoint still holds the global
 state, as the reference's do (``device_get`` of global arrays): ``save``
-all-gathers the leaves one at a time over the data group (every rank
-calls it) and the group's index 0 writes them; ``restore`` has index 0
-pick the step and every rank cut its own shard of each leaf.  So one
-checkpoint moves between meshes of any data size and one process.
+all-gathers the leaves one at a time over the data group and the model
+group (every rank calls it) and the mesh's first rank writes them;
+``restore`` has that rank pick the step and every rank cut its own shard
+of each leaf.  So one checkpoint moves between meshes of any data and
+model sizes and one process.
 
 Manifests go through the checksummed atomic store of
 ``repro_torch.ft.artefacts``.  A corrupt manifest is quarantined
@@ -67,20 +68,20 @@ def _parts(key: str, leaf, spec):
     return [(key, leaf, spec)]
 
 
-def _flatten(state, group=None, specs=None) -> Dict[str, np.ndarray]:
+def _flatten(state, groups=None, specs=None) -> Dict[str, np.ndarray]:
     """Every leaf of ``state`` as a host array under its path; on a mesh
-    (``group``, a ``DataGroup``, and the state's ``specs``) each leaf
-    gathered whole first, and only the group's index 0 keeps it."""
+    (``groups``, its ``DataGroup`` and ``ModelGroup``, and the state's
+    ``specs``) each leaf gathered whole first, and only the rank at index
+    0 of both keeps it."""
+    from repro_torch.sharding.collectives import gather_whole
     flat = {}
     for path, leaf in leaves(state):
         key = "/".join(str(k) for k in path)
         spec = _at(specs, path) if specs is not None else None
         for name, t, sp in _parts(key, leaf, spec):
-            if group is not None:
-                d = group.split_dim(sp)
-                if d is not None:
-                    t = group.all_gather(t.detach(), d)
-                if group.index != 0:
+            if groups is not None:
+                t = gather_whole(t.detach(), sp, *groups)
+                if any(g.index != 0 for g in groups):
                     continue
             flat[name] = _host(t)
     return flat
@@ -131,20 +132,25 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self.specs = specs
-        self.group = None
+        self.group = self.model = self.world = None
         if mesh is not None:
             if specs is None:
                 raise ValueError("a checkpoint on a mesh needs the state's "
                                  "specs (train.step.state_specs)")
-            from repro_torch.sharding.collectives import DataGroup
+            from repro_torch.sharding.collectives import (DataGroup,
+                                                          ModelGroup,
+                                                          WorldGroup)
             self.group = DataGroup(mesh)
+            self.model = ModelGroup(mesh)
+            self.world = WorldGroup(mesh)
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state, *, extra: Optional[Dict] = None) -> None:
         # the host copy, on the train thread (on a mesh, every rank gathers)
-        flat = _flatten(state, self.group, self.specs)
-        if self.group is not None and self.group.index != 0:
+        groups = None if self.group is None else (self.group, self.model)
+        flat = _flatten(state, groups, self.specs)
+        if self.world is not None and self.world.index != 0:
             return
         if self.async_save:
             self.wait()
@@ -224,13 +230,13 @@ class CheckpointManager:
         """Restore the newest checkpoint that VERIFIES: a corrupt manifest
         or damaged arrays skips back to the next older step instead of
         killing the resume (losing a few steps of progress beats losing
-        the run).  On a mesh the group's index 0 picks the step and every
-        rank restores that one."""
-        if self.group is not None and self.group.size > 1:
+        the run).  On a mesh its first rank picks the step and every rank
+        restores that one."""
+        if self.world is not None and self.world.size > 1:
             found = None
-            if self.group.index == 0:
+            if self.world.index == 0:
                 found = self._restore_latest(template)
-            step = self.group.broadcast_object(
+            step = self.world.broadcast_object(
                 None if found is None else found[0])
             if step is None:
                 return None

@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import ctx
 from .common import ModelConfig, apply_rope, init_dense, rmsnorm, rope_freqs
 
 
@@ -52,17 +53,18 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, device=None
 
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):
-    """x: (b, s, d) -> q (b, s, nh, hd), k/v (b, s, nkv, hd), roped."""
+    """x: (b, s, d) -> q (b, s, nh, hd), k/v (b, s, nkv, hd), roped (the
+    head counts those of ``p``'s columns: a tensor-parallel rank's)."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if p["bq"] is not None:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, nh, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if p["q_norm"] is not None:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -80,7 +82,7 @@ def _attend(p, cfg: ModelConfig, q, k, v, x_dtype):
     for parity with the reference and selects nothing here; the
     reference's einsum and chunked paths compute the same function."""
     b, s, nh, hd = q.shape
-    nkv = cfg.n_kv_heads
+    nkv = k.shape[2]
     # at b == 1 the reshape is a strided view; K3 takes contiguous tensors
     qf = q.transpose(1, 2).reshape(b * nh, s, hd).contiguous()
     kf = k.transpose(1, 2).reshape(b * nkv, s, hd).contiguous()
@@ -92,9 +94,32 @@ def _attend(p, cfg: ModelConfig, q, k, v, x_dtype):
 
 
 def attention(p, cfg: ModelConfig, x, positions):
-    """Full self-attention over x (training / prefill without cache)."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    return _attend(p, cfg, q, k, v, x.dtype)
+    """Full self-attention over x (training / prefill without cache).
+
+    Inside a tensor-parallel train step (``sharding.ctx.
+    get_tensor_parallel()``) ``x`` is this rank's rows and the rank
+    computes its heads: ``wq`` / ``wk`` / ``wv`` (and their biases)
+    column-parallel, K3 on its query heads and the kv heads they read,
+    ``wo`` row-parallel, its partial sums reduce-scattered into SP (or
+    all-reduced with SP off)."""
+    tp = ctx.get_tensor_parallel()
+    if tp is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+        return _attend(p, cfg, q, k, v, x.dtype)
+    cols = {"q": tp.q_cols, "k": tp.kv_cols, "v": tp.kv_cols}
+    local = {f"w{h}": tp.part(p[f"w{h}"], f"blocks/attn/w{h}", 1, c)
+             for h, c in cols.items()}
+    for h, c in cols.items():
+        b = p[f"b{h}"]
+        local[f"b{h}"] = None if b is None else \
+            tp.part(b, f"blocks/attn/b{h}", 0, c)
+    for name in ("q_norm", "k_norm"):
+        local[name] = None if p[name] is None else \
+            tp.whole(p[name], f"blocks/attn/{name}")
+    local["wo"] = tp.part(p["wo"], "blocks/attn/wo", 0, tp.q_cols)
+    x = tp.enter(x)
+    q, k, v = _project_qkv(local, cfg, x, positions)
+    return tp.exit(_attend(local, cfg, q, k, v, x.dtype))
 
 
 def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,

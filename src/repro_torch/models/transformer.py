@@ -17,7 +17,15 @@ under ``torch.utils.checkpoint`` (non-reentrant), as the reference runs its
 scanned block under ``jax.checkpoint``: a block's activations are
 recomputed in the backward, only its input is kept.  K1 and K3 are
 differentiable there (their ``autograd.Function``s, backward kernels on
-the card)."""
+the card).
+
+On a tensor-parallel train step's mesh (``sharding.ctx.
+get_tensor_parallel()`` set) the same code runs each rank's part:
+the vocab-parallel embedding, the blocks on the rank's sequence rows
+(their attention and MLP on its heads and ff columns between SP's
+all-gather and reduce-scatter: ``attention.attention``, ``ffn.mlp``),
+and the final norm and the head, gathered whole over ``model``, on its
+rows; collectives inside remat's block run again in its recompute."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -33,17 +41,29 @@ from .attention import KVCache
 from .common import ModelConfig, cross_entropy, init_dense, rmsnorm
 
 
+def _norm_weight(w, path: str):
+    """A block norm's weight, whole (``TensorParallel.norm_weight`` inside
+    a tensor-parallel step)."""
+    tp = ctx.get_tensor_parallel()
+    return w if tp is None else tp.norm_weight(w, path)
+
+
 def _block_fwd(p, cfg: ModelConfig, x, positions):
     # FSDP: the layer's whole weights, gathered here so that remat gathers
     # them again in its recompute (the identity outside a sharded step)
     p = ctx.gathered(p, "blocks")
     # the reference's sequence-parallel boundaries: the identity with no
-    # mesh or a mesh whose model axis has size 1 (ctx.constraint)
+    # mesh or a mesh whose model axis has size 1; on a tensor-parallel
+    # step's model axis x is this rank's sequence rows (ctx.constraint),
+    # K1 normalises them and attention / mlp gather the whole sequence
     x = ctx.constraint(x, ctx.dp_axes(), "model", None)
-    h = x + attn_mod.attention(p["attn"], cfg,
-                               rmsnorm(x, p["ln1"], cfg.norm_eps), positions)
+    h = x + attn_mod.attention(
+        p["attn"], cfg,
+        rmsnorm(x, _norm_weight(p["ln1"], "blocks/ln1"), cfg.norm_eps),
+        positions)
     h = ctx.constraint(h, ctx.dp_axes(), "model", None)
-    return h + ffn_mod.mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return h + ffn_mod.mlp(p["mlp"], rmsnorm(
+        h, _norm_weight(p["ln2"], "blocks/ln2"), cfg.norm_eps))
 
 
 class Model:
@@ -82,9 +102,15 @@ class Model:
 
     # -- forward (scoring) ---------------------------------------------------
     def forward(self, params, tokens):
-        """tokens (b, s) -> logits (b, s, vocab)."""
+        """tokens (b, s) -> logits (b, s, vocab).  Inside a tensor-parallel
+        train step (``sharding.ctx.get_tensor_parallel()``): the logits of
+        this rank's sequence rows ``tp.rows`` alone, (b, rows, vocab), from
+        the vocab-parallel embedding and the head gathered whole over
+        ``model``."""
         cfg = self.cfg
-        x = ctx.gathered(params["embed"], "embed")[tokens]
+        tp = ctx.get_tensor_parallel()
+        embed = ctx.gathered(params["embed"], "embed")
+        x = embed[tokens] if tp is None else tp.embed(embed, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -95,19 +121,29 @@ class Model:
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = _block_fwd(layer, cfg, x, positions)
-        x = rmsnorm(x, ctx.gathered(params["ln_f"], "ln_f"), cfg.norm_eps)
-        return x @ ctx.gathered(params["head"], "head")
+        ln_f = ctx.gathered(params["ln_f"], "ln_f")
+        head = ctx.gathered(params["head"], "head")
+        if tp is not None:
+            x, ln_f, head = (tp.own(x), tp.whole(ln_f, "ln_f"),
+                             tp.whole(head, "head"))
+        return rmsnorm(x, ln_f, cfg.norm_eps) @ head
 
     def loss(self, params, batch):
         """Mean next-token cross entropy (fp32, z-loss 1e-4, labels -100
         masked) of ``batch["tokens"]`` (b, s) against ``batch["labels"]``
-        (b, s)."""
+        (b, s); inside a tensor-parallel step, the mean over this rank's
+        sequence rows (the step scales it by their share of the tokens)."""
         if self.cfg.n_experts:
             raise NotImplementedError(
                 "the MoE load-balancing term of the loss comes with the MoE "
                 "family (ROADMAP.md queue 1 item 8)")
         logits = self.forward(params, batch["tokens"])
-        return cross_entropy(logits, batch["labels"])
+        labels = batch["labels"]
+        tp = ctx.get_tensor_parallel()
+        if tp is not None:
+            # the rank's sequence rows: its share of the step's tokens
+            labels = labels[:, tp.rows[0]:tp.rows[1]]
+        return cross_entropy(logits, labels)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

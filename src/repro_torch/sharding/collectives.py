@@ -1,23 +1,40 @@
-"""The collectives of training on a mesh's data axes, over
-``torch.distributed``.
+"""The collectives of training on a mesh, over ``torch.distributed``.
 
 This module stands in for what XLA's SPMD partitioner inserts for the
 reference: there, ``jit`` with the rules' shardings (``sharding/rules.py``)
-turns a batch split over ``pod`` x ``data`` into gradient all-reduces, and
-an FSDP param split into all-gathers before use and reduce-scatters of its
-gradient.  The port writes them out:
+turns a batch split over ``pod`` x ``data`` into gradient all-reduces, an
+FSDP param split into all-gathers before use and reduce-scatters of its
+gradient, and the ``model`` axis's splits (heads, ff, vocab, the sequence
+between blocks) into Megatron's tensor- and sequence-parallel collectives.
+The port writes them out:
 
-  * :class:`DataGroup` is the flattened ``pod`` x ``data`` group of a mesh
-    whose other dims all have size 1 (a ``model`` dim of size > 1 is the
-    model axis, ROADMAP.md queue 1 item 7d, and raises).  Its rank order is
-    the batch's: the rank at ``(pod p, data d)`` is index ``p * n_data +
-    d``, which holds rows ``[index * B / W, (index + 1) * B / W)``.
+  * :class:`DataGroup` is the data group of this rank's ``model``
+    coordinate: the ranks that share it, flattened over ``pod`` x
+    ``data``.  Its rank order is the batch's: the rank at ``(pod p, data
+    d)`` is index ``p * n_data + d``, which holds rows ``[index * B / W,
+    (index + 1) * B / W)``.
+  * :class:`ModelGroup` is the ``model`` axis's group of this rank's
+    ``pod`` x ``data`` coordinate; :class:`WorldGroup` every rank of the
+    mesh (the step's one reduction of the loss and the norm's squares).
   * :func:`gather_param` is an ``autograd.Function``: its forward
-    all-gathers a param's shard along the split dim, its backward
-    reduce-scatters the whole gradient back to the shard.  The model calls
-    it through ``sharding.ctx.gathered`` inside the block that remat wraps,
-    so the recompute gathers again and no whole layer outlives its use.  K1
-    and K3 (``autograd.Function``s too) only ever see whole local tensors.
+    all-gathers a tensor's shard along a dim, its backward reduce-scatters
+    the whole gradient back to the shard.  FSDP gathers each param with it
+    over the data group (``sharding.ctx.gathered``, inside the block that
+    remat wraps, so the recompute gathers again); over the model group it
+    is also SP's entry (the sequence all-gathered before the column-
+    parallel projections).
+  * The other Megatron pairs, each an ``autograd.Function`` on one group:
+    :func:`copy_to` (identity forward, all-reduce backward: the entry of a
+    column-parallel layer on a replicated input, and any replicated param
+    used on this rank's part of the work), :func:`reduce_from` (all-reduce
+    forward, identity backward: the exit of a row-parallel layer without
+    SP), :func:`scatter` (reduce-scatter forward, all-gather backward: the
+    exit into SP) and :func:`gather_replicated` (all-gather forward, this
+    rank's piece of the gradient backward, no collective: a split param
+    used on replicated work, whose gradient every rank already holds
+    whole).  K1 and K3 (``autograd.Function``s too) only ever see whole
+    local tensors.
+  * :func:`splits` gives, for a spec, the dim each group splits.
 
 Backends.  NCCL takes card tensors only, and every tensor this module
 hands a group is the caller's (the state's device: the card for a card
@@ -30,45 +47,115 @@ renames the last two ``all_gather_single`` / ``reduce_scatter_single`` and
 deprecates the old names: the new ones are taken where they exist).  The
 sums run in each backend's order (gloo's, NCCL's ring), not XLA's.
 
-Every call is counted (``DataGroup.counts``: calls and bytes by kind), so a
-train step's collectives can be read off.
+Every call is counted (each group's ``counts``: calls and bytes by kind),
+so a train step's collectives can be read off group by group.
 """
 from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .rules import PartitionSpec, dp_axes, mesh_shape
 
-__all__ = ["DataGroup", "gather_param"]
-
-_MODEL_ITEM = ("a mesh dim other than the data axes with size > 1 is the "
-               "model axis (tensor and sequence parallelism in training): "
-               "ROADMAP.md queue 1 item 7d")
+__all__ = ["DataGroup", "ModelGroup", "WorldGroup", "splits",
+           "gather_param", "copy_to", "reduce_from", "scatter",
+           "gather_replicated"]
 
 # flattened groups by (ranks, backend): new_group is a collective over the
-# whole world, so a mesh's flattened group is built once a process
+# whole world, so each group is built once a process
 _FLAT_GROUPS: Dict[Tuple, object] = {}
 
 
-class DataGroup:
-    """The data-parallel group of ``mesh`` (module docstring): ``size``
-    (W), this rank's ``index``, ``coordinate`` (axis -> index) and the
-    process ``group`` (None when W is 1, where every collective is the
-    identity)."""
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
 
-    def __init__(self, mesh):
+
+def splits(mesh, spec: PartitionSpec) -> Dict[str, Optional[int]]:
+    """``{"data": dim, "model": dim}``: the tensor dim that ``spec``
+    splits over the data axes (``pod`` x ``data``) and the one it splits
+    over ``model`` (axes of size 1 split nothing), None for whole.  A dim
+    split over both, a split over some data axes but not all, and an axis
+    the port does not know raise."""
+    sizes = mesh_shape(mesh)
+    dp = tuple(a for a in dp_axes(mesh) if sizes[a] > 1)
+    out: Dict[str, Optional[int]] = {"data": None, "model": None}
+    for d, entry in enumerate(spec):
+        axes = tuple(a for a in _entry_axes(entry) if sizes[a] > 1)
+        if not axes:
+            continue
+        unknown = [a for a in axes if a not in ("pod", "data", "model")]
+        if unknown:
+            raise ValueError(f"spec {spec} on {sizes}: axes {unknown} are "
+                             f"neither data axes nor 'model'")
+        if "model" in axes:
+            if axes != ("model",):
+                raise NotImplementedError(
+                    f"spec {spec} on {sizes}: dim {d} split over the data "
+                    f"and the model axes at once (no rule gives it)")
+            kind = "model"
+        else:
+            if axes != dp:
+                raise NotImplementedError(
+                    f"spec {spec} on {sizes}: only a split over every wide "
+                    f"data axis {dp} is a data-parallel placement")
+            kind = "data"
+        if out[kind] is not None:
+            raise NotImplementedError(f"spec {spec} on {sizes}: two dims "
+                                      f"split over the {kind} axes")
+        out[kind] = d
+    return out
+
+
+def _axis_group(mesh, axes: Tuple[str, ...]):
+    """The process group of this rank's line through ``mesh`` along
+    ``axes`` (flattened, the first axis major), or None for one rank.
+    Every rank builds every line's group (``new_group`` is collective)."""
+    import torch.distributed as dist
+    sizes = mesh_shape(mesh)
+    wide = [a for a in axes if sizes[a] > 1]
+    if not wide:
+        return None
+    if len(wide) == 1:
+        return mesh.get_group(wide[0])
+    names = list(sizes)
+    grid = mesh.mesh
+    # the mesh's dims: those of ``wide`` last, in order; one line per
+    # coordinate of the others
+    others = [a for a in names if a not in wide]
+    order = [names.index(a) for a in others + wide]
+    lines = grid.permute(order).reshape(
+        -1, math.prod(sizes[a] for a in wide))
+    me, mine = dist.get_rank(), None
+    for line in lines.tolist():
+        ranks = [int(r) for r in line]
+        if ranks != sorted(ranks):
+            raise ValueError(f"the mesh's ranks {ranks} along {wide} are "
+                             f"not in rank order")
+        if ranks == list(range(dist.get_world_size())):
+            return dist.group.WORLD
+        key = (tuple(ranks), dist.get_backend())
+        if key not in _FLAT_GROUPS:
+            _FLAT_GROUPS[key] = dist.new_group(ranks)
+        if me in ranks:
+            mine = _FLAT_GROUPS[key]
+    return mine
+
+
+class _Group:
+    """One group of a mesh's ranks: ``size``, this rank's ``index``,
+    ``coordinate`` (axis -> index on the mesh), the process ``group`` (None
+    when ``size`` is 1, where every collective is the identity) and
+    ``counts`` (calls and bytes by kind)."""
+
+    def __init__(self, mesh, axes: Tuple[str, ...]):
         import torch.distributed as dist
         sizes = mesh_shape(mesh)
-        others = {a: s for a, s in sizes.items()
-                  if a not in ("pod", "data") and s > 1}
-        if others:
-            raise NotImplementedError(f"training on {sizes}: {_MODEL_ITEM}")
         self.mesh = mesh
-        self.axes = dp_axes(mesh)
+        self.axes = tuple(a for a in axes if a in sizes)
         self.size = math.prod(sizes[a] for a in self.axes)
         coord = mesh.get_coordinate()
         if coord is None:
@@ -79,45 +166,11 @@ class DataGroup:
             index = index * sizes[a] + self.coordinate[a]
         self.index = index
         self.counts: Counter = Counter()
-        self.group = None
-        if self.size > 1:
-            wide = [a for a in self.axes if sizes[a] > 1]
-            if len(wide) == 1:
-                self.group = mesh.get_group(wide[0])
-            else:
-                ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
-                if ranks != sorted(ranks):
-                    raise ValueError(f"the mesh's ranks {ranks} are not in "
-                                     f"rank order")
-                key = (tuple(ranks), dist.get_backend())
-                if key not in _FLAT_GROUPS:
-                    _FLAT_GROUPS[key] = dist.new_group(ranks)
-                self.group = _FLAT_GROUPS[key]
-            if dist.get_rank(self.group) != self.index:
-                raise AssertionError(
-                    f"group rank {dist.get_rank(self.group)} is not the data "
-                    f"index {self.index}")
-
-    # -- placement ----------------------------------------------------------
-    def split_dim(self, spec: PartitionSpec) -> Optional[int]:
-        """The tensor dim that ``spec`` splits over this group (axes of
-        size 1 split nothing), or None for a whole (replicated) tensor."""
-        sizes = mesh_shape(self.mesh)
-        wide = tuple(a for a in self.axes if sizes[a] > 1)
-        found = None
-        for d, entry in enumerate(spec):
-            axes = () if entry is None else (
-                (entry,) if isinstance(entry, str) else tuple(entry))
-            axes = tuple(a for a in axes if sizes[a] > 1)
-            if not axes:
-                continue
-            if axes != wide or found is not None:
-                raise NotImplementedError(
-                    f"spec {spec} on {sizes}: only a split of one dim over "
-                    f"every data axis is a data-parallel placement; "
-                    f"{_MODEL_ITEM}")
-            found = d
-        return found
+        self.group = _axis_group(mesh, self.axes) if self.size > 1 else None
+        if self.group is not None and dist.get_rank(self.group) != self.index:
+            raise AssertionError(
+                f"group rank {dist.get_rank(self.group)} is not the index "
+                f"{self.index} along {self.axes}")
 
     # -- collectives ----------------------------------------------------------
     def _count(self, kind: str, t: torch.Tensor) -> None:
@@ -174,6 +227,11 @@ class DataGroup:
         scatter(out, chunks, group=self.group)
         return out
 
+    def piece(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's shard of ``full`` along ``dim`` (no collective)."""
+        n = full.shape[dim] // self.size
+        return full.narrow(dim, self.index * n, n)
+
     def broadcast_object(self, obj):
         """``obj`` from the group's index 0."""
         import torch.distributed as dist
@@ -185,9 +243,44 @@ class DataGroup:
         return box[0]
 
 
+class DataGroup(_Group):
+    """The data group of ``mesh`` for this rank's ``model`` coordinate: its
+    ``pod`` x ``data`` ranks, flattened (module docstring)."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh, dp_axes(mesh))
+
+    def split_dim(self, spec: PartitionSpec) -> Optional[int]:
+        """The tensor dim ``spec`` splits over the data axes, or None."""
+        return splits(self.mesh, spec)["data"]
+
+
+class ModelGroup(_Group):
+    """The ``model`` axis's group of this rank's ``pod`` x ``data``
+    coordinate (size 1 where the mesh has no ``model`` axis)."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh, ("model",))
+
+    def split_dim(self, spec: PartitionSpec) -> Optional[int]:
+        """The tensor dim ``spec`` splits over ``model``, or None."""
+        return splits(self.mesh, spec)["model"]
+
+
+class WorldGroup(_Group):
+    """Every rank of ``mesh``, in the mesh's order."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh, tuple(mesh_shape(mesh)))
+
+
+# ---------------------------------------------------------------------------
+# autograd pairs
+# ---------------------------------------------------------------------------
+
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, group: DataGroup, dim: int):
+    def forward(ctx, local, group: _Group, dim: int):
         ctx.group, ctx.dim = group, dim
         return group.all_gather(local, dim)
 
@@ -196,12 +289,238 @@ class _Gather(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad, ctx.dim), None, None
 
 
-def gather_param(local: torch.Tensor, group: DataGroup,
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, full, group: _Group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(full, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad, ctx.dim), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: _Group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(grad.contiguous().clone()), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: _Group):
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, group: _Group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(local, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.piece(grad, ctx.dim).contiguous(), None, None
+
+
+def gather_param(local: torch.Tensor, group: _Group,
                  dim: Optional[int]) -> torch.Tensor:
-    """The whole param of the shard ``local`` (split along ``dim``; None:
-    already whole), differentiable: its gradient comes back
-    reduce-scattered to the shard."""
+    """The whole tensor of the shard ``local`` (split along ``dim`` over
+    ``group``; None: already whole), differentiable: its gradient comes
+    back reduce-scattered to the shard, summed over the group."""
     if dim is None or group.size == 1:
         return local
     return _Gather.apply(local, group, dim)
 
+
+def scatter(full: torch.Tensor, group: _Group, dim: int) -> torch.Tensor:
+    """This rank's shard along ``dim`` of ``full`` summed over ``group``;
+    its gradient comes back all-gathered."""
+    if group.size == 1:
+        return full
+    return _Scatter.apply(full, group, dim)
+
+
+def copy_to(x: torch.Tensor, group: _Group) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group``."""
+    if group.size == 1:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: _Group) -> torch.Tensor:
+    """``x`` summed over ``group``; its gradient passes unchanged."""
+    if group.size == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_replicated(local: torch.Tensor, group: _Group,
+                      dim: Optional[int]) -> torch.Tensor:
+    """The whole tensor of the shard ``local`` for work every rank of
+    ``group`` repeats: its gradient, whole and the same on every rank, is
+    cut back to this rank's piece with no collective."""
+    if dim is None or group.size == 1:
+        return local
+    return _GatherReplicated.apply(local, group, dim)
+
+
+def chunk_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` of each of ``parts`` pieces of ``n``, as
+    ``torch.tensor_split`` cuts: equal where ``parts`` divides ``n``, else
+    the first ``n % parts`` one longer."""
+    q, r = divmod(n, parts)
+    return [(i * q + min(i, r), (i + 1) * q + min(i + 1, r))
+            for i in range(parts)]
+
+
+# ---------------------------------------------------------------------------
+# the model axis as the model uses it
+# ---------------------------------------------------------------------------
+
+def check_model_axis(cfg, mesh) -> None:
+    """Raise ValueError where the model axis of ``mesh`` cannot give each
+    rank whole heads for K3: ``model`` must divide ``n_heads``, and a
+    rank's query heads must read whole kv heads of their own (its heads a
+    multiple of the GQA group, or a divisor of it)."""
+    m = mesh_shape(mesh).get("model", 1)
+    if m == 1:
+        return
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    if nh % m:
+        raise ValueError(f"{cfg.name}: a model axis of {m} does not divide "
+                         f"its {nh} heads (mesh {mesh_shape(mesh)}); tensor "
+                         f"parallelism gives each rank whole heads")
+    local, group = nh // m, nh // nkv
+    if local % group and group % local:
+        raise ValueError(f"{cfg.name}: on a model axis of {m} a rank's "
+                         f"{local} query heads straddle kv heads (GQA group "
+                         f"{group}; mesh {mesh_shape(mesh)})")
+
+
+class TensorParallel:
+    """The model axis of one train step, as ``repro_torch.models`` uses it
+    (Megatron's tensor parallelism, and SP where ``model`` divides the
+    sequence).  ``group`` is the :class:`ModelGroup`; ``dims`` the model
+    split dim of each param by the rules' path (``"blocks/attn/wq"``;
+    None: whole over ``model``); ``seq`` the global sequence length of the
+    step's batch.
+
+    Between blocks a rank holds its sequence rows ``rows`` (``sp``: the
+    reference's split, ``seq / size`` each) or, with SP off, the whole
+    sequence, every rank the same.  Inside a block it computes its query
+    heads ``q_cols`` (columns of ``wq``), the kv heads they read
+    ``kv_cols`` and its ff columns ``ff_cols``.  The loss is taken on its
+    ``rows`` in either case.  Each param arrives through one of
+    :meth:`part`, :meth:`whole` or :meth:`norm_weight`, which gather what
+    the rank's storage lacks and sum its gradient where this rank's work
+    gives only a share of it."""
+
+    def __init__(self, group: ModelGroup, dims: Dict[str, Optional[int]],
+                 cfg, seq: int):
+        m, r = group.size, group.index
+        self.group, self.dims, self.seq = group, dims, seq
+        self.sp = seq % m == 0
+        self.rows = chunk_bounds(seq, m)[r]
+        hd, local = cfg.hd, cfg.n_heads // m
+        first = r * local
+        kv_group = cfg.n_heads // cfg.n_kv_heads
+        k0, k1 = first // kv_group, (first + local - 1) // kv_group + 1
+        self.q_cols = (first * hd, (first + local) * hd)
+        self.kv_cols = (k0 * hd, k1 * hd)
+        self.ff_cols = chunk_bounds(cfg.d_ff, m)[r]
+
+    # -- params -------------------------------------------------------------
+    def part(self, t: torch.Tensor, path: str, dim: int,
+             bounds: Tuple[int, int]) -> torch.Tensor:
+        """``[lo, hi)`` along ``dim`` of the whole param ``path`` from this
+        rank's stored piece ``t``: ``t`` itself where it is that piece,
+        else cut from ``t`` gathered over ``model`` (its gradient summed
+        back to each rank's piece) or from ``t`` whole (its gradient
+        summed over ``model``)."""
+        lo, hi = bounds
+        d = self.dims[path]
+        if d == dim and t.shape[dim] == hi - lo and \
+                self.group.index * (hi - lo) == lo:
+            return t
+        t = self.whole(t, path)
+        return t if (lo, hi) == (0, t.shape[dim]) else \
+            t.narrow(dim, lo, hi - lo)
+
+    def whole(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """The whole param ``path`` for this rank's share of the work: its
+        gradient is summed over ``model``."""
+        d = self.dims[path]
+        return copy_to(t, self.group) if d is None else \
+            gather_param(t, self.group, d)
+
+    def norm_weight(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """A block norm's whole weight: as :meth:`whole` under SP (the rank
+        normalises its rows); with SP off every rank normalises the whole
+        sequence, so its gradient is already whole on every rank and is
+        not summed."""
+        if self.sp:
+            return self.whole(t, path)
+        return gather_replicated(t, self.group, self.dims[path])
+
+    # -- activations ----------------------------------------------------------
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A block's normed input (b, rows, d) -> the whole sequence for
+        its column-parallel projections: SP's all-gather, or with SP off
+        the identity whose gradient is summed over ``model``."""
+        return gather_param(x, self.group, 1) if self.sp else \
+            copy_to(x, self.group)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel partial sum (b, seq, d) -> this rank's rows of
+        the sum: SP's reduce-scatter, or with SP off the all-reduce."""
+        return scatter(y, self.group, 1) if self.sp else \
+            reduce_from(y, self.group)
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's output -> this rank's rows for the loss (K1
+        takes them contiguous)."""
+        if self.sp:
+            return x
+        lo, hi = self.rows
+        return copy_to(x, self.group)[:, lo:hi].contiguous()
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """The embedding of ``tokens`` (b, seq) as the blocks take it:
+        vocab-parallel where the rules split the table's vocab (each rank
+        looks up its rows, zero elsewhere, and the sum lands in SP or is
+        all-reduced), else a lookup of the rank's rows of a whole table."""
+        if self.dims["embed"] == 0:
+            n = table.shape[0]
+            idx = tokens - self.group.index * n
+            hit = (idx >= 0) & (idx < n)
+            rows = table[idx.clamp(0, n - 1)]
+            return self.exit(torch.where(hit[..., None], rows,
+                                         torch.zeros((), dtype=rows.dtype,
+                                                     device=rows.device)))
+        if not self.sp:
+            return table[tokens]
+        lo, hi = self.rows
+        return copy_to(table, self.group)[tokens[:, lo:hi]]
+
+
+def gather_whole(t: torch.Tensor, spec: PartitionSpec, data: DataGroup,
+                 model: ModelGroup) -> torch.Tensor:
+    """The whole tensor of this rank's piece ``t`` under ``spec``: gathered
+    over the data group, then the model group, along the dims each splits
+    (``t`` itself where neither splits it)."""
+    d = data.split_dim(spec)
+    if d is not None:
+        t = data.all_gather(t, d)
+    m = model.split_dim(spec)
+    return t if m is None else model.all_gather(t, m)

@@ -9,18 +9,31 @@ single-device code and CPU smoke runs are unaffected.  With a mesh set it
 resolves the spec as the reference does (absent axes dropped, a dim its
 axes do not divide left whole) and, since the tensors of the port are the
 rank's local pieces, accepts only what the train step has already placed:
-a split of dim 0 over the data-parallel axes, or a split over axes of size
-1.  Anything else is the model axis's tensor or sequence parallelism
-(ROADMAP.md queue 1 item 7d) and raises.  The sharded serving engine reads
-the mesh from here too (``repro_torch.serve.engine.ShardedEngine``).
+a split of dim 0 over the data-parallel axes, a split over axes of size
+1, and the reference's sequence-parallel boundary ``constraint(x, dp,
+"model", None)`` inside a tensor-parallel train step (a ``model`` axis of
+size > 1), where ``x`` is this rank's sequence shard, checked by shape.
+Where the resolution leaves the sequence whole (``model`` does not divide
+it, so the reference drops the axis), SP is off for the step and ``x`` is
+the whole sequence, checked likewise.  Any other split over ``model``
+raises.  The sharded serving engine reads the mesh from here too
+(``repro_torch.serve.engine.ShardedEngine``).
 
-``gathered(tree, name)`` is the one hook of fully sharded training (FSDP,
-``repro_torch.train.step``): the model calls it on ``params["embed"]``,
-``["ln_f"]``, ``["head"]`` and each layer's dict, inside the function
-that remat wraps, and gets the whole tensors back.  It is the identity
-unless a sharded train step is running (:func:`param_gather`).  Both
-globals are plain module globals, not thread-locals: autograd runs a CUDA
-backward, remat's recompute included, on a thread of its own.
+Two hooks of the sharded train step (``repro_torch.train.step``) reach the
+model through here:
+
+  * ``gathered(tree, name)``, fully sharded training's (FSDP): the model
+    calls it on ``params["embed"]``, ``["ln_f"]``, ``["head"]`` and each
+    layer's dict, inside the function that remat wraps, and gets the
+    tensors whole over the data axes back.  It is the identity unless a
+    sharded train step is running (:func:`param_gather`);
+  * ``get_tensor_parallel()``, the model axis's: the running step's
+    ``sharding.collectives.TensorParallel`` (set by
+    :func:`tensor_parallel`), or None, which the model reads as one rank
+    of the model axis.
+
+Both globals are plain module globals, not thread-locals: autograd runs a
+CUDA backward, remat's recompute included, on a thread of its own.
 """
 from __future__ import annotations
 
@@ -30,9 +43,7 @@ from typing import Callable, Optional, Tuple
 
 _MESH = None
 _GATHER: Optional[Callable] = None
-
-_SP_ITEM = ("the model axis (tensor and sequence parallelism) comes with "
-            "ROADMAP.md queue 1 item 7d")
+_TP = None
 
 
 def set_mesh(mesh) -> None:
@@ -99,15 +110,22 @@ def resolve(shape, axes, mesh) -> tuple:
 def constraint(x, *axes):
     """The reference's ``with_sharding_constraint`` against the context
     mesh: the identity with no mesh set; with one, ``x`` itself when the
-    resolved spec splits only dim 0 over the data-parallel axes, or only
-    over axes of size 1 (module docstring), else NotImplementedError."""
+    resolved spec splits only dim 0 over the data-parallel axes, only
+    over axes of size 1, or dim 1 over ``model`` as the running tensor-
+    parallel step's sequence split (module docstring); a sequence that
+    is not this rank's share raises ValueError, any other split
+    NotImplementedError."""
     mesh = _MESH  # snapshot: set_mesh(None) mid-call must not crash us
     if mesh is None:
         return x
     from .rules import mesh_shape
     sizes = mesh_shape(mesh)
+    tp = _TP if sizes.get("model", 1) > 1 else None
+    shape = list(x.shape)
+    if tp is not None and len(shape) > 1:
+        shape[1] = tp.seq          # resolved on the global sequence
     dp = {"pod", "data"}
-    for i, ax in enumerate(resolve(x.shape, axes, mesh)):
+    for i, ax in enumerate(resolve(shape, axes, mesh)):
         if ax is None:
             continue
         names = ax if isinstance(ax, tuple) else (ax,)
@@ -115,9 +133,26 @@ def constraint(x, *axes):
             continue
         if math.prod(sizes[a] for a in names) == 1:
             continue
+        if i == 1 and names == ("model",) and tp is not None:
+            continue                # the SP boundary, checked below
         raise NotImplementedError(
             f"sharding.ctx.constraint: dim {i} of a {tuple(x.shape)} tensor "
-            f"over {ax} on {sizes}: {_SP_ITEM}")
+            f"over {ax} on {sizes}: the port splits the model axis only as "
+            f"its tensor-parallel train step does (heads, ff and vocab "
+            f"inside the layers, the sequence between them: "
+            f"train.step.make_train_step on this mesh)")
+    seq_axes = _filter(axes[1], mesh) if len(axes) > 1 and \
+        len(shape) > 1 else None
+    if tp is not None and "model" in ((seq_axes,) if isinstance(
+            seq_axes, str) else (seq_axes or ())):
+        want = tp.rows[1] - tp.rows[0] if tp.sp else tp.seq
+        if x.shape[1] != want:
+            raise ValueError(
+                f"sharding.ctx.constraint: a {tuple(x.shape)} tensor is not "
+                f"model rank {tp.group.index}'s "
+                + (f"sequence shard ({want} of {tp.seq})" if tp.sp else
+                   f"whole sequence ({tp.seq}: SP is off, {tp.group.size} "
+                   f"does not divide it)"))
     return x
 
 
@@ -139,3 +174,20 @@ def gathered(tree, name: str):
     identity unless a sharded train step set :func:`param_gather`."""
     fn = _GATHER
     return tree if fn is None else fn(tree, name)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp):
+    """While the step runs, :func:`get_tensor_parallel` is ``tp`` (a
+    ``sharding.collectives.TensorParallel``)."""
+    global _TP
+    prev, _TP = _TP, tp
+    try:
+        yield
+    finally:
+        _TP = prev
+
+
+def get_tensor_parallel():
+    """The running tensor-parallel step's ``TensorParallel``, or None."""
+    return _TP

@@ -24,10 +24,10 @@ Remat is the model's (``cfg.remat``: each block under
 
 **On a mesh** (``make_train_step(model, mesh)``, one process a rank, the
 mesh a named ``DeviceMesh``): the data-parallel axes are ``pod`` and
-``data`` (``sharding.rules.dp_axes``); every other dim must have size 1
-(the model axis is ROADMAP.md queue 1 item 7d and raises).  The step sets
-``sharding.ctx``'s mesh, as the reference's does.  Every rank is given the
-same global batch and the same call sequence; what it does:
+``data`` (``sharding.rules.dp_axes``) and ``model`` is the model axis.
+The step sets ``sharding.ctx``'s mesh, as the reference's does.  Every
+rank is given the same global batch and the same call sequence; what it
+does:
 
   * **batch**: the rank at data index ``r`` of W takes its rows as
     ``sharding.rules.batch_specs`` places them: ``[r B / W, (r + 1) B /
@@ -35,31 +35,45 @@ same global batch and the same call sequence; what it does:
     global rows ``[i B / mb, (i + 1) B / mb)`` and the rank holds its 1 / W
     of them.  A batch that W x mb does not divide raises ``ValueError``;
   * **loss**: the reference's, the mean over the global batch's (or
-    microbatch's) unmasked tokens: each rank's mean is scaled by its share
-    of the global count.  Every rank holds the global batch, so the counts
-    need no collective;
-  * **DP** (``cfg.fsdp`` false): the state is replicated and each gradient
-    leaf is all-reduced over the data group in its own dtype (bf16 for a
-    bf16 model, or a bf16 microbatch sum);
+    microbatch's) unmasked tokens: each rank's mean over its own tokens
+    (its rows, and on a model axis its sequence rows) is scaled by their
+    share of the global count.  Every rank holds the global batch, so the
+    counts need no collective;
+  * **DP** (``cfg.fsdp`` false): the state is replicated over the data
+    axes and each gradient leaf is all-reduced over the data group in its
+    own dtype (bf16 for a bf16 model, or a bf16 microbatch sum);
   * **FSDP** (``cfg.fsdp``): params and moments live as this rank's shards
     (``make_train_state(..., mesh=)`` or :func:`shard_state`); the model
-    gathers each leaf where it is used (``sharding.ctx.gathered``, inside
-    the block remat wraps) and its gradient comes back reduce-scattered
-    (``sharding.collectives``); leaves the rules leave whole are
-    all-reduced as under DP;
+    gathers each leaf over the data group where it is used
+    (``sharding.ctx.gathered``, inside the block remat wraps) and its
+    gradient comes back reduce-scattered (``sharding.collectives``);
+    leaves the rules leave whole over the data axes are all-reduced as
+    under DP;
+  * **TP and SP** (a ``model`` axis of M > 1): params are stored as the
+    rules split them over ``model`` (with FSDP the reference's 2-D spec,
+    e.g. yi-9b's ``wq`` ``(data, model)``), and the model computes each
+    rank's heads and ff columns between SP's all-gather of the sequence
+    and its reduce-scatter (``sharding.collectives.TensorParallel``, set
+    for the step through ``sharding.ctx.tensor_parallel``).  Every sum
+    over ``model`` happens inside autograd, so a gradient leaves the
+    backward whole over ``model`` for a whole leaf and summed into its
+    shard for a split one; the data axes then reduce it as above.  A
+    ``model`` that does not divide ``n_heads`` raises ``ValueError``;
   * **AdamW** updates the local shards with the reference's arithmetic:
     the global norm sums the shards' squares over ranks in one
-    ``all_reduce`` (together with the loss), whole leaves counted once; an
-    8-bit moment's scale is the amax over all layers and ranks (one
-    ``all_reduce(MAX)``);
+    ``all_reduce`` (together with the loss; over the data group, or on a
+    model axis over every rank of the mesh), each leaf counted once over
+    every axis it is replicated over; an 8-bit moment's scale is the amax
+    over all layers and ranks (one ``all_reduce(MAX)``);
   * **the NaN guard** reads the all-reduced loss and norm, so every rank
     decides the same, before any write.
 
 A rank that raises fails the run: no rank may retry alone (its peers
 would wait in a collective), so a caller on a mesh does not retry steps
-(``launch.train`` runs ``TrainLoop`` with no retries there).  At W = 1 the
-step does the one-device step's arithmetic, no collective and no scaling:
-its bits are the one-device step's.
+(``launch.train`` runs ``TrainLoop`` with no retries there).  On a mesh
+of one rank (W = M = 1) the step does the one-device step's arithmetic,
+no collective and no scaling: its bits are the one-device step's; at M =
+1 the data axes' step runs its own code, unchanged by the model axis.
 
 ``state_specs`` gives the rules' placement of a (global) state;
 ``shard_state`` cuts a global state into a rank's shards and
@@ -141,16 +155,17 @@ def shard_state(state: Dict, mesh, specs: Dict) -> Dict:
 
 def gather_state(state: Dict, mesh, specs: Dict) -> Dict:
     """The global state of every rank's shards (each leaf all-gathered over
-    the data group; a collective every rank calls): the inverse of
-    :func:`shard_state`."""
-    from repro_torch.sharding.collectives import DataGroup
-    group = DataGroup(mesh)
+    the data group and the model group; collectives every rank calls): the
+    inverse of :func:`shard_state`."""
+    from repro_torch.sharding.collectives import (DataGroup, ModelGroup,
+                                                  gather_whole)
+    groups = DataGroup(mesh), ModelGroup(mesh)
 
     def whole(spec, t):
-        d = group.split_dim(spec)
-        out = t.detach().clone() if d is None else \
-            group.all_gather(t.detach(), d)
-        return out.requires_grad_(t.requires_grad)
+        local = t.detach()
+        out = gather_whole(local, spec, *groups)
+        return (out.clone() if out is local else out).requires_grad_(
+            t.requires_grad)
     return rules.tree_map_specs(whole, specs, state)
 
 
@@ -207,22 +222,32 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
 
 
 class _Placement:
-    """What the sharded step needs of a mesh: the data group, the split
-    dim of each param leaf (by path; one layer's for ``blocks``), the
-    FSDP gather, and the rank's rows of a global batch."""
+    """What the sharded step needs of a mesh: the data, model and world
+    groups, the split dims of each param leaf over the data axes and over
+    ``model`` (by path; one layer's for ``blocks``), the FSDP gather, the
+    model axis's ``TensorParallel`` of a sequence length, and the rank's
+    rows of a global batch."""
 
     def __init__(self, model: Model, mesh):
-        from repro_torch.sharding.collectives import DataGroup
+        from repro_torch.sharding.collectives import (
+            DataGroup, ModelGroup, WorldGroup, check_model_axis, splits)
+        check_model_axis(model.cfg, mesh)
+        self.cfg = model.cfg
         self.group = DataGroup(mesh)
+        self.model = ModelGroup(mesh)
+        self.world = WorldGroup(mesh) if self.model.size > 1 else None
         meta = model.init_params(torch.Generator(), "meta")
         specs = rules.params_specs(meta, mesh, model.cfg)
-        self.dims = {}
+        self.dims, self.model_dims = {}, {}
         for path, _ in adamw.leaves(meta):
             spec = specs
             for k in path:
                 spec = spec[k]
-            self.dims[self._key(path)] = self.group.split_dim(spec)
+            split = splits(mesh, spec)
+            self.dims[self._key(path)] = split["data"]
+            self.model_dims["/".join(self._key(path))] = split["model"]
         self.any_split = any(d is not None for d in self.dims.values())
+        self._tp: Dict[int, object] = {}
 
     @staticmethod
     def _key(path) -> tuple:
@@ -231,9 +256,22 @@ class _Placement:
     def split(self, path) -> Optional[int]:
         return self.dims[self._key(path)]
 
+    def model_split(self, path) -> Optional[int]:
+        return self.model_dims["/".join(self._key(path))]
+
+    def tensor_parallel(self, seq: int):
+        """The model axis's ``TensorParallel`` for a batch of ``seq``
+        tokens a row."""
+        from repro_torch.sharding.collectives import TensorParallel
+        if seq not in self._tp:
+            self._tp[seq] = TensorParallel(self.model, self.model_dims,
+                                           self.cfg, seq)
+        return self._tp[seq]
+
     def gather(self, tree, name: str):
         """``sharding.ctx.gathered``'s FSDP form: each leaf that the rules
-        split, all-gathered (differentiably) to the whole tensor."""
+        split over the data axes, all-gathered (differentiably) to the
+        whole tensor over them."""
         from repro_torch.sharding.collectives import gather_param
 
         def one(path, t):
@@ -248,8 +286,8 @@ class _Placement:
 
     def rows(self, batch: Dict, microbatches: int):
         """(this rank's rows of the global ``batch``, each microbatch's
-        loss scale: local over global unmasked tokens, or None at W =
-        1)."""
+        loss scale: the unmasked tokens this rank's loss takes over the
+        global count, or None for one rank)."""
         w, r = self.group.size, self.group.index
         first = batch["tokens"]
         b = first.shape[0]
@@ -257,32 +295,44 @@ class _Placement:
             raise ValueError(f"a global batch of {b} rows does not split "
                              f"over {w} data ranks x {microbatches} "
                              f"microbatches")
-        if w == 1:
+        if w == 1 and self.model.size == 1:
             return batch, None
         per, mb_rows = b // (w * microbatches), b // microbatches
         ids = np.concatenate([np.arange(i * mb_rows + r * per,
                                         i * mb_rows + (r + 1) * per)
                               for i in range(microbatches)])
-        local = {k: (v[torch.as_tensor(ids, device=v.device)]
-                     if torch.is_tensor(v) else np.asarray(v)[ids])
-                 for k, v in batch.items()}
+        local = batch if w == 1 else {
+            k: (v[torch.as_tensor(ids, device=v.device)]
+                if torch.is_tensor(v) else np.asarray(v)[ids])
+            for k, v in batch.items()}
         labels = batch["labels"]
         labels = (labels.detach().cpu().numpy() if torch.is_tensor(labels)
                   else np.asarray(labels))
+        lo, hi = (0, labels.shape[1]) if self.model.size == 1 else \
+            self.tensor_parallel(labels.shape[1]).rows
         scales = []
         for i in range(microbatches):
             n_all = int((labels[i * mb_rows:(i + 1) * mb_rows] >= 0).sum())
-            n_own = int((labels[ids[i * per:(i + 1) * per]] >= 0).sum())
+            n_own = int((labels[ids[i * per:(i + 1) * per], lo:hi]
+                         >= 0).sum())
             scales.append(n_own / max(n_all, 1))
         return local, scales
+
+    def counted(self, path) -> bool:
+        """Whether this rank adds leaf ``path``'s squares to the global
+        norm: each leaf once over every axis it is whole over (there, the
+        rank at index 0)."""
+        return ((self.split(path) is not None or self.group.index == 0)
+                and (self.model_split(path) is not None
+                     or self.model.index == 0))
 
 
 def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
                     base_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, grad_bf16: bool = True):
     """The train step of ``model`` (see the module docstring), on one
-    device or, with ``mesh``, on the mesh's data axes; its gradients are
-    :func:`gradients`'."""
+    device or, with ``mesh``, SPMD on the mesh's data and model axes; its
+    gradients are :func:`gradients`'."""
     cfg = model.cfg
     place = None
     if mesh is not None:
@@ -291,17 +341,20 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
         ctx.set_mesh(mesh)
 
     def step(state: Dict, batch: Dict):
+        from repro_torch.sharding import ctx
         params = state["params"]
         device = adamw.leaves(params)[0][1].device
         scales = None
         if place is not None:
             batch, scales = place.rows(batch, microbatches)
         batch = _to_tensors(batch, device)
-        gather = contextlib.nullcontext()
+        scope = contextlib.ExitStack()
         if place is not None and place.any_split and place.group.size > 1:
-            from repro_torch.sharding import ctx
-            gather = ctx.param_gather(place.gather)
-        with gather:
+            scope.enter_context(ctx.param_gather(place.gather))
+        if place is not None and place.model.size > 1:
+            scope.enter_context(ctx.tensor_parallel(
+                place.tensor_parallel(batch["tokens"].shape[1])))
+        with scope:
             loss, grads_flat, div = gradients(model, params, batch,
                                               microbatches=microbatches,
                                               grad_bf16=grad_bf16,
@@ -309,7 +362,8 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
         lr = adamw.cosine_schedule(state["step"], base_lr=base_lr,
                                    warmup=warmup, total=total_steps)
         reduce_amax = None
-        if place is None or place.group.size == 1:
+        if place is None or (place.group.size == 1
+                             and place.model.size == 1):
             grads = adamw.unflatten(params, grads_flat)
             del grads_flat
             gnorm = adamw.global_norm(grads, div=div)
@@ -321,17 +375,25 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
                     group.all_reduce_(g)
             grads = adamw.unflatten(params, grads_flat)
             del grads_flat
-
-            def sharded(path):
-                return place.split(path) is not None
-            # the loss's partial sums and the shards' squares: one all_reduce
-            red = torch.stack([loss.float(), adamw.sum_squares(
-                grads, div=div, keep=sharded)])
-            group.all_reduce_(red)
-            loss = red[0]
-            gnorm = torch.sqrt(red[1] + adamw.sum_squares(
-                grads, div=div, keep=lambda p: not sharded(p)))
-            if cfg.opt_8bit and place.any_split:
+            if place.model.size == 1:
+                def sharded(path):
+                    return place.split(path) is not None
+                # the loss's partial sums and the shards' squares: one
+                # all_reduce
+                red = torch.stack([loss.float(), adamw.sum_squares(
+                    grads, div=div, keep=sharded)])
+                group.all_reduce_(red)
+                loss = red[0]
+                gnorm = torch.sqrt(red[1] + adamw.sum_squares(
+                    grads, div=div, keep=lambda p: not sharded(p)))
+            else:
+                # over every rank: each leaf's squares counted once
+                group = place.world
+                red = torch.stack([loss.float(), adamw.sum_squares(
+                    grads, div=div, keep=place.counted)])
+                group.all_reduce_(red)
+                loss, gnorm = red[0], torch.sqrt(red[1])
+            if cfg.opt_8bit and (place.any_split or place.model.size > 1):
                 def reduce_amax(amaxes):
                     flat = torch.stack([a for pair in amaxes for a in pair])
                     group.all_reduce_(flat, op="max")

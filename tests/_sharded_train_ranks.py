@@ -178,24 +178,28 @@ def rank_work_two(rank, world, ref, tmp):
         res["placements"][label] = placements(
             m, ref["placement_specs"][label] + actual)
 
-    # constraint with a mesh set, and the model axis's raise
+    # constraint with a mesh set; on the model axis inside the tensor-
+    # parallel step's context, where x is this rank's sequence shard
     model_mesh = make_mesh((1, 2), ("data", "model"), "cpu")
     x = torch.ones(4, 8, 16)
+    tp = tstep.make_train_step(Model(cfg_of()), model_mesh,
+                               **STEP).placement.tensor_parallel(8)
     out = {}
-    for label, m in (("data=2,model=1", mesh), ("data=1,model=2",
-                                                model_mesh)):
+    for label, m, t in (("data=2,model=1", mesh, x),
+                        ("data=1,model=2", model_mesh,
+                         x[:, tp.rows[0]:tp.rows[1]])):
         ctx.set_mesh(m)
         try:
-            out[label] = ctx.constraint(x, ctx.dp_axes(), "model",
-                                        None) is x
+            with ctx.tensor_parallel(tp if m is model_mesh else None):
+                out[label] = ctx.constraint(t, ctx.dp_axes(), "model",
+                                            None) is t
         except NotImplementedError as e:
             out[label] = str(e)
     ctx.set_mesh(None)
-    try:
-        collectives.DataGroup(model_mesh)
-        out["data_group"] = None
-    except NotImplementedError as e:
-        out["data_group"] = str(e)
+    group = collectives.DataGroup(model_mesh)
+    out["data_group"] = (group.size, group.index, group.split_dim(
+        rules.PS("data", "model")), collectives.ModelGroup(
+            model_mesh).split_dim(rules.PS("data", "model")))
     res["constraint"] = out
 
     # compress over the data axis

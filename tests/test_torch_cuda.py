@@ -1682,3 +1682,212 @@ def test_fsdp_yi_9b_full_width_and_depth_over_nccl():
           f"per rank peak GiB {[round(r['peak_gib'], 2) for r in res]}, "
           f"step s {[[round(m['s'], 3) for m in r['rows']] for r in res]}, "
           f"state bytes {want}, collectives a run {res[0]['collectives']}")
+
+
+# ---- the model axis in training: tensor and sequence parallelism -----------
+
+def _tp_train_card_rank(rank, world):
+    """Smoke yi-9b with qk_norm (head dim 16, fp32) on ``data=1, model=2``,
+    ``world`` gloo ranks sharing the card with the groups taken for NCCL's:
+    the one-device step first (each rank alone), then 2 mesh steps with SP
+    (seq 32) and 2 without (seq 31, which ``model`` does not divide): each
+    step's metrics and K1 / K3 launches on this rank, and every tensor
+    handed to a collective (device type, by collective)."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("yi_9b", qk_norm=True, head_dim=16)
+    model = Model(cfg)
+    out = {}
+    for seq in (32, 31):
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=4))
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(model, **TRAIN_KW)
+        out[f"one_{seq}"] = [step(state, data.global_batch_at(i))[1]
+                             for i in range(2)]
+    seen = []
+    saved = {n: getattr(dist, n) for n in COLLECTIVES + ("get_backend",)
+             if hasattr(dist, n)}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            seen.append((name, sorted({a.device.type for a in args
+                                       if torch.is_tensor(a)})))
+            return fn(*args, **kw)
+        return call
+    for n, fn in saved.items():
+        if n != "get_backend":
+            setattr(dist, n, wrap(n, fn))
+    dist.get_backend = lambda group=None: "nccl"
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        for seq in (32, 31):
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=4))
+            state = make_train_state(
+                model, torch.Generator(device="cuda").manual_seed(0),
+                mesh=mesh)
+            step = make_train_step(model, mesh, **TRAIN_KW)
+            rows = []
+            for i in range(2):
+                ops.reset_launch_counts()
+                state, m = step(state, data.global_batch_at(i))
+                torch.cuda.synchronize()
+                rows.append((m, ops.launch_counts(),
+                             ops.launch_counts_by_variant()))
+            out[f"mesh_{seq}"] = {
+                "rows": rows, "sp": step.placement.tensor_parallel(seq).sp,
+                "collectives": dict(step.placement.model.counts)}
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+        ctx.set_mesh(None)
+    out["seen"] = seen
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_train_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.testing import ranks
+    return ranks.spawn(_tp_train_card_rank, 2, backend="gloo",
+                       device="cuda", timeout=300)
+
+
+@pytest.mark.parametrize("seq", [32, 31])
+def test_tp_train_launches_k1_k3_on_every_rank(tp_train_on_card, seq):
+    """Each rank of ``model=2`` runs K1 and K3, forward and backward, on
+    its sequence rows and its heads: the one-device step's exact counts,
+    K3 all ``tf32x3``; its loss and norm the one-device step's within
+    1e-5, with SP (seq 32) and without (31)."""
+    cfg = smoke_config("yi_9b", qk_norm=True)
+    want = _launches_a_step(cfg)
+    for r in tp_train_on_card:
+        mesh = r[f"mesh_{seq}"]
+        assert mesh["sp"] == (seq % 2 == 0)
+        for (m, counts, by_variant), one in zip(mesh["rows"],
+                                                r[f"one_{seq}"]):
+            assert m["applied"] == 1
+            assert {k: counts[k] for k in want} == want
+            assert by_variant["flash_attention"]["tf32x3"] == \
+                want["flash_attention"]
+            assert by_variant["flash_attention_bwd"]["tf32x3"] == \
+                want["flash_attention_bwd"]
+            for key in ("loss", "grad_norm"):
+                assert m[key] == pytest.approx(one[key], rel=1e-5)
+        # two steps: SP reduce-scatters each block's partial sums; without
+        # SP only the head's gradient is reduce-scattered, once a step
+        counts = mesh["collectives"]
+        assert counts["all_reduce"] > 0 and counts["all_gather"] > 0
+        assert (counts["reduce_scatter"] > 2) == (seq % 2 == 0)
+
+
+def test_tp_train_hands_an_nccl_group_card_tensors(tp_train_on_card):
+    """With the groups taken for NCCL's, every tensor the tensor-parallel
+    step hands a collective (SP's gathers and scatters, the Megatron
+    all-reduces, the head's gather, the world's reduction) is on the
+    card."""
+    for r in tp_train_on_card:
+        kinds = {name for name, _ in r["seen"]}
+        assert "all_reduce" in kinds and len(kinds) >= 3, kinds
+        for name, devices in r["seen"]:
+            assert devices == ["cuda"], (name, devices)
+
+
+def test_tp_17a_over_nccl_on_two_cards():
+    """chip_smoke's 17a cell (qwen3-4b at full width cut to 4 layers, fp32,
+    ``model=2``, batch 4 x 512) as two NCCL ranks, a card each, held to
+    the one-device step on every rank as phase 17 holds it."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (NCCL takes one rank a GPU)")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import config
+    launches, took = chip_smoke.tp_cell(
+        torch.cuda.get_device_name(0), "17a", "qwen3_4b", (1, 2),
+        backend="nccl")
+    want = chip_smoke._train_launches_a_step(config(
+        "qwen3_4b", n_layers=chip_smoke.SHARDED_TRAIN_LAYERS,
+        dtype="float32"))
+    assert launches == [want, want]
+    print(f"17a over NCCL on two cards: {took:.1f} s with the processes")
+
+
+def _fsdp_tp_full_rank(rank, world, steps, batch):
+    """yi-9b at full width and depth, bf16, remat, FSDP + TP on ``data=2,
+    model=2`` (a card a rank): ``steps`` steps of ``batch`` x 512; per rank
+    its metrics, state bytes, peak memory, step times and collectives by
+    group."""
+    import time as _time
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = config("yi_9b")
+    model = Model(cfg)
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             mesh=mesh)
+    step = make_train_step(model, mesh, **TRAIN_KW)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                  global_batch=batch))
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        state, m = step(state, data.global_batch_at(i))
+        torch.cuda.synchronize()
+        rows.append({**m, "s": _time.perf_counter() - t0})
+    ctx.set_mesh(None)
+    place = step.placement
+    return {"rows": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": {"data": dict(place.group.counts),
+                            "model": dict(place.model.counts),
+                            "world": dict(place.world.counts)}}
+
+
+def test_fsdp_tp_yi_9b_full_width_and_depth_over_nccl():
+    """FSDP + TP on four cards (NCCL, ``data=2, model=2``): yi-9b at full
+    width and depth, bf16, remat, batch 8 x 512, 2 steps.  Every rank
+    applies both steps with a finite loss, the same on every rank; each
+    rank's state bytes are the dry run's.  Step time and peak memory are
+    printed, to read beside FSDP alone on the same cards
+    (``test_fsdp_yi_9b_full_width_and_depth_over_nccl``)."""
+    import math as _math
+
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (NCCL takes one rank a GPU)")
+    batch = 8
+    res = ranks.spawn(_fsdp_tp_full_rank, 4, backend="nccl", device="cuda",
+                      timeout=900, args=(2, batch))
+    want = dryrun.reckon(config("yi_9b"), {"seq": 512, "batch": batch,
+                                          "kind": "train"},
+                         {"data": 2, "model": 2})["memory"]["state_bytes"]
+    for r in res:
+        assert [m["applied"] for m in r["rows"]] == [1, 1]
+        assert all(_math.isfinite(m["loss"]) for m in r["rows"])
+        assert [(m["loss"], m["grad_norm"]) for m in r["rows"]] == \
+            [(m["loss"], m["grad_norm"]) for m in res[0]["rows"]]
+        assert r["state_bytes"] == want
+    print(f"yi-9b FSDP + TP on data=2, model=2 (4 H100s, NCCL), batch "
+          f"{batch} x 512: per rank peak GiB "
+          f"{[round(r['peak_gib'], 2) for r in res]}, step s "
+          f"{[[round(m['s'], 3) for m in r['rows']] for r in res]}, state "
+          f"bytes {want}, collectives a run {res[0]['collectives']}")

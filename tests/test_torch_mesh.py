@@ -294,15 +294,26 @@ def _rank_work(rank, world, tmp):
                                 ctx.dp_axes(), ctx._filter(("model", "x")))
             # a batch split over the data axis is what the train step
             # placed: the identity; a split over a model axis of size > 1
-            # (sequence parallelism) raises
+            # (sequence parallelism) is this rank's sequence shard inside a
+            # tensor-parallel step, and raises outside one
             x = torch.ones(4, 8)
             try:
                 ctx.constraint(x, "data", "model")
                 raised = None
             except NotImplementedError as e:
                 raised = str(e)
+            sp = None
+            if "model" in desc:
+                from repro_torch.configs import smoke_config
+                from repro_torch.sharding import collectives
+                tp = collectives.TensorParallel(
+                    collectives.ModelGroup(m), {},
+                    smoke_config("qwen3_4b"), x.shape[1])
+                shard = x[:, tp.rows[0]:tp.rows[1]]
+                with ctx.tensor_parallel(tp):
+                    sp = ctx.constraint(shard, "data", "model") is shard
             res.setdefault("ctx_constraint", {})[desc] = (
-                ctx.constraint(x, "data") is x, raised)
+                ctx.constraint(x, "data") is x, sp, raised)
         finally:
             ctx.set_mesh(None)
         # measured tuning: every rank times its shard, all pick the same
@@ -478,12 +489,13 @@ def test_process_mesh_context(port, oracle, desc):
         assert math.isclose(got, want, rel_tol=TOL, abs_tol=TOL)
         assert dp == ("data",)
         assert kept == (("model",) if desc != "data=4" else None)
-        same, raised = res["ctx_constraint"][desc]
+        same, sp, raised = res["ctx_constraint"][desc]
         assert same
         if "model" in desc:
-            assert "item 7d" in raised
+            assert sp is True
+            assert "tensor-parallel train step" in raised
         else:
-            assert raised is None
+            assert sp is None and raised is None
 
 
 # ---------------------------------------------------------------------------

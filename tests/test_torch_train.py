@@ -470,16 +470,25 @@ def test_make_train_state_and_unported_mesh():
                for _, m in adamw.leaves(st["opt"]["m"]))
     # the rules' placement of the state (training on the data axes):
     # every leaf a spec; a mesh whose model axis has size > 1 is tensor /
-    # sequence parallelism, which waits for item 7d
+    # sequence parallelism: the step runs there on two gloo ranks, each
+    # holding its heads and its vocab rows, and a model axis that does not
+    # divide the heads raises
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 1})
     specs = tstep.state_specs(st, mesh, cfg)
     assert specs["step"] == () and specs["opt"]["step"] == ()
     assert specs["params"]["blocks"][0]["attn"]["wq"] == (None, "model")
     assert specs["opt"]["m"] == specs["params"] == specs["opt"]["v"]
 
+    import _tp_train_ranks
+    from repro_torch.testing import ranks
+    for m, wq, embed in ranks.spawn(_tp_train_ranks.rank_work_step, 2,
+                                    args=(tiny(),), timeout=300):
+        assert m["applied"] == 1 and np.isfinite(m["loss"])
+        assert wq == (32, 16) and embed == (32, 32)
+
     class ModelAxis:
-        shape = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7d"):
+        shape = {"data": 1, "model": 3}
+    with pytest.raises(ValueError, match="does not divide its 4 heads"):
         tstep.make_train_step(model, ModelAxis())
 
 
