@@ -271,7 +271,31 @@ result):
    axes held to it on rank 0 (16b / 16c's tolerances) and summed alike on
    every rank, its state bytes to ``launch.dryrun.reckon``'s; each rank's
    collectives by group (data, model, world) with their bytes, state
-   bytes, peak memory and step times printed.
+   bytes, peak memory and step times printed;
+18. the transformer families, after phase 17, random weights drawn on
+   the card from seed 0, K1 / K3 counts zeroed before each counted run
+   and checked exactly after it: (a) dbrx-132b (moe: 16 experts top-4)
+   at full width cut to 4 layers (28.5 GB), bf16, on phase 4b's traffic
+   through ``BatchedEngine`` and ``ContinuousEngine`` (dense and paged,
+   the decode chunk a CUDA graph): each engine's second run bitwise its
+   first (the sampled request included), dense = paged, tok/s and a
+   decode step's device time at 4 lanes (every expert read); then 2
+   layers in fp32 (TF32 off), the same weights on the card and on the
+   CPU: a right-padded prefill's and one decode step's logits within
+   ``LOGIT_TOL``, the same greedy tokens; (b) musicgen-large (audio, 4
+   codebooks, head dim 64), not cut, likewise (no CPU part); (c)
+   stablelm-1.6b (not cut), qwen1.5-32b and chameleon-34b (8 layers),
+   grok-1-314b (2 layers): one static prefill and its 8 decode steps
+   each; (k) K1 and K3 at the new shapes (K3 ``mma`` at head dim 64 at
+   18b's and 18c's prefills; K1 at d_model 6144 and 2048), timed as in
+   phase 3; (d) expert parallelism: dbrx-132b, 1 layer at full width,
+   bf16, capacity factor 2 (nothing drops), batch 4 x 128, lr 0, on two
+   gloo ranks sharing the card on ``model=2`` against the same step on
+   a one-rank ``(1, 1)`` mesh (rank 0 first): loss and grad norm within
+   13c's bf16 tolerances, the params bitwise, every moment's error
+   printed, each rank's all-to-alls a step (calls and bytes) against the
+   prediction, its state bytes against ``launch.dryrun.reckon``'s.  The depth cuts keep
+   the part's weights on the card and phase 18 near 4 minutes.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -282,7 +306,9 @@ variant, phase 13b's; K3-bwd's per variant in 13e too, as
 one per tuned winner of phase 11, one ``dpia_cuda:mesh_<op>`` per mesh op
 of phase 14; K1's and K3's ``launches_phase15`` by run and rank; K1's, K3's
 and their backward kernels' ``launches_phase16`` and ``launches_phase17``,
-a step, by part and rank; phase 17k's cases among their ``cases``), the
+a step, by part and rank; K1's and K3's ``launches_phase18`` by part:
+18a / 18b by engine, 18c by arch, 18d's ranks a step with the backward
+kernels'; phase 17k's and 18k's cases among their ``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -927,14 +953,15 @@ def _continuous_run(engine, reqs, cfg):
     if prefills != len(rows) or admits != len(reqs):
         raise AssertionError(f"{prefills} prefill calls for {admits} "
                              f"admissions; want {len(rows)} for {len(reqs)}")
-    per_pass = 4 * cfg.n_layers + 1
+    # qk_norm's q and k rows (2 a layer, packed) where the config has it
+    qk = 2 * cfg.n_layers if cfg.qk_norm else 0
+    per_pass = qk + 2 * cfg.n_layers + 1
     want = {"flash_attention": cfg.n_layers * admits,
             "rmsnorm": per_pass * (prefills + steps),
             "matmul": 0, "dpia_cuda": 0, **NO_BWD}
-    want_k1 = {"packed": 2 * cfg.n_layers * (prefills + steps),
-               "warp": 0, "block": 0}
+    want_k1 = {"packed": qk * (prefills + steps), "warp": 0, "block": 0}
     for r in rows + [SLOTS] * steps:     # the d_model rows of each pass
-        want_k1[rms.plan(r, cfg.d_model, torch.bfloat16).variant] += \
+        want_k1[rms.plan(r, cfg.d_model, cfg.torch_dtype).variant] += \
             2 * cfg.n_layers + 1
     if counts != want or variants["rmsnorm"] != want_k1 or \
             variants["flash_attention"] != {"mma": cfg.n_layers * admits,
@@ -3581,12 +3608,29 @@ def sharded_train_one(rank, world):
     return out
 
 
+# _held_to_oracle's elements a chunk: the comparison's temporaries of a
+# (16, 6144, 10 752) expert leaf whole (4 GB each in fp32) did not fit
+# beside 18d's two ranks on one H100
+ORACLE_CHUNK = 1 << 24
+
+
+def _chunks(flat, scale, device):
+    """``flat`` (a 1-D tensor, on the host or the card) chunk by chunk on
+    ``device``, dequantized by ``scale`` where given."""
+    for lo in range(0, flat.numel(), ORACLE_CHUNK):
+        c = flat[lo:lo + ORACLE_CHUNK].to(device)
+        yield c.float() * scale if scale is not None else c
+
+
 def _held_to_oracle(state, specs, place, oracle, start):
     """Every leaf of a mesh ``state``, gathered whole over the data and
     model groups of the step's placement ``place`` one at a time (a
     collective on every rank), against the one-device step's
-    final state ``oracle`` (host tensors by path, on the group's first
-    rank; None elsewhere) from ``start`` (its params at the start):
+    final state ``oracle`` (host tensors by path, an 8-bit moment as its
+    ``(q, scale)``, on the group's first rank; None elsewhere) from
+    ``start`` (its params at the start; 8-bit moments are compared
+    dequantized, within one quantization step more), ``ORACLE_CHUNK``
+    elements at a time:
     ``(worst error over the leaf's largest magnitude by part, params also
     over the largest update; the leaves beyond the tolerance; a float64
     sum of each gathered leaf)``."""
@@ -3597,27 +3641,52 @@ def _held_to_oracle(state, specs, place, oracle, start):
         spec = specs
         for k in path:
             spec = spec[k]
-        whole = gather_whole(t.detach(), spec, place.group, place.model)
-        sums.append(whole.double().sum().item())
-        if oracle is not None and not whole.is_floating_point():
-            if not torch.equal(whole.cpu(), oracle[path]):
+        scale = None
+        if isinstance(t, adamw.QTensor):
+            # an 8-bit moment, dequantized (the oracle's too): within one
+            # quantization step of it
+            spec, scale = spec.q, t.scale
+            t = t.q
+        whole = gather_whole(t.detach(), spec, place.group,
+                             place.model).reshape(-1)
+        dev = whole.device
+        sums.append(sum(c.double().sum().item()
+                        for c in _chunks(whole, scale, dev)))
+        if oracle is None:
+            continue
+        want = oracle[path]
+        if scale is None and not whole.is_floating_point():
+            if not torch.equal(whole.cpu(), want.reshape(-1)):
                 bad.append("/".join(map(str, path)))
-        elif oracle is not None:
-            want = oracle[path].to(whole.device)
-            err = (whole - want).abs()
-            part = path[0] if path[0] != "opt" else path[1]
-            worst[part] = max(worst.get(part, 0.0), (
-                err.max() / want.abs().max().clamp(min=1e-30)).item())
-            tol = SHARDED_STATE_TOL[0] * want.abs().max() + \
-                SHARDED_STATE_TOL[1] * want.abs()
-            if part == "params":
-                update = (want - start[path[1:]].to(whole.device)).abs().max()
-                worst["params_over_update"] = max(
-                    worst.get("params_over_update", 0.0),
-                    (err.max() / update.clamp(min=1e-30)).item())
+            continue
+        want, w_scale = want if isinstance(want, tuple) else (want, None)
+        want = want.reshape(-1)
+        w_max = max(c.abs().max().item()
+                    for c in _chunks(want, w_scale, dev))
+        part = path[0] if path[0] != "opt" else path[1]
+        update = None
+        if part == "params":
+            update = max((c - s0.to(dev)).abs().max().item() for c, s0 in
+                         zip(_chunks(want, None, dev), _chunks(
+                             start[path[1:]].reshape(-1), None, "cpu")))
+        step = 0.0 if scale is None else scale.item()
+        err_max, beyond = 0.0, False
+        for g, w in zip(_chunks(whole, scale, dev),
+                        _chunks(want, w_scale, dev)):
+            err = (g - w).abs()
+            tol = SHARDED_STATE_TOL[0] * w_max + \
+                SHARDED_STATE_TOL[1] * w.abs() + step
+            if update is not None:
                 tol = tol + SHARDED_UPDATE_TOL * update
-            if bool((err > tol).any()):
-                bad.append("/".join(map(str, path)))
+            err_max = max(err_max, err.max().item())
+            beyond = beyond or bool((err > tol).any())
+        worst[part] = max(worst.get(part, 0.0), err_max / max(w_max, 1e-30))
+        if update is not None:
+            worst["params_over_update"] = max(
+                worst.get("params_over_update", 0.0),
+                err_max / max(update, 1e-30))
+        if beyond:
+            bad.append("/".join(map(str, path)))
         del whole
     return worst, bad, sums
 
@@ -4016,6 +4085,479 @@ def phase_tp_train(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the transformer families (moe, vlm, audio, two more dense)
+# ---------------------------------------------------------------------------
+
+# depth cuts (None: every layer): bf16 weights a part holds on the card
+# (``ModelConfig.param_count`` x 2 bytes): dbrx-132b 4 x 3.26 B + 1.23 B
+# = 28.5 GB, musicgen-large 6.5 GB whole, stablelm-1.6b 3.3 GB whole,
+# qwen1.5-32b 8 x 0.53 B + 1.56 B = 11.5 GB, chameleon-34b 8 x 0.69 B +
+# 1.07 B = 13.2 GB, grok-1-314b 2 x 4.92 B + 1.61 B = 22.9 GB
+FAMILY_LAYERS = {"dbrx_132b": 4, "musicgen_large": None,
+                 "stablelm_1_6b": None, "qwen1_5_32b": 8,
+                 "chameleon_34b": 8, "grok_1_314b": 2}
+# 18c: one static prefill of two prompts and its decode steps
+FAMILY_PROMPT_LENS = (48, 17)
+FAMILY_MAX_NEW = 8
+# 18a's fp32 check against the CPU: 2 layers of dbrx-132b at full width
+# (31 GB of fp32 weights on each side), one prefill and one decode step;
+# fp32 on both sides, TF32 off, sums in other orders (phase 5's tolerance)
+MOE_CPU_LAYERS = 2
+MOE_CPU_PROMPT_LENS = (64, 23)
+# 18d: dbrx-132b at full width, 1 layer, capacity factor 2 (a
+# destination's cap = tl * k: nothing drops, so the two-rank step and the
+# one-process step compute the same function), batch 4 x 128, lr 0 (the
+# 8-bit moments hold the gradients, the params keep their bits), two
+# steps on two batches.  bf16: in fp32 the one-process yardstick holds 45
+# GB of params and gradients (4.49 B params), and AdamW's fp32 temporaries
+# of one (16, 6144, 10 752) expert leaf took it past the H100's 80 GB; in
+# bf16 it holds 27 GB.  At batch 4 x 512 the
+# yardstick's expert buffers (every expert over 8 x 2048 slots) would
+# not fit beside it either.  Tolerances: 13c's for two bf16 computations
+# of one step (loss 1e-3 relative, grad norm 5 %); the params bitwise
+EP_ARCH, EP_SHAPE, EP_DTYPE = "dbrx_132b", (1, 2), "bfloat16"
+EP_LAYERS, EP_BATCH, EP_SEQ, EP_CF, EP_STEPS = 1, 4, 128, 2.0, 2
+EP_LOSS_RTOL, EP_GNORM_RTOL = 1e-3, 5e-2
+
+
+def _family_build(arch: str, **kw):
+    """(cfg, model, params) of ``arch`` at full width cut to its
+    FAMILY_LAYERS, random weights from seed 0 drawn on the card."""
+    from repro_torch.launch import serve
+    layers = FAMILY_LAYERS[arch]
+    if layers is not None:
+        kw.setdefault("n_layers", layers)
+    cfg, model, params = serve.build(arch, seed=0, **kw)
+    torch.cuda.synchronize()
+    return cfg, model, params
+
+
+def _family_static(cfg, model, params, reqs, label: str):
+    """``BatchedEngine`` on ``reqs``: a warm run, then a counted run whose
+    tokens must be the warm run's bit for bit, its K1 / K3 launches exact
+    against its prefill and decode steps (K1 by variant, every K3 launch
+    on ``mma``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.serve.engine import BatchedEngine
+    lens = [len(r.prompt) for r in reqs]
+    engine = BatchedEngine(model, params,
+                           max_seq=max(lens) + max(r.max_new_tokens
+                                                   for r in reqs) + CHUNK,
+                           chunk=CHUNK)
+    warm = engine.run(reqs, seed=5)
+    torch.cuda.synchronize()
+    before = engine.stats()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.run(reqs, seed=5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, variants = ops.launch_counts(), ops.launch_counts_by_variant()
+    after = engine.stats()
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    if cfg.qk_norm:
+        raise AssertionError(f"{cfg.name}: qk_norm rows are not counted here")
+    per_pass = 2 * cfg.n_layers + 1
+    want = {"flash_attention": cfg.n_layers * prefills,
+            "rmsnorm": per_pass * (prefills + steps),
+            "matmul": 0, "dpia_cuda": 0, **NO_BWD}
+    want_k1 = {"packed": 0, "warp": 0, "block": 0}
+    for r in [len(reqs) * max(lens)] * prefills + [len(reqs)] * steps:
+        want_k1[rms.plan(r, cfg.d_model, cfg.torch_dtype).variant] += \
+            per_pass
+    if counts != want or variants["rmsnorm"] != want_k1 or \
+            variants["flash_attention"] != {"mma": want["flash_attention"],
+                                            "tf32x3": 0}:
+        raise AssertionError(f"[{label}] static: launches {counts} != "
+                             f"{want}, K1 {variants['rmsnorm']} != {want_k1}, "
+                             f"K3 {variants['flash_attention']}")
+    if outs != warm:
+        raise AssertionError(f"[{label}] static: a second run of the same "
+                             f"requests and seed gave other tokens")
+    for o, r in zip(outs, reqs):
+        if len(o) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in o):
+            raise AssertionError(f"[{label}] bad output {o}")
+    return outs, {"tok_s": sum(map(len, outs)) / dt, "s": dt,
+                  "prefills": prefills, "steps": steps, "launches": counts,
+                  "k1_variants": variants["rmsnorm"],
+                  "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _family_serving(cfg, model, params, reqs, label: str):
+    """Phase 4b's traffic through the static engine and the continuous
+    engine (dense and paged, the decode chunk a CUDA graph): each engine's
+    second run bitwise its first, dense = paged, exact K1 / K3 counts."""
+    static, rep = _family_static(cfg, model, params, reqs, label)
+    out = {"static": rep}
+    toks = {}
+    for layout in ("dense", "paged"):
+        engine = continuous_engine(model, params, layout, graph=True)
+        first = [list(r.tokens) for r in engine.run_results(reqs, seed=5)]
+        toks[layout], rep = _continuous_run(engine, reqs, cfg)
+        st = engine.stats()
+        if toks[layout] != first or st.get("recaptures_after_warm"):
+            raise AssertionError(f"[{label}] {layout}: a second run gave "
+                                 f"other tokens, or re-captured "
+                                 f"({st.get('recaptures_after_warm')})")
+        out[layout] = {k: rep[k] for k in ("tok_s", "s", "ttft_200_s",
+                                           "max_memory_gib", "prefills",
+                                           "steps", "launches",
+                                           "k1_variants")}
+        out[layout]["captures"] = st.get("captures")
+        del engine
+    if toks["dense"] != toks["paged"]:
+        raise AssertionError(f"[{label}] dense and paged tokens differ")
+    agree = [next((j for j, (a, b) in enumerate(zip(c, s)) if a != b), None)
+             for c, s in zip(toks["dense"], static)]
+    out["continuous_vs_static_first_diff"] = agree
+    return out
+
+
+def _decode_step_ms(model, params, b: int, pos: int) -> float:
+    """Device time of one decode step of ``b`` lanes at ``pos`` (graph
+    replays), the cache a scratch one."""
+    cfg = model.cfg
+    cache = model.init_cache(b, pos + 8)
+    shape = (b, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    tok = torch.zeros(shape, dtype=torch.long, device="cuda")
+    at = torch.full((b,), pos, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        ms = time_ms(lambda: model.decode_step(params, tok, cache, at),
+                     reps=5, trials=3)
+    del cache
+    return ms
+
+
+def _moe_against_cpu():
+    """[18a] dbrx-132b cut to MOE_CPU_LAYERS layers at full width in fp32
+    (TF32 off): the same weights (drawn on the card, copied to the host)
+    on the card (kernels) and on the CPU (plain versions); a right-padded
+    prefill's last-position logits, then one decode step's, within
+    LOGIT_TOL, and the same greedy tokens."""
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, model, p_gpu = _family_build("dbrx_132b", n_layers=MOE_CPU_LAYERS,
+                                      dtype="float32")
+    p_cpu = _to(p_gpu, "cpu")
+    gen = torch.Generator().manual_seed(6)
+    b, s = len(MOE_CPU_PROMPT_LENS), max(MOE_CPU_PROMPT_LENS)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    lengths = torch.tensor(MOE_CPU_PROMPT_LENS)
+    ops.reset_launch_counts()
+    logits, nxt = {}, {}
+    for where, params in (("cpu", p_cpu), ("card", p_gpu)):
+        dev = params["embed"].device
+        with torch.inference_mode():
+            cache = model.init_cache(b, s + 2, device=dev)
+            first, _ = model.prefill(params, tokens.to(dev), cache,
+                                     lengths=lengths.to(dev))
+            nxt[where] = first.argmax(-1).cpu()
+            step, _ = model.decode_step(params, first.argmax(-1)[:, None],
+                                        cache, lengths.to(dev))
+        logits[where] = (first.cpu(), step.cpu())
+        del cache
+    errs = [(logits["card"][i] - logits["cpu"][i]).abs().max().item()
+            for i in range(2)]
+    if not max(errs) <= LOGIT_TOL or not torch.equal(nxt["card"],
+                                                     nxt["cpu"]):
+        raise AssertionError(f"[18a] fp32 card vs CPU: max abs err {errs} "
+                             f"(tol {LOGIT_TOL}), greedy {nxt}")
+    fa = ops.launch_counts_by_variant()["flash_attention"]
+    if fa != {"mma": 0, "tf32x3": MOE_CPU_LAYERS}:
+        raise AssertionError(f"[18a] fp32 K3 launches {fa}: one tf32x3 a "
+                             f"layer in the card's prefill")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return {"max_abs_err_prefill": errs[0], "max_abs_err_decode": errs[1],
+            "logit_max": logits["cpu"][0].abs().max().item(),
+            "greedy": nxt["cpu"].tolist(), "k3": fa,
+            "s": time.perf_counter() - t0}
+
+
+def _family_kernel_cases(k1):
+    """K1 and K3 at the new families' shapes (bf16): K3 ``mma`` at head dim
+    64 at musicgen-large's static prefill (8 x 200, 32 heads) and
+    stablelm-1.6b's (18c: 2 x 48, 32 heads); K1 at d_model 6144 (dbrx's
+    prefill rows and a decode step's 4) and 2048 (musicgen's, stablelm's
+    18c prefill)."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, s = len(CONT_PROMPT_LENS), max(CONT_PROMPT_LENS)
+    b2, s2 = len(FAMILY_PROMPT_LENS), max(FAMILY_PROMPT_LENS)
+    return {
+        "rmsnorm": [_rmsnorm_case(r, d, torch.bfloat16, gen, k1)
+                    for r, d in ((b * s, 6144), (SLOTS, 6144), (b * s, 2048),
+                                 (SLOTS, 2048), (b2 * s2, 2048))],
+        "flash_attention": [
+            _flash_case(s, s, True, 0, gen, b=b, nh=32, nkv=32, hd=64),
+            _flash_case(s2, s2, True, 0, gen, b=b2, nh=32, nkv=32, hd=64)]}
+
+
+def _one_rank_mesh():
+    """A ``(data, model) = (1, 1)`` mesh of this rank alone inside a larger
+    world (no process group: every group of a one-rank axis is None)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    import torch.distributed as dist
+    return DeviceMesh("cuda", torch.tensor([[dist.get_rank()]]),
+                      mesh_dim_names=("data", "model"), _init_backend=False)
+
+
+def _ep_prediction(cfg):
+    """18d's all-to-alls a step and their bytes: per layer the payload,
+    its metadata and the outputs back in the forward, again in remat's
+    recompute, the two float ones in the backward (8 calls); payloads
+    (M, cap, d) in the model's dtype and metadata (M, cap) int32, cap =
+    ceil(cf * tl * k / M) for a rank's tl tokens."""
+    m = EP_SHAPE[1]
+    tl = EP_BATCH // EP_SHAPE[0] * EP_SEQ // m
+    cap = max(math.ceil(EP_CF * tl * cfg.top_k / m), 4)
+    payload = m * cap * cfg.d_model * cfg.torch_dtype.itemsize
+    return {"all_to_all": 8 * cfg.n_layers,
+            "all_to_all_bytes": cfg.n_layers * (6 * payload + 2 * m * cap * 4),
+            "cap": cap, "tl": tl}
+
+
+def ep_rank(rank, world):
+    """[18d] dbrx-132b, one layer at full width, bf16, on ``world`` gloo
+    ranks sharing the card, mesh ``EP_SHAPE``: rank 0 first runs the step
+    on a one-rank ``(1, 1)`` mesh (the EP path with its model group of one:
+    the yardstick) and keeps its final state on the host; then every rank
+    runs the EP step from the same seed-0 weights, K1 / K3 counted exactly
+    a step, its all-to-alls counted, every leaf gathered whole and
+    compared with the yardstick's on rank 0."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import (make_train_state, make_train_step,
+                                        state_specs)
+    cfg = config(EP_ARCH, n_layers=EP_LAYERS, dtype=EP_DTYPE,
+                 moe_capacity_factor=EP_CF)
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=EP_SEQ,
+                                  global_batch=EP_BATCH))
+    batches = [data.global_batch_at(i) for i in range(EP_STEPS)]
+    kw = dict(base_lr=0.0, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    out = {"rank": rank}
+    oracle = start = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        one = _one_rank_mesh()
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), mesh=one,
+            use_8bit=cfg.opt_8bit)
+        state, rows = _sharded_steps(make_train_step(model, one, **kw),
+                                     state, batches, cfg, "mma",
+                                     phase="18d")
+        # on the host: 18 GB of params, the 8-bit moments as they are
+        oracle = {p: ((t.q.cpu(), t.scale.item())
+                      if isinstance(t, adamw.QTensor)
+                      else t.detach().to("cpu"))
+                  for p, t in adamw.leaves(state)}
+        # lr 0: the params end where they started
+        start = {p[1:]: t for p, t in oracle.items() if p[0] == "params"}
+        out["one_process"] = {
+            "steps": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "s": time.perf_counter() - t0}
+        del state
+        ctx.set_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(EP_SHAPE, ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh,
+        use_8bit=cfg.opt_8bit)
+    out["init_s"] = time.perf_counter() - t0
+    out["state_bytes"] = _state_bytes(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, mesh, **kw)
+    place = step.placement
+    state, out["steps"] = _sharded_steps(
+        step, state, batches, cfg, "mma",
+        {"data": place.group, "model": place.model, "world": place.world},
+        phase="18d")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # both ranks compare at once, beside the script's own process: give
+    # the cached blocks back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    specs = state_specs(make_train_state(model, torch.Generator(),
+                                         device="meta",
+                                         use_8bit=cfg.opt_8bit), mesh, cfg)
+    out["worst_rel_to_leaf_max"], out["bad_leaves"], out["sums"] = \
+        _held_to_oracle(state, specs, place, oracle, start)
+    del state, step, oracle, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx.set_mesh(None)
+    return out
+
+
+def phase_ep(smi):
+    """[18d] expert parallelism: :func:`ep_rank` on two gloo ranks sharing
+    the card, checked (every rank's loss and grad norm against the
+    one-process step's, its all-to-alls against :func:`_ep_prediction`,
+    its state bytes against ``launch.dryrun.reckon``'s, rank 0's leaves
+    within 16b's tolerances, every rank's gathered leaves alike) and
+    logged; returns each rank's K1 / K3 launches a step."""
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    t0 = time.perf_counter()
+    world = EP_SHAPE[0] * EP_SHAPE[1]
+    # the ranks share the card with this process: what it holds
+    log(f"[18d] this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    res = ranks.spawn(ep_rank, world, backend="gloo", device="cuda",
+                      timeout=900)
+    took = time.perf_counter() - t0
+    cfg = config(EP_ARCH, n_layers=EP_LAYERS, dtype=EP_DTYPE,
+                 moe_capacity_factor=EP_CF)
+    ref = res[0]["one_process"]
+    want = _ep_prediction(cfg)
+    mesh = {"data": EP_SHAPE[0], "model": EP_SHAPE[1]}
+    reckoned = dryrun.reckon(cfg, {"seq": EP_SEQ, "batch": EP_BATCH,
+                                   "kind": "train"}, mesh)["memory"]
+    for r in res:
+        for x, y in zip(r["steps"], ref["steps"]):
+            for key, tol in (("loss", EP_LOSS_RTOL),
+                             ("grad_norm", EP_GNORM_RTOL)):
+                if not math.isclose(x[key], y[key], rel_tol=tol):
+                    raise AssertionError(
+                        f"[18d] rank {r['rank']} {key} {x[key]} vs the "
+                        f"one-process step's {y[key]} (tolerance {tol})")
+            a2a = {k: x["collectives"]["model"].get(k, 0)
+                   for k in ("all_to_all", "all_to_all_bytes")}
+            if a2a != {k: want[k] for k in a2a} or x["applied"] != 1:
+                raise AssertionError(f"[18d] rank {r['rank']}: all-to-alls "
+                                     f"{a2a} a step, predicted {want}; {x}")
+        if r["state_bytes"] != reckoned["state_bytes"]:
+            raise AssertionError(f"[18d] rank {r['rank']} holds "
+                                 f"{r['state_bytes']} bytes of state, the "
+                                 f"dry run reckons "
+                                 f"{reckoned['state_bytes']}")
+        if r["sums"] != res[0]["sums"]:
+            raise AssertionError(f"[18d] rank {r['rank']}'s gathered leaves "
+                                 f"differ from rank 0's")
+    worst = res[0]["worst_rel_to_leaf_max"]
+    if worst["params"] != 0.0:
+        raise AssertionError(f"[18d] lr 0, yet the params moved: {worst}")
+    log(f"[18d] expert parallelism, {EP_ARCH} at full width cut to "
+        f"{EP_LAYERS} layer, {EP_DTYPE}, capacity factor {EP_CF} (no "
+        f"drops), 8-bit moments, lr 0, {mesh} on {world} gloo ranks sharing "
+        f"one card against the same step on a one-rank (1, 1) mesh, batch "
+        f"{EP_BATCH} x {EP_SEQ}, {EP_STEPS} steps: loss within "
+        f"{EP_LOSS_RTOL} and grad norm within {EP_GNORM_RTOL} relative, "
+        f"the params bitwise; the moments' worst error over the leaf's "
+        f"largest (8-bit, both sides' routing in bf16) {worst}, leaves "
+        f"past 16b's fp32 tolerance {res[0]['bad_leaves']}; all-to-alls "
+        f"a step on every rank {want} (predicted and counted); "
+        + json.dumps({
+            "one_process": {k: ref[k] for k in ("state_bytes", "peak_gib",
+                                                "s")},
+            "one_process_steps": [{k: s[k] for k in ("loss", "grad_norm",
+                                                     "s")}
+                                  for s in ref["steps"]],
+            "dryrun_memory": reckoned,
+            "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
+                       "peak_gib": r["peak_gib"], "init_s": r["init_s"],
+                       "steps": r["steps"]} for r in res]})
+        + f"; {took:.1f} s with the processes; card {smi}")
+    return [r["steps"][0]["launches"] for r in res], took
+
+
+def phase_families(smi, k1):
+    """[18] the transformer families, after phase 17, random weights drawn
+    on the card from seed 0: (a) dbrx-132b at full width cut to 4 layers,
+    bf16, on phase 4b's traffic through the static engine and the
+    continuous engine (dense and paged, graphs), each second run bitwise
+    its first, exact K1 / K3 counts, a decode step's device time; then 2
+    layers in fp32 against the CPU; (b) musicgen-large (4 codebooks, whole)
+    likewise, K3 at head dim 64; (c) stablelm-1.6b (whole), qwen1.5-32b
+    and chameleon-34b (8 layers), grok-1-314b (2 layers): one static
+    prefill and its decode each; (d) expert parallelism on two gloo
+    ranks (:func:`phase_ep`).  Returns (the K1 / K3 cases at the new
+    shapes, each part's K1 / K3 launches)."""
+    import gc
+    from repro_torch.launch import serve
+    t_start = time.perf_counter()
+    launches, times, report = {}, {}, {}
+    for label, arch in (("18a", "dbrx_132b"), ("18b", "musicgen_large")):
+        t0 = time.perf_counter()
+        cfg, model, params = _family_build(arch)
+        reqs = serve.make_requests(cfg.vocab, CONT_PROMPT_LENS, MAX_NEW,
+                                   seed=3, codebooks=cfg.n_codebooks)
+        reqs[1].temperature, reqs[1].top_k = 0.8, 50
+        rep = _family_serving(cfg, model, params, reqs, label)
+        rep["decode_step_ms_4_lanes"] = _decode_step_ms(model, params, SLOTS,
+                                                        200)
+        launches[label] = {k: {"rmsnorm": v["launches"]["rmsnorm"],
+                               "flash_attention": v["launches"][
+                                   "flash_attention"]}
+                           for k, v in rep.items()
+                           if isinstance(v, dict) and "launches" in v}
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if label == "18a":
+            rep["fp32_against_cpu"] = _moe_against_cpu()
+        times[label] = time.perf_counter() - t0
+        report[label] = rep
+        log(f"[{label}] {cfg.name}, {cfg.n_layers} layers at full width "
+            f"(d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+            f"of {cfg.hd}, family {cfg.family}), bf16, phase 4b's traffic: "
+            + json.dumps(rep) + f"; {times[label]:.1f} s; card {smi}")
+    c_rep = {}
+    for arch in ("stablelm_1_6b", "qwen1_5_32b", "chameleon_34b",
+                 "grok_1_314b"):
+        t0 = time.perf_counter()
+        cfg, model, params = _family_build(arch)
+        reqs = serve.make_requests(cfg.vocab, FAMILY_PROMPT_LENS,
+                                   FAMILY_MAX_NEW, seed=4)
+        outs, rep = _family_static(cfg, model, params, reqs, "18c")
+        rep["layers"], rep["s_all"] = cfg.n_layers, time.perf_counter() - t0
+        rep["first_tokens"] = [o[:4] for o in outs]
+        c_rep[arch] = rep
+        launches.setdefault("18c", {})[arch] = {
+            k: rep["launches"][k] for k in ("rmsnorm", "flash_attention")}
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    times["18c"] = sum(r["s_all"] for r in c_rep.values())
+    log(f"[18c] one static prefill ({list(FAMILY_PROMPT_LENS)}) and "
+        f"{FAMILY_MAX_NEW} decode steps each, bf16, exact K1 / K3 counts: "
+        + json.dumps(c_rep) + f"; card {smi}")
+    cases = _family_kernel_cases(k1)
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"[18k] {name} " + json.dumps(c))
+    launches["18d"], times["18d"] = phase_ep(smi)
+    log(f"[18] summary: " + json.dumps({k: round(v, 1)
+                                        for k, v in times.items()})
+        + f", phase 18 {time.perf_counter() - t_start:.1f} s; card {smi}")
+    return cases, launches
+
+
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -4111,6 +4653,9 @@ def _run_phases(tune_cache: str) -> int:
     for name, cs in phase_tp_kernels(k1).items():
         cases[name] += cs
     tp_train = phase_tp_train(smi)
+    family_cases, families = phase_families(smi, k1)
+    for name, cs in family_cases.items():
+        cases[name] += cs
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -4151,6 +4696,13 @@ def _run_phases(tune_cache: str) -> int:
             entry["launches_phase17"] = {
                 key: [c[k["name"]] for c in v]
                 for key, v in tp_train.items()}
+            # phase 18's parts: 18a / 18b by engine, 18c by arch, 18d's
+            # ranks a step
+            entry["launches_phase18"] = {
+                part: ([c[k["name"]] for c in v] if isinstance(v, list)
+                       else {key: c.get(k["name"], 0)
+                             for key, c in v.items()})
+                for part, v in families.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

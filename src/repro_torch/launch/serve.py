@@ -38,10 +38,13 @@ def build(arch: str, *, smoke: bool = False, device: DeviceLike = None,
 
 def make_requests(vocab: int, lengths: Sequence[int], max_new: int, *,
                   temperature: float = 0.0, top_k: int = 0,
-                  seed: int = 0) -> List[Request]:
-    """Requests with random prompts of the given lengths (host tensors)."""
+                  seed: int = 0, codebooks: int = 0) -> List[Request]:
+    """Requests with random prompts of the given lengths (host tensors;
+    (n, codebooks) for an audio model)."""
     gen = torch.Generator().manual_seed(seed)
-    return [Request(prompt=torch.randint(0, vocab, (n,), generator=gen),
+    extra = (codebooks,) if codebooks else ()
+    return [Request(prompt=torch.randint(0, vocab, (n,) + extra,
+                                         generator=gen),
                     max_new_tokens=max_new, temperature=temperature,
                     top_k=top_k) for n in lengths]
 
@@ -116,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     cfg, model, params = build(args.arch, smoke=args.smoke,
                                device=args.device)
     reqs = make_requests(cfg.vocab, [args.prompt_len] * args.batch,
-                         args.max_new, temperature=args.temperature)
+                         args.max_new, temperature=args.temperature,
+                         codebooks=cfg.n_codebooks)
     max_seq = args.prompt_len + args.max_new + 8
     if args.engine == "continuous":
         max_seq = -(-max_seq // 16) * 16      # whole pages of the default 16

@@ -101,11 +101,30 @@ def attention(p, cfg: ModelConfig, x, positions):
     computes its heads: ``wq`` / ``wk`` / ``wv`` (and their biases)
     column-parallel, K3 on its query heads and the kv heads they read,
     ``wo`` row-parallel, its partial sums reduce-scattered into SP (or
-    all-reduced with SP off)."""
+    all-reduced with SP off).  Where ``model`` cannot give each rank
+    whole heads (``tp.split_heads`` false), every rank computes every
+    head: the weights gathered whole, the whole sequence after SP's
+    all-gather, and the rank keeps its rows of the output (with SP off,
+    the whole output, which every rank computes alike)."""
     tp = ctx.get_tensor_parallel()
     if tp is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
         return _attend(p, cfg, q, k, v, x.dtype)
+    if not tp.split_heads:
+        # SP: each rank's share of the work is its rows' outputs, so the
+        # weights' and the input's gradients are partial sums over model;
+        # SP off: every rank repeats the whole work, gradients whole
+        take = tp.whole if tp.sp else tp.replicated
+        local = {name: None if w is None else
+                 take(w, f"blocks/attn/{name}") for name, w in p.items()}
+        if tp.sp:
+            x = tp.enter(x)
+        q, k, v = _project_qkv(local, cfg, x, positions)
+        y = _attend(local, cfg, q, k, v, x.dtype)
+        if not tp.sp:
+            return y
+        lo, hi = tp.rows
+        return y[:, lo:hi].contiguous()
     cols = {"q": tp.q_cols, "k": tp.kv_cols, "v": tp.kv_cols}
     local = {f"w{h}": tp.part(p[f"w{h}"], f"blocks/attn/w{h}", 1, c)
              for h, c in cols.items()}

@@ -5,9 +5,12 @@ with every array already converted to numpy (``jax.tree_util.tree_map(
 np.asarray, params)``; NamedTuples may stay or be ``_asdict()``-ed), so
 this module needs no JAX: ``embed``, ``ln_f``, ``head`` and
 ``blocks``, whose leaves carry a leading layer axis of length
-``cfg.n_layers``.  It returns the port's params dict, with one entry of
-``blocks`` per layer, in ``cfg.dtype`` on ``device``.  Arrays in
-bfloat16 (``ml_dtypes``) convert exactly through float32.
+``cfg.n_layers`` (a MoE layer's ``MoeParams`` stacked ``(L, E, ...)``,
+the router ``(L, d, E)``).  It returns the port's params dict, with one
+entry of ``blocks`` per layer, in ``cfg.dtype`` on ``device`` (the
+router in fp32, as drawn; an audio model's ``embed`` is ``(K, vocab,
+d)`` in both).  Arrays in bfloat16 (``ml_dtypes``) convert exactly
+through float32.
 
 ``train_state_from_numpy(cfg, tree)`` does the same for the reference's
 ``make_train_state`` tree (``params``, ``opt.m``, ``opt.v``, ``opt.step``,
@@ -52,8 +55,10 @@ def _layer(node: Any, i: int, leaf):
 def _port_layout(cfg: ModelConfig, tree: Dict[str, Any], leaf) -> Dict:
     """A params-shaped tree of the reference in the port's layout; a
     top-level leaf goes through ``leaf(node, None)``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    from .transformer import FAMILIES
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1 item 8)")
     return {
         "embed": leaf(tree["embed"], None),
         "ln_f": leaf(tree["ln_f"], None),
@@ -72,8 +77,16 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: DeviceLike = None) -> Dict:
     device = resolve_device(device)
     dt = cfg.torch_dtype
-    return _port_layout(cfg, tree,
-                        lambda a, i: _tensor(_pick(a, i), dt, device))
+
+    out = _port_layout(cfg, tree,
+                       lambda a, i: _tensor(_pick(a, i), dt, device))
+    if cfg.n_experts:
+        # the router stays fp32 in a model of any dtype, as drawn
+        router = _layer(tree["blocks"], None, lambda a, i: a)["mlp"]["router"]
+        for i, layer in enumerate(out["blocks"]):
+            layer["mlp"]["router"] = _tensor(_pick(router, i), torch.float32,
+                                             device)
+    return out
 
 
 def train_state_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],

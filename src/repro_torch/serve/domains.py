@@ -339,6 +339,15 @@ def retune_for_mesh(cfg, desc: str, *, max_seq: int, batch_sizes,
 JOURNAL_KINDS = ("submit", "progress", "terminal", "evacuate", "shrink")
 
 
+def _token_list(prompt) -> list:
+    """A prompt (a list, a tensor or an array; (s,) or (s, K)) as nested
+    lists of ints."""
+    if hasattr(prompt, "tolist"):
+        return prompt.tolist()
+    return [_token_list(t) if isinstance(t, (list, tuple)) else
+            (t.tolist() if hasattr(t, "tolist") else int(t)) for t in prompt]
+
+
 class SchedulerJournal:
     """Append-only, per-record-checksummed journal of scheduler state.
 
@@ -347,7 +356,8 @@ class SchedulerJournal:
     the last complete chunk boundary (``read_records`` drops the torn
     tail).  Record kinds:
 
-      * ``submit``: rid, prompt (token list), max_new, temperature,
+      * ``submit``: rid, prompt (token list, nested for codebooks),
+        max_new, temperature,
         top_k, stream (the stream index: the whole sampling state a replay
         needs), deadlines;
       * ``progress``: rid + the tokens emitted since the last snapshot
@@ -371,7 +381,7 @@ class SchedulerJournal:
                       deadline_s=None, ttft_deadline_s=None) -> None:
         artefacts.append_record(self.path, {
             "kind": "submit", "rid": int(rid),
-            "prompt": [int(t) for t in prompt],
+            "prompt": _token_list(prompt),
             "max_new": int(max_new), "temperature": float(temperature),
             "top_k": int(top_k), "stream": int(stream),
             "deadline_s": deadline_s, "ttft_deadline_s": ttft_deadline_s})

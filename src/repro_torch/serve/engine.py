@@ -227,7 +227,8 @@ def _stream_seed(seed: int, index: int) -> int:
 
 @dataclasses.dataclass
 class Request:
-    prompt: Sequence[int]        # (s,) token ids: a list or a 1-D tensor
+    prompt: Sequence[int]        # (s,) token ids (a list or a 1-D tensor),
+    #                              or (s, K) for an audio model's codebooks
     max_new_tokens: int = 32
     temperature: float = 0.0
     top_k: int = 0
@@ -288,10 +289,22 @@ def _insert_slot(big: KVCache, small: KVCache, slot: int) -> None:
 
 
 def _prompt_tensor(prompt, length: int, device) -> torch.Tensor:
-    """A (1, length) token tensor: ``prompt`` right-padded with token 0."""
-    out = torch.zeros((1, length), dtype=torch.long)
-    out[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
+    """A (1, length[, K]) token tensor: ``prompt`` (s[, K]) right-padded
+    with token 0."""
+    toks = torch.as_tensor(prompt, dtype=torch.long)
+    out = torch.zeros((1, length) + tuple(toks.shape[1:]), dtype=torch.long)
+    out[0, :len(toks)] = toks
     return _to_device(out, device)
+
+
+def _step_tokens(tok: torch.Tensor, cfg) -> torch.Tensor:
+    """A decode step's input from the lanes' sampled tokens (b,): (b, 1),
+    or (b, 1, K) with the token on every codebook (the reference's
+    broadcast)."""
+    tok = tok[:, None]
+    if cfg.n_codebooks:
+        tok = tok[..., None].expand(-1, 1, cfg.n_codebooks)
+    return tok
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +386,13 @@ class _EngineBase:
         tok, pos = st.tokens, st.pos
         finite = None
         for i in range(self.chunk):
+            step_tok = _step_tokens(tok, model.cfg)
             if view is None:
-                logits, _ = model.decode_step(params, tok[:, None], st.cache,
+                logits, _ = model.decode_step(params, step_tok, st.cache,
                                               pos)
             else:
                 logits, _, view = model.decode_step(
-                    params, tok[:, None], st.cache, pos, block_tables=bt,
+                    params, step_tok, st.cache, pos, block_tables=bt,
                     kv_view=view)
             if self.resilience.nan_guard:
                 # pure observation: the token dataflow is untouched, so

@@ -34,6 +34,11 @@ The port writes them out:
     used on replicated work, whose gradient every rank already holds
     whole).  K1 and K3 (``autograd.Function``s too) only ever see whole
     local tensors.
+  * Expert parallelism's exchange (``models.moe_ep``): :func:`all_to_all`
+    (its backward the all-to-all back) and :func:`all_mean` (the mean
+    over a group whose backward is the mean of the cotangents, the
+    transpose of the reference's ``pmean``), both on
+    :class:`ExpertParallel`'s groups.
   * :func:`splits` gives, for a spec, the dim each group splits.
 
 Backends.  NCCL takes card tensors only, and every tensor this module
@@ -44,8 +49,10 @@ used here: ``all_reduce`` (sum and max, bf16 included),
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` (checked over
 gloo with CUDA tensors on torch 2.11, and on the CPU on 2.13, which
 renames the last two ``all_gather_single`` / ``reduce_scatter_single`` and
-deprecates the old names: the new ones are taken where they exist).  The
-sums run in each backend's order (gloo's, NCCL's ring), not XLA's.
+deprecates the old names: the new ones are taken where they exist), and
+``all_to_all_single`` (gloo on the CPU on 2.13; gloo with CUDA tensors on
+2.11 is checked by chip_smoke phase 18d).  The sums run in each backend's
+order (gloo's, NCCL's ring), not XLA's.
 
 Every call is counted (each group's ``counts``: calls and bytes by kind),
 so a train step's collectives can be read off group by group.
@@ -60,9 +67,9 @@ import torch
 
 from .rules import PartitionSpec, dp_axes, mesh_shape
 
-__all__ = ["DataGroup", "ModelGroup", "WorldGroup", "splits",
-           "gather_param", "copy_to", "reduce_from", "scatter",
-           "gather_replicated"]
+__all__ = ["DataGroup", "ModelGroup", "WorldGroup", "ExpertParallel",
+           "splits", "gather_param", "copy_to", "reduce_from", "scatter",
+           "gather_replicated", "all_to_all", "all_mean"]
 
 # flattened groups by (ranks, backend): new_group is a collective over the
 # whole world, so each group is built once a process
@@ -227,6 +234,18 @@ class _Group:
         scatter(out, chunks, group=self.group)
         return out
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) exchanged: block ``i`` goes to index ``i``,
+        and block ``i`` of the result came from index ``i``."""
+        import torch.distributed as dist
+        if self.size == 1:
+            return t
+        send = t.contiguous()
+        out = torch.empty_like(send)
+        self._count("all_to_all", send)
+        dist.all_to_all_single(out, send, group=self.group)
+        return out
+
     def piece(self, full: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's shard of ``full`` along ``dim`` (no collective)."""
         n = full.shape[dim] // self.size
@@ -321,6 +340,29 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: _Group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_to_all(grad), None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: _Group):
+        ctx.group = group
+        return group.all_reduce_(x.contiguous().clone()) / group.size
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.group.all_reduce_(grad.contiguous().clone())
+                / ctx.group.size), None
+
+
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, group: _Group, dim: int):
@@ -374,6 +416,40 @@ def gather_replicated(local: torch.Tensor, group: _Group,
     return _GatherReplicated.apply(local, group, dim)
 
 
+def all_to_all(x: torch.Tensor, group: _Group) -> torch.Tensor:
+    """``x`` (group.size, ...) exchanged over ``group`` (block ``i`` to
+    index ``i``); its gradient goes back by the same exchange."""
+    if group.size == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+def all_mean(x: torch.Tensor, group: _Group) -> torch.Tensor:
+    """The mean of ``x`` over ``group``, the same on every rank; its
+    gradient is the mean of every rank's (the reference's ``pmean``)."""
+    if group.size == 1:
+        return x
+    return _Mean.apply(x, group)
+
+
+class ExpertParallel:
+    """The groups a MoE layer of a sharded train step uses (set for the
+    step through ``sharding.ctx.expert_parallel``): ``model``, the
+    :class:`ModelGroup` whose ranks hold the experts and exchange tokens
+    (``models.moe_ep``), and ``data``, the :class:`DataGroup` over which
+    ``models.ffn.moe`` averages its routing statistics where the mesh has
+    no ``model`` axis."""
+
+    def __init__(self, data: DataGroup, model: ModelGroup):
+        self.data, self.model = data, model
+
+    def data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        return all_mean(t, self.data)
+
+    def model_mean(self, t: torch.Tensor) -> torch.Tensor:
+        return all_mean(t, self.model)
+
+
 def chunk_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
     """``[lo, hi)`` of each of ``parts`` pieces of ``n``, as
     ``torch.tensor_split`` cuts: equal where ``parts`` divides ``n``, else
@@ -387,24 +463,23 @@ def chunk_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
 # the model axis as the model uses it
 # ---------------------------------------------------------------------------
 
-def check_model_axis(cfg, mesh) -> None:
-    """Raise ValueError where the model axis of ``mesh`` cannot give each
-    rank whole heads for K3: ``model`` must divide ``n_heads``, and a
-    rank's query heads must read whole kv heads of their own (its heads a
-    multiple of the GQA group, or a divisor of it)."""
+def check_model_axis(cfg, mesh) -> bool:
+    """Whether the model axis of ``mesh`` gives each rank whole heads for
+    K3: ``model`` divides ``n_heads`` and a rank's query heads read whole
+    kv heads of their own (its heads a multiple of the GQA group, or a
+    divisor of it).  Where it does not (qwen1.5-32b's 40 heads on the
+    production meshes' ``model=16``), :class:`TensorParallel` runs the
+    attention whole on every rank: the rules still split its weights as
+    the reference's (2.5 heads of columns a rank), and the step gathers
+    them whole where used."""
     m = mesh_shape(mesh).get("model", 1)
     if m == 1:
-        return
+        return True
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     if nh % m:
-        raise ValueError(f"{cfg.name}: a model axis of {m} does not divide "
-                         f"its {nh} heads (mesh {mesh_shape(mesh)}); tensor "
-                         f"parallelism gives each rank whole heads")
+        return False
     local, group = nh // m, nh // nkv
-    if local % group and group % local:
-        raise ValueError(f"{cfg.name}: on a model axis of {m} a rank's "
-                         f"{local} query heads straddle kv heads (GQA group "
-                         f"{group}; mesh {mesh_shape(mesh)})")
+    return not (local % group and group % local)
 
 
 class TensorParallel:
@@ -438,6 +513,7 @@ class TensorParallel:
         self.q_cols = (first * hd, (first + local) * hd)
         self.kv_cols = (k0 * hd, k1 * hd)
         self.ff_cols = chunk_bounds(cfg.d_ff, m)[r]
+        self.split_heads = check_model_axis(cfg, {"model": m})
 
     # -- params -------------------------------------------------------------
     def part(self, t: torch.Tensor, path: str, dim: int,
@@ -494,24 +570,37 @@ class TensorParallel:
         lo, hi = self.rows
         return copy_to(x, self.group)[:, lo:hi].contiguous()
 
+    def replicated(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """The whole param ``path`` for work every rank of ``model``
+        repeats whole (its gradient already whole on every rank)."""
+        return gather_replicated(t, self.group, self.dims[path])
+
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
-        """The embedding of ``tokens`` (b, seq) as the blocks take it:
+        """The embedding of ``tokens`` (b, seq), or (b, seq, K) with a
+        codebook table (K, vocab, d), as the blocks take it:
         vocab-parallel where the rules split the table's vocab (each rank
-        looks up its rows, zero elsewhere, and the sum lands in SP or is
-        all-reduced), else a lookup of the rank's rows of a whole table."""
-        if self.dims["embed"] == 0:
-            n = table.shape[0]
-            idx = tokens - self.group.index * n
-            hit = (idx >= 0) & (idx < n)
-            rows = table[idx.clamp(0, n - 1)]
-            return self.exit(torch.where(hit[..., None], rows,
-                                         torch.zeros((), dtype=rows.dtype,
-                                                     device=rows.device)))
+        looks up its rows, zero elsewhere, the K codebooks summed in
+        order, and the sum lands in SP or is all-reduced), else a lookup of
+        the rank's rows of a whole table."""
+        from repro_torch.models.transformer import lookup
+        if self.dims["embed"] == table.ndim - 2:
+            books = table.ndim == 3
+            n, out = table.shape[-2], None
+            for i, tab in enumerate(table if books else [table]):
+                idx = (tokens[..., i] if books else tokens) - \
+                    self.group.index * n
+                hit = (idx >= 0) & (idx < n)
+                rows = tab[idx.clamp(0, n - 1)]
+                rows = torch.where(hit[..., None], rows,
+                                   torch.zeros((), dtype=rows.dtype,
+                                               device=rows.device))
+                out = rows if out is None else out + rows
+            return self.exit(out)
         if not self.sp:
-            return table[tokens]
+            return lookup(table, tokens)
         lo, hi = self.rows
-        return copy_to(table, self.group)[tokens[:, lo:hi]]
+        return lookup(copy_to(table, self.group), tokens[:, lo:hi])
 
 
 def gather_whole(t: torch.Tensor, spec: PartitionSpec, data: DataGroup,

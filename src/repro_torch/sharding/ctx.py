@@ -30,7 +30,10 @@ model through here:
   * ``get_tensor_parallel()``, the model axis's: the running step's
     ``sharding.collectives.TensorParallel`` (set by
     :func:`tensor_parallel`), or None, which the model reads as one rank
-    of the model axis.
+    of the model axis;
+  * ``get_expert_parallel()``, the MoE's: the running step's
+    ``sharding.collectives.ExpertParallel`` (set by
+    :func:`expert_parallel`), or None outside a sharded train step.
 
 Both globals are plain module globals, not thread-locals: autograd runs a
 CUDA backward, remat's recompute included, on a thread of its own.
@@ -44,6 +47,7 @@ from typing import Callable, Optional, Tuple
 _MESH = None
 _GATHER: Optional[Callable] = None
 _TP = None
+_EP = None
 
 
 def set_mesh(mesh) -> None:
@@ -191,3 +195,20 @@ def tensor_parallel(tp):
 def get_tensor_parallel():
     """The running tensor-parallel step's ``TensorParallel``, or None."""
     return _TP
+
+
+@contextlib.contextmanager
+def expert_parallel(ep):
+    """While the step runs, :func:`get_expert_parallel` is ``ep`` (a
+    ``sharding.collectives.ExpertParallel``)."""
+    global _EP
+    prev, _EP = _EP, ep
+    try:
+        yield
+    finally:
+        _EP = prev
+
+
+def get_expert_parallel():
+    """The running sharded step's ``ExpertParallel``, or None."""
+    return _EP

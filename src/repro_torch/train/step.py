@@ -58,7 +58,18 @@ does:
     over ``model`` happens inside autograd, so a gradient leaves the
     backward whole over ``model`` for a whole leaf and summed into its
     shard for a split one; the data axes then reduce it as above.  A
-    ``model`` that does not divide ``n_heads`` raises ``ValueError``;
+    ``model`` that cannot give each rank whole heads runs the attention
+    whole on every rank (``collectives.check_model_axis``);
+  * **MoE** (``cfg.n_experts``): on a mesh with a ``model`` axis (size 1
+    included) the FFN is the expert-parallel all-to-all
+    (``models.moe_ep``) over the model group, each rank's experts as the
+    rules place them (E / M of them); on a mesh without one, ``ffn.moe``
+    on the rank's rows with its routing statistics averaged over the data
+    group (``sharding.ctx.expert_parallel``).  The aux enters the loss
+    once: each rank's weighs ``1 / (D M)``, so the gradient is the
+    reference's, the mean over data shards; the reported loss carries the
+    aux of the mesh's first rank, the value the reference's step reports
+    (its ``shard_map`` returns one data shard's aux: ROADMAP.md queue 3);
   * **AdamW** updates the local shards with the reference's arithmetic:
     the global norm sums the shards' squares over ranks in one
     ``all_reduce`` (together with the loss; over the data group, or on a
@@ -183,9 +194,27 @@ def _scaled(loss, scales, i):
     return loss * scales[i]
 
 
+def _objective(model: Model, params, batch, scales, i, aux_share):
+    """Microbatch ``i``'s (loss to differentiate, loss to report).  On a
+    mesh (``scales``) the cross entropy is weighed by the rank's share of
+    the tokens; a MoE aux (``model._last_aux``, this data shard's) by
+    ``aux_share[0]``, one over the world's ranks, so that the gradient is
+    that of the mean over the data shards' auxes, as the reference's;
+    the reported loss carries the aux of the rank ``aux_share[1]`` marks
+    (the mesh's first), the value the reference's step reports."""
+    loss = _scaled(model.loss(params, batch), scales, i)
+    aux = model._last_aux
+    if aux is None or aux_share is None:
+        return loss, loss.detach()
+    share, first = aux_share
+    loss = loss + 0.01 * aux * (share - scales[i])
+    return loss, (loss.detach()
+                  + 0.01 * aux.detach() * (float(first) - share))
+
+
 def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
               microbatches: int = 1, grad_bf16: bool = True,
-              scales: Optional[List[float]] = None):
+              scales: Optional[List[float]] = None, aux_share=None):
     """``(loss, grads, div)``: the loss (detached) and the gradient of
     every leaf of ``params`` (in :func:`adamw.leaves` order) on ``batch``.
 
@@ -195,11 +224,13 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     sum is to be divided by (in fp32, by the optimizer), the loss the mean
     of the microbatches'.  ``scales`` multiplies microbatch ``i``'s loss
     by ``scales[i]`` before its gradient (the sharded step's share of the
-    global token count)."""
+    global token count); ``aux_share`` weighs a MoE aux on a mesh
+    (:func:`_objective`)."""
     flat = [t for _, t in adamw.leaves(params)]
     if microbatches == 1:
-        loss = _scaled(model.loss(params, batch), scales, 0)
-        return loss.detach(), list(torch.autograd.grad(loss, flat)), 1
+        loss, report = _objective(model, params, batch, scales, 0,
+                                  aux_share)
+        return report, list(torch.autograd.grad(loss, flat)), 1
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} "
@@ -209,9 +240,9 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     acc, losses = None, []
     for i in range(microbatches):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        loss = _scaled(model.loss(params, mb), scales, i)
+        loss, report = _objective(model, params, mb, scales, i, aux_share)
         g = torch.autograd.grad(loss, flat)
-        losses.append(loss.detach())
+        losses.append(report)
         if acc is None:
             acc = [x.to(acc_dtype) for x in g]
         else:
@@ -230,12 +261,13 @@ class _Placement:
 
     def __init__(self, model: Model, mesh):
         from repro_torch.sharding.collectives import (
-            DataGroup, ModelGroup, WorldGroup, check_model_axis, splits)
-        check_model_axis(model.cfg, mesh)
+            DataGroup, ExpertParallel, ModelGroup, WorldGroup, splits)
         self.cfg = model.cfg
         self.group = DataGroup(mesh)
         self.model = ModelGroup(mesh)
         self.world = WorldGroup(mesh) if self.model.size > 1 else None
+        self.ep = (ExpertParallel(self.group, self.model)
+                   if model.cfg.n_experts else None)
         meta = model.init_params(torch.Generator(), "meta")
         specs = rules.params_specs(meta, mesh, model.cfg)
         self.dims, self.model_dims = {}, {}
@@ -318,6 +350,12 @@ class _Placement:
             scales.append(n_own / max(n_all, 1))
         return local, scales
 
+    def aux_share(self):
+        """(the weight of a MoE aux in each rank's loss, whether this rank
+        reports its aux): :func:`_objective`."""
+        first = self.group.index == 0 and self.model.index == 0
+        return 1.0 / (self.group.size * self.model.size), first
+
     def counted(self, path) -> bool:
         """Whether this rank adds leaf ``path``'s squares to the global
         norm: each leaf once over every axis it is whole over (there, the
@@ -354,11 +392,13 @@ def make_train_step(model: Model, mesh=None, *, microbatches: int = 1,
         if place is not None and place.model.size > 1:
             scope.enter_context(ctx.tensor_parallel(
                 place.tensor_parallel(batch["tokens"].shape[1])))
+        if place is not None and place.ep is not None:
+            scope.enter_context(ctx.expert_parallel(place.ep))
         with scope:
-            loss, grads_flat, div = gradients(model, params, batch,
-                                              microbatches=microbatches,
-                                              grad_bf16=grad_bf16,
-                                              scales=scales)
+            loss, grads_flat, div = gradients(
+                model, params, batch, microbatches=microbatches,
+                grad_bf16=grad_bf16, scales=scales,
+                aux_share=None if scales is None else place.aux_share())
         lr = adamw.cosine_schedule(state["step"], base_lr=base_lr,
                                    warmup=warmup, total=total_steps)
         reduce_amax = None

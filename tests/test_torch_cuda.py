@@ -1891,3 +1891,243 @@ def test_fsdp_tp_yi_9b_full_width_and_depth_over_nccl():
           f"{[round(r['peak_gib'], 2) for r in res]}, step s "
           f"{[[round(m['s'], 3) for m in r['rows']] for r in res]}, state "
           f"bytes {want}, collectives a run {res[0]['collectives']}")
+
+
+# ---------------------------------------------------------------------------
+# the transformer families (moe, vlm, audio, two more dense configs)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["stablelm_1_6b", "qwen1_5_32b", "chameleon_34b",
+                "musicgen_large", "dbrx_132b", "grok_1_314b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Each new config's smoke size in fp32 (TF32 off), the same weights
+    on the card and on the CPU: the loss (the MoE aux included) within
+    1e-4, every gradient within 1e-4 of its leaf's largest, K1 / K3 and
+    their backward kernels launched on the card.  chameleon-34b's smoke
+    heads of 8 take 16 here: K3 takes head dims 16, 32, 64 and 128 (the
+    full config's is 128)."""
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch)
+    if cfg.hd < 16:
+        cfg = smoke_config(arch, head_dim=16)
+    model = Model(cfg)
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    extra = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16) + extra,
+                                     generator=g),
+             "labels": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: v for k, v in (p_cpu if dev == "cpu" else _to_device(
+            p_cpu, cuda_device)).items()}
+        flat = [t.detach().clone().requires_grad_(True)
+                for _, t in adamw.leaves(params)]
+        ops.reset_launch_counts()
+        b = {k: v.to(params["embed"].device) for k, v in batch.items()}
+        loss = model.loss(adamw.unflatten(params, flat), b)
+        grads = torch.autograd.grad(loss, flat)
+        out[dev] = (float(loss.detach()), [gr.cpu() for gr in grads],
+                    dict(ops.launch_counts()))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-30)
+    counts = out["cuda"][2]
+    assert counts["flash_attention"] > 0 and counts["rmsnorm"] > 0
+    assert counts["flash_attention_bwd"] > 0 and counts["rmsnorm_bwd"] > 0
+
+
+def _to_device(node, device):
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    if isinstance(node, dict):
+        return {k: _to_device(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, device) for v in node]
+    return node
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+@pytest.mark.parametrize("arch", ["dbrx_132b", "musicgen_large"])
+def test_moe_and_audio_decode_chunk_never_syncs_the_host(cuda_device, arch,
+                                                         kind):
+    """The MoE's routing, dispatch and combine and the codebook broadcast
+    inside the decode chunk queue work without waiting for the card (the
+    chunk a CUDA graph captures)."""
+    cfg = smoke_config(arch, dtype="bfloat16")
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=cuda_device)
+                               .manual_seed(0), cuda_device)
+    engine = _engines(model, params, kind, False)
+    extra = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,) + extra),
+                    max_new_tokens=6) for n in (9, 21)]
+    engine.run(reqs, seed=0)                          # builds K1 / K3
+    rid = engine.submit(reqs[0])
+    engine.step_chunk()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            engine._chunk_fn(engine.st, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    engine.cancel(rid)
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "musicgen_large"])
+def test_moe_and_audio_graph_chunks_repeat_bitwise(cuda_device, arch):
+    """bf16 on the card: a continuous engine with its decode chunk a CUDA
+    graph gives the eager chunk's tokens, and a second run its first's."""
+    cfg = smoke_config(arch, dtype="bfloat16")
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=cuda_device)
+                               .manual_seed(0), cuda_device)
+    extra = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    g = torch.Generator().manual_seed(2)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,) + extra,
+                                         generator=g), max_new_tokens=8)
+            for n in (9, 37, 4, 20)]
+    graph = _engines(model, params, "dense", True)
+    first = graph.run(reqs, seed=0)
+    assert graph.run(reqs, seed=0) == first
+    assert _engines(model, params, "dense", False).run(reqs, seed=0) == first
+
+
+def _ep_rank(rank, world, arch):
+    """Two gloo ranks sharing the card, the smoke config in fp32 (TF32
+    off), capacity factor 2: rank 0's step on a one-rank ``(1, 1)`` mesh,
+    then both ranks' on ``model=2``; each rank's metrics and all-to-alls."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch, moe_capacity_factor=2.0)
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=4))
+    batches = [data.global_batch_at(i) for i in range(2)]
+    out = {}
+    meshes = [("mesh", make_mesh((1, 2), ("data", "model")))]
+    if rank == 0:
+        meshes.insert(0, ("one", DeviceMesh(
+            "cuda", torch.tensor([[0]]), mesh_dim_names=("data", "model"),
+            _init_backend=False)))
+    for name, mesh in meshes:
+        if name == "mesh":
+            dist.barrier()
+        state = make_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+        step = make_train_step(model, mesh, **TRAIN_KW)
+        rows = []
+        for b in batches:
+            step.placement.model.counts.clear()
+            state, m = step(state, b)
+            rows.append({**m, "model": dict(step.placement.model.counts)})
+        out[name] = rows
+        ctx.set_mesh(None)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "grok_1_314b"])
+def test_moe_ep_on_two_gloo_ranks_sharing_the_card(cuda_device, arch):
+    """Expert parallelism on the card: every all-to-all a CUDA tensor over
+    gloo; the two ranks' loss and grad norm those of the one-rank step,
+    whose model group of one exchanges nothing."""
+    from repro_torch.testing import ranks
+    res = ranks.spawn(_ep_rank, 2, device="cuda", timeout=600,
+                      args=(arch,))
+    want = res[0]["one"]
+    for r in res:
+        for x, y in zip(r["mesh"], want):
+            assert x["applied"] == y["applied"] == 1
+            for key in ("loss", "grad_norm"):
+                assert abs(x[key] - y[key]) <= 1e-5 * abs(y[key])
+            assert x["model"]["all_to_all"] == 8 * 2       # 2 layers
+            assert "all_to_all" not in y["model"]
+
+
+def _dbrx_fsdp_ep_rank(rank, world, layers, steps, batch):
+    """dbrx-132b at full width cut to ``layers``, bf16, remat, 8-bit
+    moments, FSDP + EP on ``data=2, model=2`` (a card a rank): per rank
+    its metrics, state bytes, peak memory, step times and collectives."""
+    import time as _time
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = config("dbrx_132b", n_layers=layers)
+    model = Model(cfg)
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             mesh=mesh, use_8bit=cfg.opt_8bit)
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, mesh, **TRAIN_KW)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                  global_batch=batch))
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        state, m = step(state, data.global_batch_at(i))
+        torch.cuda.synchronize()
+        rows.append({**m, "s": _time.perf_counter() - t0})
+    ctx.set_mesh(None)
+    place = step.placement
+    return {"rows": rows, "state_bytes": _state_bytes(state),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "init_peak_gib": init_peak,
+            "collectives": {"data": dict(place.group.counts),
+                            "model": dict(place.model.counts),
+                            "world": dict(place.world.counts)}}
+
+
+def test_dbrx_fsdp_ep_full_width_over_nccl():
+    """FSDP + EP on four cards (NCCL, ``data=2, model=2``): dbrx-132b at
+    full width (d_model 6144, 16 experts top-4, 8 of them a rank) cut to
+    the 8 layers that fit a card (the init draws the global bf16 params,
+    54.6 GB, before cutting them), bf16, remat, 8-bit moments, batch 8 x
+    512, 2 steps.  Every rank applies both steps with a finite loss, the
+    same on every rank; each rank's state bytes are the dry run's.  State
+    bytes, step time and peak memory are printed."""
+    import math as _math
+
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (NCCL takes one rank a GPU)")
+    layers, batch = 8, 8
+    res = ranks.spawn(_dbrx_fsdp_ep_rank, 4, backend="nccl", device="cuda",
+                      timeout=900, args=(layers, 2, batch))
+    want = dryrun.reckon(config("dbrx_132b", n_layers=layers),
+                         {"seq": 512, "batch": batch, "kind": "train"},
+                         {"data": 2, "model": 2})["memory"]["state_bytes"]
+    for r in res:
+        assert [m["applied"] for m in r["rows"]] == [1, 1]
+        assert all(_math.isfinite(m["loss"]) for m in r["rows"])
+        assert [(m["loss"], m["grad_norm"]) for m in r["rows"]] == \
+            [(m["loss"], m["grad_norm"]) for m in res[0]["rows"]]
+        assert r["state_bytes"] == want
+        assert r["collectives"]["model"]["all_to_all"] == 2 * 8 * layers
+    print(f"dbrx-132b FSDP + EP on data=2, model=2 (4 H100s, NCCL), "
+          f"{layers} layers, batch {batch} x 512: state bytes a rank "
+          f"{res[0]['state_bytes']} (reckon {want}), per rank peak GiB "
+          f"{[round(r['peak_gib'], 2) for r in res]} (init "
+          f"{[round(r['init_peak_gib'], 2) for r in res]}), step s "
+          f"{[[round(m['s'], 3) for m in r['rows']] for r in res]}, "
+          f"collectives a run {res[0]['collectives']}")

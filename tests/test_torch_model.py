@@ -59,12 +59,19 @@ def test_configs_are_copies():
 
 
 def test_unported_arch_and_family_raise():
+    """The recurrent families still raise, naming their item; the
+    transformer families (dbrx's moe among them) run."""
     from repro_torch.configs import config
-    with pytest.raises(ValueError, match="not ported"):
-        config("dbrx_132b")
+    for arch in ("rwkv6_1_6b", "zamba2-2.7b"):
+        with pytest.raises(ValueError, match="not ported.*item 8"):
+            config(arch)
+    for family in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(smoke_config("qwen3_4b"), family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+            Model(cfg)
+    assert Model(config("dbrx_132b")).cfg.family == "moe"
     cfg = dataclasses.replace(smoke_config("qwen3_4b"), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg)
+    assert Model(cfg).cfg.family == "moe"
 
 
 def test_forward_logits_match(pair, rng):

@@ -24,7 +24,6 @@ flip), the scales 1e-5 relative, the params 2 % of the reference's own
 update (see the test).  The NaN guard and the data are held
 bitwise."""
 import copy
-import dataclasses
 import os
 import subprocess
 import sys
@@ -49,7 +48,8 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data import pipeline as pipe
 from repro_torch.ft import resilience as ft
 from repro_torch.models.common import ModelConfig, cross_entropy
-from repro_torch.models.convert import train_state_from_numpy
+from repro_torch.models.convert import (params_from_numpy,
+                                        train_state_from_numpy)
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw
 from repro_torch.testing import faults
@@ -220,11 +220,37 @@ def test_cross_entropy_masks_labels_like_the_reference(rng):
 
 
 def test_moe_loss_term_raises_naming_its_item():
-    cfg = ModelConfig(**tiny())
+    """The MoE loss term is ported: the cross entropy plus ``0.01 *`` the
+    load-balancing aux summed over layers, the reference's loss and
+    gradient (no raise any more)."""
+    kw = tiny(family="moe", n_experts=4, top_k=2)
+    jmodel = JModel(JModelConfig(**kw))
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    cfg = ModelConfig(**kw)
     model = Model(cfg)
-    model.cfg = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        model.loss({}, {})
+    params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray,
+                                                           jparams),
+                               device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, 64, (2, 16)),
+             "labels": rng.randint(0, 64, (2, 16))}
+    want, jgrads = jax.value_and_grad(jmodel.loss)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    leaves = adamw.leaves(params)
+    for _, p in leaves:
+        p.requires_grad_(True)
+    got = model.loss(params, {k: torch.tensor(v) for k, v in batch.items()})
+    assert float(model._last_aux.detach()) > 0
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    grads = torch.autograd.grad(got, [p for _, p in leaves])
+    want_g = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray,
+                                                           jgrads),
+                               device="cpu")
+    for (path, g), (_, w) in zip(zip([q for q, _ in leaves], grads),
+                                 adamw.leaves(want_g)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   err_msg=str(path))
 
 
 # ---- the train step ---------------------------------------------------------
@@ -471,8 +497,8 @@ def test_make_train_state_and_unported_mesh():
     # the rules' placement of the state (training on the data axes):
     # every leaf a spec; a mesh whose model axis has size > 1 is tensor /
     # sequence parallelism: the step runs there on two gloo ranks, each
-    # holding its heads and its vocab rows, and a model axis that does not
-    # divide the heads raises
+    # holding its heads and its vocab rows; on a model axis that does not
+    # divide the heads the attention runs whole on every rank
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 1})
     specs = tstep.state_specs(st, mesh, cfg)
     assert specs["step"] == () and specs["opt"]["step"] == ()
@@ -488,8 +514,8 @@ def test_make_train_state_and_unported_mesh():
 
     class ModelAxis:
         shape = {"data": 1, "model": 3}
-    with pytest.raises(ValueError, match="does not divide its 4 heads"):
-        tstep.make_train_step(model, ModelAxis())
+    from repro_torch.sharding import collectives
+    assert collectives.check_model_axis(cfg, ModelAxis()) is False
 
 
 @pytest.mark.parametrize("step", [0, 1, 4, 5, 6, 13, 19, 20, 31])
