@@ -261,7 +261,8 @@ result):
    sequence rows and its 16 query / 4 kv heads' rows, K3 on those heads at
    S 512; fp32, and K3 in bf16 too), timed as in phases 3 and 13a; then in
    spawned ranks (a failed rank fails the run), fp32 with TF32 off, each
-   cut to 4 layers, on gloo ranks sharing the card: (a) TP + SP, qwen3-4b
+   cut to 2 layers (4 before phase 19 came), on gloo ranks sharing the
+   card: (a) TP + SP, qwen3-4b
    on ``model=2``, and (b) FSDP + TP, yi-9b (``fsdp=True``) on ``data=2,
    model=2``: rank 0 first runs the one-device step on the same global
    batches (the others wait) and keeps its state on the host; then every
@@ -296,6 +297,31 @@ result):
    printed, each rank's all-to-alls a step (calls and bytes) against the
    prediction, its state bytes against ``launch.dryrun.reckon``'s.  The depth cuts keep
    the part's weights on the card and phase 18 near 4 minutes.
+19. the recurrent families, after phase 18, random weights drawn on the
+   card from seed 0: (k) K3 at head dim 80 (zamba2's shared attention)
+   in all four variants against the plain versions, timed as in phase 3:
+   ``mma`` at the static prefill (4 x 32 heads, 200) and at phase 4b's
+   batch-1 first chunks, ``tf32x3`` at the static prefill (held to
+   float64), both backwards at 19c's (4 x 32, 128), and ptxas's
+   registers and spills of every D 80 instance; (a) rwkv6-1.6b (ssm) and
+   (b) zamba2-2.7b (hybrid: 54 mamba layers, 9 shared-attention sites)
+   at full width and depth, bf16: phase 4's traffic through
+   ``BatchedEngine`` and phase 4b's through ``ContinuousEngine``, dense
+   and paged, each with the decode chunk a CUDA graph and eagerly: every
+   continuous run's tokens equal, zero re-captures after warm-up, exact
+   K1 / K3 counts, the recurrent bytes a slot (and zamba2's KV bytes a
+   token) against the reckoning, a decode step's device time; then a cut
+   (rwkv6 2 layers, zamba2 one group) in fp32 against the CPU as 18a;
+   (c) two bf16 remat train steps of each at full width and depth, batch
+   4 x 128 (the time loops' length cut), with their time, tok/s, peak
+   memory and exact K1 / K3 forward and backward launches, and the cut's
+   fp32 step
+   against the CPU's (loss and gradient norm); (d) FSDP on two gloo
+   ranks sharing the card, zamba2 cut to one group, fp32, held to the
+   one-device step as 16c (params whose gradient sits at its sums'
+   rounding within twice the update), each rank's state bytes against
+   the dry run's.  ``tools/recurrent.py`` runs phase 19
+   alone.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -308,7 +334,9 @@ of phase 14; K1's and K3's ``launches_phase15`` by run and rank; K1's, K3's
 and their backward kernels' ``launches_phase16`` and ``launches_phase17``,
 a step, by part and rank; K1's and K3's ``launches_phase18`` by part:
 18a / 18b by engine, 18c by arch, 18d's ranks a step with the backward
-kernels'; phase 17k's and 18k's cases among their ``cases``), the
+kernels'; ``launches_phase19`` likewise: 19a / 19b by engine, 19c by
+arch, 19d's ranks; phase 17k's, 18k's and 19k's cases among their
+``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -517,6 +545,8 @@ def phase_build():
                 log(f"    ptxas {src} {kernel}: {line.strip()}")
     # dynamic shared memory, which ptxas does not see: the sources report it
     import ctypes
+
+    from repro_torch.kernels import flash_attention as fa
     fa_lib = _build.library("flash_attention")
     fa_smem = fa_lib.repro_flash_attention_mma_smem
     fa_tf32_smem = fa_lib.repro_flash_attention_tf32_smem
@@ -524,12 +554,13 @@ def phase_build():
     mm_smem = _build.library("matmul_wgmma").repro_matmul_wgmma_smem
     for fn in (fa_smem, fa_tf32_smem, fa_bwd_smem, mm_smem):
         fn.argtypes = [ctypes.c_int]
+    dims = fa.SUPPORTED_HEAD_DIMS
     log(f"[2] dynamic shared memory: flash_fwd_mma "
-        f"{ {d: fa_smem(d) for d in (16, 32, 64, 128)} } B by head dim; "
+        f"{ {d: fa_smem(d) for d in dims} } B by head dim; "
         f"flash_fwd_tf32 "
-        f"{ {d: fa_tf32_smem(d) for d in (16, 32, 64, 128)} } B; "
+        f"{ {d: fa_tf32_smem(d) for d in dims} } B; "
         f"flash_bwd_dkv_mma and flash_bwd_dq_mma "
-        f"{ {d: fa_bwd_smem(d) for d in (16, 32, 64, 128)} } B each; "
+        f"{ {d: fa_bwd_smem(d) for d in dims} } B each; "
         f"gemm_wgmma { {bn: mm_smem(bn) for bn in (128, 256)} } B by tile "
         f"width")
     k1 = k1_ptxas(_build.target("rmsnorm").with_suffix(".log").read_text())
@@ -920,6 +951,26 @@ def continuous_engine(model, params, layout: str, graph: bool, **kw):
                             graph=graph, **kw)
 
 
+def norms_a_pass(cfg) -> int:
+    """K1 launches on d_model rows in one forward pass: two a block and
+    the final norm; the hybrid's one a mamba layer, two a shared-block
+    site and the final norm (its gated norm is inline arithmetic, not
+    K1)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers + 2 * (cfg.n_layers // cfg.attn_every) + 1
+    return 2 * cfg.n_layers + 1
+
+
+def attention_sites(cfg) -> int:
+    """K3 launches in one prefill (one a layer; the hybrid's one a shared
+    site; none for ssm)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
 def _prefill_rows(buckets):
     """The row count of each prefill call phase 4b's traffic makes: chunks
     of the largest bucket, the tail padded to the smallest that fits."""
@@ -955,17 +1006,17 @@ def _continuous_run(engine, reqs, cfg):
                              f"admissions; want {len(rows)} for {len(reqs)}")
     # qk_norm's q and k rows (2 a layer, packed) where the config has it
     qk = 2 * cfg.n_layers if cfg.qk_norm else 0
-    per_pass = qk + 2 * cfg.n_layers + 1
-    want = {"flash_attention": cfg.n_layers * admits,
+    per_pass = qk + norms_a_pass(cfg)
+    want = {"flash_attention": attention_sites(cfg) * admits,
             "rmsnorm": per_pass * (prefills + steps),
             "matmul": 0, "dpia_cuda": 0, **NO_BWD}
     want_k1 = {"packed": qk * (prefills + steps), "warp": 0, "block": 0}
     for r in rows + [SLOTS] * steps:     # the d_model rows of each pass
         want_k1[rms.plan(r, cfg.d_model, cfg.torch_dtype).variant] += \
-            2 * cfg.n_layers + 1
+            norms_a_pass(cfg)
     if counts != want or variants["rmsnorm"] != want_k1 or \
-            variants["flash_attention"] != {"mma": cfg.n_layers * admits,
-                                            "tf32x3": 0}:
+            variants["flash_attention"] != {
+                "mma": want["flash_attention"], "tf32x3": 0}:
         raise AssertionError(f"{engine.kv_layout}: launches {counts} != "
                              f"{want}, K1 {variants['rmsnorm']} != {want_k1}, "
                              f"K3 {variants['flash_attention']}")
@@ -3505,10 +3556,13 @@ SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
 # layers' bytes that gloo moves through the host (~0.8 GB/s between the
 # processes), which set the phases' time: qwen3-4b ~19 GB a rank, yi-9b
 # ~19 GB whole, ~10 GB a rank under FSDP
-SHARDED_TRAIN_LAYERS = 4
 # 16b / 16c went to 2 layers when phase 17 (TP, its four-rank 17b the
 # longest part) added 3.4 minutes to the script: the cut keeps phases
-# 16 + 17 near phase 16's earlier time
+# 16 + 17 near phase 16's earlier time.  17a / 17b went to 2 layers too
+# when phase 19 (the recurrent families' eager time loops) took the
+# script past 1 000 s (1 090 s before 19d on an NVIDIA H100 80GB HBM3 at
+# 700 W; 179 s of it phase 17's at 4 layers)
+SHARDED_TRAIN_LAYERS = 2
 DATA_AXIS_LAYERS = 2
 # 16b / 16c against the one-device step: 13e's card-vs-CPU tolerance (fp32,
 # TF32 off; sums in other orders), loss and gradient norm 1e-5 relative;
@@ -3522,11 +3576,13 @@ SHARDED_METRIC_RTOL = 1e-5
 
 
 def _train_launches_a_step(cfg) -> dict:
-    """K1 / K3 forward and backward launches of one remat train step."""
-    per_pass = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    """K1 / K3 forward and backward launches of one remat train step:
+    remat runs every block's (every hybrid group's) norms and attention
+    again in its recompute, the final norm once."""
+    per_pass = norms_a_pass(cfg) + (2 * cfg.n_layers if cfg.qk_norm else 0)
     return {"rmsnorm": 2 * per_pass - 1, "rmsnorm_bwd": per_pass,
-            "flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+            "flash_attention": 2 * attention_sites(cfg),
+            "flash_attention_bwd": attention_sites(cfg)}
 
 
 def _sharded_steps(step, state, batches, cfg, variant, groups=None,
@@ -3622,7 +3678,7 @@ def _chunks(flat, scale, device):
         yield c.float() * scale if scale is not None else c
 
 
-def _held_to_oracle(state, specs, place, oracle, start):
+def _held_to_oracle(state, specs, place, oracle, start, floor=None):
     """Every leaf of a mesh ``state``, gathered whole over the data and
     model groups of the step's placement ``place`` one at a time (a
     collective on every rank), against the one-device step's
@@ -3633,7 +3689,13 @@ def _held_to_oracle(state, specs, place, oracle, start):
     elements at a time:
     ``(worst error over the leaf's largest magnitude by part, params also
     over the largest update; the leaves beyond the tolerance; a float64
-    sum of each gathered leaf)``."""
+    sum of each gathered leaf)``.  With ``floor``, a param element whose
+    oracle first moment is under ``floor`` of its leaf's largest (a
+    gradient at its sums' rounding, where the update is the rounding's
+    sign) is held to twice the leaf's largest update instead, as
+    ``tests/test_torch_tp_train.py`` holds it; ``worst`` then also counts
+    the elements past the plain tolerance (``beyond_plain``) and how many
+    of them lie under the floor (``beyond_plain_floored``)."""
     from repro_torch.optim import adamw
     from repro_torch.sharding.collectives import gather_whole
     worst, bad, sums = {}, [], []
@@ -3670,6 +3732,15 @@ def _held_to_oracle(state, specs, place, oracle, start):
                          zip(_chunks(want, None, dev), _chunks(
                              start[path[1:]].reshape(-1), None, "cpu")))
         step = 0.0 if scale is None else scale.item()
+        m_chunks = None
+        if floor is not None and update is not None:
+            m_want = oracle[("opt", "m") + path[1:]]
+            m_want, m_scale = (m_want if isinstance(m_want, tuple)
+                               else (m_want, None))
+            m_want = m_want.reshape(-1)
+            m_cut = floor * max(c.abs().max().item()
+                                for c in _chunks(m_want, m_scale, dev))
+            m_chunks = _chunks(m_want, m_scale, dev)
         err_max, beyond = 0.0, False
         for g, w in zip(_chunks(whole, scale, dev),
                         _chunks(want, w_scale, dev)):
@@ -3678,6 +3749,15 @@ def _held_to_oracle(state, specs, place, oracle, start):
                 SHARDED_STATE_TOL[1] * w.abs() + step
             if update is not None:
                 tol = tol + SHARDED_UPDATE_TOL * update
+            if m_chunks is not None:
+                floored = next(m_chunks).abs() < m_cut
+                past = err > tol
+                worst["beyond_plain"] = worst.get("beyond_plain", 0) + \
+                    int(past.sum().item())
+                worst["beyond_plain_floored"] = worst.get(
+                    "beyond_plain_floored", 0) + int(
+                        (past & floored).sum().item())
+                tol = torch.where(floored, tol.clamp(min=2 * update), tol)
             err_max = max(err_max, err.max().item())
             beyond = beyond or bool((err > tol).any())
         worst[part] = max(worst.get(part, 0.0), err_max / max(w_max, 1e-30))
@@ -3691,12 +3771,15 @@ def _held_to_oracle(state, specs, place, oracle, start):
     return worst, bad, sums
 
 
-def sharded_train_two(rank, world, arch):
+def sharded_train_two(rank, world, arch, cfg_kw=None, shape=None,
+                      phase="16", floor=None):
     """[16b] (qwen3-4b: DP) / [16c] (yi-9b: FSDP) on ``world`` gloo ranks
-    sharing the card, fp32 (TF32 off), cut to DATA_AXIS_LAYERS layers:
-    rank 0 first runs the one-device step on the global batches (the
-    other waits) and keeps the final state on the host; then every rank
-    runs the mesh step from the same seed-0 weights, and each leaf,
+    sharing the card, fp32 (TF32 off), cut to DATA_AXIS_LAYERS layers
+    (``cfg_kw`` overrides the config; ``shape`` is (batch, seq), 13b's by
+    default; ``floor`` goes to :func:`_held_to_oracle`): rank 0 first runs
+    the one-device step on the global batches
+    (the other waits) and keeps the final state on the host; then every
+    rank runs the mesh step from the same seed-0 weights, and each leaf,
     gathered whole, is held to that state on rank 0."""
     import gc
 
@@ -3712,10 +3795,12 @@ def sharded_train_two(rank, world, arch):
                                         state_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = config(arch, n_layers=DATA_AXIS_LAYERS, dtype="float32")
+    cfg = config(arch, **{"n_layers": DATA_AXIS_LAYERS, "dtype": "float32",
+                          **(cfg_kw or {})})
     model = Model(cfg)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH))
+    batch, seq = shape or (TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
     batches = [data.global_batch_at(i) for i in range(SHARDED_TRAIN_STEPS)]
     kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
     out = {"rank": rank, "fsdp": cfg.fsdp}
@@ -3728,7 +3813,7 @@ def sharded_train_two(rank, world, arch):
         start = {p: t.detach().to("cpu")
                  for p, t in adamw.leaves(state["params"])}
         state, rows = _sharded_steps(make_train_step(model, **kw), state,
-                                     batches, cfg, "tf32x3")
+                                     batches, cfg, "tf32x3", phase=phase)
         oracle = {p: t.detach().to("cpu") for p, t in adamw.leaves(state)}
         out["one_device"] = {
             "steps": rows, "state_bytes": _state_bytes(state),
@@ -3748,13 +3833,13 @@ def sharded_train_two(rank, world, arch):
     step = make_train_step(model, mesh, **kw)
     group = step.placement.group
     state, out["steps"] = _sharded_steps(step, state, batches, cfg, "tf32x3",
-                                         {"data": group})
+                                         {"data": group}, phase=phase)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # every leaf whole (gathered one at a time) against the one-device step
     specs = state_specs(make_train_state(model, torch.Generator(),
                                          device="meta"), mesh, cfg)
     worst, bad, _ = _held_to_oracle(state, specs, step.placement, oracle,
-                                    start)
+                                    start, floor)
     out["worst_rel_to_leaf_max"], out["bad_leaves"] = worst, bad
     del state, step, oracle, start
     gc.collect()
@@ -4125,7 +4210,7 @@ def _family_build(arch: str, **kw):
     """(cfg, model, params) of ``arch`` at full width cut to its
     FAMILY_LAYERS, random weights from seed 0 drawn on the card."""
     from repro_torch.launch import serve
-    layers = FAMILY_LAYERS[arch]
+    layers = FAMILY_LAYERS.get(arch)
     if layers is not None:
         kw.setdefault("n_layers", layers)
     cfg, model, params = serve.build(arch, seed=0, **kw)
@@ -4161,8 +4246,8 @@ def _family_static(cfg, model, params, reqs, label: str):
     steps = after["decode_steps"] - before["decode_steps"]
     if cfg.qk_norm:
         raise AssertionError(f"{cfg.name}: qk_norm rows are not counted here")
-    per_pass = 2 * cfg.n_layers + 1
-    want = {"flash_attention": cfg.n_layers * prefills,
+    per_pass = norms_a_pass(cfg)
+    want = {"flash_attention": attention_sites(cfg) * prefills,
             "rmsnorm": per_pass * (prefills + steps),
             "matmul": 0, "dpia_cuda": 0, **NO_BWD}
     want_k1 = {"packed": 0, "warp": 0, "block": 0}
@@ -4235,21 +4320,28 @@ def _decode_step_ms(model, params, b: int, pos: int) -> float:
 
 def _moe_against_cpu():
     """[18a] dbrx-132b cut to MOE_CPU_LAYERS layers at full width in fp32
-    (TF32 off): the same weights (drawn on the card, copied to the host)
-    on the card (kernels) and on the CPU (plain versions); a right-padded
-    prefill's last-position logits, then one decode step's, within
-    LOGIT_TOL, and the same greedy tokens."""
+    (:func:`_against_cpu`)."""
+    return _against_cpu("dbrx_132b", MOE_CPU_LAYERS, MOE_CPU_PROMPT_LENS,
+                        "18a")
+
+
+def _against_cpu(arch, layers, prompt_lens, label):
+    """``arch`` cut to ``layers`` layers at full width in fp32 (TF32 off):
+    the same weights (drawn on the card, copied to the host) on the card
+    (kernels) and on the CPU (plain versions); a right-padded prefill's
+    last-position logits, then one decode step's, within LOGIT_TOL, and
+    the same greedy tokens."""
     from repro_torch.kernels import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cfg, model, p_gpu = _family_build("dbrx_132b", n_layers=MOE_CPU_LAYERS,
+    cfg, model, p_gpu = _family_build(arch, n_layers=layers,
                                       dtype="float32")
     p_cpu = _to(p_gpu, "cpu")
     gen = torch.Generator().manual_seed(6)
-    b, s = len(MOE_CPU_PROMPT_LENS), max(MOE_CPU_PROMPT_LENS)
+    b, s = len(prompt_lens), max(prompt_lens)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
-    lengths = torch.tensor(MOE_CPU_PROMPT_LENS)
+    lengths = torch.tensor(prompt_lens)
     ops.reset_launch_counts()
     logits, nxt = {}, {}
     for where, params in (("cpu", p_cpu), ("card", p_gpu)):
@@ -4267,12 +4359,12 @@ def _moe_against_cpu():
             for i in range(2)]
     if not max(errs) <= LOGIT_TOL or not torch.equal(nxt["card"],
                                                      nxt["cpu"]):
-        raise AssertionError(f"[18a] fp32 card vs CPU: max abs err {errs} "
-                             f"(tol {LOGIT_TOL}), greedy {nxt}")
+        raise AssertionError(f"[{label}] fp32 card vs CPU: max abs err "
+                             f"{errs} (tol {LOGIT_TOL}), greedy {nxt}")
     fa = ops.launch_counts_by_variant()["flash_attention"]
-    if fa != {"mma": 0, "tf32x3": MOE_CPU_LAYERS}:
-        raise AssertionError(f"[18a] fp32 K3 launches {fa}: one tf32x3 a "
-                             f"layer in the card's prefill")
+    if fa != {"mma": 0, "tf32x3": attention_sites(cfg)}:
+        raise AssertionError(f"[{label}] fp32 K3 launches {fa}: one tf32x3 "
+                             f"an attention site in the card's prefill")
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     return {"max_abs_err_prefill": errs[0], "max_abs_err_decode": errs[1],
@@ -4558,6 +4650,392 @@ def phase_families(smi, k1):
     return cases, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the recurrent families
+# ---------------------------------------------------------------------------
+
+REC_ARCHS = (("19a", "rwkv6_1_6b"), ("19b", "zamba2_2_7b"))
+# 19a / 19b's fp32 check against the CPU: rwkv6-1.6b cut to 2 layers,
+# zamba2-2.7b to one group (6 mamba layers and one shared-block site); a
+# prefill and a decode step (phase 5's tolerance, LOGIT_TOL)
+REC_CPU_LAYERS = {"rwkv6_1_6b": 2, "zamba2_2_7b": 6}
+REC_CPU_PROMPT_LENS = (64, 23)
+# 19c: a bf16 remat step at full width and depth, (batch, seq).  What
+# autograd keeps through a time loop: a recomputed rwkv6 layer holds
+# about three (b, 32, 64, 64) fp32 states a time step, 3 x 0.5 MB x b x s;
+# a recomputed zamba2 group of 6 mamba layers about one (b, 80, 64, 64)
+# fp32 state a layer and time step, 6 x 1.3 MB x b x s: 16 GB at 4 x 512
+# beside 4.84 GB of bf16 params, as much again of gradients and 19.4 GB
+# of fp32 moments.  A step's time is its time loops' launches, which grow
+# with s alone: on an NVIDIA H100 80GB HBM3 at 700 W, at 512 rwkv6 took
+# 14.8 s and zamba2 (batch 2) 31.8 s a step, at 4 x 256 8.5 s and 18.9 s:
+# both are cut to 4 x 128 to keep the script inside its time
+REC_TRAIN_SHAPE = {"rwkv6_1_6b": (4, 128), "zamba2_2_7b": (4, 128)}
+REC_TRAIN_STEPS = 2
+# 19c's fp32 step on the card against the CPU's (REC_CPU_LAYERS layers,
+# TF32 off): loss and gradient norm within 1e-4 relative (the kernels' and
+# the plain versions' sums in other orders, over time loops of 32 steps)
+REC_TRAIN_CPU_SHAPE = (2, 32)
+REC_TRAIN_CPU_RTOL = 1e-4
+# 19d: FSDP on two gloo ranks sharing the card, zamba2-2.7b cut to one
+# group, fp32, batch 2 x 128, 16c's checks and lr. AdamW's update
+# divides by sqrt(v) + 1e-8, so where a gradient sits at its sums'
+# rounding the update is that rounding's sign: the embedding's params
+# parted from the one-device step's by 13 % of the update under 16c's
+# limit alone (NVIDIA H100 80GB HBM3, 700 W). Such elements (the
+# one-device step's first moment under REC_FSDP_FLOOR of the leaf's
+# largest) are held to twice the update, as tests/test_torch_tp_train.py
+# holds them; every other element keeps 16c's limit
+REC_FSDP_ARCH, REC_FSDP_SHAPE = "zamba2_2_7b", (2, 128)
+REC_FSDP_FLOOR = 1e-5
+
+
+def recurrent_state_reckoned(cfg) -> dict:
+    """Bytes of a slot's recurrent state and of a token's KV, reckoned from
+    the config: rwkv6 L x (nh 64 64 fp32 + 2 d); zamba2 L x (nheads 64 N
+    fp32 + (CONV_W - 1)(din + 2N)), KV G x 2 x nkv x hd."""
+    elt = cfg.torch_dtype.itemsize
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"state": cfg.n_layers * ((d // 64) * 64 * 64 * 4
+                                         + 2 * d * elt), "kv_a_token": 0}
+    din, n = 2 * d, cfg.ssm_state
+    g = cfg.n_layers // cfg.attn_every
+    return {"state": cfg.n_layers * ((din // 64) * 64 * n * 4
+                                     + 3 * (din + 2 * n) * elt),
+            "kv_a_token": g * 2 * cfg.n_kv_heads * cfg.hd * elt}
+
+
+def _recurrent_state_bytes(engine) -> dict:
+    """A dense engine's recurrent bytes a slot and KV bytes a token."""
+    kv, state = engine.model.split_paged_cache(engine.st.cache)
+
+    def nbytes(node):
+        return sum(t.numel() * t.element_size() for t in
+                   (node if isinstance(node, tuple) else ()))
+    lanes = engine.slots
+    kv_bytes = 0 if kv is None else nbytes(kv)
+    return {"state": nbytes(state) // lanes,
+            "kv_a_token": kv_bytes // (lanes * engine.max_seq)}
+
+
+def _k3_ptxas() -> dict:
+    """Registers and spills of every K3 instance (forward, D and the
+    backward's kernels) by (kernel, head dim)."""
+    from repro_torch.kernels import _build
+    rep = _build.ptxas_report(
+        _build.target("flash_attention").with_suffix(".log").read_text(),
+        r"flash_(fwd_mma|fwd_tf32|bwd_delta_mma|bwd_delta_f32|bwd_dkv_mma|"
+        r"bwd_dq_mma|bwd_dkv_tf32|bwd_dq_tf32)ILi(\d+)E")
+    return {f"{k} D{d}": r for (k, d), r in sorted(rep.items())}
+
+
+def _recurrent_kernel_cases():
+    """[19k] K3 at head dim 80 (zamba2's shared attention, 32 heads of 80)
+    against its plain version: ``mma`` at the static prefill (4 x 32, 200)
+    and at phase 4b's batch-1 first chunks, ``tf32x3`` at the static
+    prefill (held to float64), both backwards at 19c's shape (4 x 32,
+    128); with ptxas's registers and spills of the D 80 instances."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    _, first = continuous_buckets()
+    hd, s = 80, max(PROMPT_LENS)
+    fa = [_flash_case(s, s, True, 0, gen, b=len(PROMPT_LENS), nh=32,
+                      nkv=32, hd=hd)]
+    fa += [_flash_case(n, n, True, 0, gen, b=1, nh=32, nkv=32, hd=hd)
+           for n in first]
+    fa.append(_flash_case(s, s, True, 0, gen, b=len(PROMPT_LENS), nh=32,
+                          nkv=32, hd=hd, dtype=torch.float32,
+                          f64_check=True))
+    ptx = _k3_ptxas()
+    for c in fa:
+        c["ptxas"] = {k: r for k, r in ptx.items()
+                      if k.endswith(f" D{hd}") and k.startswith(
+                          "fwd_mma" if c["variant"] == "mma" else "fwd_tf32")}
+    b, seq = REC_TRAIN_SHAPE["zamba2_2_7b"]
+    bwd = [_flash_bwd_case(b, 32, 32, seq, hd, dt, gen, bwd_ptxas())
+           for dt in (torch.bfloat16, torch.float32)]
+    for c in bwd:
+        c["ptxas"]["delta"] = ptx.get(
+            f"bwd_delta_{'mma' if c['variant'] == 'mma' else 'f32'} D{hd}")
+    d80 = {k: r for k, r in ptx.items() if k.endswith(" D80")}
+    spills = {k: r for k, r in d80.items()
+              if r.get("spill_stores") or r.get("spill_loads")}
+    return {"flash_attention": fa, "flash_attention_bwd": bwd}, d80, spills
+
+
+def _recurrent_serving(cfg, model, params, label):
+    """Phase 4's traffic through the static engine; phase 4b's through the
+    continuous engine, dense and paged, each with its decode chunk a CUDA
+    graph (a warm run, then a counted one: bitwise the first, no
+    re-capture) and eagerly: every continuous run's tokens equal, exact
+    K1 / K3 counts (K3 at the config's head dim on every first prefill
+    chunk), and the dense cache's recurrent bytes a slot and KV bytes a
+    token against the reckoning."""
+    from repro_torch.launch import serve
+    reqs4 = serve.make_requests(cfg.vocab, PROMPT_LENS, MAX_NEW, seed=1)
+    reqs4[1].temperature, reqs4[1].top_k = 0.8, 50
+    _, rep = _family_static(cfg, model, params, reqs4, label)
+    out = {"static": rep}
+    reqs = continuous_requests(cfg.vocab)
+    toks = {}
+    for layout in ("dense", "paged"):
+        for graph in (True, False):
+            key = f"{layout} {'graph' if graph else 'eager'}"
+            engine = continuous_engine(model, params, layout, graph=graph)
+            first = None
+            if graph:
+                first = [list(r.tokens)
+                         for r in engine.run_results(reqs, seed=5)]
+            toks[key], rep = _continuous_run(engine, reqs, cfg)
+            st = engine.stats()
+            if graph and (toks[key] != first
+                          or st.get("recaptures_after_warm")):
+                raise AssertionError(
+                    f"[{label}] {key}: a second run gave other tokens, or "
+                    f"re-captured ({st.get('recaptures_after_warm')})")
+            out[key] = {k: rep[k] for k in (
+                "tok_s", "s", "ttft_200_s", "max_memory_gib", "prefills",
+                "steps", "launches", "k1_variants")}
+            out[key]["captures"] = st.get("captures")
+            if key == "dense graph":
+                got = _recurrent_state_bytes(engine)
+                want = recurrent_state_reckoned(cfg)
+                if got != want:
+                    raise AssertionError(f"[{label}] cache bytes {got}, "
+                                         f"reckoned {want}")
+                out["bytes_a_slot"] = got
+            del engine
+    if any(t != toks["dense graph"] for t in toks.values()):
+        raise AssertionError(f"[{label}] continuous tokens differ across "
+                             f"layouts / graph and eager: {toks}")
+    return out
+
+
+def _recurrent_train(arch):
+    """[19c] bf16 remat train steps of ``arch`` at full width and depth
+    (REC_TRAIN_STEPS, the first building what the step needs),
+    REC_TRAIN_SHAPE: each step's time, tokens a second, peak memory and
+    exact K1 / K3 forward and backward launches (K3 all ``mma``)."""
+    import gc
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import make_train_state, make_train_step
+    cfg = config(arch)
+    model = Model(cfg)
+    batch, seq = REC_TRAIN_SHAPE[arch]
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+    batches = [data.global_batch_at(i) for i in range(REC_TRAIN_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    state, rows = _sharded_steps(step, state, batches, cfg, "mma",
+                                 phase="19c")
+    for r in rows:
+        if r["applied"] != 1 or not math.isfinite(r["loss"]):
+            raise AssertionError(f"[19c] {arch}: step {r}")
+        r["tok_s"] = batch * seq / r["s"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch, "seq": seq,
+            "steps": [{k: r[k] for k in ("loss", "grad_norm", "s", "tok_s",
+                                         "launches")} for r in rows],
+            "peak_gib": peak}
+
+
+def _detached_to(node, device):
+    """A train state's tensors on ``device``, params leaves again."""
+    if isinstance(node, torch.Tensor):
+        return node.detach().to(device).requires_grad_(node.requires_grad)
+    if isinstance(node, dict):
+        return {k: _detached_to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_detached_to(v, device) for v in node]
+    return node
+
+
+def _recurrent_train_against_cpu(arch):
+    """[19c] ``arch`` cut to REC_CPU_LAYERS layers at full width, fp32 (TF32
+    off): one train step from the same seed-0 state on the card (kernels)
+    and on the CPU (plain versions), loss and gradient norm within
+    REC_TRAIN_CPU_RTOL."""
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import make_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config(arch, n_layers=REC_CPU_LAYERS[arch], dtype="float32")
+    model = Model(cfg)
+    batch, seq = REC_TRAIN_CPU_SHAPE
+    b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=batch)).global_batch_at(0)
+    cpu = make_train_state(model, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card = _detached_to(cpu, "cuda")
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    _, m_cpu = make_train_step(model, **kw)(cpu, b)
+    _, rows = _sharded_steps(make_train_step(model, **kw), card, [b], cfg,
+                             "tf32x3", phase="19c")
+    m_card = rows[0]
+    for key in ("loss", "grad_norm"):
+        if not math.isclose(m_card[key], m_cpu[key],
+                            rel_tol=REC_TRAIN_CPU_RTOL):
+            raise AssertionError(f"[19c] {arch} fp32 card {key} "
+                                 f"{m_card[key]} vs the CPU's {m_cpu[key]}")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "card": {k: m_card[k] for k in (
+        "loss", "grad_norm", "launches")},
+            "cpu": {k: m_cpu[k] for k in ("loss", "grad_norm")}}
+
+
+def phase_recurrent_fsdp(smi):
+    """[19d] FSDP over the data axis, :func:`sharded_train_two` on two gloo
+    ranks sharing the card: zamba2-2.7b cut to one group, fp32, held to
+    the one-device step (16c's tolerances; params at the gradient's
+    rounding floor within twice the update, REC_FSDP_SHAPE's note), each
+    rank's state bytes equal to ``launch.dryrun.reckon``'s."""
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    t0 = time.perf_counter()
+    kw = {"n_layers": REC_CPU_LAYERS[REC_FSDP_ARCH], "fsdp": True}
+    two = ranks.spawn(sharded_train_two, SHARDED_TRAIN_RANKS,
+                      backend="gloo", device="cuda", timeout=600,
+                      args=(REC_FSDP_ARCH, kw, REC_FSDP_SHAPE, "19d",
+                            REC_FSDP_FLOOR))
+    took = time.perf_counter() - t0
+    ref = two[0]["one_device"]
+    cfg = config(REC_FSDP_ARCH, dtype="float32", **kw)
+    batch, seq = REC_FSDP_SHAPE
+    reckoned = dryrun.reckon(cfg, {"seq": seq, "batch": batch,
+                                   "kind": "train"},
+                             {"data": SHARDED_TRAIN_RANKS, "model": 1})[
+        "memory"]
+    for r in two:
+        for x, y in zip(r["steps"], ref["steps"]):
+            for key in ("loss", "grad_norm"):
+                if not math.isclose(x[key], y[key],
+                                    rel_tol=SHARDED_METRIC_RTOL):
+                    raise AssertionError(
+                        f"[19d] rank {r['rank']} {key} {x[key]} vs the "
+                        f"one-device step's {y[key]}")
+            if x["applied"] != 1 or x["lr"] != y["lr"]:
+                raise AssertionError(f"[19d] rank {r['rank']}: {x}")
+        if r["state_bytes"] != reckoned["state_bytes"]:
+            raise AssertionError(f"[19d] rank {r['rank']} holds "
+                                 f"{r['state_bytes']} bytes of state, the "
+                                 f"dry run reckons {reckoned['state_bytes']}")
+    worst = two[0]["worst_rel_to_leaf_max"]
+    if two[0]["bad_leaves"]:
+        raise AssertionError(f"[19d] leaves beyond the tolerance: "
+                             f"{two[0]['bad_leaves']} (worst {worst})")
+    log(f"[19d] FSDP, {REC_FSDP_ARCH} at full width cut to one group "
+        f"({cfg.n_layers} mamba layers, one shared-block site), fp32 (TF32 "
+        f"off), data={SHARDED_TRAIN_RANKS} (gloo ranks sharing one card), "
+        f"batch {batch} x {seq}, lr {TRAIN_LR}, {SHARDED_TRAIN_STEPS} steps "
+        f"against the one-device step (16c's tolerances; params whose first "
+        f"moment is under {REC_FSDP_FLOOR} of the leaf's largest within "
+        f"twice the update): worst error over the leaf's largest magnitude "
+        f"and params' over the update, and the elements past 16c's limit "
+        f"(all / under the floor) {worst}; each rank's "
+        f"state bytes equal to the dry run's; "
+        + json.dumps({
+            "one_device": {k: ref[k] for k in ("state_bytes", "peak_gib",
+                                               "s")},
+            "one_device_steps": [{k: s[k] for k in ("loss", "grad_norm",
+                                                    "s")}
+                                 for s in ref["steps"]],
+            "dryrun_memory": reckoned,
+            "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
+                       "peak_gib": r["peak_gib"], "init_s": r["init_s"],
+                       "steps": r["steps"]} for r in two]})
+        + f"; {took:.1f} s with the processes; card {smi}")
+    return [r["steps"][0]["launches"] for r in two], took
+
+
+def phase_recurrent(smi):
+    """[19] the recurrent families, random weights drawn on the card from
+    seed 0: (k) K3 at head dim 80 in all four variants; (a) rwkv6-1.6b and
+    (b) zamba2-2.7b at full width and depth, bf16, through every engine
+    (:func:`_recurrent_serving`), a decode step's device time, then a cut
+    in fp32 against the CPU; (c) a full-width train step of each, and an
+    fp32 step against the CPU's; (d) FSDP on two gloo ranks
+    (:func:`phase_recurrent_fsdp`).  Returns (the K3 cases at D 80, each
+    part's K1 / K3 launches)."""
+    import gc
+    t_start = time.perf_counter()
+    times, launches = {}, {}
+    t0 = time.perf_counter()
+    cases, d80, spills = _recurrent_kernel_cases()
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"[19k] {name} " + json.dumps(c))
+    log(f"[19k] ptxas of the D 80 instances [registers, spills]: "
+        + json.dumps({k: [r.get("registers"), r.get("spill_stores", 0),
+                          r.get("spill_loads", 0)] for k, r in d80.items()})
+        + f"; instances that spill: {sorted(spills)}; card {smi}")
+    times["19k"] = time.perf_counter() - t0
+    for label, arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        cfg, model, params = _family_build(arch)
+        n_params = sum(t.numel() for t in _tensors(params))
+        rep = _recurrent_serving(cfg, model, params, label)
+        rep["params"] = n_params
+        rep["decode_step_ms_4_lanes"] = _decode_step_ms(model, params, SLOTS,
+                                                        200)
+        launches[label] = {k: {"rmsnorm": v["launches"]["rmsnorm"],
+                               "flash_attention": v["launches"][
+                                   "flash_attention"]}
+                           for k, v in rep.items()
+                           if isinstance(v, dict) and "launches" in v}
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["fp32_against_cpu"] = _against_cpu(
+            arch, REC_CPU_LAYERS[arch], REC_CPU_PROMPT_LENS, label)
+        times[label] = time.perf_counter() - t0
+        log(f"[{label}] {cfg.name}, {cfg.n_layers} layers at full width "
+            f"(d_model {cfg.d_model}, family {cfg.family}"
+            + (f", {attention_sites(cfg)} shared-attention sites of "
+               f"{cfg.n_heads} heads of {cfg.hd}"
+               if cfg.family == "hybrid" else "")
+            + f"), {n_params / 1e9:.3f} B params, bf16, phase 4's traffic "
+            f"(static) and phase 4b's (continuous, dense / paged, graph / "
+            f"eager): " + json.dumps(rep) + f"; {times[label]:.1f} s; "
+            f"card {smi}")
+    t0 = time.perf_counter()
+    c_rep = {}
+    for _, arch in REC_ARCHS:
+        t1 = time.perf_counter()
+        c_rep[arch] = _recurrent_train(arch)
+        t2 = time.perf_counter()
+        c_rep[arch]["fp32_against_cpu"] = _recurrent_train_against_cpu(arch)
+        c_rep[arch]["s_bf16"] = t2 - t1
+        c_rep[arch]["s_fp32_against_cpu"] = time.perf_counter() - t2
+        launches.setdefault("19c", {})[arch] = \
+            c_rep[arch]["steps"][0]["launches"]
+    times["19c"] = time.perf_counter() - t0
+    log(f"[19c] one bf16 remat train step at full width and depth, "
+        f"{REC_TRAIN_STEPS} steps (the first builds), batch x seq "
+        f"{REC_TRAIN_SHAPE}, exact K1 / K3 forward and backward launches; "
+        f"an fp32 step of a cut against the CPU's: " + json.dumps(c_rep)
+        + f"; card {smi}")
+    launches["19d"], times["19d"] = phase_recurrent_fsdp(smi)
+    log(f"[19] summary: " + json.dumps({k: round(v, 1)
+                                        for k, v in times.items()})
+        + f", phase 19 {time.perf_counter() - t_start:.1f} s; card {smi}")
+    return cases, launches
+
+
 KERNELS = [
     {"name": "rmsnorm", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -4656,6 +5134,9 @@ def _run_phases(tune_cache: str) -> int:
     family_cases, families = phase_families(smi, k1)
     for name, cs in family_cases.items():
         cases[name] += cs
+    rec_cases, recurrent = phase_recurrent(smi)
+    for name, cs in rec_cases.items():
+        cases[name] += cs
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -4703,6 +5184,13 @@ def _run_phases(tune_cache: str) -> int:
                        else {key: c.get(k["name"], 0)
                              for key, c in v.items()})
                 for part, v in families.items()}
+            # phase 19's parts: 19a / 19b by engine, 19c by arch, 19d's
+            # ranks a step
+            entry["launches_phase19"] = {
+                part: ([c[k["name"]] for c in v] if isinstance(v, list)
+                       else {key: c.get(k["name"], 0)
+                             for key, c in v.items()})
+                for part, v in recurrent.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

@@ -1,17 +1,16 @@
 """Architecture configs (``--arch <id>``), copied from ``repro.configs``.
 
 Each module defines ``config()`` (full size) and ``smoke_config()``
-(reduced, same family, for CPU tests).  Only the architectures whose family
-the port runs are here: every transformer family (dense, moe, vlm, audio);
-the recurrent ones (``rwkv6_1_6b``, ``zamba2_2_7b``) arrive with their
-slice (ROADMAP.md queue 1 item 8).
+(reduced, same family, for CPU tests): the reference's ten
+architectures, every family (dense, moe, vlm, audio, ssm, hybrid).
 """
 import dataclasses
 from importlib import import_module
 
 ARCH_IDS = [
-    "stablelm_1_6b", "qwen1_5_32b", "yi_9b", "qwen3_4b", "dbrx_132b",
-    "grok_1_314b", "chameleon_34b", "musicgen_large",
+    "stablelm_1_6b", "qwen1_5_32b", "yi_9b", "qwen3_4b", "zamba2_2_7b",
+    "dbrx_132b", "grok_1_314b", "chameleon_34b", "rwkv6_1_6b",
+    "musicgen_large",
 ]
 
 # public names with dashes/dots as given in the assignment
@@ -20,21 +19,17 @@ ALIASES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "yi-9b": "yi_9b",
     "qwen3-4b": "qwen3_4b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "dbrx-132b": "dbrx_132b",
     "grok-1-314b": "grok_1_314b",
     "chameleon-34b": "chameleon_34b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
     "musicgen-large": "musicgen_large",
 }
-
-# the reference's architectures whose family is not ported yet
-NOT_PORTED = ["rwkv6_1_6b", "zamba2_2_7b"]
 
 
 def get(arch: str):
     mod_name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
-    if mod_name not in ARCH_IDS:
-        raise ValueError(f"arch {arch!r} is not ported yet (not ported: "
-                         f"{NOT_PORTED}; see ROADMAP.md queue 1 item 8)")
     return import_module(f"repro_torch.configs.{mod_name}")
 
 

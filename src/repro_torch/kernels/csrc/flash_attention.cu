@@ -92,7 +92,8 @@
 // forward's: mma.m16n8k16 (bf16 in, fp32 accumulate) on fragments from
 // ldmatrix.x4, 64-row tiles staged by 16-byte cp.async copies (zero-filled
 // past Sq / Sk) into rows padded by 16 bytes, 4 warps of 16 rows.
-//   D: D / 8 lanes a row, one 16-byte access each, a butterfly.
+//   D: D / 8 16-byte accesses a row on a power-of-two group of lanes, a
+//     butterfly over the group.
 //   dK / dV: K and V (64 keys) stay in shared memory; Q and dO tiles (and
 //     64 lse, D) stream in double-buffered, lse and D through registers.
 //     The products come out transposed, S^T = K.Q^T and dP^T = V.dO^T, so
@@ -400,6 +401,7 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
     case 16: return launch_mma<16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 32: return launch_mma<32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 64: return launch_mma<64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 80: return launch_mma<80>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 128: return launch_mma<128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -412,20 +414,34 @@ constexpr int kBwdThreads = 128;               // four warps
 constexpr int kBwdTile = 64;                   // q rows and keys per tile
 constexpr int kQC = 32;                        // q columns of S^T held at once
 
-// D = rowsum(dO * O) in fp32 over bf16 rows of D elements: D / 8 lanes a
-// row, one 16-byte access of each a lane (its eight products in order),
-// then a butterfly over the row's lanes
+// The lanes a row of the D kernels: N 16-byte accesses rounded up to a
+// power of two, so that a row's lanes are an aligned group of a warp
+// and the butterfly's xor offsets never leave it (D 80: 10 accesses on 16
+// lanes, the last 6 idle)
+template <int N>
+struct RowLanes {
+  static constexpr int value = 2 * RowLanes<(N + 1) / 2>::value;
+};
+template <>
+struct RowLanes<1> {
+  static constexpr int value = 1;
+};
+
+// D = rowsum(dO * O) in fp32 over bf16 rows of D elements: D / 8 accesses
+// a row on RowLanes<D / 8> lanes, one 16-byte access of each working lane
+// (its eight products in order), then a butterfly over the row's lanes
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_delta_mma(const __nv_bfloat16* __restrict__ o,
                     const __nv_bfloat16* __restrict__ dout,
                     float* __restrict__ delta, long long rows) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = RowLanes<D / 8>::value;
+  static_assert(kLanes <= 32, "a row's lanes must fit in a warp");
   const long long row =
       ((long long)blockIdx.x * kBwdThreads + threadIdx.x) / kLanes;
   const int c = (threadIdx.x % kLanes) * 8;
   float s = 0.f;
-  if (row < rows) {
+  if (row < rows && c < D) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + c);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + c);
     const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -818,8 +834,8 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
   constexpr size_t smem = bwd_mma_smem_bytes<D>();
   const int group = bh / bkv;
   const long long rows = (long long)bh * sq;
-  const int delta_blocks = (int)((rows * (D / 8) + kBwdThreads - 1) /
-                                 kBwdThreads);
+  const int delta_blocks =
+      (int)((rows * RowLanes<D / 8>::value + kBwdThreads - 1) / kBwdThreads);
   flash_bwd_delta_mma<D><<<delta_blocks, kBwdThreads, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
       rows);
@@ -860,6 +876,7 @@ cudaError_t launch_bwd_mma_d(const void* q, const void* k, const void* v,
     case 16: return launch_bwd_mma<16>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 32: return launch_bwd_mma<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 64: return launch_bwd_mma<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 80: return launch_bwd_mma<80>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 128: return launch_bwd_mma<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, bkv, sq, sk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1166,6 +1183,7 @@ cudaError_t launch_fwd_tf32_d(const void* q, const void* k, const void* v,
     case 16: return launch_fwd_tf32<16>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 32: return launch_fwd_tf32<32>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 64: return launch_fwd_tf32<64>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
+    case 80: return launch_fwd_tf32<80>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     case 128: return launch_fwd_tf32<128>(q, k, v, o, lse, bh, bkv, sq, sk, scale, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1184,20 +1202,22 @@ constexpr size_t bwd_tf32_smem_bytes() {
   return sizeof(float) * (6 * kBwdTile * (D + 4) + 4 * kBwdTile);
 }
 
-// D = rowsum(dO * O) in fp32 over fp32 rows of D elements: D / 4 lanes a
-// row, one 16-byte access of each a lane (its four products in order),
-// then a butterfly over the row's lanes
+// D = rowsum(dO * O) in fp32 over fp32 rows of D elements: D / 4 accesses
+// a row on RowLanes<D / 4> lanes (D 80: 20 on 32), one 16-byte access of
+// each working lane (its four products in order), then a butterfly over
+// the row's lanes
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_delta_f32(const float* __restrict__ o,
                     const float* __restrict__ dout,
                     float* __restrict__ delta, long long rows) {
-  constexpr int kLanes = D / 4;
+  constexpr int kLanes = RowLanes<D / 4>::value;
+  static_assert(kLanes <= 32, "a row's lanes must fit in a warp");
   const long long row =
       ((long long)blockIdx.x * kBwdThreads + threadIdx.x) / kLanes;
   const int c = (threadIdx.x % kLanes) * 4;
   float s = 0.f;
-  if (row < rows) {
+  if (row < rows && c < D) {
     const float4 a = *reinterpret_cast<const float4*>(o + row * D + c);
     const float4 b = *reinterpret_cast<const float4*>(dout + row * D + c);
     s = fmaf(a.x, b.x, s);
@@ -1553,8 +1573,8 @@ cudaError_t launch_bwd_tf32(const float* q, const float* k, const float* v,
   constexpr size_t smem = bwd_tf32_smem_bytes<D>();
   const int group = bh / bkv;
   const long long rows = (long long)bh * sq;
-  const int delta_blocks = (int)((rows * (D / 4) + kBwdThreads - 1) /
-                                 kBwdThreads);
+  const int delta_blocks =
+      (int)((rows * RowLanes<D / 4>::value + kBwdThreads - 1) / kBwdThreads);
   flash_bwd_delta_f32<D><<<delta_blocks, kBwdThreads, 0, stream>>>(
       o, dout, delta, rows);
   cudaError_t err = cudaGetLastError();
@@ -1598,6 +1618,7 @@ cudaError_t launch_bwd_tf32_d(const void* q, const void* k, const void* v,
     case 16: return launch_bwd_tf32<16>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 32: return launch_bwd_tf32<32>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 64: return launch_bwd_tf32<64>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
+    case 80: return launch_bwd_tf32<80>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
     case 128: return launch_bwd_tf32<128>(fq, fk, fv, fo, lse, fdo, gq, gk, gv, delta, bh, bkv, sq, sk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1636,6 +1657,7 @@ extern "C" int repro_flash_attention_mma_smem(int d) {
     case 16: return (int)mma_smem_bytes<16>();
     case 32: return (int)mma_smem_bytes<32>();
     case 64: return (int)mma_smem_bytes<64>();
+    case 80: return (int)mma_smem_bytes<80>();
     case 128: return (int)mma_smem_bytes<128>();
     default: return -1;
   }
@@ -1647,6 +1669,7 @@ extern "C" int repro_flash_attention_tf32_smem(int d) {
     case 16: return (int)fwd_tf32_smem_bytes<16>();
     case 32: return (int)fwd_tf32_smem_bytes<32>();
     case 64: return (int)fwd_tf32_smem_bytes<64>();
+    case 80: return (int)fwd_tf32_smem_bytes<80>();
     case 128: return (int)fwd_tf32_smem_bytes<128>();
     default: return -1;
   }
@@ -1658,6 +1681,7 @@ extern "C" int repro_flash_attention_bwd_mma_smem(int d) {
     case 16: return (int)bwd_mma_smem_bytes<16>();
     case 32: return (int)bwd_mma_smem_bytes<32>();
     case 64: return (int)bwd_mma_smem_bytes<64>();
+    case 80: return (int)bwd_mma_smem_bytes<80>();
     case 128: return (int)bwd_mma_smem_bytes<128>();
     default: return -1;
   }

@@ -56,24 +56,36 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def subquadratic(self) -> bool:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding included once), the
-        reference's formula for the dense and MoE families (the others
-        arrive with their slices)."""
+        """Analytic parameter count (embedding included once): the
+        reference's formula, family by family."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
-        if self.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (ROADMAP.md "
-                f"queue 1 item 8)")
         attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
         ffn = 3 * d * f  # SwiGLU
         if self.n_experts:
             ffn = self.n_experts * 3 * d * f + d * self.n_experts  # + router
         per_layer = attn + ffn + 2 * d
+        if self.family == "ssm":        # rwkv6: time-mix + channel-mix
+            tm = d * d * 4 + d * 64 * 2 + d * 6  # r,k,v,o + lora decay + mixes
+            cm = d * f + f * d + d * d
+            per_layer = tm + cm + 2 * d
+        if self.family == "hybrid":
+            # mamba2-only layers; the SHARED block (attn + MLP) counts once
+            din = 2 * d
+            nheads_m = din // 64
+            mamba = (d * (2 * din + 2 * self.ssm_state + nheads_m)
+                     + din * d + 2 * din)
+            per_layer = mamba + d
+            shared = attn + 3 * d * f + 2 * d
+            return self.n_layers * per_layer + shared + v * d + v * d
         return self.n_layers * per_layer + v * d + v * d
 
     def active_param_count(self) -> int:

@@ -6,11 +6,16 @@ np.asarray, params)``; NamedTuples may stay or be ``_asdict()``-ed), so
 this module needs no JAX: ``embed``, ``ln_f``, ``head`` and
 ``blocks``, whose leaves carry a leading layer axis of length
 ``cfg.n_layers`` (a MoE layer's ``MoeParams`` stacked ``(L, E, ...)``,
-the router ``(L, d, E)``).  It returns the port's params dict, with one
-entry of ``blocks`` per layer, in ``cfg.dtype`` on ``device`` (the
-router in fp32, as drawn; an audio model's ``embed`` is ``(K, vocab,
-d)`` in both).  Arrays in bfloat16 (``ml_dtypes``) convert exactly
-through float32.
+the router ``(L, d, E)``; ssm's ``RwkvBlockParams`` stacked ``(L, ...)``).
+It returns the port's params dict, with one entry of ``blocks`` per
+layer, in ``cfg.dtype`` on ``device`` (the router in fp32, as drawn; an
+audio model's ``embed`` is ``(K, vocab, d)`` in both).  The hybrid's
+``HybridParams`` become a dict: its ``(G, E, ...)`` ``mamba`` /
+``mamba_ln`` stacks nested lists [group][layer], and ``shared_ln``,
+``shared_attn``, ``shared_ln2``, ``shared_mlp`` carried once.  The
+recurrent families keep each leaf's own dtype (their decay, LoRA, bonus
+and SSM parameters are fp32 in a bf16 model, as drawn).  Arrays in
+bfloat16 (``ml_dtypes``) convert exactly through float32.
 
 ``train_state_from_numpy(cfg, tree)`` does the same for the reference's
 ``make_train_state`` tree (``params``, ``opt.m``, ``opt.v``, ``opt.step``,
@@ -19,7 +24,7 @@ requiring grad, moments fp32 or 8-bit ``QTensor``s (a stacked leaf's one
 scale copied to every layer)."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,8 +33,13 @@ from repro_torch.device import DeviceLike, resolve_device
 from .common import ModelConfig
 
 
-def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def _tensor(a: np.ndarray, dtype: Optional[torch.dtype],
+            device) -> torch.Tensor:
+    """``a`` as a tensor of ``dtype`` (None: ``a``'s own)."""
     a = np.asarray(a)
+    if dtype is None:
+        dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
+                 else getattr(torch, a.dtype.name))
     if a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
     return torch.tensor(a, dtype=dtype, device=device)
@@ -55,16 +65,22 @@ def _layer(node: Any, i: int, leaf):
 def _port_layout(cfg: ModelConfig, tree: Dict[str, Any], leaf) -> Dict:
     """A params-shaped tree of the reference in the port's layout; a
     top-level leaf goes through ``leaf(node, None)``."""
-    from .transformer import FAMILIES
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 8)")
+    blocks = tree["blocks"]
+    if cfg.family == "hybrid":
+        if hasattr(blocks, "_asdict"):
+            blocks = blocks._asdict()
+        g, e = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        blocks = {k: ([[_layer(v, (gi, ei), leaf) for ei in range(e)]
+                       for gi in range(g)] if k in ("mamba", "mamba_ln")
+                      else _layer(v, None, leaf))
+                  for k, v in blocks.items()}
+    else:
+        blocks = [_layer(blocks, i, leaf) for i in range(cfg.n_layers)]
     return {
         "embed": leaf(tree["embed"], None),
         "ln_f": leaf(tree["ln_f"], None),
         "head": leaf(tree["head"], None),
-        "blocks": [_layer(tree["blocks"], i, leaf)
-                   for i in range(cfg.n_layers)],
+        "blocks": blocks,
     }
 
 
@@ -76,7 +92,7 @@ def _pick(a, i):
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: DeviceLike = None) -> Dict:
     device = resolve_device(device)
-    dt = cfg.torch_dtype
+    dt = None if cfg.family in ("ssm", "hybrid") else cfg.torch_dtype
 
     out = _port_layout(cfg, tree,
                        lambda a, i: _tensor(_pick(a, i), dt, device))

@@ -1,9 +1,8 @@
-"""Model assembly for the transformer families (dense, moe, vlm, audio):
-pre-norm GQA transformer blocks and the Model API (forward / loss /
-init_cache / prefill / decode_step, and the paged serving cache:
+"""Model assembly for every family: blocks and the Model API (forward /
+loss / init_cache / prefill / decode_step, and the paged serving cache:
 init_paged_cache / prefill_paged / gather_paged_view).
 
-The port of ``repro.models.transformer.Model`` for every family that runs
+The port of ``repro.models.transformer.Model``.  The families that run
 the transformer block:
 
   * ``dense``: SwiGLU MLP;
@@ -17,23 +16,46 @@ the transformer block:
   * ``audio`` (musicgen): ``n_codebooks`` embedding tables, one lookup
     each, summed; tokens are (b, s, K), the head one (d, vocab).
 
+and the recurrent families:
+
+  * ``ssm`` (rwkv6): pre-norm time-mix / channel-mix blocks
+    (``models.rwkv6``), no attention;
+  * ``hybrid`` (zamba2): a mamba2 backbone (``models.mamba2``, each layer
+    pre-normed by K1) in G = n_layers / attn_every groups, each group
+    followed by ONE shared attention + MLP block (one set of weights,
+    applied G times; its attention runs K3 at head dim d / n_heads).
+
 Params are a plain dict: ``embed`` (vocab, d) or (K, vocab, d), ``ln_f``
-(d,), ``head`` (d, vocab) and ``blocks``, a list with one dict per layer
-(``ln1``, ``attn``, ``ln2``, ``mlp``: the MLP's or the MoE's leaves) in
-place of the reference's stacked leading layer axis; the layer loop is a
-Python loop in place of ``lax.scan``.  The KV cache is layer-stacked as in
-the reference and is updated in place.  The recurrent families (ssm,
-hybrid) wait for their slice of the port (ROADMAP.md queue 1 item 8), so
-the recurrent staging state of the paged methods is always None here.
-Serving (``prefill``, ``prefill_paged``, ``decode_step``) always runs
-``ffn.moe``, never the expert-parallel path, as the reference does.
+(d,), ``head`` (d, vocab) and ``blocks``.  For the transformer families
+``blocks`` is a list with one dict per layer (``ln1``, ``attn``, ``ln2``,
+``mlp``: the MLP's or the MoE's leaves); for ssm one dict per layer
+(``ln1``, ``ln2``, ``mix``: ``rwkv6``'s leaves); for the hybrid a dict:
+``mamba`` and ``mamba_ln`` nested lists [group][layer] of one layer's
+mamba2 leaves and norm weight, and ``shared_ln``, ``shared_attn``,
+``shared_ln2``, ``shared_mlp`` once.  That replaces the reference's
+stacked leading (L,) or (G, E) axes; the layer loop is a Python loop in
+place of ``lax.scan``.  Serving (``prefill``, ``prefill_paged``,
+``decode_step``) always runs ``ffn.moe``, never the expert-parallel
+path, as the reference does.
+
+Caches are the reference's trees, layer-stacked, and are written in
+place: a ``KVCache`` (L, b, max_seq, nkv, hd) for the transformer
+families; ``rwkv6.Rwkv6State`` stacked (L, b, ...) for ssm; ``{"mamba":
+mamba2.Mamba2State stacked (G, E, b, ...), "kv": KVCache (G, b, max_seq,
+nkv, hd)}`` for the hybrid.  In the paged layout the KV leaves are page
+pools and the recurrent state stays slot-indexed (ssm's paged cache is
+its dense cache).  Every recurrent state update is a ``copy_`` into the
+cache's own tensors, so a decode chunk captured as a CUDA graph replays
+into the buffers it was captured on.
 
 Training: with ``cfg.remat`` and grad mode on, ``forward`` runs each block
 under ``torch.utils.checkpoint`` (non-reentrant), as the reference runs its
 scanned block under ``jax.checkpoint``: a block's activations (its aux
 included) are recomputed in the backward, only its input is kept.  K1 and
 K3 are differentiable there (their ``autograd.Function``s, backward
-kernels on the card).
+kernels on the card).  The recurrent families remat per layer (ssm) or
+per group of ``attn_every`` mamba layers with the shared block (hybrid),
+as the reference does; a group's recompute runs its time loops again.
 
 On a tensor-parallel train step's mesh (``sharding.ctx.
 get_tensor_parallel()`` set) the same code runs each rank's part:
@@ -43,7 +65,9 @@ attention and MLP on its heads and ff columns between SP's all-gather and
 reduce-scatter: ``attention.attention``, ``ffn.mlp``; a MoE FFN on its
 rows through the all-to-all), and the final norm and the head, gathered
 whole over ``model``, on its rows; collectives inside remat's block run
-again in its recompute."""
+again in its recompute.  The recurrent families on a model axis raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 10: the model axis
+for ssm / hybrid)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -55,11 +79,13 @@ from repro_torch.device import DeviceLike, resolve_device, resolve_or_meta
 from repro_torch.sharding import ctx
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import mamba2 as mamba_mod
 from . import moe_ep
+from . import rwkv6 as rwkv_mod
 from .attention import KVCache
 from .common import ModelConfig, cross_entropy, init_dense, rmsnorm
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def _norm_weight(w, path: str):
@@ -107,14 +133,101 @@ def _block_fwd(p, cfg: ModelConfig, x, positions):
     return h + out, aux
 
 
+def _state_at(state, *idx):
+    """Views of one layer's rows of a stacked state NamedTuple."""
+    return type(state)(*(t[idx] for t in state))
+
+
+def _write_state(dst, src) -> None:
+    """A layer's new state into its cache views, in place (a captured
+    decode graph replays into these buffers)."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _rwkv_block_fwd(p, cfg: ModelConfig, x, state=None, lengths=None):
+    """One rwkv6 block: ``(x, Rwkv6State)``, the layer's new state."""
+    p = ctx.gathered(p, "blocks")
+    tm, tshift, wkv = rwkv_mod.time_mix(
+        p["mix"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps), state,
+        lengths=lengths)
+    h = x + tm
+    cm, cshift = rwkv_mod.channel_mix(
+        p["mix"], cfg, rmsnorm(h, p["ln2"], cfg.norm_eps), state,
+        lengths=lengths)
+    return h + cm, rwkv_mod.Rwkv6State(tshift, cshift, wkv)
+
+
+def _rwkv_train(p, cfg: ModelConfig, x):
+    return _rwkv_block_fwd(p, cfg, x)[0]
+
+
+def _mamba_layer(mp, ln, cfg: ModelConfig, x, state=None, lengths=None):
+    """One pre-normed mamba2 layer with its residual: ``(x, Mamba2State)``."""
+    mp = ctx.gathered(mp, "blocks/mamba")
+    ln = ctx.gathered(ln, "blocks/mamba_ln")
+    y, st = mamba_mod.forward(mp, cfg, rmsnorm(x, ln, cfg.norm_eps), state,
+                              lengths=lengths)
+    return x + y, st
+
+
+def _shared(blocks) -> Dict:
+    """The hybrid's shared attention + MLP block (one set of weights)."""
+    return {k: v for k, v in blocks.items() if k.startswith("shared")}
+
+
+def _shared_attn_in(hp, cfg: ModelConfig, x):
+    """(the shared attention's weights, its normed input)."""
+    ln = ctx.gathered(hp["shared_ln"], "blocks/shared_ln")
+    return (ctx.gathered(hp["shared_attn"], "blocks/shared_attn"),
+            rmsnorm(x, ln, cfg.norm_eps))
+
+
+def _shared_mlp(hp, cfg: ModelConfig, x):
+    ln2 = ctx.gathered(hp["shared_ln2"], "blocks/shared_ln2")
+    mlp = ctx.gathered(hp["shared_mlp"], "blocks/shared_mlp")
+    return x + ffn_mod.mlp(mlp, rmsnorm(x, ln2, cfg.norm_eps))
+
+
+def _hybrid_group_train(mamba, lns, hp, cfg: ModelConfig, x, positions):
+    """One hybrid group in training: its mamba layers, then the shared
+    block (each weight gathered where used, again in remat's
+    recompute)."""
+    for mp, ln in zip(mamba, lns):
+        x, _ = _mamba_layer(mp, ln, cfg, x)
+    attn, xa = _shared_attn_in(hp, cfg, x)
+    x = x + attn_mod.attention(attn, cfg, xa, positions)
+    return _shared_mlp(hp, cfg, x)
+
+
+def _decode_attend(p, cfg: ModelConfig, h, ck, cv, li: int, pos,
+                   block_tables, kv_view):
+    """One token's attention of layer (or group) ``li``: against the
+    chunk's paged view, through the page tables, or against the dense
+    cache, each written in place."""
+    if kv_view is not None:
+        return attn_mod.paged_attention_decode_view(
+            p, cfg, h, ck, cv, kv_view[0], kv_view[1], li, pos,
+            block_tables)[0]
+    if block_tables is not None:
+        return attn_mod.paged_attention_decode_inplace(
+            p, cfg, h, ck, cv, li, pos, block_tables)[0]
+    return attn_mod.attention_decode_inplace(p, cfg, h, ck, cv, li, pos)[0]
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; the port runs "
-                f"{list(FAMILIES)} (see ROADMAP.md, queue 1 item 8)")
+                f"family {cfg.family!r}: the port runs {list(FAMILIES)}, "
+                f"the reference's families")
         self.cfg = cfg
         self._last_aux = None
+
+    @property
+    def groups(self) -> int:
+        """The hybrid's groups: n_layers / attn_every."""
+        return self.cfg.n_layers // self.cfg.attn_every
 
     # -- init ---------------------------------------------------------------
     def init_params(self, generator: torch.Generator,
@@ -136,11 +249,28 @@ class Model:
         embed = (torch.stack([table() for _ in range(cfg.n_codebooks)])
                  if cfg.n_codebooks else table())
         ffn = ffn_mod.init_moe if cfg.n_experts else ffn_mod.init_mlp
-        blocks = [{"ln1": ones(),
-                   "attn": attn_mod.init_attn(generator, cfg, device),
-                   "ln2": ones(),
-                   "mlp": ffn(generator, cfg, device=device)}
-                  for _ in range(cfg.n_layers)]
+        if cfg.family == "ssm":
+            blocks = [{"ln1": ones(), "ln2": ones(),
+                       "mix": rwkv_mod.init_rwkv6(generator, cfg, device)}
+                      for _ in range(cfg.n_layers)]
+        elif cfg.family == "hybrid":
+            e = range(cfg.attn_every)
+            blocks = {
+                "mamba": [[mamba_mod.init_mamba2(generator, cfg, device)
+                           for _ in e] for _ in range(self.groups)],
+                "mamba_ln": [[ones() for _ in e]
+                             for _ in range(self.groups)],
+                "shared_ln": ones(),
+                "shared_attn": attn_mod.init_attn(generator, cfg, device),
+                "shared_ln2": ones(),
+                "shared_mlp": ffn_mod.init_mlp(generator, cfg,
+                                               device=device)}
+        else:
+            blocks = [{"ln1": ones(),
+                       "attn": attn_mod.init_attn(generator, cfg, device),
+                       "ln2": ones(),
+                       "mlp": ffn(generator, cfg, device=device)}
+                      for _ in range(cfg.n_layers)]
         return {"embed": embed, "blocks": blocks, "ln_f": ones(),
                 "head": init_dense(generator, cfg.d_model, cfg.vocab, dt,
                                    device=device)}
@@ -167,17 +297,28 @@ class Model:
         b, s = tokens.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if not remat:
+                return fn(*args)
+            # the model draws no random numbers: no RNG state to stash
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         aux = None
-        for layer in params["blocks"]:
-            if remat:
-                # the model draws no random numbers: no RNG state to stash
-                x, a = checkpoint(_block_fwd, layer, cfg, x, positions,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                x, a = _block_fwd(layer, cfg, x, positions)
-            if a is not None:
-                aux = a if aux is None else aux + a
+        blocks = params["blocks"]
+        if cfg.family == "ssm":
+            for layer in blocks:
+                x = run(_rwkv_train, layer, cfg, x)
+        elif cfg.family == "hybrid":
+            for g in range(self.groups):
+                x = run(_hybrid_group_train, blocks["mamba"][g],
+                        blocks["mamba_ln"][g], _shared(blocks), cfg, x,
+                        positions)
+        else:
+            for layer in blocks:
+                x, a = run(_block_fwd, layer, cfg, x, positions)
+                if a is not None:
+                    aux = a if aux is None else aux + a
         self._last_aux = aux
         ln_f = ctx.gathered(params["ln_f"], "ln_f")
         head = ctx.gathered(params["head"], "head")
@@ -207,41 +348,101 @@ class Model:
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
-                   device: DeviceLike = None) -> KVCache:
-        """Zero KV cache, layer-stacked: k/v (L, batch, max_seq, nkv, hd)
-        (``"meta"``: the shapes alone)."""
+                   device: DeviceLike = None):
+        """Zero serving cache (``"meta"``: the shapes alone): KV
+        layer-stacked, k/v (L, batch, max_seq, nkv, hd); ssm: the rwkv6
+        state stacked (L, batch, ...); hybrid: ``{"mamba": the mamba2
+        state stacked (G, E, batch, ...), "kv": k/v (G, batch, max_seq,
+        nkv, hd)}``."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        kw = dict(dtype=cfg.torch_dtype, device=resolve_or_meta(device))
-        return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+        device = resolve_or_meta(device)
+        if cfg.family == "ssm":
+            return rwkv_mod.init_state(cfg, batch, device,
+                                       lead=(cfg.n_layers,))
+        layers = self.groups if cfg.family == "hybrid" else cfg.n_layers
+        shape = (layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        kw = dict(dtype=cfg.torch_dtype, device=device)
+        kv = KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+        if cfg.family == "hybrid":
+            return {"mamba": self.init_prefill_state(batch, device),
+                    "kv": kv}
+        return kv
 
     # -- paged serving cache -------------------------------------------------
     def init_paged_cache(self, batch: int, max_seq: int, *, n_blocks: int,
-                         block_size: int, device: DeviceLike = None
-                         ) -> KVCache:
-        """The ``kv_layout="paged"`` engine cache: layer-stacked page pools
-        (L, n_blocks + 1, block_size, nkv, hd), the last page of each the
-        trash page (``repro_torch.models.attention``).  No slot axis: slots
-        map into the pool through their block tables, so ``batch`` and
-        ``max_seq`` (kept for the reference's signature) size nothing."""
-        return attn_mod.init_paged_kv(self.cfg, n_blocks, block_size,
-                                      resolve_device(device),
-                                      layers=self.cfg.n_layers)
+                         block_size: int, device: DeviceLike = None):
+        """The ``kv_layout="paged"`` engine cache: the structure of
+        :meth:`init_cache` with the KV leaves layer-stacked page pools
+        (L or G, n_blocks + 1, block_size, nkv, hd), the last page of each
+        the trash page (``repro_torch.models.attention``).  Pools have no
+        slot axis: slots map into them through their block tables.  The
+        recurrent state is O(1) a slot and stays slot-indexed (``batch``
+        rows); ssm has no KV, so its paged cache IS its dense cache."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return self.init_cache(batch, max_seq, device)
+        device = resolve_device(device)
+        pools = attn_mod.init_paged_kv(
+            cfg, n_blocks, block_size, device,
+            layers=self.groups if cfg.family == "hybrid" else cfg.n_layers)
+        if cfg.family == "hybrid":
+            return {"mamba": self.init_prefill_state(batch, device),
+                    "kv": pools}
+        return pools
 
     def split_paged_cache(self, cache):
-        """(kv pools, slot-indexed recurrent state): the state is None for
-        the transformer families."""
+        """(kv pools, slot-indexed recurrent state); either may be None."""
+        if self.cfg.family == "ssm":
+            return None, cache
+        if self.cfg.family == "hybrid":
+            return cache["kv"], cache["mamba"]
         return cache, None
 
     def merge_paged_cache(self, kv, state):
         """Inverse of :meth:`split_paged_cache`."""
+        if self.cfg.family == "ssm":
+            return state
+        if self.cfg.family == "hybrid":
+            return {"mamba": state, "kv": kv}
         return kv
 
-    def init_prefill_state(self, batch: int = 1):
-        """Recurrent staging state for a chunked admission: None for the
-        transformer families, whose prefill state lives entirely in the KV
-        cache."""
+    def init_prefill_state(self, batch: int = 1, device: DeviceLike = None):
+        """Zero recurrent state of ``batch`` rows: the staging state of a
+        chunked paged admission (ssm: its whole cache; hybrid: the mamba
+        state stacked (G, E, batch, ...)); None for the transformer
+        families, whose prefill state lives entirely in the KV cache."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return self.init_cache(batch, 1, device)
+        if cfg.family == "hybrid":
+            return mamba_mod.init_state(
+                cfg, batch, resolve_or_meta(device),
+                lead=(self.groups, cfg.attn_every))
         return None
+
+    def _hybrid_groups(self, params, x, mstate, lengths, attend):
+        """The hybrid's serving pass: each group's mamba layers on their
+        state rows of ``mstate`` (written in place), then the shared
+        block, whose attention is ``attend(g, weights, normed x)``."""
+        cfg, hp = self.cfg, params["blocks"]
+        for g in range(self.groups):
+            for e in range(cfg.attn_every):
+                st = _state_at(mstate, g, e)
+                x, new = _mamba_layer(hp["mamba"][g][e], hp["mamba_ln"][g][e],
+                                      cfg, x, st, lengths)
+                _write_state(st, new)
+            attn, xa = _shared_attn_in(hp, cfg, x)
+            x = _shared_mlp(hp, cfg, x + attend(g, attn, xa))
+        return x
+
+    def _rwkv_layers(self, params, x, state, lengths=None):
+        """ssm's serving pass: each block on its state rows of ``state``
+        (written in place)."""
+        for li, layer in enumerate(params["blocks"]):
+            st = _state_at(state, li)
+            x, new = _rwkv_block_fwd(layer, self.cfg, x, st, lengths)
+            _write_state(st, new)
+        return x
 
     def prefill(self, params, tokens, cache: KVCache, start: int = 0,
                 lengths: Optional[torch.Tensor] = None,
@@ -252,8 +453,12 @@ class Model:
 
         ``lengths`` ((b,) int) marks each row's real prompt length in a
         RIGHT-padded batch: logits are taken at ``lengths - 1``.  Causal
-        masking keeps real tokens from attending to the padding, so a
-        padded prefill is the unpadded computation.
+        masking keeps real tokens from attending to the padding, and the
+        recurrent families mask their state updates past ``lengths``, so
+        a padded prefill is the unpadded computation and leaves the
+        unpadded cache.  A recurrent cache is the state the prefill starts
+        from (zero for a fresh prompt, the earlier chunks' for a
+        continuation), overwritten with the state after ``tokens``.
 
         ``attend_cache=True`` is the CHUNKED-prefill continuation form:
         attention runs against the whole (updated) cache masked by
@@ -263,6 +468,16 @@ class Model:
         x = self.embed(params, tokens)
         attend = (attn_mod.attention_prefill_cached if attend_cache
                   else attn_mod.attention_prefill)
+        if cfg.family == "ssm":
+            x = self._rwkv_layers(params, x, cache, lengths)
+            return self._last_logits(params, x, lengths), cache
+        if cfg.family == "hybrid":
+            kv = cache["kv"]
+            x = self._hybrid_groups(
+                params, x, cache["mamba"], lengths,
+                lambda g, p, xa: attend(p, cfg, xa, KVCache(
+                    kv.k[g], kv.v[g]), start)[0])
+            return self._last_logits(params, x, lengths), cache
         for li, layer in enumerate(params["blocks"]):
             h_in = rmsnorm(x, layer["ln1"], cfg.norm_eps)
             y, _ = attend(layer["attn"], cfg, h_in,
@@ -290,17 +505,29 @@ class Model:
         place.
 
         tokens: (1, s[, K]); kv: the engine's pools
-        (:meth:`split_paged_cache`);
+        (:meth:`split_paged_cache`; None for ssm);
         bt_row: the slot's (max_blocks,) block-table row; state: the
-        recurrent staging state (None here); start: the chunk's
-        offset; lengths: (1,) real token count WITHIN this chunk.  Returns
-        (last_logits, kv, state).
+        batch-1 recurrent staging state (:meth:`init_prefill_state`,
+        written in place; None for the transformer families); start: the
+        chunk's offset; lengths: (1,) real token count WITHIN this chunk.
+        Returns (last_logits, kv, state).
 
         ``first`` is the chunk-0 form: attention runs within ``tokens``
         exactly like the dense admission prefill; continuation chunks
         gather the slot's pages and attend ``kpos <= qpos``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            logits, state = self.prefill(params, tokens, state,
+                                         lengths=lengths)
+            return logits, kv, state
         x = self.embed(params, tokens)
+        if cfg.family == "hybrid":
+            x = self._hybrid_groups(
+                params, x, state, lengths,
+                lambda g, p, xa: attn_mod.paged_attention_prefill(
+                    p, cfg, xa, kv.k, kv.v, g, bt_row, start,
+                    first=first)[0])
+            return self._last_logits(params, x, lengths), kv, state
         for li, layer in enumerate(params["blocks"]):
             h_in = rmsnorm(x, layer["ln1"], cfg.norm_eps)
             y, _, _ = attn_mod.paged_attention_prefill(
@@ -311,18 +538,23 @@ class Model:
                          rmsnorm(h, layer["ln2"], cfg.norm_eps))
         return self._last_logits(params, x, lengths), kv, state
 
-    def gather_paged_view(self, cache: KVCache, block_tables):
+    def gather_paged_view(self, cache, block_tables):
         """The per-slot logical (vk, vv) view of a paged cache's pools,
         gathered once per decode chunk (see
-        :func:`repro_torch.models.attention.gather_paged_view`)."""
+        :func:`repro_torch.models.attention.gather_paged_view`); None for
+        ssm, which has no KV."""
         kv, _ = self.split_paged_cache(cache)
+        if kv is None:
+            return None
         return attn_mod.gather_paged_view(kv.k, kv.v, block_tables)
 
-    def decode_step(self, params, token, cache: KVCache, pos,
+    def decode_step(self, params, token, cache, pos,
                     block_tables=None, kv_view=None):
         """token: (b, 1[, K]) -> (logits (b, vocab), cache), the cache
         written in place at ``pos`` (a scalar, or a (b,) per-slot position
-        tensor).
+        tensor; the recurrent state ignores it: every lane advances its
+        state, a parked lane's rows are overwritten at its next
+        admission).
 
         ``block_tables`` ((b, max_blocks)) selects the PAGED path: the
         cache's leaves are page pools and attention goes through
@@ -332,22 +564,22 @@ class Model:
         value is ``(logits, cache, view)``: the decode chunk's form."""
         cfg = self.cfg
         x = self.embed(params, token)
-        for li, layer in enumerate(params["blocks"]):
-            h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
-            if kv_view is not None:
-                y, _, _, _, _ = attn_mod.paged_attention_decode_view(
-                    layer["attn"], cfg, h, cache.k, cache.v, kv_view[0],
-                    kv_view[1], li, pos, block_tables)
-            elif block_tables is not None:
-                y, _, _ = attn_mod.paged_attention_decode_inplace(
-                    layer["attn"], cfg, h, cache.k, cache.v, li, pos,
-                    block_tables)
-            else:
-                y, _, _ = attn_mod.attention_decode_inplace(
-                    layer["attn"], cfg, h, cache.k, cache.v, li, pos)
-            x = x + y
-            x = x + _ffn(layer["mlp"], cfg,
-                         rmsnorm(x, layer["ln2"], cfg.norm_eps))
+        if cfg.family == "ssm":
+            x = self._rwkv_layers(params, x, cache)
+        elif cfg.family == "hybrid":
+            kv = cache["kv"]
+            x = self._hybrid_groups(
+                params, x, cache["mamba"], None,
+                lambda g, p, xa: _decode_attend(
+                    p, cfg, xa, kv.k, kv.v, g, pos, block_tables, kv_view))
+        else:
+            for li, layer in enumerate(params["blocks"]):
+                h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
+                x = x + _decode_attend(layer["attn"], cfg, h, cache.k,
+                                       cache.v, li, pos, block_tables,
+                                       kv_view)
+                x = x + _ffn(layer["mlp"], cfg,
+                             rmsnorm(x, layer["ln2"], cfg.norm_eps))
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         logits = x[:, -1] @ params["head"]
         if kv_view is not None:

@@ -23,9 +23,9 @@ cost terms and measured time where a tuner supplied them, and the
     default           the kernel's canonical default params (autotune off
                       in the options, or no tuned entry)
     aot-loaded        an executor rebuilt from the AOT program store
-
-The reference's ``degraded(a->b)`` arrives with the resilience slice
-(ROADMAP.md queue 1 item 4).
+    degraded(a->b)    a rung of the serving degradation ladder (the paged
+                      -> dense layout, a mesh shrink), recorded by
+                      ``repro_torch.serve.resilience.record_degradation``
 
 Recording is always on (it happens when the op layer stages an executor,
 once per executor key, never on a hot call path) and keyed by the

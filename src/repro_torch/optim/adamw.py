@@ -82,38 +82,47 @@ def unflatten(template, flat: List):
     return build(template)
 
 
-def groups(params) -> List[Tuple[Tuple, bool]]:
+def groups(params) -> List[Tuple[Tuple, int]]:
     """The reference's leaves as ``(path, stacked)``: a path without the
-    layer index, and whether it names a block leaf (one tensor a layer).
-    Ordered as the reference's pytree: dict keys sorted, block leaves in
-    the order of the first layer's leaves."""
+    layer indices, and how many stacked layer axes the reference's leaf
+    has (0: one tensor; 1: a block leaf, one tensor a layer; 2: the
+    hybrid's ``mamba`` / ``mamba_ln``, one a (group, layer)).  Ordered as
+    the reference's pytree: dict keys sorted, block leaves in the order of
+    the first layer's leaves (the hybrid's shared block once)."""
     out = []
     for k in sorted(params):
         if k == "blocks":
-            if params[k]:
-                out += [(("blocks",) + p, True)
-                        for p, _ in leaves(params[k][0])]
+            blocks = params[k]
+            if isinstance(blocks, list):
+                if blocks:
+                    out += [(("blocks",) + p, 1)
+                            for p, _ in leaves(blocks[0])]
+                continue
+            for kk in sorted(blocks):
+                node, n = blocks[kk], 0
+                while isinstance(node, list):
+                    node, n = node[0], n + 1
+                out += [(("blocks", kk) + p, n) for p, _ in leaves(node)]
         elif params[k] is not None:
-            out.append(((k,), False))
+            out.append(((k,), 0))
     return out
 
 
-def _members(tree, path: Tuple, stacked: bool) -> list:
+def _members(tree, path: Tuple, stacked: int) -> list:
     """The tensors (or QTensors) of group ``path`` in ``tree``: one per
-    layer when stacked."""
-    def get(node, keys):
-        for key in keys:
-            node = node[key]
-        return node
-    if not stacked:
-        return [get(tree, path)]
-    return [get(layer, path[1:]) for layer in tree["blocks"]]
+    layer (or per group and layer) when stacked."""
+    nodes = [tree]
+    for key in path:
+        nodes = [node[key] for node in nodes]
+        while isinstance(nodes[0], list):
+            nodes = [x for node in nodes for x in node]
+    return nodes
 
 
-def decays(path: Tuple, leaf: torch.Tensor, stacked: bool) -> bool:
+def decays(path: Tuple, leaf: torch.Tensor, stacked: int) -> bool:
     """Whether decoupled weight decay applies: ``ndim >= 2`` in the
-    reference's layout, where a block leaf has a leading layer axis."""
-    return leaf.ndim + (1 if stacked else 0) >= 2
+    reference's layout, where a block leaf has its leading stacked axes."""
+    return leaf.ndim + int(stacked) >= 2
 
 
 # ---- the optimizer -----------------------------------------------------------

@@ -123,7 +123,6 @@ import torch
 
 from repro_torch import compiler, obs
 from repro_torch.ft.resilience import Watchdog
-from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import Model
 from repro_torch.serve.domains import SchedulerJournal
 from repro_torch.serve.graph import ChunkGraphs
@@ -245,7 +244,9 @@ class _DecodeState:
     """The decode chunk's buffers.  Prefill, admission and parking write
     them in place; they are never rebound, so a captured graph's addresses
     stay valid."""
-    cache: KVCache                       # dense cache or page pools
+    # the model's serving cache: dense, or paged (KV page pools, the
+    # recurrent state slot-indexed)
+    cache: object
     block_tables: Optional[torch.Tensor]  # (b, max_blocks); None: dense
     tokens: torch.Tensor                 # (b,) each lane's last token
     pos: torch.Tensor                    # (b,) each lane's next position
@@ -277,10 +278,11 @@ def _slot_axis(big, small) -> Optional[int]:
                  if a != c), None)
 
 
-def _insert_slot(big: KVCache, small: KVCache, slot: int) -> None:
-    """Copy a batch-1 cache into the engine cache at ``slot``, in place
-    (the reference returns an updated copy)."""
-    for bl, sl in zip(big, small):
+def _insert_slot(big, small, slot: int) -> None:
+    """Copy a batch-1 cache tree (a KVCache, a recurrent state, the
+    hybrid's dict) into the engine's at ``slot``, in place (the reference
+    returns an updated copy)."""
+    for bl, sl in zip(_leaves(big), _leaves(small)):
         axis = _slot_axis(bl, sl)
         if axis is None:
             bl.copy_(sl)
@@ -634,8 +636,8 @@ class BatchedEngine(_EngineBase):
         s = max(lengths)
         with torch.inference_mode():
             st = self._state(b)
-            st.cache.k.zero_()
-            st.cache.v.zero_()
+            for t in _leaves(st.cache):
+                t.zero_()
             tokens = torch.cat([_prompt_tensor(r.prompt, s, dev)
                                 for r in requests])
             pos = _to_device(torch.tensor(lengths, dtype=torch.long), dev)
@@ -788,7 +790,20 @@ class ContinuousEngine(_EngineBase):
             tables, self.pool = None, None
         self.st = _DecodeState.new(cache, tables, b, self.chunk, dev)
         self.st.pos.fill_(self.max_seq)       # every lane parked
-        self._staging: Dict[int, KVCache] = {}
+        # the slot axis of each leaf of the slot-indexed state
+        # (:meth:`_slot_state`), in ``_leaves`` order: where a 2-slot
+        # cache's shape differs from a 1-slot one's (meta tensors)
+        if self.kv_layout == "paged":
+            two, one = (self.model.init_prefill_state(n, "meta")
+                        for n in (2, 1))
+        else:
+            two, one = (self.model.init_cache(n, self.max_seq, "meta")
+                        for n in (2, 1))
+        self._row_axes: List[int] = [
+            _slot_axis(x, y) for x, y in zip(_leaves(two), _leaves(one))]
+        # a prompt's admission state until it installs: dense, its batch-1
+        # cache; paged, its batch-1 recurrent state (recurrent families)
+        self._staging: Dict[int, object] = {}
         self._admit_logits: Dict[int, torch.Tensor] = {}
         # slots the prompt poison drill hit (read by the sharded engine,
         # which clears it every boundary)
@@ -808,8 +823,8 @@ class ContinuousEngine(_EngineBase):
         block tables and the pool.  ``self.st`` keeps its tensors, so the
         captured graphs stay valid and the rebuild costs no capture."""
         st = self.st
-        st.cache.k.zero_()
-        st.cache.v.zero_()
+        for t in _leaves(st.cache):
+            t.zero_()
         st.pos.fill_(self.max_seq)
         st.tokens.zero_()
         st.temps.zero_()
@@ -1153,28 +1168,42 @@ class ContinuousEngine(_EngineBase):
         is NaN: a poisoned page handed to its next owner would re-poison
         it, and a NaN in the trash page (every lane reads it through its
         sentinel table entries) would poison every co-batched request."""
+        kv, _ = self.model.split_paged_cache(self.st.cache)
+        if kv is None:                  # ssm: no pool
+            return
         idx = _to_device(torch.tensor(sorted(blocks) + [self.kv_blocks]),
                          self.device)
-        self.st.cache.k.index_fill_(1, idx, 0.0)
-        self.st.cache.v.index_fill_(1, idx, 0.0)
+        for pool in _leaves(kv):
+            pool.index_fill_(1, idx, 0.0)
 
     def _poison_slot_cache(self, slot: int) -> None:
         """Deterministic damage for the ``serve.nan_decode`` drill: fill the
-        slot's cached KV with NaN (paged: its pages) so its next decode
-        chunk trips the NaN guard, the flaky-HBM poison model."""
+        slot's cached state with NaN so its next decode chunk trips the NaN
+        guard, the flaky-HBM poison model.  Dense: the slot's whole cache,
+        recurrent rows included; paged: only the slot's pages (nothing for
+        ssm, which has none), as the reference does."""
         lane = self._lane(slot)
         if lane is None:
             return
-        k, v = self.st.cache
         if self.kv_layout == "paged":
+            kv, _ = self.model.split_paged_cache(self.st.cache)
             blocks = self.pool.owned(slot)
-            if blocks:
+            if blocks and kv is not None:
                 idx = _to_device(torch.tensor(sorted(blocks)), self.device)
-                k.index_fill_(1, idx, float("nan"))
-                v.index_fill_(1, idx, float("nan"))
+                for pool in _leaves(kv):
+                    pool.index_fill_(1, idx, float("nan"))
             return
-        k[:, lane].fill_(float("nan"))
-        v[:, lane].fill_(float("nan"))
+        for t, axis in zip(_leaves(self.st.cache), self._row_axes):
+            if t.is_floating_point():
+                t.select(axis, lane).fill_(float("nan"))
+
+    def _slot_state(self):
+        """The slot-indexed part of the cache: the whole dense cache, or
+        the paged cache's recurrent state (None for the transformer
+        families)."""
+        if self.kv_layout == "paged":
+            return self.model.split_paged_cache(self.st.cache)[1]
+        return self.st.cache
 
     def _park_lane(self, slot: int) -> None:
         """Neutralise a freed lane: position past max_seq, so its decode
@@ -1221,10 +1250,10 @@ class ContinuousEngine(_EngineBase):
         lengths = _to_device(torch.tensor([take]), self.device)
         self.n_prefills += 1
         if self.kv_layout == "paged":
+            kv, _ = self.model.split_paged_cache(self.st.cache)
             logits, _, _ = self.model.prefill_paged(
-                self.params, tokens, self.st.cache,
-                self.st.block_tables[lane], None, start, lengths,
-                first=start == 0)
+                self.params, tokens, kv, self.st.block_tables[lane],
+                self._staging.get(slot), start, lengths, first=start == 0)
             return logits
         if start == 0:                        # a fresh zero staging cache
             staging = self.model.init_cache(1, self.max_seq,
@@ -1267,6 +1296,11 @@ class ContinuousEngine(_EngineBase):
                             self.kv_blocks)
             self.st.block_tables[lane].copy_(
                 _to_device(torch.tensor(row, dtype=torch.long), self.device))
+            # recurrent families: a fresh zero state the prompt's chunks
+            # carry, installed into the lane at admission
+            state = self.model.init_prefill_state(1, self.device)
+            if state is not None:
+                self._staging[slot] = state
         self._park_lane(slot)  # mid-prefill decode writes must drop
 
     def _install_lane(self, slot: int, lane: int, rid: int):
@@ -1279,7 +1313,7 @@ class ContinuousEngine(_EngineBase):
         logits = self._admit_logits.pop(slot)
         staging = self._staging.pop(slot, None)
         if staging is not None:
-            _insert_slot(st.cache, staging, lane)
+            _insert_slot(self._slot_state(), staging, lane)
         gen = st.generators[lane]
         gen.manual_seed(self._stream_seeds[rid])   # the request's stream
         st.temps[lane].fill_(float(r.temperature))
@@ -1830,38 +1864,42 @@ class ShardedEngine(ContinuousEngine):
 
     def _pack_lanes(self, width: int) -> torch.Tensor:
         """This rank's lanes' state as one uint8 buffer on :attr:`_xdev`:
-        its axis index, then, dense, per lane its cache row (a prompt
-        still prefilling sends its staging cache) and which lanes were
-        staged, or, paged, the pages its live slots own
+        its axis index; paged, the KV pages its live slots own
         (:meth:`_live_pages`), zero-padded to ``width`` pages (the most
-        any position owns) so every rank sends as many bytes; then per lane its token,
-        position, temperature, top-k and generator state."""
+        any position owns) so every rank sends as many bytes; then per
+        lane its rows of the slot-indexed state (:meth:`_slot_state`:
+        dense, its cache row, recurrent rows included; paged, its
+        recurrent rows), a prompt still prefilling sending its staging
+        state instead, and which lanes were staged; then per lane its
+        token, position, temperature, top-k and generator state."""
         st, dev = self.st, self._xdev
 
         def as_bytes(t: torch.Tensor) -> torch.Tensor:
             return t.detach().contiguous().reshape(-1).view(
                 torch.uint8).to(dev)
         parts = [as_bytes(torch.tensor([self._index]))]
-        if self.kv_layout == "paged":
+        kv, _ = self.model.split_paged_cache(st.cache)
+        if self.kv_layout == "paged" and kv is not None:
             pages = [b for _, owned in self._live_pages(self._index,
                                                         self.per)
                      for b in owned]
             idx = torch.tensor(pages, dtype=torch.long,
-                               device=st.cache.k.device)
-            for pool in st.cache:
+                               device=self.device)
+            for pool in _leaves(kv):
                 live = pool.index_select(1, idx)
                 pad = live.new_zeros((live.shape[0], width - len(pages))
                                      + live.shape[2:])
                 parts.append(as_bytes(torch.cat([live, pad], dim=1)))
-        else:
-            staged = []
-            for lane in range(self.per):
-                src = self._staging.get(self._index * self.per + lane)
-                staged.append(src is not None)
-                k, v = ((src.k[:, 0], src.v[:, 0]) if src is not None
-                        else (st.cache.k[:, lane], st.cache.v[:, lane]))
-                parts += [as_bytes(k), as_bytes(v)]
-            parts.append(as_bytes(torch.tensor(staged, dtype=torch.uint8)))
+        axes, rows = self._row_axes, _leaves(self._slot_state())
+        staged = []
+        for lane in range(self.per):
+            src = self._staging.get(self._index * self.per + lane)
+            staged.append(src is not None)
+            mine = ([t.select(a, 0) for t, a in zip(_leaves(src), axes)]
+                    if src is not None else
+                    [t.select(a, lane) for t, a in zip(rows, axes)])
+            parts += [as_bytes(t) for t in mine]
+        parts.append(as_bytes(torch.tensor(staged, dtype=torch.uint8)))
         parts += [as_bytes(t) for t in (st.tokens, st.pos, st.temps,
                                         st.top_ks)]
         parts += [as_bytes(g.get_state()) for g in st.generators]
@@ -1876,7 +1914,6 @@ class ShardedEngine(ContinuousEngine):
         their rows arrive bit for bit)."""
         from repro_torch.mesh.strategy import axis_sizes
         old_per, old_n, lost = self.per, self._n, set(lost_slots)
-        cfg = self.model.cfg
         with obs.span("serve.remesh", frm=str(axis_sizes(self.mesh)),
                       to=str(axis_sizes(new_mesh))):
             width = (max(sum(len(b) for _, b in self._live_pages(q, old_per))
@@ -1896,31 +1933,32 @@ class ShardedEngine(ContinuousEngine):
             self._init_device_state()
             self.pool = pool                # the replicated allocator
             st, dev = self.st, self.device
-            dt = cfg.torch_dtype
-            row = (cfg.n_layers, self.max_seq, cfg.n_kv_heads, cfg.hd)
-            page = (cfg.n_layers, width) + tuple(st.cache.k.shape[2:])
+            pools, _ = self.model.split_paged_cache(st.cache)
+            pools = _leaves(pools) if self.kv_layout == "paged" else []
+            axes, mine = self._row_axes, _leaves(self._slot_state())
+            row_of = [(tuple(s for i, s in enumerate(t.shape) if i != a),
+                       t.dtype) for t, a in zip(mine, axes)]
             gen_bytes = st.generators[0].get_state().numel()
             fields = {}
             for q, rd in parts.items():
-                if self.kv_layout == "paged":
-                    kv, staged = [rd.take(page, dt) for _ in range(2)], None
-                else:
-                    kv = [[rd.take(row, dt), rd.take(row, dt)]
-                          for _ in range(old_per)]
-                    staged = rd.take((old_per,), torch.uint8).tolist()
+                kv = [rd.take((p.shape[0], width) + tuple(p.shape[2:]),
+                              p.dtype) for p in pools]
+                rows = [[rd.take(shape, d) for shape, d in row_of]
+                        for _ in range(old_per)]
+                staged = rd.take((old_per,), torch.uint8).tolist()
                 lanes = [rd.take((old_per,), d) for d in
                          (torch.long, torch.long, torch.float32, torch.long)]
                 gens = [rd.take((gen_bytes,), torch.uint8)
                         for _ in range(old_per)]
-                fields[q] = (kv, staged, lanes, gens)
+                fields[q] = (kv, rows, staged, lanes, gens)
             for lane in range(self.per):
                 slot = self._index * self.per + lane
                 s = self.sched.slots[slot]
                 if s.free or slot in lost:
                     continue                # zero and parked
                 q, old = divmod(slot, old_per)
-                kv, staged, lanes, gens = fields[q]
-                if self.kv_layout == "paged":
+                kv, rows, staged, lanes, gens = fields[q]
+                if pools:
                     # the slot's pages sit in q's buffer after those of q's
                     # earlier live slots
                     at = 0
@@ -1930,21 +1968,26 @@ class ShardedEngine(ContinuousEngine):
                         at += len(blocks)
                     blocks = pool.owned(slot)
                     idx = torch.tensor(blocks, dtype=torch.long, device=dev)
-                    for mine, theirs in zip(st.cache, kv):
-                        mine.index_copy_(1, idx, theirs[:, at:at + len(
+                    for buf, theirs in zip(pools, kv):
+                        buf.index_copy_(1, idx, theirs[:, at:at + len(
                             blocks)].to(dev))
+                if self.kv_layout == "paged":
                     st.block_tables[lane].copy_(torch.tensor(
-                        table_row(blocks, self.max_blocks,
+                        table_row(self.pool.owned(slot), self.max_blocks,
                                   self.kv_blocks)).to(dev))
-                elif staged[old]:
-                    self._staging[slot] = KVCache(
-                        *(t[:, None].to(dev).clone() for t in kv[old]))
+                if staged[old]:
+                    self._staging[slot] = staging = (
+                        self.model.init_prefill_state(1, dev)
+                        if self.kv_layout == "paged" else
+                        self.model.init_cache(1, self.max_seq, dev))
+                    for t, a, row in zip(_leaves(staging), axes, rows[old]):
+                        t.select(a, 0).copy_(row)
                 else:
-                    st.cache.k[:, lane].copy_(kv[old][0])
-                    st.cache.v[:, lane].copy_(kv[old][1])
-                for mine, theirs in zip((st.tokens, st.pos, st.temps,
-                                         st.top_ks), lanes):
-                    mine[lane].copy_(theirs[old])
+                    for t, a, row in zip(mine, axes, rows[old]):
+                        t.select(a, lane).copy_(row)
+                for dst, theirs in zip((st.tokens, st.pos, st.temps,
+                                        st.top_ks), lanes):
+                    dst[lane].copy_(theirs[old])
                 st.generators[lane].set_state(gens[old].cpu())
         # the chunk is captured anew at the new per: reset the warm
         # baseline so that capture is not counted as a re-capture

@@ -193,9 +193,12 @@ def _rule_path(path: Tuple) -> str:
 def params_specs(params, mesh, cfg):
     """PartitionSpec tree for a parameter tree (the port's layout)."""
     def assign(path, leaf):
-        # the reference's scan-stacked leaves lose their leading layer dim
-        # here: each port leaf is one layer's (the hybrid family's (G, E)
-        # stacks and shared blocks come with that family, queue 1 item 8)
+        # the reference's scan-stacked leaves lose their leading layer
+        # dims here: each port leaf is one layer's (ssm's (L,) blocks, the
+        # hybrid's (G, E) mamba / mamba_ln stacks), and the hybrid's
+        # shared block, unstacked in the reference too, is carried once;
+        # the path keeps the reference's names ("blocks/mamba/w_out",
+        # "blocks/shared_attn/wq"), so the name tests pick the same dims
         return param_spec(leaf, _rule_path(path), mesh, fsdp=cfg.fsdp,
                           stacked_dims=0)
     return _walk(assign, params, ())

@@ -265,6 +265,13 @@ class _Placement:
         self.cfg = model.cfg
         self.group = DataGroup(mesh)
         self.model = ModelGroup(mesh)
+        if self.model.size > 1 and model.cfg.subquadratic:
+            raise NotImplementedError(
+                f"{model.cfg.name}: a {model.cfg.family} model on a model "
+                f"axis of size {self.model.size} is not ported: the "
+                f"reference shards its mixers over 'model' by its rules and "
+                f"lets GSPMD insert the collectives (ROADMAP.md queue 1 "
+                f"item 10, the model axis for ssm / hybrid)")
         self.world = WorldGroup(mesh) if self.model.size > 1 else None
         self.ep = (ExpertParallel(self.group, self.model)
                    if model.cfg.n_experts else None)
@@ -303,18 +310,18 @@ class _Placement:
     def gather(self, tree, name: str):
         """``sharding.ctx.gathered``'s FSDP form: each leaf that the rules
         split over the data axes, all-gathered (differentiably) to the
-        whole tensor over them."""
+        whole tensor over them.  ``name`` is the subtree's path without
+        layer indices (``"blocks"`` for one layer's dict,
+        ``"blocks/mamba"``, ``"blocks/shared_attn"``, ``"head"``)."""
         from repro_torch.sharding.collectives import gather_param
 
-        def one(path, t):
-            if t is None:
+        def walk(path, node):
+            if node is None:
                 return None
-            return gather_param(t, self.group, self.split(path))
-        if name != "blocks":
-            return one((name,), tree)
-        return {k: ({kk: one(("blocks", k, kk), vv) for kk, vv in v.items()}
-                    if isinstance(v, dict) else one(("blocks", k), v))
-                for k, v in tree.items()}
+            if isinstance(node, dict):
+                return {k: walk(path + (k,), v) for k, v in node.items()}
+            return gather_param(node, self.group, self.split(path))
+        return walk(tuple(name.split("/")), tree)
 
     def rows(self, batch: Dict, microbatches: int):
         """(this rank's rows of the global ``batch``, each microbatch's

@@ -140,6 +140,11 @@ def test_rmsnorm_kernel_launch_failure_raises(cuda_device, monkeypatch):
     (8, 4, 10, 10, 16, True, 0),
     (8, 4, 65, 65, 32, False, 0),
     (4, 2, 37, 200, 64, True, 163),
+    # head dim 80 (zamba2's shared attention): its static prefill, a
+    # batch-1 continuation chunk, non-causal GQA
+    (128, 128, 200, 200, 80, True, 0),
+    (32, 32, 72, 200, 80, True, 128),
+    (8, 2, 65, 65, 80, False, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda_device, bh, bkv, sq, sk, d, causal,
@@ -1129,7 +1134,9 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype):
 
 @pytest.mark.parametrize("bh,bkv,s,d,causal", [
     (2, 1, 37, 16, True), (8, 2, 70, 64, True), (4, 4, 33, 128, False),
-    (32, 8, 128, 128, True), (8, 2, 200, 32, True), (128, 32, 512, 128, True)])
+    (32, 8, 128, 128, True), (8, 2, 200, 32, True), (128, 32, 512, 128, True),
+    # head dim 80: the D kernels' rows on 16 (bf16) or 32 (fp32) lanes
+    (64, 64, 512, 80, True), (8, 2, 70, 80, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, bh, bkv, s, d,
                                                   causal, dtype):
@@ -2131,3 +2138,185 @@ def test_dbrx_fsdp_ep_full_width_over_nccl():
           f"{[round(r['init_peak_gib'], 2) for r in res]}), step s "
           f"{[[round(m['s'], 3) for m in r['rows']] for r in res]}, "
           f"collectives a run {res[0]['collectives']}")
+
+
+# ---- the recurrent families ------------------------------------------------
+
+RECURRENT = ["rwkv6_1_6b", "zamba2_2_7b"]
+
+
+def _leaves(node):
+    if isinstance(node, torch.Tensor):
+        return [node]
+    if isinstance(node, dict):
+        return [t for k in sorted(node) for t in _leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [t for x in node for t in _leaves(x)]
+    return []
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_smoke_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The smoke config in fp32 (TF32 off), the same weights on the card
+    and on the CPU: the loss within 1e-4, every gradient within 1e-4 of
+    its leaf's largest, K1 and its backward launched on the card (K3 and
+    its backward too for the hybrid's shared attention)."""
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch)
+    model = Model(cfg)
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = p_cpu if dev == "cpu" else _to_device(p_cpu, cuda_device)
+        flat = [t.detach().clone().requires_grad_(True)
+                for _, t in adamw.leaves(params)]
+        ops.reset_launch_counts()
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = model.loss(adamw.unflatten(params, flat), b)
+        grads = torch.autograd.grad(loss, flat)
+        out[dev] = (float(loss.detach()), [gr.cpu() for gr in grads],
+                    dict(ops.launch_counts()))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-30)
+    counts = out["cuda"][2]
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm_bwd"] > 0
+    hybrid = cfg.family == "hybrid"
+    assert (counts["flash_attention"] > 0) == hybrid
+    assert (counts["flash_attention_bwd"] > 0) == hybrid
+
+
+def _recurrent_smoke(device, arch, dtype="bfloat16"):
+    model = Model(smoke_config(arch, dtype=dtype))
+    params = model.init_params(torch.Generator(device=device).manual_seed(0),
+                               device)
+    return model, params
+
+
+def _read_rows_equal(graph, eager, lanes):
+    """The cache rows an engine reads again are equal bit for bit: each
+    slot-indexed leaf's rows of ``lanes``, and every pool page but the
+    trash page.  Parked lanes write their dropped tokens to the trash
+    page, racing one another, and the hybrid's attention reads that back,
+    so a parked lane's rows are garbage in both engines (admission
+    overwrites them; a reused page is scrubbed)."""
+    pairs = zip(_leaves(graph._slot_state()), _leaves(eager._slot_state()),
+                graph._row_axes)
+    for a, b, axis in pairs:
+        for lane in lanes:
+            assert torch.equal(a.select(axis, lane), b.select(axis, lane))
+    if graph.kv_layout == "paged":
+        kv_g, _ = graph.model.split_paged_cache(graph.st.cache)
+        kv_e, _ = eager.model.split_paged_cache(eager.st.cache)
+        for a, b in zip(_leaves(kv_g), _leaves(kv_e)):
+            assert torch.equal(a.narrow(1, 0, graph.kv_blocks),
+                               b.narrow(1, 0, graph.kv_blocks))
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_graph_chunk_writes_its_state_in_place(cuda_device, arch,
+                                                         kind):
+    """bf16: the decode chunk replayed as a CUDA graph gives the eager
+    chunk's tokens (the sampled request's included) and, chunk by chunk,
+    the eager engine's cache rows bit for bit (those read again:
+    :func:`_read_rows_equal`), in the buffers it was captured on: every
+    recurrent update is a copy into the cache's own tensors, so a replay
+    never reads a stale state."""
+    model, params = _recurrent_smoke(cuda_device, arch)
+    reqs = _traffic()
+    graph = _engines(model, params, kind, True)
+    eager = _engines(model, params, kind, False)
+    ptrs = [t.data_ptr() for t in _leaves(graph.st.cache)]
+    want = eager.run(reqs, seed=3)
+    assert graph.run(reqs, seed=3) == want
+    assert graph.run(reqs, seed=3) == want            # replays only
+    assert eager.run(reqs, seed=3) == want
+    assert graph.stats()["captures"] >= 1
+    # once more in lockstep, the rows compared at every chunk boundary
+    rids = []
+    for eng in (graph, eager):
+        eng._run_seed = 3
+        rids.append([eng.submit(r, stream=i) for i, r in enumerate(reqs)])
+    chunks = 0
+    while not graph.sched.idle:
+        before = graph.st.pos < graph.max_seq
+        graph.step_chunk()
+        eager.step_chunk()
+        live = (before | (graph.st.pos < graph.max_seq)).nonzero()
+        _read_rows_equal(graph, eager, live.flatten().tolist())
+        chunks += 1
+    assert eager.sched.idle and chunks > 1
+    for eng, ids in zip((graph, eager), rids):
+        assert [list(eng.take_result(i).tokens) for i in ids] == want
+    assert graph.stats()["recaptures_after_warm"] == 0
+    assert [t.data_ptr() for t in _leaves(graph.st.cache)] == ptrs
+    if kind == "dense":
+        # no trash page: the parked lanes' rows agree too
+        for a, b in zip(_leaves(graph.st.cache), _leaves(eager.st.cache)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_chunk_never_syncs_the_host(cuda_device, arch):
+    """The time-mix / mamba recurrences inside the decode chunk queue work
+    without waiting for the card (the chunk a CUDA graph captures)."""
+    model, params = _recurrent_smoke(cuda_device, arch)
+    engine = _engines(model, params, "paged", False)
+    reqs = _traffic(2)
+    engine.run(reqs, seed=0)                          # builds K1 / K3
+    rid = engine.submit(reqs[0])
+    engine.step_chunk()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            engine._chunk_fn(engine.st, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    engine.cancel(rid)
+
+
+def _recurrent_sharded_rank(rank, world):
+    """rwkv6's smoke config in fp32 through ``ShardedEngine`` on a
+    ``data=1`` mesh of one NCCL rank, dense and paged, the weights made on
+    the CPU from seed 0."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import ShardedEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(smoke_config("rwkv6_1_6b"))
+    params = _to(model.init_params(torch.Generator().manual_seed(0), "cpu"),
+                 "cuda")
+    mesh = make_mesh((world,), ("data",))
+    out = {}
+    for layout in ("dense", "paged"):
+        eng = ShardedEngine(model, params, max_seq=64, slots=4, chunk=4,
+                            min_bucket=8, prefill_chunk=16, mesh=mesh,
+                            kv_layout=layout)
+        ops.reset_launch_counts()
+        out[layout] = {"tokens": eng.run(_greedy_traffic(), seed=3),
+                       "launches": ops.launch_counts(),
+                       "descriptor": eng.stats()["mesh"]["descriptor"]}
+    return out
+
+
+def test_recurrent_sharded_engine_on_one_nccl_rank(cuda_device):
+    """rwkv6's state through ``ShardedEngine`` on one NCCL rank: the greedy
+    tokens of the single-process engine on the CPU, dense and paged, K1
+    launched on the card."""
+    from repro_torch.testing import ranks
+    model = Model(smoke_config("rwkv6_1_6b"))
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    want = ContinuousEngine(model, p_cpu, max_seq=64, slots=4, chunk=4,
+                            min_bucket=8, prefill_chunk=16).run(
+        _greedy_traffic(), seed=3)
+    res = ranks.spawn(_recurrent_sharded_rank, 1, backend="nccl",
+                      device="cuda", timeout=300)[0]
+    for layout in ("dense", "paged"):
+        assert res[layout]["tokens"] == want
+        assert res[layout]["descriptor"] == "data=1"
+        assert res[layout]["launches"]["rmsnorm"] > 0

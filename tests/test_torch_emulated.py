@@ -747,11 +747,13 @@ K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # one key tile and several (bf16 takes 64 keys a tile, fp32 32), D 16 /
 # 64, causal or not; a q_offset chunk; Sk below Sq; D 128; a q_offset
 # chunk at D 128 whose ragged Sk (130) ends two keys past the last full tile
-# of either variant
+# of either variant; D 80 (zamba2's shared attention: 10 n8 blocks a row,
+# 5 k16 steps) over two tiles and as a q_offset chunk
 K3_CASES = ([(2, 1, s, s, d, causal, 0) for s in (1, 37, 70)
              for d in (16, 64) for causal in (True, False)]
             + [(4, 2, 5, 70, 64, True, 65), (2, 2, 66, 3, 32, False, 0),
-               (2, 1, 70, 70, 128, True, 0), (4, 2, 5, 130, 128, True, 125)])
+               (2, 1, 70, 70, 128, True, 0), (4, 2, 5, 130, 128, True, 125),
+               (2, 2, 70, 70, 80, True, 0), (4, 2, 5, 70, 80, True, 65)])
 
 
 @pytest.mark.parametrize("bh,bkv,sq,sk,d,causal,q_offset", K3_CASES)
@@ -857,11 +859,14 @@ def test_flash_attention_tf32x3_source_keeps_nan(k3, nan_in):
 # rounding (2**-8 relative) of values of order 1.
 K3_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (bh, bkv, s, d, causal): one tile; three 64-tiles with a ragged edge
-# (130); a GQA group of 4 at D = 128; non-causal over two tiles
+# (130); a GQA group of 4 at D = 128; non-causal over two tiles; D 80,
+# whose D kernels take a row on 16 (bf16) or 32 (fp32) lanes, 10 or 20 of
+# them working
 K3_BWD_CASES = [(2, 1, 37, 16, True), (4, 2, 70, 32, True),
                 (2, 2, 33, 64, False), (2, 1, 5, 128, True),
                 (4, 1, 64, 16, True), (2, 1, 130, 32, True),
-                (4, 1, 70, 128, True), (2, 1, 100, 16, False)]
+                (4, 1, 70, 128, True), (2, 1, 100, 16, False),
+                (2, 2, 70, 80, True), (2, 1, 37, 80, False)]
 
 
 def _k3_bwd_run(k3_bwd, bh, bkv, s, d, causal, dtype, nan_in=None):

@@ -59,16 +59,26 @@ def test_configs_are_copies():
 
 
 def test_unported_arch_and_family_raise():
-    """The recurrent families still raise, naming their item; the
-    transformer families (dbrx's moe among them) run."""
+    """Every family of the reference is ported: the recurrent configs
+    (``rwkv6_1_6b``, ``zamba2-2.7b``) equal the reference's field for
+    field, and ``Model`` builds both families, as it builds the
+    transformer families (dbrx's moe among them); a family the reference
+    does not have still raises."""
+    from repro.configs import config as jax_config
     from repro_torch.configs import config
     for arch in ("rwkv6_1_6b", "zamba2-2.7b"):
-        with pytest.raises(ValueError, match="not ported.*item 8"):
-            config(arch)
+        assert dataclasses.asdict(config(arch)) == \
+            dataclasses.asdict(jax_config(arch))
+        assert dataclasses.asdict(smoke_config(arch)) == \
+            dataclasses.asdict(jax_smoke_config(arch))
+    assert Model(config("rwkv6-1.6b")).cfg.family == "ssm"
+    assert Model(config("zamba2_2_7b")).cfg.family == "hybrid"
     for family in ("ssm", "hybrid"):
         cfg = dataclasses.replace(smoke_config("qwen3_4b"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-            Model(cfg)
+        assert Model(cfg).cfg.family == family
+    cfg = dataclasses.replace(smoke_config("qwen3_4b"), family="cnn")
+    with pytest.raises(NotImplementedError, match="family 'cnn'"):
+        Model(cfg)
     assert Model(config("dbrx_132b")).cfg.family == "moe"
     cfg = dataclasses.replace(smoke_config("qwen3_4b"), family="moe")
     assert Model(cfg).cfg.family == "moe"
