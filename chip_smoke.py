@@ -246,8 +246,9 @@ result):
    algorithms: 3 one-device steps, then 3 mesh steps from the same seed-0
    weights, their loss, grad norm and every tensor's bits (checksums)
    equal, step time and peak memory beside 13b's; (b) DP, qwen3-4b cut
-   to 2 layers (two fp32 states share the card; 4 until phase 17 came),
-   and (c) FSDP, yi-9b (``fsdp=True``) cut to 2 layers, fp32 with TF32
+   to 1 layer (two fp32 states share the card; 4 until phase 17 came, 2
+   until phase 20), and (c) FSDP, yi-9b (``fsdp=True``) cut to 1 layer,
+   fp32 with TF32
    off, on two gloo ranks
    sharing the card: rank 0 first runs the one-device step on the same
    global batches (the other waits) and keeps its state on the host; then
@@ -261,7 +262,8 @@ result):
    sequence rows and its 16 query / 4 kv heads' rows, K3 on those heads at
    S 512; fp32, and K3 in bf16 too), timed as in phases 3 and 13a; then in
    spawned ranks (a failed rank fails the run), fp32 with TF32 off, each
-   cut to 2 layers (4 before phase 19 came), on gloo ranks sharing the
+   cut to 1 layer (4 before phase 19 came, 2 before phase 20), on gloo
+   ranks sharing the
    card: (a) TP + SP, qwen3-4b
    on ``model=2``, and (b) FSDP + TP, yi-9b (``fsdp=True``) on ``data=2,
    model=2``: rank 0 first runs the one-device step on the same global
@@ -304,15 +306,16 @@ result):
    batch-1 first chunks, ``tf32x3`` at the static prefill (held to
    float64), both backwards at 19c's (4 x 32, 128), and ptxas's
    registers and spills of every D 80 instance; (a) rwkv6-1.6b (ssm) and
-   (b) zamba2-2.7b (hybrid: 54 mamba layers, 9 shared-attention sites)
-   at full width and depth, bf16: phase 4's traffic through
+   (b) zamba2-2.7b (hybrid) at full width cut to 6 layers and to 2
+   groups (12 mamba layers, 2 shared-attention sites), bf16: phase 4's
+   traffic through
    ``BatchedEngine`` and phase 4b's through ``ContinuousEngine``, dense
    and paged, each with the decode chunk a CUDA graph and eagerly: every
    continuous run's tokens equal, zero re-captures after warm-up, exact
    K1 / K3 counts, the recurrent bytes a slot (and zamba2's KV bytes a
    token) against the reckoning, a decode step's device time; then a cut
    (rwkv6 2 layers, zamba2 one group) in fp32 against the CPU as 18a;
-   (c) two bf16 remat train steps of each at full width and depth, batch
+   (c) two bf16 remat train steps of each at the same cut, batch
    4 x 128 (the time loops' length cut), with their time, tok/s, peak
    memory and exact K1 / K3 forward and backward launches, and the cut's
    fp32 step
@@ -322,6 +325,20 @@ result):
    rounding within twice the update), each rank's state bytes against
    the dry run's.  ``tools/recurrent.py`` runs phase 19
    alone.
+20. the model axis for the recurrent families and the op counter, after
+   phase 19: (k) K1 and its backward at 20a / 20b's rank rows (64 rows of
+   2048 / 2560, fp32) and K3 ``tf32x3`` at D 80, forward (held to
+   float64 too) and backward, at 20b's rank shape (2 x 16 heads, 64), as
+   17k; (a) rwkv6-1.6b (2 layers) and (b) zamba2-2.7b (one group: 6 mamba
+   layers, one shared-block site) at full width, TP + SP on ``model=2``,
+   fp32, batch 2 x 64, two gloo ranks sharing the card, held to the
+   one-device step with 17a's checks (each rank's state bytes against the
+   dry run's); (c) ``analysis.hlo_counter`` on the card: 13b's qwen3-4b
+   step and 20a's rwkv6 step on each rank, counted with the layers and
+   time steps scaled and in full, equal to the same step counted on the
+   ``meta`` device (20a's ranks through ``collectives.CountingMesh``),
+   and the roofline terms (``analysis.hlo``) beside the measured step
+   time.  ``tools/recurrent_tp.py`` runs phase 20 alone.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -335,8 +352,8 @@ and their backward kernels' ``launches_phase16`` and ``launches_phase17``,
 a step, by part and rank; K1's and K3's ``launches_phase18`` by part:
 18a / 18b by engine, 18c by arch, 18d's ranks a step with the backward
 kernels'; ``launches_phase19`` likewise: 19a / 19b by engine, 19c by
-arch, 19d's ranks; phase 17k's, 18k's and 19k's cases among their
-``cases``), the
+arch, 19d's ranks; ``launches_phase20``, 20a's and 20b's ranks a step;
+phase 17k's, 18k's, 19k's and 20k's cases among their ``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -3561,9 +3578,11 @@ SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
 # 16 + 17 near phase 16's earlier time.  17a / 17b went to 2 layers too
 # when phase 19 (the recurrent families' eager time loops) took the
 # script past 1 000 s (1 090 s before 19d on an NVIDIA H100 80GB HBM3 at
-# 700 W; 179 s of it phase 17's at 4 layers)
-SHARDED_TRAIN_LAYERS = 2
-DATA_AXIS_LAYERS = 2
+# 700 W; 179 s of it phase 17's at 4 layers).  All four went to one layer
+# when phase 20 took the script to 1 253 s (same card; phase 16 171.1 s,
+# 17 155.9 s at 2 layers)
+SHARDED_TRAIN_LAYERS = 1
+DATA_AXIS_LAYERS = 1
 # 16b / 16c against the one-device step: 13e's card-vs-CPU tolerance (fp32,
 # TF32 off; sums in other orders), loss and gradient norm 1e-5 relative;
 # params also get 2 % of the one-device step's largest update of the leaf
@@ -3997,15 +4016,19 @@ def phase_tp_kernels(k1):
     return out
 
 
-def tp_train_rank(rank, world, arch, shape):
-    """[17a] / [17b] on ``world`` gloo ranks sharing the card, the mesh
-    ``(data, model) = shape``, fp32 (TF32 off), cut to
-    SHARDED_TRAIN_LAYERS layers: rank 0 first runs the one-device step on
-    the global batches (the others wait) and keeps the final state on the
-    host; then every rank runs SHARDED_TRAIN_STEPS mesh steps from the
+def tp_train_rank(rank, world, arch, shape, layers=None, bs=None,
+                  count=False):
+    """[17a] / [17b] (and phase 20's cells) on ``world`` gloo ranks sharing
+    the card, the mesh ``(data, model) = shape``, fp32 (TF32 off), cut to
+    ``layers`` (SHARDED_TRAIN_LAYERS) layers, a global batch of ``bs``
+    (batch, seq; 13b's by default): rank 0 first runs the one-device step
+    on the global batches (the others wait) and keeps the final state on
+    the host; then every rank runs SHARDED_TRAIN_STEPS mesh steps from the
     same seed-0 weights, K1 / K3 counted exactly a step on every rank;
     every leaf, gathered whole over both axes, is held to that state on
-    rank 0 and summed on every rank (the ranks' sums must agree)."""
+    rank 0 and summed on every rank (the ranks' sums must agree).  With
+    ``count``, one more step is counted by ``analysis.hlo_counter`` on
+    every rank, scaled and in full (:func:`counted`)."""
     import gc
 
     import torch.distributed as dist
@@ -4020,10 +4043,12 @@ def tp_train_rank(rank, world, arch, shape):
                                         state_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    cfg = config(arch, n_layers=layers or SHARDED_TRAIN_LAYERS,
+                 dtype="float32")
     model = Model(cfg)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH))
+    n_batch, seq = bs or (TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=n_batch))
     batches = [data.global_batch_at(i) for i in range(SHARDED_TRAIN_STEPS)]
     kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
     out = {"rank": rank, "fsdp": cfg.fsdp}
@@ -4060,7 +4085,7 @@ def tp_train_rank(rank, world, arch, shape):
     torch.cuda.reset_peak_memory_stats()
     step = make_train_step(model, mesh, **kw)
     place = step.placement
-    out["sp"] = place.tensor_parallel(TRAIN_SEQ).sp
+    out["sp"] = place.tensor_parallel(seq).sp
     state, out["steps"] = _sharded_steps(
         step, state, batches, cfg, "tf32x3",
         {"data": place.group, "model": place.model, "world": place.world},
@@ -4070,6 +4095,8 @@ def tp_train_rank(rank, world, arch, shape):
                                          device="meta"), mesh, cfg)
     out["worst_rel_to_leaf_max"], out["bad_leaves"], out["sums"] = \
         _held_to_oracle(state, specs, place, oracle, start)
+    if count:
+        out["count"] = counted(step, state, batches[0])
     del state, step, oracle, start
     gc.collect()
     torch.cuda.empty_cache()
@@ -4077,27 +4104,40 @@ def tp_train_rank(rank, world, arch, shape):
     return out
 
 
-def tp_cell(smi, label, arch, shape, backend="gloo"):
+def tp_cell(smi, label, arch, shape, backend="gloo", layers=None, bs=None,
+            report=None, results=None):
     """Run one phase-17 cell (``tp_train_rank`` on a ``shape`` mesh, its
     ranks over ``backend``: gloo ranks share the card, NCCL takes one card
     a rank), check it (every rank's metrics against the one-device step's,
     its state bytes against ``launch.dryrun.reckon``'s, its gathered
     leaves the same as rank 0's, SP on; rank 0's leaves within 16b /
     16c's tolerances) and log it; returns each rank's K1 / K3 launches a
-    step."""
+    step and the seconds it took.  ``layers`` and ``bs`` (batch, seq) go
+    to the ranks; with ``report`` (a dict), the ranks also count a step
+    (:func:`counted`) and ``report`` gets each rank's counts and steps.
+    With ``results`` (each rank's ``tp_train_rank`` output from a spawn
+    that ran several cells) it checks and logs those."""
     from repro_torch.configs import config
     from repro_torch.launch import dryrun
     from repro_torch.testing import ranks
     t0 = time.perf_counter()
     world = shape[0] * shape[1]
-    res = ranks.spawn(tp_train_rank, world, backend=backend, device="cuda",
-                      timeout=900, args=(arch, shape))
-    took = time.perf_counter() - t0
+    layers = layers or SHARDED_TRAIN_LAYERS
+    n_batch, seq = bs or (TRAIN_BATCH, TRAIN_SEQ)
+    if results is None:
+        res = ranks.spawn(tp_train_rank, world, backend=backend,
+                          device="cuda", timeout=900,
+                          args=(arch, shape, layers, (n_batch, seq),
+                                report is not None))
+        took, where_s = time.perf_counter() - t0, "with the processes"
+    else:
+        res = results
+        took, where_s = res[0]["cell_s"], "on rank 0, in a shared spawn"
     ref = res[0]["one_device"]
-    cfg = config(arch, n_layers=SHARDED_TRAIN_LAYERS, dtype="float32")
+    cfg = config(arch, n_layers=layers, dtype="float32")
     mesh = {"data": shape[0], "model": shape[1]}
     reckoned = dryrun.reckon(
-        cfg, {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "kind": "train"},
+        cfg, {"seq": seq, "batch": n_batch, "kind": "train"},
         mesh)["memory"]
     for r in res:
         for x, y in zip(r["steps"], ref["steps"]):
@@ -4118,7 +4158,7 @@ def tp_cell(smi, label, arch, shape, backend="gloo"):
             raise AssertionError(f"[{label}] rank {r['rank']}'s gathered "
                                  f"leaves differ from rank 0's")
         if not r["sp"]:
-            raise AssertionError(f"[{label}] SP is off at seq {TRAIN_SEQ}")
+            raise AssertionError(f"[{label}] SP is off at seq {seq}")
     if res[0]["bad_leaves"]:
         raise AssertionError(f"[{label}] leaves beyond the tolerance "
                              f"{SHARDED_STATE_TOL} (params + "
@@ -4128,9 +4168,12 @@ def tp_cell(smi, label, arch, shape, backend="gloo"):
     mode = "FSDP + TP" if res[0]["fsdp"] else "TP + SP"
     where = (f"{world} gloo ranks sharing one card" if backend == "gloo"
              else f"{world} {backend} ranks, a card each")
+    if report is not None:
+        report.update({"counts": [r["count"] for r in res],
+                       "steps": [r["steps"] for r in res]})
     log(f"[{label}] {mode}, {arch} at full width cut to "
-        f"{SHARDED_TRAIN_LAYERS} layers, fp32 (TF32 off), {mesh} ({where}), "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} (SP on), {SHARDED_TRAIN_STEPS} "
+        f"{layers} layers, fp32 (TF32 off), {mesh} ({where}), "
+        f"batch {n_batch} x {seq} (SP on), {SHARDED_TRAIN_STEPS} "
         f"steps: loss, grad norm, lr and every leaf against the one-device "
         f"step (tolerance {SHARDED_STATE_TOL}, params + {SHARDED_UPDATE_TOL} "
         f"x the leaf's largest update, metrics {SHARDED_METRIC_RTOL} "
@@ -4148,7 +4191,7 @@ def tp_cell(smi, label, arch, shape, backend="gloo"):
                        "init_peak_gib": r["init_peak_gib"],
                        "init_s": r["init_s"], "steps": r["steps"]}
                       for r in res]})
-        + f"; {took:.1f} s with the processes; card {smi}")
+        + f"; {took:.1f} s {where_s}; card {smi}")
     return [r["steps"][0]["launches"] for r in res], took
 
 
@@ -4671,6 +4714,12 @@ REC_CPU_PROMPT_LENS = (64, 23)
 # 14.8 s and zamba2 (batch 2) 31.8 s a step, at 4 x 256 8.5 s and 18.9 s:
 # both are cut to 4 x 128 to keep the script inside its time
 REC_TRAIN_SHAPE = {"rwkv6_1_6b": (4, 128), "zamba2_2_7b": (4, 128)}
+# 19a / 19b / 19c: depth cut (full width) when phase 20 took the script
+# to 1 253 s (NVIDIA H100 80GB HBM3, 700.00 W; phase 19 251.2 s, 19a
+# 39.1, 19b 74.1, 19c 50.7 s at full depth): the eager time loops' time
+# grows with the layers; 6 of rwkv6's 24, 2 of zamba2's 9 groups (12
+# mamba layers, 2 shared-block sites)
+REC_LAYERS = {"rwkv6_1_6b": 6, "zamba2_2_7b": 12}
 REC_TRAIN_STEPS = 2
 # 19c's fp32 step on the card against the CPU's (REC_CPU_LAYERS layers,
 # TF32 off): loss and gradient norm within 1e-4 relative (the kernels' and
@@ -4678,7 +4727,8 @@ REC_TRAIN_STEPS = 2
 REC_TRAIN_CPU_SHAPE = (2, 32)
 REC_TRAIN_CPU_RTOL = 1e-4
 # 19d: FSDP on two gloo ranks sharing the card, zamba2-2.7b cut to one
-# group, fp32, batch 2 x 128, 16c's checks and lr. AdamW's update
+# group, fp32, batch 2 x 64 (REC_FSDP_SHAPE), 16c's checks and lr. At 2 x
+# 128 (the earlier runs) AdamW's update
 # divides by sqrt(v) + 1e-8, so where a gradient sits at its sums'
 # rounding the update is that rounding's sign: the embedding's params
 # parted from the one-device step's by 13 % of the update under 16c's
@@ -4686,7 +4736,9 @@ REC_TRAIN_CPU_RTOL = 1e-4
 # one-device step's first moment under REC_FSDP_FLOOR of the leaf's
 # largest) are held to twice the update, as tests/test_torch_tp_train.py
 # holds them; every other element keeps 16c's limit
-REC_FSDP_ARCH, REC_FSDP_SHAPE = "zamba2_2_7b", (2, 128)
+# 19d: batch 2 x 64 since phase 20 (the time loops' length; 2 x 128
+# before, 85.9 s with the processes in that run)
+REC_FSDP_ARCH, REC_FSDP_SHAPE = "zamba2_2_7b", (2, 64)
 REC_FSDP_FLOOR = 1e-5
 
 
@@ -4812,16 +4864,17 @@ def _recurrent_serving(cfg, model, params, label):
 
 
 def _recurrent_train(arch):
-    """[19c] bf16 remat train steps of ``arch`` at full width and depth
-    (REC_TRAIN_STEPS, the first building what the step needs),
-    REC_TRAIN_SHAPE: each step's time, tokens a second, peak memory and
-    exact K1 / K3 forward and backward launches (K3 all ``mma``)."""
+    """[19c] bf16 remat train steps of ``arch`` at full width cut to
+    REC_LAYERS layers (REC_TRAIN_STEPS, the first building what the step
+    needs), REC_TRAIN_SHAPE: each step's time, tokens a second, peak
+    memory and exact K1 / K3 forward and backward launches (K3 all
+    ``mma``)."""
     import gc
     from repro_torch.configs import config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.transformer import Model
     from repro_torch.train.step import make_train_state, make_train_step
-    cfg = config(arch)
+    cfg = config(arch, n_layers=REC_LAYERS[arch])
     model = Model(cfg)
     batch, seq = REC_TRAIN_SHAPE[arch]
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
@@ -4965,9 +5018,10 @@ def phase_recurrent_fsdp(smi):
 def phase_recurrent(smi):
     """[19] the recurrent families, random weights drawn on the card from
     seed 0: (k) K3 at head dim 80 in all four variants; (a) rwkv6-1.6b and
-    (b) zamba2-2.7b at full width and depth, bf16, through every engine
-    (:func:`_recurrent_serving`), a decode step's device time, then a cut
-    in fp32 against the CPU; (c) a full-width train step of each, and an
+    (b) zamba2-2.7b at full width cut to REC_LAYERS, bf16, through every
+    engine (:func:`_recurrent_serving`), a decode step's device time, then
+    a cut in fp32 against the CPU; (c) a train step of each at that cut,
+    and an
     fp32 step against the CPU's; (d) FSDP on two gloo ranks
     (:func:`phase_recurrent_fsdp`).  Returns (the K3 cases at D 80, each
     part's K1 / K3 launches)."""
@@ -4986,7 +5040,8 @@ def phase_recurrent(smi):
     times["19k"] = time.perf_counter() - t0
     for label, arch in REC_ARCHS:
         t0 = time.perf_counter()
-        cfg, model, params = _family_build(arch)
+        cfg, model, params = _family_build(arch,
+                                           n_layers=REC_LAYERS[arch])
         n_params = sum(t.numel() for t in _tensors(params))
         rep = _recurrent_serving(cfg, model, params, label)
         rep["params"] = n_params
@@ -5024,7 +5079,8 @@ def phase_recurrent(smi):
         launches.setdefault("19c", {})[arch] = \
             c_rep[arch]["steps"][0]["launches"]
     times["19c"] = time.perf_counter() - t0
-    log(f"[19c] one bf16 remat train step at full width and depth, "
+    log(f"[19c] one bf16 remat train step at full width, layers "
+        f"{REC_LAYERS}, "
         f"{REC_TRAIN_STEPS} steps (the first builds), batch x seq "
         f"{REC_TRAIN_SHAPE}, exact K1 / K3 forward and backward launches; "
         f"an fp32 step of a cut against the CPU's: " + json.dumps(c_rep)
@@ -5033,6 +5089,240 @@ def phase_recurrent(smi):
     log(f"[19] summary: " + json.dumps({k: round(v, 1)
                                         for k, v in times.items()})
         + f", phase 19 {time.perf_counter() - t_start:.1f} s; card {smi}")
+    return cases, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the model axis for the recurrent families; the op counter
+# ---------------------------------------------------------------------------
+
+# 20a / 20b: TP + SP on model=2, two gloo ranks sharing the card (as 17a),
+# fp32, held to the one-device step with 17a's checks: rwkv6-1.6b at full
+# width cut to 2 layers, zamba2-2.7b to one group (6 mamba layers and one
+# shared-block site); batch 2 x 64 (the eager time loops: a step's
+# launches grow with the sequence)
+REC_TP_CELLS = {"20a": ("rwkv6_1_6b", 2), "20b": ("zamba2_2_7b", 6)}
+REC_TP_SHAPE = (2, 64)
+# the counts 20c compares: every number of a count but its seconds
+COUNT_KEYS = ("flops", "bytes", "bytes_min", "coll_bytes", "coll_by_kind",
+              "kernels", "coll_calls", "ops")
+
+
+def recurrent_tp_ranks(rank, world):
+    """[20a] and [20b] in one spawn of two gloo ranks sharing the card
+    (one start-up of the processes for both): :func:`tp_train_rank` for
+    each of REC_TP_CELLS, 20a's step counted too; each cell's seconds."""
+    out = {}
+    for label, (arch, layers) in REC_TP_CELLS.items():
+        t0 = time.perf_counter()
+        out[label] = tp_train_rank(rank, world, arch, (1, 2), layers,
+                                   REC_TP_SHAPE, label == "20a")
+        out[label]["cell_s"] = time.perf_counter() - t0
+    return out
+
+
+def counted(step, state, batch) -> dict:
+    """One more step of ``step`` on ``state`` counted by
+    ``analysis.hlo_counter``, its layers and time steps scaled by their
+    trip counts (``scaled``) and every one counted (``full``): each
+    count's totals, kernel and collective calls, ops and seconds.  The
+    counted steps update ``state`` (the scaled one with the first layer's
+    gradients alone): a caller counts last."""
+    from repro_torch.analysis import hlo_counter
+    out = {}
+    for scale in (True, False):
+        if state["step"].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, c = hlo_counter.count(step, state, batch, scale=scale)
+        if state["step"].is_cuda:
+            torch.cuda.synchronize()
+        t = c.totals
+        out["scaled" if scale else "full"] = {
+            "flops": t.flops, "bytes": t.bytes, "bytes_min": t.bytes_min,
+            "coll_bytes": t.coll_bytes, "coll_by_kind": dict(t.coll_by_kind),
+            "kernels": dict(c.kernels), "coll_calls": dict(c.coll_calls),
+            "ops": c.ops, "s": time.perf_counter() - t0}
+    return out
+
+
+def meta_counted(cfg, batch, sizes=None, coordinate=None) -> dict:
+    """:func:`counted` of the same step on the ``meta`` device: one
+    device, or the rank at ``coordinate`` of a mesh of ``sizes`` stood in
+    for by ``collectives.CountingMesh`` (its groups count and exchange
+    nothing)."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.collectives import CountingMesh
+    from repro_torch.train.step import make_train_state, make_train_step
+    model = Model(cfg)
+    mesh = None if sizes is None else CountingMesh(sizes, coordinate)
+    state = make_train_state(model, torch.Generator(), device="meta",
+                             mesh=mesh)
+    step = make_train_step(model, mesh, base_lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    try:
+        return counted(step, state, batch)
+    finally:
+        ctx.set_mesh(None)
+
+
+def _same_counts(label, card, meta) -> None:
+    for scale in ("scaled", "full"):
+        a = {k: card[scale][k] for k in COUNT_KEYS}
+        b = {k: meta[scale][k] for k in COUNT_KEYS}
+        if a != b:
+            raise AssertionError(f"[20c] {label} {scale}: the card's count "
+                                 f"{a} differs from the meta device's {b}")
+    for k in ("flops", "bytes", "bytes_min", "coll_bytes"):
+        if card["scaled"][k] != card["full"][k]:
+            raise AssertionError(f"[20c] {label}: the scaled count's {k} "
+                                 f"{card['scaled'][k]} is not the full "
+                                 f"count's {card['full'][k]}")
+
+
+def _roofline(c, chips, model_flops, measured_s, widest_axis=1) -> dict:
+    """The roofline terms of one rank's count ``c`` beside a measured step
+    time."""
+    from repro_torch.analysis import hlo, hlo_counter
+    tot = hlo_counter.Totals(c["flops"], c["bytes"], c["bytes_min"],
+                             c["coll_bytes"], sum(c["coll_calls"].values()),
+                             dict(c["coll_by_kind"]))
+    r = hlo.from_totals(tot, c["coll_calls"], chips=chips,
+                        model_flops=model_flops, widest_axis=widest_axis)
+    return {**r.row(), "roofline_step_s": r.step_time_s,
+            "measured_step_s": measured_s,
+            "counted_over_measured": r.step_time_s / measured_s}
+
+
+def _recurrent_tp_kernel_cases(k1):
+    """[20k] K1 and its backward on a TP rank's sequence rows of 20a / 20b
+    (batch 2 x 64 over model=2: 64 rows of 2048 / 2560, fp32); K3
+    ``tf32x3`` at D 80 forward (held to float64 too) and backward on
+    20b's rank's 16 heads of the whole sequence (2 x 16, 64, 80)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    ptxas = bwd_ptxas()
+    b, s = REC_TP_SHAPE
+    rows = b * s // 2
+    shapes = ((rows, 2048), (rows, 2560))
+    return {
+        "rmsnorm": [_rmsnorm_case(r, d, torch.float32, gen, k1)
+                    for r, d in shapes],
+        "rmsnorm_bwd": [_rmsnorm_bwd_case(r, d, torch.float32, gen, ptxas)
+                        for r, d in shapes],
+        "flash_attention": [_flash_case(s, s, True, 0, gen, b=b, nh=16,
+                                        nkv=16, hd=80, dtype=torch.float32,
+                                        f64_check=True)],
+        "flash_attention_bwd": [_flash_bwd_case(b, 16, 16, s, 80,
+                                                torch.float32, gen, ptxas)]}
+
+
+def phase_counter(smi, rwkv):
+    """[20c] the op counter on the card: 13b's one-device step (qwen3-4b
+    at full width and depth, bf16, 13b's batch, lr and warm-up) and 20a's
+    rwkv6 step on each of its ranks (``rwkv``: the ranks' counts and
+    steps), each counted scaled and in full on the card, then on the
+    ``meta`` device (20a's ranks through counting groups): the totals,
+    kernel calls and collectives must be equal, and the scaled count the
+    full one; the roofline terms (``analysis.hlo``, an H100's rates)
+    beside the measured step time."""
+    import gc
+
+    from repro_torch.configs import config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import make_train_state, make_train_step
+    t_start = time.perf_counter()
+    cfg = config(ARCH)
+    model = Model(cfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH)
+                        ).global_batch_at(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    times = []
+    for _ in range(3):            # the first builds what the step needs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    card = counted(step, state, batch)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta = meta_counted(cfg, batch)
+    _same_counts("qwen3-4b", card, meta)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    qwen = {"counts": card, "roofline": _roofline(
+        card["scaled"], 1, 6.0 * cfg.active_param_count() * tokens,
+        statistics.median(times[1:])), "step_s": times}
+    rcfg = config(REC_TP_CELLS["20a"][0], n_layers=REC_TP_CELLS["20a"][1],
+                  dtype="float32")
+    rbatch = SyntheticLM(DataConfig(vocab=rcfg.vocab,
+                                    seq_len=REC_TP_SHAPE[1],
+                                    global_batch=REC_TP_SHAPE[0])
+                         ).global_batch_at(0)
+    ranks_rep = []
+    for r, (c, steps) in enumerate(zip(rwkv["counts"], rwkv["steps"])):
+        m = meta_counted(rcfg, rbatch, {"data": 1, "model": 2}, {"model": r})
+        _same_counts(f"rwkv6 20a rank {r}", c, m)
+        # the last step: the first builds what the step needs
+        ranks_rep.append({"rank": r, "counts": c, "roofline": _roofline(
+            c["scaled"], 2, 6.0 * rcfg.active_param_count()
+            * REC_TP_SHAPE[0] * REC_TP_SHAPE[1], steps[-1]["s"],
+            widest_axis=2)})
+    took = time.perf_counter() - t_start
+    log("[20c] the op counter (analysis.hlo_counter) on the card against "
+        "the meta device, scaled and in full (equal totals, kernel calls "
+        "and collectives), and the roofline (analysis.hlo: "
+        f"{cfg.name} bf16 one device, 13b's batch; rwkv6 20a's ranks, "
+        "two gloo ranks sharing one card, so the measured time is both "
+        "ranks' on one card) beside the measured step: "
+        + json.dumps({"qwen3_4b": qwen, "rwkv6_20a": ranks_rep})
+        + f"; {took:.1f} s; card {smi}")
+    return took
+
+
+def phase_recurrent_tp(smi, k1):
+    """[20] the model axis for the recurrent families and the op counter:
+    (k) K1 / K3 at 20a / 20b's rank shapes; (a) rwkv6-1.6b and (b)
+    zamba2-2.7b, TP + SP on ``model=2`` (:func:`recurrent_tp_ranks`: two
+    gloo ranks sharing the card, both cells in one spawn; each held to the
+    one-device step and its state bytes to the dry run's by
+    :func:`tp_cell`); (c) the op counter on the card
+    (:func:`phase_counter`).  Returns (the kernel cases, each cell's
+    ranks' K1 / K3 launches a step)."""
+    import gc
+    t_start = time.perf_counter()
+    times, launches = {}, {}
+    t0 = time.perf_counter()
+    cases = _recurrent_tp_kernel_cases(k1)
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"[20k] {name} " + json.dumps(c))
+    times["20k"] = time.perf_counter() - t0
+    from repro_torch.testing import ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = ranks.spawn(recurrent_tp_ranks, 2, backend="gloo", device="cuda",
+                      timeout=900)
+    times["20a + 20b"] = time.perf_counter() - t0
+    rwkv = {}
+    for label, (arch, layers) in REC_TP_CELLS.items():
+        launches[label], times[label] = tp_cell(
+            smi, label, arch, (1, 2), layers=layers, bs=REC_TP_SHAPE,
+            report=rwkv if label == "20a" else None,
+            results=[r[label] for r in res])
+    times["20c"] = phase_counter(smi, rwkv)
+    log(f"[20] summary: " + json.dumps({k: round(v, 1)
+                                        for k, v in times.items()})
+        + f", phase 20 {time.perf_counter() - t_start:.1f} s; card {smi}")
     return cases, launches
 
 
@@ -5137,6 +5427,9 @@ def _run_phases(tune_cache: str) -> int:
     rec_cases, recurrent = phase_recurrent(smi)
     for name, cs in rec_cases.items():
         cases[name] += cs
+    rec_tp_cases, rec_tp = phase_recurrent_tp(smi, k1)
+    for name, cs in rec_tp_cases.items():
+        cases[name] += cs
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -5191,6 +5484,9 @@ def _run_phases(tune_cache: str) -> int:
                        else {key: c.get(k["name"], 0)
                              for key, c in v.items()})
                 for part, v in recurrent.items()}
+            # phase 20's model axis, a step: 20a's and 20b's ranks
+            entry["launches_phase20"] = {
+                key: [c[k["name"]] for c in v] for key, v in rec_tp.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

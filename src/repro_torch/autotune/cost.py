@@ -310,10 +310,22 @@ def kv_layout_cost(layout: str, *, slots: int, max_seq: int, kv_heads: int,
 # ---------------------------------------------------------------------------
 
 def xla_cost(fn, args, hw: HwModel = DEFAULT_HW) -> Optional[float]:
-    """Roofline seconds from a candidate's compiled XLA HLO: the reference
-    lowers through XLA and runs its scan-aware HLO counter.  The port has
-    no XLA, so this raises until the HLO analysis has a counterpart."""
-    raise NotImplementedError(
-        "xla_cost reads XLA's HLO; the port has no counterpart of "
-        "repro.analysis.hlo_counter yet (ROADMAP.md queue 1 item 8, "
-        "analysis/hlo*.py)")
+    """Roofline seconds of one call ``fn(*args)`` from its counted op
+    stream: ``max(flops / hw.peak_flops, bytes / hw.hbm_bw)``.  The
+    reference lowers the candidate through XLA and runs its scan-aware HLO
+    counter; the port counts the ATen ops the call dispatches and the work
+    its hand-written kernels declare (``repro_torch.analysis.
+    hlo_counter``).  Returns None when the call fails, as the reference
+    does when lowering fails.  A call that launches a kernel with no
+    declared work raises ``hlo_counter.UndeclaredKernel``: a K4 program is
+    one (its executor declares nothing), so a ``dpia-cuda`` candidate on
+    the card raises rather than costing its launches as zero."""
+    from repro_torch.analysis.hlo_counter import (UndeclaredKernel,
+                                                  analyze_text)
+    try:
+        t = analyze_text(fn, *args)
+    except UndeclaredKernel:
+        raise
+    except Exception:
+        return None
+    return max(t.flops / hw.peak_flops, t.bytes / hw.hbm_bw)

@@ -90,6 +90,7 @@ import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ...analysis import hlo_counter
 from . import phrases as P
 from . import stage2
 from .types import (AccT, Arr, DataType, ExpT, Idx, Num, Pair, VarT, Vec,
@@ -1420,6 +1421,9 @@ class GeneratedProgram:
                     stream = torch.cuda.current_stream(device).cuda_stream
                     _build.check(fn(*ptrs, stream),
                                  f"{self.name} stage {st.index}")
+                # a generated program declares no work to an op count:
+                # a launch inside one raises
+                hlo_counter.launched(f"dpia_cuda:{self.name}")
                 self.launches += 1
                 launches += 1
             launch.buffers = keep     # what ``ptrs`` point into lives on

@@ -42,6 +42,7 @@ import types
 
 import torch
 
+from repro_torch.analysis import hlo_counter
 from . import _build, ref
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -96,10 +97,35 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
             raise ValueError(f"flash_attention: the backward takes q_offset "
                              f"0, not {q_offset}")
         return _FlashAttentionFn.apply(q, k, v, causal, scale)
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, scale=scale,
-                                   q_offset=q_offset)
-    return _launch(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+    with _declared(q, k, v, causal, q_offset):
+        if hlo_counter.plain(q):
+            return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                       q_offset=q_offset)
+        return _launch(q, k, v, causal=causal, scale=scale,
+                       q_offset=q_offset)
+
+
+def _declared(q, k, v, causal, q_offset, lse=False):
+    """The forward's work for a running op count: ``chip_smoke``'s bound
+    (4 FLOPs a head dim of every (query, key) pair it computes; q, k, v
+    read and the output written once), the fp32 log-sum-exp written with
+    ``lse``."""
+    bh, sq, d = q.shape
+    pairs = hlo_counter.causal_pairs(sq, k.shape[1], q_offset, causal)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return hlo_counter.kernel("flash_attention", flops=4 * bh * d * pairs,
+                              nbytes=nbytes + (4 * bh * sq if lse else 0))
+
+
+def _declared_bwd(q, k, causal):
+    """The backward's work: ``chip_smoke``'s bound (10 FLOPs a head dim of
+    every pair; q, o, dO read and dQ written, k, v read and dK, dV
+    written, the log-sum-exp read)."""
+    bh, sq, d = q.shape
+    pairs = hlo_counter.causal_pairs(sq, k.shape[1], 0, causal)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * bh * sq
+    return hlo_counter.kernel("flash_attention_bwd",
+                              flops=10 * bh * d * pairs, nbytes=nbytes)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -108,12 +134,13 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        if q.device.type == "cpu":
-            o, lse = ref.flash_attention(q, k, v, causal=causal, scale=scale,
-                                         return_lse=True)
-        else:
-            o, lse = _launch(q, k, v, causal=causal, scale=scale, q_offset=0,
-                             with_lse=True)
+        with _declared(q, k, v, causal, 0, lse=True):
+            if hlo_counter.plain(q):
+                o, lse = ref.flash_attention(q, k, v, causal=causal,
+                                             scale=scale, return_lse=True)
+            else:
+                o, lse = _launch(q, k, v, causal=causal, scale=scale,
+                                 q_offset=0, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -121,13 +148,14 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = ref.flash_attention_bwd(q, k, v, o, lse, do,
-                                            causal=ctx.causal,
-                                            scale=ctx.scale)
-        else:
-            grads = _launch_bwd(q, k, v, o, lse, do.contiguous(),
-                                causal=ctx.causal, scale=ctx.scale)
+        with _declared_bwd(q, k, ctx.causal):
+            if hlo_counter.plain(q):
+                grads = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=ctx.causal,
+                                                scale=ctx.scale)
+            else:
+                grads = _launch_bwd(q, k, v, o, lse, do.contiguous(),
+                                    causal=ctx.causal, scale=ctx.scale)
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)
@@ -189,6 +217,7 @@ def _launch(q, k, v, *, causal, scale, q_offset, with_lse=False):
                       _DTYPE_CODES[q.dtype], bh, bkv, sq, sk, d, scale,
                       int(causal), int(q_offset), stream)
     _build.check(rc, f"flash_attention ({variant(q.dtype)})")
+    hlo_counter.launched("flash_attention")
     launches += 1
     launches_by_variant[variant(q.dtype)] += 1
     return (out, lse) if with_lse else out
@@ -227,6 +256,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, scale):
                           delta.data_ptr(), _DTYPE_CODES[q.dtype], bh, bkv,
                           sq, sk, d, scale, int(causal), stream)
     _build.check(rc, f"flash_attention_bwd ({bwd_variant(q.dtype)})")
+    hlo_counter.launched("flash_attention_bwd")
     backward.launches += 1
     backward.launches_by_variant[bwd_variant(q.dtype)] += 1
     return dq, dk, dv

@@ -37,6 +37,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.analysis import hlo_counter
 from . import _build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,10 +163,18 @@ def _wgmma_entry():
 
 
 def matmul(a, b, *, out_dtype=None):
-    """``a @ b`` accumulated in fp32, cast to ``out_dtype``."""
-    if a.device.type == "cpu":
-        return ref.matmul(a, b, out_dtype=out_dtype)
-    return _launch(a, b, out_dtype or a.dtype)
+    """``a @ b`` accumulated in fp32, cast to ``out_dtype``.  A running op
+    count is told its work (``chip_smoke``'s bound: 2 M N K FLOPs, a and
+    b read and the product written once)."""
+    out_dtype = out_dtype or a.dtype
+    m, n = a.shape[0], b.shape[-1]
+    with hlo_counter.kernel(
+            "matmul", flops=2 * m * n * a.shape[-1],
+            nbytes=(a.numel() + b.numel()) * a.element_size()
+            + m * n * out_dtype.itemsize):
+        if hlo_counter.plain(a):
+            return ref.matmul(a, b, out_dtype=out_dtype)
+        return _launch(a, b, out_dtype)
 
 
 def _launch(a, b, out_dtype):
@@ -208,6 +217,7 @@ def _launch(a, b, out_dtype):
                           _DTYPE_CODES[out_dtype], _VARIANT_CODES[p.variant],
                           p.block_m, p.block_n, p.split, stream)
     _build.check(rc, f"matmul ({p.variant})")
+    hlo_counter.launched("matmul")
     launches += p.launches
     launches_by_variant[p.variant] += 1
     if p.split > 1:

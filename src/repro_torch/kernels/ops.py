@@ -72,6 +72,7 @@ import torch
 from repro_torch import compiler, obs
 
 # the tuner's default points and program names: one source of truth
+from ..analysis import hlo_counter
 from ..autotune.space import default_params, program_name  # noqa: F401
 from ..compiler import CompileOptions, Program, current_options
 from ..compiler import executors as _executors
@@ -503,7 +504,11 @@ def add_launches(delta: Dict[Tuple[str, Optional[str]], int],
     For CUDA graphs: a wrapper counts when it is called, and under capture
     that call records its kernel without launching it.  The owner of a
     graph takes the capture's counts back (``times=-1``) and adds them
-    once per replay, which is when the captured kernels launch."""
+    once per replay, which is when the captured kernels launch.  A
+    replay inside an op count raises (``analysis.hlo_counter.launched``:
+    a graph declares no work)."""
+    if times > 0 and any(delta.values()):
+        hlo_counter.launched("cuda_graph")
     for (name, variant), n in delta.items():
         mod = _KERNEL_MODULES[name]
         if variant is None:

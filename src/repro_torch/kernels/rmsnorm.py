@@ -26,9 +26,12 @@ reduction kernel), so a gradient is the same bits every time.
 :class:`_RMSNormFn` ties the two together for autograd.
 
 ``rmsnorm`` computes the plain version (:func:`ref.rmsnorm`, backward
-:func:`ref.rmsnorm_bwd`) for CPU tensors and launches the kernels for CUDA
-tensors; a CUDA call a kernel does not take, or a failed build or launch,
-raises.  It goes through :class:`_RMSNormFn` only when autograd will need
+:func:`ref.rmsnorm_bwd`) for CPU tensors (and ``meta`` ones inside an
+op count: shapes only) and launches the kernels for CUDA tensors; a CUDA call a kernel does not
+take, or a failed build or launch, raises.  Each call declares its work
+to a running op count (``analysis.hlo_counter.kernel``: ``chip_smoke``'s
+bound formulas, forward 4 FLOPs and backward 10 an element, each input
+read and each output written once), the same on every device.  It goes through :class:`_RMSNormFn` only when autograd will need
 a gradient (grad mode on and an input that requires one); otherwise it
 calls the forward alone, as serving and CUDA graph captures do.
 ``launches`` counts forward launches, ``launches_by_variant`` per variant,
@@ -44,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import hlo_counter
 from . import _build, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -207,15 +211,21 @@ def rmsnorm(x, w, eps: float = 1e-6):
 
 
 def _forward(x, w, eps):
-    if x.device.type == "cpu":
-        return ref.rmsnorm(x, w, eps=eps)
-    return _launch(x, w, eps)
+    n, d = x.numel(), x.shape[-1]
+    with hlo_counter.kernel("rmsnorm", flops=4 * n,
+                            nbytes=(2 * n + d) * x.element_size()):
+        if hlo_counter.plain(x):
+            return ref.rmsnorm(x, w, eps=eps)
+        return _launch(x, w, eps)
 
 
 def _backward(x, w, dy, eps):
-    if x.device.type == "cpu":
-        return ref.rmsnorm_bwd(x, w, dy, eps=eps)
-    return _launch_bwd(x, w, dy, eps)
+    n, d = x.numel(), x.shape[-1]
+    with hlo_counter.kernel("rmsnorm_bwd", flops=10 * n,
+                            nbytes=(3 * n + 2 * d) * x.element_size()):
+        if hlo_counter.plain(x):
+            return ref.rmsnorm_bwd(x, w, dy, eps=eps)
+        return _launch_bwd(x, w, dy, eps)
 
 
 class _RMSNormFn(torch.autograd.Function):
@@ -273,6 +283,7 @@ def _launch(x, w, eps):
         with torch.cuda.device(dev):
             rc = (_fn or _entry())(*args)
     _build.check(rc, f"rmsnorm ({p.variant})")
+    hlo_counter.launched("rmsnorm")
     launches += 1
     launches_by_variant[p.variant] += 1
     return out
@@ -313,5 +324,6 @@ def _launch_bwd(x, w, dy, eps):
                      p.threads_per_row, p.vectors_per_thread, p.blocks,
                      torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(rc, "rmsnorm_bwd")
+    hlo_counter.launched("rmsnorm_bwd")
     backward.launches += 1
     return dx, dw

@@ -18,9 +18,21 @@ arguments: the train state (params, moments, counters), or the params and
 the KV cache, plus the inputs (int32, as the reference's), each leaf's
 bytes over the product of the axes that split it.  ``memory`` also
 breaks that down (``state_bytes`` or ``params_bytes`` and
-``cache_bytes``, ``input_bytes``).  It writes no ``roofline``, no
-``lower_s`` / ``compile_s`` and none of XLA's temp / output / code bytes:
-the HLO analysis (``analysis/hlo.py``) is ROADMAP.md queue 1 item 8.
+``cache_bytes``, ``input_bytes``).
+
+``roofline`` (the reference's ``hlo.analyze(...).row()`` keys): one
+rank's train step counted on the ``meta`` device (``analysis.
+hlo_counter``: its op stream, the kernels' declared work, regions scaled
+by their trip counts) with the process groups stood in for by counting
+ones (``sharding.collectives.CountingMesh``: the collectives the port's
+step issues, with no exchange), times the chips, against an NVIDIA H100's
+rates (``analysis.hlo``); ``model_flops`` the reference's 6 x active
+params x tokens.  A cell whose step the port cannot run gets a
+``roofline`` holding the error and the ROADMAP item that covers it: the
+serving cells (prefill, decode: the port serves on a data axis, not with
+its params split over ``model``) and a step that raises (grok's 8 experts
+on ``model=16``).  No ``lower_s`` / ``compile_s`` and none of XLA's temp
+/ output / code bytes: there is no compile.
 """
 from __future__ import annotations
 
@@ -54,9 +66,54 @@ def local_bytes(tree, spec_tree, mesh) -> int:
     return sum(total)
 
 
-def reckon(cfg, info: Dict, mesh) -> Dict:
+# where the cells the port cannot count are queued
+SERVING_ITEM = ("ROADMAP.md queue 1 item 9: serving with the params split "
+                "over 'model' (rules.cache_specs has no consumer yet)")
+STEP_ITEM = "ROADMAP.md queue 1 item 9: the MoE corners on a model axis"
+
+
+def train_roofline(model, info: Dict, mesh, scale: bool = True,
+                   state=None) -> Dict:
+    """The ``roofline`` row of one rank's train step of ``model`` at
+    ``info`` on ``mesh`` (axis sizes), counted on the ``meta`` device
+    (module docstring; ``scale`` false counts every layer and time step
+    in full).  ``state`` is the global train state on ``meta``
+    (``specs.train_state_sds``), made here if not given."""
+    import numpy as np
+
+    from repro_torch.analysis import hlo, hlo_counter
+    from repro_torch.launch import specs as S
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.collectives import CountingMesh
+    from repro_torch.train.step import (make_train_step, shard_state,
+                                        state_specs)
+    cfg = model.cfg
+    sizes = rules.mesh_shape(mesh)
+    counting = CountingMesh(sizes)
+    seq, batch = info["seq"], info["batch"]
+    shape = (batch, seq) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    data = {"tokens": np.zeros(shape, np.int64),
+            "labels": np.zeros((batch, seq), np.int64)}
+    if state is None:
+        state = S.train_state_sds(model)
+    state = shard_state(state, counting, state_specs(state, sizes, cfg))
+    try:
+        counter = hlo_counter.count(make_train_step(model, counting),
+                                    state, data, scale=scale)[1]
+    finally:
+        ctx.set_mesh(None)
+    chips = math.prod(sizes.values())
+    return hlo.from_counter(
+        counter, chips=chips,
+        model_flops=6.0 * cfg.active_param_count() * batch * seq,
+        widest_axis=max(list(sizes.values()) + [
+            math.prod(sizes[a] for a in rules.dp_axes(sizes))])).row()
+
+
+def reckon(cfg, info: Dict, mesh, roofline: bool = False) -> Dict:
     """The record of one cell: ``cfg`` at ``info`` (``{"seq", "batch",
-    "kind"}``, as ``specs.SHAPES``) on ``mesh``."""
+    "kind"}``, as ``specs.SHAPES``) on ``mesh``; with ``roofline``, its
+    ``roofline`` too (module docstring)."""
     from repro_torch.launch import specs as S
     from repro_torch.train.step import state_specs
     sizes = rules.mesh_shape(mesh)
@@ -81,10 +138,23 @@ def reckon(cfg, info: Dict, mesh) -> Dict:
         tokens = info["batch"] * (info["seq"] if info["kind"] == "prefill"
                                   else 1)
     memory["argument_bytes"] = held + memory["input_bytes"]
-    return {"status": "ok", "chips": math.prod(sizes.values()),
-            "memory": memory, "tokens_per_step": tokens,
-            "params": cfg.param_count(),
-            "active_params": cfg.active_param_count()}
+    rec = {"status": "ok", "chips": math.prod(sizes.values()),
+           "memory": memory, "tokens_per_step": tokens,
+           "params": cfg.param_count(),
+           "active_params": cfg.active_param_count()}
+    if roofline:
+        if info["kind"] != "train":
+            rec["roofline"] = {"error": f"the port's {info['kind']} step "
+                                        f"on {sizes} is not ported",
+                               "roadmap": SERVING_ITEM}
+        else:
+            try:
+                rec["roofline"] = train_roofline(model, info, sizes,
+                                                 state=state)
+            except NotImplementedError as e:
+                rec["roofline"] = {"error": f"{type(e).__name__}: {e}",
+                                   "roadmap": STEP_ITEM}
+    return rec
 
 
 def lower_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
@@ -97,7 +167,8 @@ def lower_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
     if not ok:
         return {"status": "skipped", "reason": why}
     return reckon(cfg, S.SHAPES[shape], MESHES["multi" if multi_pod
-                                                else "single"])
+                                                else "single"],
+                  roofline=True)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -126,9 +197,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                 results[key] = rec
                 extra = ""
                 if rec["status"] == "ok":
+                    r = rec["roofline"]
                     extra = (f" argument_bytes/rank="
                              f"{rec['memory']['argument_bytes']:.4g}"
-                             f" chips={rec['chips']}")
+                             f" chips={rec['chips']}" + (
+                                 f" flops={r['flops']:.3g}"
+                                 f" coll={r['coll_bytes']:.3g}B"
+                                 f" bottleneck={r['bottleneck']}"
+                                 if "flops" in r else
+                                 f" roofline: {r['error'][:80]}"))
                 print(f"[dryrun] {key}: {rec['status']}{extra}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

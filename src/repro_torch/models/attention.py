@@ -93,7 +93,7 @@ def _attend(p, cfg: ModelConfig, q, k, v, x_dtype):
     return out @ p["wo"]
 
 
-def attention(p, cfg: ModelConfig, x, positions):
+def attention(p, cfg: ModelConfig, x, positions, path: str = "blocks/attn"):
     """Full self-attention over x (training / prefill without cache).
 
     Inside a tensor-parallel train step (``sharding.ctx.
@@ -105,7 +105,9 @@ def attention(p, cfg: ModelConfig, x, positions):
     whole heads (``tp.split_heads`` false), every rank computes every
     head: the weights gathered whole, the whole sequence after SP's
     all-gather, and the rank keeps its rows of the output (with SP off,
-    the whole output, which every rank computes alike)."""
+    the whole output, which every rank computes alike).  ``path`` is the
+    rules' path of the weights (``blocks/shared_attn`` for the hybrid's
+    shared block)."""
     tp = ctx.get_tensor_parallel()
     if tp is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
@@ -114,28 +116,24 @@ def attention(p, cfg: ModelConfig, x, positions):
         # SP: each rank's share of the work is its rows' outputs, so the
         # weights' and the input's gradients are partial sums over model;
         # SP off: every rank repeats the whole work, gradients whole
-        take = tp.whole if tp.sp else tp.replicated
-        local = {name: None if w is None else
-                 take(w, f"blocks/attn/{name}") for name, w in p.items()}
-        if tp.sp:
-            x = tp.enter(x)
-        q, k, v = _project_qkv(local, cfg, x, positions)
-        y = _attend(local, cfg, q, k, v, x.dtype)
-        if not tp.sp:
-            return y
-        lo, hi = tp.rows
-        return y[:, lo:hi].contiguous()
+        take = tp.mixer_take(path)
+        local = {name: take(w, name) for name, w in p.items()}
+
+        def whole(xw):
+            q, k, v = _project_qkv(local, cfg, xw, positions)
+            return _attend(local, cfg, q, k, v, xw.dtype)
+        return tp.whole_mixer(whole, x)
     cols = {"q": tp.q_cols, "k": tp.kv_cols, "v": tp.kv_cols}
-    local = {f"w{h}": tp.part(p[f"w{h}"], f"blocks/attn/w{h}", 1, c)
+    local = {f"w{h}": tp.part(p[f"w{h}"], f"{path}/w{h}", 1, c)
              for h, c in cols.items()}
     for h, c in cols.items():
         b = p[f"b{h}"]
         local[f"b{h}"] = None if b is None else \
-            tp.part(b, f"blocks/attn/b{h}", 0, c)
+            tp.part(b, f"{path}/b{h}", 0, c)
     for name in ("q_norm", "k_norm"):
         local[name] = None if p[name] is None else \
-            tp.whole(p[name], f"blocks/attn/{name}")
-    local["wo"] = tp.part(p["wo"], "blocks/attn/wo", 0, tp.q_cols)
+            tp.whole(p[name], f"{path}/{name}")
+    local["wo"] = tp.part(p["wo"], f"{path}/wo", 0, tp.q_cols)
     x = tp.enter(x)
     q, k, v = _project_qkv(local, cfg, x, positions)
     return tp.exit(_attend(local, cfg, q, k, v, x.dtype))

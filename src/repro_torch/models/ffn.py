@@ -44,18 +44,19 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
             "w_down": init_dense(generator, f, d, dt, device=device)}  # (f, d)
 
 
-def mlp(p: Dict[str, torch.Tensor], x):
+def mlp(p: Dict[str, torch.Tensor], x, path: str = "blocks/mlp"):
     """The SwiGLU MLP.  Inside a tensor-parallel train step (``sharding.
     ctx.get_tensor_parallel()``) ``x`` is this rank's rows and the rank
     computes its ff columns: ``w_gate`` / ``w_up`` column-parallel,
     ``w_down`` row-parallel, its partial sums reduce-scattered into SP (or
-    all-reduced with SP off)."""
+    all-reduced with SP off).  ``path`` is the rules' path of the weights
+    (``blocks/shared_mlp`` for the hybrid's shared block)."""
     tp = ctx.get_tensor_parallel()
     if tp is not None:
-        p = {"w_gate": tp.part(p["w_gate"], "blocks/mlp/w_gate", 1,
+        p = {"w_gate": tp.part(p["w_gate"], f"{path}/w_gate", 1,
                                tp.ff_cols),
-             "w_up": tp.part(p["w_up"], "blocks/mlp/w_up", 1, tp.ff_cols),
-             "w_down": tp.part(p["w_down"], "blocks/mlp/w_down", 0,
+             "w_up": tp.part(p["w_up"], f"{path}/w_up", 1, tp.ff_cols),
+             "w_down": tp.part(p["w_down"], f"{path}/w_down", 0,
                                tp.ff_cols)}
         return tp.exit(_swiglu(p, tp.enter(x)))
     return _swiglu(p, x)

@@ -13,7 +13,18 @@ in the model dtype and the SSM state (b, nheads, HD, N) in fp32.  Params
 are a dict with the reference's field names: ``w_in`` (d, 2 din + 2N +
 nheads), ``conv_w`` (CONV_W, din + 2N), ``norm_w`` (din,), ``w_out``
 (din, d) in the model dtype, ``a_log``, ``dt_bias``, ``d_skip`` (nheads,)
-in fp32."""
+in fp32.
+
+Inside a tensor-parallel train step (``sharding.ctx.
+get_tensor_parallel()``) ``x`` is this rank's sequence rows and the rank
+computes its heads (``TensorParallel.mamba_columns``): ``z``, ``x`` and
+``dt`` from its head columns of ``w_in`` (and ``x``'s of ``conv_w``),
+``B`` and ``C`` whole on every rank for its heads (their gradients summed
+over ``model``), ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_w`` cut to
+its heads, ``w_out`` row-parallel.  The gated norm spans all of ``din``:
+its fp32 sum of squares is summed over ``model`` before the ``rsqrt``
+(``collectives.all_sum``).  Where ``model`` does not divide the heads the
+mixer runs whole on every rank."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -21,6 +32,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import hlo_counter
+from repro_torch.sharding import ctx
 from .common import ModelConfig, init_dense
 from .rwkv6 import len_mask
 
@@ -70,13 +83,6 @@ def init_state(cfg: ModelConfig, batch: int, device=None,
                         device=device))
 
 
-def split_proj(cfg: ModelConfig, proj):
-    """The in-projection's z | xBC | dt."""
-    din, _, n = dims(cfg)
-    return proj.split([din, din + 2 * n, proj.shape[-1] - 2 * din - 2 * n],
-                      dim=-1)
-
-
 def forward(p, cfg: ModelConfig, x, state: Optional[Mamba2State] = None,
             lengths=None):
     """x: (b, s, d) -> (y, Mamba2State); ``state`` None: a fresh sequence.
@@ -84,11 +90,50 @@ def forward(p, cfg: ModelConfig, x, state: Optional[Mamba2State] = None,
     ``lengths`` ((b,) int, optional) marks each row's real prompt length
     in a RIGHT-padded batch: the conv tail and the SSM state are masked
     off at padded positions, so the returned state is bitwise the state of
-    the unpadded sequence."""
+    the unpadded sequence.
+
+    Inside a tensor-parallel train step: ``(y of the rank's rows, None)``
+    (module docstring)."""
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _forward_tp(p, cfg, x, tp), None
+    return _forward(p, cfg, x, state, lengths)
+
+
+def _forward_tp(p, cfg: ModelConfig, x, tp):
+    from repro_torch.sharding.collectives import all_sum
+    path = "blocks/mamba"
+    if not tp.split_mixer:
+        take = tp.mixer_take(path)
+        local = {k: take(v, k) for k, v in p.items()}
+        return tp.whole_mixer(
+            lambda xw: _forward(local, cfg, xw, None, None)[0], x)
+    cols, heads = tp.mamba_columns(cfg), tp.mixer_heads
+    local = {"w_in": tp.columns(p["w_in"], f"{path}/w_in", 1,
+                                cols["w_in"]),
+             "conv_w": tp.columns(p["conv_w"], f"{path}/conv_w", 1,
+                                  cols["conv_w"]),
+             "norm_w": tp.part(p["norm_w"], f"{path}/norm_w", 0,
+                               tp.mixer_cols),
+             "w_out": tp.part(p["w_out"], f"{path}/w_out", 0,
+                              tp.mixer_cols)}
+    for k in ("a_log", "dt_bias", "d_skip"):
+        local[k] = tp.part(p[k], f"{path}/{k}", 0, heads)
+    y, _ = _forward(local, cfg, tp.enter(x), None, None,
+                    sum_squares=lambda t: all_sum(t, tp.group))
+    return tp.exit(y)
+
+
+def _forward(p, cfg: ModelConfig, x, state, lengths, sum_squares=None):
+    """The mixer on the heads of ``p`` (``a_log``'s: every head, or a
+    rank's, whose gated norm's squares ``sum_squares`` sums over the
+    ranks)."""
     b, s, d = x.shape
-    din, nheads, n = dims(cfg)
+    din, _, n = dims(cfg)
+    nheads = p["a_log"].shape[0]
+    width = nheads * HD
     proj = x @ p["w_in"]
-    z, xbc, dt_raw = split_proj(cfg, proj)
+    z, xbc, dt_raw = proj.split([width, width + 2 * n, nheads], dim=-1)
 
     conv_state = (torch.zeros((b, CONV_W - 1, xbc.shape[-1]),
                               dtype=xbc.dtype, device=x.device)
@@ -106,7 +151,7 @@ def forward(p, cfg: ModelConfig, x, state: Optional[Mamba2State] = None,
         new_tail = torch.gather(
             xbc_ext, 1, idx[:, :, None].expand(-1, -1, xbc_ext.shape[-1]))
 
-    xs_, b_in, c_in = conv.split([din, n, n], dim=-1)      # (b, s, N) each
+    xs_, b_in, c_in = conv.split([width, n, n], dim=-1)    # (b, s, N) each
     dt = F.softplus(dt_raw.float() + p["dt_bias"])           # (b, s, nh)
     a = -torch.exp(p["a_log"])                               # (nh,)
     da = torch.exp(dt * a)                                   # decay per step
@@ -116,20 +161,28 @@ def forward(p, cfg: ModelConfig, x, state: Optional[Mamba2State] = None,
     mask = None if lengths is None else len_mask(lengths, b, s, x.device)
     h = (torch.zeros((b, nheads, HD, n), dtype=torch.float32,
                      device=x.device) if state is None else state.ssm)
-    ys = []
-    for t in range(s):
-        h_new = h * da[:, t, :, None, None] + (
-            dx[:, t, :, :, None] * bf[:, t, None, None, :])
-        h = h_new if mask is None else torch.where(
-            mask[:, t, None, None, None], h_new, h)
-        ys.append((h @ cf[:, t, None, :, None])[..., 0])     # (b, nh, hd)
+
+    def step(h, xt):
+        da_t, dx_t, b_t, c_t, m_t = xt
+        h_new = h * da_t[:, :, None, None] + (
+            dx_t[:, :, :, None] * b_t[:, None, None, :])
+        h = h_new if m_t is None else torch.where(
+            m_t[:, None, None, None], h_new, h)
+        return h, (h @ c_t[:, None, :, None])[..., 0]         # (b, nh, hd)
+    # per-step slices taken once; hlo_counter.scan is the loop over time
+    steps = list(zip(da.unbind(1), dx.unbind(1), bf.unbind(1), cf.unbind(1),
+                     [None] * s if mask is None else mask.unbind(1)))
+    h, ys = hlo_counter.scan(step, h, steps)
     y = torch.stack(ys, dim=1)                               # (b, s, nh, hd)
     y = y + p["d_skip"][None, None, :, None] * xh            # skip connection
-    y = y.reshape(b, s, din).to(x.dtype)
+    y = y.reshape(b, s, width).to(x.dtype)
 
-    # gated rmsnorm (mamba2 style): norm(y * silu(z))
+    # gated rmsnorm (mamba2 style): norm(y * silu(z)), over all of din
     g32 = (y * F.silu(z)).float()
-    var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    if sum_squares is None:
+        var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    else:
+        var = sum_squares(torch.sum(g32 * g32, dim=-1, keepdim=True)) / din
     g = (g32 * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype) * p["norm_w"]
     return g @ p["w_out"], Mamba2State(new_tail, h)
 

@@ -17,13 +17,26 @@ Params are a dict with the reference's field names (``Rwkv6Params``):
 the mixes (d,) and projections (d, d) / (d, f) / (f, d) in the model
 dtype, ``w0`` (d,), ``w_lora_a`` (d, 64), ``w_lora_b`` (64, d) and ``u``
 (nh, hd) in fp32, as the reference draws them.  The functions return new
-state tensors; the model writes them into its cache in place."""
+state tensors; the model writes them into its cache in place.
+
+Inside a tensor-parallel train step (``sharding.ctx.
+get_tensor_parallel()``) ``x`` is this rank's sequence rows and each
+mixer computes its share (``TensorParallel``): the time-mix on the
+rank's heads (``w_r`` / ``w_k`` / ``w_v``, ``w_lora_b``'s columns, ``w0``
+and ``u`` cut to them, the recurrence per head over the whole sequence,
+``w_o`` row-parallel), the channel-mix on its ff columns (``cw_k``
+column-parallel, ``cw_v`` row-parallel); the token-shift lerps and the
+LoRA's first product run whole on every rank for its heads (their
+gradients summed over ``model``).  Where ``model`` does not divide the
+heads, the time-mix runs whole on every rank."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis import hlo_counter
+from repro_torch.sharding import ctx
 from .common import ModelConfig, init_dense
 
 HD = 64
@@ -108,9 +121,39 @@ def time_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
     ``lengths`` ((b,) int, optional) marks each row's real prompt length
     in a RIGHT-padded batch: the wkv update is masked off at padded
     positions and the returned token-shift is the last *real* token, so
-    the state after a padded prefill is bitwise the unpadded state."""
+    the state after a padded prefill is bitwise the unpadded state.
+
+    Inside a tensor-parallel train step: ``(y of the rank's rows, None,
+    None)`` (module docstring)."""
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _time_mix_tp(p, cfg, x, tp), None, None
+    return _time_mix(p, cfg, x, state, lengths)
+
+
+def _time_mix_tp(p, cfg: ModelConfig, x, tp):
+    path = "blocks/mix"
+    if not tp.split_mixer:
+        take = tp.mixer_take(path)
+        local = {k: take(v, k) for k, v in p.items()}
+        return tp.whole_mixer(
+            lambda xw: _time_mix(local, cfg, xw, None, None)[0], x)
+    cols, heads = tp.mixer_cols, tp.mixer_heads
+    local = {k: tp.whole(p[k], f"{path}/{k}")
+             for k in ("mix_r", "mix_k", "mix_v", "mix_w", "w_lora_a")}
+    for k in ("w_r", "w_k", "w_v", "w_lora_b"):
+        local[k] = tp.part(p[k], f"{path}/{k}", 1, cols)
+    local["w0"] = tp.part(p["w0"], f"{path}/w0", 0, cols)
+    local["u"] = tp.part(p["u"], f"{path}/u", 0, heads)
+    local["w_o"] = tp.part(p["w_o"], f"{path}/w_o", 0, cols)
+    return tp.exit(_time_mix(local, cfg, tp.enter(x), None, None)[0])
+
+
+def _time_mix(p, cfg: ModelConfig, x, state, lengths):
+    """The time-mix on the heads of ``p`` (``u``'s rows: every head, or a
+    rank's)."""
     b, s, d = x.shape
-    nh = nheads(cfg)
+    nh = p["u"].shape[0]
     prev = _shifted(x, None if state is None else state.tshift)
 
     def lerp(mix):
@@ -132,14 +175,21 @@ def time_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
     u = p["u"][..., None]                                  # (nh, hd, 1)
     S = (torch.zeros((b, nh, HD, HD), dtype=torch.float32, device=x.device)
          if state is None else state.wkv)
-    outs = []
-    for t in range(s):
-        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]   # (b, nh, hd, hd)
-        outs.append((rh[:, t, :, None, :] @ (S + u * kv))[:, :, 0])
-        S_new = wh[:, t, :, :, None] * S + kv
-        S = S_new if mask is None else torch.where(
-            mask[:, t, None, None, None], S_new, S)
-    y = torch.stack(outs, dim=1).reshape(b, s, d).to(x.dtype)
+
+    def step(S, xt, u):
+        r_t, k_t, v_t, w_t, m_t = xt
+        kv = k_t[:, :, :, None] * v_t[:, :, None, :]       # (b, nh, hd, hd)
+        out = (r_t[:, :, None, :] @ (S + u * kv))[:, :, 0]
+        S_new = w_t[:, :, :, None] * S + kv
+        return (S_new if m_t is None else torch.where(
+            m_t[:, None, None, None], S_new, S)), out
+    # per-step slices taken once (their gradients stacked back once);
+    # hlo_counter.scan is the loop over time, or one step at s's weight
+    # under a scaled op count
+    steps = list(zip(rh.unbind(1), kh.unbind(1), vh.unbind(1), wh.unbind(1),
+                     [None] * s if mask is None else mask.unbind(1)))
+    S, outs = hlo_counter.scan(step, S, steps, u)
+    y = torch.stack(outs, dim=1).reshape(b, s, nh * HD).to(x.dtype)
     y = y @ p["w_o"]
     tshift = x[:, -1] if lengths is None else last_real(x, lengths)
     return y, tshift, S
@@ -147,7 +197,12 @@ def time_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
 
 def channel_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
                 lengths=None):
-    """x: (b, s, d) -> (y, cshift): squared ReLU, sigmoid gate."""
+    """x: (b, s, d) -> (y, cshift): squared ReLU, sigmoid gate.  Inside a
+    tensor-parallel train step: ``(y of the rank's rows, None)``, the gate
+    on the rank's rows multiplying the row-parallel product's sum."""
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _channel_mix_tp(p, x, tp), None
     prev = _shifted(x, None if state is None else state.cshift)
     xr = x + (prev - x) * p["cmix_r"]
     xk = x + (prev - x) * p["cmix_k"]
@@ -155,3 +210,29 @@ def channel_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
     k = torch.square(torch.relu(xk @ p["cw_k"]))
     cshift = x[:, -1] if lengths is None else last_real(x, lengths)
     return r * (k @ p["cw_v"]), cshift
+
+
+def _channel_mix_tp(p, x, tp):
+    """The rank's ff columns: ``cw_k`` column-parallel on the whole
+    sequence, ``cw_v`` row-parallel, its partial sums summed into the
+    rank's rows (SP's reduce-scatter, or with SP off the all-reduce);
+    then the gate ``sigmoid(xr @ cw_r)`` of those rows multiplies the
+    sum, never a rank's partial sum."""
+    path = "blocks/mix"
+    xw = tp.enter(x)
+    prev = _shifted(xw, None)
+    xk = xw + (prev - xw) * tp.whole(p["cmix_k"], f"{path}/cmix_k")
+    k = torch.square(torch.relu(
+        xk @ tp.part(p["cw_k"], f"{path}/cw_k", 1, tp.ff_cols)))
+    kv = tp.exit(k @ tp.part(p["cw_v"], f"{path}/cw_v", 0, tp.ff_cols))
+    # the gate: under SP the rank's rows of the whole sequence's shift;
+    # with SP off every rank gates the whole sequence alike (its params'
+    # gradients whole, not summed)
+    if tp.sp:
+        lo, hi = tp.rows
+        gx, gprev = xw[:, lo:hi], prev[:, lo:hi]
+    else:
+        gx, gprev = x, _shifted(x, None)
+    xr = gx + (gprev - gx) * tp.norm_weight(p["cmix_r"], f"{path}/cmix_r")
+    r = torch.sigmoid(xr @ tp.norm_weight(p["cw_r"], f"{path}/cw_r"))
+    return r * kv

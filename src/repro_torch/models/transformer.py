@@ -65,9 +65,12 @@ attention and MLP on its heads and ff columns between SP's all-gather and
 reduce-scatter: ``attention.attention``, ``ffn.mlp``; a MoE FFN on its
 rows through the all-to-all), and the final norm and the head, gathered
 whole over ``model``, on its rows; collectives inside remat's block run
-again in its recompute.  The recurrent families on a model axis raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 10: the model axis
-for ssm / hybrid)."""
+again in its recompute.  The recurrent families cross the same
+boundary: each block's K1 norms on the rank's rows, rwkv6's time-mix
+and mamba2 on the rank's heads of 64, rwkv6's channel-mix on its ff
+columns (``models.rwkv6``, ``models.mamba2``), the hybrid's shared
+attention and MLP as the dense block's, under their own rules paths
+(``blocks/shared_attn``, ``blocks/shared_mlp``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -75,6 +78,7 @@ from typing import Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis import hlo_counter
 from repro_torch.device import DeviceLike, resolve_device, resolve_or_meta
 from repro_torch.sharding import ctx
 from . import attention as attn_mod
@@ -149,12 +153,14 @@ def _rwkv_block_fwd(p, cfg: ModelConfig, x, state=None, lengths=None):
     """One rwkv6 block: ``(x, Rwkv6State)``, the layer's new state."""
     p = ctx.gathered(p, "blocks")
     tm, tshift, wkv = rwkv_mod.time_mix(
-        p["mix"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps), state,
-        lengths=lengths)
+        p["mix"], cfg,
+        rmsnorm(x, _norm_weight(p["ln1"], "blocks/ln1"), cfg.norm_eps),
+        state, lengths=lengths)
     h = x + tm
     cm, cshift = rwkv_mod.channel_mix(
-        p["mix"], cfg, rmsnorm(h, p["ln2"], cfg.norm_eps), state,
-        lengths=lengths)
+        p["mix"], cfg,
+        rmsnorm(h, _norm_weight(p["ln2"], "blocks/ln2"), cfg.norm_eps),
+        state, lengths=lengths)
     return h + cm, rwkv_mod.Rwkv6State(tshift, cshift, wkv)
 
 
@@ -165,7 +171,7 @@ def _rwkv_train(p, cfg: ModelConfig, x):
 def _mamba_layer(mp, ln, cfg: ModelConfig, x, state=None, lengths=None):
     """One pre-normed mamba2 layer with its residual: ``(x, Mamba2State)``."""
     mp = ctx.gathered(mp, "blocks/mamba")
-    ln = ctx.gathered(ln, "blocks/mamba_ln")
+    ln = _norm_weight(ctx.gathered(ln, "blocks/mamba_ln"), "blocks/mamba_ln")
     y, st = mamba_mod.forward(mp, cfg, rmsnorm(x, ln, cfg.norm_eps), state,
                               lengths=lengths)
     return x + y, st
@@ -178,15 +184,18 @@ def _shared(blocks) -> Dict:
 
 def _shared_attn_in(hp, cfg: ModelConfig, x):
     """(the shared attention's weights, its normed input)."""
-    ln = ctx.gathered(hp["shared_ln"], "blocks/shared_ln")
+    ln = _norm_weight(ctx.gathered(hp["shared_ln"], "blocks/shared_ln"),
+                      "blocks/shared_ln")
     return (ctx.gathered(hp["shared_attn"], "blocks/shared_attn"),
             rmsnorm(x, ln, cfg.norm_eps))
 
 
 def _shared_mlp(hp, cfg: ModelConfig, x):
-    ln2 = ctx.gathered(hp["shared_ln2"], "blocks/shared_ln2")
+    ln2 = _norm_weight(ctx.gathered(hp["shared_ln2"], "blocks/shared_ln2"),
+                       "blocks/shared_ln2")
     mlp = ctx.gathered(hp["shared_mlp"], "blocks/shared_mlp")
-    return x + ffn_mod.mlp(mlp, rmsnorm(x, ln2, cfg.norm_eps))
+    return x + ffn_mod.mlp(mlp, rmsnorm(x, ln2, cfg.norm_eps),
+                           path="blocks/shared_mlp")
 
 
 def _hybrid_group_train(mamba, lns, hp, cfg: ModelConfig, x, positions):
@@ -196,7 +205,8 @@ def _hybrid_group_train(mamba, lns, hp, cfg: ModelConfig, x, positions):
     for mp, ln in zip(mamba, lns):
         x, _ = _mamba_layer(mp, ln, cfg, x)
     attn, xa = _shared_attn_in(hp, cfg, x)
-    x = x + attn_mod.attention(attn, cfg, xa, positions)
+    x = x + attn_mod.attention(attn, cfg, xa, positions,
+                               path="blocks/shared_attn")
     return _shared_mlp(hp, cfg, x)
 
 
@@ -304,21 +314,27 @@ class Model:
             # the model draws no random numbers: no RNG state to stash
             return checkpoint(fn, *args, use_reentrant=False,
                               preserve_rng_state=False)
-        aux = None
+        # the layer loops run through hlo_counter.layers: the Python loop,
+        # or under a scaled op count one body at the layers' weight
         blocks = params["blocks"]
+        aux = None
         if cfg.family == "ssm":
-            for layer in blocks:
-                x = run(_rwkv_train, layer, cfg, x)
+            x = hlo_counter.layers(
+                lambda layer, h: run(_rwkv_train, layer, cfg, h), blocks, x)
         elif cfg.family == "hybrid":
-            for g in range(self.groups):
-                x = run(_hybrid_group_train, blocks["mamba"][g],
-                        blocks["mamba_ln"][g], _shared(blocks), cfg, x,
-                        positions)
+            x = hlo_counter.layers(
+                lambda group, h, shared: run(_hybrid_group_train, *group,
+                                             shared, cfg, h, positions),
+                list(zip(blocks["mamba"], blocks["mamba_ln"])), x,
+                _shared(blocks))
         else:
-            for layer in blocks:
-                x, a = run(_block_fwd, layer, cfg, x, positions)
+            def block(layer, carry):
+                h, total = carry
+                h, a = run(_block_fwd, layer, cfg, h, positions)
                 if a is not None:
-                    aux = a if aux is None else aux + a
+                    total = a if total is None else total + a
+                return h, total
+            x, aux = hlo_counter.layers(block, blocks, (x, None))
         self._last_aux = aux
         ln_f = ctx.gathered(params["ln_f"], "ln_f")
         head = ctx.gathered(params["head"], "head")

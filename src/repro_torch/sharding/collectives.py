@@ -32,8 +32,10 @@ The port writes them out:
     exit into SP) and :func:`gather_replicated` (all-gather forward, this
     rank's piece of the gradient backward, no collective: a split param
     used on replicated work, whose gradient every rank already holds
-    whole).  K1 and K3 (``autograd.Function``s too) only ever see whole
-    local tensors.
+    whole) and :func:`all_sum` (all-reduce both ways: a sum over the
+    ranks' heads that every rank goes on to use for its own heads, such
+    as mamba2's gated norm's squares).  K1 and K3
+    (``autograd.Function``s too) only ever see whole local tensors.
   * Expert parallelism's exchange (``models.moe_ep``): :func:`all_to_all`
     (its backward the all-to-all back) and :func:`all_mean` (the mean
     over a group whose backward is the mean of the cotangents, the
@@ -55,7 +57,12 @@ deprecates the old names: the new ones are taken where they exist), and
 order (gloo's, NCCL's ring), not XLA's.
 
 Every call is counted (each group's ``counts``: calls and bytes by kind),
-so a train step's collectives can be read off group by group.
+so a train step's collectives can be read off group by group, and told to
+a running op count (``analysis.hlo_counter.collective``: its result's
+bytes).  On a :class:`CountingMesh` (a mesh descriptor with no process
+group) the groups count their collectives and return tensors of the
+right shape with no exchange: the dry run counts one rank's step on the
+``meta`` device with them (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -65,11 +72,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..analysis import hlo_counter
 from .rules import PartitionSpec, dp_axes, mesh_shape
 
 __all__ = ["DataGroup", "ModelGroup", "WorldGroup", "ExpertParallel",
+           "CountingMesh",
            "splits", "gather_param", "copy_to", "reduce_from", "scatter",
-           "gather_replicated", "all_to_all", "all_mean"]
+           "gather_replicated", "all_sum", "all_to_all", "all_mean"]
 
 # flattened groups by (ranks, backend): new_group is a collective over the
 # whole world, so each group is built once a process
@@ -152,11 +161,33 @@ def _axis_group(mesh, axes: Tuple[str, ...]):
     return mine
 
 
+class CountingMesh:
+    """A mesh descriptor standing in for a ``DeviceMesh`` with no process
+    group: axis sizes ``sizes`` (name -> size, in mesh order) and the
+    coordinate of the rank it stands for (rank 0's by default).  Groups
+    built on it count their collectives and exchange nothing: a
+    collective returns a tensor of its result's shape whose values are
+    unset (on the ``meta`` device, none)."""
+
+    counting = True
+
+    def __init__(self, sizes: Dict[str, int],
+                 coordinate: Optional[Dict[str, int]] = None):
+        self.mesh_dim_names = tuple(sizes)
+        self.shape = tuple(int(s) for s in sizes.values())
+        coordinate = coordinate or {}
+        self._coordinate = [int(coordinate.get(a, 0)) for a in sizes]
+
+    def get_coordinate(self):
+        return list(self._coordinate)
+
+
 class _Group:
     """One group of a mesh's ranks: ``size``, this rank's ``index``,
     ``coordinate`` (axis -> index on the mesh), the process ``group`` (None
-    when ``size`` is 1, where every collective is the identity) and
-    ``counts`` (calls and bytes by kind)."""
+    when ``size`` is 1, where every collective is the identity, or on a
+    :class:`CountingMesh`, where a collective only counts) and ``counts``
+    (calls and bytes by kind)."""
 
     def __init__(self, mesh, axes: Tuple[str, ...]):
         import torch.distributed as dist
@@ -173,16 +204,21 @@ class _Group:
             index = index * sizes[a] + self.coordinate[a]
         self.index = index
         self.counts: Counter = Counter()
-        self.group = _axis_group(mesh, self.axes) if self.size > 1 else None
+        self.counting = getattr(mesh, "counting", False)
+        self.group = _axis_group(mesh, self.axes) \
+            if self.size > 1 and not self.counting else None
         if self.group is not None and dist.get_rank(self.group) != self.index:
             raise AssertionError(
                 f"group rank {dist.get_rank(self.group)} is not the index "
                 f"{self.index} along {self.axes}")
 
     # -- collectives ----------------------------------------------------------
-    def _count(self, kind: str, t: torch.Tensor) -> None:
+    def _count(self, kind: str, t: torch.Tensor,
+               result: Optional[torch.Tensor] = None) -> None:
         self.counts[kind] += 1
         self.counts[f"{kind}_bytes"] += t.numel() * t.element_size()
+        r = t if result is None else result
+        hlo_counter.collective(kind, r.numel() * r.element_size())
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` summed (or maxed) over the group, in place."""
@@ -190,6 +226,8 @@ class _Group:
         if self.size == 1:
             return t
         self._count("all_reduce", t)
+        if self.counting:
+            return t
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op],
                         group=self.group)
@@ -208,9 +246,10 @@ class _Group:
                           + tuple(local.shape[1:]), dtype=local.dtype,
                           device=local.device)
         self._count("all_gather", out)
-        gather = getattr(dist, "all_gather_single", None) or \
-            dist.all_gather_into_tensor
-        gather(out, local.contiguous(), group=self.group)
+        if not self.counting:
+            gather = getattr(dist, "all_gather_single", None) or \
+                dist.all_gather_into_tensor
+            gather(out, local.contiguous(), group=self.group)
         if dim == 0:
             return out
         return out.unflatten(0, (self.size, local.shape[0])) \
@@ -228,10 +267,11 @@ class _Group:
         out = torch.empty(chunks.shape[1:], dtype=full.dtype,
                           device=full.device)
         chunks = chunks.reshape((-1,) + tuple(out.shape[1:]))
-        self._count("reduce_scatter", chunks)
-        scatter = getattr(dist, "reduce_scatter_single", None) or \
-            dist.reduce_scatter_tensor
-        scatter(out, chunks, group=self.group)
+        self._count("reduce_scatter", chunks, out)
+        if not self.counting:
+            scatter = getattr(dist, "reduce_scatter_single", None) or \
+                dist.reduce_scatter_tensor
+            scatter(out, chunks, group=self.group)
         return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -243,7 +283,8 @@ class _Group:
         send = t.contiguous()
         out = torch.empty_like(send)
         self._count("all_to_all", send)
-        dist.all_to_all_single(out, send, group=self.group)
+        if not self.counting:
+            dist.all_to_all_single(out, send, group=self.group)
         return out
 
     def piece(self, full: torch.Tensor, dim: int) -> torch.Tensor:
@@ -254,7 +295,7 @@ class _Group:
     def broadcast_object(self, obj):
         """``obj`` from the group's index 0."""
         import torch.distributed as dist
-        if self.size == 1:
+        if self.size == 1 or self.counting:
             return obj
         box = [obj]
         dist.broadcast_object_list(
@@ -340,6 +381,17 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: _Group):
+        ctx.group = group
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(grad.contiguous().clone()), None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group: _Group):
@@ -416,6 +468,14 @@ def gather_replicated(local: torch.Tensor, group: _Group,
     return _GatherReplicated.apply(local, group, dim)
 
 
+def all_sum(x: torch.Tensor, group: _Group) -> torch.Tensor:
+    """``x`` summed over ``group``, where each rank goes on to use the sum
+    for work of its own: its gradient is the sum of every rank's."""
+    if group.size == 1:
+        return x
+    return _AllSum.apply(x, group)
+
+
 def all_to_all(x: torch.Tensor, group: _Group) -> torch.Tensor:
     """``x`` (group.size, ...) exchanged over ``group`` (block ``i`` to
     index ``i``); its gradient goes back by the same exchange."""
@@ -463,7 +523,23 @@ def chunk_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
 # the model axis as the model uses it
 # ---------------------------------------------------------------------------
 
-def check_model_axis(cfg, mesh) -> bool:
+# the head dim of the recurrent mixers (``models.rwkv6.HD``,
+# ``models.mamba2.HD``)
+MIXER_HD = 64
+
+
+def mixer_heads(cfg) -> int:
+    """The heads of a recurrent family's mixer: rwkv6's ``d_model / 64``,
+    mamba2's ``din / 64`` (``din = 2 d_model``); 0 for the transformer
+    families."""
+    if cfg.family == "ssm":
+        return cfg.d_model // MIXER_HD
+    if cfg.family == "hybrid":
+        return 2 * cfg.d_model // MIXER_HD
+    return 0
+
+
+def check_model_axis(cfg, mesh, mixer: bool = False) -> bool:
     """Whether the model axis of ``mesh`` gives each rank whole heads for
     K3: ``model`` divides ``n_heads`` and a rank's query heads read whole
     kv heads of their own (its heads a multiple of the GQA group, or a
@@ -471,10 +547,15 @@ def check_model_axis(cfg, mesh) -> bool:
     production meshes' ``model=16``), :class:`TensorParallel` runs the
     attention whole on every rank: the rules still split its weights as
     the reference's (2.5 heads of columns a rank), and the step gathers
-    them whole where used."""
+    them whole where used.  With ``mixer``, the same question for the
+    recurrent mixer's heads (:func:`mixer_heads`: rwkv6's time-mix,
+    mamba2): ``model`` must divide them, else the mixer runs whole on
+    every rank."""
     m = mesh_shape(mesh).get("model", 1)
     if m == 1:
         return True
+    if mixer:
+        return mixer_heads(cfg) % m == 0
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     if nh % m:
         return False
@@ -498,7 +579,15 @@ class TensorParallel:
     ``rows`` in either case.  Each param arrives through one of
     :meth:`part`, :meth:`whole` or :meth:`norm_weight`, which gather what
     the rank's storage lacks and sum its gradient where this rank's work
-    gives only a share of it."""
+    gives only a share of it.
+
+    The recurrent families' mixers (``models.rwkv6``, ``models.mamba2``)
+    split by their own heads of 64 (:func:`mixer_heads`): the rank's
+    ``mixer_heads`` ``[h0, h1)`` and their columns ``mixer_cols`` (of
+    rwkv6's ``d_model``, of mamba2's ``din``), where ``model`` divides
+    them (``split_mixer``), else the mixer runs whole on every rank.
+    :meth:`mamba_columns` gives the per-segment column ranges of mamba2's
+    ``w_in`` (``z | x | B | C | dt``) and ``conv_w`` (``x | B | C``)."""
 
     def __init__(self, group: ModelGroup, dims: Dict[str, Optional[int]],
                  cfg, seq: int):
@@ -508,12 +597,31 @@ class TensorParallel:
         self.rows = chunk_bounds(seq, m)[r]
         hd, local = cfg.hd, cfg.n_heads // m
         first = r * local
-        kv_group = cfg.n_heads // cfg.n_kv_heads
+        kv_group = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
         k0, k1 = first // kv_group, (first + local - 1) // kv_group + 1
         self.q_cols = (first * hd, (first + local) * hd)
         self.kv_cols = (k0 * hd, k1 * hd)
         self.ff_cols = chunk_bounds(cfg.d_ff, m)[r]
         self.split_heads = check_model_axis(cfg, {"model": m})
+        mh = mixer_heads(cfg)
+        self.split_mixer = check_model_axis(cfg, {"model": m}, mixer=True)
+        h0, h1 = (r * mh // m, (r + 1) * mh // m) if self.split_mixer \
+            else (0, mh)
+        self.mixer_heads = (h0, h1)
+        self.mixer_cols = (h0 * MIXER_HD, h1 * MIXER_HD)
+
+    def mamba_columns(self, cfg) -> Dict[str, List[Tuple[int, int]]]:
+        """The column ranges of mamba2's ``w_in`` and ``conv_w`` that the
+        rank's heads read, in the layout's order: ``w_in``'s ``z``, ``x``
+        (its heads), ``B | C`` (whole) and ``dt`` (its heads); ``conv_w``'s
+        ``x`` and ``B | C``."""
+        din, n = 2 * cfg.d_model, cfg.ssm_state
+        (c0, c1), (h0, h1) = self.mixer_cols, self.mixer_heads
+        bc = (din, din + 2 * n)
+        return {"w_in": [(c0, c1), (din + c0, din + c1),
+                         (din + bc[0], din + bc[1]),
+                         (2 * din + 2 * n + h0, 2 * din + 2 * n + h1)],
+                "conv_w": [(c0, c1), bc]}
 
     # -- params -------------------------------------------------------------
     def part(self, t: torch.Tensor, path: str, dim: int,
@@ -540,13 +648,43 @@ class TensorParallel:
             gather_param(t, self.group, d)
 
     def norm_weight(self, t: torch.Tensor, path: str) -> torch.Tensor:
-        """A block norm's whole weight: as :meth:`whole` under SP (the rank
-        normalises its rows); with SP off every rank normalises the whole
+        """A whole param used on the rank's rows (a block norm's weight,
+        rwkv6's channel-mix gate): as :meth:`whole` under SP (the rank
+        works on its rows); with SP off every rank works on the whole
         sequence, so its gradient is already whole on every rank and is
         not summed."""
         if self.sp:
             return self.whole(t, path)
         return gather_replicated(t, self.group, self.dims[path])
+
+    def columns(self, t: torch.Tensor, path: str, dim: int,
+                ranges: List[Tuple[int, int]]) -> torch.Tensor:
+        """The whole param ``path`` (for this rank's share of the work)
+        cut to ``ranges`` along ``dim``, concatenated in order: one gather
+        whatever the rules' pieces straddle."""
+        t = self.whole(t, path)
+        return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in ranges],
+                         dim=dim)
+
+    def mixer_take(self, path: str):
+        """How a mixer that runs whole on every rank (``split_mixer``
+        false, or attention without ``split_heads``) takes a param: under
+        SP each rank's share is its rows' outputs (:meth:`whole`, the
+        gradient summed), with SP off every rank repeats the whole work
+        (:meth:`replicated`)."""
+        take = self.whole if self.sp else self.replicated
+        return lambda t, name: None if t is None else take(
+            t, f"{path}/{name}")
+
+    def whole_mixer(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x whole)`` for a mixer every rank runs whole: the sequence
+        gathered under SP and the rank's rows of the output kept; with SP
+        off ``x`` is already the whole sequence and so is the output."""
+        if not self.sp:
+            return fn(x)
+        y = fn(self.enter(x))
+        lo, hi = self.rows
+        return y[:, lo:hi].contiguous()
 
     # -- activations ----------------------------------------------------------
     def enter(self, x: torch.Tensor) -> torch.Tensor:

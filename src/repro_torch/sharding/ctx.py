@@ -51,8 +51,9 @@ _EP = None
 
 
 def set_mesh(mesh) -> None:
-    """Set (or, with None, clear) the process mesh."""
-    if mesh is not None:
+    """Set (or, with None, clear) the process mesh (a ``DeviceMesh``
+    with named dims, or a ``collectives.CountingMesh``)."""
+    if mesh is not None and not getattr(mesh, "counting", False):
         from repro_torch.mesh.strategy import axis_sizes
         axis_sizes(mesh)           # a DeviceMesh with named dims, or raise
     global _MESH

@@ -59,7 +59,13 @@ does:
     backward whole over ``model`` for a whole leaf and summed into its
     shard for a split one; the data axes then reduce it as above.  A
     ``model`` that cannot give each rank whole heads runs the attention
-    whole on every rank (``collectives.check_model_axis``);
+    whole on every rank (``collectives.check_model_axis``).  The
+    recurrent families split the same way: rwkv6's time-mix and mamba2
+    on each rank's heads of 64, rwkv6's channel-mix on its ff columns,
+    the hybrid's shared block as the dense block (``models.rwkv6``,
+    ``models.mamba2``); the rules' storage of their leaves is kept;
+    where ``model`` does not divide the mixer's heads, the mixer runs
+    whole on every rank;
   * **MoE** (``cfg.n_experts``): on a mesh with a ``model`` axis (size 1
     included) the FFN is the expert-parallel all-to-all
     (``models.moe_ep``) over the model group, each rank's experts as the
@@ -98,6 +104,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import hlo_counter
 from repro_torch.device import DeviceLike, resolve_or_meta
 from repro_torch.ft.resilience import PartialUpdateError
 from repro_torch.models.transformer import Model
@@ -212,6 +219,18 @@ def _objective(model: Model, params, batch, scales, i, aux_share):
                   + 0.01 * aux.detach() * (float(first) - share))
 
 
+def _grad(loss, flat) -> List[torch.Tensor]:
+    """The gradient of ``loss`` for every tensor of ``flat``.  Under an op
+    count that scales regions by their trip counts
+    (``analysis.hlo_counter``) only the first of a model's identical
+    layers runs: the others' gradients are zeros."""
+    if not hlo_counter.scaling():
+        return list(torch.autograd.grad(loss, flat))
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, got)]
+
+
 def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
               microbatches: int = 1, grad_bf16: bool = True,
               scales: Optional[List[float]] = None, aux_share=None):
@@ -230,7 +249,7 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     if microbatches == 1:
         loss, report = _objective(model, params, batch, scales, 0,
                                   aux_share)
-        return report, list(torch.autograd.grad(loss, flat)), 1
+        return report, _grad(loss, flat), 1
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} "
@@ -241,7 +260,7 @@ def gradients(model: Model, params, batch: Dict[str, torch.Tensor], *,
     for i in range(microbatches):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
         loss, report = _objective(model, params, mb, scales, i, aux_share)
-        g = torch.autograd.grad(loss, flat)
+        g = _grad(loss, flat)
         losses.append(report)
         if acc is None:
             acc = [x.to(acc_dtype) for x in g]
@@ -265,13 +284,6 @@ class _Placement:
         self.cfg = model.cfg
         self.group = DataGroup(mesh)
         self.model = ModelGroup(mesh)
-        if self.model.size > 1 and model.cfg.subquadratic:
-            raise NotImplementedError(
-                f"{model.cfg.name}: a {model.cfg.family} model on a model "
-                f"axis of size {self.model.size} is not ported: the "
-                f"reference shards its mixers over 'model' by its rules and "
-                f"lets GSPMD insert the collectives (ROADMAP.md queue 1 "
-                f"item 10, the model axis for ssm / hybrid)")
         self.world = WorldGroup(mesh) if self.model.size > 1 else None
         self.ep = (ExpertParallel(self.group, self.model)
                    if model.cfg.n_experts else None)

@@ -8,8 +8,8 @@ layout.
 
 One call runs, on every rank alike: the DP and FSDP train steps of both
 smoke configs on ``data=2``, and zamba2's with 8-bit moments under FSDP
-(two steps each, the whole state gathered after each), a tensor-parallel
-step's refusal on ``model=2``, and ``ShardedEngine`` with rwkv6 on
+(two steps each, the whole state gathered after each), and
+``ShardedEngine`` with rwkv6 on
 ``data=2, hosts=2`` through one host loss (dense and paged; at decode,
 and while a prompt is still prefilling).
 """
@@ -20,7 +20,6 @@ import torch
 
 from _sharded_train_ranks import numpy_state
 
-ARCHS = ("rwkv6_1_6b", "zamba2_2_7b")
 STEP = dict(base_lr=1e-2, warmup=1, total_steps=20)
 # the drill traffic: greedy prompts of 3-12 tokens, 10 new tokens, chunk 4
 PROMPTS = (3, 9, 5, 12)
@@ -93,10 +92,7 @@ def _engine_drill(mesh, np_params, plan, **kw):
 
 def rank_work(rank, world, ref, _tmp):
     torch.set_num_threads(1)
-    from repro_torch.configs import smoke_config
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.transformer import Model
-    from repro_torch.train import step as tstep
     out = {"rank": rank}
     mesh = make_mesh((world, 1), ("data", "model"), "cpu")
     for case, (arch, cfg_kw, np_state, batches) in ref["train"].items():
@@ -105,14 +101,6 @@ def rank_work(rank, world, ref, _tmp):
                 continue
             out[f"{case}_{'fsdp' if fsdp else 'dp'}"] = _sharded_steps(
                 mesh, arch, np_state, batches, fsdp=fsdp, **cfg_kw)
-    tp_mesh = make_mesh((1, world), ("data", "model"), "cpu")
-    for arch in ARCHS:
-        try:
-            tstep.make_train_step(Model(smoke_config(arch)), tp_mesh,
-                                  **STEP)
-            out[f"{arch}_tp"] = None
-        except NotImplementedError as e:
-            out[f"{arch}_tp"] = str(e)
     data = make_mesh((world,), ("data",), "cpu")
     loss = "mesh.host_lost(host=1, after=2)"
     for layout in ("dense", "paged"):

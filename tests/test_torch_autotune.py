@@ -69,8 +69,11 @@ def test_presets_are_the_references_word_for_word():
                                  else "cpu")
     assert cost.hw_model() == cost.HW_PRESETS["cpu"]
     assert cost.hw_model("gpu") == cost.HW_PRESETS["gpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        cost.xla_cost(lambda x: x, ())
+    a, b = torch.ones(64, 32), torch.ones(32, 16)
+    secs = cost.xla_cost(lambda x, y: x @ y, (a, b))
+    hw = cost.DEFAULT_HW
+    assert secs == max(2 * 64 * 32 * 16 / hw.peak_flops,
+                       (64 * 32 + 32 * 16 + 64 * 16) * 4 / hw.hbm_bw)
 
 
 @pytest.mark.parametrize("kernel,shape", SHAPES, ids=IDS)

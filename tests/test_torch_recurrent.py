@@ -20,8 +20,8 @@ reference.
     step, and on two gloo ranks (``tests/_recurrent_ranks.py``) the DP and
     FSDP steps, for both families and for zamba2 with 8-bit moments (one
     scale over a (group, layer) stack); each rank's state bytes against
-    ``local_bytes``; a tensor-parallel step's refusal; ``ShardedEngine``
-    with rwkv6 through one host loss.
+    ``local_bytes``; ``ShardedEngine`` with rwkv6 through one host loss
+    (the model axis: ``tests/test_torch_recurrent_tp.py``).
 
 Tolerances (fp32): logits and decode logits 1e-4 absolute, caches 1e-5
 absolute, the loss 1e-6 relative, gradients 1e-4 relative plus 1e-5 of
@@ -620,13 +620,6 @@ def test_8bit_hybrid_under_fsdp_matches_the_reference(sharded):
         assert run["held"] == run["reckoned"]
         _check_steps(run["steps"], parent["want"]["zamba2_2_7b_8bit"],
                      eight_bit=True)
-
-
-def test_a_tensor_parallel_step_raises(sharded):
-    for res in sharded[1]:
-        for arch in ARCHS:
-            assert "ROADMAP.md queue 1 item 10" in res[f"{arch}_tp"]
-            assert "model axis" in res[f"{arch}_tp"]
 
 
 @pytest.mark.parametrize("drill", ["clean", "loss", "staged"])
