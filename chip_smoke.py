@@ -225,8 +225,8 @@ result):
    bf16, dense and paged: tokens bitwise phase 4b's dense graph run, 4b's
    exact K1 / K3 counts, one ``all_gather`` a boundary, 0 re-captures
    after warm-up, tok/s beside 4b's; then one process in fp32 (TF32 off)
-   on the same traffic and slots, its tokens and tok/s taken and its
-   weights freed; (b) two gloo ranks sharing the card, fp32, 2 slots a
+   cut to SHARD_FP32_LAYERS layers, on the same traffic and slots, its
+   tokens and tok/s taken and its weights freed; (b) two gloo ranks sharing the card, fp32, 2 slots a
    rank, dense and paged: tokens equal to that process's, each rank's
    K1 / K3 launches exact against its own prefill calls, admissions and
    decode steps (every K3 launch ``tf32x3``), one ``all_gather`` a
@@ -242,7 +242,7 @@ result):
    in spawned ranks (a failed rank fails the run), K1 / K3 forward and
    backward launches zeroed before each step and checked exactly after it
    on every rank: (a) one NCCL rank (``data=1``), qwen3-4b at full width
-   and depth, bf16, remat, 13b's batch, lr and warm-up, deterministic
+   cut to 12 layers, bf16, remat, 13b's batch, lr and warm-up, deterministic
    algorithms: 3 one-device steps, then 3 mesh steps from the same seed-0
    weights, their loss, grad norm and every tensor's bits (checksums)
    equal, step time and peak memory beside 13b's; (b) DP, qwen3-4b cut
@@ -339,6 +339,29 @@ result):
    ``meta`` device (20a's ranks through ``collectives.CountingMesh``),
    and the roofline terms (``analysis.hlo``) beside the measured step
    time.  ``tools/recurrent_tp.py`` runs phase 20 alone.
+21. serving with the params split over ``model``, after phase 20: (k) K1
+   fp32 at a serving rank's rows (qwen3-4b on ``model=2``: the prefill's
+   SP rows, its 16 query / 4 kv heads' rows, a decode step's) and K3
+   ``tf32x3`` / ``mma`` on the rank's 16 / 4 heads over phase 4's 200
+   positions; (a) qwen3-4b (2 layers) and (b) dbrx-132b (1 layer) at full
+   width, fp32, ``data=1, model=2`` on two gloo ranks sharing the card
+   (``sharding.serving.ServingStep``: the params and the cache placed by
+   the rules), phase 4's prompts right-padded and 16 new tokens (21b: 8)
+   greedy, each row at its own position: tokens identical to the one-device
+   port's on the same weights, first-step logits within
+   SERVE_TP_LOGIT_TOL, K1 / K3 launches a rank predicted
+   (:func:`serve_tp_launches`), each rank's cache bytes the dry run's;
+   21b's MoE runs each rank's experts and all-gathers their outputs, as
+   the reference's serving MoE; (c) 21a's decode step counted on each
+   rank of the card equal to its count on the ``meta`` device.
+   ``tools/serve_tp.py`` runs phase 21 alone.
+
+The two-rank gloo cells of phases 16-21 (16b / 16c, 17a, 18d, 19d, 20a /
+20b, 21a / 21b) run after phase 15 in one spawn of two ranks
+(:func:`two_rank_cells`; a spawn a cell took the script to 1 151 s on an
+NVIDIA H100 80GB HBM3 at 700 W: each spawn costs its processes' start-up
+and a process's slow first fp32 step); each phase then checks and logs
+its own cells.  ``[phases]`` logs each phase's wall seconds.
 
 All generated programs and the ``csrc/`` kernels build in one parallel
 batch in phase 2.  It then prints one ``{"kernels": [...]}`` line (K1, K2,
@@ -353,7 +376,8 @@ a step, by part and rank; K1's and K3's ``launches_phase18`` by part:
 18a / 18b by engine, 18c by arch, 18d's ranks a step with the backward
 kernels'; ``launches_phase19`` likewise: 19a / 19b by engine, 19c by
 arch, 19d's ranks; ``launches_phase20``, 20a's and 20b's ranks a step;
-phase 17k's, 18k's, 19k's and 20k's cases among their ``cases``), the
+``launches_phase21``, 21a's and 21b's ranks a run; phase 17k's, 18k's,
+19k's, 20k's and 21k's cases among their ``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -3287,6 +3311,10 @@ def mesh_kernel_entries(smi, one, two):
 # ---------------------------------------------------------------------------
 
 SHARD_RANKS = 2         # 15b / 15c: processes sharing the one card over gloo
+# 15b / 15c (and their one-process fp32 engine): qwen3-4b at full width
+# cut to 12 of its 36 layers since the script passed 1 100 s with phase 21
+# (NVIDIA H100 80GB HBM3, 700 W; phase 15 58-79 s at full depth)
+SHARD_FP32_LAYERS = 12
 SHARD_LOST_AFTER = 2    # 15c: host 1 is lost at the third boundary
 
 
@@ -3409,7 +3437,8 @@ def sharded_rank_two(rank, world, want, journal):
     from repro_torch.testing import faults
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32")
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32",
+                                     n_layers=SHARD_FP32_LAYERS)
     mesh = make_mesh((world,), ("data",))
     reqs = continuous_requests(cfg.vocab)
     out = {"rank": rank}
@@ -3479,10 +3508,12 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
             f"them; re-captures after warm-up {r['recaptures_after_warm']}; "
             f"graph keys {r['graph_keys']}; card {smi}")
     # the single-process fp32 engine on the same traffic and slots, freed
-    # before the ranks start (two fp32 ranks hold 2 x 17.6 GB of weights)
+    # before the ranks start (two fp32 ranks hold 2 x 5.9 GB of weights at
+    # SHARD_FP32_LAYERS layers)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32")
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32",
+                                     n_layers=SHARD_FP32_LAYERS)
     reqs = continuous_requests(cfg.vocab)
     single = continuous_engine(model, params, "dense", graph=True)
     single.run(reqs, seed=5)
@@ -3508,6 +3539,7 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
         rs = [r[layout] for r in two]
         combined = sum(map(len, want)) / max(r["s"] for r in rs)
         log(f"[15b] data={SHARD_RANKS} (gloo ranks sharing one card), fp32, "
+            f"{SHARD_FP32_LAYERS} layers, "
             f"{layout}: tokens equal to one process's; tok/s combined "
             f"{combined:.1f}, per rank (its own slots' tokens) "
             f"{[round(r['own_tok_s'], 1) for r in rs]}, one process "
@@ -3565,6 +3597,10 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
 # ---------------------------------------------------------------------------
 
 SHARDED_TRAIN_STEPS_ONE = 3   # 16a: one-device steps, then mesh steps
+# 16a: qwen3-4b at full width cut to 12 of its 36 layers since the script
+# passed 1 100 s with phase 21 (NVIDIA H100 80GB HBM3, 700 W; 16a 28-42 s
+# at full depth); its bits are compared at any depth
+SHARDED_ONE_LAYERS = 12
 SHARDED_TRAIN_STEPS = 2       # 16b / 16c
 SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
 # 16b / 16c / 17a / 17b: depth cut.  Two fp32 states with gradients (16
@@ -3643,7 +3679,8 @@ def _state_bytes(state) -> int:
 
 
 def sharded_train_one(rank, world):
-    """[16a] one NCCL rank (``data=1``), qwen3-4b at full width and depth,
+    """[16a] one NCCL rank (``data=1``), qwen3-4b at full width cut to
+    SHARDED_ONE_LAYERS layers,
     bf16, remat, 13b's batch, lr and warm-up: 3 one-device steps, then 3
     mesh steps from the same seed-0 weights; loss, grad norm and every
     tensor's bits (checksums) compared."""
@@ -3658,7 +3695,7 @@ def sharded_train_one(rank, world):
     from repro_torch.models.transformer import Model
     from repro_torch.sharding import ctx
     from repro_torch.train.step import make_train_state, make_train_step
-    cfg = config(ARCH)
+    cfg = config(ARCH, n_layers=SHARDED_ONE_LAYERS)
     model = Model(cfg)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH))
@@ -3790,6 +3827,23 @@ def _held_to_oracle(state, specs, place, oracle, start, floor=None):
     return worst, bad, sums
 
 
+# 16b / 16c: arch; both run in one spawn of the two ranks (a process's
+# first fp32 step is the slow one)
+DATA_AXIS_CELLS = {"16b": "qwen3_4b", "16c": "yi_9b"}
+
+
+def data_axis_ranks(rank, world):
+    """[16b] and [16c] in one spawn of two gloo ranks sharing the card
+    (one start-up of the processes for both): :func:`sharded_train_two`
+    for each of DATA_AXIS_CELLS, each cell's seconds."""
+    out = {}
+    for label, arch in DATA_AXIS_CELLS.items():
+        t0 = time.perf_counter()
+        out[label] = sharded_train_two(rank, world, arch)
+        out[label]["cell_s"] = time.perf_counter() - t0
+    return out
+
+
 def sharded_train_two(rank, world, arch, cfg_kw=None, shape=None,
                       phase="16", floor=None):
     """[16b] (qwen3-4b: DP) / [16c] (yi-9b: FSDP) on ``world`` gloo ranks
@@ -3867,11 +3921,14 @@ def sharded_train_two(rank, world, arch, cfg_kw=None, shape=None,
     return out
 
 
-def phase_sharded_train(smi, train13):
+def phase_sharded_train(smi, train13, cells=None):
     """[16] training on the data axes, in spawned ranks (a failed rank
     fails the run): (a) one NCCL rank, bitwise the one-device step; (b)
     DP and (c) FSDP on two gloo ranks sharing the card, each held to the
-    one-device step, (c)'s per-rank state bytes to the dry run's."""
+    one-device step, (c)'s per-rank state bytes to the dry run's
+    (``cells``: (b) and (c)'s ranks' results from the shared spawn of
+    :func:`two_rank_cells`, else they run in a spawn of their own).
+    Returns the launches a step."""
     import gc
 
     from repro_torch.configs import config
@@ -3900,7 +3957,9 @@ def phase_sharded_train(smi, train13):
                              "one-device step's")
     med = statistics.median(r["s"] for r in b["steps"][1:])
     launches16 = {"16a": b["steps"][0]["launches"]}
-    log(f"[16a] data=1 (one NCCL rank), qwen3-4b full width and depth, bf16, "
+    log(f"[16a] data=1 (one NCCL rank), qwen3-4b at full width cut to "
+        f"{SHARDED_ONE_LAYERS} layers (13b's numbers beside it are full "
+        f"depth's), bf16, "
         f"remat, batch {TRAIN_BATCH} x {TRAIN_SEQ}, deterministic algorithms: "
         f"{SHARDED_TRAIN_STEPS_ONE} one-device steps then "
         f"{SHARDED_TRAIN_STEPS_ONE} mesh steps from seed 0, loss, grad norm "
@@ -3914,16 +3973,18 @@ def phase_sharded_train(smi, train13):
         f"{train13['peak_gib']:.2f}; K1 / K3 launches a step "
         f"{b['steps'][0]['launches']} beside 13b's "
         f"{train13['launches_a_step']}; card {smi}")
-    cells = {"16b": "qwen3_4b", "16c": "yi_9b"}
     times = {}
-    for label, arch in cells.items():
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        two = ranks.spawn(sharded_train_two, SHARDED_TRAIN_RANKS,
-                          backend="gloo", device="cuda", timeout=600,
-                          args=(arch,))
-        times[label] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    both = cells
+    if both is None:
+        both = ranks.spawn(data_axis_ranks, SHARDED_TRAIN_RANKS,
+                           backend="gloo", device="cuda", timeout=900)
+    times["16b + 16c"] = time.perf_counter() - t0
+    for label, arch in DATA_AXIS_CELLS.items():
+        two = [r[label] for r in both]
+        times[label] = max(r["cell_s"] for r in two)
         ref = two[0]["one_device"]
         cfg = config(arch, n_layers=DATA_AXIS_LAYERS, dtype="float32")
         reckoned = dryrun.reckon(
@@ -3972,10 +4033,12 @@ def phase_sharded_train(smi, train13):
                 "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
                            "peak_gib": r["peak_gib"], "init_s": r["init_s"],
                            "steps": r["steps"]} for r in two]})
-            + f"; {times[label]:.1f} s with the processes; card {smi}")
-    log(f"[16] summary: 16a {t_one:.1f} s, 16b {times['16b']:.1f} s, 16c "
-        f"{times['16c']:.1f} s (processes included), phase 16 "
-        f"{time.perf_counter() - t_start:.1f} s; card {smi}")
+            + f"; {times[label]:.1f} s in the ranks; card {smi}")
+    log(f"[16] summary: 16a {t_one:.1f} s, 16b + 16c "
+        f"{times['16b + 16c']:.1f} s (processes included unless they ran in "
+        f"the shared spawn; 16b {times['16b']:.1f} s, 16c "
+        f"{times['16c']:.1f} s in the ranks), "
+        f"phase 16 {time.perf_counter() - t_start:.1f} s; card {smi}")
     return launches16
 
 
@@ -4195,21 +4258,25 @@ def tp_cell(smi, label, arch, shape, backend="gloo", layers=None, bs=None,
     return [r["steps"][0]["launches"] for r in res], took
 
 
-def phase_tp_train(smi):
+def phase_tp_train(smi, results_17a=None):
     """[17] the model axis in training, in spawned gloo ranks sharing the
     card (a failed rank fails the run): (a) TP + SP, qwen3-4b on
     ``model=2``; (b) FSDP + TP, yi-9b on ``data=2, model=2``
-    (:func:`tp_cell`)."""
+    (:func:`tp_cell`).  ``results_17a``: 17a's ranks' results from the
+    shared spawn of :func:`two_rank_cells`, checked and logged here."""
     import gc
     t_start = time.perf_counter()
     launches, times = {}, {}
     for label, (arch, shape) in TP_TRAIN_CELLS.items():
         gc.collect()
         torch.cuda.empty_cache()
-        launches[label], times[label] = tp_cell(smi, label, arch, shape)
+        launches[label], times[label] = tp_cell(
+            smi, label, arch, shape,
+            results=results_17a if label == "17a" else None)
     log(f"[17] summary: 17a {times['17a']:.1f} s, 17b {times['17b']:.1f} s "
-        f"(processes included), phase 17 "
-        f"{time.perf_counter() - t_start:.1f} s; card {smi}")
+        f"(processes included; 17a's in the shared spawn when it ran "
+        f"there), phase 17 {time.perf_counter() - t_start:.1f} s; card "
+        f"{smi}")
     return launches
 
 
@@ -4547,25 +4614,29 @@ def ep_rank(rank, world):
     return out
 
 
-def phase_ep(smi):
+def phase_ep(smi, res=None):
     """[18d] expert parallelism: :func:`ep_rank` on two gloo ranks sharing
     the card, checked (every rank's loss and grad norm against the
     one-process step's, its all-to-alls against :func:`_ep_prediction`,
     its state bytes against ``launch.dryrun.reckon``'s, rank 0's leaves
     within 16b's tolerances, every rank's gathered leaves alike) and
-    logged; returns each rank's K1 / K3 launches a step."""
+    logged (``res``: the ranks' results from a shared spawn, else it spawns
+    them); returns each rank's K1 / K3 launches a step and the seconds."""
     from repro_torch.configs import config
     from repro_torch.launch import dryrun
     from repro_torch.testing import ranks
     t0 = time.perf_counter()
     world = EP_SHAPE[0] * EP_SHAPE[1]
-    # the ranks share the card with this process: what it holds
-    log(f"[18d] this process holds "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-    res = ranks.spawn(ep_rank, world, backend="gloo", device="cuda",
-                      timeout=900)
-    took = time.perf_counter() - t0
+    if res is None:
+        # the ranks share the card with this process: what it holds
+        log(f"[18d] this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        res = ranks.spawn(ep_rank, world, backend="gloo", device="cuda",
+                          timeout=900)
+        took, where = time.perf_counter() - t0, "with the processes"
+    else:
+        took, where = res[0]["cell_s"], "in the shared spawn"
     cfg = config(EP_ARCH, n_layers=EP_LAYERS, dtype=EP_DTYPE,
                  moe_capacity_factor=EP_CF)
     ref = res[0]["one_process"]
@@ -4617,11 +4688,11 @@ def phase_ep(smi):
             "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
                        "peak_gib": r["peak_gib"], "init_s": r["init_s"],
                        "steps": r["steps"]} for r in res]})
-        + f"; {took:.1f} s with the processes; card {smi}")
+        + f"; {took:.1f} s {where}; card {smi}")
     return [r["steps"][0]["launches"] for r in res], took
 
 
-def phase_families(smi, k1):
+def phase_families(smi, k1, ep=None):
     """[18] the transformer families, after phase 17, random weights drawn
     on the card from seed 0: (a) dbrx-132b at full width cut to 4 layers,
     bf16, on phase 4b's traffic through the static engine and the
@@ -4631,8 +4702,9 @@ def phase_families(smi, k1):
     likewise, K3 at head dim 64; (c) stablelm-1.6b (whole), qwen1.5-32b
     and chameleon-34b (8 layers), grok-1-314b (2 layers): one static
     prefill and its decode each; (d) expert parallelism on two gloo
-    ranks (:func:`phase_ep`).  Returns (the K1 / K3 cases at the new
-    shapes, each part's K1 / K3 launches)."""
+    ranks (:func:`phase_ep`; ``ep``: its ranks' results from a shared
+    spawn).  Returns (the K1 / K3 cases at the new shapes, each part's K1
+    / K3 launches)."""
     import gc
     from repro_torch.launch import serve
     t_start = time.perf_counter()
@@ -4686,7 +4758,7 @@ def phase_families(smi, k1):
     for name, cs in cases.items():
         for c in cs:
             log(f"[18k] {name} " + json.dumps(c))
-    launches["18d"], times["18d"] = phase_ep(smi)
+    launches["18d"], times["18d"] = phase_ep(smi, ep)
     log(f"[18] summary: " + json.dumps({k: round(v, 1)
                                         for k, v in times.items()})
         + f", phase 18 {time.perf_counter() - t_start:.1f} s; card {smi}")
@@ -4740,6 +4812,7 @@ REC_TRAIN_CPU_RTOL = 1e-4
 # before, 85.9 s with the processes in that run)
 REC_FSDP_ARCH, REC_FSDP_SHAPE = "zamba2_2_7b", (2, 64)
 REC_FSDP_FLOOR = 1e-5
+REC_FSDP_KW = {"n_layers": REC_CPU_LAYERS[REC_FSDP_ARCH], "fsdp": True}
 
 
 def recurrent_state_reckoned(cfg) -> dict:
@@ -4950,22 +5023,26 @@ def _recurrent_train_against_cpu(arch):
             "cpu": {k: m_cpu[k] for k in ("loss", "grad_norm")}}
 
 
-def phase_recurrent_fsdp(smi):
+def phase_recurrent_fsdp(smi, two=None):
     """[19d] FSDP over the data axis, :func:`sharded_train_two` on two gloo
     ranks sharing the card: zamba2-2.7b cut to one group, fp32, held to
     the one-device step (16c's tolerances; params at the gradient's
     rounding floor within twice the update, REC_FSDP_SHAPE's note), each
-    rank's state bytes equal to ``launch.dryrun.reckon``'s."""
+    rank's state bytes equal to ``launch.dryrun.reckon``'s (``two``: the
+    ranks' results from a shared spawn, else it spawns them)."""
     from repro_torch.configs import config
     from repro_torch.launch import dryrun
     from repro_torch.testing import ranks
     t0 = time.perf_counter()
-    kw = {"n_layers": REC_CPU_LAYERS[REC_FSDP_ARCH], "fsdp": True}
-    two = ranks.spawn(sharded_train_two, SHARDED_TRAIN_RANKS,
-                      backend="gloo", device="cuda", timeout=600,
-                      args=(REC_FSDP_ARCH, kw, REC_FSDP_SHAPE, "19d",
-                            REC_FSDP_FLOOR))
-    took = time.perf_counter() - t0
+    kw = REC_FSDP_KW
+    if two is None:
+        two = ranks.spawn(sharded_train_two, SHARDED_TRAIN_RANKS,
+                          backend="gloo", device="cuda", timeout=600,
+                          args=(REC_FSDP_ARCH, kw, REC_FSDP_SHAPE, "19d",
+                                REC_FSDP_FLOOR))
+        took, where = time.perf_counter() - t0, "with the processes"
+    else:
+        took, where = two[0]["cell_s"], "in the shared spawn"
     ref = two[0]["one_device"]
     cfg = config(REC_FSDP_ARCH, dtype="float32", **kw)
     batch, seq = REC_FSDP_SHAPE
@@ -5011,11 +5088,11 @@ def phase_recurrent_fsdp(smi):
             "ranks": [{"rank": r["rank"], "state_bytes": r["state_bytes"],
                        "peak_gib": r["peak_gib"], "init_s": r["init_s"],
                        "steps": r["steps"]} for r in two]})
-        + f"; {took:.1f} s with the processes; card {smi}")
+        + f"; {took:.1f} s {where}; card {smi}")
     return [r["steps"][0]["launches"] for r in two], took
 
 
-def phase_recurrent(smi):
+def phase_recurrent(smi, fsdp=None):
     """[19] the recurrent families, random weights drawn on the card from
     seed 0: (k) K3 at head dim 80 in all four variants; (a) rwkv6-1.6b and
     (b) zamba2-2.7b at full width cut to REC_LAYERS, bf16, through every
@@ -5023,8 +5100,9 @@ def phase_recurrent(smi):
     a cut in fp32 against the CPU; (c) a train step of each at that cut,
     and an
     fp32 step against the CPU's; (d) FSDP on two gloo ranks
-    (:func:`phase_recurrent_fsdp`).  Returns (the K3 cases at D 80, each
-    part's K1 / K3 launches)."""
+    (:func:`phase_recurrent_fsdp`; ``fsdp``: its ranks' results from a
+    shared spawn).  Returns (the K3 cases at D 80, each part's K1 / K3
+    launches)."""
     import gc
     t_start = time.perf_counter()
     times, launches = {}, {}
@@ -5085,7 +5163,7 @@ def phase_recurrent(smi):
         f"{REC_TRAIN_SHAPE}, exact K1 / K3 forward and backward launches; "
         f"an fp32 step of a cut against the CPU's: " + json.dumps(c_rep)
         + f"; card {smi}")
-    launches["19d"], times["19d"] = phase_recurrent_fsdp(smi)
+    launches["19d"], times["19d"] = phase_recurrent_fsdp(smi, fsdp)
     log(f"[19] summary: " + json.dumps({k: round(v, 1)
                                         for k, v in times.items()})
         + f", phase 19 {time.perf_counter() - t_start:.1f} s; card {smi}")
@@ -5288,15 +5366,15 @@ def phase_counter(smi, rwkv):
     return took
 
 
-def phase_recurrent_tp(smi, k1):
+def phase_recurrent_tp(smi, k1, res=None):
     """[20] the model axis for the recurrent families and the op counter:
     (k) K1 / K3 at 20a / 20b's rank shapes; (a) rwkv6-1.6b and (b)
     zamba2-2.7b, TP + SP on ``model=2`` (:func:`recurrent_tp_ranks`: two
     gloo ranks sharing the card, both cells in one spawn; each held to the
     one-device step and its state bytes to the dry run's by
-    :func:`tp_cell`); (c) the op counter on the card
-    (:func:`phase_counter`).  Returns (the kernel cases, each cell's
-    ranks' K1 / K3 launches a step)."""
+    :func:`tp_cell`; ``res``: the ranks' results from a shared spawn);
+    (c) the op counter on the card (:func:`phase_counter`).  Returns (the
+    kernel cases, each cell's ranks' K1 / K3 launches a step)."""
     import gc
     t_start = time.perf_counter()
     times, launches = {}, {}
@@ -5310,8 +5388,9 @@ def phase_recurrent_tp(smi, k1):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = ranks.spawn(recurrent_tp_ranks, 2, backend="gloo", device="cuda",
-                      timeout=900)
+    if res is None:
+        res = ranks.spawn(recurrent_tp_ranks, 2, backend="gloo",
+                          device="cuda", timeout=900)
     times["20a + 20b"] = time.perf_counter() - t0
     rwkv = {}
     for label, (arch, layers) in REC_TP_CELLS.items():
@@ -5323,6 +5402,384 @@ def phase_recurrent_tp(smi, k1):
     log(f"[20] summary: " + json.dumps({k: round(v, 1)
                                         for k, v in times.items()})
         + f", phase 20 {time.perf_counter() - t_start:.1f} s; card {smi}")
+    return cases, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: serving with the params split over model
+# ---------------------------------------------------------------------------
+
+# 21a / 21b: arch, layers, new tokens; fp32, (data, model) =
+# SERVE_TP_SHAPE on gloo ranks sharing the card, phase 4's prompts
+# (right-padded, each row's logits at its own last position), greedy.
+# A decode step gathers the head whole through the host (gloo): qwen3-4b's
+# 1.56 GB in 1.4-1.9 s, dbrx's 2.47 GB in 2.1-2.7 s (NVIDIA H100 80GB
+# HBM3, 700 W), so 21a takes 16 new tokens, not phase 4's 32, and 21b 8
+SERVE_TP_CELLS = {"21a": ("qwen3_4b", 2, 16), "21b": ("dbrx_132b", 1, 8)}
+SERVE_TP_SHAPE = (1, 2)
+SERVE_TP_MAX_SEQ = 256
+# the first step's logits against the one-device port's, of the largest
+# magnitude: fp32, the rank's collectives summing in other orders
+SERVE_TP_LOGIT_TOL = 1e-4
+
+
+def serve_tp_launches(cfg, steps: int) -> dict:
+    """K1 / K3 launches of a prefill and ``steps`` decode steps: every
+    block's norms (the qk norms too) and the final norm a step; K3 once a
+    layer in the prefill, never in a decode step (plain attention)."""
+    norms = norms_a_pass(cfg) + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    return {"rmsnorm": norms * (1 + steps),
+            "flash_attention": attention_sites(cfg)}
+
+
+def _serve_tp_prompts(cfg):
+    """Phase 4's prompt lengths, right-padded to the longest, tokens drawn
+    from seed 21; the lengths as a (b,) tensor."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lens = torch.tensor(PROMPT_LENS, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (len(PROMPT_LENS),
+                                          max(PROMPT_LENS)),
+                           generator=gen, device="cuda")
+    return tokens, lens
+
+
+def _serve_tp_greedy(prefill, decode, tokens, lens, cache, new_tokens):
+    """Greedy serving of ``tokens``: the prefill, then ``new_tokens - 1``
+    decode steps, each row at its own position; (new tokens (b,
+    new_tokens) as lists, the first step's logits as numpy, the prefill's
+    and the decode steps' seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(tokens, cache, lens)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    first = logits.detach().cpu().numpy()
+    new = [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        logits, cache = decode(new[-1][:, None], cache, lens + i)
+        new.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    return (torch.stack(new, 1).tolist(), first, pre_s,
+            (time.perf_counter() - t0) / (new_tokens - 1))
+
+
+def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
+    """[21a] / [21b] on ``world`` gloo ranks sharing the card: rank 0 first
+    serves the prompts on one device (the others wait); then the ranks draw
+    the same seed-0 weights one after the other (a rank's whole params,
+    cut to its pieces by ``params_specs`` and freed before the next draws)
+    and serve them through ``sharding.serving.ServingStep`` on
+    SERVE_TP_SHAPE, K1 / K3 counted from the prefill to the last decode
+    step, the model group's collectives a step.  With ``count``, one more
+    decode step is counted by ``analysis.hlo_counter`` (scaled and in
+    full, :func:`counted`'s keys)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import hlo_counter
+    from repro_torch.configs import config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding.serving import ServingStep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config(arch, n_layers=layers, dtype="float32")
+    model = Model(cfg)
+    tokens, lens = _serve_tp_prompts(cfg)
+    b = tokens.shape[0]
+    out = {"rank": rank}
+    if rank == 0:
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            new, first, pre_s, dec_s = _serve_tp_greedy(
+                lambda t, c, n: model.prefill(params, t, c, lengths=n),
+                lambda t, c, p: model.decode_step(params, t, c, p),
+                tokens, lens, model.init_cache(b, SERVE_TP_MAX_SEQ),
+                new_tokens)
+        out["one_device"] = {
+            "tokens": new, "first": first, "prefill_s": pre_s,
+            "decode_step_s": dec_s,
+            "launches": {k: ops.launch_counts()[k]
+                         for k in ("rmsnorm", "flash_attention")}}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(SERVE_TP_SHAPE, ("data", "model"))
+    serve = ServingStep(model, mesh, b, SERVE_TP_MAX_SEQ)
+    t0 = time.perf_counter()
+    params = None
+    for r in range(world):
+        if r == rank:
+            whole = model.init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            params = serve.shard_params(whole)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["draw_s"] = time.perf_counter() - t0
+    out["params_bytes"] = sum(t.numel() * t.element_size()
+                              for t in _tensors(params))
+    cache = serve.shard_cache(model.init_cache(b, SERVE_TP_MAX_SEQ))
+    out["cache_bytes"] = cache.k.nbytes + cache.v.nbytes
+    out["kv"] = serve.kv
+    group = serve.place.model
+    steps = []
+
+    def step_counts(fn):
+        def run(*a):
+            group.counts.clear()
+            res = fn(*a)
+            steps.append(dict(group.counts))
+            return res
+        return run
+    mine = serve.rows(tokens), serve.rows(lens)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    new, first, pre_s, dec_s = _serve_tp_greedy(
+        step_counts(lambda t, c, n: serve.prefill(params, t, c, lengths=n)),
+        step_counts(lambda t, c, p: serve.decode_step(params, t, c, p)),
+        *mine, cache, new_tokens)
+    out.update({"tokens": new, "first": first, "prefill_s": pre_s,
+                "decode_step_s": dec_s, "collectives": steps,
+                "launches": {k: ops.launch_counts()[k]
+                             for k in ("rmsnorm", "flash_attention")},
+                "launches_by_variant": {
+                    k: ops.launch_counts_by_variant()[k]
+                    for k in ("rmsnorm", "flash_attention")}})
+    if count:
+        pos = mine[1] + new_tokens - 1
+        token = torch.tensor(new, device="cuda")[:, -1:]
+        c = {}
+        for scale in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cn = hlo_counter.count(serve.decode_step, params, token,
+                                      cache, pos, scale=scale)
+            torch.cuda.synchronize()
+            t = cn.totals
+            c["scaled" if scale else "full"] = {
+                "flops": t.flops, "bytes": t.bytes,
+                "bytes_min": t.bytes_min, "coll_bytes": t.coll_bytes,
+                "coll_by_kind": dict(t.coll_by_kind),
+                "kernels": dict(cn.kernels),
+                "coll_calls": dict(cn.coll_calls), "ops": cn.ops,
+                "s": time.perf_counter() - t0}
+        out["count"] = c
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_rank_cells(rank, world):
+    """The two-rank gloo cells of phases 16-21 in one spawn of two ranks
+    sharing the card (a start-up of the processes, and a process's slow
+    first fp32 step, once for all): 16b / 16c (:func:`data_axis_ranks`),
+    17a (:func:`tp_train_rank`), 18d (:func:`ep_rank`), 19d
+    (:func:`sharded_train_two`), 20a / 20b (:func:`recurrent_tp_ranks`),
+    21a / 21b (:func:`serve_tp_ranks`); each is checked and logged by its
+    phase."""
+    out = data_axis_ranks(rank, world)
+    t0 = time.perf_counter()
+    out["17a"] = tp_train_rank(rank, world, *TP_TRAIN_CELLS["17a"])
+    out["17a"]["cell_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["18d"] = ep_rank(rank, world)
+    out["18d"]["cell_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["19d"] = sharded_train_two(rank, world, REC_FSDP_ARCH, REC_FSDP_KW,
+                                   REC_FSDP_SHAPE, "19d", REC_FSDP_FLOOR)
+    out["19d"]["cell_s"] = time.perf_counter() - t0
+    out["20"] = recurrent_tp_ranks(rank, world)
+    out["21"] = serve_tp_ranks(rank, world)
+    return out
+
+
+def serve_tp_ranks(rank, world):
+    """[21a] and [21b] in one spawn of two gloo ranks sharing the card;
+    each cell's seconds."""
+    out = {}
+    for label, (arch, layers, new_tokens) in SERVE_TP_CELLS.items():
+        t0 = time.perf_counter()
+        out[label] = serve_tp_cell(rank, world, arch, layers, new_tokens,
+                                   count=label == "21a")
+        out[label]["cell_s"] = time.perf_counter() - t0
+    return out
+
+
+def meta_serve_counted(cfg, batch, coordinate) -> dict:
+    """[21c] the decode step of 21a's rank at ``coordinate`` counted on
+    the ``meta`` device, its groups ``collectives.CountingMesh``'s: the
+    params, a cache of SERVE_TP_MAX_SEQ and a (b,) position, as
+    :func:`serve_tp_cell` counts it on the card."""
+    from repro_torch.analysis import hlo_counter
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding.collectives import CountingMesh
+    from repro_torch.sharding.serving import ServingStep
+    model = Model(cfg)
+    serve = ServingStep(model, CountingMesh(
+        {"data": SERVE_TP_SHAPE[0], "model": SERVE_TP_SHAPE[1]},
+        coordinate), batch, SERVE_TP_MAX_SEQ)
+    params = serve.shard_params(model.init_params(torch.Generator(),
+                                                  "meta"))
+    cache = serve.shard_cache(model.init_cache(batch, SERVE_TP_MAX_SEQ,
+                                               "meta"))
+    rows = serve.rows(torch.zeros(batch, dtype=torch.long, device="meta"))
+    token = torch.zeros((rows.shape[0], 1), dtype=torch.long, device="meta")
+    out = {}
+    for scale in (True, False):
+        _, cn = hlo_counter.count(serve.decode_step, params, token, cache,
+                                  rows, scale=scale)
+        t = cn.totals
+        out["scaled" if scale else "full"] = {
+            "flops": t.flops, "bytes": t.bytes, "bytes_min": t.bytes_min,
+            "coll_bytes": t.coll_bytes, "coll_by_kind": dict(t.coll_by_kind),
+            "kernels": dict(cn.kernels), "coll_calls": dict(cn.coll_calls),
+            "ops": cn.ops}
+    return out
+
+
+def _serve_tp_kernel_cases(k1):
+    """[21k] K1 and K3 at 21a's serving rank's shapes (qwen3-4b on
+    ``model=2``, phase 4's 4 prompts padded to 200): K1 fp32 on the
+    prefill's SP rows (4 x 100 of 2560) and its 16 query / 4 kv heads' rows
+    (q_norm, k_norm), and on a decode step's rows (4 of 2560; 4 x 16 / 4 x
+    4 of 128); K3 on the rank's 16 / 4 heads over 200 positions, causal,
+    ``tf32x3`` fp32 (what 21a runs) and ``mma`` bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    shapes = ((b * s // 2, 2560), (b * s * 16, 128), (b * s * 4, 128),
+              (b, 2560), (b * 16, 128), (b * 4, 128))
+    return {
+        "rmsnorm": [_rmsnorm_case(r, d, torch.float32, gen, k1)
+                    for r, d in shapes],
+        "flash_attention": [_flash_case(s, s, True, 0, gen, b=b, nh=16,
+                                        nkv=4, dtype=dt)
+                            for dt in (torch.float32, torch.bfloat16)]}
+
+
+def phase_serve_tp(smi, k1, res=None):
+    """[21] serving with the params split over ``model``: (k) K1 / K3 at
+    21a's rank shapes; (a) qwen3-4b (2 layers, 16 new tokens) and (b)
+    dbrx-132b (1 layer, 8 new tokens) at full width, fp32, on
+    ``model=2`` (:func:`serve_tp_ranks`: two gloo
+    ranks sharing the card), each held to the one-device port on the same
+    weights (greedy tokens identical, the first step's logits within
+    SERVE_TP_LOGIT_TOL of the largest), its K1 / K3 launches to
+    :func:`serve_tp_launches`, every rank's cache bytes to the dry run's
+    ``cache_bytes``; (c) 21a's decode step counted on each rank of the
+    card equal to its count on the ``meta`` device (``res``: the ranks'
+    results from a shared spawn, else it spawns them).  Returns (the
+    kernel cases, each cell's ranks' K1 / K3 launches)."""
+    import gc
+
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import ranks
+    t_start = time.perf_counter()
+    times, launches = {}, {}
+    t0 = time.perf_counter()
+    cases = _serve_tp_kernel_cases(k1)
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"[21k] {name} " + json.dumps(c))
+    times["21k"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if res is None:
+        res = ranks.spawn(serve_tp_ranks, 2, backend="gloo", device="cuda",
+                          timeout=900)
+    times["21a + 21b"] = time.perf_counter() - t0
+    mesh = {"data": SERVE_TP_SHAPE[0], "model": SERVE_TP_SHAPE[1]}
+    b = len(PROMPT_LENS)
+    for label, (arch, layers, new_tokens) in SERVE_TP_CELLS.items():
+        cfg = config(arch, n_layers=layers, dtype="float32")
+        cell = [r[label] for r in res]
+        one = cell[0]["one_device"]
+        want = serve_tp_launches(cfg, new_tokens - 1)
+        reckoned = dryrun.reckon(cfg, {"seq": SERVE_TP_MAX_SEQ, "batch": b,
+                                       "kind": "decode"}, mesh)["memory"]
+        if one["launches"] != want:
+            raise AssertionError(f"[{label}] one device: K1 / K3 launches "
+                                 f"{one['launches']}, predicted {want}")
+        scale = float(abs(one["first"]).max())
+        errs = []
+        for r in cell:
+            if r["tokens"] != one["tokens"]:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']}: greedy tokens differ "
+                    f"from the one-device port's: {r['tokens']} against "
+                    f"{one['tokens']}")
+            err = float(abs(r["first"] - one["first"]).max())
+            errs.append(err)
+            if err > SERVE_TP_LOGIT_TOL * scale:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']}: first-step logits "
+                    f"{err} from the one-device port's (largest {scale}, "
+                    f"tolerance {SERVE_TP_LOGIT_TOL} of it)")
+            if r["launches"] != want:
+                raise AssertionError(f"[{label}] rank {r['rank']}: K1 / K3 "
+                                     f"launches {r['launches']}, predicted "
+                                     f"{want}")
+            if r["cache_bytes"] != reckoned["cache_bytes"]:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']} holds {r['cache_bytes']} "
+                    f"cache bytes, the dry run reckons "
+                    f"{reckoned['cache_bytes']}")
+        launches[label] = [r["launches"] for r in cell]
+        times[label] = max(r["cell_s"] for r in cell)
+        log(f"[{label}] serving with the params split over model: {arch} "
+            f"at full width cut to {layers} layer(s), fp32, {mesh} on two "
+            f"gloo ranks sharing one card, phase 4's prompts "
+            f"{list(PROMPT_LENS)} right-padded, {new_tokens} new tokens "
+            f"greedy, each row at its own position: tokens identical to "
+            f"the one-device port's, first-step logits within "
+            f"{SERVE_TP_LOGIT_TOL} of the largest ({scale:.4g}); "
+            + json.dumps({
+                "max_abs_err": errs, "kv": cell[0]["kv"],
+                "launches_predicted": want, "dryrun_memory": reckoned,
+                "one_device": {k: one[k] for k in (
+                    "prefill_s", "decode_step_s", "launches")},
+                "ranks": [{k: r[k] for k in (
+                    "rank", "prefill_s", "decode_step_s", "draw_s",
+                    "cell_s", "params_bytes", "cache_bytes", "launches",
+                    "launches_by_variant")}
+                    | {"collectives_prefill": r["collectives"][0],
+                       "collectives_decode_step": r["collectives"][1]}
+                    for r in cell]})
+            + f"; card {smi}")
+    # [21c] 21a's decode step: the card's count against the meta device's
+    t0 = time.perf_counter()
+    cfg = config(SERVE_TP_CELLS["21a"][0], n_layers=SERVE_TP_CELLS["21a"][1],
+                 dtype="float32")
+    counts = []
+    for rank, r in enumerate(res):
+        card = r["21a"]["count"]
+        meta = meta_serve_counted(cfg, b, {"model": rank})
+        for scale in ("scaled", "full"):
+            a = {k: card[scale][k] for k in COUNT_KEYS}
+            m = {k: meta[scale][k] for k in COUNT_KEYS}
+            if a != m:
+                raise AssertionError(f"[21c] rank {rank} {scale}: the "
+                                     f"card's count {a} differs from the "
+                                     f"meta device's {m}")
+        counts.append({"rank": rank, "count": card})
+    times["21c"] = time.perf_counter() - t0
+    log(f"[21c] 21a's decode step counted on each rank of the card "
+        f"(analysis.hlo_counter, scaled and in full) equal to its count on "
+        f"the meta device (collectives.CountingMesh): "
+        + json.dumps(counts) + f"; card {smi}")
+    log(f"[21] summary: " + json.dumps({k: round(v, 1)
+                                        for k, v in times.items()})
+        + f", phase 21 {time.perf_counter() - t_start:.1f} s; card {smi}")
     return cases, launches
 
 
@@ -5389,17 +5846,29 @@ def main() -> int:
 
 
 def _run_phases(tune_cache: str) -> int:
+    import gc
     t_start = time.perf_counter()
+    # each phase's wall seconds (logged last)
+    marks, last = {}, [t_start]
+
+    def mark(label):
+        now = time.perf_counter()
+        marks[label] = round(now - last[0], 1)
+        last[0] = now
     smi = phase_card()
     build_s, k1, stage_s = phase_build()
     cases = phase_kernels(k1)
+    mark("1-3")
     counts, variants, (cfg, model, params), static = phase_main_path(smi)
+    mark("4")
     report, (dense_graph, reqs, want) = phase_continuous(smi, cfg, model,
                                                          params)
+    mark("4b")
     phase_traced_continuous(smi, cfg, dense_graph, reqs, want,
                             report["dense graph"]["tok_s_median"])
     phase_obs_cost(smi, *static)
     phase_tuned_serving(smi, cfg, model, params, reqs, want)
+    mark("10e-f, 11e")
     faults = phase_faults(smi, cfg, model, params, static,
                           (dense_graph, reqs, want))
     del model, params, static, dense_graph
@@ -5407,29 +5876,64 @@ def _run_phases(tune_cache: str) -> int:
     cases.update(phase_train_kernels())
     train, train_counts, variants["flash_attention_bwd"] = phase_train(smi)
     train["13e"] = phase_train_smoke(smi)
+    mark("12-13")
     fp32_k3 = phase_against_cpu()
+    mark("5")
     cases["matmul"] = phase_matmul()
+    mark("6")
     dpia = phase_dpia(build_s)
+    mark("7")
     p_counts, mm_variants, per_prog, p9 = phase_pipeline_main_path()
     p9["mm_variants"] = mm_variants
     phase_default_options(p9)
     phase_services(smi, p9, stage_s, build_s)
+    mark("8-10")
     tuned = phase_tune(smi, tune_cache)
+    mark("11")
     mesh_one, mesh_two = phase_mesh(smi, dpia)
+    mark("14")
     sharded = phase_sharded(smi, want, report["dense graph"]["tok_s_median"])
-    sharded_train = phase_sharded_train(smi, train)
+    mark("15")
+    # the two-rank gloo cells of phases 16-21 (16b / 16c, 17a, 18d, 19d,
+    # 20a / 20b, 21a / 21b) run here, in one spawn; each phase checks and
+    # logs its own
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.testing import ranks
+    shared = ranks.spawn(two_rank_cells, 2, backend="gloo", device="cuda",
+                         timeout=1500)
+    log(f"[16-21] the two-rank cells in one spawn: "
+        f"{time.perf_counter() - t0:.1f} s with the processes; card {smi}")
+    mark("16-21 two-rank cells")
+    sharded_train = phase_sharded_train(
+        smi, train, cells=[{k: r[k] for k in DATA_AXIS_CELLS}
+                           for r in shared])
+    mark("16")
     for name, cs in phase_tp_kernels(k1).items():
         cases[name] += cs
-    tp_train = phase_tp_train(smi)
-    family_cases, families = phase_families(smi, k1)
+    tp_train = phase_tp_train(smi, [r["17a"] for r in shared])
+    mark("17")
+    family_cases, families = phase_families(
+        smi, k1, ep=[r["18d"] for r in shared])
     for name, cs in family_cases.items():
         cases[name] += cs
-    rec_cases, recurrent = phase_recurrent(smi)
+    mark("18")
+    rec_cases, recurrent = phase_recurrent(
+        smi, fsdp=[r["19d"] for r in shared])
     for name, cs in rec_cases.items():
         cases[name] += cs
-    rec_tp_cases, rec_tp = phase_recurrent_tp(smi, k1)
+    mark("19")
+    rec_tp_cases, rec_tp = phase_recurrent_tp(
+        smi, k1, res=[r["20"] for r in shared])
     for name, cs in rec_tp_cases.items():
         cases[name] += cs
+    mark("20")
+    serve_tp_cases, serve_tp = phase_serve_tp(
+        smi, k1, res=[r["21"] for r in shared])
+    for name, cs in serve_tp_cases.items():
+        cases[name] += cs
+    mark("21")
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -5487,6 +5991,11 @@ def _run_phases(tune_cache: str) -> int:
             # phase 20's model axis, a step: 20a's and 20b's ranks
             entry["launches_phase20"] = {
                 key: [c[k["name"]] for c in v] for key, v in rec_tp.items()}
+            if k["name"] in serve_tp_cases:
+                # phase 21's serving cells, a run: 21a's and 21b's ranks
+                entry["launches_phase21"] = {
+                    key: [c[k["name"]] for c in v]
+                    for key, v in serve_tp.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():
@@ -5512,6 +6021,7 @@ def _run_phases(tune_cache: str) -> int:
                      **{key: c[key] for key in _HEAD_KEYS},
                      "card": smi, "cases": [c]})
     line += mesh_kernel_entries(smi, mesh_one, mesh_two)
+    log("[phases] wall seconds: " + json.dumps(marks))
     log("[12] summary: " + json.dumps(faults))
     log("[13] summary: " + json.dumps({
         k: train[k] for k in ("median_step_s", "median_tok_s", "median_mfu",

@@ -157,6 +157,10 @@ def _name(func) -> str:
 def _dot_flops(name: str, args, out) -> float:
     from torch.utils.flop_counter import flop_registry
     packet = getattr(torch.ops.aten, name)
+    if name in ("mm", "bmm"):
+        # the out_dtype overloads (a bf16 product kept in fp32) carry the
+        # dtype third, which the registry's formulas do not take
+        args = args[:2]
     if packet in flop_registry:
         return float(flop_registry[packet](*args, out_val=out))
     if name in ("mv", "addmv"):

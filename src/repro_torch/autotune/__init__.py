@@ -23,8 +23,9 @@ them automatically.  The port's copy of ``repro.autotune``:
            ``@autotuned`` / ``pick_kv_layout`` / warm-up entry points
 
 With ``backend="shardmap"`` the space is the mesh-placement space of
-``repro_torch.mesh.space``, keyed by the mesh descriptor.  Not ported:
-``xla_cost``'s HLO refinement (ROADMAP.md queue 1 item 8), which raises.
+``repro_torch.mesh.space``, keyed by the mesh descriptor.  ``xla_cost``,
+the reference's HLO refinement, is the roofline of the call's counted op
+stream (``repro_torch.analysis.hlo_counter``).
 """
 from . import api, cache, cost, measure, space  # noqa: F401
 from .api import (  # noqa: F401

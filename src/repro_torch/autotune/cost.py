@@ -26,8 +26,9 @@ fully-sequential strategies (huge trip counts), punishes over-fine blocking
 
 ``xla_cost`` is the reference's optional refinement (lower a compiled
 candidate through XLA and count its HLO); the port has no XLA, and it
-raises until the HLO analysis has a counterpart (ROADMAP.md queue 1 item
-7, ``analysis/hlo*.py``).
+counts the call's op stream instead (``analysis/hlo_counter.py``): the
+roofline seconds of the ATen ops it dispatches and of the work its
+hand-written kernels declare.
 
 The port's copy of ``repro.autotune.cost``: the presets are the
 reference's, word for word, and ``hw_model(None)`` asks the port's device

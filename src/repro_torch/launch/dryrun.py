@@ -21,18 +21,19 @@ breaks that down (``state_bytes`` or ``params_bytes`` and
 ``cache_bytes``, ``input_bytes``).
 
 ``roofline`` (the reference's ``hlo.analyze(...).row()`` keys): one
-rank's train step counted on the ``meta`` device (``analysis.
-hlo_counter``: its op stream, the kernels' declared work, regions scaled
-by their trip counts) with the process groups stood in for by counting
-ones (``sharding.collectives.CountingMesh``: the collectives the port's
-step issues, with no exchange), times the chips, against an NVIDIA H100's
-rates (``analysis.hlo``); ``model_flops`` the reference's 6 x active
-params x tokens.  A cell whose step the port cannot run gets a
-``roofline`` holding the error and the ROADMAP item that covers it: the
-serving cells (prefill, decode: the port serves on a data axis, not with
-its params split over ``model``) and a step that raises (grok's 8 experts
-on ``model=16``).  No ``lower_s`` / ``compile_s`` and none of XLA's temp
-/ output / code bytes: there is no compile.
+rank's step counted on the ``meta`` device (``analysis.hlo_counter``: its
+op stream, the kernels' declared work, regions scaled by their trip
+counts) with the process groups stood in for by counting ones
+(``sharding.collectives.CountingMesh``: the collectives the port's step
+issues, with no exchange), times the chips, against an NVIDIA H100's
+rates (``analysis.hlo``).  The step is the train step (``model_flops``
+the reference's 6 x active params x tokens), or a prefill or decode step
+with the params and the cache placed by the rules (``sharding.serving.
+ServingStep``; ``model_flops`` 2 x active params x tokens).  The
+recurrent families' serving cells get a ``roofline`` holding the error
+and the ROADMAP item that covers it (:data:`RECURRENT_SERVING_ITEM`).
+No ``lower_s`` / ``compile_s`` and none of XLA's temp / output / code
+bytes: there is no compile.
 """
 from __future__ import annotations
 
@@ -67,9 +68,18 @@ def local_bytes(tree, spec_tree, mesh) -> int:
 
 
 # where the cells the port cannot count are queued
-SERVING_ITEM = ("ROADMAP.md queue 1 item 9: serving with the params split "
-                "over 'model' (rules.cache_specs has no consumer yet)")
-STEP_ITEM = "ROADMAP.md queue 1 item 9: the MoE corners on a model axis"
+RECURRENT_SERVING_ITEM = (
+    "ROADMAP.md queue 1 item 9f: the recurrent families' serving with the "
+    "params split over 'model' (their state's layout over model)")
+
+
+def _roofline(counter, sizes: Dict[str, int], model_flops: float) -> Dict:
+    """The ``roofline`` row of one rank's count on a mesh of ``sizes``."""
+    from repro_torch.analysis import hlo
+    return hlo.from_counter(
+        counter, chips=math.prod(sizes.values()), model_flops=model_flops,
+        widest_axis=max(list(sizes.values()) + [
+            math.prod(sizes[a] for a in rules.dp_axes(sizes))])).row()
 
 
 def train_roofline(model, info: Dict, mesh, scale: bool = True,
@@ -81,7 +91,7 @@ def train_roofline(model, info: Dict, mesh, scale: bool = True,
     (``specs.train_state_sds``), made here if not given."""
     import numpy as np
 
-    from repro_torch.analysis import hlo, hlo_counter
+    from repro_torch.analysis import hlo_counter
     from repro_torch.launch import specs as S
     from repro_torch.sharding import ctx
     from repro_torch.sharding.collectives import CountingMesh
@@ -102,12 +112,44 @@ def train_roofline(model, info: Dict, mesh, scale: bool = True,
                                     state, data, scale=scale)[1]
     finally:
         ctx.set_mesh(None)
-    chips = math.prod(sizes.values())
-    return hlo.from_counter(
-        counter, chips=chips,
-        model_flops=6.0 * cfg.active_param_count() * batch * seq,
-        widest_axis=max(list(sizes.values()) + [
-            math.prod(sizes[a] for a in rules.dp_axes(sizes))])).row()
+    return _roofline(counter, sizes,
+                     6.0 * cfg.active_param_count() * batch * seq)
+
+
+def serving_roofline(model, info: Dict, mesh, scale: bool = True) -> Dict:
+    """The ``roofline`` row of one rank's prefill (``info["kind"] ==
+    "prefill"``: ``batch`` prompts of ``seq`` tokens into an empty cache)
+    or decode step (one token a row against a cache of ``seq`` positions,
+    at its last) of ``model`` on ``mesh`` (axis sizes), its params and
+    cache placed by the rules (``sharding.serving.ServingStep``), counted
+    on the ``meta`` device: the reference's lowered ``prefill`` /
+    ``decode_step`` with ``params_specs`` and ``cache_specs``."""
+    import torch
+
+    from repro_torch.analysis import hlo_counter
+    from repro_torch.launch import specs as S
+    from repro_torch.sharding.collectives import CountingMesh
+    from repro_torch.sharding.serving import ServingStep
+    cfg = model.cfg
+    sizes = rules.mesh_shape(mesh)
+    seq, batch = info["seq"], info["batch"]
+    serve = ServingStep(model, CountingMesh(sizes), batch, seq)
+    params = serve.shard_params(S.params_sds(model))
+    cache = serve.shard_cache(S.cache_sds(model, "", info=info))
+    prefill = info["kind"] == "prefill"
+    shape = (batch, seq if prefill else 1) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks else ())
+    tokens = serve.rows(torch.zeros(shape, dtype=torch.long,
+                                    device="meta"))
+    if prefill:
+        counter = hlo_counter.count(serve.prefill, params, tokens, cache,
+                                    scale=scale)[1]
+    else:
+        counter = hlo_counter.count(serve.decode_step, params, tokens, cache,
+                                    seq - 1, scale=scale)[1]
+    tokens_per_step = batch * (seq if prefill else 1)
+    return _roofline(counter, sizes,
+                     2.0 * cfg.active_param_count() * tokens_per_step)
 
 
 def reckon(cfg, info: Dict, mesh, roofline: bool = False) -> Dict:
@@ -143,17 +185,15 @@ def reckon(cfg, info: Dict, mesh, roofline: bool = False) -> Dict:
            "params": cfg.param_count(),
            "active_params": cfg.active_param_count()}
     if roofline:
-        if info["kind"] != "train":
+        if info["kind"] == "train":
+            rec["roofline"] = train_roofline(model, info, sizes, state=state)
+        elif cfg.family in ("ssm", "hybrid"):
             rec["roofline"] = {"error": f"the port's {info['kind']} step "
-                                        f"on {sizes} is not ported",
-                               "roadmap": SERVING_ITEM}
+                                        f"of the {cfg.family} family on "
+                                        f"{sizes} is not ported",
+                               "roadmap": RECURRENT_SERVING_ITEM}
         else:
-            try:
-                rec["roofline"] = train_roofline(model, info, sizes,
-                                                 state=state)
-            except NotImplementedError as e:
-                rec["roofline"] = {"error": f"{type(e).__name__}: {e}",
-                                   "roadmap": STEP_ITEM}
+            rec["roofline"] = serving_roofline(model, info, sizes)
     return rec
 
 

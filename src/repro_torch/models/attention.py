@@ -72,6 +72,22 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _project_kv(p, cfg: ModelConfig, x, positions):
+    """k / v alone (every kv head of ``p``'s columns), as
+    :func:`_project_qkv` makes them."""
+    b, s, _ = x.shape
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if p["bk"] is not None:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(b, s, -1, cfg.hd)
+    v = v.reshape(b, s, -1, cfg.hd)
+    if p["k_norm"] is not None:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(cfg.hd, cfg.rope_theta, positions)
+    return apply_rope(k, cos, sin), v
+
+
 def _attend(p, cfg: ModelConfig, q, k, v, x_dtype):
     """Causal self-attention of projected q/k/v (one sequence per row,
     positions from 0) through the output projection: the part of the
@@ -113,16 +129,22 @@ def attention(p, cfg: ModelConfig, x, positions, path: str = "blocks/attn"):
         q, k, v = _project_qkv(p, cfg, x, positions)
         return _attend(p, cfg, q, k, v, x.dtype)
     if not tp.split_heads:
-        # SP: each rank's share of the work is its rows' outputs, so the
-        # weights' and the input's gradients are partial sums over model;
-        # SP off: every rank repeats the whole work, gradients whole
-        take = tp.mixer_take(path)
-        local = {name: take(w, name) for name, w in p.items()}
+        local = _whole_weights(p, tp, path)
 
         def whole(xw):
             q, k, v = _project_qkv(local, cfg, xw, positions)
             return _attend(local, cfg, q, k, v, xw.dtype)
         return tp.whole_mixer(whole, x)
+    local = _rank_weights(p, tp, path)
+    x = tp.enter(x)
+    q, k, v = _project_qkv(local, cfg, x, positions)
+    return tp.exit(_attend(local, cfg, q, k, v, x.dtype))
+
+
+def _rank_weights(p, tp, path: str):
+    """The weights of the rank's heads (``tp.split_heads``): ``wq`` /
+    ``wk`` / ``wv`` and their biases by columns, ``wo`` by rows, the qk
+    norms whole."""
     cols = {"q": tp.q_cols, "k": tp.kv_cols, "v": tp.kv_cols}
     local = {f"w{h}": tp.part(p[f"w{h}"], f"{path}/w{h}", 1, c)
              for h, c in cols.items()}
@@ -134,9 +156,17 @@ def attention(p, cfg: ModelConfig, x, positions, path: str = "blocks/attn"):
         local[name] = None if p[name] is None else \
             tp.whole(p[name], f"{path}/{name}")
     local["wo"] = tp.part(p["wo"], f"{path}/wo", 0, tp.q_cols)
-    x = tp.enter(x)
-    q, k, v = _project_qkv(local, cfg, x, positions)
-    return tp.exit(_attend(local, cfg, q, k, v, x.dtype))
+    return local
+
+
+def _whole_weights(p, tp, path: str):
+    """Every weight whole, for attention that every rank runs whole (``tp.
+    split_heads`` false).  SP: each rank's share of the work is its rows'
+    outputs, so the weights' and the input's gradients are partial sums
+    over model; SP off: every rank repeats the whole work, gradients
+    whole."""
+    take = tp.mixer_take(path)
+    return {name: take(w, name) for name, w in p.items()}
 
 
 def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
@@ -149,12 +179,83 @@ def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
     once and shared by the cache write and the attention; the reference
     projects twice (its ``attention`` re-projects), which gives the same
     values and two more RMSNorm launches per layer under qk_norm."""
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _prefill_model_axis(p, cfg, x, cache, start, tp), cache
     b, s, _ = x.shape
     positions = start + torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     cache.k[:, start:start + s] = k
     cache.v[:, start:start + s] = v
     return _attend(p, cfg, q, k, v, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# serving with the params split over the model axis
+# ---------------------------------------------------------------------------
+
+# the rules' path of the weights a serving step on a model axis reads (the
+# transformer families' attention; the hybrid's shared block does not
+# serve on one)
+_SERVING_PATH = "blocks/attn"
+
+def _prefill_model_axis(p, cfg: ModelConfig, x, cache: KVCache, start: int,
+                        tp):
+    """:func:`attention_prefill` on a serving step's model axis (``tp``, a
+    ``sharding.collectives.TensorParallel`` with ``kv``): ``x`` is the
+    rank's rows of the prompt (SP) or the whole prompt, ``cache`` the
+    rank's slice of the layer's KV (``rules.cache_specs``).
+
+    The attention itself is the train step's (:func:`attention`): K3 on
+    the rank's query heads and the kv heads they read, ``wo`` row-parallel
+    (or, where ``model`` cannot give each rank whole heads, every head on
+    every rank).  The cache: with the kv heads over ``model`` the rank's
+    kv heads are the ones it holds, written at ``[start, start + s)``.
+    With the positions over ``model`` the rank holds every kv head of its
+    positions: it projects k / v of every kv head (``wk`` / ``wv``
+    gathered whole over ``model``, one all-gather of each a layer) on the
+    rows of the prompt that fall in its positions, from the whole sequence
+    it gathered for its heads, and writes them.  That moves 2 d nkv hd
+    weight elements a layer a rank, where an all-to-all of the ranks' k /
+    v would move 2 b s nkv hd / model activations."""
+    s = tp.seq
+    positions = start + torch.arange(s, device=x.device)[None, :]
+    kv = tp.kv
+    if not tp.split_heads:
+        local = _whole_weights(p, tp, _SERVING_PATH)
+
+        def whole(xw):
+            q, k, v = _project_qkv(local, cfg, xw, positions)
+            _write_rows(cache, k, v, start, kv["pos"])
+            return _attend(local, cfg, q, k, v, xw.dtype)
+        return tp.whole_mixer(whole, x)
+    local = _rank_weights(p, tp, _SERVING_PATH)
+    xw = tp.enter(x)
+    q, k, v = _project_qkv(local, cfg, xw, positions)
+    if kv["layout"] == "heads":
+        _write_rows(cache, k, v, start, kv["pos"])
+    else:
+        full = {name: None if p[name] is None else
+                tp.whole(p[name], f"{_SERVING_PATH}/{name}")
+                for name in ("wk", "wv", "bk", "bv", "k_norm")}
+        p0, p1 = kv["pos"]
+        lo, hi = max(p0, start), min(p1, start + s)
+        if hi > lo:
+            kr, vr = _project_kv(full, cfg, xw[:, lo - start:hi - start],
+                                 positions[:, lo - start:hi - start])
+            _write_rows(cache, kr, vr, lo, kv["pos"])
+    return tp.exit(_attend(local, cfg, q, k, v, xw.dtype))
+
+
+def _write_rows(cache: KVCache, k, v, start: int, held) -> None:
+    """k / v (b, s, heads, hd) of positions ``[start, start + s)`` into the
+    rank's slice ``cache`` of positions ``held`` = [p0, p1): the rows that
+    fall in it."""
+    p0, p1 = held
+    lo, hi = max(p0, start), min(p1, start + k.shape[1])
+    if hi > lo:
+        cache.k[:, lo - p0:hi - p0] = k[:, lo - start:hi - start]
+        cache.v[:, lo - p0:hi - p0] = v[:, lo - start:hi - start]
 
 
 def _bmm_f32(a, b):
@@ -174,9 +275,10 @@ def _token_attention(cfg: ModelConfig, q, k_l, v_l, pos, per_slot: bool,
     probabilities are rounded to the cache's dtype before P.V, as in the
     reference.
 
-    ``upcast`` (default: on a CPU tensor only) is the plain version: q, k
-    and v upcast to fp32.  Otherwise the cache is read as it lies, in its
-    own dtype, with no copy: one batched GEMM of every query head against
+    ``upcast`` (default: on a CPU tensor only; a ``meta`` tensor, which
+    the dry run counts for the card, takes the card's form) is the plain
+    version: q, k and v upcast to fp32.  Otherwise the cache is read as
+    it lies, in its own dtype, with no copy: one batched GEMM of every query head against
     the keys of every kv head (rows (t, kv head) of the contiguous
     (b, t * nkv, hd) view), whose GQA pairs are a diagonal view of the fp32
     result; P.V likewise against the (b, t, nkv * hd) view.  That
@@ -184,9 +286,9 @@ def _token_attention(cfg: ModelConfig, q, k_l, v_l, pos, per_slot: bool,
     fp32 copy of the whole cache per layer (chip_smoke phase 3 times both
     forms on the card)."""
     if upcast is None:
-        upcast = not q.is_cuda
-    b = q.shape[0]
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        upcast = q.device.type == "cpu"
+    b, nh, hd = q.shape[0], q.shape[2], q.shape[3]
+    nkv = k_l.shape[2]
     group = nh // nkv
     t = k_l.shape[1]
     if upcast:
@@ -252,6 +354,10 @@ def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     per_slot = pos.ndim == 1
     positions = pos[:, None] if per_slot else pos.expand(b, 1)
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _decode_model_axis(p, cfg, x, ck[li], cv[li], pos, positions,
+                                  tp), ck, cv
     q, k, v = _project_qkv(p, cfg, x, positions)
     k_l, v_l = ck[li], cv[li]            # views: writes land in ck / cv
     if per_slot:
@@ -263,6 +369,103 @@ def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
         v_l.index_put_((slots, idx), v[:, 0].to(cv.dtype))
     return _attend_token(cfg, q, k_l, v_l, pos, per_slot, x.dtype,
                          p["wo"]), ck, cv
+
+
+def _decode_model_axis(p, cfg: ModelConfig, x, k_l, v_l, pos, positions,
+                       tp):
+    """:func:`attention_decode_inplace` on a serving step's model axis:
+    ``x`` (b, 1, d) the same on every rank, ``k_l`` / ``v_l`` the rank's
+    slice of one layer's KV (``rules.cache_specs``), ``pos`` global.
+
+    Kv heads over ``model``: the rank projects its query and kv heads,
+    writes its kv heads at ``pos`` and attends with them alone, ``wo``
+    row-parallel and the partial sums all-reduced.  Positions over
+    ``model``: the rank projects its heads as well, and the token's query
+    and kv heads are all-gathered over ``model``; the rank that holds
+    ``pos`` writes the token (per slot, where ``pos`` is a tensor), and
+    each rank computes the partial attention of every query head against
+    its positions.  The partials merge by log-sum-exp over ``model``, all
+    in fp32: the scores' maximum (an all-reduce max), then the sums of
+    ``exp(score - max)`` and of their products with v (one all-reduce).
+    The rank then takes its heads of the merged output through its rows of
+    ``wo``.  Where ``model`` cannot give each rank whole heads, every rank
+    projects every head with the weights gathered whole, and ``wo`` whole
+    gives the output on every rank alike."""
+    kv = tp.kv
+    p0 = kv["pos"][0]
+    if not tp.split_heads:
+        local = _whole_weights(p, tp, _SERVING_PATH)
+        q, k, v = _project_qkv(local, cfg, x, positions)
+        _write_token_at(k_l, v_l, k[:, 0], v[:, 0], pos, p0, kv["max_seq"])
+        out = _merged_token_attention(q, k_l, v_l, pos, p0, tp,
+                                      kv["layout"] == "seq")
+        return out.to(x.dtype).reshape(x.shape[0], 1, -1) @ local["wo"]
+    local = _rank_weights(p, tp, _SERVING_PATH)
+    q, k, v = _project_qkv(local, cfg, tp.enter(x), positions)
+    per_slot = pos.ndim == 1
+    if kv["layout"] == "heads":
+        _write_token_at(k_l, v_l, k[:, 0], v[:, 0], pos, p0, kv["max_seq"])
+        out = _token_attention(cfg, q, k_l, v_l, pos, per_slot)
+    else:
+        q_all = tp.group.all_gather(q, 2)      # every query head
+        _write_token_at(k_l, v_l, tp.gather_kv(k)[:, 0],
+                        tp.gather_kv(v)[:, 0], pos, p0, kv["max_seq"])
+        out = _merged_token_attention(q_all, k_l, v_l, pos, p0, tp,
+                                      kv["layout"] == "seq")
+        h0 = tp.q_cols[0] // cfg.hd
+        out = out.flatten(1, 2)[:, h0:h0 + q.shape[2]]
+    y = out.to(x.dtype).reshape(x.shape[0], 1, -1) @ local["wo"]
+    return tp.exit(y)
+
+
+def _write_token_at(k_l, v_l, k_new, v_new, pos, p0: int,
+                    max_seq: int) -> None:
+    """One token's k / v (b, nkv, hd) into a slice ``k_l`` / ``v_l`` (b, t,
+    nkv, hd) that holds the global positions [p0, p0 + t) of a cache of
+    ``max_seq``: each slot's row at ``pos`` where this slice holds it, in
+    place; elsewhere a rewrite of the value already there.  ``pos`` is a
+    scalar (clamped to the last position, as :func:`attention_decode_
+    inplace`'s) or a (b,) tensor (a slot at ``pos >= max_seq`` writes
+    nothing).  No host sync."""
+    b, t = k_l.shape[:2]
+    slots = torch.arange(b, device=k_l.device)
+    if pos.ndim == 1:
+        at, live = pos, pos < max_seq
+    else:
+        at, live = pos.clamp(0, max_seq - 1).expand(b), True
+    here = live & (at >= p0) & (at < p0 + t)
+    idx = (at - p0).clamp(0, t - 1)
+    keep = ~here[:, None, None] if torch.is_tensor(here) else False
+    k_new = torch.where(keep, k_l[slots, idx], k_new.to(k_l.dtype))
+    v_new = torch.where(keep, v_l[slots, idx], v_new.to(v_l.dtype))
+    k_l.index_put_((slots, idx), k_new)
+    v_l.index_put_((slots, idx), v_new)
+
+
+def _merged_token_attention(q, k_l, v_l, pos, p0: int, tp, merge: bool):
+    """The one-token attention of every query head ``q`` (b, 1, nh, hd)
+    against a slice of the cache (b, t, nkv, hd) holding positions
+    [p0, p0 + t), valid where ``kpos <= pos``, in fp32; with ``merge`` the
+    slices of the ranks of ``model`` merged by log-sum-exp (a max and the
+    sums of ``l`` and ``o`` over the group).  Returns the fp32 (b, nkv,
+    group, hd) heads, as :func:`_token_attention`."""
+    b, _, nh, hd = q.shape
+    t, nkv = k_l.shape[1], k_l.shape[2]
+    qg = q.reshape(b, nkv, nh // nkv, hd).float()
+    scores = torch.einsum("bngh,btnh->bngt", qg,
+                          k_l.float()) / math.sqrt(hd)
+    kpos = p0 + torch.arange(t, device=q.device)[None, None, None, :]
+    limit = pos[:, None, None, None] if pos.ndim == 1 else pos
+    scores = scores.masked_fill(kpos > limit, float("-inf"))
+    top = scores.amax(dim=-1, keepdim=True)
+    if merge:
+        top = tp.group.all_reduce_(top.contiguous(), op="max")
+    e = torch.exp(scores - top)
+    lo = torch.cat([e.sum(dim=-1, keepdim=True),
+                    torch.einsum("bngt,btnh->bngh", e, v_l.float())], -1)
+    if merge:
+        lo = tp.group.all_reduce_(lo.contiguous())
+    return lo[..., 1:] / lo[..., :1]
 
 
 # ---------------------------------------------------------------------------

@@ -138,27 +138,144 @@ def experts(p: Dict[str, torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
 def moe(p: Dict[str, torch.Tensor], cfg: ModelConfig, x
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE of ``x`` (b, s, d) as one routing group: ``(out, aux)``
-    (module docstring)."""
+    (module docstring).  On a model axis (``sharding.ctx.
+    get_tensor_parallel()``), the reference's GSPMD MoE on the rank's
+    share of the experts: :func:`_moe_model_axis`."""
+    tp = ctx.get_tensor_parallel()
+    if tp is not None:
+        return _moe_model_axis(p, cfg, x, tp)
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    tl = b * s
-    cap = capacity(cfg, tl)
-    xt = x.reshape(tl, d)
-    probs, topk_p, topk_i = route(p["router"], xt, k)
-    ep = ctx.get_expert_parallel()
-    aux = load_balance(probs, topk_i, e, k,
-                       mean=None if ep is None else ep.data_mean)
+    plan = _Routing(p["router"], cfg, x.reshape(b * s, d))
+    ye = experts(p, plan.dispatch(x.reshape(b * s, d)))          # (e, cap, d)
+    return plan.combine(ye).reshape(b, s, d).to(x.dtype), plan.aux
 
-    flat_i = topk_i.reshape(-1)                                  # (tl * k,)
-    pos = slots(flat_i, e)
-    keep = pos < cap
-    gate = topk_p.reshape(-1) * keep
-    # kept entries to their own slot, dropped ones to the trash slot `cap`
-    dest = flat_i * (cap + 1) + torch.where(keep, pos, cap)
-    # each entry's token (no repeat_interleave: it syncs the host)
-    tok = torch.arange(tl * k, device=x.device) // k
-    buf = xt.new_zeros((e * (cap + 1), d)).index_copy(0, dest, xt[tok])
-    ye = experts(p, buf.view(e, cap + 1, d)[:, :cap])            # (e, cap, d)
-    yk = ye[flat_i, pos.clamp(max=cap - 1)]                      # (tl * k, d)
-    out = combine(yk, gate, k)
-    return out.reshape(b, s, d).to(x.dtype), aux
+
+class _Routing:
+    """One routing group's top-k choices of ``xt`` (tl, d): ``aux``, and
+    each (token, choice) entry's expert, slot and gate (0 for an entry past
+    the capacity, which is dropped); :meth:`dispatch` fills the experts'
+    buffers, :meth:`combine` takes their outputs back."""
+
+    def __init__(self, router, cfg: ModelConfig, xt, aux_grad: float = 1.0):
+        tl = xt.shape[0]
+        e, k = cfg.n_experts, cfg.top_k
+        self.e, self.k, self.cap = e, k, capacity(cfg, tl)
+        probs, topk_p, topk_i = route(router, xt, k)
+        ep = ctx.get_expert_parallel()
+        self.aux = load_balance(probs, topk_i, e, k,
+                                mean=None if ep is None else ep.data_mean)
+        if aux_grad != 1.0:
+            self.aux = _ScaleGrad.apply(self.aux, aux_grad)
+        cap = self.cap
+        self.flat_i = topk_i.reshape(-1)                         # (tl * k,)
+        self.pos = slots(self.flat_i, e)
+        keep = self.pos < cap
+        self.gate = topk_p.reshape(-1) * keep
+        # kept entries to their own slot, dropped ones to the trash slot
+        self.dest = self.flat_i * (cap + 1) + torch.where(keep, self.pos, cap)
+        # each entry's token (no repeat_interleave: it syncs the host)
+        self.tok = torch.arange(tl * k, device=xt.device) // k
+
+    def dispatch(self, xt) -> torch.Tensor:
+        """The experts' buffers (e, cap, d) of ``xt`` (the tokens routed)."""
+        e, cap, d = self.e, self.cap, xt.shape[-1]
+        buf = xt.new_zeros((e * (cap + 1), d)).index_copy(0, self.dest,
+                                                          xt[self.tok])
+        return buf.view(e, cap + 1, d)[:, :cap]
+
+    def combine(self, ye) -> torch.Tensor:
+        """The experts' outputs ``ye`` (e, cap, d) -> (tl, d)."""
+        yk = ye[self.flat_i, self.pos.clamp(max=self.cap - 1)]  # (tl * k, d)
+        return combine(yk, self.gate, self.k)
+
+
+# the rules' path of a MoE layer's weights
+_MOE_PATH = "blocks/mlp"
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity whose gradient is multiplied by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def _moe_model_axis(p, cfg: ModelConfig, x, tp):
+    """:func:`moe` on a model axis (``tp``, a ``sharding.collectives.
+    TensorParallel``): ``x`` is the rank's rows (SP) or the whole sequence,
+    and the result its rows of the output, with the aux of the whole
+    routing group, the same on every rank of ``model``.
+
+    The reference runs its GSPMD ``ffn.moe`` here, per GShard group (one a
+    data shard), with the experts placed by its ``param_spec``; every rank
+    routes the whole sequence of its batch rows, so capacities and drops
+    are the reference's (decode's ``min(tl, 64)`` floor keeps every
+    token).
+
+      * **Experts over ``model``** (``model`` divides them): the rank runs
+        its experts over their buffers and the outputs are all-gathered
+        over ``model`` (the reference's one all-gather of ``ye``) for the
+        combine in the reference's order.  This is every serving step on
+        such a mesh, and the train step's where ``model`` does not divide
+        the sequence (``models.moe_ep`` takes the others).  With SP off
+        every rank repeats the routing whole, so its gradients are whole:
+        the buffers' input is summed over ``model`` (only the rank's
+        experts read it), and the aux's gradient is multiplied by the
+        ranks of ``model``, each of which adds a share of it to the loss.
+      * **Otherwise** (grok-1-314b's 8 experts on ``model=16``): the rules
+        split each expert's ff dim over ``model``, and the rank runs every
+        expert on its ff columns, ``w_gate`` / ``w_up`` by columns and
+        ``w_down`` by rows, a row-parallel MLP: its combined partial sums
+        are reduce-scattered into SP (all-reduced with SP off), and the
+        routing's gradients, partial too, are summed over ``model``."""
+    path = _MOE_PATH
+    if tp.dims[f"{path}/w_gate"] == 0:
+        return _moe_expert_split(p, cfg, x, tp)
+    w = {"router": tp.whole(p["router"], f"{path}/router"),
+         "w_gate": tp.part(p["w_gate"], f"{path}/w_gate", 2, tp.ff_cols),
+         "w_up": tp.part(p["w_up"], f"{path}/w_up", 2, tp.ff_cols),
+         "w_down": tp.part(p["w_down"], f"{path}/w_down", 1, tp.ff_cols)}
+    xw = tp.enter(x)
+    b, s, d = xw.shape
+    xt = xw.reshape(b * s, d)
+    plan = _Routing(w["router"], cfg, xt)
+    out = plan.combine(experts(w, plan.dispatch(xt)))
+    return tp.exit(out.reshape(b, s, d).to(x.dtype)), plan.aux
+
+
+def _moe_expert_split(p, cfg: ModelConfig, x, tp):
+    """The experts-over-``model`` case of :func:`_moe_model_axis`."""
+    from repro_torch.sharding.collectives import (copy_to, gather_param,
+                                                  gather_replicated)
+    path = _MOE_PATH
+    group = tp.group
+    m, r = group.size, group.index
+    el = cfg.n_experts // m
+    w = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        t = p[name]
+        w[name] = t if t.shape[0] == el else t.narrow(0, r * el, el)
+    if tp.sp:
+        xw = xr = tp.enter(x)
+        router, gather, aux_grad = (tp.whole(p["router"], f"{path}/router"),
+                                    gather_param, 1.0)
+    else:
+        xw, xr = copy_to(x, group), x
+        router, gather, aux_grad = (tp.replicated(p["router"],
+                                                  f"{path}/router"),
+                                    gather_replicated, float(m))
+    b, s, d = xw.shape
+    plan = _Routing(router, cfg, xr.reshape(b * s, d), aux_grad)
+    buf = plan.dispatch(xw.reshape(b * s, d))[r * el:(r + 1) * el]
+    ye = gather(experts(w, buf), group, 0)                       # (e, cap, d)
+    out = plan.combine(ye).reshape(b, s, d).to(x.dtype)
+    if tp.sp:
+        lo, hi = tp.rows
+        out = out[:, lo:hi].contiguous()
+    return out, plan.aux

@@ -14,6 +14,11 @@ M > 1 its sequence rows: SP's layout) and the exchange goes over
     -> the rank's experts (E / M of them) over the slots it received
     -> all-to-all back, gate-weighted combine at the source.
 
+Where ``model`` does not divide the sequence, the reference falls back to
+its GSPMD ``ffn.moe`` with the sequence whole on every model rank; so does
+the port (``ffn.moe`` on a model axis: the rank's experts, their outputs
+all-gathered over ``model``).
+
 The groups are the running step's (``sharding.ctx.get_expert_parallel``)
 or, called with a context mesh and no step, built from that mesh.  The
 load-balancing statistics are averaged over the model group (the
@@ -100,11 +105,8 @@ def moe_ep(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     tp = ctx.get_tensor_parallel()
     if tp is not None and not tp.sp:
         # the reference's fallback (s % model): its GSPMD MoE on the whole
-        # sequence, repeated on every model rank
-        raise NotImplementedError(
-            f"{cfg.name}: a sequence of {tp.seq} that a model axis of {m} "
-            f"does not divide: the reference's fallback to its GSPMD MoE "
-            f"with the sequence whole is not ported")
+        # sequence, every model rank running its experts
+        return ffn.moe(p, cfg, x)
     e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
     e_local = e // m
     bl, sl, _ = x.shape

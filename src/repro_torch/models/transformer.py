@@ -70,7 +70,17 @@ boundary: each block's K1 norms on the rank's rows, rwkv6's time-mix
 and mamba2 on the rank's heads of 64, rwkv6's channel-mix on its ff
 columns (``models.rwkv6``, ``models.mamba2``), the hybrid's shared
 attention and MLP as the dense block's, under their own rules paths
-(``blocks/shared_attn``, ``blocks/shared_mlp``)."""
+(``blocks/shared_attn``, ``blocks/shared_mlp``).
+
+Serving on a model axis (``sharding.serving.ServingStep``: the same
+context, with the rank's slice of the cache): the transformer families'
+``prefill`` and ``decode_step`` run each rank's part as the train step
+does (SP where ``model`` divides the prompt; a decode step never has it),
+the cache written and read by ``models.attention`` in the layout of
+``rules.cache_specs``, the MoE per ``ffn.moe``'s model-axis forms, and the
+logits taken over the whole vocab on every rank (the final norm on the
+rank's rows, the last position's vector summed over ``model``, the head
+gathered whole)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -128,11 +138,8 @@ def _block_fwd(p, cfg: ModelConfig, x, positions):
     if moe_ep.applicable(cfg, ctx.get_mesh()):
         out, aux = moe_ep.moe_ep(p["mlp"], cfg, y)
     else:
-        if ctx.get_tensor_parallel() is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_experts} experts on a model axis that "
-                f"does not divide them: the reference's GSPMD MoE with its "
-                f"experts' ff dim over 'model' is not ported")
+        # on a model axis that does not divide the experts, each expert's
+        # ff columns split over model (ffn.moe)
         out, aux = ffn_mod.moe(p["mlp"], cfg, y)
     return h + out, aux
 
@@ -481,7 +488,8 @@ class Model:
         ``kpos <= qpos`` instead of within ``tokens`` alone, so a chunk at
         offset ``start > 0`` sees every earlier chunk's positions."""
         cfg = self.cfg
-        x = self.embed(params, tokens)
+        tp = self._serving_tp(attend_cache=attend_cache)
+        x = self._embed_in(params, tokens, tp)
         attend = (attn_mod.attention_prefill_cached if attend_cache
                   else attn_mod.attention_prefill)
         if cfg.family == "ssm":
@@ -494,26 +502,66 @@ class Model:
                 lambda g, p, xa: attend(p, cfg, xa, KVCache(
                     kv.k[g], kv.v[g]), start)[0])
             return self._last_logits(params, x, lengths), cache
-        for li, layer in enumerate(params["blocks"]):
-            h_in = rmsnorm(x, layer["ln1"], cfg.norm_eps)
+        def block(item, h):
+            li, layer = item
+            layer = ctx.gathered(layer, "blocks")
+            h_in = rmsnorm(h, _norm_weight(layer["ln1"], "blocks/ln1"),
+                           cfg.norm_eps)
             y, _ = attend(layer["attn"], cfg, h_in,
                           KVCache(cache.k[li], cache.v[li]), start)
-            h = x + y
-            x = h + _ffn(layer["mlp"], cfg,
-                         rmsnorm(h, layer["ln2"], cfg.norm_eps))
+            h = h + y
+            return h + _ffn(layer["mlp"], cfg, rmsnorm(
+                h, _norm_weight(layer["ln2"], "blocks/ln2"), cfg.norm_eps))
+        x = hlo_counter.layers(block, list(enumerate(params["blocks"])), x)
         return self._last_logits(params, x, lengths), cache
 
+    def _serving_tp(self, attend_cache: bool = False, paged: bool = False):
+        """The running serving step's ``TensorParallel`` (None off a model
+        axis), for the paths that run on one: the transformer families'
+        dense prefill and decode, as the reference's dry run lowers
+        them."""
+        tp = ctx.get_tensor_parallel()
+        if tp is None:
+            return None
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name}: serving with the params split over 'model' "
+                f"for the {cfg.family} family (its recurrent state's "
+                f"layout over model): ROADMAP.md queue 1 item 9f")
+        if attend_cache or paged:
+            raise NotImplementedError(
+                f"{cfg.name}: a chunked or paged serving step on a model "
+                f"axis: the model axis reaches serving through the dense "
+                f"prefill and decode_step alone, as the reference's dry "
+                f"run lowers them")
+        return tp
+
+    def _embed_in(self, params, tokens, tp):
+        """The embedding of ``tokens`` as the blocks take it (vocab-
+        parallel on a model axis: ``TensorParallel.embed``)."""
+        embed = ctx.gathered(params["embed"], "embed")
+        return lookup(embed, tokens) if tp is None else \
+            tp.embed(embed, tokens)
+
     def _last_logits(self, params, x, lengths):
-        """Final norm and head at each row's last real position."""
+        """Final norm and head at each row's last real position (on a
+        model axis: the head gathered whole over ``model``, the logits of
+        the whole vocab on every rank)."""
         b, s = x.shape[:2]
-        x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        tp = ctx.get_tensor_parallel()
+        x = rmsnorm(x, _norm_weight(ctx.gathered(params["ln_f"], "ln_f"),
+                                    "ln_f"), self.cfg.norm_eps)
+        head = ctx.gathered(params["head"], "head")
+        if tp is not None:
+            return tp.last_rows(x, lengths) @ tp.whole(head, "head")
         if lengths is None:
             x_last = x[:, -1]
         else:
             idx = (torch.as_tensor(lengths, device=x.device).long() - 1
                    ).clamp(0, s - 1)
             x_last = x[torch.arange(b, device=x.device), idx]
-        return x_last @ params["head"]
+        return x_last @ head
 
     def prefill_paged(self, params, tokens, kv: KVCache, bt_row, state,
                       start: int, lengths, *, first: bool):
@@ -532,6 +580,7 @@ class Model:
         exactly like the dense admission prefill; continuation chunks
         gather the slot's pages and attend ``kpos <= qpos``."""
         cfg = self.cfg
+        self._serving_tp(paged=True)
         if cfg.family == "ssm":
             logits, state = self.prefill(params, tokens, state,
                                          lengths=lengths)
@@ -579,7 +628,9 @@ class Model:
         attention runs against the view, updated in place, and the return
         value is ``(logits, cache, view)``: the decode chunk's form."""
         cfg = self.cfg
-        x = self.embed(params, token)
+        tp = self._serving_tp(paged=block_tables is not None
+                              or kv_view is not None)
+        x = self._embed_in(params, token, tp)
         if cfg.family == "ssm":
             x = self._rwkv_layers(params, x, cache)
         elif cfg.family == "hybrid":
@@ -589,15 +640,20 @@ class Model:
                 lambda g, p, xa: _decode_attend(
                     p, cfg, xa, kv.k, kv.v, g, pos, block_tables, kv_view))
         else:
-            for li, layer in enumerate(params["blocks"]):
-                h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
-                x = x + _decode_attend(layer["attn"], cfg, h, cache.k,
+            def block(item, h):
+                li, layer = item
+                layer = ctx.gathered(layer, "blocks")
+                a = rmsnorm(h, _norm_weight(layer["ln1"], "blocks/ln1"),
+                            cfg.norm_eps)
+                h = h + _decode_attend(layer["attn"], cfg, a, cache.k,
                                        cache.v, li, pos, block_tables,
                                        kv_view)
-                x = x + _ffn(layer["mlp"], cfg,
-                             rmsnorm(x, layer["ln2"], cfg.norm_eps))
-        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        logits = x[:, -1] @ params["head"]
+                return h + _ffn(layer["mlp"], cfg, rmsnorm(
+                    h, _norm_weight(layer["ln2"], "blocks/ln2"),
+                    cfg.norm_eps))
+            x = hlo_counter.layers(block, list(enumerate(params["blocks"])),
+                                   x)
+        logits = self._last_logits(params, x, None)
         if kv_view is not None:
             return logits, cache, kv_view
         return logits, cache

@@ -587,12 +587,23 @@ class TensorParallel:
     rwkv6's ``d_model``, of mamba2's ``din``), where ``model`` divides
     them (``split_mixer``), else the mixer runs whole on every rank.
     :meth:`mamba_columns` gives the per-segment column ranges of mamba2's
-    ``w_in`` (``z | x | B | C | dt``) and ``conv_w`` (``x | B | C``)."""
+    ``w_in`` (``z | x | B | C | dt``) and ``conv_w`` (``x | B | C``).
+
+    A serving step (``Model.prefill`` of ``seq`` tokens, or
+    ``Model.decode_step``: ``seq`` 1, so SP is never on) also gives ``kv``,
+    what the rank holds of the layer-stacked KV cache under
+    ``rules.cache_specs`` (``rules.kv_slice``: its ``rows``, positions
+    ``pos``, kv ``heads`` and ``layout``).  Where ``model`` splits the kv
+    heads (``layout == "heads"``) they are the kv heads the rank's query
+    heads read, and it writes and reads them alone; where it splits the
+    positions (``"seq"``) the rank holds every kv head of its positions,
+    and a decode step merges each rank's partial attention over ``model``
+    (``models.attention``)."""
 
     def __init__(self, group: ModelGroup, dims: Dict[str, Optional[int]],
-                 cfg, seq: int):
+                 cfg, seq: int, kv: Optional[Dict] = None):
         m, r = group.size, group.index
-        self.group, self.dims, self.seq = group, dims, seq
+        self.group, self.dims, self.seq, self.kv = group, dims, seq, kv
         self.sp = seq % m == 0
         self.rows = chunk_bounds(seq, m)[r]
         hd, local = cfg.hd, cfg.n_heads // m
@@ -603,6 +614,15 @@ class TensorParallel:
         self.kv_cols = (k0 * hd, k1 * hd)
         self.ff_cols = chunk_bounds(cfg.d_ff, m)[r]
         self.split_heads = check_model_axis(cfg, {"model": m})
+        # each kv head's place among the kv heads gathered over model (every
+        # rank's (k0, k1) in rank order): the first rank that computes it
+        per = k1 - k0
+        self.kv_pick = [min(i * per + h - (i * local) // kv_group
+                            for i in range(m)
+                            if (i * local) // kv_group <= h
+                            < (i * local) // kv_group + per)
+                        for h in range(cfg.n_kv_heads)] \
+            if self.split_heads else []
         mh = mixer_heads(cfg)
         self.split_mixer = check_model_axis(cfg, {"model": m}, mixer=True)
         h0, h1 = (r * mh // m, (r + 1) * mh // m) if self.split_mixer \
@@ -685,6 +705,35 @@ class TensorParallel:
         y = fn(self.enter(x))
         lo, hi = self.rows
         return y[:, lo:hi].contiguous()
+
+    # -- serving ------------------------------------------------------------
+    def gather_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's kv heads (b, s, k1 - k0, hd) -> every kv head, each
+        from the first rank that computes it (ranks whose query heads share
+        a kv head compute it alike)."""
+        whole = self.group.all_gather(t, 2)
+        if whole.shape[2] == len(self.kv_pick):
+            return whole
+        return whole[:, :, torch.tensor(self.kv_pick, device=t.device)]
+
+    def last_rows(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        """Each batch row's vector at its last real position (``lengths -
+        1``, else the last) of ``x`` (b, rows, d), whole on every rank:
+        with SP on, the rank that holds the position gives it (the others
+        zeros) and the sum runs over ``model``."""
+        b = x.shape[0]
+        idx = (torch.full((b,), self.seq, device=x.device) if lengths is
+               None else torch.as_tensor(lengths, device=x.device).long())
+        idx = (idx - 1).clamp(0, self.seq - 1)
+        slots = torch.arange(b, device=x.device)
+        if not self.sp:
+            return x[slots, idx]
+        lo, hi = self.rows
+        own = (idx >= lo) & (idx < hi)
+        rows = x[slots, (idx - lo).clamp(0, hi - lo - 1)]
+        rows = torch.where(own[:, None], rows,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+        return reduce_from(rows, self.group)
 
     # -- activations ----------------------------------------------------------
     def enter(self, x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,11 @@ What differs from the reference, and why:
   * **Placements.**  :func:`named` turns specs into DTensor placements, one
     per mesh dim (``Shard(d)`` or ``Replicate()``), the counterpart of the
     reference's ``NamedSharding``; :func:`local_shard` cuts a global tensor
-    into one rank's piece by them.
+    into one rank's piece by them, :func:`shard_cache` a serving cache by
+    :func:`cache_specs`, and :func:`kv_slice` says which batch rows,
+    positions and kv heads of the KV leaves that piece holds (the serving
+    step on a model axis reads it: ``sharding.collectives.
+    TensorParallel``).
 
 Size-1 axes are named like the others (qwen3-4b on ``{data: 2, model:
 1}`` gives the reference's stacked ``wq`` ``(None, None, 'model')``, each
@@ -47,8 +51,8 @@ import torch
 
 __all__ = ["PartitionSpec", "PS", "mesh_shape", "dp_axes", "param_spec",
            "params_specs", "opt_state_specs", "batch_specs",
-           "activation_spec", "cache_specs", "named", "local_shard",
-           "tree_map_specs"]
+           "activation_spec", "cache_specs", "kv_slice", "shard_cache",
+           "named", "local_shard", "tree_map_specs"]
 
 
 class PartitionSpec(tuple):
@@ -361,3 +365,50 @@ def local_shard(t: torch.Tensor, mesh, spec: PS,
             n = t.shape[d] // parts
             t = t.narrow(d, idx * n, n)
     return t
+
+
+def shard_cache(cfg, mesh, cache, coordinate: Dict[str, int]):
+    """The piece of the serving ``cache`` (a ``KVCache`` or a tree of them,
+    global shapes) that the rank at ``coordinate`` holds under
+    :func:`cache_specs`: fresh tensors of the cache's structure, the
+    counterpart of the train step's ``shard_state`` for the KV leaves."""
+    specs = cache_specs(cfg, mesh, cache)
+
+    def walk(spec, node):
+        if node is None:
+            return None
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            return type(node)(*(walk(getattr(spec, f), getattr(node, f))
+                                for f in fields))
+        if isinstance(node, dict):
+            return {k: walk(spec[k], v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(sp, v) for sp, v in zip(spec, node))
+        return local_shard(node, mesh, spec, coordinate).clone()
+    return walk(specs, cache)
+
+
+def kv_slice(cfg, mesh, shape, coordinate: Dict[str, int]) -> Dict:
+    """What the rank at ``coordinate`` holds of layer-stacked KV leaves of
+    global ``shape`` (L, b, max_seq, nkv, hd) under :func:`cache_specs`:
+    ``{"rows": (b0, b1), "pos": (p0, p1), "heads": (h0, h1), "max_seq":
+    max_seq}``, each range of the global dim, and ``"layout"``: ``"heads"``
+    where ``model`` splits the kv heads, ``"seq"`` where it splits the
+    positions (the flash-decode layout), ``"whole"`` where it splits
+    neither."""
+    spec = cache_specs(cfg, mesh, {"k": torch.empty(shape, device="meta")})
+    out = {"max_seq": shape[2], "layout": "whole"}
+    for name, dim, (idx, parts) in zip(
+            (None, "rows", "pos", "heads", None), shape,
+            _split_of(mesh, spec["k"], coordinate)):
+        if name is None:
+            continue
+        n = dim // parts
+        out[name] = (idx * n, (idx + 1) * n)
+    axes = _mesh_axes(mesh, spec["k"])
+    sizes = mesh_shape(mesh)
+    for name, dim in (("seq", 2), ("heads", 3)):
+        if "model" in axes[dim] and sizes["model"] > 1:
+            out["layout"] = name
+    return out

@@ -106,6 +106,24 @@ def test_batched_dot_flops_equal_the_references():
     assert c.dot_flops == want == 2 * 8 * 64 * 32 * 16
 
 
+def test_an_out_dtype_product_counts_as_its_dot():
+    """``bmm`` / ``mm`` of bf16 operands kept in fp32 (``out_dtype``: the
+    card's decode attention, ``models.attention._bmm_f32``, which the dry
+    run counts on ``meta``; the CPU backend has no such overload) count
+    the plain product's 2 M N K FLOPs."""
+    device = "meta"
+    a = torch.ones(8, 4, 32, dtype=torch.bfloat16, device=device)
+    b = torch.ones(8, 32, 16, dtype=torch.bfloat16, device=device)
+    c = hlo_counter.count(lambda x, y: torch.bmm(x, y,
+                                                 out_dtype=torch.float32),
+                          a, b)[1]
+    assert c.dot_flops == 2 * 8 * 4 * 32 * 16
+    c = hlo_counter.count(lambda x, y: torch.mm(x, y,
+                                                out_dtype=torch.float32),
+                          a[0], b[0])[1]
+    assert c.dot_flops == 2 * 4 * 32 * 16
+
+
 @pytest.mark.parametrize("scale", [True, False])
 def test_layer_loop_multiplies_by_trip_count(scale):
     """The reference's scan of 24 layers against the port's loop through
@@ -336,3 +354,77 @@ def test_dry_run_roofline_equals_a_real_step(gloo_counts, name, scale):
     assert row["coll_bytes"] == 2 * cbytes
     assert row["coll_count"] == ccount
     assert row["model_flops"] == 6.0 * cfg.active_param_count() * b * s
+
+
+# ---------------------------------------------------------------------------
+# a serving step on a model axis against the reference's lowered step
+# ---------------------------------------------------------------------------
+
+SERVE_FLOPS_SCRIPT = r"""
+import json
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as PS
+from repro.analysis import hlo
+from repro.configs import smoke_config
+from repro.sharding import ctx, rules
+from repro.models.transformer import Model
+out = {}
+for arch in ("qwen3_4b", "dbrx_132b"):
+    cfg = smoke_config(arch)
+    model = Model(cfg)
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+    ctx.set_mesh(mesh)
+    named = lambda spec: jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s), spec,
+        is_leaf=lambda x: isinstance(x, PS))
+    params = jax.eval_shape(lambda: model.init_params(jax.random.PRNGKey(0)))
+    cache = jax.eval_shape(lambda: model.init_cache(2, cfg.max_seq))
+    ps = named(rules.params_specs(params, mesh, cfg))
+    cs = named(rules.cache_specs(cfg, mesh, cache))
+    pre = jax.jit(lambda p, t, c: model.prefill(p, t, c),
+                  in_shardings=(ps, named(PS("data")), cs),
+                  out_shardings=(None, cs)).lower(
+        params, jax.ShapeDtypeStruct((2, 16), jnp.int32), cache)
+    dec = jax.jit(lambda p, t, c, pos: model.decode_step(p, t, c, pos),
+                  in_shardings=(ps, named(PS("data")), cs, None),
+                  out_shardings=(None, cs)).lower(
+        params, jax.ShapeDtypeStruct((2, 1), jnp.int32), cache,
+        jax.ShapeDtypeStruct((), jnp.int32))
+    for kind, low in (("prefill", pre), ("decode", dec)):
+        out[f"{arch}|{kind}"] = hlo.analyze(low.compile(), chips=2,
+                                            model_flops=1.0).row()["flops"]
+    ctx.set_mesh(None)
+print("FLOPS", json.dumps(out))
+"""
+
+# the share by which a serving step's counted FLOPs may pass the
+# reference's on (1, 2): every rank of the port repeats the head's matmul
+# over the whole vocab (2 b d vocab a rank; GSPMD's partitioned module
+# keeps it row-parallel), and the port's prefill attention (K3) counts the
+# causal pairs where the reference's einsum counts every pair
+SERVE_FLOPS_SHARE = 0.15
+
+
+def test_serving_step_flops_against_the_references_lowered_step(
+        forced_devices):
+    """``dryrun.serving_roofline`` of the smoke qwen3-4b and dbrx-132b
+    prefill (2 x 16 tokens) and decode step (a cache of ``max_seq``) on
+    ``data=1, model=2`` against the reference's ``hlo.analyze`` of its
+    ``prefill`` / ``decode_step`` lowered with ``params_specs`` and
+    ``cache_specs`` on two forced devices: the FLOPs of both chips within
+    ``SERVE_FLOPS_SHARE`` of each other."""
+    import json
+    r = forced_devices(SERVE_FLOPS_SCRIPT, n=2, timeout=300)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("FLOPS ")]
+    assert line, r.stdout + r.stderr
+    want = json.loads(line[0][6:])
+    for arch in ("qwen3_4b", "dbrx_132b"):
+        cfg = smoke_config(arch)
+        for kind in ("prefill", "decode"):
+            info = {"seq": 16 if kind == "prefill" else cfg.max_seq,
+                    "batch": 2, "kind": kind}
+            got = dryrun.serving_roofline(Model(cfg), info,
+                                          {"data": 1, "model": 2})["flops"]
+            w = want[f"{arch}|{kind}"]
+            assert abs(got - w) <= SERVE_FLOPS_SHARE * w, (arch, kind, got,
+                                                           w)

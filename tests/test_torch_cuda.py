@@ -2320,3 +2320,79 @@ def test_recurrent_sharded_engine_on_one_nccl_rank(cuda_device):
         assert res[layout]["tokens"] == want
         assert res[layout]["descriptor"] == "data=1"
         assert res[layout]["launches"]["rmsnorm"] > 0
+
+
+# ---- serving with the params split over model ------------------------------
+
+SERVE_TP_PROMPTS = (200, 151, 64, 23)
+# bf16 over 36 layers, the rank's collectives summing in other orders: of
+# the largest logit's magnitude
+SERVE_TP_BF16_TOL = 5e-2
+
+
+def _serve_tp_card_rank(rank, world):
+    """qwen3-4b at full width and depth, bf16, on ``data=1, model=world``
+    over NCCL: rank 0's one-card prefill of phase 4's prompts first (the
+    others wait), then every rank's prefill of them through
+    ``sharding.serving.ServingStep`` (the params cut to the rank's pieces
+    from the same seed-0 draw); the first step's logits on the host."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.serving import ServingStep
+    cfg = config("qwen3_4b")
+    model = Model(cfg)
+    b, max_seq = len(SERVE_TP_PROMPTS), 256
+    lens = torch.tensor(SERVE_TP_PROMPTS, device="cuda")
+    tokens = torch.randint(
+        0, cfg.vocab, (b, max(SERVE_TP_PROMPTS)), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(21))
+    out = {}
+    if rank == 0:
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        with torch.no_grad():
+            logits, _ = model.prefill(params, tokens,
+                                      model.init_cache(b, max_seq),
+                                      lengths=lens)
+        out["one"] = logits.float().cpu().numpy()
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    serve = ServingStep(model, make_mesh((1, world), ("data", "model")), b,
+                        max_seq)
+    whole = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = serve.shard_params(whole)
+    del whole
+    torch.cuda.empty_cache()
+    logits, _ = serve.prefill(params, tokens,
+                              serve.shard_cache(model.init_cache(b, max_seq)),
+                              lengths=lens)
+    out["tp"] = logits.float().cpu().numpy()
+    out["layout"] = serve.kv["layout"]
+    return out
+
+
+def test_serving_qwen3_4b_on_four_cards_over_nccl():
+    """qwen3-4b at full width and depth, bf16, its params split over
+    ``model=4`` (one NCCL rank a card, the kv heads over ``model``): every
+    rank's first-step logits the same, and within SERVE_TP_BF16_TOL of
+    the largest of the one-card step's."""
+    import numpy as np
+
+    from repro_torch.testing import ranks
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (NCCL takes one rank a GPU)")
+    res = ranks.spawn(_serve_tp_card_rank, 4, backend="nccl", device="cuda",
+                      timeout=900)
+    one = res[0]["one"]
+    scale = float(np.abs(one).max())
+    for r in res:
+        assert r["layout"] == "heads"
+        np.testing.assert_array_equal(r["tp"], res[0]["tp"])
+    err = float(np.abs(res[0]["tp"] - one).max())
+    print(f"qwen3-4b bf16 prefill on model=4 (NCCL) against one card: max "
+          f"abs err {err} of the largest {scale}; argmax agree "
+          f"{(res[0]['tp'].argmax(-1) == one.argmax(-1)).tolist()}")
+    assert err <= SERVE_TP_BF16_TOL * scale

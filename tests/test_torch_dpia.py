@@ -409,7 +409,7 @@ STAGE3_CASES = {
     "grid_rmsnorm": lambda pkg: pkg.blas.strategy_rmsnorm(16, 64,
                                                           row_block=4),
     # the generated CUDA's ragged and shrunk dotBlock tilings
-    # (test_torch_emulated.py) are held to this Stage III
+    # (test_torch_emulated_k4.py) are held to this Stage III
     "matmul_ragged": lambda pkg: pkg.blas.strategy_matmul(130, 74, 150,
                                                           bm=130, bk=37),
     "matmul_shrunk": lambda pkg: pkg.blas.strategy_matmul(8, 100, 6000,

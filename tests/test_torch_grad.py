@@ -6,7 +6,8 @@ reference's jnp oracles (``repro.kernels.ref``), and the two
 ``autograd.Function``s (``_RMSNormFn``, ``_FlashAttentionFn``), which run
 those plain versions on a CPU tensor, against autograd of the plain
 forwards.  The backward kernels themselves run under
-``tests/cuda_emu.h`` (``test_torch_emulated.py``) and on the card
+``tests/cuda_emu.h`` (``test_torch_emulated_rmsnorm.py``,
+``test_torch_emulated_flash.py``) and on the card
 (``test_torch_cuda.py``).
 
 Tolerances: fp64 ``gradcheck`` at its defaults (finite differences);

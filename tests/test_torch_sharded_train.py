@@ -633,11 +633,9 @@ def test_dryrun_bytes_equal_the_reference_specs(arch, shape, multi):
     assert rec["params"] == jcfg.param_count()
     assert rec["active_params"] == jcfg.active_param_count()
     assert "roofline" in rec
-    if shape == "train_4k":
-        assert rec["roofline"]["flops"] > 0 and \
-            rec["roofline"]["xla_flops_raw"] is None
-    else:
-        assert "item 9" in rec["roofline"]["roadmap"]
+    assert rec["roofline"]["flops"] > 0 and \
+        rec["roofline"]["xla_flops_raw"] is None
+    assert "error" not in rec["roofline"]
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "yi_9b"])
