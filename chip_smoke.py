@@ -142,7 +142,12 @@ result):
    stages, and the op table's tuner fallback fired zero times; (e) right
    after phase 4b, on its weights: ``ContinuousEngine(kv_layout="auto")``
    serves 4b's traffic in the layout ``autotune.pick_kv_layout`` picks,
-   with 4b's exact K1 / K3 counts and its tokens bit for bit.  Phases 9
+   with 4b's exact K1 / K3 counts and its tokens bit for bit; (f) the
+   engines' ``tuning_cache=`` warm-up: a qwen3-4b ``ContinuousEngine``
+   built under ``options(backend="dpia-cuda")`` pre-tunes and stages the
+   model's op shapes and exports ``<cache>.aot`` holding exactly the keys
+   it staged; a second engine, in emptied executor caches, loads them all
+   from the store and stages none.  Phases 9
    and 10 run the op rows under ``options(autotune=False)``, at phase 7's
    programs.  Every tuning cache lives in a temporary directory
    (``REPRO_AUTOTUNE_CACHE`` points there for the whole run);
@@ -242,7 +247,7 @@ result):
    in spawned ranks (a failed rank fails the run), K1 / K3 forward and
    backward launches zeroed before each step and checked exactly after it
    on every rank: (a) one NCCL rank (``data=1``), qwen3-4b at full width
-   cut to 12 layers, bf16, remat, 13b's batch, lr and warm-up, deterministic
+   cut to 6 layers, bf16, remat, 13b's batch, lr and warm-up, deterministic
    algorithms: 3 one-device steps, then 3 mesh steps from the same seed-0
    weights, their loss, grad norm and every tensor's bits (checksums)
    equal, step time and peak memory beside 13b's; (b) DP, qwen3-4b cut
@@ -278,7 +283,7 @@ result):
 18. the transformer families, after phase 17, random weights drawn on
    the card from seed 0, K1 / K3 counts zeroed before each counted run
    and checked exactly after it: (a) dbrx-132b (moe: 16 experts top-4)
-   at full width cut to 4 layers (28.5 GB), bf16, on phase 4b's traffic
+   at full width cut to 2 layers (15.5 GB), bf16, on phase 4b's traffic
    through ``BatchedEngine`` and ``ContinuousEngine`` (dense and paged,
    the decode chunk a CUDA graph): each engine's second run bitwise its
    first (the sampled request included), dense = paged, tok/s and a
@@ -286,7 +291,8 @@ result):
    layers in fp32 (TF32 off), the same weights on the card and on the
    CPU: a right-padded prefill's and one decode step's logits within
    ``LOGIT_TOL``, the same greedy tokens; (b) musicgen-large (audio, 4
-   codebooks, head dim 64), not cut, likewise (no CPU part); (c)
+   codebooks, head dim 64), 24 of its 48 layers, likewise (no CPU
+   part); (c)
    stablelm-1.6b (not cut), qwen1.5-32b and chameleon-34b (8 layers),
    grok-1-314b (2 layers): one static prefill and its 8 decode steps
    each; (k) K1 and K3 at the new shapes (K3 ``mma`` at head dim 64 at
@@ -316,7 +322,7 @@ result):
    token) against the reckoning, a decode step's device time; then a cut
    (rwkv6 2 layers, zamba2 one group) in fp32 against the CPU as 18a;
    (c) two bf16 remat train steps of each at the same cut, batch
-   4 x 128 (the time loops' length cut), with their time, tok/s, peak
+   4 x 64 (the time loops' length cut), with their time, tok/s, peak
    memory and exact K1 / K3 forward and backward launches, and the cut's
    fp32 step
    against the CPU's (loss and gradient norm); (d) FSDP on two gloo
@@ -326,12 +332,12 @@ result):
    the dry run's.  ``tools/recurrent.py`` runs phase 19
    alone.
 20. the model axis for the recurrent families and the op counter, after
-   phase 19: (k) K1 and its backward at 20a / 20b's rank rows (64 rows of
+   phase 19: (k) K1 and its backward at 20a / 20b's rank rows (32 rows of
    2048 / 2560, fp32) and K3 ``tf32x3`` at D 80, forward (held to
-   float64 too) and backward, at 20b's rank shape (2 x 16 heads, 64), as
+   float64 too) and backward, at 20b's rank shape (2 x 16 heads, 32), as
    17k; (a) rwkv6-1.6b (2 layers) and (b) zamba2-2.7b (one group: 6 mamba
    layers, one shared-block site) at full width, TP + SP on ``model=2``,
-   fp32, batch 2 x 64, two gloo ranks sharing the card, held to the
+   fp32, batch 2 x 32, two gloo ranks sharing the card, held to the
    one-device step with 17a's checks (each rank's state bytes against the
    dry run's); (c) ``analysis.hlo_counter`` on the card: 13b's qwen3-4b
    step and 20a's rwkv6 step on each rank, counted with the layers and
@@ -346,7 +352,7 @@ result):
    positions; (a) qwen3-4b (2 layers) and (b) dbrx-132b (1 layer) at full
    width, fp32, ``data=1, model=2`` on two gloo ranks sharing the card
    (``sharding.serving.ServingStep``: the params and the cache placed by
-   the rules), phase 4's prompts right-padded and 16 new tokens (21b: 8)
+   the rules), phase 4's prompts right-padded and 4 new tokens
    greedy, each row at its own position: tokens identical to the one-device
    port's on the same weights, first-step logits within
    SERVE_TP_LOGIT_TOL, K1 / K3 launches a rank predicted
@@ -355,9 +361,23 @@ result):
    the reference's serving MoE; (c) 21a's decode step counted on each
    rank of the card equal to its count on the ``meta`` device.
    ``tools/serve_tp.py`` runs phase 21 alone.
+22. the recurrent families served with the params split over ``model``,
+   after phase 21: (k) K1 fp32 on a serving rank's rows (the prefill's SP
+   rows of phase 4's 4 x 200 prompt, 400 of 2048 / 2560; a decode step's
+   4) and K3 at D 80 (``tf32x3`` fp32, ``mma`` bf16) on 22b's rank's 16 of
+   32 shared-block heads over 200 positions, causal; (a) rwkv6-1.6b (2
+   layers) and (b) zamba2-2.7b (one group: 6 mamba layers and the shared
+   block) at full width, fp32, ``data=1, model=2`` on the shared spawn's
+   two gloo ranks, as 21a / 21b: tokens identical to the one-device port's,
+   first-step logits within SERVE_TP_LOGIT_TOL, each rank's cache after
+   the prefill (the recurrent state in the rules' layout, the hybrid's KV)
+   the one-device cache's piece within the same tolerance, each rank's
+   cache bytes the dry run's, K1 / K3 launches a rank predicted; (c) 22a's
+   decode step counted on each rank of the card equal to its count on the
+   ``meta`` device.  ``tools/serve_tp.py --phase 22`` runs phase 22 alone.
 
-The two-rank gloo cells of phases 16-21 (16b / 16c, 17a, 18d, 19d, 20a /
-20b, 21a / 21b) run after phase 15 in one spawn of two ranks
+The two-rank gloo cells of phases 16-22 (16b / 16c, 17a, 18d, 19d, 20a /
+20b, 21a / 21b, 22a / 22b) run after phase 15 in one spawn of two ranks
 (:func:`two_rank_cells`; a spawn a cell took the script to 1 151 s on an
 NVIDIA H100 80GB HBM3 at 700 W: each spawn costs its processes' start-up
 and a process's slow first fp32 step); each phase then checks and logs
@@ -376,8 +396,9 @@ a step, by part and rank; K1's and K3's ``launches_phase18`` by part:
 18a / 18b by engine, 18c by arch, 18d's ranks a step with the backward
 kernels'; ``launches_phase19`` likewise: 19a / 19b by engine, 19c by
 arch, 19d's ranks; ``launches_phase20``, 20a's and 20b's ranks a step;
-``launches_phase21``, 21a's and 21b's ranks a run; phase 17k's, 18k's,
-19k's, 20k's and 21k's cases among their ``cases``), the
+``launches_phase21``, 21a's and 21b's ranks a run; ``launches_phase22``,
+22a's and 22b's ranks a run; phase 17k's, 18k's, 19k's, 20k's, 21k's and
+22k's cases among their ``cases``), the
 card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``; ``[12] summary`` and
 ``[13] summary`` lines before them gather phases 12 and 13.
@@ -2099,6 +2120,64 @@ def phase_tuned_serving(smi, cfg, model, params, reqs, want):
         f"card {smi}")
     del engine
     torch.cuda.empty_cache()
+    phase_engine_warm(smi, model, params)
+
+
+def phase_engine_warm(smi, model, params):
+    """[11f] the engines' ``tuning_cache=`` warm-up under
+    ``options(backend="dpia-cuda")``: a ContinuousEngine of phase 4b's
+    shape pre-tunes the model's op shapes and stages their K4 programs,
+    exporting ``<cache>.aot`` with exactly the keys it staged; a second
+    engine, in emptied executor caches, loads every program from the store
+    and stages none.  Both engines' seconds and counts are logged."""
+    import json as _json
+    from repro_torch import compiler
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ContinuousEngine
+    where = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    path = os.path.join(where, "warm.json")
+    store = compiler.executor_cache()
+    try:
+        ops.clear_caches()
+        out = {}
+        for label in ("first", "second"):
+            before = set(store.keys())
+            t0 = time.perf_counter()
+            with compiler.options(backend="dpia-cuda"):
+                engine = ContinuousEngine(
+                    model, params, max_seq=continuous_max_seq(), slots=SLOTS,
+                    chunk=CHUNK, tuning_cache=path)
+            out[label] = {"s": time.perf_counter() - t0,
+                          "tuned": len(engine.tuned),
+                          "staged": len(set(store.keys()) - before),
+                          **store.stats()}
+            if label == "first":
+                staged = set(store.keys()) - before
+                aot = set()
+                for name in os.listdir(path + ".aot"):
+                    if name.endswith(".json"):
+                        with open(os.path.join(path + ".aot", name)) as f:
+                            aot.add(_json.load(f)["key"])
+                if not staged or aot != staged:
+                    raise AssertionError(
+                        f"[11f] the first engine staged {sorted(staged)}; "
+                        f"its store holds {sorted(aot)}")
+                out[label]["aot_files"] = len(aot)
+                ops.clear_caches()
+            del engine
+        second = out["second"]
+        if second["builds"] != 0 or second["aot_loads"] != len(staged) or \
+                second["staged"] != len(staged):
+            raise AssertionError(f"[11f] the second engine: {second}, the "
+                                 f"first staged {len(staged)}")
+        log(f"[11f] ContinuousEngine(tuning_cache=...) under "
+            f"options(backend='dpia-cuda'): qwen3-4b's op shapes pre-tuned "
+            f"and staged, <cache>.aot holding exactly the first engine's "
+            f"keys, the second engine loading all of them and staging none: "
+            + _json.dumps(out) + f"; card {smi}")
+    finally:
+        ops.clear_caches()
+        shutil.rmtree(where, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3313,8 +3392,9 @@ def mesh_kernel_entries(smi, one, two):
 SHARD_RANKS = 2         # 15b / 15c: processes sharing the one card over gloo
 # 15b / 15c (and their one-process fp32 engine): qwen3-4b at full width
 # cut to 12 of its 36 layers since the script passed 1 100 s with phase 21
-# (NVIDIA H100 80GB HBM3, 700 W; phase 15 58-79 s at full depth)
-SHARD_FP32_LAYERS = 12
+# (NVIDIA H100 80GB HBM3, 700 W; phase 15 58-79 s at full depth), to 6
+# when phase 22 came (phase 15 56.5 s at 12 in a whole run of the script)
+SHARD_FP32_LAYERS = 6
 SHARD_LOST_AFTER = 2    # 15c: host 1 is lost at the third boundary
 
 
@@ -3599,8 +3679,9 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
 SHARDED_TRAIN_STEPS_ONE = 3   # 16a: one-device steps, then mesh steps
 # 16a: qwen3-4b at full width cut to 12 of its 36 layers since the script
 # passed 1 100 s with phase 21 (NVIDIA H100 80GB HBM3, 700 W; 16a 28-42 s
-# at full depth); its bits are compared at any depth
-SHARDED_ONE_LAYERS = 12
+# at full depth), to 6 when phase 22 came (27.8 s at 12, a whole run);
+# its bits are compared at any depth
+SHARDED_ONE_LAYERS = 6
 SHARDED_TRAIN_STEPS = 2       # 16b / 16c
 SHARDED_TRAIN_RANKS = 2       # 16b / 16c: processes sharing the one card
 # 16b / 16c / 17a / 17b: depth cut.  Two fp32 states with gradients (16
@@ -4288,8 +4369,10 @@ def phase_tp_train(smi, results_17a=None):
 # (``ModelConfig.param_count`` x 2 bytes): dbrx-132b 4 x 3.26 B + 1.23 B
 # = 28.5 GB, musicgen-large 6.5 GB whole, stablelm-1.6b 3.3 GB whole,
 # qwen1.5-32b 8 x 0.53 B + 1.56 B = 11.5 GB, chameleon-34b 8 x 0.69 B +
-# 1.07 B = 13.2 GB, grok-1-314b 2 x 4.92 B + 1.61 B = 22.9 GB
-FAMILY_LAYERS = {"dbrx_132b": 4, "musicgen_large": None,
+# 1.07 B = 13.2 GB, grok-1-314b 2 x 4.92 B + 1.61 B = 22.9 GB.  dbrx went
+# from 4 to 2 layers and musicgen from its 48 to 24 when phase 22 came
+# (18a 25.2 s, 18b 15.5 s in a whole run of the script)
+FAMILY_LAYERS = {"dbrx_132b": 2, "musicgen_large": 24,
                  "stablelm_1_6b": None, "qwen1_5_32b": 8,
                  "chameleon_34b": 8, "grok_1_314b": 2}
 # 18c: one static prefill of two prompts and its decode steps
@@ -4694,12 +4777,12 @@ def phase_ep(smi, res=None):
 
 def phase_families(smi, k1, ep=None):
     """[18] the transformer families, after phase 17, random weights drawn
-    on the card from seed 0: (a) dbrx-132b at full width cut to 4 layers,
+    on the card from seed 0: (a) dbrx-132b at full width cut to 2 layers,
     bf16, on phase 4b's traffic through the static engine and the
     continuous engine (dense and paged, graphs), each second run bitwise
     its first, exact K1 / K3 counts, a decode step's device time; then 2
-    layers in fp32 against the CPU; (b) musicgen-large (4 codebooks, whole)
-    likewise, K3 at head dim 64; (c) stablelm-1.6b (whole), qwen1.5-32b
+    layers in fp32 against the CPU; (b) musicgen-large (4 codebooks, 24
+    layers) likewise, K3 at head dim 64; (c) stablelm-1.6b (whole), qwen1.5-32b
     and chameleon-34b (8 layers), grok-1-314b (2 layers): one static
     prefill and its decode each; (d) expert parallelism on two gloo
     ranks (:func:`phase_ep`; ``ep``: its ranks' results from a shared
@@ -4784,14 +4867,18 @@ REC_CPU_PROMPT_LENS = (64, 23)
 # of fp32 moments.  A step's time is its time loops' launches, which grow
 # with s alone: on an NVIDIA H100 80GB HBM3 at 700 W, at 512 rwkv6 took
 # 14.8 s and zamba2 (batch 2) 31.8 s a step, at 4 x 256 8.5 s and 18.9 s:
-# both are cut to 4 x 128 to keep the script inside its time
-REC_TRAIN_SHAPE = {"rwkv6_1_6b": (4, 128), "zamba2_2_7b": (4, 128)}
+# both were cut to 4 x 128 to keep the script inside its time, and to 4 x
+# 64 when phase 22 came (19c 23.4 s at 4 x 128, NVIDIA H100 80GB HBM3,
+# 700 W, in a whole run of the script)
+REC_TRAIN_SHAPE = {"rwkv6_1_6b": (4, 64), "zamba2_2_7b": (4, 64)}
 # 19a / 19b / 19c: depth cut (full width) when phase 20 took the script
 # to 1 253 s (NVIDIA H100 80GB HBM3, 700.00 W; phase 19 251.2 s, 19a
 # 39.1, 19b 74.1, 19c 50.7 s at full depth): the eager time loops' time
 # grows with the layers; 6 of rwkv6's 24, 2 of zamba2's 9 groups (12
-# mamba layers, 2 shared-block sites)
-REC_LAYERS = {"rwkv6_1_6b": 6, "zamba2_2_7b": 12}
+# mamba layers, 2 shared-block sites).  Cut again to 4 and one group (6
+# mamba layers, one site) when phase 22 came (19a 11.9 s, 19b 17.5, 19c
+# 28.3 at 6 / 12 layers in a whole run of the script)
+REC_LAYERS = {"rwkv6_1_6b": 4, "zamba2_2_7b": 6}
 REC_TRAIN_STEPS = 2
 # 19c's fp32 step on the card against the CPU's (REC_CPU_LAYERS layers,
 # TF32 off): loss and gradient norm within 1e-4 relative (the kernels' and
@@ -5177,10 +5264,11 @@ def phase_recurrent(smi, fsdp=None):
 # 20a / 20b: TP + SP on model=2, two gloo ranks sharing the card (as 17a),
 # fp32, held to the one-device step with 17a's checks: rwkv6-1.6b at full
 # width cut to 2 layers, zamba2-2.7b to one group (6 mamba layers and one
-# shared-block site); batch 2 x 64 (the eager time loops: a step's
-# launches grow with the sequence)
+# shared-block site); batch 2 x 32 (the eager time loops: a step's
+# launches grow with the sequence; 2 x 64 until phase 22 came, 20a 22.9 s
+# and 20b 26.0 s in the shared spawn, in a whole run of the script)
 REC_TP_CELLS = {"20a": ("rwkv6_1_6b", 2), "20b": ("zamba2_2_7b", 6)}
-REC_TP_SHAPE = (2, 64)
+REC_TP_SHAPE = (2, 32)
 # the counts 20c compares: every number of a count but its seconds
 COUNT_KEYS = ("flops", "bytes", "bytes_min", "coll_bytes", "coll_by_kind",
               "kernels", "coll_calls", "ops")
@@ -5275,9 +5363,9 @@ def _roofline(c, chips, model_flops, measured_s, widest_axis=1) -> dict:
 
 def _recurrent_tp_kernel_cases(k1):
     """[20k] K1 and its backward on a TP rank's sequence rows of 20a / 20b
-    (batch 2 x 64 over model=2: 64 rows of 2048 / 2560, fp32); K3
+    (REC_TP_SHAPE over model=2: b s / 2 rows of 2048 / 2560, fp32); K3
     ``tf32x3`` at D 80 forward (held to float64 too) and backward on
-    20b's rank's 16 heads of the whole sequence (2 x 16, 64, 80)."""
+    20b's rank's 16 heads of the whole sequence (2 x 16, s, 80)."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     ptxas = bwd_ptxas()
     b, s = REC_TP_SHAPE
@@ -5409,13 +5497,17 @@ def phase_recurrent_tp(smi, k1, res=None):
 # phase 21: serving with the params split over model
 # ---------------------------------------------------------------------------
 
-# 21a / 21b: arch, layers, new tokens; fp32, (data, model) =
-# SERVE_TP_SHAPE on gloo ranks sharing the card, phase 4's prompts
-# (right-padded, each row's logits at its own last position), greedy.
-# A decode step gathers the head whole through the host (gloo): qwen3-4b's
-# 1.56 GB in 1.4-1.9 s, dbrx's 2.47 GB in 2.1-2.7 s (NVIDIA H100 80GB
-# HBM3, 700 W), so 21a takes 16 new tokens, not phase 4's 32, and 21b 8
-SERVE_TP_CELLS = {"21a": ("qwen3_4b", 2, 16), "21b": ("dbrx_132b", 1, 8)}
+# 21a / 21b (phase 21) and 22a / 22b (phase 22: the recurrent families):
+# arch, layers, new tokens; fp32, (data, model) = SERVE_TP_SHAPE on gloo
+# ranks sharing the card, phase 4's prompts (right-padded, each row's
+# logits at its own last position), greedy.  A decode step gathers the
+# head whole through the host (gloo): qwen3-4b's 1.56 GB in 1.4-1.9 s,
+# dbrx's 2.47 GB in 2.1-2.7 s (NVIDIA H100 80GB HBM3, 700 W), so the
+# phase 22 cells take 8 new tokens, not phase 4's 32, and 21a / 21b 4
+# (16 and 8 until phase 22 came).  22b is zamba2's one group: 6 mamba
+# layers and the shared block
+SERVE_TP_CELLS = {"21a": ("qwen3_4b", 2, 4), "21b": ("dbrx_132b", 1, 4),
+                  "22a": ("rwkv6_1_6b", 2, 8), "22b": ("zamba2_2_7b", 6, 8)}
 SERVE_TP_SHAPE = (1, 2)
 SERVE_TP_MAX_SEQ = 256
 # the first step's logits against the one-device port's, of the largest
@@ -5443,16 +5535,31 @@ def _serve_tp_prompts(cfg):
     return tokens, lens
 
 
-def _serve_tp_greedy(prefill, decode, tokens, lens, cache, new_tokens):
+def _cache_leaves(cache, prefix: str = "") -> dict:
+    """``{path: tensor}`` of a serving cache (NamedTuples and dicts)."""
+    fields = getattr(cache, "_fields", None)
+    if fields is not None:
+        return {prefix + f: getattr(cache, f) for f in fields}
+    out = {}
+    for k, v in cache.items():
+        out.update(_cache_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def _serve_tp_greedy(prefill, decode, tokens, lens, cache, new_tokens,
+                     after_prefill=None):
     """Greedy serving of ``tokens``: the prefill, then ``new_tokens - 1``
     decode steps, each row at its own position; (new tokens (b,
     new_tokens) as lists, the first step's logits as numpy, the prefill's
-    and the decode steps' seconds)."""
+    and the decode steps' seconds).  ``after_prefill(cache)`` runs between
+    the two, untimed."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(tokens, cache, lens)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
+    if after_prefill is not None:
+        after_prefill(cache)
     first = logits.detach().cpu().numpy()
     new = [logits.argmax(-1)]
     t0 = time.perf_counter()
@@ -5465,14 +5572,17 @@ def _serve_tp_greedy(prefill, decode, tokens, lens, cache, new_tokens):
 
 
 def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
-    """[21a] / [21b] on ``world`` gloo ranks sharing the card: rank 0 first
-    serves the prompts on one device (the others wait); then the ranks draw
-    the same seed-0 weights one after the other (a rank's whole params,
-    cut to its pieces by ``params_specs`` and freed before the next draws)
-    and serve them through ``sharding.serving.ServingStep`` on
-    SERVE_TP_SHAPE, K1 / K3 counted from the prefill to the last decode
-    step, the model group's collectives a step.  With ``count``, one more
-    decode step is counted by ``analysis.hlo_counter`` (scaled and in
+    """[21a] / [21b] / [22a] / [22b] on ``world`` gloo ranks sharing the
+    card: rank 0 first serves the prompts on one device (the others wait);
+    then the ranks draw the same seed-0 weights one after the other (a
+    rank's whole params, cut to its pieces by ``params_specs`` and freed
+    before the next draws) and serve them through ``sharding.serving.
+    ServingStep`` on SERVE_TP_SHAPE, K1 / K3 counted from the prefill to
+    the last decode step, the model group's collectives a step (the
+    recurrent families': the model and data groups').  A recurrent
+    family's cell also returns the cache after the prefill (the one
+    device's whole, each rank's piece) as numpy.  With ``count``, one
+    more decode step is counted by ``analysis.hlo_counter`` (scaled and in
     full, :func:`counted`'s keys)."""
     import gc
 
@@ -5491,6 +5601,14 @@ def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
     tokens, lens = _serve_tp_prompts(cfg)
     b = tokens.shape[0]
     out = {"rank": rank}
+    recurrent = cfg.family in ("ssm", "hybrid")
+
+    def keep(key):
+        if not recurrent:
+            return None
+        return lambda cache: out.__setitem__(key, {
+            k: t.detach().to("cpu", copy=True).numpy()
+            for k, t in _cache_leaves(cache).items()})
     if rank == 0:
         params = model.init_params(
             torch.Generator(device="cuda").manual_seed(0))
@@ -5500,7 +5618,7 @@ def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
                 lambda t, c, n: model.prefill(params, t, c, lengths=n),
                 lambda t, c, p: model.decode_step(params, t, c, p),
                 tokens, lens, model.init_cache(b, SERVE_TP_MAX_SEQ),
-                new_tokens)
+                new_tokens, keep("one_device_prefill_cache"))
         out["one_device"] = {
             "tokens": new, "first": first, "prefill_s": pre_s,
             "decode_step_s": dec_s,
@@ -5527,16 +5645,18 @@ def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
     out["params_bytes"] = sum(t.numel() * t.element_size()
                               for t in _tensors(params))
     cache = serve.shard_cache(model.init_cache(b, SERVE_TP_MAX_SEQ))
-    out["cache_bytes"] = cache.k.nbytes + cache.v.nbytes
-    out["kv"] = serve.kv
-    group = serve.place.model
+    out["cache_bytes"] = sum(t.nbytes for t in _cache_leaves(cache).values())
+    out["kv"], out["state"] = serve.kv, serve.state
+    groups = {"model": serve.place.model, "data": serve.place.group}
     steps = []
 
     def step_counts(fn):
         def run(*a):
-            group.counts.clear()
+            for g in groups.values():
+                g.counts.clear()
             res = fn(*a)
-            steps.append(dict(group.counts))
+            steps.append({k: dict(g.counts) for k, g in groups.items()}
+                         if recurrent else dict(groups["model"].counts))
             return res
         return run
     mine = serve.rows(tokens), serve.rows(lens)
@@ -5545,7 +5665,7 @@ def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
     new, first, pre_s, dec_s = _serve_tp_greedy(
         step_counts(lambda t, c, n: serve.prefill(params, t, c, lengths=n)),
         step_counts(lambda t, c, p: serve.decode_step(params, t, c, p)),
-        *mine, cache, new_tokens)
+        *mine, cache, new_tokens, keep("prefill_cache"))
     out.update({"tokens": new, "first": first, "prefill_s": pre_s,
                 "decode_step_s": dec_s, "collectives": steps,
                 "launches": {k: ops.launch_counts()[k]
@@ -5579,13 +5699,13 @@ def serve_tp_cell(rank, world, arch, layers, new_tokens, count=False):
 
 
 def two_rank_cells(rank, world):
-    """The two-rank gloo cells of phases 16-21 in one spawn of two ranks
+    """The two-rank gloo cells of phases 16-22 in one spawn of two ranks
     sharing the card (a start-up of the processes, and a process's slow
     first fp32 step, once for all): 16b / 16c (:func:`data_axis_ranks`),
     17a (:func:`tp_train_rank`), 18d (:func:`ep_rank`), 19d
     (:func:`sharded_train_two`), 20a / 20b (:func:`recurrent_tp_ranks`),
-    21a / 21b (:func:`serve_tp_ranks`); each is checked and logged by its
-    phase."""
+    21a / 21b and 22a / 22b (:func:`serve_tp_ranks`); each is checked
+    and logged by its phase."""
     out = data_axis_ranks(rank, world)
     t0 = time.perf_counter()
     out["17a"] = tp_train_rank(rank, world, *TP_TRAIN_CELLS["17a"])
@@ -5602,14 +5722,17 @@ def two_rank_cells(rank, world):
     return out
 
 
-def serve_tp_ranks(rank, world):
-    """[21a] and [21b] in one spawn of two gloo ranks sharing the card;
-    each cell's seconds."""
+def serve_tp_ranks(rank, world, phase=None):
+    """The cells of SERVE_TP_CELLS (those of ``phase`` alone, "21" or
+    "22", where given): 21a / 21b and 22a / 22b in one spawn of two gloo
+    ranks sharing the card; each cell's seconds."""
     out = {}
     for label, (arch, layers, new_tokens) in SERVE_TP_CELLS.items():
+        if phase is not None and not label.startswith(phase):
+            continue
         t0 = time.perf_counter()
         out[label] = serve_tp_cell(rank, world, arch, layers, new_tokens,
-                                   count=label == "21a")
+                                   count=label in ("21a", "22a"))
         out[label]["cell_s"] = time.perf_counter() - t0
     return out
 
@@ -5667,8 +5790,8 @@ def _serve_tp_kernel_cases(k1):
 
 def phase_serve_tp(smi, k1, res=None):
     """[21] serving with the params split over ``model``: (k) K1 / K3 at
-    21a's rank shapes; (a) qwen3-4b (2 layers, 16 new tokens) and (b)
-    dbrx-132b (1 layer, 8 new tokens) at full width, fp32, on
+    21a's rank shapes; (a) qwen3-4b (2 layers, 4 new tokens) and (b)
+    dbrx-132b (1 layer, 4 new tokens) at full width, fp32, on
     ``model=2`` (:func:`serve_tp_ranks`: two gloo
     ranks sharing the card), each held to the one-device port on the same
     weights (greedy tokens identical, the first step's logits within
@@ -5696,11 +5819,13 @@ def phase_serve_tp(smi, k1, res=None):
     t0 = time.perf_counter()
     if res is None:
         res = ranks.spawn(serve_tp_ranks, 2, backend="gloo", device="cuda",
-                          timeout=900)
+                          timeout=900, args=("21",))
     times["21a + 21b"] = time.perf_counter() - t0
     mesh = {"data": SERVE_TP_SHAPE[0], "model": SERVE_TP_SHAPE[1]}
     b = len(PROMPT_LENS)
     for label, (arch, layers, new_tokens) in SERVE_TP_CELLS.items():
+        if not label.startswith("21"):
+            continue
         cfg = config(arch, n_layers=layers, dtype="float32")
         cell = [r[label] for r in res]
         one = cell[0]["one_device"]
@@ -5780,6 +5905,172 @@ def phase_serve_tp(smi, k1, res=None):
     log(f"[21] summary: " + json.dumps({k: round(v, 1)
                                         for k, v in times.items()})
         + f", phase 21 {time.perf_counter() - t_start:.1f} s; card {smi}")
+    return cases, launches
+
+
+def _serve_tp_rec_kernel_cases(k1):
+    """[22k] K1 and K3 at 22a / 22b's serving rank's shapes (``model=2``,
+    phase 4's 4 prompts padded to 200): K1 fp32 on the prefill's SP rows
+    (4 x 100 of 2048 / 2560) and on a decode step's rows (4 of 2048 /
+    2560); K3 at D 80 on 22b's rank's 16 of 32 shared-block heads over 200
+    positions, causal, ``tf32x3`` fp32 (what 22b runs) and ``mma``
+    bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    shapes = ((b * s // 2, 2048), (b * s // 2, 2560), (b, 2048),
+              (b, 2560))
+    return {
+        "rmsnorm": [_rmsnorm_case(r, d, torch.float32, gen, k1)
+                    for r, d in shapes],
+        "flash_attention": [_flash_case(s, s, True, 0, gen, b=b, nh=16,
+                                        nkv=16, hd=80, dtype=dt)
+                            for dt in (torch.float32, torch.bfloat16)]}
+
+
+def phase_serve_tp_recurrent(smi, k1, res=None):
+    """[22] the recurrent families served with the params split over
+    ``model``: (k) K1 / K3 at 22a / 22b's rank shapes; (a) rwkv6-1.6b (2
+    layers) and (b) zamba2-2.7b (one group) at full width, fp32, on
+    ``model=2`` (:func:`serve_tp_ranks`: two gloo ranks sharing the card),
+    each held to the one-device port on the same weights: greedy tokens
+    identical, the first step's logits and each rank's cache after the
+    prefill (its piece of the one-device cache under ``rules.
+    cache_specs``) within SERVE_TP_LOGIT_TOL of the largest, its K1 / K3
+    launches :func:`serve_tp_launches`', every rank's cache bytes the dry
+    run's ``cache_bytes``; (c) 22a's decode step counted on each rank of
+    the card equal to its count on the ``meta`` device (``res``: the
+    ranks' results from a shared spawn, else it spawns them).  Returns
+    (the kernel cases, each cell's ranks' K1 / K3 launches)."""
+    import gc
+
+    from repro_torch.configs import config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding import rules
+    from repro_torch.testing import ranks
+    t_start = time.perf_counter()
+    times, launches = {}, {}
+    t0 = time.perf_counter()
+    cases = _serve_tp_rec_kernel_cases(k1)
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"[22k] {name} " + json.dumps(c))
+    times["22k"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if res is None:
+        res = ranks.spawn(serve_tp_ranks, 2, backend="gloo", device="cuda",
+                          timeout=900, args=("22",))
+    times["22a + 22b"] = time.perf_counter() - t0
+    mesh = {"data": SERVE_TP_SHAPE[0], "model": SERVE_TP_SHAPE[1]}
+    b = len(PROMPT_LENS)
+    for label, (arch, layers, new_tokens) in SERVE_TP_CELLS.items():
+        if not label.startswith("22"):
+            continue
+        cfg = config(arch, n_layers=layers, dtype="float32")
+        cell = [r[label] for r in res]
+        one = cell[0]["one_device"]
+        whole = cell[0]["one_device_prefill_cache"]
+        want = serve_tp_launches(cfg, new_tokens - 1)
+        reckoned = dryrun.reckon(cfg, {"seq": SERVE_TP_MAX_SEQ, "batch": b,
+                                       "kind": "decode"}, mesh)["memory"]
+        specs = _cache_leaves(rules.cache_specs(
+            cfg, mesh, Model(cfg).init_cache(b, SERVE_TP_MAX_SEQ, "meta")))
+        if one["launches"] != want:
+            raise AssertionError(f"[{label}] one device: K1 / K3 launches "
+                                 f"{one['launches']}, predicted {want}")
+        scale = float(abs(one["first"]).max())
+        errs, state_errs = [], []
+        for r in cell:
+            coord = {"data": 0, "model": r["rank"]}
+            if r["tokens"] != one["tokens"]:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']}: greedy tokens differ "
+                    f"from the one-device port's: {r['tokens']} against "
+                    f"{one['tokens']}")
+            err = float(abs(r["first"] - one["first"]).max())
+            errs.append(err)
+            if err > SERVE_TP_LOGIT_TOL * scale:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']}: first-step logits "
+                    f"{err} from the one-device port's (largest {scale}, "
+                    f"tolerance {SERVE_TP_LOGIT_TOL} of it)")
+            mine = {}
+            for leaf, w in whole.items():
+                piece = rules.local_shard(torch.from_numpy(w), mesh,
+                                          specs[leaf], coord).numpy()
+                got = r["prefill_cache"][leaf]
+                big = float(abs(w).max())
+                e = float(abs(got - piece).max()) if got.shape == \
+                    piece.shape else float("inf")
+                mine[leaf] = e
+                if not e <= SERVE_TP_LOGIT_TOL * big:
+                    raise AssertionError(
+                        f"[{label}] rank {r['rank']}: {leaf} after the "
+                        f"prefill {e} from the one-device cache's piece "
+                        f"{piece.shape} (largest {big}, tolerance "
+                        f"{SERVE_TP_LOGIT_TOL} of it), shape {got.shape}")
+            state_errs.append(mine)
+            if r["launches"] != want:
+                raise AssertionError(f"[{label}] rank {r['rank']}: K1 / K3 "
+                                     f"launches {r['launches']}, predicted "
+                                     f"{want}")
+            if r["cache_bytes"] != reckoned["cache_bytes"]:
+                raise AssertionError(
+                    f"[{label}] rank {r['rank']} holds {r['cache_bytes']} "
+                    f"cache bytes, the dry run reckons "
+                    f"{reckoned['cache_bytes']}")
+        launches[label] = [r["launches"] for r in cell]
+        times[label] = max(r["cell_s"] for r in cell)
+        log(f"[{label}] the recurrent family served with the params split "
+            f"over model: {arch} at full width cut to {layers} layer(s), "
+            f"fp32, {mesh} on two gloo ranks sharing one card, phase 4's "
+            f"prompts {list(PROMPT_LENS)} right-padded, {new_tokens} new "
+            f"tokens greedy, each row at its own position: tokens identical "
+            f"to the one-device port's, first-step logits and each rank's "
+            f"cache after the prefill within {SERVE_TP_LOGIT_TOL} of the "
+            f"largest ({scale:.4g}); "
+            + json.dumps({
+                "max_abs_err": errs, "cache_max_abs_err": state_errs,
+                "state": {k: {"spec": list(v["spec"]), "held": v["held"]}
+                          for k, v in cell[0]["state"].items()},
+                "kv": cell[0]["kv"],
+                "launches_predicted": want, "dryrun_memory": reckoned,
+                "one_device": {k: one[k] for k in (
+                    "prefill_s", "decode_step_s", "launches")},
+                "ranks": [{k: r[k] for k in (
+                    "rank", "prefill_s", "decode_step_s", "draw_s",
+                    "cell_s", "params_bytes", "cache_bytes", "launches",
+                    "launches_by_variant")}
+                    | {"collectives_prefill": r["collectives"][0],
+                       "collectives_decode_step": r["collectives"][1]}
+                    for r in cell]}, default=str)
+            + f"; card {smi}")
+    # [22c] 22a's decode step: the card's count against the meta device's
+    t0 = time.perf_counter()
+    cfg = config(SERVE_TP_CELLS["22a"][0], n_layers=SERVE_TP_CELLS["22a"][1],
+                 dtype="float32")
+    counts = []
+    for rank, r in enumerate(res):
+        card = r["22a"]["count"]
+        meta = meta_serve_counted(cfg, b, {"model": rank})
+        for scale in ("scaled", "full"):
+            a = {k: card[scale][k] for k in COUNT_KEYS}
+            m = {k: meta[scale][k] for k in COUNT_KEYS}
+            if a != m:
+                raise AssertionError(f"[22c] rank {rank} {scale}: the "
+                                     f"card's count {a} differs from the "
+                                     f"meta device's {m}")
+        counts.append({"rank": rank, "count": card})
+    times["22c"] = time.perf_counter() - t0
+    log(f"[22c] 22a's decode step counted on each rank of the card "
+        f"(analysis.hlo_counter, scaled and in full) equal to its count on "
+        f"the meta device (collectives.CountingMesh): "
+        + json.dumps(counts) + f"; card {smi}")
+    log(f"[22] summary: " + json.dumps({k: round(v, 1)
+                                        for k, v in times.items()})
+        + f", phase 22 {time.perf_counter() - t_start:.1f} s; card {smi}")
     return cases, launches
 
 
@@ -5894,18 +6185,18 @@ def _run_phases(tune_cache: str) -> int:
     mark("14")
     sharded = phase_sharded(smi, want, report["dense graph"]["tok_s_median"])
     mark("15")
-    # the two-rank gloo cells of phases 16-21 (16b / 16c, 17a, 18d, 19d,
-    # 20a / 20b, 21a / 21b) run here, in one spawn; each phase checks and
-    # logs its own
+    # the two-rank gloo cells of phases 16-22 (16b / 16c, 17a, 18d, 19d,
+    # 20a / 20b, 21a / 21b, 22a / 22b) run here, in one spawn; each phase
+    # checks and logs its own
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     from repro_torch.testing import ranks
     shared = ranks.spawn(two_rank_cells, 2, backend="gloo", device="cuda",
                          timeout=1500)
-    log(f"[16-21] the two-rank cells in one spawn: "
+    log(f"[16-22] the two-rank cells in one spawn: "
         f"{time.perf_counter() - t0:.1f} s with the processes; card {smi}")
-    mark("16-21 two-rank cells")
+    mark("16-22 two-rank cells")
     sharded_train = phase_sharded_train(
         smi, train, cells=[{k: r[k] for k in DATA_AXIS_CELLS}
                            for r in shared])
@@ -5934,6 +6225,11 @@ def _run_phases(tune_cache: str) -> int:
     for name, cs in serve_tp_cases.items():
         cases[name] += cs
     mark("21")
+    serve_rec_cases, serve_rec = phase_serve_tp_recurrent(
+        smi, k1, res=[r["21"] for r in shared])
+    for name, cs in serve_rec_cases.items():
+        cases[name] += cs
+    mark("22")
     counts = {**counts, "matmul": p_counts["matmul"],
               "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
               "flash_attention_bwd": train_counts["flash_attention_bwd"]}
@@ -5996,6 +6292,10 @@ def _run_phases(tune_cache: str) -> int:
                 entry["launches_phase21"] = {
                     key: [c[k["name"]] for c in v]
                     for key, v in serve_tp.items()}
+                # phase 22's: 22a's and 22b's ranks, a run
+                entry["launches_phase22"] = {
+                    key: [c[k["name"]] for c in v]
+                    for key, v in serve_rec.items()}
         if k["name"] == "flash_attention_bwd":
             # the fp32 backward runs in 13e's fp32 training, not 13b's
             for v, n in train["13e"]["flash_attention_bwd_variants"].items():

@@ -174,8 +174,9 @@ class Counter(TorchDispatchMode):
     ``totals`` (a :class:`Totals`), ``kernels`` (declared kernel calls by
     name), ``coll_calls`` (collectives by kind; both weighted),
     ``dot_flops`` (the FLOPs of the dispatched dot ops alone, weighted;
-    a kernel's declared work is not among them) and ``ops`` (the ATen ops
-    counted, unweighted).  With
+    a kernel's declared work is not among them), ``coll_by_tag`` (the
+    bytes of the collectives issued inside each :func:`tagged` region,
+    weighted) and ``ops`` (the ATen ops counted, unweighted).  With
     ``scale`` the regions of :func:`layers` and :func:`scan` run one body
     at their trip count's weight; without, every iteration runs and
     counts."""
@@ -187,6 +188,8 @@ class Counter(TorchDispatchMode):
         self.kernels: Dict[str, float] = {}
         self.coll_calls: Dict[str, float] = {}
         self.dot_flops = 0.0
+        self.coll_by_tag: Dict[str, float] = {}
+        self._tags: List[str] = []
         self.ops = 0
         self._weight = [1.0]
         self._declared = 0
@@ -304,6 +307,8 @@ class Counter(TorchDispatchMode):
         t.coll_count += w
         t.coll_by_kind[kind] = t.coll_by_kind.get(kind, 0.0) + w * nbytes
         self.coll_calls[kind] = self.coll_calls.get(kind, 0.0) + w
+        for tag in set(self._tags):
+            self.coll_by_tag[tag] = self.coll_by_tag.get(tag, 0.0) + w * nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +350,22 @@ def collective(kind: str, nbytes: int) -> None:
     c = _current()
     if c is not None and not c._declared:
         c.add_collective(kind, nbytes)
+
+
+@contextlib.contextmanager
+def tagged(tag: str):
+    """Inside a count, the collectives issued in the region are also added
+    to the count's ``coll_by_tag[tag]``: what a record breaks out of its
+    collective bytes (a serving step's state moves, its head's gather)."""
+    c = _current()
+    if c is None:
+        yield
+        return
+    c._tags.append(tag)
+    try:
+        yield
+    finally:
+        c._tags.pop()
 
 
 def plain(t: torch.Tensor) -> bool:

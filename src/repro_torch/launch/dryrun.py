@@ -29,9 +29,11 @@ issues, with no exchange), times the chips, against an NVIDIA H100's
 rates (``analysis.hlo``).  The step is the train step (``model_flops``
 the reference's 6 x active params x tokens), or a prefill or decode step
 with the params and the cache placed by the rules (``sharding.serving.
-ServingStep``; ``model_flops`` 2 x active params x tokens).  The
-recurrent families' serving cells get a ``roofline`` holding the error
-and the ROADMAP item that covers it (:data:`RECURRENT_SERVING_ITEM`).
+ServingStep``; ``model_flops`` 2 x active params x tokens), every
+family's: the recurrent families' count their state's moves between the
+rules' layout and the mixers' pieces among the collectives, and a serving
+row's ``collectives`` gives a rank's bytes a step of those moves
+(``state_move_bytes``) beside the head's gather (``head_gather_bytes``).
 No ``lower_s`` / ``compile_s`` and none of XLA's temp / output / code
 bytes: there is no compile.
 """
@@ -65,12 +67,6 @@ def local_bytes(tree, spec_tree, mesh) -> int:
         return None
     rules.tree_map_specs(one, spec_tree, tree)
     return sum(total)
-
-
-# where the cells the port cannot count are queued
-RECURRENT_SERVING_ITEM = (
-    "ROADMAP.md queue 1 item 9f: the recurrent families' serving with the "
-    "params split over 'model' (their state's layout over model)")
 
 
 def _roofline(counter, sizes: Dict[str, int], model_flops: float) -> Dict:
@@ -148,8 +144,12 @@ def serving_roofline(model, info: Dict, mesh, scale: bool = True) -> Dict:
         counter = hlo_counter.count(serve.decode_step, params, tokens, cache,
                                     seq - 1, scale=scale)[1]
     tokens_per_step = batch * (seq if prefill else 1)
-    return _roofline(counter, sizes,
-                     2.0 * cfg.active_param_count() * tokens_per_step)
+    row = _roofline(counter, sizes,
+                    2.0 * cfg.active_param_count() * tokens_per_step)
+    # a rank's bytes a step of the collectives the record breaks out
+    row["collectives"] = {f"{tag}_bytes": counter.coll_by_tag.get(tag, 0.0)
+                          for tag in ("state_move", "head_gather")}
+    return row
 
 
 def reckon(cfg, info: Dict, mesh, roofline: bool = False) -> Dict:
@@ -187,11 +187,6 @@ def reckon(cfg, info: Dict, mesh, roofline: bool = False) -> Dict:
     if roofline:
         if info["kind"] == "train":
             rec["roofline"] = train_roofline(model, info, sizes, state=state)
-        elif cfg.family in ("ssm", "hybrid"):
-            rec["roofline"] = {"error": f"the port's {info['kind']} step "
-                                        f"of the {cfg.family} family on "
-                                        f"{sizes} is not ported",
-                               "roadmap": RECURRENT_SERVING_ITEM}
         else:
             rec["roofline"] = serving_roofline(model, info, sizes)
     return rec

@@ -170,7 +170,7 @@ def _whole_weights(p, tp, path: str):
 
 
 def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
-                      start: int = 0):
+                      start: int = 0, path: str = "blocks/attn"):
     """Prefill: full attention over x AND the cache filled at
     [start, start+s).
 
@@ -178,10 +178,13 @@ def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
     place (the reference returns an updated copy).  q/k/v are projected
     once and shared by the cache write and the attention; the reference
     projects twice (its ``attention`` re-projects), which gives the same
-    values and two more RMSNorm launches per layer under qk_norm."""
+    values and two more RMSNorm launches per layer under qk_norm.
+    ``path`` is the rules' path of the weights, read on a serving step's
+    model axis (``blocks/shared_attn`` for the hybrid's shared block)."""
     tp = ctx.get_tensor_parallel()
     if tp is not None:
-        return _prefill_model_axis(p, cfg, x, cache, start, tp), cache
+        return _prefill_model_axis(p, cfg, x, cache, start, tp,
+                                   path), cache
     b, s, _ = x.shape
     positions = start + torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -194,13 +197,8 @@ def attention_prefill(p, cfg: ModelConfig, x, cache: KVCache,
 # serving with the params split over the model axis
 # ---------------------------------------------------------------------------
 
-# the rules' path of the weights a serving step on a model axis reads (the
-# transformer families' attention; the hybrid's shared block does not
-# serve on one)
-_SERVING_PATH = "blocks/attn"
-
 def _prefill_model_axis(p, cfg: ModelConfig, x, cache: KVCache, start: int,
-                        tp):
+                        tp, path: str = "blocks/attn"):
     """:func:`attention_prefill` on a serving step's model axis (``tp``, a
     ``sharding.collectives.TensorParallel`` with ``kv``): ``x`` is the
     rank's rows of the prompt (SP) or the whole prompt, ``cache`` the
@@ -222,21 +220,21 @@ def _prefill_model_axis(p, cfg: ModelConfig, x, cache: KVCache, start: int,
     positions = start + torch.arange(s, device=x.device)[None, :]
     kv = tp.kv
     if not tp.split_heads:
-        local = _whole_weights(p, tp, _SERVING_PATH)
+        local = _whole_weights(p, tp, path)
 
         def whole(xw):
             q, k, v = _project_qkv(local, cfg, xw, positions)
             _write_rows(cache, k, v, start, kv["pos"])
             return _attend(local, cfg, q, k, v, xw.dtype)
         return tp.whole_mixer(whole, x)
-    local = _rank_weights(p, tp, _SERVING_PATH)
+    local = _rank_weights(p, tp, path)
     xw = tp.enter(x)
     q, k, v = _project_qkv(local, cfg, xw, positions)
     if kv["layout"] == "heads":
         _write_rows(cache, k, v, start, kv["pos"])
     else:
         full = {name: None if p[name] is None else
-                tp.whole(p[name], f"{_SERVING_PATH}/{name}")
+                tp.whole(p[name], f"{path}/{name}")
                 for name in ("wk", "wv", "bk", "bv", "k_norm")}
         p0, p1 = kv["pos"]
         lo, hi = max(p0, start), min(p1, start + s)
@@ -335,7 +333,8 @@ def _write_token(k_l, v_l, k_new, v_new, pos):
     v_l.index_put_((slots, idx), v_new)
 
 
-def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
+def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos,
+                             path: str = "blocks/attn"):
     """One-token decode against LAYER-STACKED caches ck/cv
     (L, b, max_seq, nkv, hd); li: layer index; returns (out, ck, cv).
 
@@ -357,7 +356,7 @@ def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
     tp = ctx.get_tensor_parallel()
     if tp is not None:
         return _decode_model_axis(p, cfg, x, ck[li], cv[li], pos, positions,
-                                  tp), ck, cv
+                                  tp, path), ck, cv
     q, k, v = _project_qkv(p, cfg, x, positions)
     k_l, v_l = ck[li], cv[li]            # views: writes land in ck / cv
     if per_slot:
@@ -372,7 +371,7 @@ def attention_decode_inplace(p, cfg: ModelConfig, x, ck, cv, li: int, pos):
 
 
 def _decode_model_axis(p, cfg: ModelConfig, x, k_l, v_l, pos, positions,
-                       tp):
+                       tp, path: str = "blocks/attn"):
     """:func:`attention_decode_inplace` on a serving step's model axis:
     ``x`` (b, 1, d) the same on every rank, ``k_l`` / ``v_l`` the rank's
     slice of one layer's KV (``rules.cache_specs``), ``pos`` global.
@@ -394,13 +393,13 @@ def _decode_model_axis(p, cfg: ModelConfig, x, k_l, v_l, pos, positions,
     kv = tp.kv
     p0 = kv["pos"][0]
     if not tp.split_heads:
-        local = _whole_weights(p, tp, _SERVING_PATH)
+        local = _whole_weights(p, tp, path)
         q, k, v = _project_qkv(local, cfg, x, positions)
         _write_token_at(k_l, v_l, k[:, 0], v[:, 0], pos, p0, kv["max_seq"])
         out = _merged_token_attention(q, k_l, v_l, pos, p0, tp,
                                       kv["layout"] == "seq")
         return out.to(x.dtype).reshape(x.shape[0], 1, -1) @ local["wo"]
-    local = _rank_weights(p, tp, _SERVING_PATH)
+    local = _rank_weights(p, tp, path)
     q, k, v = _project_qkv(local, cfg, tp.enter(x), positions)
     per_slot = pos.ndim == 1
     if kv["layout"] == "heads":

@@ -24,7 +24,14 @@ over ``model``), ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_w`` cut to
 its heads, ``w_out`` row-parallel.  The gated norm spans all of ``din``:
 its fp32 sum of squares is summed over ``model`` before the ``rsqrt``
 (``collectives.all_sum``).  Where ``model`` does not divide the heads the
-mixer runs whole on every rank."""
+mixer runs whole on every rank.
+
+A serving step on a model axis gives the mixer its state in its piece
+(``TensorParallel.state_in``): the conv tail's columns of the rank's
+heads followed by ``B | C`` whole (the order of its ``conv_w`` columns)
+and the SSM state of its heads, every head where the mixer runs whole;
+it returns the new state in the same piece, masked by ``lengths`` on the
+whole sequence every rank holds."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -92,22 +99,27 @@ def forward(p, cfg: ModelConfig, x, state: Optional[Mamba2State] = None,
     off at padded positions, so the returned state is bitwise the state of
     the unpadded sequence.
 
-    Inside a tensor-parallel train step: ``(y of the rank's rows, None)``
-    (module docstring)."""
+    Inside a tensor-parallel step: ``(y of the rank's rows, the state in
+    the mixer's piece)`` (module docstring)."""
     tp = ctx.get_tensor_parallel()
     if tp is not None:
-        return _forward_tp(p, cfg, x, tp), None
+        return _forward_tp(p, cfg, x, tp, state, lengths)
     return _forward(p, cfg, x, state, lengths)
 
 
-def _forward_tp(p, cfg: ModelConfig, x, tp):
+def _forward_tp(p, cfg: ModelConfig, x, tp, state=None, lengths=None):
     from repro_torch.sharding.collectives import all_sum
     path = "blocks/mamba"
     if not tp.split_mixer:
         take = tp.mixer_take(path)
         local = {k: take(v, k) for k, v in p.items()}
-        return tp.whole_mixer(
-            lambda xw: _forward(local, cfg, xw, None, None)[0], x)
+        out = []
+
+        def whole(xw):
+            y, new = _forward(local, cfg, xw, state, lengths)
+            out.append(new)
+            return y
+        return tp.whole_mixer(whole, x), out[0]
     cols, heads = tp.mamba_columns(cfg), tp.mixer_heads
     local = {"w_in": tp.columns(p["w_in"], f"{path}/w_in", 1,
                                 cols["w_in"]),
@@ -119,9 +131,9 @@ def _forward_tp(p, cfg: ModelConfig, x, tp):
                               tp.mixer_cols)}
     for k in ("a_log", "dt_bias", "d_skip"):
         local[k] = tp.part(p[k], f"{path}/{k}", 0, heads)
-    y, _ = _forward(local, cfg, tp.enter(x), None, None,
-                    sum_squares=lambda t: all_sum(t, tp.group))
-    return tp.exit(y)
+    y, new = _forward(local, cfg, tp.enter(x), state, lengths,
+                      sum_squares=lambda t: all_sum(t, tp.group))
+    return tp.exit(y), new
 
 
 def _forward(p, cfg: ModelConfig, x, state, lengths, sum_squares=None):

@@ -28,7 +28,15 @@ and ``u`` cut to them, the recurrence per head over the whole sequence,
 column-parallel, ``cw_v`` row-parallel); the token-shift lerps and the
 LoRA's first product run whole on every rank for its heads (their
 gradients summed over ``model``).  Where ``model`` does not divide the
-heads, the time-mix runs whole on every rank."""
+heads, the time-mix runs whole on every rank.
+
+A serving step on a model axis (``sharding.serving.ServingStep``) runs
+the same split and gives each mixer its state in the mixer's piece
+(``TensorParallel.state_in``): ``wkv`` of the rank's heads (of every head
+where the time-mix runs whole), ``tshift`` / ``cshift`` whole (the lerps
+read every column).  The mixers return the new state in that piece, the
+shifts taken at each row's last real token of the whole sequence, which
+every rank holds (SP's gather, or with SP off the rows themselves)."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
@@ -123,21 +131,26 @@ def time_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
     positions and the returned token-shift is the last *real* token, so
     the state after a padded prefill is bitwise the unpadded state.
 
-    Inside a tensor-parallel train step: ``(y of the rank's rows, None,
-    None)`` (module docstring)."""
+    Inside a tensor-parallel step: ``y`` of the rank's rows, and the
+    state in the mixer's piece (module docstring)."""
     tp = ctx.get_tensor_parallel()
     if tp is not None:
-        return _time_mix_tp(p, cfg, x, tp), None, None
+        return _time_mix_tp(p, cfg, x, tp, state, lengths)
     return _time_mix(p, cfg, x, state, lengths)
 
 
-def _time_mix_tp(p, cfg: ModelConfig, x, tp):
+def _time_mix_tp(p, cfg: ModelConfig, x, tp, state=None, lengths=None):
     path = "blocks/mix"
     if not tp.split_mixer:
         take = tp.mixer_take(path)
         local = {k: take(v, k) for k, v in p.items()}
-        return tp.whole_mixer(
-            lambda xw: _time_mix(local, cfg, xw, None, None)[0], x)
+        out = []
+
+        def whole(xw):
+            y, tshift, wkv = _time_mix(local, cfg, xw, state, lengths)
+            out[:] = [tshift, wkv]
+            return y
+        return (tp.whole_mixer(whole, x), *out)
     cols, heads = tp.mixer_cols, tp.mixer_heads
     local = {k: tp.whole(p[k], f"{path}/{k}")
              for k in ("mix_r", "mix_k", "mix_v", "mix_w", "w_lora_a")}
@@ -146,7 +159,10 @@ def _time_mix_tp(p, cfg: ModelConfig, x, tp):
     local["w0"] = tp.part(p["w0"], f"{path}/w0", 0, cols)
     local["u"] = tp.part(p["u"], f"{path}/u", 0, heads)
     local["w_o"] = tp.part(p["w_o"], f"{path}/w_o", 0, cols)
-    return tp.exit(_time_mix(local, cfg, tp.enter(x), None, None)[0])
+    # the whole sequence on every rank (SP's gather, or with SP off the
+    # rows themselves): the shift's last real token is read from it
+    y, tshift, wkv = _time_mix(local, cfg, tp.enter(x), state, lengths)
+    return tp.exit(y), tshift, wkv
 
 
 def _time_mix(p, cfg: ModelConfig, x, state, lengths):
@@ -198,11 +214,12 @@ def _time_mix(p, cfg: ModelConfig, x, state, lengths):
 def channel_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
                 lengths=None):
     """x: (b, s, d) -> (y, cshift): squared ReLU, sigmoid gate.  Inside a
-    tensor-parallel train step: ``(y of the rank's rows, None)``, the gate
-    on the rank's rows multiplying the row-parallel product's sum."""
+    tensor-parallel step: ``(y of the rank's rows, cshift)``, the gate on
+    the rank's rows multiplying the row-parallel product's sum, the shift
+    the whole last real token."""
     tp = ctx.get_tensor_parallel()
     if tp is not None:
-        return _channel_mix_tp(p, x, tp), None
+        return _channel_mix_tp(p, x, tp, state, lengths)
     prev = _shifted(x, None if state is None else state.cshift)
     xr = x + (prev - x) * p["cmix_r"]
     xk = x + (prev - x) * p["cmix_k"]
@@ -212,15 +229,17 @@ def channel_mix(p, cfg: ModelConfig, x, state: Optional[Rwkv6State] = None,
     return r * (k @ p["cw_v"]), cshift
 
 
-def _channel_mix_tp(p, x, tp):
+def _channel_mix_tp(p, x, tp, state=None, lengths=None):
     """The rank's ff columns: ``cw_k`` column-parallel on the whole
     sequence, ``cw_v`` row-parallel, its partial sums summed into the
     rank's rows (SP's reduce-scatter, or with SP off the all-reduce);
     then the gate ``sigmoid(xr @ cw_r)`` of those rows multiplies the
-    sum, never a rank's partial sum."""
+    sum, never a rank's partial sum.  Returns ``(y, cshift)``, the shift
+    read from the whole sequence."""
     path = "blocks/mix"
+    shift0 = None if state is None else state.cshift
     xw = tp.enter(x)
-    prev = _shifted(xw, None)
+    prev = _shifted(xw, shift0)
     xk = xw + (prev - xw) * tp.whole(p["cmix_k"], f"{path}/cmix_k")
     k = torch.square(torch.relu(
         xk @ tp.part(p["cw_k"], f"{path}/cw_k", 1, tp.ff_cols)))
@@ -232,7 +251,8 @@ def _channel_mix_tp(p, x, tp):
         lo, hi = tp.rows
         gx, gprev = xw[:, lo:hi], prev[:, lo:hi]
     else:
-        gx, gprev = x, _shifted(x, None)
+        gx, gprev = x, _shifted(x, shift0)
     xr = gx + (gprev - gx) * tp.norm_weight(p["cmix_r"], f"{path}/cmix_r")
     r = torch.sigmoid(xr @ tp.norm_weight(p["cw_r"], f"{path}/cw_r"))
-    return r * kv
+    cshift = xw[:, -1] if lengths is None else last_real(xw, lengths)
+    return r * kv, cshift

@@ -80,9 +80,15 @@ the cache written and read by ``models.attention`` in the layout of
 ``rules.cache_specs``, the MoE per ``ffn.moe``'s model-axis forms, and the
 logits taken over the whole vocab on every rank (the final norm on the
 rank's rows, the last position's vector summed over ``model``, the head
-gathered whole)."""
+gathered whole).  The recurrent families' too: their mixers compute on
+the train step's split, and each layer's state (each group's, for the
+hybrid) moves from the rules' layout in the cache into the mixers'
+pieces on entry and back on exit (``TensorParallel.state_in`` /
+``state_out``); the hybrid's shared attention takes the transformer
+families' path under its own rules path."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -156,6 +162,29 @@ def _write_state(dst, src) -> None:
         d.copy_(s)
 
 
+def _state_in(state, prefix: str = ""):
+    """A unit of the cache's state (a layer's rows of a state NamedTuple,
+    or a hybrid group's) as the mixers take it: the cache's own views, or
+    on a serving step's model axis each leaf moved from the rules' piece
+    into the mixer's (``TensorParallel.state_in``, leaf paths
+    ``prefix + field``)."""
+    tp = ctx.get_tensor_parallel()
+    if tp is None or not tp.state:
+        return state
+    return type(state)(*(tp.state_in(prefix + f, t)
+                         for f, t in zip(state._fields, state)))
+
+
+def _state_out(dst, work, prefix: str = "") -> None:
+    """The unit ``work`` (from :func:`_state_in`, updated in place) back
+    into the cache's views ``dst``: nothing where it is those views."""
+    if work is dst:
+        return
+    tp = ctx.get_tensor_parallel()
+    for f, d, w in zip(dst._fields, dst, work):
+        tp.state_out(prefix + f, w, d)
+
+
 def _rwkv_block_fwd(p, cfg: ModelConfig, x, state=None, lengths=None):
     """One rwkv6 block: ``(x, Rwkv6State)``, the layer's new state."""
     p = ctx.gathered(p, "blocks")
@@ -217,11 +246,16 @@ def _hybrid_group_train(mamba, lns, hp, cfg: ModelConfig, x, positions):
     return _shared_mlp(hp, cfg, x)
 
 
+# the rules' path of the hybrid's shared attention weights
+_SHARED_ATTN = "blocks/shared_attn"
+
+
 def _decode_attend(p, cfg: ModelConfig, h, ck, cv, li: int, pos,
-                   block_tables, kv_view):
+                   block_tables, kv_view, path: str = "blocks/attn"):
     """One token's attention of layer (or group) ``li``: against the
     chunk's paged view, through the page tables, or against the dense
-    cache, each written in place."""
+    cache, each written in place (``path``: the rules' path of the
+    weights, read on a serving step's model axis)."""
     if kv_view is not None:
         return attn_mod.paged_attention_decode_view(
             p, cfg, h, ck, cv, kv_view[0], kv_view[1], li, pos,
@@ -229,7 +263,8 @@ def _decode_attend(p, cfg: ModelConfig, h, ck, cv, li: int, pos,
     if block_tables is not None:
         return attn_mod.paged_attention_decode_inplace(
             p, cfg, h, ck, cv, li, pos, block_tables)[0]
-    return attn_mod.attention_decode_inplace(p, cfg, h, ck, cv, li, pos)[0]
+    return attn_mod.attention_decode_inplace(p, cfg, h, ck, cv, li, pos,
+                                             path=path)[0]
 
 
 class Model:
@@ -445,27 +480,41 @@ class Model:
 
     def _hybrid_groups(self, params, x, mstate, lengths, attend):
         """The hybrid's serving pass: each group's mamba layers on their
-        state rows of ``mstate`` (written in place), then the shared
-        block, whose attention is ``attend(g, weights, normed x)``."""
+        state rows of ``mstate`` (written in place; on a model axis the
+        group's state moved into the mixers' pieces and back), then the
+        shared block, whose attention is ``attend(g, weights, normed
+        x)``."""
         cfg, hp = self.cfg, params["blocks"]
-        for g in range(self.groups):
+
+        def group(g, h):
+            dst = _state_at(mstate, g)
+            work = _state_in(dst, "mamba/")
             for e in range(cfg.attn_every):
-                st = _state_at(mstate, g, e)
-                x, new = _mamba_layer(hp["mamba"][g][e], hp["mamba_ln"][g][e],
-                                      cfg, x, st, lengths)
+                st = _state_at(work, e)
+                h, new = _mamba_layer(hp["mamba"][g][e], hp["mamba_ln"][g][e],
+                                      cfg, h, st, lengths)
                 _write_state(st, new)
-            attn, xa = _shared_attn_in(hp, cfg, x)
-            x = _shared_mlp(hp, cfg, x + attend(g, attn, xa))
-        return x
+            _state_out(dst, work, "mamba/")
+            attn, xa = _shared_attn_in(hp, cfg, h)
+            return _shared_mlp(hp, cfg, h + attend(g, attn, xa))
+        # hlo_counter.layers: the loop, or one group at the groups' weight
+        # under a scaled op count
+        return hlo_counter.layers(group, list(range(self.groups)), x)
 
     def _rwkv_layers(self, params, x, state, lengths=None):
         """ssm's serving pass: each block on its state rows of ``state``
-        (written in place)."""
-        for li, layer in enumerate(params["blocks"]):
-            st = _state_at(state, li)
-            x, new = _rwkv_block_fwd(layer, self.cfg, x, st, lengths)
-            _write_state(st, new)
-        return x
+        (written in place; on a model axis moved into the mixers' pieces
+        and back)."""
+        def block(item, h):
+            li, layer = item
+            dst = _state_at(state, li)
+            work = _state_in(dst)
+            h, new = _rwkv_block_fwd(layer, self.cfg, h, work, lengths)
+            _write_state(work, new)
+            _state_out(dst, work)
+            return h
+        return hlo_counter.layers(block, list(enumerate(params["blocks"])),
+                                  x)
 
     def prefill(self, params, tokens, cache: KVCache, start: int = 0,
                 lengths: Optional[torch.Tensor] = None,
@@ -497,6 +546,10 @@ class Model:
             return self._last_logits(params, x, lengths), cache
         if cfg.family == "hybrid":
             kv = cache["kv"]
+            if not attend_cache:
+                # its weights' rules path, read on a model axis
+                attend = functools.partial(attn_mod.attention_prefill,
+                                           path=_SHARED_ATTN)
             x = self._hybrid_groups(
                 params, x, cache["mamba"], lengths,
                 lambda g, p, xa: attend(p, cfg, xa, KVCache(
@@ -517,18 +570,12 @@ class Model:
 
     def _serving_tp(self, attend_cache: bool = False, paged: bool = False):
         """The running serving step's ``TensorParallel`` (None off a model
-        axis), for the paths that run on one: the transformer families'
-        dense prefill and decode, as the reference's dry run lowers
-        them."""
+        axis), for the paths that run on one: every family's dense
+        prefill and decode, as the reference's dry run lowers them."""
         tp = ctx.get_tensor_parallel()
         if tp is None:
             return None
         cfg = self.cfg
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: serving with the params split over 'model' "
-                f"for the {cfg.family} family (its recurrent state's "
-                f"layout over model): ROADMAP.md queue 1 item 9f")
         if attend_cache or paged:
             raise NotImplementedError(
                 f"{cfg.name}: a chunked or paged serving step on a model "
@@ -554,7 +601,9 @@ class Model:
                                     "ln_f"), self.cfg.norm_eps)
         head = ctx.gathered(params["head"], "head")
         if tp is not None:
-            return tp.last_rows(x, lengths) @ tp.whole(head, "head")
+            with hlo_counter.tagged("head_gather"):
+                head = tp.whole(head, "head")
+            return tp.last_rows(x, lengths) @ head
         if lengths is None:
             x_last = x[:, -1]
         else:
@@ -638,7 +687,8 @@ class Model:
             x = self._hybrid_groups(
                 params, x, cache["mamba"], None,
                 lambda g, p, xa: _decode_attend(
-                    p, cfg, xa, kv.k, kv.v, g, pos, block_tables, kv_view))
+                    p, cfg, xa, kv.k, kv.v, g, pos, block_tables, kv_view,
+                    path=_SHARED_ATTN))
         else:
             def block(item, h):
                 li, layer = item

@@ -63,14 +63,21 @@ never at a replay.
 The tuner (:mod:`repro_torch.autotune`): ``ContinuousEngine(kv_layout=
 "auto")`` ranks the dense and paged layouts with the HBM-bytes roofline
 (``autotune.pick_kv_layout``) and takes the winner.  An engine given a
-``tuning_cache`` (a path or an ``autotune.TuningCache``; the continuous
-engine) runs every request under ``compiler.options(tuning_cache=...,
-kv_layout=...)`` and at its warm boundary audits the measured records of
-that cache (``obs.audit_cache``).  The reference also pre-tunes the
-model's op shapes at construction and exports their executors to an AOT
-store; the port's model path (K1, K3, the projections) dispatches through
-no DPIA row and takes no tuned parameter, so that warm-up waits for a
-model path that does (ROADMAP.md queue 1).
+``tuning_cache`` (a path or an ``autotune.TuningCache``) runs every
+request under ``compiler.options(tuning_cache=..., kv_layout=...)`` and at
+its warm boundary audits the measured records of that cache
+(``obs.audit_cache``).  As the reference's, it also warms up at
+construction, in an ``engine.warm`` span: it pre-tunes the model's op
+shapes (``autotune.warm_for_model`` at ``max_seq`` and ``batch_sizes``,
+the results in ``self.tuned``) and, where an AOT directory resolves
+(``aot="auto"``: the cache's path plus ``.aot``; a path; None or False:
+none), loads a prior engine's programs from it, stages the executor of
+every shape of ``autotune.model_kernel_shapes`` under its options scope
+(``ops.warm_kernel``; a shape with no strategy space is skipped) and
+exports the keys it staged itself, never another engine's of the same
+process.  The port's model path (K1, K3, the projections) dispatches
+through no DPIA row, so nothing on it reads these programs: the
+reference stages them all the same, and so does the port.
 
 Resilience (``resilience=``, a
 :class:`repro_torch.serve.resilience.ResilienceConfig`; its defaults are
@@ -105,9 +112,7 @@ killed engine's surviving requests ``domains.replay`` to token identity.
 :class:`ShardedEngine` is the continuous engine with its slots sharded over
 a ``torch.distributed`` mesh axis: one process a position, the weights
 replicated, one ``all_gather`` a chunk boundary, and failure domains that
-survive a lost host by evacuating its slots and shrinking the mesh.  The
-reference's AOT executables of the model are not ported: the port's model
-path dispatches through no DPIA row."""
+survive a lost host by evacuating its slots and shrinking the mesh."""
 from __future__ import annotations
 
 import contextlib
@@ -320,7 +325,7 @@ class _EngineBase:
 
     def __init__(self, model: Model, params, *, max_seq: int, chunk: int,
                  graph: bool = True, kv_layout: str = "dense",
-                 tuning_cache=None,
+                 tuning_cache=None, batch_sizes=(1, 8), aot="auto",
                  resilience: Optional[ResilienceConfig] = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -330,6 +335,7 @@ class _EngineBase:
         self.chunk = chunk
         self.kv_layout = kv_layout
         self.tuning_cache = tuning_cache
+        self.tuned: Dict[str, dict] = {}
         self._drift_audited = False
         self.resilience = resilience or ResilienceConfig()
         self._watchdog: Optional[Watchdog] = None
@@ -351,6 +357,50 @@ class _EngineBase:
         self.n_prefills = 0
         self.n_decode_steps = 0
         self.n_chunks = 0
+        if tuning_cache is not None:
+            self._warm(batch_sizes, aot)
+
+    # -- autotune + AOT warm-up ----------------------------------------------
+
+    def _aot_dir(self, aot) -> Optional[str]:
+        """The AOT directory of ``aot``: None or False none; a path itself;
+        ``"auto"`` the tuning cache's path plus ``.aot`` (none for a cache
+        with no path)."""
+        if aot is None or aot is False:
+            return None
+        if isinstance(aot, str) and aot != "auto":
+            return aot
+        path = getattr(self.tuning_cache, "path", None) or (
+            self.tuning_cache if isinstance(self.tuning_cache, str) else None)
+        return (str(path) + ".aot") if path else None
+
+    def _warm(self, batch_sizes, aot) -> None:
+        """Pre-tune the model's op shapes and stage their executors, loaded
+        from and exported to the AOT directory (module docstring)."""
+        from repro_torch import autotune
+        from repro_torch.kernels import ops
+        cfg = self.model.cfg
+        with obs.span("engine.warm", max_seq=self.max_seq,
+                      batch_sizes=str(tuple(batch_sizes))):
+            self.tuned = autotune.warm_for_model(
+                cfg, max_seq=self.max_seq, cache=self.tuning_cache,
+                batch_sizes=batch_sizes)
+            aot_dir = self._aot_dir(aot)
+            if aot_dir is None:
+                return
+            store = compiler.executor_cache()
+            store.load_aot(aot_dir)   # a prior engine's programs: no staging
+            before = set(store.keys())
+            with self._options_scope():
+                for kernel, shape in autotune.model_kernel_shapes(
+                        cfg, max_seq=self.max_seq, batch_sizes=batch_sizes):
+                    try:
+                        ops.warm_kernel(kernel, **shape)
+                    except (ValueError, AssertionError):
+                        continue      # a shape with no valid strategy space
+            # only the keys this engine staged: a process's shared cache must
+            # not leak another model's programs into this directory
+            store.save_aot(aot_dir, keys=set(store.keys()) - before)
 
     # -- the tuner: options scope, drift audit -------------------------------
 
@@ -603,16 +653,21 @@ class BatchedEngine(_EngineBase):
     buffers are kept per batch size and zeroed at each run, so a later run
     of as many requests replays the graphs of the first.
 
-    ``resilience`` wraps each chunk (fault sites, watchdog, retry before
-    dispatch); the chunk computes the NaN guard's flags as the continuous
-    engine's does, and, as in the reference, the static engine does not
-    act on them: it has no lane to quarantine a request from."""
+    ``tuning_cache``, ``batch_sizes`` and ``aot``: the warm-up at
+    construction (module docstring).  ``resilience`` wraps each chunk
+    (fault sites, watchdog, retry before dispatch); the chunk computes the
+    NaN guard's flags as the continuous engine's does, and, as in the
+    reference, the static engine does not act on them: it has no lane to
+    quarantine a request from."""
 
     def __init__(self, model: Model, params, max_seq: int = 512,
-                 chunk: int = 8, *, graph: bool = True,
+                 chunk: int = 8, *, graph: bool = True, tuning_cache=None,
+                 batch_sizes=(1, 8), aot="auto",
                  resilience: Optional[ResilienceConfig] = None):
         super().__init__(model, params, max_seq=max_seq, chunk=chunk,
-                         graph=graph, resilience=resilience)
+                         graph=graph, tuning_cache=tuning_cache,
+                         batch_sizes=batch_sizes, aot=aot,
+                         resilience=resilience)
         self._states: Dict[int, _DecodeState] = {}
 
     def _state(self, b: int) -> _DecodeState:
@@ -722,7 +777,7 @@ class ContinuousEngine(_EngineBase):
                  kv_layout: str = "dense", block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, *, graph: bool = True,
-                 tuning_cache=None,
+                 tuning_cache=None, batch_sizes=None, aot="auto",
                  resilience: Optional[ResilienceConfig] = None,
                  journal=None):
         if kv_layout == "auto":
@@ -744,7 +799,9 @@ class ContinuousEngine(_EngineBase):
             self.kv_blocks = int(kv_blocks or slots * self.max_blocks)
         super().__init__(model, params, max_seq=max_seq, chunk=chunk,
                          graph=graph, kv_layout=kv_layout,
-                         tuning_cache=tuning_cache, resilience=resilience)
+                         tuning_cache=tuning_cache,
+                         batch_sizes=batch_sizes or (1, slots), aot=aot,
+                         resilience=resilience)
         self.slots = slots
         self.prefill_chunk = prefill_chunk
         limit = (max_seq if prefill_chunk is None
@@ -1463,7 +1520,8 @@ class ShardedEngine(ContinuousEngine):
 
     def __init__(self, model: Model, params, max_seq: int = 512,
                  slots: int = 8, chunk: int = 8, min_bucket: int = 16, *,
-                 tuning_cache=None, mesh=None, mesh_axis: str = "data",
+                 tuning_cache=None, batch_sizes=None, aot="auto",
+                 mesh=None, mesh_axis: str = "data",
                  kv_layout: str = "dense", block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
@@ -1511,6 +1569,7 @@ class ShardedEngine(ContinuousEngine):
                          kv_layout=kv_layout, block_size=block_size,
                          kv_blocks=kv_blocks, prefill_chunk=prefill_chunk,
                          graph=graph, tuning_cache=tuning_cache,
+                         batch_sizes=batch_sizes, aot=aot,
                          resilience=resilience, journal=journal)
         self._check_replicas()
         self._epoch = time.perf_counter()

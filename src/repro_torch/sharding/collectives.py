@@ -42,6 +42,11 @@ The port writes them out:
     transpose of the reference's ``pmean``), both on
     :class:`ExpertParallel`'s groups.
   * :func:`splits` gives, for a spec, the dim each group splits.
+  * A serving step's recurrent state (:class:`StateMove`): the cache
+    holds each state leaf in the rules' layout (``rules.state_slice``),
+    the mixers read and write it in their own (the rank's batch rows and
+    heads); each layer's state moves in and back out over the data and
+    model groups.
 
 Backends.  NCCL takes card tensors only, and every tensor this module
 hands a group is the caller's (the state's device: the card for a card
@@ -76,7 +81,7 @@ from ..analysis import hlo_counter
 from .rules import PartitionSpec, dp_axes, mesh_shape
 
 __all__ = ["DataGroup", "ModelGroup", "WorldGroup", "ExpertParallel",
-           "CountingMesh",
+           "CountingMesh", "StateMove",
            "splits", "gather_param", "copy_to", "reduce_from", "scatter",
            "gather_replicated", "all_sum", "all_to_all", "all_mean"]
 
@@ -519,6 +524,172 @@ def chunk_bounds(n: int, parts: int) -> List[Tuple[int, int]]:
             for i in range(parts)]
 
 
+def _chunk(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """``[lo, hi)`` of piece ``index`` of ``n`` cut in ``parts`` even
+    pieces."""
+    k = n // parts
+    return index * k, (index + 1) * k
+
+
+def _merged(ranges: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """Adjacent ranges joined: [(0, 2), (2, 4)] -> [(0, 4)]."""
+    out: List[Tuple[int, int]] = []
+    for lo, hi in ranges:
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def take(t: torch.Tensor, held, want) -> torch.Tensor:
+    """The part ``want`` of ``t`` (per dim, the ranges of the global dim
+    to keep, concatenated in order), where ``t`` holds ``held`` (per dim,
+    the ranges of the global dim its entries are, in order; a range may
+    come twice, as where ranks that hold the same columns were
+    gathered)."""
+    for d, (h, w) in enumerate(zip(held, want)):
+        h, w = _merged(h), _merged(w)
+        if h == w:
+            continue
+        parts = []
+        for lo, hi in w:
+            at = lo
+            while at < hi:
+                off = 0
+                for a, b in h:
+                    if a <= at < b:
+                        n = min(b, hi) - at
+                        parts.append(t.narrow(d, off + at - a, n))
+                        at += n
+                        break
+                    off += b - a
+                else:
+                    raise ValueError(f"dim {d}: {(lo, hi)} is not in {h}")
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, d)
+    return t
+
+
+class StateMove:
+    """One recurrent state leaf of a serving step on a mesh, moved between
+    the rules' piece (the cache at rest: ``rules.state_slice``) and the
+    mixer's (what ``models.rwkv6`` / ``models.mamba2`` read and write on a
+    model axis), a unit at a time: one layer's state for rwkv6 (b, ...),
+    one group's for the hybrid (E, b, ...).
+
+    ``spec`` and ``shape`` are the unit's (the leaf's without its leading
+    layer dim), ``batch`` its batch dim, ``rows_split`` whether the step's
+    tokens are split over the data group (each rank its rows; else every
+    rank runs every row), ``mixer(r)`` the mixer's piece at model index
+    ``r``: ``(dim, ranges)`` of the one dim it cuts by the rank (its heads,
+    or the conv tail's columns of its heads and ``B | C``), or None where
+    every rank reads the unit whole (its rows aside).
+
+    :meth:`enter`: a data split of the rules that is not the tokens' rows
+    (a layer dim, or nothing while the tokens are split) is gathered over
+    the data group; over ``model``, where the rules and the mixer cut
+    different dims in even chunks, one all-to-all moves the rank's piece
+    (the rules' chunk of one dim becomes the mixer's chunk of the other),
+    else the rules' dim is gathered whole; then the mixer's piece is cut
+    out.  :meth:`exit` runs the other way: where the rules hold every row
+    and the tokens are split, the new rows are gathered over the data
+    group (else the ranks' copies would part); the all-to-all back, or the
+    mixer's pieces gathered over ``model``; then the rules' piece is cut
+    out and copied into the cache.  Every collective is the groups',
+    counted with the others."""
+
+    def __init__(self, data: _Group, model: _Group, spec: PartitionSpec,
+                 shape, batch: int, rows_split: bool, mixer):
+        self.data, self.model = data, model
+        self.shape, self.batch = tuple(shape), batch
+        self.rows_split = rows_split and data.size > 1
+        split = splits(model.mesh, spec)
+        self.rd, self.rm = split["data"], split["model"]
+        self.mixer = mixer
+        mine = mixer(model.index) if model.size > 1 else None
+        self.mm = None if mine is None else mine[0]
+        # the mixer cuts its dim in even chunks by the model index
+        self.even = mine is not None and all(
+            mixer(r)[1] == [_chunk(self.shape[self.mm], model.size, r)]
+            for r in range(model.size))
+
+    def _whole(self, d: int):
+        return [(0, self.shape[d])]
+
+    def _rules(self):
+        held = [self._whole(d) for d in range(len(self.shape))]
+        if self.rd is not None:
+            held[self.rd] = [_chunk(self.shape[self.rd], self.data.size,
+                                    self.data.index)]
+        if self.rm is not None:
+            held[self.rm] = [_chunk(self.shape[self.rm], self.model.size,
+                                    self.model.index)]
+        return held
+
+    def _mixer(self):
+        held = [self._whole(d) for d in range(len(self.shape))]
+        if self.rows_split:
+            held[self.batch] = [_chunk(self.shape[self.batch],
+                                       self.data.size, self.data.index)]
+        if self.mm is not None:
+            held[self.mm] = list(self.mixer(self.model.index)[1])
+        return held
+
+    def _exchange(self, t: torch.Tensor, split: int, cat: int
+                  ) -> torch.Tensor:
+        """``t`` cut in ``model.size`` chunks along ``split``, chunk ``i``
+        sent to index ``i``, and what came back joined along ``cat`` in
+        index order."""
+        m = self.model.size
+        x = t.unflatten(split, (m, t.shape[split] // m)).movedim(split, 0)
+        return self.model.all_to_all(x).movedim(0, cat).flatten(cat, cat + 1)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rules piece ``t`` of a unit -> its mixer's piece."""
+        with hlo_counter.tagged("state_move"):
+            return self._enter(t)
+
+    def exit(self, new: torch.Tensor, dst: torch.Tensor) -> None:
+        """The mixer's new piece ``new`` of a unit -> the rank's rules
+        piece, copied into ``dst`` (the cache's view)."""
+        with hlo_counter.tagged("state_move"):
+            self._exit(new, dst)
+
+    def _enter(self, t: torch.Tensor) -> torch.Tensor:
+        held = self._rules()
+        if self.rd is not None and not (self.rd == self.batch
+                                        and self.rows_split):
+            t = self.data.all_gather(t, self.rd)
+            held[self.rd] = self._whole(self.rd)
+        if self.rm is not None and not (self.even and self.mm == self.rm):
+            if self.even and held[self.mm] == self._whole(self.mm):
+                t = self._exchange(t, self.mm, self.rm)
+                held[self.mm] = [_chunk(self.shape[self.mm], self.model.size,
+                                        self.model.index)]
+            else:
+                t = self.model.all_gather(t, self.rm)
+            held[self.rm] = self._whole(self.rm)
+        return take(t, held, self._mixer())
+
+    def _exit(self, new: torch.Tensor, dst: torch.Tensor) -> None:
+        held = self._mixer()
+        if self.rows_split and self.rd != self.batch:
+            new = self.data.all_gather(new, self.batch)
+            held[self.batch] = self._whole(self.batch)
+        if self.mm is not None and not (self.even and self.rm == self.mm):
+            if self.even and self.rm is not None and \
+                    held[self.rm] == self._whole(self.rm):
+                new = self._exchange(new, self.rm, self.mm)
+                held[self.rm] = [_chunk(self.shape[self.rm], self.model.size,
+                                        self.model.index)]
+                held[self.mm] = self._whole(self.mm)
+            else:
+                new = self.model.all_gather(new, self.mm)
+                held[self.mm] = [rg for r in range(self.model.size)
+                                 for rg in self.mixer(r)[1]]
+        dst.copy_(take(new, held, self._rules()))
+
+
 # ---------------------------------------------------------------------------
 # the model axis as the model uses it
 # ---------------------------------------------------------------------------
@@ -598,10 +769,16 @@ class TensorParallel:
     heads read, and it writes and reads them alone; where it splits the
     positions (``"seq"``) the rank holds every kv head of its positions,
     and a decode step merges each rank's partial attention over ``model``
-    (``models.attention``)."""
+    (``models.attention``).  The recurrent families' serving step also
+    gives ``state`` (``rules.state_slice``) and the ``data`` group: each
+    state leaf's :class:`StateMove` (``self.state``), through which the
+    model moves a layer's state into the mixer's piece
+    (:meth:`state_in`) and back into the cache (:meth:`state_out`)."""
 
     def __init__(self, group: ModelGroup, dims: Dict[str, Optional[int]],
-                 cfg, seq: int, kv: Optional[Dict] = None):
+                 cfg, seq: int, kv: Optional[Dict] = None,
+                 state: Optional[Dict] = None,
+                 data: Optional[DataGroup] = None):
         m, r = group.size, group.index
         self.group, self.dims, self.seq, self.kv = group, dims, seq, kv
         self.sp = seq % m == 0
@@ -629,6 +806,44 @@ class TensorParallel:
             else (0, mh)
         self.mixer_heads = (h0, h1)
         self.mixer_cols = (h0 * MIXER_HD, h1 * MIXER_HD)
+        self.state = {name: self._state_move(cfg, name, info, data)
+                      for name, info in (state or {}).items()}
+
+    def _state_move(self, cfg, name: str, info: Dict, data) -> StateMove:
+        """The :class:`StateMove` of the state leaf ``name`` (its
+        ``rules.state_slice`` entry): the mixers' pieces are rwkv6's
+        ``wkv`` and mamba2's ``ssm`` on the rank's heads, the conv tail on
+        the columns of its heads and ``B | C`` whole (:meth:`
+        mamba_columns`' ``conv_w`` ranges), the token shifts whole (the
+        lerps read every column)."""
+        m, mh = self.group.size, mixer_heads(cfg)
+        shape, spec = info["shape"][1:], PartitionSpec(*info["spec"][1:])
+        batch = 1 if name.startswith("mamba/") else 0
+
+        def heads(r):
+            return (r * mh // m, (r + 1) * mh // m)
+        if not self.split_mixer or name in ("tshift", "cshift"):
+            mixer = lambda r: None  # noqa: E731
+        elif name == "mamba/conv":
+            din, n = 2 * cfg.d_model, cfg.ssm_state
+            mixer = lambda r: (len(shape) - 1, [  # noqa: E731
+                (heads(r)[0] * MIXER_HD, heads(r)[1] * MIXER_HD),
+                (din, din + 2 * n)])
+        else:               # wkv (b, nh, ...), mamba/ssm (E, b, nh, ...)
+            mixer = lambda r: (batch + 1, [heads(r)])  # noqa: E731
+        return StateMove(data, self.group, spec, shape, batch,
+                         shape[batch] % data.size == 0, mixer)
+
+    def state_in(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rules piece ``t`` of state leaf ``name`` (a layer's,
+        or a hybrid group's) -> the piece its mixer reads."""
+        return self.state[name].enter(t)
+
+    def state_out(self, name: str, new: torch.Tensor,
+                  dst: torch.Tensor) -> None:
+        """The mixer's new piece of state leaf ``name`` -> the rank's rules
+        piece, written into ``dst``."""
+        self.state[name].exit(new, dst)
 
     def mamba_columns(self, cfg) -> Dict[str, List[Tuple[int, int]]]:
         """The column ranges of mamba2's ``w_in`` and ``conv_w`` that the

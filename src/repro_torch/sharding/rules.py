@@ -51,7 +51,8 @@ import torch
 
 __all__ = ["PartitionSpec", "PS", "mesh_shape", "dp_axes", "param_spec",
            "params_specs", "opt_state_specs", "batch_specs",
-           "activation_spec", "cache_specs", "kv_slice", "shard_cache",
+           "activation_spec", "cache_specs", "kv_slice", "state_slice",
+           "shard_cache",
            "named", "local_shard", "tree_map_specs"]
 
 
@@ -69,6 +70,11 @@ class PartitionSpec(tuple):
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def __reduce__(self):
+        # rebuilt from its entries (a tuple subclass would otherwise be
+        # rebuilt from one tuple, read as a single entry)
+        return (PartitionSpec, tuple(self))
 
 
 PS = PartitionSpec
@@ -411,4 +417,39 @@ def kv_slice(cfg, mesh, shape, coordinate: Dict[str, int]) -> Dict:
     for name, dim in (("seq", 2), ("heads", 3)):
         if "model" in axes[dim] and sizes["model"] > 1:
             out["layout"] = name
+    return out
+
+
+def state_slice(cfg, mesh, cache, coordinate: Dict[str, int]) -> Dict:
+    """What the rank at ``coordinate`` holds of each recurrent state leaf
+    of the serving ``cache`` (global shapes; ``meta`` tensors will do)
+    under :func:`cache_specs`, the counterpart of :func:`kv_slice`:
+    ``{path: {"shape": the leaf's global shape, "spec": its spec, "held":
+    per dim the range (lo, hi) of the global dim}}`` for rwkv6's
+    ``tshift``, ``cshift`` and ``wkv`` and the hybrid's ``mamba/conv`` and
+    ``mamba/ssm``; empty for the transformer families, whose cache is KV
+    alone.
+
+    The rules read these leaves as they read any other, so their layout
+    follows from their names and sizes: ``wkv`` and ``mamba/conv`` take
+    the KV branch (``"kv"`` in the path, a path ending in ``v``), so
+    ``model`` splits ``wkv``'s key index and the conv tail's batch rows
+    (or nothing); the rest take their "first non-layer dim" for the batch,
+    which for the hybrid's (G, E, b, ...) leaves is ``attn_every``."""
+    specs = cache_specs(cfg, mesh, cache)
+    if cfg.family == "ssm":
+        state, spec = cache, specs
+        prefix = ""
+    elif cfg.family == "hybrid":
+        state, spec = cache["mamba"], specs["mamba"]
+        prefix = "mamba/"
+    else:
+        return {}
+    out = {}
+    for name, t, sp in zip(state._fields, state, spec):
+        held = tuple((idx * (n // parts), (idx + 1) * (n // parts))
+                     for n, (idx, parts) in zip(
+                         t.shape, _split_of(mesh, sp, coordinate)))
+        out[prefix + name] = {"shape": tuple(t.shape), "spec": sp,
+                              "held": held}
     return out

@@ -12,17 +12,23 @@ the step's context (``sharding.ctx``):
   * the params: the rank's pieces under ``params_specs`` (FSDP's data
     split gathered where used, as in the train step);
   * the cache: its piece under ``cache_specs`` (``rules.shard_cache``):
-    its batch rows, and either its kv heads or its positions;
+    of the KV leaves its batch rows, and either its kv heads or its
+    positions; of the recurrent state leaves (rwkv6's, the hybrid's
+    mamba state) whatever the rules give, which is not the mixers' split
+    (``rules.state_slice``);
   * the tokens: its batch rows, where the data axes divide the batch (else
     the whole batch, as the reference's input spec leaves it);
   * ``sharding.collectives.TensorParallel`` of the step's sequence (the
     prompt's, or 1 for a decode step) with the rank's KV slice
-    (``rules.kv_slice``), which ``models.attention``, ``models.ffn`` and
-    ``models.transformer`` read.
+    (``rules.kv_slice``; none for rwkv6, which has no KV) and state slice,
+    which ``models.attention``, ``models.ffn``, ``models.rwkv6``,
+    ``models.mamba2`` and ``models.transformer`` read: each layer's
+    state moves from the rules' piece into the mixers' and back
+    (``collectives.StateMove``).
 
 The logits come back whole over the vocab on every rank of ``model``, for
-the rank's batch rows.  Only the transformer families run here; the
-recurrent families raise (ROADMAP.md queue 1 item 9f).
+the rank's batch rows.  Every family runs here, on its dense prefill and
+decode step.
 """
 from __future__ import annotations
 
@@ -50,10 +56,32 @@ class ServingStep:
                                    mesh.get_coordinate()))
         self.batch = batch
         layers = model.groups if cfg.family == "hybrid" else cfg.n_layers
-        self.kv = rules.kv_slice(
+        self.kv = None if cfg.family == "ssm" else rules.kv_slice(
             cfg, mesh, (layers, batch, max_seq, cfg.n_kv_heads, cfg.hd),
             self.coordinate)
+        self.state = rules.state_slice(
+            cfg, mesh, model.init_cache(batch, max_seq, device="meta"),
+            self.coordinate)
+        if self.place.model.size == 1 and self._state_moves():
+            raise NotImplementedError(
+                f"{cfg.name} on {rules.mesh_shape(mesh)}: the rules split "
+                f"its recurrent state over the data axes, and the state "
+                f"moves between the rules' pieces and the mixers' run on a "
+                f"model axis's TensorParallel alone")
         self._tp: Dict[int, object] = {}
+
+    def _state_moves(self) -> bool:
+        """Whether a state leaf's data split is not the tokens' rows (a
+        layer dim, or nothing while the rows are split): then each layer's
+        state has to move between the pieces."""
+        from .collectives import splits
+        d = self.place.group.size
+        for name, s in self.state.items():
+            batch = 2 if name.startswith("mamba/") else 1
+            rows = batch if d > 1 and s["shape"][batch] % d == 0 else None
+            if splits(self.mesh, s["spec"])["data"] != rows:
+                return True
+        return False
 
     # -- placement ------------------------------------------------------------
     def shard_params(self, params):
@@ -81,12 +109,12 @@ class ServingStep:
     # -- the step -------------------------------------------------------------
     def tensor_parallel(self, seq: int):
         """The model axis's ``TensorParallel`` of a step of ``seq`` tokens
-        a row, with the rank's KV slice."""
+        a row, with the rank's KV and state slices."""
         from .collectives import TensorParallel
         if seq not in self._tp:
-            self._tp[seq] = TensorParallel(self.place.model,
-                                           self.place.model_dims, self.cfg,
-                                           seq, kv=self.kv)
+            self._tp[seq] = TensorParallel(
+                self.place.model, self.place.model_dims, self.cfg, seq,
+                kv=self.kv, state=self.state, data=self.place.group)
         return self._tp[seq]
 
     @contextlib.contextmanager

@@ -292,9 +292,10 @@ def test_kv_layout_auto_and_tuning_cache(setup, tmp_path, monkeypatch):
     """``kv_layout="auto"`` takes the layout the reference's planner picks
     for this model and engine shape and serves that layout's tokens;
     ``tuning_cache=`` scopes the engine's runs to that cache and layout
-    and audits the cache at the warm boundary.  The engine pre-tunes and
-    stages nothing (its model path runs no DPIA row): the cache holds the
-    layout decision alone and no AOT store is written."""
+    and audits the cache at the warm boundary.  The engine also warms up
+    at construction, as the reference's does: the cache holds the layout
+    decision and the model's pre-tuned op shapes (``engine.tuned``), and
+    the staged programs go to the AOT store beside it."""
     from repro import autotune as jautotune
     from repro_torch import autotune, compiler
     model, params, prompts, want = setup
@@ -319,9 +320,13 @@ def test_kv_layout_auto_and_tuning_cache(setup, tmp_path, monkeypatch):
     monkeypatch.setattr(model, "decode_step", decode_step)
     assert engine.run(_requests(prompts)) == want[engine.kv_layout]
     assert seen and set(seen) == {(cache, engine.kv_layout)}
-    assert [k.split("|")[0] for k in autotune.TuningCache(cache).keys()] \
-        == ["kv_layout"]
-    assert not (tmp_path / "t.json.aot").exists()
+    keys = autotune.TuningCache(cache).keys()
+    assert [k for k in keys if k.split("|")[0] not in
+            ("rmsnorm", "matmul")] == [k for k in keys
+                                       if k.startswith("kv_layout|")]
+    assert len([k for k in keys if k.startswith("kv_layout|")]) == 1
+    assert engine.tuned and set(engine.tuned) <= set(keys)
+    assert (tmp_path / "t.json.aot").is_dir()
     assert engine._drift_audited
 
 

@@ -604,9 +604,17 @@ def _ref_bytes(sds_tree, spec_tree, mesh):
     return total
 
 
+# (arch, shape): the transformer families' cells, and the recurrent
+# families' serving cells (long_500k applies to them: sub-quadratic)
+DRYRUN_CELLS = [(a, s) for a in ("qwen3_4b", "yi_9b")
+                for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+    (a, s) for a in ("rwkv6_1_6b", "zamba2_2_7b")
+    for s in ("prefill_32k", "decode_32k", "long_500k")]
+
+
 @pytest.mark.parametrize("multi", [False, True])
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", ["qwen3_4b", "yi_9b"])
+@pytest.mark.parametrize("arch,shape", DRYRUN_CELLS,
+                         ids=[f"{a}-{s}" for a, s in DRYRUN_CELLS])
 def test_dryrun_bytes_equal_the_reference_specs(arch, shape, multi):
     mesh = dryrun.MESHES["multi" if multi else "single"]
     rec = dryrun.lower_cell(arch, shape, multi)
@@ -626,7 +634,9 @@ def test_dryrun_bytes_equal_the_reference_specs(arch, shape, multi):
                                                        model.cfg), mesh)
         want += _ref_bytes(cache, jrules.cache_specs(model.cfg, duck,
                                                      cache), mesh)
-        tokens = 32 * 32768 if shape == "prefill_32k" else 128
+        tokens = {"prefill_32k": 32 * 32768, "decode_32k": 128,
+                  "long_500k": 1}[shape]
+    assert jspecs.shape_applicable(jcfg, shape)[0]
     assert rec["status"] == "ok" and rec["memory"]["argument_bytes"] == want
     assert rec["chips"] == math.prod(mesh.values())
     assert rec["tokens_per_step"] == tokens
