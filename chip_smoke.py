@@ -3396,6 +3396,13 @@ SHARD_RANKS = 2         # 15b / 15c: processes sharing the one card over gloo
 # when phase 22 came (phase 15 56.5 s at 12 in a whole run of the script)
 SHARD_FP32_LAYERS = 6
 SHARD_LOST_AFTER = 2    # 15c: host 1 is lost at the third boundary
+SHARD_EXIT_RANKS = 4    # 15d: processes sharing the card, one a host
+# 15d: host 3's loss drops host 2 from the tail (4 slots do not divide 3
+# positions: data=2), host 1's leaves rank 0 alone (data=1); each lost
+# rank's process exits at its loss
+SHARD_EXIT_PLAN = ("mesh.host_lost(host=3, after=2); "
+                   "mesh.host_lost(host=1, after=4)")
+SHARD_EXIT_SHRINKS = [("data=4", "data=2", 3), ("data=2", "data=1", 1)]
 
 
 def sharded_engine(model, params, mesh, layout: str, **kw):
@@ -3564,11 +3571,109 @@ def sharded_rank_two(rank, world, want, journal):
     return out
 
 
+def sharded_rank_exit(rank, world, want, journal):
+    """[15d] ``world`` gloo ranks sharing the card, one a host
+    (``hosts=world``), fp32 (TF32 off), 15b's model, dense: phase 4b's
+    traffic under :data:`SHARD_EXIT_PLAN`.  Each lost rank's process
+    exits at its loss (``ranks.die`` posts its run first) and calls
+    nothing more; rank 0 serves every request on ``data=1``."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.domains import SchedulerJournal
+    from repro_torch.testing import faults, ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, params = serve.build(ARCH, seed=0, dtype="float32",
+                                     n_layers=SHARD_FP32_LAYERS)
+    mesh = make_mesh((world,), ("data",))
+    reqs = continuous_requests(cfg.vocab)
+    obs.flight_clear()
+    obs.clear_decisions()
+    engine = sharded_engine(model, params, mesh, "dense", hosts=world,
+                            journal=journal)
+    with faults.inject(SHARD_EXIT_PLAN) as plan:
+        run = _sharded_run(engine, reqs, cfg, "tf32x3")
+    st = engine.stats()
+    run.update(
+        rank=rank, fired=[f.fired for f in plan], left=engine.left,
+        descriptor=st["mesh"]["descriptor"],
+        host_losses=st["resilience"]["host_losses"],
+        evacuations=st["scheduler"]["evacuations"],
+        shrinks=st["mesh"]["shrinks"],
+        dumps=[(d["reason"], d["ctx"]["frm"], d["ctx"]["to"])
+               for d in obs.flight_dumps()],
+        explain=obs.explain())
+    if engine.left:
+        ranks.die(run)
+    state = SchedulerJournal.load(f"{journal}.rank{rank}")
+    run["journal"] = {"clean": state.clean,
+                      "shrinks": [(r["frm"], r["to"], r["host"])
+                                  for r in state.shrinks],
+                      "evacuations": state.evacuations,
+                      "terminals": len(state.terminals)}
+    return run
+
+
+def _check_exit_drill(runs, want, smi):
+    """[15d]'s checks: rank 0 alone on ``data=1`` with every request's tokens equal to the one-process fp32
+    engine's, both shrinks dumped, recorded and journalled, the chunk
+    captured anew at 2 and then 4 lanes; ranks 1-3 left at their losses
+    (their runs were posted before they exited)."""
+    r0 = runs[0]
+    lanes = [k[0] for k in r0["graph_keys"]]
+    # a rank's host losses seen and the descriptor it ended on
+    seen = {0: (2, "data=1"), 1: (2, "data=2"), 2: (1, "data=4"),
+            3: (1, "data=4")}
+    bad = [r["rank"] for r in runs
+           if (r["host_losses"], r["descriptor"]) != seen[r["rank"]]
+           or (r["tokens"] is None) != (r["rank"] != 0)
+           or r["left"] != (r["rank"] != 0)]
+    origin = "degraded(mesh(data=2)->mesh(data=1))"
+    if bad or r0["tokens"] != want or r0["fired"] != [1, 1] \
+            or [(f, t) for _, f, t in r0["dumps"]] != \
+            [(f, t) for f, t, _ in SHARD_EXIT_SHRINKS] \
+            or {d[0] for d in r0["dumps"]} != {"host_lost"} \
+            or origin not in r0["explain"] \
+            or [(s["frm"], s["to"], s["host"]) for s in r0["shrinks"]] != \
+            SHARD_EXIT_SHRINKS \
+            or r0["journal"] != {"clean": True,
+                                 "shrinks": SHARD_EXIT_SHRINKS,
+                                 "evacuations": r0["evacuations"],
+                                 "terminals": len(want)} \
+            or lanes != sorted(lanes) or not {2, SLOTS} <= set(lanes) \
+            or r0["all_gather"] != r0["boundaries"] + 2:
+        raise AssertionError(
+            f"[15d] two host losses with the lost ranks exiting: ranks "
+            f"{bad} off; rank 0 "
+            f"{ {k: v for k, v in r0.items() if k not in ('tokens', 'explain')} }"
+            f", tokens equal {r0['tokens'] == want}")
+    for s in r0["shrinks"]:
+        log(f"[15d] shrink {s['frm']} -> {s['to']} (host {s['host']} lost): "
+            f"rendezvous of the survivors {s['rendezvous_s'] * 1e3:.3f} ms, "
+            f"re-placement gather {s['gather_bytes']} bytes sent by each "
+            f"survivor in {s['gather_s'] * 1e3:.3f} ms (host clock); card "
+            f"{smi}")
+    log(f"[15d] {SHARD_EXIT_PLAN} on data={SHARD_EXIT_RANKS}, hosts="
+        f"{SHARD_EXIT_RANKS}, fp32, {SHARD_FP32_LAYERS} layers, dense, the "
+        f"lost ranks' processes exiting at their loss: rank 0 served every "
+        f"request on {r0['descriptor']} to 15b's tokens; host_losses "
+        f"{[r['host_losses'] for r in runs]}, evacuations "
+        f"{r0['evacuations']}, flight dumps {r0['dumps']}, journal "
+        f"{r0['journal']}, graph keys {r0['graph_keys']}; K1 / K3 launches "
+        f"a rank {[(r['launches']['rmsnorm'], r['launches']['flash_attention']) for r in runs]}"
+        f" (K3 `tf32x3`); {r0['boundaries']} boundaries, all_gather a rank "
+        f"{[r['all_gather'] for r in runs]}, {r0['gather_s'] * 1e3:.3f} ms "
+        f"in rank 0's; rank 0 {r0['s']:.2f} s; max memory GiB "
+        f"{[round(r['max_memory_gib'], 2) for r in runs]}; card {smi}")
+
+
 def phase_sharded(smi, want_bf16, tok_s_4b):
     """[15] sharded serving in spawned ranks (a failed rank fails the run):
     (a) one NCCL rank, bf16, tokens bitwise phase 4b's; (b) two gloo ranks
     sharing the card, fp32, tokens equal to one process's; (c) the
-    host-loss drill on (b)'s ranks, dense and paged."""
+    host-loss drill on (b)'s ranks, dense and paged; (d) four gloo ranks,
+    one a host, through two losses, the lost ranks' processes exiting."""
     from repro_torch.launch import serve
     from repro_torch.testing import ranks
     t_start = time.perf_counter()
@@ -3612,6 +3717,11 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
                           device="cuda", timeout=600,
                           args=(want, os.path.join(jdir, "15c.jsonl")))
         t_two = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exits = ranks.spawn(sharded_rank_exit, SHARD_EXIT_RANKS,
+                            backend="gloo", device="cuda", timeout=600,
+                            args=(want, os.path.join(jdir, "15d.jsonl")))
+        t_exit = time.perf_counter() - t0
     finally:
         shutil.rmtree(jdir, ignore_errors=True)
     out = {"15a": {l: one[l]["launches"] for l in ("dense", "paged")}}
@@ -3666,8 +3776,10 @@ def phase_sharded(smi, want_bf16, tok_s_4b):
             f"rank 0 {c0['all_gather']} (one re-placement included), rank 1 "
             f"{c1['all_gather']}; {c0['s']:.2f} s; card {smi}")
         out[f"15c_{layout}"] = [c0["launches"], c1["launches"]]
-    log(f"[15] summary: 15a {t_one:.1f} s, 15b + 15c {t_two:.1f} s "
-        f"(processes included), phase 15 "
+    _check_exit_drill(exits, want, smi)
+    out["15d"] = [r["launches"] for r in exits]
+    log(f"[15] summary: 15a {t_one:.1f} s, 15b + 15c {t_two:.1f} s, 15d "
+        f"{t_exit:.1f} s (processes included), phase 15 "
         f"{time.perf_counter() - t_start:.1f} s; card {smi}")
     return out
 
@@ -6252,8 +6364,8 @@ def _run_phases(tune_cache: str) -> int:
                 v: {"source": src, "launches": variants[k["name"]][v]}
                 for v, src in VARIANT_SOURCES[k["name"]].items()}
         if k["name"] in ("rmsnorm", "flash_attention"):
-            # phase 15's sharded runs: 15a's one rank by layout, 15b's and
-            # 15c's ranks
+            # phase 15's sharded runs: 15a's one rank by layout, 15b's,
+            # 15c's and 15d's ranks
             entry["launches_phase15"] = {
                 key: ([c[k["name"]] for c in v] if isinstance(v, list)
                       else {lay: c[k["name"]] for lay, c in v.items()})

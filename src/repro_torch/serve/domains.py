@@ -34,15 +34,16 @@ replayed one in a fresh process; both reproduce their tokens bit for bit.
 The mesh is a ``torch.distributed`` ``DeviceMesh`` with one dim over
 every rank of the process group; every rank builds its own
 :class:`FailureDomains` and, given the same fault plan, sees the same
-events at the same boundaries (``repro_torch.testing.faults``).
-:meth:`FailureDomains.shrunk_mesh` builds the survivors' mesh on a
-``dist.new_group`` of the surviving ranks, which every rank of the process
-group calls, the lost ones too.  In a drill the lost rank is alive, so it
-does, and then it stops serving (``ShardedEngine`` leaves its loop): that
-is how the drill stands in for a dead host.  A host that really died
-cannot take part, and neither can ranks that left at an earlier shrink:
-either needs a new rendezvous, which is out of scope, so a second shrink
-raises.
+events at the same boundaries (``repro_torch.testing.faults``).  At each
+loss :meth:`FailureDomains.shrunk_mesh` gives the survivors a mesh on a
+process group that only they create: they meet under a key of the
+default store (the one the world started from) made of their global
+ranks and the count of the set's earlier meetings, so it depends neither
+on the lost ranks nor on how many groups each survivor built before.  A
+lost rank calls nothing: it gets None and stops serving
+(``ShardedEngine`` leaves its loop), whether its process lives on, as in
+a drill, or is gone.  The Nth shrink works as the first; the world's
+numbering stays (the default group is never re-initialised).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ from repro_torch.ft import artefacts
 log = logging.getLogger("repro_torch.serve.domains")
 
 __all__ = ["FailureDomains", "HostEvent", "SchedulerJournal", "JournalState",
-           "replay", "retune_for_mesh", "JOURNAL_KINDS"]
+           "replay", "retune_for_mesh", "survivors_group", "JOURNAL_KINDS"]
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +134,6 @@ class FailureDomains:
         self.alive: List[bool] = [True] * len(self.groups)
         self._slow_counts: Dict[int, int] = {}
         self.n_losses = 0
-        self._shrunk = False
 
     def _host_names(self, mesh) -> List[str]:
         """Every axis position's node name, gathered over the axis."""
@@ -231,25 +231,21 @@ class FailureDomains:
 
     def shrunk_mesh(self):
         """A fresh one-dim ``DeviceMesh`` over the surviving ranks, in
-        original axis order, on a ``dist.new_group`` that every rank of
-        the process group calls (module docstring); None on a rank whose
-        host was lost."""
+        original axis order, on a process group of the survivors alone
+        (:func:`survivors_group`); None on a rank whose host was lost,
+        which calls no collective and creates no group.  Each call after a
+        :meth:`mark_lost` shrinks again; a rendezvous that fails raises on
+        the survivors."""
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
         if self._device_type is None:
             raise ValueError("shrunk_mesh needs failure domains built on a "
                              "DeviceMesh, not an axis -> size dict")
-        if self._shrunk or dist.get_world_size() != len(self.ranks):
-            raise RuntimeError(
-                "shrinking the mesh needs every rank of the process group "
-                "in new_group; ranks outside the mesh or lost at an earlier "
-                "shrink cannot take part (that needs a new rendezvous)")
-        self._shrunk = True
         ranks = [self.ranks[p] for p in self.alive_positions()]
-        group = dist.new_group(ranks)
         if dist.get_rank() not in ranks:
             return None
-        return DeviceMesh.from_group(group, self._device_type, mesh=ranks,
+        return DeviceMesh.from_group(survivors_group(ranks),
+                                     self._device_type, mesh=ranks,
                                      mesh_dim_names=(self.axis,))
 
     # -- detection -----------------------------------------------------------
@@ -300,6 +296,46 @@ class FailureDomains:
                 "lost": [h for h, a in enumerate(self.alive) if not a],
                 "losses": self.n_losses,
                 "groups": [list(g) for g in self.groups]}
+
+
+def survivors_group(ranks: Sequence[int]):
+    """A process group of the global ``ranks`` that only they create.
+
+    ``dist.new_group`` needs every rank of the world, the lost ones too;
+    with ``use_local_synchronization=True`` it names the group after the
+    count of groups each member built before, so members whose histories
+    differ (a rank outside an earlier sub-mesh) meet under different keys
+    and wait forever.  Here the members meet under a key of the default
+    store made of their sorted ranks and the count of the set's earlier
+    meetings: each adds one to the set's counter, and waits on the store
+    until every member has joined this meeting, so no member starts the
+    next meeting before all have counted this one.  The backend is the
+    default group's, on a ``PrefixStore`` of that key, with the store's
+    timeout: a member that never comes makes the others raise.  The
+    group is registered as ``dist.new_group`` registers its own, so
+    collectives and ``DeviceMesh.from_group`` take it."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    ranks = sorted(int(r) for r in ranks)
+    default = c10d._get_default_group()
+    if default.bound_device_id is not None:
+        raise ValueError(
+            "a survivors' group cannot be built when the default process "
+            "group is bound to a device (init_process_group(device_id=...)):"
+            " NCCL would split it from the world's communicator, which "
+            "needs every rank of the world")
+    backend, store = c10d._world.pg_map[default]
+    key = "repro_torch.shrink/" + "_".join(map(str, ranks))
+    meeting = (store.add(key, 1) - 1) // len(ranks)
+    name = f"{key}/{meeting}"
+    me = dist.get_rank()
+    store.set(f"{name}/joined/{me}", "1")
+    store.wait([f"{name}/joined/{r}" for r in ranks])
+    group, _ = c10d._new_process_group_helper(
+        len(ranks), ranks.index(me), ranks, backend, store, name,
+        timeout=store.timeout)
+    c10d._world.pg_group_ranks[group] = {r: i for i, r in enumerate(ranks)}
+    return group
 
 
 # ---------------------------------------------------------------------------

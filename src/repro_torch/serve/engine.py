@@ -1498,18 +1498,25 @@ class ShardedEngine(ContinuousEngine):
     the engine polls for a lost or straggling host (the ``mesh.host_lost``
     / ``mesh.host_slow`` / ``collective.timeout`` fault sites stand in for
     heartbeats in drills).  On a loss the dead host's slots are evacuated
-    to the queue front in ascending slot order; the survivors make a mesh
-    of their own and re-place the state under its mapping (``per`` grows,
-    so surviving rows move between ranks: one ``all_gather`` of the rows,
-    paged of the live slots' pages, over the survivors' group, on the card
-    under NCCL), the lost rows zeroed; the chunk graph is
-    captured anew at the new ``per`` and the warm baseline reset, so that
-    capture is not counted as drift; the tuner re-ranks mesh candidates
-    for the new descriptor, and the shrink is recorded as provenance origin
+    to the queue front in ascending slot order.  A rank whose host is lost
+    then leaves, before the survivors meet: ``left`` turns true, ``run``
+    returns None there and ``step_chunk`` raises; it calls no collective
+    after the sweep that saw its loss and writes nothing more, so its
+    process may as well be gone.  The survivors make a mesh on a process
+    group that only they create
+    (:func:`repro_torch.serve.domains.survivors_group`) and re-place the
+    state under its mapping (``per`` grows, so surviving rows move between
+    ranks: one ``all_gather`` of the rows, paged of the live slots' pages,
+    over the survivors' group, on the card under NCCL), the lost rows
+    zeroed; the chunk graph is captured anew at the new ``per`` and the
+    warm baseline reset, so that capture is not counted as drift; the
+    tuner re-ranks mesh candidates for the new descriptor, and the shrink
+    is recorded as provenance origin
     ``degraded(mesh(data=4)->mesh(data=2))``, one ``host_lost`` flight dump
-    and the journal's evacuate and shrink records.  A rank whose host is
-    lost leaves: ``left`` turns true, ``run`` returns None there and
-    ``step_chunk`` raises; it writes nothing more.  Survivors keep their
+    and the journal's evacuate and shrink records.  Every later loss
+    shrinks again the same way (``data=4`` -> ``data=2`` -> ``data=1``);
+    ``stats()["mesh"]["shrinks"]`` holds each one's rendezvous seconds and
+    its re-placement gather's bytes and seconds.  Survivors keep their
     tokens; evacuees re-decode from their prompts to the same tokens.
 
     ``journal`` given as a path: every rank journals its replicated
@@ -1559,6 +1566,7 @@ class ShardedEngine(ContinuousEngine):
         self._n_gathers = 0
         self._gather_s = 0.0
         self._captures_at_shrink: Optional[int] = None
+        self._shrinks: List[dict] = []
         self._pending_first: List[tuple] = []
         self._table: Optional[List[List[int]]] = None
         self._mesh_now = 0.0
@@ -1701,6 +1709,7 @@ class ShardedEngine(ContinuousEngine):
                 self._graphs.captures - self._captures_at_shrink)
         if self.domains is not None:
             out["mesh"]["hosts"] = self.domains.describe()
+            out["mesh"]["shrinks"] = [dict(s) for s in self._shrinks]
         out["resilience"]["host_losses"] = self._n_host_losses
         return out
 
@@ -1836,7 +1845,8 @@ class ShardedEngine(ContinuousEngine):
         front, shrink the mesh onto the survivors, re-place the state,
         re-tune for the new descriptor, and record the shrink as a
         degradation (one provenance origin and one ``host_lost`` flight
-        dump per event).  A rank of a lost host leaves."""
+        dump per event), at every loss alike.  A rank of a lost host
+        leaves before the survivors meet."""
         import torch.distributed as dist
         from repro_torch.mesh.strategy import descriptor
         dom = self.domains
@@ -1878,15 +1888,20 @@ class ShardedEngine(ContinuousEngine):
                 self.journal.record_evacuate(rid, host)
         for h in drop:
             dom.mark_lost(h)    # raises when no host survives: unservable
-        to = f"{self.mesh_axis}={dom.axis_size()}"
-        new_mesh = dom.shrunk_mesh()
         if me_lost:
-            self._leave()
+            self._leave()       # before the survivors meet: it calls nothing
             return
+        to = f"{self.mesh_axis}={dom.axis_size()}"
+        t0 = time.perf_counter()
+        new_mesh = dom.shrunk_mesh()
+        rendezvous_s = time.perf_counter() - t0
         obs.event("serve.host_lost", host=host, cause=cause, frm=frm,
                   to=to, evacuated=",".join(str(r) for r in evacuated),
                   dropped_hosts=",".join(str(h) for h in drop))
-        self._remesh(new_mesh, sorted(lost_slots))
+        sent, gather_s = self._remesh(new_mesh, sorted(lost_slots))
+        self._shrinks.append({"frm": frm, "to": to, "host": host,
+                              "rendezvous_s": rendezvous_s,
+                              "gather_bytes": sent, "gather_s": gather_s})
         record_degradation(
             "mesh", "serve.engine",
             key=f"serve|mesh|slots={self.slots}|axis={self.mesh_axis}",
@@ -1904,7 +1919,8 @@ class ShardedEngine(ContinuousEngine):
 
     def _leave(self) -> None:
         """This rank's host was lost: stop serving and free the decode
-        state (in a drill the process lives on; a dead host's would not)."""
+        state.  Nothing here talks to another rank (in a drill the process
+        lives on, or exits; a dead host's is gone)."""
         self.left = True
         self.st = None
         self._staging, self._admit_logits = {}, {}
@@ -1964,13 +1980,14 @@ class ShardedEngine(ContinuousEngine):
         parts += [as_bytes(g.get_state()) for g in st.generators]
         return torch.cat(parts)
 
-    def _remesh(self, new_mesh, lost_slots: List[int]) -> None:
+    def _remesh(self, new_mesh, lost_slots: List[int]) -> tuple:
         """Re-place the decode state under the survivors' mapping with one
         ``all_gather`` of every survivor's lanes (:meth:`_pack_lanes`) over
         their group: each rank takes the rows (dense) or pages (paged) of
         its new slots, the lost ones zeroed (the dead host's memory is
         gone: nothing may depend on it, and survivors provably do not:
-        their rows arrive bit for bit)."""
+        their rows arrive bit for bit).  Returns the bytes this rank sent
+        and the gather's seconds."""
         from repro_torch.mesh.strategy import axis_sizes
         old_per, old_n, lost = self.per, self._n, set(lost_slots)
         with obs.span("serve.remesh", frm=str(axis_sizes(self.mesh)),
@@ -1986,7 +2003,8 @@ class ShardedEngine(ContinuousEngine):
             self.st = None
             self._place(new_mesh)
             parts = {}
-            for buf in self._all_gather(payload)[0]:
+            bufs, gather_s = self._all_gather(payload)
+            for buf in bufs:
                 rd = _Reader(buf)
                 parts[int(rd.take((1,), torch.long))] = rd
             self._init_device_state()
@@ -2051,6 +2069,7 @@ class ShardedEngine(ContinuousEngine):
         # the chunk is captured anew at the new per: reset the warm
         # baseline so that capture is not counted as a re-capture
         self._warm_captures = None
+        return payload.numel(), gather_s
 
     def _retune_mesh(self, desc: str) -> None:
         """Re-rank mesh-axis candidates for the shrunk descriptor (cache

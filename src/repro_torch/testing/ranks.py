@@ -13,12 +13,19 @@
 interpreter each: CUDA state and threads of the caller are never forked),
 initialises the default process group in each (``gloo``, or ``nccl``) at a
 ``FileStore`` in a fresh temporary directory, so concurrent callers (xdist
-workers) never share a rendezvous, runs ``fn(rank, world, *args)``, then
-``barrier()`` and ``destroy_process_group()`` (a rank that tears down
-while another is still in a collective kills it), and returns the ranks'
-results in rank order.  If any rank raises, exits or outlives ``timeout``,
-every rank still running is terminated and :class:`RankFailure` is raised
-with each failed rank's traceback.  No process outlives the call.
+workers) never share a rendezvous, runs ``fn(rank, world, *args)``, waits
+until every rank has finished or died on purpose, then
+``destroy_process_group()`` (a rank that tears down while another is
+still in a collective kills it), and returns the ranks' results in rank
+order.  If any rank raises, exits or outlives ``timeout``, every rank
+still running is terminated and :class:`RankFailure` is raised with each
+failed rank's traceback.  No process outlives the call.
+
+A rank may die on purpose, as a host that is lost would: :func:`die`
+posts its result, marks the rank done and ends the process at once, with
+no teardown.  :func:`spawn` takes that result like any other.  The wait
+at teardown counts those marks in the default store, not a world-wide
+``barrier()``, which a dead rank could never meet.
 
 ``device="cuda"`` selects the card ``rank % device_count`` in each rank
 before the process group starts: several ranks on one card share it (NCCL
@@ -39,21 +46,42 @@ import traceback
 from datetime import timedelta
 from typing import Callable, List, Optional, Sequence
 
-__all__ = ["spawn", "RankFailure"]
+__all__ = ["spawn", "die", "RankFailure"]
 
 # seconds the other ranks get to finish once one has failed: a rank that
 # waits in a collective on the failed one never does
 _GRACE_S = 3.0
+# this rank's result queue (set in each spawned rank)
+_QUEUE = None
+_DONE = "repro_torch.ranks/done/"
 
 
 class RankFailure(RuntimeError):
     """One or more ranks failed; the message holds their tracebacks."""
 
 
+def _store():
+    from torch.distributed import distributed_c10d as c10d
+    return c10d._get_default_store()
+
+
+def die(result) -> None:
+    """End this spawned rank now, as a host that dies would: post
+    ``result`` (``spawn`` returns it in this rank's place), mark the rank
+    done in the default store and exit with no teardown and no further
+    call to any other rank."""
+    import torch.distributed as dist
+    _store().set(f"{_DONE}{dist.get_rank()}", "1")
+    _QUEUE.put((dist.get_rank(), True, result))
+    os._exit(0)
+
+
 def _rank_main(rank: int, world: int, backend: str, device: Optional[str],
                store: str, timeout_s: float, fn: Callable, args, queue):
     import torch
     import torch.distributed as dist
+    global _QUEUE
+    _QUEUE = queue
     try:
         if device == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -61,7 +89,9 @@ def _rank_main(rank: int, world: int, backend: str, device: Optional[str],
                                 rank=rank, world_size=world,
                                 timeout=timedelta(seconds=timeout_s))
         out = fn(rank, world, *args)
-        dist.barrier()
+        # every rank finished or died on purpose (die marks it first)
+        _store().set(f"{_DONE}{rank}", "1")
+        _store().wait([f"{_DONE}{r}" for r in range(world)])
         dist.destroy_process_group()
         queue.put((rank, True, out))
     except Exception:

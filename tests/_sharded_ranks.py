@@ -10,9 +10,14 @@ paged, ``data=4``, ``hosts=2``), ``elastic_remesh``, the host-loss drills
 of the reference's ``tests/test_domains.py`` (host loss with a journal and
 a tuning cache, collective timeout, straggler escalation), the same loss
 while a prompt is still prefilling (dense and paged) and with the groups
-taken for NCCL's (dense and paged), the journal drill that walks away after a loss, the serving fault drills of
+taken for NCCL's (dense and paged), two losses in one engine (``data=4``
+-> ``data=2`` -> ``data=1``, dense and paged, on ranks whose group
+histories differ since ``elastic_remesh("data=3")``), the journal drills
+that walk away after one loss and after two, the serving fault drills of
 ``tests/test_torch_resilience.py`` and a deadline.  Each returns what the
 test compares; a rank whose host was lost returns None for its tokens.
+Last, the two losses again with each lost rank's process exiting at its
+loss (``ranks.die``): the survivors end alone.
 """
 from __future__ import annotations
 
@@ -39,6 +44,11 @@ HOSTS = 2
 FAULTS = "serve.nan_prefill(req_id=1); serve.nan_decode(req_id=2)"
 CHUNK_ERROR = "serve.chunk_error(times=3)"
 NCCL_SHORT = 2        # the paged NCCL-route drill's request 0 ends here
+# one rank a host: host 3's loss drops host 2 from the tail (data=2), then
+# host 1's leaves rank 0 alone (data=1)
+SECOND = "mesh.host_lost(host=3, after=2); mesh.host_lost(host=1, after=4)"
+REPLAY2_BOUNDARIES = 7   # the two-loss journal drill walks away here
+LAYOUTS = ("dense", "paged")
 COLLECTIVES = ("all_gather", "all_gather_object", "all_reduce", "broadcast",
                "all_to_all", "reduce_scatter", "gather", "scatter")
 
@@ -141,13 +151,17 @@ def _journal(path):
 
 def rank_work(rank, world, np_params, tmp):
     torch.set_num_threads(1)
+    from torch.distributed import distributed_c10d as c10d
+
     from repro_torch import obs
     from repro_torch.autotune import TuningCache
     from repro_torch.ft.resilience import elastic_remesh
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import domains
+    from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.domains import FailureDomains
     from repro_torch.serve.engine import ShardedEngine
-    from repro_torch.testing import faults
+    from repro_torch.testing import faults, ranks
     model, params = model_and_params(np_params)
     mesh = make_mesh((world,), ("data",), "cpu")
     out = {"rank": rank}
@@ -233,13 +247,38 @@ def rank_work(rank, world, np_params, tmp):
     # -- one rank a host: 8 slots do not divide 3 positions, so the loss of
     # host 3 drops host 2 from the tail too (the reference's loop) -------
     drill("tail", "mesh.host_lost(host=3, after=2)", hosts=world)
-    # ... and a second loss in that engine needs the ranks that left
-    try:
-        drill("second", "mesh.host_lost(host=3, after=2); "
-              "mesh.host_lost(host=1, after=4)", hosts=world)
-        out["second"]["error"] = None
-    except RuntimeError as e:
-        out["second"] = {"error": str(e)}
+    # ... and then host 1 in the same engine: data=4 -> data=2 -> data=1.
+    # Rank 3 is outside elastic_remesh("data=3")'s mesh, so it built fewer
+    # groups than the others: the survivors' rendezvous must not care
+    out["groups_built"] = len(c10d._world.pg_names)
+    # each shrink's retune and provenance origin, as the engine makes them
+    # (the provenance log keeps a key's latest decision only)
+    retune, degrade = domains.retune_for_mesh, engine_mod.record_degradation
+    for layout in LAYOUTS:
+        retunes, origins = [], []
+
+        def counted_retune(cfg, desc, **kw):
+            retunes.append((desc, retune(cfg, desc, **kw)))
+            return retunes[-1][1]
+
+        def counted_degrade(*a, **kw):
+            origins.append(degrade(*a, **kw))
+            return origins[-1]
+        domains.retune_for_mesh = counted_retune
+        engine_mod.record_degradation = counted_degrade
+        jpath = os.path.join(tmp, f"second_{layout}.jsonl")
+        tc = TuningCache(os.path.join(tmp, f"tc-second-{layout}-{rank}.json"))
+        try:
+            drill(f"second_{layout}", SECOND, hosts=world, kv_layout=layout,
+                  journal=jpath, tuning_cache=tc)
+        finally:
+            domains.retune_for_mesh = retune
+            engine_mod.record_degradation = degrade
+        out[f"second_{layout}"].update(
+            retunes=retunes, origins=origins,
+            journal=_journal(f"{jpath}.rank{rank}"),
+            tuned_descriptors=sorted({k.rsplit("|", 1)[-1]
+                                      for k in tc._mem}))
 
     # -- collective timeout: the presumed-dead host is the last alive ------
     drill("timeout", "collective.timeout(after=2)", hosts=HOSTS)
@@ -255,6 +294,11 @@ def rank_work(rank, world, np_params, tmp):
     with faults.inject("mesh.host_lost(host=1, after=1)"):
         _drive(eng, requests(), boundaries=3)
     out["replay_left"] = eng.left
+    # ... and after two losses: rank 0 alone on data=1 walks away too
+    eng = sharded(hosts=world, journal=os.path.join(tmp, "replay2.jsonl"))
+    with faults.inject(SECOND):
+        _drive(eng, requests(), boundaries=REPLAY2_BOUNDARIES)
+    out["replay2_left"] = eng.left
 
     # -- serving faults on the sharded engine ------------------------------
     drill("faults", FAULTS)
@@ -278,10 +322,10 @@ def rank_work(rank, world, np_params, tmp):
     eng = ShardedEngine(model, params, mesh=grid, **ENGINE)
     out["two_axes"] = {"results": _drive(eng, requests())[1],
                        **_summary(eng)}
-    if rank == 1:
-        params = {**params, "embed": params["embed"] + 1e-3}
+    other = ({**params, "embed": params["embed"] + 1e-3} if rank == 1
+             else params)
     try:
-        sharded()
+        ShardedEngine(model, other, mesh=mesh, **ENGINE)
         out["other_weights"] = None
     except ValueError as e:
         out["other_weights"] = str(e)
@@ -291,4 +335,10 @@ def rank_work(rank, world, np_params, tmp):
     out["domains"] = {"groups": dom.groups, "ranks": dom.ranks,
                       "slots_of_host": [dom.slots_of_host(h, 8)
                                         for h in range(HOSTS)]}
+
+    # -- last: the two losses with each lost rank's process exiting at its
+    # loss, as a dead host's would; it calls nothing more ------------------
+    eng = drill("exit", SECOND, hosts=world)
+    if eng.left:
+        ranks.die(out)
     return out

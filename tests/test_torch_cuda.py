@@ -1490,6 +1490,60 @@ def test_sharded_engine_over_nccl_survives_a_host_loss(sharded_want):
         _check_loss(res, name, sharded_want)
 
 
+# host 3's loss drops host 2 from the tail (data=2), host 1's leaves rank 0
+# alone (data=1)
+TWO_LOSSES = ("mesh.host_lost(host=3, after=1); "
+              "mesh.host_lost(host=1, after=2)")
+
+
+def _two_losses_rank(rank, world, device):
+    """Smoke qwen3-4b in float32 through ``ShardedEngine`` on ``data=4``,
+    one rank a host (``hosts=4``), under :data:`TWO_LOSSES`: each lost
+    rank's process exits at its loss (``ranks.die`` posts its record)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import ShardedEngine
+    from repro_torch.testing import faults, ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(smoke_config("qwen3_4b", use_flash=True))
+    params = _to(model.init_params(torch.Generator().manual_seed(0), "cpu"),
+                 device)
+    eng = ShardedEngine(model, params, max_seq=64, slots=4, chunk=4,
+                        min_bucket=8, prefill_chunk=16,
+                        mesh=make_mesh((world,), ("data",), device),
+                        hosts=world)
+    with faults.inject(TWO_LOSSES) as plan:
+        toks = eng.run(_greedy_traffic(), seed=3)
+    st = eng.stats()
+    out = {"tokens": toks, "left": eng.left,
+           "fired": [f.fired for f in plan],
+           "descriptor": st["mesh"]["descriptor"],
+           "host_losses": st["resilience"]["host_losses"],
+           "shrinks": [(s["frm"], s["to"]) for s in st["mesh"]["shrinks"]]}
+    if eng.left:
+        ranks.die(out)
+    return out
+
+
+def test_sharded_engine_over_nccl_survives_two_host_losses(sharded_want):
+    """Four ranks on four cards over NCCL, one a host: host 3's loss
+    shrinks to ``data=2``, host 1's to ``data=1``; the lost ranks'
+    processes exit at their loss, and rank 0 ends with the CPU's tokens.
+    The survivors' groups never call the world's communicator again, and
+    their teardown does not wait on it."""
+    from repro_torch.testing import ranks
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (NCCL takes one rank a GPU)")
+    res = ranks.spawn(_two_losses_rank, 4, backend="nccl", device="cuda",
+                      timeout=300, args=("cuda",))
+    assert res[0]["tokens"] == sharded_want and not res[0]["left"]
+    assert res[0]["fired"] == [1, 1]
+    assert res[0]["descriptor"] == "data=1"
+    assert res[0]["host_losses"] == 2
+    assert res[0]["shrinks"] == [("data=4", "data=2"), ("data=2", "data=1")]
+    for r in res[1:]:
+        assert r["tokens"] is None and r["left"]
+
+
 # ---- training on the data axes ---------------------------------------------
 
 TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=10)

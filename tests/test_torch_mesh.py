@@ -739,6 +739,38 @@ def test_a_failed_rank_fails_the_spawn_and_leaves_no_process():
     assert not mp.active_children()
 
 
+def _dying_rank(rank, world, on_purpose):
+    """Rank 2 ends its process after a collective with the others, as a
+    lost host would (``ranks.die``: its result posted), or bare; ranks 0
+    and 1 then meet on a group of their own and end as usual."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.serve.domains import survivors_group
+    dist.all_reduce(torch.ones(1))
+    if rank == 2:
+        if on_purpose:
+            ranks.die({"rank": rank, "died": True})
+        os._exit(0)
+    t = torch.ones(1)
+    dist.all_reduce(t, group=survivors_group([0, 1]))
+    return {"rank": rank, "sum": float(t)}
+
+
+def test_a_rank_may_die_on_purpose_and_post_its_result():
+    """``ranks.die`` posts the rank's result and ends its process with no
+    teardown; the others tear down without waiting on it in a collective.
+    A rank that ends with no result still fails the spawn."""
+    import multiprocessing as mp
+    got = ranks.spawn(_dying_rank, 3, args=(True,), timeout=120)
+    assert got == [{"rank": 0, "sum": 2.0}, {"rank": 1, "sum": 2.0},
+                   {"rank": 2, "died": True}]
+    with pytest.raises(ranks.RankFailure, match="rank 2 exited with code 0"):
+        ranks.spawn(_dying_rank, 3, args=(False,), timeout=120)
+    assert not mp.active_children()
+
+
 def test_concurrent_builds_of_one_program_never_read_half_a_source(tmp_path):
     """Ranks of a mesh build the same K4 shard at once: each source is
     written under its own name and renamed into place, so no compiler

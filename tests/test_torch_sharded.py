@@ -350,16 +350,125 @@ def test_uneven_loss_drops_hosts_from_the_tail(port, oracle):
             assert r["results"] is None and r["left"]
 
 
-def test_a_second_shrink_raises(port):
-    """The ranks that left at the first shrink cannot take part in the
-    second's ``new_group``: the survivors raise, naming the rendezvous it
-    would need, instead of waiting on them."""
+# ---------------------------------------------------------------------------
+# two losses in one engine: data=4 -> data=2 -> data=1 (one rank a host)
+# ---------------------------------------------------------------------------
+
+# the drill -> the results it must end with; "exit" is the same plan with
+# each lost rank's process exiting at its loss
+SECOND = {"second_dense": "dense", "second_paged": "paged", "exit": "dense"}
+# a rank's host losses seen, the mesh it ends on (its last) and the hosts
+# it knows lost
+SECOND_RANKS = {0: (2, "data=1", [1, 2, 3]), 1: (2, "data=2", [1, 2, 3]),
+                2: (1, "data=4", [2, 3]), 3: (1, "data=4", [2, 3])}
+SHRINKS = [("data=4", "data=2", 3), ("data=2", "data=1", 1)]
+
+
+@pytest.mark.parametrize("drill", sorted(SECOND))
+def test_two_losses_end_on_data_one_token_identical(port, oracle, reference,
+                                                    drill):
+    """Host 3's loss drops host 2 from the tail (``data=2``), host 1's
+    leaves rank 0 alone (``data=1``): rank 0 ends with the fault-free
+    results, the greedy ones the reference's; every other rank left."""
+    want, _ = oracle[SECOND[drill]]
     for res in port[0]:
-        err = res["second"]["error"]
-        if res["rank"] < 2:
-            assert err is not None and "new rendezvous" in err
+        r = res[drill]
+        losses, desc, lost = SECOND_RANKS[res["rank"]]
+        assert r["mesh"]["descriptor"] == desc
+        assert r["resilience"]["host_losses"] == losses
+        assert r["mesh"]["hosts"]["lost"] == lost
+        if res["rank"] == 0:
+            assert r["results"] == want and not r["left"]
+            got = tokens(r["results"])
+            assert [got[i] for i in GREEDY] == [reference[i] for i in GREEDY]
+            assert r["scheduler"]["evacuations"] == 8
         else:
-            assert err is None and res["second"]["left"]
+            assert r["results"] is None and r["left"]
+
+
+@pytest.mark.parametrize("drill", sorted(SECOND))
+def test_two_losses_dump_and_record_each_shrink(port, drill):
+    """One ``host_lost`` dump and one provenance origin a shrink, as the
+    reference's; a survivor's ``stats()`` hold each shrink's rendezvous
+    and re-placement gather.  Rank 1 takes part in the first shrink only,
+    ranks 2 and 3 in none."""
+    for res in port[0]:
+        r = res[drill]
+        shrinks = SHRINKS[:{0: 2, 1: 1}.get(res["rank"], 0)]
+        assert r["dumps"] == ["host_lost"] * len(shrinks)
+        assert [(c["frm"], c["to"], c["host"]) for c in r["dump_ctx"]] == \
+            shrinks
+        got = r["mesh"]["shrinks"]
+        assert [(g["frm"], g["to"], g["host"]) for g in got] == shrinks
+        assert all(g["rendezvous_s"] > 0 and g["gather_bytes"] > 0
+                   and g["gather_s"] > 0 for g in got)
+        origins = [f"degraded(mesh({a})->mesh({b}))" for a, b, _ in shrinks]
+        if drill != "exit":
+            assert r["origins"] == origins
+        # the log keeps a key's latest decision
+        assert (origins[-1] in r["explain"]) if origins else \
+            "degraded" not in r["explain"]
+
+
+@pytest.mark.parametrize("drill", sorted(SECOND))
+def test_a_lost_rank_calls_nothing_after_its_loss(port, drill):
+    """A boundary's gather follows its sweep: a rank that leaves at a
+    sweep gathers at none of the boundaries from that one on, and makes
+    no group; a survivor gathers once more a shrink (the re-placement)."""
+    for res in port[0]:
+        r = res[drill]
+        shrinks = len(r["mesh"].get("shrinks") or ())
+        assert r["collectives"] == {
+            "all_gather": r["boundaries"] + shrinks
+            - (1 if r["left"] else 0)}
+        assert r["fired"] == [1, 1 if res["rank"] < 2 else 0]
+
+
+def test_the_survivors_groups_ignore_the_group_history(port):
+    """Rank 3 is outside ``elastic_remesh("data=3")``'s mesh and rank 2
+    left the earlier drills' meshes sooner than ranks 0 and 1: before the
+    two losses they have built different numbers of groups, and the
+    survivors' rendezvous still meets."""
+    built = [res["groups_built"] for res in port[0]]
+    assert len(set(built)) > 1 and built[3] < built[0]
+    assert port[0][0]["second_dense"]["mesh"]["descriptor"] == "data=1"
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_two_losses_journal_two_shrink_records(port, oracle, layout):
+    """Rank 0's journal holds the whole run (both shrinks, every request
+    ok with its fault-free tokens); rank 1's stops at its loss with the
+    first shrink, ranks 2 and 3's before theirs."""
+    want = tokens(oracle[layout][0])
+    for res in port[0]:
+        j = res[f"second_{layout}"]["journal"]
+        assert j["clean"]
+        shrinks = [(s["frm"], s["to"], s["host"]) for s in j["shrinks"]]
+        assert shrinks == SHRINKS[:{0: 2, 1: 1}.get(res["rank"], 0)]
+        if res["rank"] == 0:
+            assert j["evacuations"] == 8
+            assert j["terminals"] == {rid: "ok" for rid in range(8)}
+            assert [j["emitted"][rid] for rid in range(8)] == want
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_two_losses_retune_each_descriptor(port, tmp_path, layout):
+    """Each shrink re-ranks the tuner's mesh candidates for its new
+    descriptor, as many shapes as the reference's ``retune_for_mesh``
+    (none has a placement on ``data=1``)."""
+    from repro_torch.models.common import ModelConfig
+    want = [(desc, jdomains.retune_for_mesh(
+        JaxConfig(**R.TINY), desc, max_seq=64, batch_sizes=(1, 8),
+        cache=JaxTuningCache(str(tmp_path / f"{desc}.json"))))
+        for desc in ("data=2", "data=1")]
+    assert want[0][1] == domains.retune_for_mesh(
+        ModelConfig(**R.TINY), "data=2", max_seq=64, batch_sizes=(1, 8),
+        cache=TuningCache(str(tmp_path / "port.json")))
+    for res in port[0]:
+        r = res[f"second_{layout}"]
+        assert r["retunes"] == want[:{0: 2, 1: 1}.get(res["rank"], 0)]
+        if res["rank"] < 2:
+            assert "data=2" in r["tuned_descriptors"]
 
 
 def test_host_loss_retunes_for_the_shrunk_descriptor(port):
@@ -427,6 +536,42 @@ def test_journal_after_host_loss_replays_in_the_port(port, oracle, weights):
     got = domains.replay(path, ContinuousEngine(model, params, **R.ENGINE),
                          seed=R.SEED)
     assert [got[rid] for rid in range(8)] == tokens(oracle["dense"][0])
+
+
+def _two_loss_journal(port):
+    """Rank 0's journal of the engine that walked away on ``data=1``
+    after both losses: its live requests."""
+    results, tmp = port
+    assert not results[0]["replay2_left"]
+    assert all(r["replay2_left"] for r in results[1:])
+    path = os.path.join(tmp, "replay2.jsonl.rank0")
+    state = domains.SchedulerJournal.load(path)
+    assert state.clean
+    assert [(s["frm"], s["to"], s["host"]) for s in state.shrinks] == SHRINKS
+    live = sorted(state.live())
+    assert live and len(live) < 8
+    return path, live
+
+
+def test_journal_after_two_losses_replays_in_the_port(port, oracle, weights):
+    path, live = _two_loss_journal(port)
+    model, params = R.model_and_params(weights[2])
+    got = domains.replay(path, ContinuousEngine(model, params, **R.ENGINE),
+                         seed=R.SEED)
+    want = tokens(oracle["dense"][0])
+    assert sorted(got) == live
+    assert [got[rid] for rid in live] == [want[rid] for rid in live]
+
+
+def test_journal_after_two_losses_replays_in_the_reference(port, reference,
+                                                           weights):
+    """The reference reads a port journal with two shrink records and
+    replays its live requests to its own tokens."""
+    path, live = _two_loss_journal(port)
+    jmodel, jparams, _ = weights
+    got = jdomains.replay(path, JaxContinuous(jmodel, jparams, **R.ENGINE),
+                          key=jax.random.PRNGKey(R.SEED))
+    assert [got[rid] for rid in live] == [reference[rid] for rid in live]
 
 
 def test_journal_after_host_loss_replays_in_the_reference(port, reference,
@@ -540,6 +685,24 @@ def test_mark_lost_and_errors_equal_the_reference():
         TFD({"data": 2, "model": 2})
     with pytest.raises(ValueError, match="DeviceMesh"):
         t.shrunk_mesh()
+
+
+@pytest.mark.parametrize("n,hosts,lost", [
+    (8, 4, (3, 1)), (8, 4, (3, 2, 1)), (8, 8, (7, 0, 3)), (4, 4, (0, 2)),
+    (8, 2, (1,)), (6, 3, (2, 0))])
+def test_losses_one_after_another_equal_the_reference(n, hosts, lost):
+    """After each of several ``mark_lost``s: the same surviving positions,
+    every alive host's slots and the same summary as the reference's."""
+    t, j = _pair(n, hosts)
+    for h in lost:
+        for dom in (t, j):
+            dom.mark_lost(h)
+        assert t.alive_positions() == j.alive_positions()
+        assert t.axis_size() == j.axis_size()
+        for a in t.alive_hosts():
+            _same(lambda: t.slots_of_host(a, 2 * n),
+                  lambda: j.slots_of_host(a, 2 * n))
+        assert t.describe() == j.describe()
 
 
 def test_poll_is_none_without_a_plan():
